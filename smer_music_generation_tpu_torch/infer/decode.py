@@ -1,0 +1,264 @@
+"""Batched KV-cache infill decode loop.
+
+Port of ``InfillDecoder._decode`` of ``smer_music_generation_tpu/infer/decode.py``
+(:228-408).  The encoder runs once and the cross-attention K/V are
+projected once; then a host loop steps the decoder one token at a time
+against a preallocated self cache, under the grammar masks
+(``infer/grammar.py``) and greedy or nucleus sampling (``infer/sampling.py``).
+Span boundaries are handled in the loop exactly as in JAX: on ``<eos>``, at
+the span cap (which counts the introducing ``m_0``) or after a control
+span's one token, the next ``m_0`` is emitted and the element's span index
+advances.
+
+Two loop bodies, as in JAX:
+
+* ``fused=True`` (``fused_sampling=False``): the v2 decoder step,
+  ``ops.decode_step.fused_decode_step``, which launches the CUDA kernels on
+  the card and runs its plain twin on the CPU;
+* ``fused=False``: the model's own ``decode_step``.
+
+``fused=None`` resolves to the kernel on CUDA, as JAX's ``resolve_backend``
+(:157-181) picks it on a TPU, and to the plain loop on the CPU.  On CUDA
+the decoder never gives way to plain PyTorch by itself: a model the kernel
+does not fit, or a batch of more than 8, raises, and only an explicit
+``fused=False`` selects the plain loop.  The loop reads
+the done flags back to the host every ``SYNC_EVERY`` steps, not every
+step, so the host can queue a step while the card runs the previous one;
+a step after every element is done writes only padding, so the tokens,
+lengths and step count are those of a loop that stops at once.
+
+Output follows the reference's decoder-stream convention: concatenated
+spans, each introduced by ``m_0``, with no ``<eos>``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.transformer import ScoreTransformer
+from ..ops.decode_step import (
+    fused_decode_step,
+    pack_decoder_weights,
+    stack_kv_cache,
+    vocab_pad,
+)
+from ..vocab import WordVocab
+from .grammar import SPAN_BODY, GrammarTables, allowed_mask_fast, build_fast_tables, update_bits
+from .sampling import greedy_sample, gumbel_noise, masked_sample_gumbel
+
+SYNC_EVERY = 8
+
+
+class DecodeResult(NamedTuple):
+    tokens: torch.Tensor  # (B, max_tgt) int64, pad 0
+    lengths: torch.Tensor  # (B,) valid length per element
+    steps: int  # loop iterations that did work
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet ({item})")
+
+
+@dataclass(eq=False)
+class InfillDecoder:
+    """Infill decoder bound to one model + vocab, on the model's device."""
+
+    model: ScoreTransformer
+    vocab: WordVocab
+    max_tgt_len: int = 1024
+    max_spans: int = 256  # 16 bars x 3 tracks x (body + 3 controls + tensile)
+    span_cap: int = 100  # tokens per span incl. the introducing m_0
+    nucleus_p: Optional[float] = 0.9
+    temperature: float = 1.0
+    greedy: bool = False
+    fused: Optional[bool] = None
+    fused_sampling: Optional[bool] = None
+    quant: str = "none"
+    token_chunk: int = 1
+    draft_k: int = 0
+    mesh: Optional[object] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.fused_sampling:
+            raise _not_ported("fused_sampling=True (the v3 kernel)", "ROADMAP.md Queue 2 item 2")
+        if self.token_chunk > 1:
+            raise _not_ported("token_chunk > 1 (the v4 kernel)", "ROADMAP.md Queue 2 item 3")
+        if self.draft_k > 0:
+            raise _not_ported("draft_k > 0 (speculative decode)", "ROADMAP.md Queue 2 item 4")
+        if self.mesh is not None:
+            raise _not_ported("mesh (multi-GPU decode)", "ROADMAP.md Queue 1 item 8")
+        if self.quant != "none":
+            raise _not_ported(f"quant={self.quant!r}", "ROADMAP.md Queue 2 item 5")
+        self.tables = GrammarTables.build(self.vocab)
+        cfg = self.model.cfg
+        if self.max_tgt_len > cfg.max_len:
+            raise ValueError(
+                f"max_tgt_len={self.max_tgt_len} exceeds the model's "
+                f"positional limit max_len={cfg.max_len}"
+            )
+        self.device = self.model.device
+        self.resolve_backend()
+        masks, sid_from_bits, next_bits = build_fast_tables(self.tables)
+        self.fast_tables = tuple(
+            torch.as_tensor(a, device=self.device) for a in (masks, sid_from_bits, next_bits)
+        )
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._packed = None
+
+    def resolve_backend(self) -> None:
+        if self.fused is None:
+            self.fused = self.device.type == "cuda"
+        self.fused_sampling = False
+        cfg = self.model.cfg
+        fits = (
+            cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
+            and (self.device.type == "cpu" or cfg.dtype == torch.bfloat16)
+        )
+        if self.fused and not fits:
+            raise ValueError(
+                "the fused decode step needs d_model % 64 == 0, head_dim 64 or 128 "
+                "and, on CUDA, a bfloat16 model; pass fused=False for the plain loop"
+            )
+
+    def packed(self):
+        """The decoder weights in the kernel layout, packed once."""
+        if self._packed is None:
+            self._packed = pack_decoder_weights(self.model, vocab_pad(self.tables.vocab_size))
+        return self._packed
+
+    def __call__(
+        self,
+        src: np.ndarray,  # (B, S) int, 0-padded
+        span_types: np.ndarray,  # (B, max_spans) span codes
+        n_spans: np.ndarray,  # (B,)
+        no_whole_duration,  # bool or (B,) bool
+        generator: Optional[torch.Generator] = None,
+        noise=None,  # optional (max_tgt_len, B, V) Gumbel noise
+        forced=None,
+        forced_len=None,
+    ) -> DecodeResult:
+        if forced is not None or forced_len is not None:
+            raise _not_ported("forced-prefix decode", "ROADMAP.md Queue 1 item 3")
+        dev = self.device
+        src = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
+        span_types = torch.as_tensor(np.asarray(span_types), dtype=torch.long, device=dev)
+        n_spans = torch.as_tensor(np.asarray(n_spans), dtype=torch.long, device=dev)
+        no_whole = torch.as_tensor(np.asarray(no_whole_duration), dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            return self._decode(src, span_types, n_spans, no_whole, generator, noise)
+
+    def _decode(self, src, span_types, n_spans, no_whole, generator, noise) -> DecodeResult:
+        model, t = self.model, self.tables
+        cfg = model.cfg
+        B = src.shape[0]
+        L = self.max_tgt_len
+        V = t.vocab_size
+        dev = self.device
+
+        src_pad = src == 0
+        memory = model.encode(src, src_pad)
+        cross = model.init_cross_cache(memory)
+
+        use_fused = self.fused
+        if use_fused:
+            if B > 8:
+                raise ValueError(f"the fused decode step takes at most 8 sequences, got {B}")
+            nl, D = cfg.num_decoder_layers, cfg.d_model
+            packed = self.packed()
+            cross_kv = stack_kv_cache(cross, nl)
+            cross_len = (~src_pad).sum(dim=1).to(torch.int32)
+            emb_table = model.embedding.weight
+            pos_table = model.pos_table
+            cache = torch.zeros(nl, B, L, 2 * D, dtype=cfg.dtype, device=dev)
+            kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
+        else:
+            cache = model.init_self_cache(B, L)
+
+        if not self.greedy:
+            if noise is None:
+                gen = generator if generator is not None else self.generator
+                noise = gumbel_noise((L, B, V), gen, dev)
+            else:
+                noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
+                if tuple(noise.shape) != (L, B, V):
+                    raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(L, B, V)}")
+
+        state_masks, sid_from_bits, next_bits = self.fast_tables
+        rows = torch.arange(B, device=dev)
+        out = torch.zeros(B, L, dtype=torch.long, device=dev)
+        out[:, 0] = t.mask_index
+        state = torch.zeros(B, dtype=torch.long, device=dev)  # packed grammar bits
+        steps_in_span = torch.ones(B, dtype=torch.long, device=dev)
+        span_idx = torch.zeros(B, dtype=torch.long, device=dev)
+        done = n_spans <= 0
+        lengths = torch.ones(B, dtype=torch.long, device=dev)
+        steps = torch.zeros((), dtype=torch.long, device=dev)
+
+        pos = 0
+        while pos + 1 < L:
+            if pos % SYNC_EVERY == 0 and bool(done.all()):
+                break
+            token = out[:, pos]
+            if use_fused:
+                x = (emb_table[token] * math.sqrt(cfg.d_model) + pos_table[pos]).to(cfg.dtype)
+                logits, new_kv = fused_decode_step(packed, x, cache, cross_kv, pos, cross_len, **kw)
+                logits = logits[:, :V]
+                cache[:, :, pos] = new_kv
+            else:
+                logits = model.decode_step(token, pos, cache, cross, src_pad)
+
+            cur_type = span_types[rows, span_idx.clamp(max=self.max_spans - 1)]
+            is_start = steps_in_span == 1
+            allowed = allowed_mask_fast(
+                state_masks, sid_from_bits, state, is_start, cur_type, no_whole,
+                start_overrides=(t.mode == 1),
+            )
+            if self.greedy:
+                sampled = greedy_sample(logits, allowed)
+            else:
+                sampled = masked_sample_gumbel(
+                    noise[pos], logits, allowed, self.nucleus_p, self.temperature
+                )
+
+            control_done = (cur_type != SPAN_BODY) & (steps_in_span >= 2)
+            # the cap counts the introducing m_0: a span ends once it holds
+            # span_cap tokens (reference generation.py:542)
+            end_span = (sampled == t.eos_index) | (steps_in_span >= self.span_cap) | control_done
+            new_span_idx = torch.where(end_span, span_idx + 1, span_idx)
+            now_done = done | (new_span_idx >= n_spans)
+
+            next_tok = torch.where(end_span, t.mask_index, sampled)
+            next_tok = torch.where(now_done, 0, next_tok)
+
+            new_state = update_bits(next_bits, state, sampled)
+            state = torch.where(end_span | done, 0, new_state)
+            steps_in_span = torch.where(end_span, 1, steps_in_span + 1)
+            out[:, pos + 1] = next_tok
+            lengths = torch.where(next_tok != 0, pos + 2, lengths)
+            # a step taken while some element was live counts
+            steps = torch.where(done.all(), steps, pos + 1)
+            span_idx, done = new_span_idx, now_done
+            pos += 1
+        return DecodeResult(tokens=out, lengths=lengths, steps=int(steps))
+
+
+def pad_to_bucket(
+    ids: np.ndarray, bucket: int = 512, cap: int = 2048, hard_cap: int = 2400
+) -> np.ndarray:
+    """Pad a (B, S) id matrix to a bucketed length (JAX ``pad_to_bucket``,
+    :920): multiples of ``bucket`` up to ``cap``, then of 256, truncated at
+    ``hard_cap``, the model's positional limit."""
+    S = ids.shape[1]
+    if S > cap:
+        target = min(int(np.ceil(S / 256)) * 256, hard_cap)
+        if target <= S:
+            return ids[:, :target]
+        return np.pad(ids, ((0, 0), (0, target - S)))
+    target = int(np.ceil(max(S, 1) / bucket)) * bucket
+    return np.pad(ids, ((0, 0), (0, target - S)))

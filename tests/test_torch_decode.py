@@ -1,0 +1,127 @@
+"""The port's InfillDecoder is token-exact with the JAX InfillDecoder.
+
+Same weights (a small model, JAX init), same requests (serving streams of
+the two-track test score, masked by the port's engine), and for nucleus
+sampling the same noise: ``jax.random.gumbel(rng, (L, B, V))``, which the
+JAX decoder draws itself and the port is handed as numpy.  Compared
+against the XLA loop (``fused=False``) and the v2 kernel loop
+(``fused=True, fused_sampling=False, interpret=True``); the port runs its
+plain loop and its kernel loop (the twin, on the CPU).
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from smer_music_generation_tpu.infer.decode import InfillDecoder as JDecoder
+from smer_music_generation_tpu.vocab import CONTROL_SETS, WordVocab
+from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
+from smer_music_generation_tpu_torch.infer.engine import InfillEngine
+from smer_music_generation_tpu_torch.vocab import WordVocab as TWordVocab
+from tests.torch_port_helpers import model_pair, serving_events
+
+L = 512
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["smer", "remi"])
+def setup(request):
+    mode = request.param
+    vocab = WordVocab(mode, CONTROL_SETS[5])
+    tvocab = TWordVocab(mode, CONTROL_SETS[5])
+    jmodel, params, tmodel = model_pair(vocab.vocab_size, seed=21 + mode)
+    events = serving_events(tvocab)
+    eng = InfillEngine(tmodel, tvocab, max_tgt_len=L, fused=False)
+    reqs = [
+        eng.prepare(events, [0], [1]),
+        eng.prepare(events, [1], [2, 3]),
+        eng.prepare(events, [0, 1], [0]),
+        eng.prepare(events, [0], [5, 6, 7]),
+    ]
+    src, span_types, n_spans, no_whole, _ = eng._assemble(reqs)
+    return vocab, tvocab, jmodel, params, tmodel, (src, span_types, n_spans, no_whole)
+
+
+CASES = [  # (B, greedy, jax fused, span_cap); caps below 100 bound the steps
+    (1, True, False, 100),
+    (1, False, False, 40),
+    (4, True, False, 40),
+    (4, False, False, 40),
+    (4, False, True, 40),
+    (4, True, False, 12),
+]
+
+
+@pytest.mark.parametrize(
+    "B,greedy,jax_fused,span_cap", CASES,
+    ids=[f"B{b}-{'greedy' if g else 'nucleus'}-{'v2' if f else 'xla'}-cap{c}"
+         for b, g, f, c in CASES],
+)
+def test_decoder_token_exact(setup, B, greedy, jax_fused, span_cap):
+    vocab, tvocab, jmodel, params, tmodel, (src, span_types, n_spans, no_whole) = setup
+    args = (src[:B], span_types[:B], n_spans[:B], no_whole[:B])
+    kw = dict(max_tgt_len=L, span_cap=span_cap, greedy=greedy,
+              nucleus_p=None if greedy else 0.9)
+    rng = jax.random.PRNGKey(5)
+    jdec = JDecoder(jmodel, vocab, fused=jax_fused, fused_sampling=False,
+                    interpret=jax_fused, **kw)
+    want = jdec(params, *args, rng)
+    noise = None if greedy else np.asarray(
+        jax.random.gumbel(rng, (L, B, vocab.vocab_size), dtype=np.float32)
+    )
+    for fused in (False, True):
+        got = InfillDecoder(tmodel, tvocab, fused=fused, **kw)(*args, noise=noise)
+        np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+        assert got.steps == int(want.steps)
+    if span_cap < 100:
+        # the cap counts the introducing m_0: no span holds more than span_cap tokens
+        toks = got.tokens.numpy()
+        for b in range(B):
+            marks = np.flatnonzero(toks[b] == tvocab.mask_index)
+            bounds = list(marks) + [int(got.lengths[b])]
+            assert max(np.diff(bounds)) <= span_cap
+
+
+def test_max_tgt_len_beyond_max_len_raises(setup):
+    _, tvocab, _, _, tmodel, _ = setup
+    with pytest.raises(ValueError, match="positional limit"):
+        InfillDecoder(tmodel, tvocab, max_tgt_len=tmodel.cfg.max_len + 1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused_sampling=True), dict(token_chunk=4), dict(draft_k=2),
+    dict(quant="int8"), dict(mesh=object()),
+])
+def test_unported_options_raise(setup, kw):
+    _, tvocab, _, _, tmodel, _ = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InfillDecoder(tmodel, tvocab, max_tgt_len=L, **kw)
+
+
+def test_forced_prefix_raises(setup):
+    _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
+    dec = InfillDecoder(tmodel, tvocab, max_tgt_len=L)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec(src[:1], span_types[:1], n_spans[:1], no_whole[:1],
+            forced=np.zeros((1, 4), np.int32), forced_len=np.asarray([2]))
+
+
+def test_decoder_defaults_to_plain_loop_on_cpu(setup):
+    _, tvocab, _, _, tmodel, _ = setup
+    assert InfillDecoder(tmodel, tvocab, max_tgt_len=L).fused is False
+
+
+def test_fused_decoder_refuses_what_the_kernel_cannot_take(setup):
+    """The kernel loop never gives way to the plain loop by itself: a batch
+    of more than 8, or a model whose heads the kernel cannot tile, raises."""
+    _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
+    dec = InfillDecoder(tmodel, tvocab, max_tgt_len=L, fused=True, greedy=True, nucleus_p=None)
+    nine = np.arange(9) % len(src)
+    with pytest.raises(ValueError, match="at most 8"):
+        dec(src[nine], span_types[nine], n_spans[nine], no_whole[nine])
+    from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
+    odd = ScoreTransformer(ModelConfig(vocab_size=tvocab.vocab_size, d_model=96, nhead=3,
+                                       num_encoder_layers=1, num_decoder_layers=1, d_ff=64))
+    with pytest.raises(ValueError, match="fused=False"):
+        InfillDecoder(odd, tvocab, max_tgt_len=L, fused=True)
+    assert InfillDecoder(odd, tvocab, max_tgt_len=L, fused=False).fused is False
