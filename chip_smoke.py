@@ -4,32 +4,47 @@
     python3 chip_smoke.py
 
 Drives ``smer_music_generation_tpu_torch`` (nothing of JAX) through its
-main path and prints one line per phase with the elapsed seconds:
+paths and prints one line per phase with the elapsed seconds:
 
 0. card: ``nvidia-smi`` name and power limit;
-1. build: the CUDA decode-step kernels (``ops/csrc/decode_step.cu``) with
-   nvcc into ``build/torch_kernels/``;
-2. kernel vs twin: ``fused_decode_step`` against its plain torch twin at
+1. build: the CUDA kernels (``ops/csrc/decode_step.cu`` and
+   ``ops/csrc/decode_token.cu``, one nvcc each, started together) into
+   ``build/torch_kernels/``, with each kernel's registers and spills;
+2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
-   random seeded bf16 weights and random biases and LayerNorm parameters
-   (so that the packed bias strip, ``ln``, ``fin_ln`` and ``fc_b`` are
-   read at their offsets), for B in {1, 4, 8}, L = 1024,
-   S in {512, 1024, 1536}, index in {0, 1, 511, 512, 1023} and ragged cross
-   lengths (S = 1536 is the served batch's source length); the kernel's
-   and the twin's time (CUDA events) beside the bound (bytes over
-   3.35 TB/s);
+   random seeded bf16 weights and random biases and LayerNorm parameters,
+   for B in {1, 3, 4, 8}, L = 1024, S in {512, 1024, 1536}, index in
+   {0, 1, 511, 512, 1023} and ragged cross lengths; the kernel's and the
+   twin's time (CUDA events) beside the bound (bytes over 3.35 TB/s);
+2b. v3 kernel vs twin: ``fused_decode_token`` against its twin on the same
+   model, over random valid states, B in {1, 3, 4, 8}, S in {512, 1536},
+   index in {0, 1, 512, 1023}, greedy and nucleus (p 0.9 at temperatures
+   1.0 and 0.8): ``new_kv`` within the phase-2 tolerance, ``new_state``
+   equal except in rows where the twin's own decision margin is within
+   what that tolerance allows (counted, at most 2% of the rows); then
+   ``sample_advance_kernel`` alone on the twin's logits, equal to the
+   twin's sampler except at exact ties (margin within a 1e-5 move of the
+   log-probabilities, counted); times and bound at the served shape;
 3. serve: the committed trained snapshot on the card in bf16, a seeded
    3-track 16-bar 4/4 score, ``generate_cli.main`` infilling 2 bars of one
-   track (greedy), then ``InfillEngine.run_batch`` on 3 nucleus requests
-   padded to 4; every result must restore, close its bars and write a MIDI
-   file that reads back, and the main path must have launched the kernels
-   and never called the twin;
-4. kernel path vs twin path: one greedy request decoded through the
-   kernels and through the twin on the card, and where they first differ;
-   a difference at a step where the twin's margin between the two tokens
-   exceeds what the phase-2 tolerance allows is a failure.
+   track (greedy), then ``InfillEngine.run_batch`` on 3 nucleus requests,
+   decoded as one batch of 3; every result must restore, close its bars
+   and write a MIDI file that reads back, and the path must have gone
+   through the v3 kernels only (no twin, no v2 step).  Then the same 3
+   requests through the v2 path (``fused_sampling=False``), which must
+   launch the v2 kernels and call no twin;
+3b. HTTP: ``serve.app.serve`` on the trained snapshot, ``GET /health``,
+   ``POST /encode`` of the score as the plugin's note dict, 3 concurrent
+   ``POST /generate``; each answer must be 200 with events and no ``m_0``,
+   through the v3 kernels only.  Then ``serve_cli`` with no flags but its
+   address, in a process of its own, answers /health, /encode and one
+   /generate, and is stopped;
+4. kernel path vs twin path: one greedy request decoded through the kernels
+   and through the twin on the card, for v2 and for v3, and where they
+   first differ; a difference at a step where the twin's margin between
+   the two tokens exceeds what the phase-2 tolerance allows is a failure.
 
-Then a JSON line describing the kernel, and last
+Then a JSON line describing the kernels, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 2 before printing any result.
 """
@@ -40,10 +55,13 @@ import faulthandler
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from unittest import mock
 
 import numpy as np
@@ -62,8 +80,16 @@ from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer import generate_cli
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
 from smer_music_generation_tpu_torch.infer.engine import InfillEngine, change_controls
+from smer_music_generation_tpu_torch.infer.grammar import (
+    N_SID,
+    SPAN_BODY,
+    GrammarTables,
+    build_fast_tables,
+)
+from smer_music_generation_tpu_torch.infer.sampling import gumbel_noise
 from smer_music_generation_tpu_torch.models.transformer import LayerNorm, ModelConfig, ScoreTransformer
 from smer_music_generation_tpu_torch.ops import decode_step as ds
+from smer_music_generation_tpu_torch.serve.app import ServingContext, serve
 from smer_music_generation_tpu_torch.train.state import (
     default_flagship_snapshot,
     load_inference_model,
@@ -71,16 +97,26 @@ from smer_music_generation_tpu_torch.train.state import (
 from smer_music_generation_tpu_torch.utils.config import ExperimentConfig
 from smer_music_generation_tpu_torch.vocab import WordVocab
 
-TIME_LIMIT_S = 1100
+TIME_LIMIT_S = 550  # a hang dumps its traceback and exits before an outer 700 s limit
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM at its full 700 W (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 NL, D, H, F, L = 4, 512, 8, 2048, 1024
+MAX_SPANS, SPAN_CAP = 256, 100  # the decoder's defaults
 # kernel vs twin: bf16 operands with f32 accumulation on both sides, summed
 # in another order; an activation that lands on the other side of a bf16
 # rounding boundary moves a downstream value by one bf16 ulp (2^-8
 # relative), so the check is |kernel - twin| <= ATOL + RTOL * |twin|
 ATOL, RTOL = 5e-2, 2e-2
-REPORT_CASE = (4, 1536, 512)  # (B, S, index): the served batch's shape
+TIE = 1e-5  # the sampler alone on identical logits may part only at a tie this close
+MAX_CLOSE_SHARE = 0.02  # the share of v3 state rows that may take the margin exception
+SERVED_CASE = (3, 1536, 512)  # (B, S, index): the served batch's shape, where both kernels are timed
+SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
+    ("greedy", True, None, 1.0),
+    ("nucleus p0.9 T1.0", False, 0.9, 1.0),
+    ("nucleus p0.9 T0.8", False, 0.9, 0.8),
+)
+FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
+            "embed_pe_kernel", "sample_advance_kernel")
 
 T0 = time.perf_counter()
 
@@ -118,25 +154,57 @@ def device_split(fn, iters: int = 20):
         us = getattr(evt, "self_device_time_total", 0) or 0
         if us <= 0:
             continue
-        family = next(
-            (k for k in ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel") if k in evt.key),
-            "other",
-        )
+        family = next((k for k in FAMILIES if k in evt.key), "other")
         split[family] = split.get(family, 0.0) + us / iters
     return split or None
 
 
-def step_bound_ms(packed, B: int, index: int, cross_len) -> float:
-    """Least time of one decoder step on the card: every packed weight,
-    x_emb, the valid cache rows and the outputs moved once, against the
-    bf16 operations of the step; bytes dominate by far."""
-    weight_bytes = sum(t.numel() * t.element_size() for t in packed.values())
+def say_split(split, ms: float) -> None:
+    if split is None:
+        say("    device time by kernel: not measured (the profiler saw no CUDA kernel)")
+        return
+    busy = sum(split.values())
+    parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(split.items()))
+    say(f"    device time per call: {parts}; total {busy:.1f} us of "
+        f"{1e3 * ms:.1f} us wall, device busy {busy / (1e3 * ms):.1%}")
+
+
+def step_bytes_flops(packed, B: int, index: int, cross_len):
+    """Bytes and bf16 operations of one v2 step: every packed decoder weight
+    (not the embedding, which v2 does not read), x_emb, the valid cache
+    rows and the outputs, each moved once."""
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
     vpad = packed["fc_w"].shape[1]
     rows = NL * (B * index + int(sum(cross_len)))
     cache_bytes = rows * 2 * D * 2
     io_bytes = B * D * 2 + B * vpad * 4 + NL * B * 2 * D * 2 + B * 4
     flops = 2 * B * NL * (6 * D * D + 2 * D * F) + 2 * B * D * vpad + 4 * D * rows
-    return 1e3 * max((weight_bytes + cache_bytes + io_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+    return weight_bytes + cache_bytes + io_bytes, flops
+
+
+def bound_ms(nbytes: float, flops: float) -> float:
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+
+
+def token_bound_ms(packed, B: int, index: int, cross_len, V: int, nucleus: bool) -> float:
+    """Least time of one v3 token.  Bytes: the v2 step's, with B embedding
+    rows (bf16) in place of x_emb and without the logits, which stay inside
+    the token; fc_w and fc_b over the V real lanes only (the sampling
+    tables never allow a pad lane, so its logit, mask entry and noise are
+    never needed); then the state in and out, aux, and a row's span type,
+    grammar mask row (V lanes), class row and (nucleus) noise row (V lanes),
+    and sid_tbl.  Operations: v2's over V lanes plus the nucleus rule's
+    V x V multiply-adds a row."""
+    nbytes, flops = step_bytes_flops(packed, B, index, cross_len)
+    fc_w, fc_b = packed["fc_w"], packed["fc_b"]
+    pad = fc_w.shape[1] - V
+    nbytes -= B * fc_w.shape[1] * 4  # the v2 logits output
+    nbytes -= pad * (D * fc_w.element_size() + fc_b.element_size())
+    row = 4 + V * 4 + ds._N_CLASSES * 4 + (V * 4 if nucleus else 0)
+    nbytes += 2 * 6 * B * 4 + 2 * B * 4 + B * row + 16 * 4  # ..., sid_tbl (16,) int32
+    flops -= 2 * B * D * pad
+    flops += 2 * B * V * V if nucleus else 0
+    return bound_ms(nbytes, flops)
 
 
 def make_score(bars=16, tracks=3, tempo=100.0, seed=7) -> MidiScore:
@@ -164,15 +232,17 @@ def make_score(bars=16, tracks=3, tempo=100.0, seed=7) -> MidiScore:
     return s
 
 
-def phase_kernel_vs_twin(dev):
+def random_flagship(dev):
+    """The flagship-width decoder with seeded random bf16 weights, random
+    biases and random LayerNorm parameters (a fresh model has zero biases
+    and unit LayerNorms, so a kernel that dropped a bias or read the wrong
+    offset would still agree)."""
     torch.manual_seed(0)
     vocab = WordVocab(0, ExperimentConfig().control_list)
     model = ScoreTransformer(ModelConfig(
         vocab_size=vocab.vocab_size, d_model=D, nhead=H, num_encoder_layers=1,
         num_decoder_layers=NL, d_ff=F, dtype=torch.bfloat16,
     )).to(dev).eval()
-    # a fresh model has zero biases and unit LayerNorms; make them random so
-    # that a kernel that drops a bias or reads the wrong offset disagrees
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, LayerNorm):
@@ -180,11 +250,14 @@ def phase_kernel_vs_twin(dev):
             if isinstance(m, (LayerNorm, torch.nn.Linear)):
                 m.bias.normal_(0.0, 0.5)
     vpad = ds.vocab_pad(vocab.vocab_size)
-    packed = ds.pack_decoder_weights(model, vpad)
+    return vocab, model, ds.pack_decoder_weights(model, vpad), vpad
+
+
+def phase_kernel_vs_twin(dev, packed, vocab, vpad):
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
     g = torch.Generator(device=dev).manual_seed(1)
     worst, report = 0.0, None
-    for B in (1, 4, 8):
+    for B in (1, 3, 4, 8):
         for S in (512, 1024, 1536):
             x = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
             self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
@@ -206,23 +279,193 @@ def phase_kernel_vs_twin(dev):
                 )
                 ms = cuda_ms(lambda: ds.fused_decode_step(*args, **kw), iters=20)
                 plain_ms = cuda_ms(lambda: ds.fused_decode_step_reference(*args, **kw), iters=5)
-                bound = step_bound_ms(packed, B, index, cl_list)
+                bound = bound_ms(*step_bytes_flops(packed, B, index, cl_list))
                 say(f"  B={B} S={S} index={index:4d} cross_len={cl_list}: max|kernel-twin|={err:.3e} "
                     f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms")
                 if not ok:
                     raise AssertionError(f"kernel disagrees with the twin at B={B} S={S} index={index}")
                 worst = max(worst, err)
-                if (B, S, index) == REPORT_CASE:
+                if (B, S, index) == SERVED_CASE:
                     report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
-                    split = device_split(lambda: ds.fused_decode_step(*args, **kw))
-                    if split is None:
-                        say("    device time by kernel: not measured (the profiler saw no CUDA kernel)")
-                    else:
-                        busy = sum(split.values())
-                        parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(split.items()))
-                        say(f"    device time per step: {parts}; total {busy:.1f} us of "
-                            f"{1e3 * ms:.1f} us wall, device busy {busy / (1e3 * ms):.1%}")
+                    say_split(device_split(lambda: ds.fused_decode_step(*args, **kw)), ms)
     return worst, report
+
+
+def sampling_tables(vocab, vpad, dev):
+    t = GrammarTables.build(vocab)
+    tabs = ds.pack_sampling_tables(vocab, t, build_fast_tables(t), vpad)
+    return {k: torch.as_tensor(v, device=dev) for k, v in tabs.items()}
+
+
+def random_states(rng, B: int, V: int, dev):
+    """Valid (6, B) states: any token, bits 0-15 (0 in a third of the rows),
+    steps 1..span_cap (a span start in a third of the rows), a span index
+    below n_spans, mixed done and no_whole flags, span types of all five
+    kinds, mostly bodies (a control span ends after one token and resets
+    the bits)."""
+    n_spans = rng.integers(1, MAX_SPANS + 1, size=B)
+    third = rng.random((2, B)) < 1 / 3
+    state = np.stack([
+        rng.integers(1, V, size=B), np.where(third[0], 0, rng.integers(0, 16, size=B)),
+        np.where(third[1], 1, rng.integers(1, SPAN_CAP + 1, size=B)), rng.integers(0, n_spans),
+        rng.random(B) < 0.25, rng.integers(1, 500, size=B),
+    ]).astype(np.int32)
+    aux = np.stack([n_spans, rng.random(B) < 0.5]).astype(np.int32)
+    body = rng.random((B, MAX_SPANS)) < 0.6
+    span_types = np.where(body, 0, rng.integers(1, 5, size=(B, MAX_SPANS))).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (state, aux, span_types))
+
+
+def twin_logits(packed, state, self_kv, cross_kv, index, cross_len, vpad):
+    """The logits the v3 twin samples from: the embedding row x sqrt(D) plus
+    the analytic PE row, in f32, through the v2 twin."""
+    x = packed["emb"][state[ds.ST_TOKEN].long()].float() * math.sqrt(D) + ds.pe_row(index, D, state.device)
+    return ds.fused_decode_step_reference(
+        packed, x, self_kv, cross_kv, index, cross_len, n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad,
+    )[0]
+
+
+def decision_flips(logits, state, aux, span_types, noise, index, tables, skw, eps):
+    """Per row, whether the twin's token could change if every log-probability
+    moved by at most ``eps`` (B,) (a logit error d moves them by at most
+    2d/T): the top two final scores lie within ``eps``, or, under the
+    nucleus rule, a lane that could win (its score without the rule comes
+    within ``eps`` of the winner's) has |above - p| within what such a move
+    allows in ``above``: above * expm1(eps) for the lanes it keeps, plus the
+    mass of the lanes whose order against it may flip (those within
+    ``eps`` in log-probability)."""
+    kw = dict(mode=skw["mode"], max_spans=skw["max_spans"], temperature=skw["temperature"],
+              n_sid=skw["n_sid"])
+    noise_row = None if skw["greedy"] else noise[index]
+    final, above = ds.sampling_scores(logits, state, aux, span_types, noise_row, tables,
+                                      nucleus_p=skw["nucleus_p"], greedy=skw["greedy"], **kw)
+    top2 = final.topk(2, dim=-1).values
+    flips = top2[:, 0] - top2[:, 1] <= eps
+    if above is None:
+        return flips
+    logp, _ = ds.sampling_scores(logits, state, aux, span_types, None, tables,
+                                 nucleus_p=None, greedy=True, **kw)
+    e = eps[:, None]
+    cand = logp + noise_row >= top2[:, :1] - e
+    order_may_flip = (logp[:, None, :] - logp[:, :, None]).abs() <= e[:, :, None]  # (B, w, v)
+    order_may_flip &= ~torch.eye(logp.shape[1], dtype=torch.bool, device=logp.device)
+    near = (logp.exp()[:, None, :] * order_may_flip).sum(dim=-1)
+    slack = above * torch.expm1(e) + torch.exp(e) * near
+    return flips | (cand & ((above - skw["nucleus_p"]).abs() <= slack)).any(dim=-1)
+
+
+def phase_token_vs_twin(dev, packed, vocab, vpad):
+    tables = sampling_tables(vocab, vpad, dev)
+    V = vocab.vocab_size
+    kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(3)
+    worst, report, cases = 0.0, None, 0
+    close_rows = tie_rows = rows = 0
+    for B in (1, 3, 4, 8):
+        for S in (512, 1536):
+            self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cl_list = [S - (S // 16) * b for b in range(B)]
+            cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
+            noise = gumbel_noise((L, B, vpad), g, dev)
+            for index in (0, 1, 512, 1023):
+                state, aux, span_types = random_states(rng, B, V, dev)
+                for name, greedy, p, temp in SAMPLERS:
+                    skw = dict(mode=vocab.mode, max_spans=MAX_SPANS, span_cap=SPAN_CAP,
+                               eos_index=vocab.eos_index, mask_index=vocab.mask_index,
+                               nucleus_p=p, temperature=temp, greedy=greedy, n_sid=N_SID,
+                               span_body=SPAN_BODY)
+                    args = (packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index, cross_len)
+                    ks, kkv = ds.fused_decode_token(*args, **kw, **skw)
+                    torch.cuda.synchronize()
+                    rs, rkv = ds.fused_decode_token_reference(*args, **kw, **skw)
+                    err = (kkv.float() - rkv.float()).abs().max().item()
+                    if not torch.allclose(kkv.float(), rkv.float(), atol=ATOL, rtol=RTOL):
+                        raise AssertionError(f"v3 new_kv disagrees at B={B} S={S} index={index} {name}")
+                    worst = max(worst, err)
+                    # rows where the twin's margin is within what the tolerance allows
+                    lg = twin_logits(packed, state, self_kv, cross_kv, index, cross_len, vpad)
+                    delta = ATOL + RTOL * lg[:, :V].abs().amax(dim=-1)
+                    close = decision_flips(lg, state, aux, span_types, noise, index, tables, skw,
+                                           eps=2 * delta / temp)
+                    differ = (ks != rs).any(dim=0)
+                    if (differ & ~close).any():
+                        raise AssertionError(
+                            f"v3 new_state differs from the twin at B={B} S={S} index={index} {name} "
+                            f"in a row with a decisive margin: kernel {ks.tolist()} twin {rs.tolist()}")
+                    close_rows += int((differ & close).sum())
+                    rows += B
+                    # the sampler alone on the twin's logits: equal but at exact ties
+                    alone = ds.sample_and_advance(lg, state, aux, span_types, noise, index, tables, **skw)
+                    want = ds.sample_and_advance_reference(lg, state, aux, span_types, noise, index,
+                                                           tables, **skw)
+                    tie = decision_flips(lg, state, aux, span_types, noise, index, tables, skw,
+                                         eps=torch.full((B,), TIE, device=dev))
+                    differ_alone = (alone != want).any(dim=0)
+                    if (differ_alone & ~tie).any():
+                        raise AssertionError(
+                            f"sample_advance_kernel differs from its twin at B={B} S={S} index={index} "
+                            f"{name}: kernel {alone.tolist()} twin {want.tolist()}")
+                    tie_rows += int((differ_alone & tie).sum())
+                    cases += 1
+                    if (B, S, index) == SERVED_CASE and name == SAMPLERS[1][0]:
+                        ms = cuda_ms(lambda: ds.fused_decode_token(*args, **kw, **skw), iters=20)
+                        plain_ms = cuda_ms(lambda: ds.fused_decode_token_reference(*args, **kw, **skw), iters=5)
+                        bound = token_bound_ms(packed, B, index, cl_list, V, nucleus=True)
+                        report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                        say(f"  served shape B={B} S={S} index={index} cross_len={cl_list} ({name}): "
+                            f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+                        say_split(device_split(lambda: ds.fused_decode_token(*args, **kw, **skw)), ms)
+            say(f"  B={B} S={S}: max|kernel-twin| of new_kv so far {worst:.3e}")
+    say(f"  {cases} cases: new_kv within atol {ATOL} + rtol {RTOL} (max {worst:.3e}); "
+        f"{close_rows} of {rows} state rows differ where the twin's margin is within that tolerance; "
+        f"sample_advance_kernel alone differs in {tie_rows} rows, all exact ties (< {TIE})")
+    if close_rows > MAX_CLOSE_SHARE * rows:
+        raise AssertionError(f"{close_rows} of {rows} state rows needed the margin exception "
+                             f"(more than {MAX_CLOSE_SHARE:.0%})")
+    return worst, report
+
+
+def check_counts(what: str, v3: bool) -> int:
+    """The path just driven went through the v3 kernels (``v3``) or the v2
+    kernels, never through a twin or the other kernel; returns its launches."""
+    counts = dict(v3=ds.fused_decode_token.launches, v3_twin=ds.fused_decode_token_reference.calls,
+                  v2=ds.fused_decode_step.launches, v2_twin=ds.fused_decode_step_reference.calls)
+    want_on, want_off = ("v3", "v2") if v3 else ("v2", "v3")
+    say(f"  {what}: launches {counts}")
+    if counts[want_on] == 0 or counts[want_off] or counts["v3_twin"] or counts["v2_twin"]:
+        raise AssertionError(f"{what} did not go through the {want_on} kernels alone: {counts}")
+    return counts[want_on]
+
+
+def serve_requests(engine, reqs, workdir, tag):
+    seen = []
+    dispatch = engine._dispatch
+    engine._dispatch = lambda src_b, *a: seen.append(src_b.shape) or dispatch(src_b, *a)
+    t = time.perf_counter()
+    results = engine.run_batch(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if seen[0][0] != len(reqs):
+        raise AssertionError(f"{len(reqs)} requests were not decoded as one batch of {len(reqs)} ({seen})")
+    tokens = 0
+    for i, (req, res) in enumerate(zip(reqs, results)):
+        if res is None or "m_0" in res.events:
+            raise AssertionError(f"request {i} did not restore")
+        if not engine._spans_close(res.events, req):
+            raise AssertionError(f"request {i}: a masked bar does not close after the repair")
+        path = os.path.join(workdir, f"{tag}{i}.mid")
+        events_to_midi(res.events, 100.0).write(path)
+        if not read_midi(path).instruments:
+            raise AssertionError(f"request {i}: written MIDI does not read back")
+        tokens += len(res.generated)
+        say(f"  request {i}: bars {req.mask_bars} tracks {req.mask_tracks}: "
+            f"{len(res.generated)} tokens, {res.decode_steps} decode steps, "
+            f"{res.time_corrections} retries")
+    say(f"  run_batch ({tag}): {len(seen)} decodes of batch {[s[0] for s in seen]}, src {seen[0][1]} ids, "
+        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s, {1e3 * wall / len(reqs):.1f} ms per request")
+    return wall
 
 
 def phase_serve(dev, workdir):
@@ -249,10 +492,8 @@ def phase_serve(dev, workdir):
         raise RuntimeError(f"generate_cli.main returned {rc}")
     if not read_midi(midi_out).instruments:
         raise AssertionError("the CLI's MIDI output has no instruments")
-    say(f"  generate_cli (greedy, bars 3-4 of track 1): {time.perf_counter() - t:.2f} s, "
-        f"kernel steps {ds.fused_decode_step.launches}, twin calls {ds.fused_decode_step_reference.calls}")
-    cli_launches = ds.fused_decode_step.launches
-    cli_twin = ds.fused_decode_step_reference.calls
+    say(f"  generate_cli (greedy, bars 3-4 of track 1): {time.perf_counter() - t:.2f} s")
+    launches = check_counts("generate_cli", v3=True)
 
     events, controls = encode_midi(score, controls={"key": None},
                                    track_names=["track_0", "track_1", "track_2"])
@@ -265,66 +506,179 @@ def phase_serve(dev, workdir):
             engine.prepare(events, [2], [11, 12])]
     if any(r is None for r in reqs):
         raise AssertionError("a request could not be prepared")
-    seen = []
-    dispatch = engine._dispatch
-    engine._dispatch = lambda src_b, *a: seen.append(src_b.shape) or dispatch(src_b, *a)
-
     ds.reset_counts()
-    t = time.perf_counter()
-    results = engine.run_batch(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches, twin_calls = ds.fused_decode_step.launches, ds.fused_decode_step_reference.calls
-    if seen[0][0] != 4:
-        raise AssertionError(f"3 requests were not padded to 4 (batches {seen})")
-    tokens = 0
-    for i, (req, res) in enumerate(zip(reqs, results)):
-        if res is None or "m_0" in res.events:
-            raise AssertionError(f"request {i} did not restore")
-        if not engine._spans_close(res.events, req):
-            raise AssertionError(f"request {i}: a masked bar does not close after the repair")
-        out = events_to_midi(res.events, 100.0)
-        path = os.path.join(workdir, f"req{i}.mid")
-        out.write(path)
-        if not read_midi(path).instruments:
-            raise AssertionError(f"request {i}: written MIDI does not read back")
-        tokens += len(res.generated)
-        say(f"  request {i}: bars {req.mask_bars} tracks {req.mask_tracks}: "
-            f"{len(res.generated)} tokens, {res.decode_steps} decode steps, "
-            f"{res.time_corrections} retries")
-    say(f"  run_batch: {len(seen)} decodes of batch {[s[0] for s in seen]}, src {seen[0][1]} ids, "
-        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s, {1e3 * wall / len(reqs):.1f} ms per request; "
-        f"kernel steps {launches}, twin calls {twin_calls}")
-    launches += cli_launches
-    twin_calls += cli_twin
-    if launches == 0 or twin_calls != 0:
-        raise AssertionError(f"main path: kernel steps {launches}, twin calls {twin_calls}")
-    return model, vocab, events, launches
+    wall = serve_requests(engine, reqs, workdir, "v3_")
+    n = check_counts("run_batch through v3", v3=True)
+    say(f"  v3 path: {n} decode steps, {1e3 * wall / n:.3f} ms of wall time a step")
+    launches += n
+
+    v2_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    v2_engine.decoder.fused_sampling = False  # the v2 step with the host's sampling ops
+    ds.reset_counts()
+    wall = serve_requests(v2_engine, reqs, workdir, "v2_")
+    v2_launches = check_counts("run_batch through v2 (fused_sampling=False)", v3=False)
+    say(f"  v2 path: {v2_launches} decode steps, {1e3 * wall / v2_launches:.3f} ms of wall time a step")
+    return model, vocab, score, events, launches, v2_launches
 
 
-def phase_kernel_vs_twin_path(model, vocab, events):
+def plugin_notes(score: MidiScore, tempo: float = 100.0):
+    """The plugin's note dict of a score: [pitch, start beat, beats] a note,
+    program + 1 a track."""
+    beat = 60.0 / tempo
+    out = {"tempo": tempo, "numerator": 4, "denominator": 4}
+    for i, inst in enumerate(score.instruments):
+        out[f"track_{i}"] = [[n.pitch, n.start / beat, (n.end - n.start) / beat] for n in inst.notes]
+        out[f"track_{i}_program"] = inst.program + 1
+    return out
+
+
+def http_json(url: str, payload=None, timeout: float = 300.0):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"{url} answered {resp.status}")
+        return json.loads(resp.read())
+
+
+def unlocked(controls):
+    """The plugin's overwrite before /generate: per-track control dicts move
+    to ``track_N_c`` and ``track_N`` becomes the lock flag 0 (unlocked)."""
+    controls = dict(controls, bar_track=0, start_bar=1)
+    for n in range(controls["track_nums"]):
+        controls[f"track_{n}_c"] = controls[f"track_{n}"]
+        controls[f"track_{n}"] = 0
+    return controls
+
+
+def phase_http(model, vocab, score) -> int:
+    ctx = ServingContext(model, vocab)
+    groups = []
+    run_batch = ctx.engine.run_batch
+    ctx.engine.run_batch = lambda reqs, *a, **k: groups.append(len(reqs)) or run_batch(reqs, *a, **k)
+    ds.reset_counts()
+    server = serve(ctx, host="127.0.0.1", port=0)
+    try:
+        host, port = server.server_address
+        url = f"http://{host}:{port}"
+        health = http_json(url + "/health", timeout=60)
+        if health.get("status") != "ok":
+            raise AssertionError(f"/health answered {health}")
+        t = time.perf_counter()
+        enc = http_json(url + "/encode", {"notes": plugin_notes(score), "controls": {"start_bar": 1}})
+        say(f"  /health {health}; /encode: {len(enc['events'])} events, "
+            f"track_map {enc['track_map']}, {1e3 * (time.perf_counter() - t):.1f} ms")
+        controls = unlocked(enc["controls"])
+        jobs = [([0], [2, 3]), ([1], [7]), ([2], [11])]
+        answers, errors = [None] * len(jobs), []
+
+        def worker(i):
+            tracks, bars = jobs[i]
+            try:
+                answers[i] = http_json(url + "/generate", {
+                    "events": enc["events"], "controls": controls, "tracks": tracks,
+                    "bars": bars, "tempo": 100,
+                })
+            except Exception as exc:  # reported below, and the phase fails
+                errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(jobs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"/generate failed: {errors}")
+        for i, ans in enumerate(answers):
+            if "events" not in ans or "m_0" in ans["events"]:
+                raise AssertionError(f"/generate {i} answered {str(ans)[:300]}")
+            say(f"  /generate {i} (tracks {jobs[i][0]} bars {jobs[i][1]}): {len(ans['events'])} events, "
+                f"{ans['decode_steps']} decode steps, notes for {sorted(ans.get('notes', {}))}")
+        say(f"  3 concurrent /generate in {wall:.3f} s, {1e3 * wall / len(jobs):.1f} ms per request; "
+            f"the batcher formed {len(groups)} run_batch groups of {groups}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        ctx.close()
+    return check_counts("HTTP /generate", v3=True)
+
+
+def phase_serve_cli(score) -> None:
+    """``python -m ...serve.serve_cli`` with no flags but its address, in a
+    process of its own: it loads the committed snapshot onto the card and
+    answers /health, /encode and one /generate; then it is stopped."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "smer_music_generation_tpu_torch.serve.serve_cli",
+           "--host", "127.0.0.1", "--port", str(port)]
+    with tempfile.TemporaryFile("w+") as log:
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            while True:
+                if proc.poll() is not None:
+                    log.seek(0)
+                    raise RuntimeError(f"serve_cli exited with {proc.returncode}:\n{log.read()[-3000:]}")
+                try:
+                    http_json(url + "/health", timeout=5)
+                    break
+                except OSError:
+                    if time.perf_counter() - t > 240:
+                        raise
+                    time.sleep(0.5)
+            say(f"  serve_cli answers /health {time.perf_counter() - t:.1f} s after its start")
+            enc = http_json(url + "/encode", {"notes": plugin_notes(score), "controls": {"start_bar": 1}})
+            t = time.perf_counter()
+            ans = http_json(url + "/generate", {"events": enc["events"], "controls": unlocked(enc["controls"]),
+                                               "tracks": [1], "bars": [5], "tempo": 100})
+            if "events" not in ans or "m_0" in ans["events"]:
+                raise AssertionError(f"serve_cli's /generate answered {str(ans)[:300]}")
+            say(f"  serve_cli /generate (track 1, bar 5): {ans['decode_steps']} decode steps, "
+                f"{1e3 * (time.perf_counter() - t):.1f} ms")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        for line in log.read().splitlines()[-4:]:
+            print("   ", line, flush=True)
+
+
+def first_divergence(model, vocab, events, fused_sampling: bool):
     """One greedy request through the kernels, then through the twin (the
-    decoder's step patched to ``fused_decode_step_reference``).  Where the
-    token streams first differ, the twin's logits are recomputed on the
-    shared prefix: the two paths may part only where the twin's margin
-    between its token and the kernel's is within the phase-2 tolerance on
-    each of the two logits."""
+    decoder's call patched to the twin).  Where the token streams first
+    differ, the twin's logits are recomputed on the shared prefix: the two
+    paths may part only where the twin's margin between its token and the
+    kernel's is within the phase-2 tolerance on each of the two logits."""
     eng = InfillEngine(model, vocab, max_tgt_len=L)
     req = eng.prepare(events, [0], [5, 6])
     asm = eng._assemble([req])
+    label = "v3" if fused_sampling else "v2"
 
     def run():
-        dec = InfillDecoder(model, vocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=True)
+        dec = InfillDecoder(model, vocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=True,
+                            fused_sampling=fused_sampling)
         res = dec(*asm[:4])
         return res.tokens[0, : int(res.lengths[0])].cpu()
 
     a = run()
-    with mock.patch.object(decode_mod, "fused_decode_step", ds.fused_decode_step_reference):
+    name, twin = (("fused_decode_token", ds.fused_decode_token_reference) if fused_sampling
+                  else ("fused_decode_step", ds.fused_decode_step_reference))
+    with mock.patch.object(decode_mod, name, twin):
         b = run()
     n = min(len(a), len(b))
     diff = (a[:n] != b[:n]).nonzero()
     if len(diff) == 0 and len(a) == len(b):
-        say(f"  kernel path and twin path: identical ({len(a)} tokens)")
+        say(f"  {label} kernel path and twin path: identical ({len(a)} tokens)")
         return
     p = int(diff[0]) if len(diff) else n
     src = torch.as_tensor(asm[0], dtype=torch.long, device=model.device)
@@ -338,8 +692,11 @@ def phase_kernel_vs_twin_path(model, vocab, events):
         cross_len = (~pad).sum(1).to(torch.int32)
         kv = torch.zeros(cfg.num_decoder_layers, 1, L, 2 * cfg.d_model, dtype=cfg.dtype, device=model.device)
         for pos in range(p):  # the step at p - 1 emits position p
-            x = (model.embedding.weight[b[pos : pos + 1].to(model.device)] * math.sqrt(cfg.d_model)
-                 + model.pos_table[pos]).to(cfg.dtype)
+            tok = b[pos : pos + 1].to(model.device)
+            if fused_sampling:  # v3: the f32 row with the analytic PE
+                x = packed["emb"][tok].float() * math.sqrt(cfg.d_model) + ds.pe_row(pos, cfg.d_model, model.device)
+            else:
+                x = (model.embedding.weight[tok] * math.sqrt(cfg.d_model) + model.pos_table[pos]).to(cfg.dtype)
             logits, new_kv = ds.fused_decode_step_reference(packed, x, kv, cross_kv, pos, cross_len, **kw)
             kv[:, :, pos] = new_kv
     lg = logits[0, : vocab.vocab_size].float()
@@ -353,12 +710,12 @@ def phase_kernel_vs_twin_path(model, vocab, events):
     ta, tb = sampled(a), sampled(b)
     gap = (lg[tb] - lg[ta]).item()
     allowed = 2 * ATOL + RTOL * (abs(lg[ta].item()) + abs(lg[tb].item()))
-    say(f"  kernel path and twin path first differ at position {p} of {n}: kernel "
+    say(f"  {label} kernel path and twin path first differ at position {p} of {n}: kernel "
         f"{vocab.index2char(ta)!r} vs twin {vocab.index2char(tb)!r}; twin logit gap "
         f"{gap:.4f}, tolerance {allowed:.4f}")
     if gap > allowed:
         raise AssertionError(
-            f"kernel path departs from the twin at position {p} where the twin's margin "
+            f"{label} kernel path departs from the twin at position {p} where the twin's margin "
             f"{gap:.4f} exceeds the tolerance {allowed:.4f}"
         )
 
@@ -383,33 +740,39 @@ def main() -> int:
     ds.load_library()
     say(f"  built {ds.BUILD_INFO['path']} in {ds.BUILD_INFO['seconds']:.1f} s")
     for line in str(ds.BUILD_INFO["log"]).splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("   ", line.strip(), flush=True)
 
-    say("phase 2 kernel vs twin (random bf16 weights, flagship width)")
-    worst, report = phase_kernel_vs_twin(dev)
+    vocab, model, packed, vpad = random_flagship(dev)
+    say("phase 2 v2 kernel vs twin (random bf16 weights, flagship width)")
+    worst, report = phase_kernel_vs_twin(dev, packed, vocab, vpad)
     say(f"  all cases within atol {ATOL} + rtol {RTOL}; max |kernel - twin| {worst:.3e}")
+
+    say("phase 2b v3 kernel vs twin (same model, random states)")
+    worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad)
+    del model, packed
 
     say("phase 3 serve with the trained snapshot")
     with tempfile.TemporaryDirectory() as workdir:
-        model, vocab, events, launches = phase_serve(dev, workdir)
+        model, vocab, score, events, launches, v2_launches = phase_serve(dev, workdir)
+
+    say("phase 3b HTTP serving (ServingContext, MicroBatcher) with the trained snapshot")
+    launches += phase_http(model, vocab, score)
+    phase_serve_cli(score)
 
     say("phase 4 kernel path vs twin path (greedy)")
-    phase_kernel_vs_twin_path(model, vocab, events)
+    first_divergence(model, vocab, events, fused_sampling=False)
+    first_divergence(model, vocab, events, fused_sampling=True)
 
-    kernels = {"kernels": [{
-        "name": "fused_decode_step",
-        "route": "cuda",
-        "source": "smer_music_generation_tpu_torch/ops/csrc/decode_step.cu",
-        "replaces": "smer_music_generation_tpu/ops/decode_step.py:456",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": report["ms"],
-        "plain_ms": report["plain_ms"],
-        "bound_ms": report["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}
+    common = dict(route="cuda", bound_by="bytes", library_ms=None)
+    kernels = {"kernels": [
+        dict(name="fused_decode_step", source="smer_music_generation_tpu_torch/ops/csrc/decode_step.cu",
+             replaces="smer_music_generation_tpu/ops/decode_step.py:456", launches=v2_launches,
+             max_abs_err=worst, **report, **common),
+        dict(name="fused_decode_token", source="smer_music_generation_tpu_torch/ops/csrc/decode_token.cu",
+             replaces="smer_music_generation_tpu/ops/decode_step.py:796", launches=launches,
+             max_abs_err=worst3, **report3, **common),
+    ]}
     print(json.dumps(kernels), flush=True)
     say("done")
     faulthandler.cancel_dump_traceback_later()

@@ -10,22 +10,28 @@ the span cap (which counts the introducing ``m_0``) or after a control
 span's one token, the next ``m_0`` is emitted and the element's span index
 advances.
 
-Two loop bodies, as in JAX:
+Three loop bodies, as in JAX:
 
-* ``fused=True`` (``fused_sampling=False``): the v2 decoder step,
-  ``ops.decode_step.fused_decode_step``, which launches the CUDA kernels on
-  the card and runs its plain twin on the CPU;
+* ``fused=True`` with ``fused_sampling`` True or None: the v3 whole token,
+  ``ops.decode_step.fused_decode_token`` (JAX ``_v3_loop`` / ``_decode_v3``
+  :704-778): embedding, decoder layers, grammar-masked sampling and the
+  (6, B) state advance in one call, so the loop body is that call, the
+  output column and the cache row; the state stays on the device;
+* ``fused=True, fused_sampling=False``: the v2 decoder step,
+  ``ops.decode_step.fused_decode_step``, with grammar and sampling in torch;
 * ``fused=False``: the model's own ``decode_step``.
 
-``fused=None`` resolves to the kernel on CUDA, as JAX's ``resolve_backend``
-(:157-181) picks it on a TPU, and to the plain loop on the CPU.  On CUDA
-the decoder never gives way to plain PyTorch by itself: a model the kernel
-does not fit, or a batch of more than 8, raises, and only an explicit
-``fused=False`` selects the plain loop.  The loop reads
-the done flags back to the host every ``SYNC_EVERY`` steps, not every
-step, so the host can queue a step while the card runs the previous one;
-a step after every element is done writes only padding, so the tokens,
-lengths and step count are those of a loop that stops at once.
+The fused calls launch the CUDA kernels on the card and run their plain
+twins on the CPU.  ``fused=None`` resolves to the kernel on CUDA, as JAX's
+``resolve_backend`` (:157-181) picks it on a TPU, and to the plain loop on
+the CPU; ``fused_sampling=None`` follows ``fused``.  On CUDA the decoder
+never gives way to plain PyTorch by itself: a model the kernel does not
+fit, or a batch of more than 8, raises, and only an explicit
+``fused=False`` selects the plain loop.  The loops read the done flags
+back to the host every ``SYNC_EVERY`` steps, not every step, so the host
+can queue a step while the card runs the previous one; a step after every
+element is done writes only padding, so the tokens, lengths and step count
+are those of a loop that stops at once.
 
 Output follows the reference's decoder-stream convention: concatenated
 spans, each introduced by ``m_0``, with no ``<eos>``.
@@ -42,13 +48,25 @@ import torch
 
 from ..models.transformer import ScoreTransformer
 from ..ops.decode_step import (
+    ST_DONE,
+    ST_LEN,
+    ST_TOKEN,
     fused_decode_step,
+    fused_decode_token,
     pack_decoder_weights,
+    pack_sampling_tables,
     stack_kv_cache,
     vocab_pad,
 )
 from ..vocab import WordVocab
-from .grammar import SPAN_BODY, GrammarTables, allowed_mask_fast, build_fast_tables, update_bits
+from .grammar import (
+    N_SID,
+    SPAN_BODY,
+    GrammarTables,
+    allowed_mask_fast,
+    build_fast_tables,
+    update_bits,
+)
 from .sampling import greedy_sample, gumbel_noise, masked_sample_gumbel
 
 SYNC_EVERY = 8
@@ -85,8 +103,6 @@ class InfillDecoder:
     seed: int = 0
 
     def __post_init__(self):
-        if self.fused_sampling:
-            raise _not_ported("fused_sampling=True (the v3 kernel)", "ROADMAP.md Queue 2 item 2")
         if self.token_chunk > 1:
             raise _not_ported("token_chunk > 1 (the v4 kernel)", "ROADMAP.md Queue 2 item 3")
         if self.draft_k > 0:
@@ -104,17 +120,23 @@ class InfillDecoder:
             )
         self.device = self.model.device
         self.resolve_backend()
-        masks, sid_from_bits, next_bits = build_fast_tables(self.tables)
-        self.fast_tables = tuple(
-            torch.as_tensor(a, device=self.device) for a in (masks, sid_from_bits, next_bits)
-        )
+        fast = build_fast_tables(self.tables)
+        self.fast_tables = tuple(torch.as_tensor(a, device=self.device) for a in fast)
+        self.sampling_tables = {
+            k: torch.as_tensor(a, device=self.device)
+            for k, a in pack_sampling_tables(
+                self.vocab, self.tables, fast, vocab_pad(self.tables.vocab_size)
+            ).items()
+        }
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._packed = None
 
     def resolve_backend(self) -> None:
         if self.fused is None:
             self.fused = self.device.type == "cuda"
-        self.fused_sampling = False
+        if self.fused_sampling is None:
+            self.fused_sampling = self.fused
+        self.fused_sampling = bool(self.fused_sampling and self.fused)
         cfg = self.model.cfg
         fits = (
             cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
@@ -139,7 +161,7 @@ class InfillDecoder:
         n_spans: np.ndarray,  # (B,)
         no_whole_duration,  # bool or (B,) bool
         generator: Optional[torch.Generator] = None,
-        noise=None,  # optional (max_tgt_len, B, V) Gumbel noise
+        noise=None,  # optional Gumbel noise, (max_tgt_len, B, V); v3: (max_tgt_len, B, vpad)
         forced=None,
         forced_len=None,
     ) -> DecodeResult:
@@ -173,10 +195,13 @@ class InfillDecoder:
             packed = self.packed()
             cross_kv = stack_kv_cache(cross, nl)
             cross_len = (~src_pad).sum(dim=1).to(torch.int32)
-            emb_table = model.embedding.weight
-            pos_table = model.pos_table
             cache = torch.zeros(nl, B, L, 2 * D, dtype=cfg.dtype, device=dev)
             kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
+            if self.fused_sampling:
+                return self._decode_v3(packed, cross_kv, cross_len, cache, kw, span_types,
+                                       n_spans, no_whole, generator, noise)
+            emb_table = model.embedding.weight
+            pos_table = model.pos_table
         else:
             cache = model.init_self_cache(B, L)
 
@@ -246,6 +271,61 @@ class InfillDecoder:
             span_idx, done = new_span_idx, now_done
             pos += 1
         return DecodeResult(tokens=out, lengths=lengths, steps=int(steps))
+
+    def _decode_v3(self, packed, cross_kv, cross_len, cache, kw, span_types, n_spans,
+                   no_whole, generator, noise) -> DecodeResult:
+        """The v3 token loop (JAX ``_v3_state0`` :704, ``_v3_loop`` :723)."""
+        t, dev = self.tables, self.device
+        B, L, vpad = span_types.shape[0], self.max_tgt_len, kw["vpad"]
+        if self.greedy:
+            noise = None
+        elif noise is None:
+            noise = gumbel_noise((L, B, vpad), generator if generator is not None else self.generator, dev)
+        else:
+            noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
+            if tuple(noise.shape) != (L, B, vpad):
+                raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(L, B, vpad)}")
+        i32 = torch.int32
+        state = torch.stack([
+            torch.full((B,), t.mask_index, dtype=i32, device=dev),  # ST_TOKEN
+            torch.zeros(B, dtype=i32, device=dev),  # ST_BITS
+            torch.ones(B, dtype=i32, device=dev),  # ST_STEPS
+            torch.zeros(B, dtype=i32, device=dev),  # ST_SPAN
+            (n_spans <= 0).to(i32),  # ST_DONE
+            torch.ones(B, dtype=i32, device=dev),  # ST_LEN
+        ])
+        aux = torch.stack([n_spans.to(i32), torch.broadcast_to(no_whole, (B,)).to(i32)])
+        span_types = span_types.to(i32).contiguous()
+        skw = dict(mode=t.mode, max_spans=self.max_spans, span_cap=self.span_cap,
+                   eos_index=t.eos_index, mask_index=t.mask_index, nucleus_p=self.nucleus_p,
+                   temperature=self.temperature, greedy=self.greedy, n_sid=N_SID,
+                   span_body=SPAN_BODY)
+        out = torch.zeros(B, L, dtype=torch.long, device=dev)
+        out[:, 0] = t.mask_index
+        pos = 0
+        while pos + 1 < L:
+            if pos % SYNC_EVERY == 0 and bool(state[ST_DONE].all()):
+                break
+            state, new_kv = fused_decode_token(
+                packed, self.sampling_tables, state, aux, span_types, noise, cache,
+                cross_kv, pos, cross_len, **kw, **skw,
+            )
+            out[:, pos + 1] = state[ST_TOKEN]
+            cache[:, :, pos] = new_kv
+            pos += 1
+        lengths = state[ST_LEN].long()
+        # JAX's loop stops at the first position where every element is
+        # done.  An element that becomes done in the step at position s
+        # wrote its last token in the step before, so its length is s + 1:
+        # the stop position is the longest length, or 0 when no element had
+        # a span, or L - 1 when one is still live.
+        if not bool(state[ST_DONE].all()):
+            steps = pos
+        elif bool((n_spans > 0).any()):
+            steps = int(lengths.max())
+        else:
+            steps = 0
+        return DecodeResult(tokens=out, lengths=lengths, steps=steps)
 
 
 def pad_to_bucket(

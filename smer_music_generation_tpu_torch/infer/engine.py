@@ -1,7 +1,7 @@
 """Host-side infilling orchestration around the decode loop.
 
 Port of ``smer_music_generation_tpu/infer/engine.py``: ``InfillEngine``
-(``__init__``, ``prepare`` :425, ``run_batch`` :478 with its group padding
+(``__init__``, ``prepare`` :425, ``run_batch`` :478 without its group padding
 to B in {1, 4, 8}, ``_assemble`` :565, ``_finish_group`` :585 with its
 bar-time retry loop, ``__call__`` :716) and copies of the host helpers
 ``fill_empty_bars`` (:41), ``mask_bar_and_track`` (:72),
@@ -17,7 +17,7 @@ JAX folds a new key.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -414,55 +414,32 @@ class InfillEngine:
         """Decode many infill requests as batched decoder sessions.
 
         Requests may differ in source length (padded to a common bucket),
-        span structure and time signature.  With the kernel, a batch below
-        8 is padded with done-at-start dummies to 1, 4 or 8, and larger
-        batches run as groups of 8, as the JAX engine does."""
+        span structure and time signature.  With the kernel, more than 8
+        requests run as groups of 8 and a last smaller group, as the JAX
+        engine groups them; a group is never padded with dummy rows, since
+        the CUDA kernels take any batch of 1 to 8 (JAX pads to 1, 4 or 8
+        for a Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``)."""
         if correct_controls:
             raise NotImplementedError(
                 "correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 3)"
             )
-        B = len(requests)
-        if B == 0:
+        if not requests:
             return []
         if generator is None:
             generator = self.decoder.generator
-        group = 8
-
-        def pad_decode(target: int) -> List[Optional[InfillResult]]:
-            padded = list(requests)
-            while len(padded) < target:
-                padded.append(replace(requests[-1], span_codes=[]))
-            asm = self._assemble(padded)
+        group = 8 if self.decoder.fused else len(requests)
+        pending = []
+        for i in range(0, len(requests), group):
+            grp = requests[i : i + group]
+            asm = self._assemble(grp)
             out = self._dispatch(asm[0], asm[1], asm[2], asm[3], generator)
-            return self._finish_group(
-                padded, generator, asm, out, fix_durations=fix_durations
-            )[:B]
-
-        if self.decoder.fused and B < group:
-            for target in (1, 4, 8):
-                if B <= target:
-                    break
-            if B != target:
-                return pad_decode(target)
-        if B > group and self.decoder.fused:
-            padded = list(requests)
-            while len(padded) % group:
-                padded.append(replace(requests[-1], span_codes=[]))
-            pending = []
-            for i in range(0, len(padded), group):
-                grp = padded[i : i + group]
-                asm = self._assemble(grp)
-                out = self._dispatch(asm[0], asm[1], asm[2], asm[3], generator)
-                pending.append((grp, asm, out))
-            results: List[Optional[InfillResult]] = []
-            for grp, asm, out in pending:
-                results.extend(
-                    self._finish_group(grp, generator, asm, out, fix_durations=fix_durations)
-                )
-            return results[:B]
-        asm = self._assemble(requests)
-        out = self._dispatch(asm[0], asm[1], asm[2], asm[3], generator)
-        return self._finish_group(requests, generator, asm, out, fix_durations=fix_durations)
+            pending.append((grp, asm, out))
+        results: List[Optional[InfillResult]] = []
+        for grp, asm, out in pending:
+            results.extend(
+                self._finish_group(grp, generator, asm, out, fix_durations=fix_durations)
+            )
+        return results
 
     def _assemble(self, requests: Sequence["PreparedRequest"]):
         """Pack requests into batch arrays."""

@@ -1,17 +1,23 @@
-"""One decoder step (v2) through hand-written CUDA kernels, plus its plain twin.
+"""One decoder step (v2) and one whole token (v3) through hand-written CUDA
+kernels, each beside its plain twin.
 
 Port of ``smer_music_generation_tpu/ops/decode_step.py``: the packers
-``pack_decoder_weights`` (:66), ``stack_kv_cache`` (:154) and ``vocab_pad``
-(:551), and the TPU kernel ``fused_decode_step`` (:456), which becomes the
-kernel set in ``csrc/decode_step.cu``.
+``pack_decoder_weights`` (:66), ``stack_kv_cache`` (:154), ``vocab_pad``
+(:551) and ``pack_sampling_tables`` (:571) with the ``ST_*`` / ``AUX_*`` /
+``_CL_*`` constants (:563-568), and the TPU kernels ``fused_decode_step``
+(v2, :456) and ``fused_decode_token`` (v3, :796), which become the kernel
+sets in ``csrc/decode_step.cu`` and ``csrc/decode_token.cu``.
 
 ``fused_decode_step`` keeps the JAX signature and returns
-``(logits (B, vpad) f32, new_kv (n_layers, B, 2D))``.  A tensor on the CPU
-goes to :func:`fused_decode_step_reference`, the same math in plain torch; a
-CUDA tensor launches the kernels or raises.  There is no fallback from one
-to the other.  The kernels are built at first use with ``nvcc`` into
-``build/torch_kernels/`` (named by the source's hash) and bound with
-``ctypes``; nothing is built when this module is imported.
+``(logits (B, vpad) f32, new_kv (n_layers, B, 2D))``; ``fused_decode_token``
+keeps it without ``interpret`` and returns ``(new_state (6, B) int32,
+new_kv)``.  A tensor on the CPU goes to the twin
+(:func:`fused_decode_step_reference`, :func:`fused_decode_token_reference`),
+the same math in plain torch; a CUDA tensor launches the kernels or raises.
+There is no fallback from one to the other.  The kernels are built at first
+use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over all the
+sources) and bound with ``ctypes``; nothing is built when this module is
+imported.
 
 Layouts follow the JAX packer: every packed weight keeps the flax
 ``(in, out)`` layout, K and V of a cache row are interleaved as lanes
@@ -30,15 +36,26 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 LN_EPS = 1e-6
-_SRC = Path(__file__).resolve().parent / "csrc" / "decode_step.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC",
 )
+
+# state rows carried through the v3 loop as one (6, B) int32 array
+ST_TOKEN, ST_BITS, ST_STEPS, ST_SPAN, ST_DONE, ST_LEN = range(6)
+# aux rows (constants per session): (2, B) int32
+AUX_NSPANS, AUX_NOWHOLE = range(2)
+# class_mat columns
+_CL_PITCH, _CL_DUR, _CL_SEP, _CL_REST, _CL_STEP, _CL_EOS, _CL_CONT = range(7)
+_N_CLASSES = 8  # padded to 8 lanes
+NEG = -1e9
 
 
 def vocab_pad(vocab_size: int) -> int:
@@ -58,6 +75,7 @@ def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, tor
       w_ff1  (nl, D, F), w_ff2 (nl, F, D)
       fin_ln (2, D) f32 when the model has ``norm_d``
       fc_w   (D, vpad) f32, fc_b (vpad,) f32, padded slots biased to -1e9
+      emb    (vpad, D): the embedding table, zero rows past the vocab
 
     torch ``Linear.weight`` is (out, in); it is transposed here back to
     the flax (in, out) layout the kernels read.
@@ -113,7 +131,37 @@ def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, tor
         packed["fc_b"] = torch.nn.functional.pad(
             model.fc.bias.float(), (0, vpad - V), value=-1e9
         ).contiguous()
+        packed["emb"] = torch.nn.functional.pad(
+            model.embedding.weight.detach().to(dt), (0, 0, 0, vpad - V)
+        ).contiguous()
     return packed
+
+
+def pack_sampling_tables(vocab, tables, fast_tables, vpad: int) -> Dict[str, np.ndarray]:
+    """Host tables for the v3 token's grammar and sampling (JAX :571):
+    state_masks_f (2 * N_SID, vpad) f32 (1 = allowed), class_mat (vpad, 8)
+    f32 and sid_tbl (16,) int32, all from the fast grammar tables.  The
+    decoder moves them to its device once."""
+    state_masks, sid_from_bits, _ = fast_tables
+    sm = np.asarray(state_masks, dtype=np.float32)  # (2, N_SID, V)
+    two, n_sid, V = sm.shape
+    out = np.zeros((two * n_sid, vpad), np.float32)
+    out[:, :V] = sm.reshape(two * n_sid, V)
+    cm = np.zeros((vpad, _N_CLASSES), np.float32)
+    t = tables
+    cm[:V, _CL_PITCH] = np.asarray(t.pitch, np.float32)
+    cm[:V, _CL_DUR] = np.asarray(t.duration_only, np.float32)
+    cm[:V, _CL_SEP] = np.asarray(t.sep, np.float32)
+    cm[:V, _CL_REST] = np.asarray(t.rest, np.float32)
+    cm[:V, _CL_STEP] = np.asarray(t.step, np.float32)
+    cm[:V, _CL_EOS] = np.asarray(t.eos, np.float32)
+    if t.continue_index >= 0:
+        cm[t.continue_index, _CL_CONT] = 1.0
+    return {
+        "state_masks_f": out,
+        "class_mat": cm,
+        "sid_tbl": np.asarray(sid_from_bits, np.int32),
+    }
 
 
 def stack_kv_cache(cross_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]], n_layers: int) -> torch.Tensor:
@@ -176,6 +224,14 @@ def fused_decode_step_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch twin of :func:`fused_decode_step`, on any device."""
     fused_decode_step_reference.calls += 1
+    return _decode_step_math(
+        packed, x_emb, self_kv, cross_kv, index, cross_len,
+        n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
+    )
+
+
+def _decode_step_math(packed, x_emb, self_kv, cross_kv, index, cross_len, *,
+                      n_layers, d_model, nhead, d_ff, vpad):
     D, F = d_model, d_ff
     dt = packed["w_attn"].dtype
     index = int(index)
@@ -216,6 +272,155 @@ def fused_decode_step_reference(
 fused_decode_step_reference.calls = 0
 
 
+def pe_row(index, D: int, device=None) -> torch.Tensor:
+    """The sinusoidal row of one position, (D,) f32, computed analytically
+    as the TPU kernel's ``_pe_row`` (:604) does: lane l is sin (l even) or
+    cos (l odd) of ``index * exp(-ln(1e4) * (l - l % 2) / D)``."""
+    lane = torch.arange(D, device=device)
+    freq = torch.exp((lane - lane % 2).float() * (-math.log(10000.0) / D))
+    angle = torch.tensor(float(index), device=device) * freq
+    return torch.where(lane % 2 == 0, torch.sin(angle), torch.cos(angle))
+
+
+def sampling_scores(
+    logits: torch.Tensor,  # (B, vpad) f32
+    state: torch.Tensor,  # (6, B) int32
+    aux: torch.Tensor,  # (2, B) int32
+    span_types: torch.Tensor,  # (B, max_spans) int32
+    noise_row: Optional[torch.Tensor],  # (B, vpad) f32 Gumbel row; None when greedy
+    tables: Dict[str, torch.Tensor],
+    *,
+    mode: int,
+    max_spans: int,
+    nucleus_p,
+    temperature: float,
+    greedy: bool,
+    n_sid: int,
+):
+    """The scores the v3 token takes its argmax over (JAX ``_sample_and_advance_b``
+    :637-672, batched over B): the grammar row, masked logits over the
+    temperature, the log-softmax, the nucleus rule and the Gumbel row.
+    Returns ``(final (B, vpad), above (B, vpad) or None)``, where ``above``
+    is the probability mass strictly above each lane's (nucleus only)."""
+    B = logits.shape[0]
+    rows = torch.arange(B, device=logits.device)
+    bits = state[ST_BITS].long()
+    steps = state[ST_STEPS].long()
+    cur_type = span_types[rows, state[ST_SPAN].long().clamp(max=max_spans - 1)].long()
+    is_start = steps == 1
+    flag_sid = tables["sid_tbl"].long()[bits]
+    start_sid = 5 + cur_type
+    if mode == 1:
+        sid = torch.where(is_start, start_sid, flag_sid)
+    else:
+        sid = torch.where(bits > 0, flag_sid, torch.where(is_start, start_sid, 0))
+    allowed = tables["state_masks_f"][aux[AUX_NOWHOLE].long() * n_sid + sid]
+    masked = torch.where(allowed > 0, logits, NEG) / temperature
+    # jax.nn.log_softmax's formula, so both packages round alike
+    shifted = masked - masked.amax(dim=-1, keepdim=True)
+    logp = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+    if greedy:
+        return logp, None
+    above = None
+    if nucleus_p is not None:
+        probs = torch.exp(logp)
+        above = torch.sum(probs[:, None, :] * (probs[:, None, :] > probs[:, :, None]), dim=-1)
+        logp = torch.where(above < nucleus_p, logp, NEG)
+    return logp + noise_row, above
+
+
+def sample_and_advance_reference(
+    logits, state, aux, span_types, noise, index, tables, *,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
+) -> torch.Tensor:
+    """Plain-torch twin of ``sample_advance_kernel``: the sampled token and
+    the (6, B) int32 state advance of JAX :673-722 for every row."""
+    index = int(index)
+    final, _ = sampling_scores(
+        logits, state, aux, span_types, None if greedy else noise[index], tables,
+        mode=mode, max_spans=max_spans, nucleus_p=nucleus_p,
+        temperature=temperature, greedy=greedy, n_sid=n_sid,
+    )
+    sampled = torch.argmax(final, dim=-1)  # the first index on ties, as jnp.argmax
+    B = logits.shape[0]
+    rows = torch.arange(B, device=logits.device)
+    bits = state[ST_BITS].long()
+    steps = state[ST_STEPS].long()
+    span_idx = state[ST_SPAN].long()
+    done = state[ST_DONE] > 0
+    cur_type = span_types[rows, span_idx.clamp(max=max_spans - 1)].long()
+    fl = tables["class_mat"][sampled] > 0  # (B, 8)
+    is_pitch, is_dur, is_sep, is_rest, is_step, is_cont = (
+        fl[:, c] for c in (_CL_PITCH, _CL_DUR, _CL_SEP, _CL_REST, _CL_STEP, _CL_CONT)
+    )
+    b_sep, b_cont, b_pitch, b_rest = ((bits & m) > 0 for m in (8, 4, 2, 1))
+    if mode == 1:
+        n_sep = n_rest = torch.zeros_like(is_pitch)
+        n_cont = torch.where(is_step, True, torch.where(is_pitch | is_dur, False, b_cont))
+        n_pitch = torch.where(is_pitch, True, torch.where(is_step | is_dur, False, b_pitch))
+    else:
+        n_sep = torch.where(is_sep, True, torch.where(is_cont | is_pitch, False, b_sep))
+        n_cont = torch.where(is_cont, True, torch.where(is_pitch, False, b_cont))
+        n_pitch = torch.where(is_pitch, True, torch.where(is_dur, False, b_pitch))
+        n_rest = torch.where(is_rest, True, torch.where(is_dur, False, b_rest))
+    new_bits = n_sep.long() * 8 + n_cont.long() * 4 + n_pitch.long() * 2 + n_rest.long()
+
+    control_done = (cur_type != span_body) & (steps >= 2)
+    # the cap counts the introducing m_0 (reference generation.py:542)
+    end_span = (sampled == eos_index) | (steps >= span_cap) | control_done
+    new_span_idx = torch.where(end_span, span_idx + 1, span_idx)
+    now_done = done | (new_span_idx >= aux[AUX_NSPANS].long())
+    next_tok = torch.where(end_span, mask_index, sampled)
+    next_tok = torch.where(now_done, 0, next_tok)  # now_done covers done
+    new_bits = torch.where(end_span | done, 0, new_bits)
+    new_steps = torch.where(end_span, 1, steps + 1)
+    new_len = torch.where(next_tok != 0, index + 2, state[ST_LEN].long())
+    return torch.stack(
+        [next_tok, new_bits, new_steps, new_span_idx, now_done.long(), new_len]
+    ).to(torch.int32)
+
+
+def fused_decode_token_reference(
+    packed: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    state: torch.Tensor,
+    aux: torch.Tensor,
+    span_types: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    self_kv: torch.Tensor,
+    cross_kv: torch.Tensor,
+    index,
+    cross_len: torch.Tensor,
+    *,
+    n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of :func:`fused_decode_token`, on any device: the
+    embedding row x sqrt(D) plus the analytic PE row, in f32 (not rounded
+    before the first layer, as the TPU kernel keeps ``x_s`` in f32), then
+    the v2 twin, then the sampler and state advance."""
+    fused_decode_token_reference.calls += 1
+    index = int(index)
+    emb = packed["emb"][state[ST_TOKEN].long()].float()
+    x = emb * math.sqrt(d_model) + pe_row(index, d_model, emb.device)
+    logits, new_kv = _decode_step_math(
+        packed, x, self_kv, cross_kv, index, cross_len,
+        n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
+    )
+    new_state = sample_and_advance_reference(
+        logits, state, aux, span_types, noise, index, tables,
+        mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
+        mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
+        greedy=greedy, n_sid=n_sid, span_body=span_body,
+    )
+    return new_state, new_kv
+
+
+fused_decode_token_reference.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -231,31 +436,50 @@ def _nvcc() -> str:
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA decode-step kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA decode kernels cannot be built")
 
 
 def build_library() -> Path:
-    """Compile ``csrc/decode_step.cu`` into ``build/torch_kernels/`` unless a
-    library of the same source hash is there already.  Raises with nvcc's
-    stderr when the build fails."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libsmer_decode_step_{digest}.so"
+    """Compile ``csrc/*.cu`` into one shared library under
+    ``build/torch_kernels/`` unless a library of the same source hash is
+    there already.  One nvcc per source, all started together, then one
+    link.  Raises with nvcc's stderr when a step fails."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest = h.hexdigest()[:16]
+    out = _BUILD_DIR / f"libsmer_decode_{digest}.so"
     if out.is_file():
         BUILD_INFO.setdefault("path", str(out))
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "(built before this process)")
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
+    jobs = []
+    for src in _SOURCES:
+        obj = _BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    logs = []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        logs.append(err)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log=proc.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log="\n".join(logs))
     return out
 
 
@@ -267,7 +491,12 @@ def load_library() -> ctypes.CDLL:
         lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, i, p, i, i, i, i, p]
         lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, p, i, p, i, f, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
-        for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm):
+        lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, i, f, p, p]
+        lib.smer_sample_advance.argtypes = (
+            [i, i] + [p] * 9 + [i] * 7 + [f, f, i, i, p]
+        )
+        for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
+                   lib.smer_embed_pe, lib.smer_sample_advance):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -278,94 +507,64 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
-def _check_inputs(packed, x_emb, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad, index):
-    dev = x_emb.device
-    bf16 = torch.bfloat16
-    want = {
-        "x_emb": (x_emb, bf16), "self_kv": (self_kv, bf16), "cross_kv": (cross_kv, bf16),
-        "cross_len": (cross_len, torch.int32),
-        "w_attn": (packed["w_attn"], bf16), "w_ff1": (packed["w_ff1"], bf16),
-        "w_ff2": (packed["w_ff2"], bf16), "bias": (packed["bias"], torch.float32),
-        "ln": (packed["ln"], torch.float32), "fc_w": (packed["fc_w"], torch.float32),
-        "fc_b": (packed["fc_b"], torch.float32),
-    }
-    if "fin_ln" in packed:
-        want["fin_ln"] = (packed["fin_ln"], torch.float32)
-    for name, (t, dtype) in want.items():
+def _check_tensors(dev, want) -> None:
+    """``want``: name -> (tensor, dtype, shape); each must lie on ``dev``,
+    have that dtype and shape and be contiguous."""
+    for name, (t, dtype, shape) in want.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x_emb on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    B = x_emb.shape[0]
+
+
+def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad, index):
     if not 1 <= B <= 8:
         raise ValueError(f"the CUDA decode step takes 1 <= B <= 8, got B={B}")
     if D % 64 or D // H not in (64, 128) or D % H:
         raise ValueError(f"d_model={D}, nhead={H}: need d_model % 64 == 0 and head_dim 64 or 128")
     if vpad % 2:
         raise ValueError(f"vpad={vpad} must be even")
+    if "scale" in packed:
+        raise NotImplementedError("int8 weights are not ported yet (ROADMAP.md Queue 2 item 5)")
+    bf16, f32 = torch.bfloat16, torch.float32
     L, S = self_kv.shape[2], cross_kv.shape[2]
-    shapes = {
-        "x_emb": (x_emb.shape, (B, D)),
-        "self_kv": (self_kv.shape, (n_layers, B, L, 2 * D)),
-        "cross_kv": (cross_kv.shape, (n_layers, B, S, 2 * D)),
-        "cross_len": (cross_len.shape, (B,)),
-        "w_attn": (packed["w_attn"].shape, (n_layers, D, 6 * D)),
-        "w_ff1": (packed["w_ff1"].shape, (n_layers, D, F)),
-        "w_ff2": (packed["w_ff2"].shape, (n_layers, F, D)),
-        "bias": (packed["bias"].shape, (n_layers, 1, 7 * D + F)),
-        "ln": (packed["ln"].shape, (n_layers, 6, D)),
-        "fc_w": (packed["fc_w"].shape, (D, vpad)),
-        "fc_b": (packed["fc_b"].shape, (vpad,)),
+    want = {
+        "self_kv": (self_kv, bf16, (n_layers, B, L, 2 * D)),
+        "cross_kv": (cross_kv, bf16, (n_layers, B, S, 2 * D)),
+        "cross_len": (cross_len, torch.int32, (B,)),
+        "w_attn": (packed["w_attn"], bf16, (n_layers, D, 6 * D)),
+        "w_ff1": (packed["w_ff1"], bf16, (n_layers, D, F)),
+        "w_ff2": (packed["w_ff2"], bf16, (n_layers, F, D)),
+        "bias": (packed["bias"], f32, (n_layers, 1, 7 * D + F)),
+        "ln": (packed["ln"], f32, (n_layers, 6, D)),
+        "fc_w": (packed["fc_w"], f32, (D, vpad)),
+        "fc_b": (packed["fc_b"], f32, (vpad,)),
     }
-    for name, (got, exp) in shapes.items():
-        if tuple(got) != tuple(exp):
-            raise ValueError(f"{name} has shape {tuple(got)}, expected {tuple(exp)}")
+    if "fin_ln" in packed:
+        want["fin_ln"] = (packed["fin_ln"], f32, (2, D))
+    _check_tensors(dev, want)
     if not 0 <= index < L:
         raise ValueError(f"index={index} outside the self cache of {L} rows")
 
 
-def fused_decode_step(
-    packed: Dict[str, torch.Tensor],
-    x_emb: torch.Tensor,  # (B, D) compute-dtype embedded token (+PE)
-    self_kv: torch.Tensor,  # (n_layers, B, L, 2D) interleaved K|V
-    cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
-    index,  # int: number of cached self rows (= position)
-    cross_len: torch.Tensor,  # (B,) int32 valid memory rows
-    *,
-    n_layers: int,
-    d_model: int,
-    nhead: int,
-    d_ff: int,
-    vpad: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, vpad) f32, new_kv (n_layers, B, 2D))."""
-    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
-    if x_emb.device.type == "cpu":
-        return fused_decode_step_reference(packed, x_emb, self_kv, cross_kv, index, cross_len, **kw)
-    if x_emb.device.type != "cuda":
-        raise ValueError(f"fused_decode_step runs on cuda or cpu, not {x_emb.device}")
-    if "scale" in packed:
-        raise NotImplementedError("int8 weights are not ported yet (ROADMAP.md Queue 2 item 5)")
-    index = int(index)
-    D, H, F = d_model, nhead, d_ff
-    _check_inputs(packed, x_emb, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad, index)
-    lib = load_library()
-    B, L, S = x_emb.shape[0], self_kv.shape[2], cross_kv.shape[2]
+def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
+                   *, n_layers, D, H, F, vpad, stream) -> None:
+    """The v2 launches on an f32 activation ``x`` (B, D), updated in place:
+    11 a layer, the final LN and the logits.  Writes ``logits`` (B, vpad)
+    f32 and ``new_kv`` (n_layers, B, 2D)."""
+    B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
     HD = D // H
     scale = 1.0 / math.sqrt(HD)
-    stream = torch.cuda.current_stream(x_emb.device).cuda_stream
-    f32 = dict(device=x_emb.device, dtype=torch.float32)
-
-    x = x_emb.float()
+    f32 = dict(device=x.device, dtype=torch.float32)
     qkv = torch.empty(B, 3 * D, **f32)
     att = torch.empty(B, D, **f32)
     qc = torch.empty(B, D, **f32)
     o = torch.empty(B, D, **f32)
     h = torch.empty(B, F, **f32)
-    logits = torch.empty(B, vpad, **f32)
-    new_kv = torch.empty(n_layers, B, 2 * D, dtype=self_kv.dtype, device=x_emb.device)
 
     def rowvec(xin, w, ldw, bias, y, relu=False, kv_out=None, w_f32=False):
         K, N = xin.shape[1], y.shape[1]
@@ -410,12 +609,160 @@ def fused_decode_step(
     if "fin_ln" in packed:
         add_ln(x, None, packed["fin_ln"][0], packed["fin_ln"][1])
     rowvec(x, packed["fc_w"], vpad, packed["fc_b"], logits, w_f32=True)
+
+
+def fused_decode_step(
+    packed: Dict[str, torch.Tensor],
+    x_emb: torch.Tensor,  # (B, D) compute-dtype embedded token (+PE)
+    self_kv: torch.Tensor,  # (n_layers, B, L, 2D) interleaved K|V
+    cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
+    index,  # int: number of cached self rows (= position)
+    cross_len: torch.Tensor,  # (B,) int32 valid memory rows
+    *,
+    n_layers: int,
+    d_model: int,
+    nhead: int,
+    d_ff: int,
+    vpad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, vpad) f32, new_kv (n_layers, B, 2D))."""
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    if x_emb.device.type == "cpu":
+        return fused_decode_step_reference(packed, x_emb, self_kv, cross_kv, index, cross_len, **kw)
+    if x_emb.device.type != "cuda":
+        raise ValueError(f"fused_decode_step runs on cuda or cpu, not {x_emb.device}")
+    index = int(index)
+    B, D = x_emb.shape[0], d_model
+    _check_step_inputs(packed, B, x_emb.device, self_kv, cross_kv, cross_len,
+                       n_layers, D, nhead, d_ff, vpad, index)
+    _check_tensors(x_emb.device, {"x_emb": (x_emb, torch.bfloat16, (B, D))})
+    lib = load_library()
+    stream = torch.cuda.current_stream(x_emb.device).cuda_stream
+    x = x_emb.float()  # a copy: the launches update it in place
+    logits = torch.empty(B, vpad, device=x.device, dtype=torch.float32)
+    new_kv = torch.empty(n_layers, B, 2 * D, dtype=self_kv.dtype, device=x.device)
+    _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
+                   n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream)
     fused_decode_step.launches += 1
     return logits, new_kv
 
 
 fused_decode_step.launches = 0
 
+
+def _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, *,
+                           greedy, n_sid, max_spans, **_):
+    B = state.shape[1]
+    if vpad % 32 or not 32 <= vpad <= 1024:
+        raise ValueError(f"vpad={vpad}: the sampling kernel needs a multiple of 32 in [32, 1024]")
+    want = {
+        "state": (state, torch.int32, (6, B)),
+        "aux": (aux, torch.int32, (2, B)),
+        "span_types": (span_types, torch.int32, (B, max_spans)),
+        "state_masks_f": (tables["state_masks_f"], torch.float32, (2 * n_sid, vpad)),
+        "class_mat": (tables["class_mat"], torch.float32, (vpad, _N_CLASSES)),
+        "sid_tbl": (tables["sid_tbl"], torch.int32, (16,)),
+    }
+    if not greedy:
+        want["noise"] = (noise, torch.float32, (noise.shape[0], B, vpad))
+        if not 0 <= index < noise.shape[0]:
+            raise ValueError(f"index={index} outside the noise of {noise.shape[0]} rows")
+    _check_tensors(state.device, want)
+
+
+def _launch_sample_advance(lib, logits, state, aux, span_types, noise, index, tables, state_out, *,
+                           stream, mode, max_spans, span_cap, eos_index, mask_index,
+                           nucleus_p, temperature, greedy, n_sid, span_body) -> None:
+    B, vpad = logits.shape
+    use_nucleus = nucleus_p is not None and not greedy
+    _check(lib.smer_sample_advance(
+        B, vpad, logits.data_ptr(), state.data_ptr(), aux.data_ptr(), span_types.data_ptr(),
+        tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
+        tables["class_mat"].data_ptr(), None if greedy else noise.data_ptr(),
+        state_out.data_ptr(), index, mode, max_spans, span_cap, eos_index,
+        mask_index, int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
+        float(temperature), n_sid, span_body, stream,
+    ), "sample_advance")
+
+
+def sample_and_advance(logits, state, aux, span_types, noise, index, tables, **skw) -> torch.Tensor:
+    """The last stage of the v3 token alone: ``sample_advance_kernel`` on a
+    CUDA tensor, :func:`sample_and_advance_reference` on a CPU one.  For
+    holding the kernel against its twin on the same logits; the decoder
+    never calls it, and it counts no launch."""
+    if logits.device.type == "cpu":
+        return sample_and_advance_reference(logits, state, aux, span_types, noise, index, tables, **skw)
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_and_advance runs on cuda or cpu, not {logits.device}")
+    index = int(index)
+    B, vpad = logits.shape
+    _check_tensors(logits.device, {"logits": (logits, torch.float32, (B, vpad))})
+    _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, **skw)
+    state_out = torch.empty(6, B, dtype=torch.int32, device=logits.device)
+    _launch_sample_advance(load_library(), logits, state, aux, span_types, noise, index, tables,
+                           state_out, stream=torch.cuda.current_stream(logits.device).cuda_stream,
+                           **skw)
+    return state_out
+
+
+def fused_decode_token(
+    packed: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    state: torch.Tensor,  # (6, B) int32 - ST_* rows
+    aux: torch.Tensor,  # (2, B) int32 - AUX_* rows
+    span_types: torch.Tensor,  # (B, max_spans) int32
+    noise: Optional[torch.Tensor],  # (L, B, vpad) f32 Gumbel rows; unused when greedy
+    self_kv: torch.Tensor,  # (n_layers, B, L, 2D)
+    cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
+    index,  # int position
+    cross_len: torch.Tensor,  # (B,) int32
+    *,
+    n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full decode token: embed -> decoder layers -> sample -> advance.
+
+    Returns (new_state (6, B) int32, new_kv (n_layers, B, 2D)).  On CUDA,
+    48 launches in stream order with no host synchronisation."""
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    skw = dict(mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
+               mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
+               greedy=greedy, n_sid=n_sid, span_body=span_body)
+    if state.device.type == "cpu":
+        return fused_decode_token_reference(packed, tables, state, aux, span_types, noise,
+                                            self_kv, cross_kv, index, cross_len, **kw, **skw)
+    if state.device.type != "cuda":
+        raise ValueError(f"fused_decode_token runs on cuda or cpu, not {state.device}")
+    index = int(index)
+    B, D, dev = state.shape[1], d_model, state.device
+    _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len,
+                       n_layers, D, nhead, d_ff, vpad, index)
+    _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, **skw)
+    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x = torch.empty(B, D, device=dev, dtype=torch.float32)
+    _check(lib.smer_embed_pe(
+        B, D, state.data_ptr() + ST_TOKEN * B * state.element_size(), packed["emb"].data_ptr(),
+        vpad, math.sqrt(D), index, -math.log(10000.0) / D, x.data_ptr(), stream,
+    ), "embed_pe")
+    logits = torch.empty(B, vpad, device=dev, dtype=torch.float32)
+    new_kv = torch.empty(n_layers, B, 2 * D, dtype=self_kv.dtype, device=dev)
+    _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
+                   n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream)
+    new_state = torch.empty(6, B, dtype=torch.int32, device=dev)
+    _launch_sample_advance(lib, logits, state, aux, span_types, noise, index, tables, new_state,
+                           stream=stream, **skw)
+    fused_decode_token.launches += 1
+    return new_state, new_kv
+
+
+fused_decode_token.launches = 0
+
+
 def reset_counts() -> None:
     fused_decode_step.launches = 0
     fused_decode_step_reference.calls = 0
+    fused_decode_token.launches = 0
+    fused_decode_token_reference.calls = 0

@@ -1,0 +1,94 @@
+"""CLI: start the infilling HTTP server on the PyTorch port.
+
+Port of ``smer_music_generation_tpu/serve/serve_cli.py``:
+
+    python -m smer_music_generation_tpu_torch.serve.serve_cli \\
+        [--checkpoint PATH|random] [--port 5000] [--device cpu]
+
+With no ``--checkpoint`` and no ``--config`` it serves the committed
+trained snapshot ``assets/flagship_params.msgpack``; ``--checkpoint
+random`` gives random weights.  On CUDA (the default) the model computes
+in bf16 and decodes through the v3 kernels; on the CPU it computes in f32
+through the plain loop.  A missing card raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from ..train.state import default_flagship_snapshot, load_inference_model
+from ..utils.config import ExperimentConfig
+from ..utils.logging import logger_init
+from ..vocab import WordVocab
+from .app import ServingContext, serve
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--checkpoint", type=str, default=None)
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--host", type=str, default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=5000)
+    parser.add_argument("--nucleus_p", type=float, default=0.9)
+    parser.add_argument("--temperature", type=float, default=1.0)
+    parser.add_argument("--batch_window_ms", type=float, default=8.0,
+                        help="coalesce concurrent /generate requests into "
+                        "batched decodes for up to this many ms (0 = off)")
+    parser.add_argument("--max_batch", type=int, default=8)
+    parser.add_argument("--draft_k", type=int, default=0,
+                        help="speculative decode (not ported yet)")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="data-parallel serving over N cards (not ported yet)")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    if args.dp > 1:
+        raise NotImplementedError(
+            "--dp > 1 (multi-GPU serving) is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8)"
+        )
+    if args.draft_k > 0:
+        raise NotImplementedError(
+            "--draft_k > 0 (speculative decode) is not ported to PyTorch yet "
+            "(ROADMAP.md Queue 2 item 4)"
+        )
+    logger = logger_init(None)
+    device = torch.device(args.device)
+    cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
+    vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if args.checkpoint == "random":
+        args.checkpoint = None
+    elif args.checkpoint is None and args.config is None and cfg.vocab_mode == 0:
+        args.checkpoint = default_flagship_snapshot()
+        if args.checkpoint:
+            logger.info("no --checkpoint: serving the committed trained "
+                        "snapshot (pass '--checkpoint random' for random "
+                        "weights)")
+    model, epoch = load_inference_model(cfg, vocab.vocab_size, args.checkpoint, dtype, device=device)
+    if args.checkpoint:
+        logger.info(f"loaded checkpoint {args.checkpoint} (epoch {epoch}) onto {device}")
+    else:
+        logger.warning("serving with RANDOM weights (no --checkpoint given)")
+
+    ctx = ServingContext(
+        model, vocab, nucleus_p=args.nucleus_p, temperature=args.temperature,
+        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+    )
+    server = serve(ctx, host=args.host, port=args.port)
+    logger.info(f"serving on {server.server_address}")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.shutdown()
+        server.server_close()
+        ctx.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

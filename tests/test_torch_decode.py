@@ -2,11 +2,14 @@
 
 Same weights (a small model, JAX init), same requests (serving streams of
 the two-track test score, masked by the port's engine), and for nucleus
-sampling the same noise: ``jax.random.gumbel(rng, (L, B, V))``, which the
-JAX decoder draws itself and the port is handed as numpy.  Compared
-against the XLA loop (``fused=False``) and the v2 kernel loop
-(``fused=True, fused_sampling=False, interpret=True``); the port runs its
-plain loop and its kernel loop (the twin, on the CPU).
+sampling the same noise: ``jax.random.gumbel(rng, (L, B, V))`` for the XLA
+and v2 loops and ``(L, B, vpad)`` for the v3 loop, which the JAX decoder
+draws itself and the port is handed as numpy.  Compared against the XLA
+loop (``fused=False``), the v2 kernel loop (``fused=True,
+fused_sampling=False, interpret=True``) and the v3 kernel loop
+(``fused=True, fused_sampling=True, interpret=True``); the port runs its
+plain loop and its kernel loops (the twins, on the CPU).  Tokens, lengths
+and step counts must be equal.
 """
 
 import jax
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 
 from smer_music_generation_tpu.infer.decode import InfillDecoder as JDecoder
+from smer_music_generation_tpu.ops.decode_step import vocab_pad
 from smer_music_generation_tpu.vocab import CONTROL_SETS, WordVocab
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
 from smer_music_generation_tpu_torch.infer.engine import InfillEngine
@@ -69,7 +73,9 @@ def test_decoder_token_exact(setup, B, greedy, jax_fused, span_cap):
         jax.random.gumbel(rng, (L, B, vocab.vocab_size), dtype=np.float32)
     )
     for fused in (False, True):
-        got = InfillDecoder(tmodel, tvocab, fused=fused, **kw)(*args, noise=noise)
+        got = InfillDecoder(tmodel, tvocab, fused=fused, fused_sampling=False, **kw)(
+            *args, noise=noise
+        )
         np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
         np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
         assert got.steps == int(want.steps)
@@ -82,6 +88,53 @@ def test_decoder_token_exact(setup, B, greedy, jax_fused, span_cap):
             assert max(np.diff(bounds)) <= span_cap
 
 
+V3_CASES = [  # (B, greedy, span_cap)
+    (1, True, 40),
+    (1, False, 40),
+    (4, True, 12),
+    (4, False, 40),
+    (4, False, 12),
+]
+
+
+@pytest.mark.parametrize(
+    "B,greedy,span_cap", V3_CASES,
+    ids=[f"B{b}-{'greedy' if g else 'nucleus'}-cap{c}" for b, g, c in V3_CASES],
+)
+def test_v3_decoder_token_exact(setup, B, greedy, span_cap):
+    """The port's default kernel loop (v3, its twin on the CPU) against
+    JAX's v3 loop in interpret mode."""
+    vocab, tvocab, jmodel, params, tmodel, (src, span_types, n_spans, no_whole) = setup
+    args = (src[:B], span_types[:B], n_spans[:B], no_whole[:B])
+    kw = dict(max_tgt_len=L, span_cap=span_cap, greedy=greedy,
+              nucleus_p=None if greedy else 0.9)
+    rng = jax.random.PRNGKey(9)
+    jdec = JDecoder(jmodel, vocab, fused=True, fused_sampling=True, interpret=True, **kw)
+    want = jdec(params, *args, rng)
+    noise = None if greedy else np.asarray(
+        jax.random.gumbel(rng, (L, B, vocab_pad(vocab.vocab_size)), dtype=np.float32)
+    )
+    dec = InfillDecoder(tmodel, tvocab, fused=True, **kw)
+    assert dec.fused_sampling is True  # fused_sampling=None follows fused
+    got = dec(*args, noise=noise)
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    assert got.steps == int(want.steps)
+
+
+def test_v3_batch_of_three_equals_plain_loop(setup):
+    """B=3, which the TPU kernel cannot take and the CUDA kernels can: the v3
+    loop gives the plain loop's greedy tokens."""
+    _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
+    args = (src[:3], span_types[:3], n_spans[:3], no_whole[:3])
+    kw = dict(max_tgt_len=L, span_cap=40, greedy=True, nucleus_p=None)
+    want = InfillDecoder(tmodel, tvocab, fused=False, **kw)(*args)
+    got = InfillDecoder(tmodel, tvocab, fused=True, **kw)(*args)
+    np.testing.assert_array_equal(got.tokens.numpy(), want.tokens.numpy())
+    np.testing.assert_array_equal(got.lengths.numpy(), want.lengths.numpy())
+    assert got.steps == want.steps
+
+
 def test_max_tgt_len_beyond_max_len_raises(setup):
     _, tvocab, _, _, tmodel, _ = setup
     with pytest.raises(ValueError, match="positional limit"):
@@ -89,8 +142,7 @@ def test_max_tgt_len_beyond_max_len_raises(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fused_sampling=True), dict(token_chunk=4), dict(draft_k=2),
-    dict(quant="int8"), dict(mesh=object()),
+    dict(token_chunk=4), dict(draft_k=2), dict(quant="int8"), dict(mesh=object()),
 ])
 def test_unported_options_raise(setup, kw):
     _, tvocab, _, _, tmodel, _ = setup

@@ -49,7 +49,7 @@ def test_packer_matches_jax(setup):
     jmodel, params, tmodel, vpad = setup
     want = jax_pack(params, jmodel.cfg, vpad)
     got = pack_decoder_weights(tmodel, vpad)
-    assert set(got) == set(want) - {"emb"}
+    assert set(got) == set(want)
     for k, v in got.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]), err_msg=k)
 

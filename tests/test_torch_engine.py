@@ -2,7 +2,8 @@
 
 A greedy ``InfillEngine.__call__`` on a small model gives the same event
 list as the JAX engine with identical weights; a 3-request ``run_batch``
-(padded to 4 on the kernel loop) equals the requests decoded one by one;
+on the kernel loop decodes as one batch of 3 (no padding rows) and equals
+the requests decoded one by one;
 the CLI writes a MIDI file that reads back.
 """
 
@@ -52,6 +53,10 @@ def test_greedy_call_matches_jax_engine(setup, fused):
 
 
 def test_run_batch_padded_to_four_equals_one_by_one(setup):
+    """3 requests on the kernel loop decode as one batch of 3, with no
+    padding rows, and equal the same requests decoded one by one.  The
+    name is kept from when the engine padded such a batch to 4, so the
+    test stays matched to its earlier results."""
     _, tvocab, _, _, tmodel, events = setup
     eng = InfillEngine(tmodel, tvocab, greedy=True, nucleus_p=None, max_tgt_len=512, fused=True)
     reqs = [eng.prepare(events, [0], [1]), eng.prepare(events, [1], [3]),
@@ -65,7 +70,7 @@ def test_run_batch_padded_to_four_equals_one_by_one(setup):
 
     eng._dispatch = spy
     batched = eng.run_batch(reqs)
-    assert seen == [4]
+    assert seen == [3]
     for req, res in zip(reqs, batched):
         alone = eng.run_batch([req])[0]
         assert res.generated == alone.generated
