@@ -24,15 +24,33 @@ paths and prints one line per phase with the elapsed seconds:
    what that tolerance allows (counted, at most 2% of the rows); then
    ``sample_advance_kernel`` alone on the twin's logits, equal to the
    twin's sampler except at exact ties (margin within a 1e-5 move of the
-   log-probabilities, counted); times and bound at the served shape;
+   log-probabilities, counted); times and bound at the served shape; then
+   the same on a REMI-vocabulary flagship (B in {1, 3, 8}, S 1536, index 0
+   and 512);
+2c. v4 kernel: ``fused_decode_tokens`` for B in {1, 3, 8}, T_chunk in
+   {1, 8, 64}, base index in {0, 512, 1472}, greedy and nucleus, SMER and
+   REMI: tokens, state and K/V bit-equal to the v3 kernel run T_chunk times
+   over the spliced cache; against the twin, each row's tokens equal up to
+   a token where the twin's margin is within the tolerance (at most 2% of
+   the rows), ``new_kv`` within the tolerance up to there; v4's time at
+   T_chunk 8 and 64 at the served shape beside its bound;
+2d. int8: ``rowvec_int8`` against its twin at the six matrix shapes of each
+   layer, B in {1, 3, 8}, timed over a token's 24 int8 matrices at B=3;
+   then v2, v3 and v4 with ``quant="int8"`` weights against their twins
+   under the same tolerance and margin rule (v3-int8 timed at the served
+   shape, with its kernel split);
 3. serve: the committed trained snapshot on the card in bf16, a seeded
    3-track 16-bar 4/4 score, ``generate_cli.main`` infilling 2 bars of one
    track (greedy), then ``InfillEngine.run_batch`` on 3 nucleus requests,
    decoded as one batch of 3; every result must restore, close its bars
    and write a MIDI file that reads back, and the path must have gone
-   through the v3 kernels only (no twin, no v2 step).  Then the same 3
-   requests through the v2 path (``fused_sampling=False``), which must
-   launch the v2 kernels and call no twin;
+   through the v3 kernels only (no twin, no other kernel).  Then the same
+   3 requests through the v2 path (``fused_sampling=False``), through v4
+   (``InfillDecoder(token_chunk=8)``, which must decode the v3 run's tokens
+   and steps) and through v3 with ``InfillEngine(quant="int8")``, each on
+   its own kernels alone; then 3 nucleus requests on the committed REMI
+   snapshot (``assets/flagship_remi_params.msgpack``, loaded with the
+   config its sidecar names) through v3;
 3b. HTTP: ``serve.app.serve`` on the trained snapshot, ``GET /health``,
    ``POST /encode`` of the score as the plugin's note dict, 3 concurrent
    ``POST /generate``; each answer must be 200 with events and no ``m_0``,
@@ -42,7 +60,9 @@ paths and prints one line per phase with the elapsed seconds:
 4. kernel path vs twin path: one greedy request decoded through the kernels
    and through the twin on the card, for v2 and for v3, and where they
    first differ; a difference at a step where the twin's margin between
-   the two tokens exceeds what the phase-2 tolerance allows is a failure.
+   the two tokens exceeds what the phase-2 tolerance allows is a failure;
+   then the greedy v3-int8 stream against the v2-int8 stream, under the
+   same rule.
 
 Then a JSON line describing the kernels, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
@@ -51,6 +71,7 @@ CUDA device it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import math
@@ -75,6 +96,7 @@ from smer_music_generation_tpu_torch.codec.midi import (
     TimeSignature,
     read_midi,
 )
+from smer_music_generation_tpu_torch.codec.remi import remi_to_midi, smer_to_remi
 from smer_music_generation_tpu_torch.codec.smer import events_to_midi
 from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer import generate_cli
@@ -232,13 +254,13 @@ def make_score(bars=16, tracks=3, tempo=100.0, seed=7) -> MidiScore:
     return s
 
 
-def random_flagship(dev):
+def random_flagship(dev, mode: int = 0):
     """The flagship-width decoder with seeded random bf16 weights, random
     biases and random LayerNorm parameters (a fresh model has zero biases
     and unit LayerNorms, so a kernel that dropped a bias or read the wrong
-    offset would still agree)."""
-    torch.manual_seed(0)
-    vocab = WordVocab(0, ExperimentConfig().control_list)
+    offset would still agree), for the SMER (0) or REMI (1) vocabulary."""
+    torch.manual_seed(mode)
+    vocab = WordVocab(mode, ExperimentConfig().control_list)
     model = ScoreTransformer(ModelConfig(
         vocab_size=vocab.vocab_size, d_model=D, nhead=H, num_encoder_layers=1,
         num_decoder_layers=NL, d_ff=F, dtype=torch.bfloat16,
@@ -253,18 +275,19 @@ def random_flagship(dev):
     return vocab, model, ds.pack_decoder_weights(model, vpad), vpad
 
 
-def phase_kernel_vs_twin(dev, packed, vocab, vpad):
+def phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1024, 1536),
+                         indices=(0, 1, 511, 512, 1023)):
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
     g = torch.Generator(device=dev).manual_seed(1)
     worst, report = 0.0, None
-    for B in (1, 3, 4, 8):
-        for S in (512, 1024, 1536):
+    for B in Bs:
+        for S in Ss:
             x = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
             self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
             cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
             cl_list = [S - (S // 16) * b for b in range(B)]
             cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
-            for index in (0, 1, 511, 512, 1023):
+            for index in indices:
                 args = (packed, x, self_kv, cross_kv, index, cross_len)
                 lg, kv = ds.fused_decode_step(*args, **kw)
                 torch.cuda.synchronize()
@@ -354,7 +377,15 @@ def decision_flips(logits, state, aux, span_types, noise, index, tables, skw, ep
     return flips | (cand & ((above - skw["nucleus_p"]).abs() <= slack)).any(dim=-1)
 
 
-def phase_token_vs_twin(dev, packed, vocab, vpad):
+def sampler_kw(vocab, greedy, p, temp):
+    return dict(mode=vocab.mode, max_spans=MAX_SPANS, span_cap=SPAN_CAP,
+                eos_index=vocab.eos_index, mask_index=vocab.mask_index,
+                nucleus_p=p, temperature=temp, greedy=greedy, n_sid=N_SID,
+                span_body=SPAN_BODY)
+
+
+def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536),
+                        indices=(0, 1, 512, 1023)):
     tables = sampling_tables(vocab, vpad, dev)
     V = vocab.vocab_size
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
@@ -362,20 +393,17 @@ def phase_token_vs_twin(dev, packed, vocab, vpad):
     rng = np.random.default_rng(3)
     worst, report, cases = 0.0, None, 0
     close_rows = tie_rows = rows = 0
-    for B in (1, 3, 4, 8):
-        for S in (512, 1536):
+    for B in Bs:
+        for S in Ss:
             self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
             cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
             cl_list = [S - (S // 16) * b for b in range(B)]
             cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
             noise = gumbel_noise((L, B, vpad), g, dev)
-            for index in (0, 1, 512, 1023):
+            for index in indices:
                 state, aux, span_types = random_states(rng, B, V, dev)
                 for name, greedy, p, temp in SAMPLERS:
-                    skw = dict(mode=vocab.mode, max_spans=MAX_SPANS, span_cap=SPAN_CAP,
-                               eos_index=vocab.eos_index, mask_index=vocab.mask_index,
-                               nucleus_p=p, temperature=temp, greedy=greedy, n_sid=N_SID,
-                               span_body=SPAN_BODY)
+                    skw = sampler_kw(vocab, greedy, p, temp)
                     args = (packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index, cross_len)
                     ks, kkv = ds.fused_decode_token(*args, **kw, **skw)
                     torch.cuda.synchronize()
@@ -427,19 +455,261 @@ def phase_token_vs_twin(dev, packed, vocab, vpad):
     return worst, report
 
 
-def check_counts(what: str, v3: bool) -> int:
-    """The path just driven went through the v3 kernels (``v3``) or the v2
-    kernels, never through a twin or the other kernel; returns its launches."""
-    counts = dict(v3=ds.fused_decode_token.launches, v3_twin=ds.fused_decode_token_reference.calls,
-                  v2=ds.fused_decode_step.launches, v2_twin=ds.fused_decode_step_reference.calls)
-    want_on, want_off = ("v3", "v2") if v3 else ("v2", "v3")
-    say(f"  {what}: launches {counts}")
-    if counts[want_on] == 0 or counts[want_off] or counts["v3_twin"] or counts["v2_twin"]:
-        raise AssertionError(f"{what} did not go through the {want_on} kernels alone: {counts}")
-    return counts[want_on]
+def splice(self_kv, rows, base: int):
+    """The cache as the decode loop leaves it after a chunk: a copy of
+    ``self_kv`` with ``rows`` (nl, T, B, 2D) at positions base.."""
+    out = self_kv.clone()
+    out[:, :, base : base + rows.shape[1]] = rows.transpose(1, 2)
+    return out
 
 
-def serve_requests(engine, reqs, workdir, tag):
+def tokens_bound_ms(packed, B: int, base: int, cross_len, V: int, nucleus: bool, T: int) -> float:
+    """Least time of one v4 call of T tokens, each input read once: the
+    weights (fc_w and fc_b over the V real lanes), the cache rows below
+    ``base`` and the cross rows once a call; per token the embedding rows,
+    the K|V rows it writes, a row's span type, grammar mask row, class row
+    and (nucleus) noise row, and its token; the state, aux and sid_tbl once.
+    Operations: T v3 tokens', each token also attending the chunk rows
+    before it."""
+    fc_w = packed["fc_w"]
+    pad = fc_w.shape[1] - V
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
+    weight_bytes -= pad * (D * fc_w.element_size() + packed["fc_b"].element_size())
+    cache_bytes = NL * (B * base + int(sum(cross_len))) * 2 * D * 2
+    row = 4 + V * 4 + ds._N_CLASSES * 4 + (V * 4 if nucleus else 0)
+    per_token = B * D * 2 + NL * B * 2 * D * 2 + B * row + B * 4
+    nbytes = weight_bytes + cache_bytes + T * per_token + 2 * 6 * B * 4 + 3 * B * 4 + 16 * 4
+    _, flops = step_bytes_flops(packed, B, base, cross_len)
+    flops = T * (flops - 2 * B * D * pad + (2 * B * V * V if nucleus else 0))
+    flops += 4 * D * NL * B * T * (T - 1) // 2
+    return bound_ms(nbytes, flops)
+
+
+def phase_tokens_vs_twin(dev, flagships):
+    """v4 ``fused_decode_tokens`` against its twin and against the v3 kernel
+    run T_chunk times over the spliced cache, SMER and REMI."""
+    LC = 1536  # the self cache: base + T_chunk <= 1536
+    S = 1536
+    g = torch.Generator(device=dev).manual_seed(4)
+    rng = np.random.default_rng(5)
+    worst, report, cases, close_rows, rows, decisions = 0.0, {}, 0, 0, 0, 0
+    for vocab, packed, vpad in flagships:
+        tables = sampling_tables(vocab, vpad, dev)
+        V = vocab.vocab_size
+        kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
+        for B in (1, 3, 8):
+            self_kv = torch.randn(NL, B, LC, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cl_list = [S - (S // 16) * b for b in range(B)]
+            cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
+            noise = gumbel_noise((LC, B, vpad), g, dev)
+            for T in (1, 8, 64):
+                for base in (0, 512, LC - 64):
+                    state, aux, span_types = random_states(rng, B, V, dev)
+                    state[ds.ST_DONE, 0] = 0  # a live row in every case
+                    for name, greedy, p, temp in SAMPLERS[:2]:
+                        skw = dict(**sampler_kw(vocab, greedy, p, temp), T_chunk=T)
+                        args = (packed, tables, state, aux, span_types, noise, self_kv, cross_kv,
+                                base, cross_len)
+                        ks, ktok, kkv = ds.fused_decode_tokens(*args, **kw, **skw)
+                        # the v3 kernel T times over the cache the v3 loop would hold
+                        st, cache, toks, kvs = state, self_kv.clone(), [], []
+                        for t in range(T):
+                            st, kv = ds.fused_decode_token(
+                                packed, tables, st, aux, span_types, noise, cache, cross_kv,
+                                base + t, cross_len, **kw, **sampler_kw(vocab, greedy, p, temp))
+                            cache[:, :, base + t] = kv
+                            toks.append(st[ds.ST_TOKEN])
+                            kvs.append(kv)
+                        torch.cuda.synchronize()
+                        same = (torch.equal(ktok, torch.stack(toks)) and torch.equal(ks, st)
+                                and torch.equal(kkv, torch.stack(kvs, dim=1)))
+                        if not same:
+                            d = (kkv.float() - torch.stack(kvs, dim=1).float()).abs().max().item()
+                            raise AssertionError(
+                                f"v4 is not bit-equal to v3 over the spliced cache at {vocab.mode=} "
+                                f"B={B} T={T} base={base} {name}: max |K/V difference| {d:.3e}")
+                        rs, rtok, rkv = ds.fused_decode_tokens_reference(*args, **kw, **skw)
+                        parted, compared = tokens_against_twin(
+                            packed, tables, args, kw, skw, (ks, ktok), (rs, rtok), vpad, V,
+                            f"{vocab.mode=} B={B} T={T} base={base} {name}")
+                        close_rows += parted
+                        decisions += compared
+                        worst = max(worst, max_kv_err(ktok, kkv, rtok, rkv))
+                        rows += B
+                        cases += 1
+                        if (vocab.mode, B, base, name) == (0, 3, 512, SAMPLERS[1][0]) and T > 1:
+                            ms = cuda_ms(lambda: ds.fused_decode_tokens(*args, **kw, **skw), iters=5)
+                            plain_ms = cuda_ms(
+                                lambda: ds.fused_decode_tokens_reference(*args, **kw, **skw),
+                                iters=1, warmup=1)
+                            bound = tokens_bound_ms(packed, B, base, cl_list, V, True, T)
+                            report[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                            say(f"  served shape B={B} S={S} base={base} T_chunk={T} ({name}): "
+                                f"kernel {ms:.4f} ms ({ms / T:.4f} ms a token), twin {plain_ms:.4f} ms, "
+                                f"bound {bound:.4f} ms ({bound / T:.5f} ms a token)")
+                            say_split(device_split(lambda: ds.fused_decode_tokens(*args, **kw, **skw),
+                                                   iters=3), ms)
+            say(f"  vocab_mode {vocab.mode} B={B}: {cases} cases so far, v4 bit-equal to v3 x T_chunk "
+                f"in all; max|kernel-twin| of new_kv {worst:.3e}")
+    say(f"  {cases} cases: tokens, state and K/V bit-equal to the v3 kernel run T_chunk times over "
+        f"the spliced cache; against the twin new_kv within atol {ATOL} + rtol {RTOL} (max "
+        f"{worst:.3e}) up to each row's first token that differs; {close_rows} of {rows} rows "
+        f"part from the twin, each where the twin's margin is within that tolerance, at "
+        f"{close_rows} of the {decisions} token decisions compared")
+    # a row decides T_chunk tokens: the share is taken over decisions, as
+    # phase 2b's is over its one-token rows
+    if close_rows > MAX_CLOSE_SHARE * decisions:
+        raise AssertionError(f"{close_rows} of {decisions} v4 token decisions needed the margin "
+                             f"exception")
+    return worst, report
+
+
+def first_differences(ktok, rtok):
+    """(B,) the first chunk row where the kernel's token differs from the
+    twin's, T_chunk where none does."""
+    T = ktok.shape[0]
+    differ = ktok != rtok
+    idx = torch.arange(T, device=ktok.device)[:, None].expand_as(differ)
+    return torch.where(differ, idx, T).amin(dim=0)
+
+
+def max_kv_err(ktok, kkv, rtok, rkv) -> float:
+    """max |kernel - twin| of new_kv over the rows computed from equal
+    inputs: row t of an element while its tokens before t agree."""
+    first = first_differences(ktok, rtok)
+    T = ktok.shape[0]
+    keep = torch.arange(T, device=ktok.device)[:, None] <= first[None, :]  # (T, B)
+    diff = (kkv.float() - rkv.float()).abs() * keep[None, :, :, None]
+    ok = torch.isclose(kkv.float(), rkv.float(), atol=ATOL, rtol=RTOL) | ~keep[None, :, :, None]
+    if not ok.all():
+        raise AssertionError(f"v4 new_kv disagrees with the twin by {diff.max().item():.3e}")
+    return diff.max().item()
+
+
+def tokens_against_twin(packed, tables, args, kw, skw, kernel, twin, vpad, V, label) -> int:
+    """The v4 kernel's tokens and state against the twin's.  A row may part
+    from the twin only at a token where the twin's own margin is within what
+    the tolerance allows (``decision_flips``, as phase 2b); after that the
+    two streams are not comparable.  Returns (rows that part, token
+    decisions compared)."""
+    (ks, ktok), (rs, rtok) = kernel, twin
+    first = first_differences(ktok, rtok)
+    T = ktok.shape[0]
+    parted, compared = 0, 0
+    for b in range(ks.shape[1]):
+        t = int(first[b])
+        compared += min(t + 1, T)
+        if t == T:
+            if not torch.equal(ks[:, b], rs[:, b]):
+                raise AssertionError(f"v4 {label}: row {b} ends in another state than the twin's")
+            continue
+        # the twin's logits at row t, from its own state and cache after t tokens
+        state, aux, span_types, noise, self_kv, cross_kv, base, cross_len = args[2:]
+        st, cache = state, self_kv
+        if t > 0:
+            st, _, rows = ds.fused_decode_tokens_reference(*args, **kw, **dict(skw, T_chunk=t))
+            cache = splice(self_kv, rows, base)
+        lg = twin_logits(packed, st, cache, cross_kv, base + t, cross_len, vpad)
+        delta = ATOL + RTOL * lg[:, :V].abs().amax(dim=-1)
+        close = decision_flips(lg, st, aux, span_types, noise, base + t, tables,
+                               {k: v for k, v in skw.items() if k != "T_chunk"},
+                               eps=2 * delta / skw["temperature"])
+        if not bool(close[b]):
+            raise AssertionError(f"v4 {label}: row {b} parts from the twin at chunk row {t} where "
+                                 f"the twin's margin is decisive: {ktok[:, b].tolist()} vs "
+                                 f"{rtok[:, b].tolist()}")
+        parted += 1
+    return parted, compared
+
+
+def phase_int8(dev, flagship, vocab, vpad):
+    """int8 weights: the row-vector kernel alone against its twin at the six
+    matrix shapes of a layer, then v2, v3 and v4 with int8 against their
+    twins (the phase-2 tolerance and margin rule).  Returns the rowvec
+    error, its report at the served B=3 and the v3-int8 report."""
+    packed = ds.pack_decoder_weights(flagship, vpad, quant="int8")
+    g = torch.Generator(device=dev).manual_seed(6)
+    shapes = [  # (matrix, row stride, first column, K, N, relu) of layer i
+        ("w_attn", 6 * D, 0, D, 3 * D, False), ("w_attn", 6 * D, 3 * D, D, D, False),
+        ("w_attn", 6 * D, 4 * D, D, D, False), ("w_attn", 6 * D, 5 * D, D, D, False),
+        ("w_ff1", F, 6 * D, D, F, True), ("w_ff2", D, 6 * D + F, F, D, False),
+    ]
+
+    def calls(B, fn):
+        out = []
+        for i in range(NL):
+            sc, b = packed["scale"][i, 0], packed["bias"][i, 0]
+            for name, ld, lo, K, N, relu in shapes:
+                w = packed[name][i]
+                q = w[:, lo : lo + N] if name == "w_attn" else w
+                x = torch.randn(B, K, generator=g, device=dev)
+                out.append((fn, x, q, sc[lo : lo + N], b[lo : lo + N], relu))
+        return out
+
+    worst, report = 0.0, None
+    for B in (1, 3, 8):
+        for fn, x, q, sc, b, relu in calls(B, ds.rowvec_int8):
+            y = fn(x, q, sc, b, relu=relu)
+            torch.cuda.synchronize()
+            r = ds.rowvec_int8_reference(x, q, sc, b, relu=relu)
+            if not torch.allclose(y, r, atol=ATOL, rtol=RTOL):
+                raise AssertionError(f"rowvec_int8 disagrees with its twin at B={B} "
+                                     f"K={q.shape[0]} N={q.shape[1]}")
+            worst = max(worst, (y - r).abs().max().item())
+        if B == SERVED_CASE[0]:
+            batch = calls(B, None)
+
+            def run(f):
+                for _, x, q, sc, b, relu in batch:
+                    f(x, q, sc, b, relu=relu)
+
+            ms = cuda_ms(lambda: run(ds.rowvec_int8), iters=20)
+            plain_ms = cuda_ms(lambda: run(ds.rowvec_int8_reference), iters=5)
+            nbytes = sum(q.numel() + 4 * (2 * q.shape[1]) + 4 * B * (q.shape[0] + q.shape[1])
+                         for _, x, q, *_ in batch)
+            flops = sum(2 * B * q.numel() for _, x, q, *_ in batch)
+            report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes, flops))
+            say(f"  rowvec_int8, the 24 int8 matrices of a token at B={B}: kernel {ms:.4f} ms, "
+                f"twin {plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
+    say(f"  rowvec_int8 within atol {ATOL} + rtol {RTOL} of its twin at B 1, 3, 8 "
+        f"(max {worst:.3e})")
+    say("  v2 with int8 weights against its twin")
+    worst2, _ = phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(512, 1536),
+                                     indices=(0, 512, 1023))
+    say("  v3 with int8 weights against its twin")
+    worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(1536,),
+                                          indices=(0, 512))
+    say("  v4 with int8 weights against its twin and against v3 x T_chunk")
+    worst4, _ = phase_tokens_vs_twin(dev, [(vocab, packed, vpad)])
+    say(f"  int8: v2 max|kernel-twin| {worst2:.3e}, v3 new_kv {worst3:.3e}, v4 new_kv {worst4:.3e}")
+    return max(worst, worst2, worst3, worst4), report, report3
+
+
+def counts():
+    return dict(v2=ds.fused_decode_step.launches, v3=ds.fused_decode_token.launches,
+                v4=ds.fused_decode_tokens.launches, int8=ds.rowvec_int8.launches,
+                v2_twin=ds.fused_decode_step_reference.calls,
+                v3_twin=ds.fused_decode_token_reference.calls,
+                v4_twin=ds.fused_decode_tokens_reference.calls,
+                int8_twin=ds.rowvec_int8_reference.calls)
+
+
+def check_counts(what: str, on) -> int:
+    """The path just driven launched every kernel named in ``on`` (of v2, v3,
+    v4, int8) and nothing else: no other kernel and no twin.  Returns the
+    launches of the first."""
+    got = counts()
+    say(f"  {what}: launches {got}")
+    if any(got[k] == 0 for k in on) or any(v for k, v in got.items() if k not in on):
+        raise AssertionError(f"{what} did not go through the {'+'.join(on)} kernels alone: {got}")
+    return got[on[0]]
+
+
+def serve_requests(engine, reqs, workdir, tag, to_midi=events_to_midi):
+    """``run_batch`` on the requests, decoded as one batch; every result must
+    restore, close its bars (SMER) and write a MIDI file that reads back.
+    Returns (wall seconds, results)."""
     seen = []
     dispatch = engine._dispatch
     engine._dispatch = lambda src_b, *a: seen.append(src_b.shape) or dispatch(src_b, *a)
@@ -453,10 +723,11 @@ def serve_requests(engine, reqs, workdir, tag):
     for i, (req, res) in enumerate(zip(reqs, results)):
         if res is None or "m_0" in res.events:
             raise AssertionError(f"request {i} did not restore")
-        if not engine._spans_close(res.events, req):
+        # the engine checks and repairs bar durations for SMER only, as JAX's
+        if engine.vocab.mode == 0 and not engine._spans_close(res.events, req):
             raise AssertionError(f"request {i}: a masked bar does not close after the repair")
         path = os.path.join(workdir, f"{tag}{i}.mid")
-        events_to_midi(res.events, 100.0).write(path)
+        to_midi(res.events, 100.0).write(path)
         if not read_midi(path).instruments:
             raise AssertionError(f"request {i}: written MIDI does not read back")
         tokens += len(res.generated)
@@ -465,7 +736,30 @@ def serve_requests(engine, reqs, workdir, tag):
             f"{res.time_corrections} retries")
     say(f"  run_batch ({tag}): {len(seen)} decodes of batch {[s[0] for s in seen]}, src {seen[0][1]} ids, "
         f"{wall:.3f} s, {tokens / wall:.1f} tokens/s, {1e3 * wall / len(reqs):.1f} ms per request")
-    return wall
+    return wall, results
+
+
+def served_events(score, vocab):
+    events, controls = encode_midi(score, controls={"key": None},
+                                   track_names=["track_0", "track_1", "track_2"])
+    if vocab.mode == 1:
+        events = smer_to_remi(events)
+    controls["bar_track"] = 0
+    for name in ("track_0", "track_1", "track_2"):
+        controls[f"{name}_c"] = controls[name]
+    return change_controls(events, controls, vocab)
+
+
+def serve_path(engine, reqs, workdir, tag, on, to_midi=events_to_midi):
+    """One served run with every count at 0 just before it; returns (results,
+    the launch counts)."""
+    ds.reset_counts()
+    wall, results = serve_requests(engine, reqs, workdir, tag, to_midi)
+    check_counts(f"run_batch ({tag})", on)
+    got = counts()
+    steps = got["v2"] + got["v3"] + got["v4"] * engine.decoder.token_chunk  # a v4 call is a chunk
+    say(f"  {tag}: {steps} decode steps, {1e3 * wall / max(steps, 1):.3f} ms of wall time a step")
+    return results, got
 
 
 def phase_serve(dev, workdir):
@@ -493,32 +787,60 @@ def phase_serve(dev, workdir):
     if not read_midi(midi_out).instruments:
         raise AssertionError("the CLI's MIDI output has no instruments")
     say(f"  generate_cli (greedy, bars 3-4 of track 1): {time.perf_counter() - t:.2f} s")
-    launches = check_counts("generate_cli", v3=True)
+    launches = dict(v3=check_counts("generate_cli", ["v3"]))
 
-    events, controls = encode_midi(score, controls={"key": None},
-                                   track_names=["track_0", "track_1", "track_2"])
-    controls["bar_track"] = 0
-    for name in ("track_0", "track_1", "track_2"):
-        controls[f"{name}_c"] = controls[name]
-    events = change_controls(events, controls, vocab)
+    events = served_events(score, vocab)
     engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
     reqs = [engine.prepare(events, [0], [2, 3]), engine.prepare(events, [1], [7]),
             engine.prepare(events, [2], [11, 12])]
     if any(r is None for r in reqs):
         raise AssertionError("a request could not be prepared")
-    ds.reset_counts()
-    wall = serve_requests(engine, reqs, workdir, "v3_")
-    n = check_counts("run_batch through v3", v3=True)
-    say(f"  v3 path: {n} decode steps, {1e3 * wall / n:.3f} ms of wall time a step")
-    launches += n
+    v3_results, got = serve_path(engine, reqs, workdir, "v3_", ["v3"])
+    launches["v3"] += got["v3"]
 
     v2_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
     v2_engine.decoder.fused_sampling = False  # the v2 step with the host's sampling ops
-    ds.reset_counts()
-    wall = serve_requests(v2_engine, reqs, workdir, "v2_")
-    v2_launches = check_counts("run_batch through v2 (fused_sampling=False)", v3=False)
-    say(f"  v2 path: {v2_launches} decode steps, {1e3 * wall / v2_launches:.3f} ms of wall time a step")
-    return model, vocab, score, events, launches, v2_launches
+    launches["v2"] = serve_path(v2_engine, reqs, workdir, "v2_", ["v2"])[1]["v2"]
+
+    # v4: InfillDecoder(token_chunk=8), as JAX reaches it (its engine has no flag)
+    v4_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    v4_engine.decoder = dataclasses.replace(v4_engine.decoder, token_chunk=8)
+    v4_results, got = serve_path(v4_engine, reqs, workdir, "v4_", ["v4"])
+    launches["v4"] = got["v4"]
+    for i, (a, b) in enumerate(zip(v3_results, v4_results)):
+        if a.generated != b.generated or a.decode_steps != b.decode_steps:
+            raise AssertionError(f"request {i}: the v4 run decoded other tokens than the v3 run "
+                                 f"under the same seed")
+    say("  v4 (token_chunk=8) decoded the v3 run's tokens and steps in every request and retry")
+
+    int8_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0, quant="int8")
+    got = serve_path(int8_engine, reqs, workdir, "v3_int8_", ["int8", "v3"])[1]
+    launches["int8"] = got["int8"]
+    launches["v3"] += got["v3"]
+    return model, vocab, score, events, launches
+
+
+def phase_serve_remi(dev, workdir) -> int:
+    """The committed REMI snapshot, loaded with the config its sidecar
+    describes (vocab_mode 1, 349 words), serving 3 nucleus requests through
+    the v3 kernels."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                        "flagship_remi_params.msgpack")
+    with open(path + ".json") as fh:
+        meta = json.load(fh)
+    cfg = ExperimentConfig(vocab_mode=int(meta["vocab_mode"]))
+    vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
+    if (vocab.mode, vocab.vocab_size) != (1, int(meta["vocab_size"])):
+        raise AssertionError(f"REMI vocab {vocab.mode}/{vocab.vocab_size} against the sidecar {meta}")
+    model, epoch = load_inference_model(cfg, vocab.vocab_size, path, torch.bfloat16, device=dev)
+    say(f"  loaded {path} (epoch {epoch}, vocab_mode {vocab.mode}, {vocab.vocab_size} words) in bf16")
+    events = served_events(make_score(), vocab)
+    engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    reqs = [engine.prepare(events, [0], [2, 3]), engine.prepare(events, [1], [7]),
+            engine.prepare(events, [2], [11, 12])]
+    if any(r is None for r in reqs):
+        raise AssertionError("a REMI request could not be prepared")
+    return serve_path(engine, reqs, workdir, "remi_v3_", ["v3"], to_midi=remi_to_midi)[1]["v3"]
 
 
 def plugin_notes(score: MidiScore, tempo: float = 100.0):
@@ -603,7 +925,7 @@ def phase_http(model, vocab, score) -> int:
         server.shutdown()
         server.server_close()
         ctx.close()
-    return check_counts("HTTP /generate", v3=True)
+    return check_counts("HTTP /generate", ["v3"])
 
 
 def phase_serve_cli(score) -> None:
@@ -653,32 +975,41 @@ def phase_serve_cli(score) -> None:
             print("   ", line, flush=True)
 
 
-def first_divergence(model, vocab, events, fused_sampling: bool):
+def first_divergence(model, vocab, events, fused_sampling: bool, quant: str = "none",
+                     against_v2: bool = False):
     """One greedy request through the kernels, then through the twin (the
-    decoder's call patched to the twin).  Where the token streams first
-    differ, the twin's logits are recomputed on the shared prefix: the two
-    paths may part only where the twin's margin between its token and the
-    kernel's is within the phase-2 tolerance on each of the two logits."""
+    decoder's call patched to the twin), or, with ``against_v2``, through
+    the v3 kernels and then the v2 kernels (JAX's
+    ``test_fused_int8_v2_v3_token_exact_greedy`` on the card).  Where the
+    two token streams first differ, the twin's logits are recomputed on the
+    shared prefix: the two paths may part only where the twin's margin
+    between its token and the other's is within the phase-2 tolerance on
+    each of the two logits."""
     eng = InfillEngine(model, vocab, max_tgt_len=L)
     req = eng.prepare(events, [0], [5, 6])
     asm = eng._assemble([req])
-    label = "v3" if fused_sampling else "v2"
+    label = ("v3" if fused_sampling else "v2") + ("-int8" if quant != "none" else "")
 
-    def run():
+    def run(sampling):
         dec = InfillDecoder(model, vocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=True,
-                            fused_sampling=fused_sampling)
+                            fused_sampling=sampling, quant=quant)
         res = dec(*asm[:4])
         return res.tokens[0, : int(res.lengths[0])].cpu()
 
-    a = run()
-    name, twin = (("fused_decode_token", ds.fused_decode_token_reference) if fused_sampling
-                  else ("fused_decode_step", ds.fused_decode_step_reference))
-    with mock.patch.object(decode_mod, name, twin):
-        b = run()
+    a = run(fused_sampling)
+    if against_v2:
+        other = "v2-int8" if quant != "none" else "v2"
+        b = run(False)
+    else:
+        other = "twin"
+        name, twin = (("fused_decode_token", ds.fused_decode_token_reference) if fused_sampling
+                      else ("fused_decode_step", ds.fused_decode_step_reference))
+        with mock.patch.object(decode_mod, name, twin):
+            b = run(fused_sampling)
     n = min(len(a), len(b))
     diff = (a[:n] != b[:n]).nonzero()
     if len(diff) == 0 and len(a) == len(b):
-        say(f"  {label} kernel path and twin path: identical ({len(a)} tokens)")
+        say(f"  {label} kernel path and {other} path: identical ({len(a)} tokens)")
         return
     p = int(diff[0]) if len(diff) else n
     src = torch.as_tensor(asm[0], dtype=torch.long, device=model.device)
@@ -686,7 +1017,7 @@ def first_divergence(model, vocab, events, fused_sampling: bool):
     cfg = model.cfg
     kw = dict(n_layers=cfg.num_decoder_layers, d_model=cfg.d_model, nhead=cfg.nhead,
               d_ff=cfg.d_ff, vpad=ds.vocab_pad(vocab.vocab_size))
-    packed = ds.pack_decoder_weights(model, kw["vpad"])
+    packed = ds.pack_decoder_weights(model, kw["vpad"], quant=quant)
     with torch.no_grad():
         cross_kv = ds.stack_kv_cache(model.init_cross_cache(model.encode(src, pad)), cfg.num_decoder_layers)
         cross_len = (~pad).sum(1).to(torch.int32)
@@ -710,13 +1041,15 @@ def first_divergence(model, vocab, events, fused_sampling: bool):
     ta, tb = sampled(a), sampled(b)
     gap = (lg[tb] - lg[ta]).item()
     allowed = 2 * ATOL + RTOL * (abs(lg[ta].item()) + abs(lg[tb].item()))
-    say(f"  {label} kernel path and twin path first differ at position {p} of {n}: kernel "
-        f"{vocab.index2char(ta)!r} vs twin {vocab.index2char(tb)!r}; twin logit gap "
+    say(f"  {label} kernel path and {other} path first differ at position {p} of {n}: "
+        f"{vocab.index2char(ta)!r} vs {vocab.index2char(tb)!r}; twin logit gap "
         f"{gap:.4f}, tolerance {allowed:.4f}")
-    if gap > allowed:
+    # against the twin, the twin's own token may lead by at most the
+    # tolerance; between two kernel paths, either may
+    if (abs(gap) if against_v2 else gap) > allowed:
         raise AssertionError(
-            f"{label} kernel path departs from the twin at position {p} where the twin's margin "
-            f"{gap:.4f} exceeds the tolerance {allowed:.4f}"
+            f"{label} kernel path departs from the {other} path at position {p} where the twin's "
+            f"margin {gap:.4f} exceeds the tolerance {allowed:.4f}"
         )
 
 
@@ -750,28 +1083,50 @@ def main() -> int:
 
     say("phase 2b v3 kernel vs twin (same model, random states)")
     worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad)
-    del model, packed
+    remi_vocab, remi_model, remi_packed, _ = random_flagship(dev, mode=1)
+    say("phase 2b REMI: v3 kernel vs twin on a REMI-vocab flagship (random weights)")
+    worst3 = max(worst3, phase_token_vs_twin(dev, remi_packed, remi_vocab, vpad, Bs=(1, 3, 8),
+                                             Ss=(1536,), indices=(0, 512))[0])
+
+    say("phase 2c v4 kernel vs twin and vs v3 x T_chunk (SMER and REMI, random states)")
+    worst4, report4 = phase_tokens_vs_twin(
+        dev, [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)])
+
+    say("phase 2d int8 weights: rowvec_int8, v2, v3, v4 against their twins")
+    worst8, report8, report3_int8 = phase_int8(dev, model, vocab, vpad)
+    del model, packed, remi_model, remi_packed
 
     say("phase 3 serve with the trained snapshot")
     with tempfile.TemporaryDirectory() as workdir:
-        model, vocab, score, events, launches, v2_launches = phase_serve(dev, workdir)
+        model, vocab, score, events, launches = phase_serve(dev, workdir)
+        say("phase 3 REMI: serve with the trained REMI snapshot")
+        launches["v3"] += phase_serve_remi(dev, workdir)
 
     say("phase 3b HTTP serving (ServingContext, MicroBatcher) with the trained snapshot")
-    launches += phase_http(model, vocab, score)
+    launches["v3"] += phase_http(model, vocab, score)
     phase_serve_cli(score)
 
     say("phase 4 kernel path vs twin path (greedy)")
     first_divergence(model, vocab, events, fused_sampling=False)
     first_divergence(model, vocab, events, fused_sampling=True)
+    say("phase 4 int8: the v3-int8 stream against the v2-int8 stream (greedy)")
+    first_divergence(model, vocab, events, fused_sampling=True, quant="int8", against_v2=True)
 
+    say(f"  v4 ms a token: T_chunk 8 {report4[8]['ms'] / 8:.4f}, T_chunk 64 "
+        f"{report4[64]['ms'] / 64:.4f} (v3 {report3['ms']:.4f}); v3-int8 token "
+        f"{report3_int8['ms']:.4f} ms, bound {report3_int8['bound_ms']:.5f} ms")
     common = dict(route="cuda", bound_by="bytes", library_ms=None)
+    csrc = "smer_music_generation_tpu_torch/ops/csrc/"
+    ref = "smer_music_generation_tpu/ops/decode_step.py:"
     kernels = {"kernels": [
-        dict(name="fused_decode_step", source="smer_music_generation_tpu_torch/ops/csrc/decode_step.cu",
-             replaces="smer_music_generation_tpu/ops/decode_step.py:456", launches=v2_launches,
-             max_abs_err=worst, **report, **common),
-        dict(name="fused_decode_token", source="smer_music_generation_tpu_torch/ops/csrc/decode_token.cu",
-             replaces="smer_music_generation_tpu/ops/decode_step.py:796", launches=launches,
-             max_abs_err=worst3, **report3, **common),
+        dict(name="fused_decode_step", source=csrc + "decode_step.cu", replaces=ref + "456",
+             launches=launches["v2"], max_abs_err=worst, **report, **common),
+        dict(name="fused_decode_token", source=csrc + "decode_token.cu", replaces=ref + "796",
+             launches=launches["v3"], max_abs_err=worst3, **report3, **common),
+        dict(name="fused_decode_tokens", source=csrc + "decode_token.cu", replaces=ref + "1028",
+             launches=launches["v4"], max_abs_err=worst4, **report4[8], **common),
+        dict(name="rowvec_int8", source=csrc + "decode_step.cu", replaces=ref + "296",
+             launches=launches["int8"], max_abs_err=worst8, **report8, **common),
     ]}
     print(json.dumps(kernels), flush=True)
     say("done")

@@ -10,8 +10,15 @@ the span cap (which counts the introducing ``m_0``) or after a control
 span's one token, the next ``m_0`` is emitted and the element's span index
 advances.
 
-Three loop bodies, as in JAX:
+Four loop bodies, as in JAX:
 
+* ``fused=True``, ``fused_sampling`` True or None and ``token_chunk > 1``:
+  the v4 chunk, ``ops.decode_step.fused_decode_tokens`` (JAX ``_decode_v4``
+  :843-917): ``token_chunk`` (at most 64) whole tokens a call, the state on
+  the device, the done flags read back once a chunk, the chunk's tokens and
+  K/V rows spliced at its base; the per-position buffers carry 64 slop rows
+  past ``max_tgt_len`` for a live row that runs on inside the last chunk,
+  trimmed after the loop;
 * ``fused=True`` with ``fused_sampling`` True or None: the v3 whole token,
   ``ops.decode_step.fused_decode_token`` (JAX ``_v3_loop`` / ``_decode_v3``
   :704-778): embedding, decoder layers, grammar-masked sampling and the
@@ -27,7 +34,9 @@ twins on the CPU.  ``fused=None`` resolves to the kernel on CUDA, as JAX's
 the CPU; ``fused_sampling=None`` follows ``fused``.  On CUDA the decoder
 never gives way to plain PyTorch by itself: a model the kernel does not
 fit, or a batch of more than 8, raises, and only an explicit
-``fused=False`` selects the plain loop.  The loops read the done flags
+``fused=False`` selects the plain loop.  ``quant="int8"`` packs the decoder
+matrices as int8 with f32 column scales for the fused loops (v2, v3, v4);
+it needs ``fused``, as in JAX.  The v2/v3 loops read the done flags
 back to the host every ``SYNC_EVERY`` steps, not every step, so the host
 can queue a step while the card runs the previous one; a step after every
 element is done writes only padding, so the tokens, lengths and step count
@@ -53,6 +62,7 @@ from ..ops.decode_step import (
     ST_TOKEN,
     fused_decode_step,
     fused_decode_token,
+    fused_decode_tokens,
     pack_decoder_weights,
     pack_sampling_tables,
     stack_kv_cache,
@@ -70,6 +80,7 @@ from .grammar import (
 from .sampling import greedy_sample, gumbel_noise, masked_sample_gumbel
 
 SYNC_EVERY = 8
+CHUNK_SLOP = 64  # v4: positions past max_tgt_len a chunk may run into (JAX :860-866)
 
 
 class DecodeResult(NamedTuple):
@@ -103,14 +114,20 @@ class InfillDecoder:
     seed: int = 0
 
     def __post_init__(self):
-        if self.token_chunk > 1:
-            raise _not_ported("token_chunk > 1 (the v4 kernel)", "ROADMAP.md Queue 2 item 3")
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {self.quant!r}")
+        if not 1 <= self.token_chunk <= CHUNK_SLOP:
+            raise ValueError(f"token_chunk={self.token_chunk} must lie in [1, {CHUNK_SLOP}]")
+        if self.draft_k > 0 and self.quant != "none":
+            raise ValueError(
+                "speculative decode (draft_k > 0) runs the plain cache path "
+                "and cannot stream quantized weights; drop one of the two"
+            )
         if self.draft_k > 0:
-            raise _not_ported("draft_k > 0 (speculative decode)", "ROADMAP.md Queue 2 item 4")
+            raise _not_ported("draft_k > 0 (speculative decode)",
+                              "ROADMAP.md Queue 1 item 4 / Queue 2 item 3")
         if self.mesh is not None:
-            raise _not_ported("mesh (multi-GPU decode)", "ROADMAP.md Queue 1 item 8")
-        if self.quant != "none":
-            raise _not_ported(f"quant={self.quant!r}", "ROADMAP.md Queue 2 item 5")
+            raise _not_ported("mesh (multi-GPU decode)", "ROADMAP.md Queue 1 item 11")
         self.tables = GrammarTables.build(self.vocab)
         cfg = self.model.cfg
         if self.max_tgt_len > cfg.max_len:
@@ -137,6 +154,12 @@ class InfillDecoder:
         if self.fused_sampling is None:
             self.fused_sampling = self.fused
         self.fused_sampling = bool(self.fused_sampling and self.fused)
+        if self.quant != "none" and not self.fused:
+            raise ValueError("quantized decode requires the fused kernel path")
+        if self.token_chunk > 1 and not self.fused_sampling:
+            raise ValueError(
+                "token_chunk > 1 (kernel looping) requires the fused-sampling kernel path"
+            )
         cfg = self.model.cfg
         fits = (
             cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
@@ -149,9 +172,11 @@ class InfillDecoder:
             )
 
     def packed(self):
-        """The decoder weights in the kernel layout, packed once."""
+        """The decoder weights in the kernel layout (``self.quant``), packed once."""
         if self._packed is None:
-            self._packed = pack_decoder_weights(self.model, vocab_pad(self.tables.vocab_size))
+            self._packed = pack_decoder_weights(
+                self.model, vocab_pad(self.tables.vocab_size), quant=self.quant
+            )
         return self._packed
 
     def __call__(
@@ -161,12 +186,12 @@ class InfillDecoder:
         n_spans: np.ndarray,  # (B,)
         no_whole_duration,  # bool or (B,) bool
         generator: Optional[torch.Generator] = None,
-        noise=None,  # optional Gumbel noise, (max_tgt_len, B, V); v3: (max_tgt_len, B, vpad)
+        noise=None,  # optional Gumbel noise, (L, B, V); v3: (L, B, vpad); v4: (L + 64, B, vpad)
         forced=None,
         forced_len=None,
     ) -> DecodeResult:
         if forced is not None or forced_len is not None:
-            raise _not_ported("forced-prefix decode", "ROADMAP.md Queue 1 item 3")
+            raise _not_ported("forced-prefix decode", "ROADMAP.md Queue 1 item 5")
         dev = self.device
         src = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
         span_types = torch.as_tensor(np.asarray(span_types), dtype=torch.long, device=dev)
@@ -195,11 +220,12 @@ class InfillDecoder:
             packed = self.packed()
             cross_kv = stack_kv_cache(cross, nl)
             cross_len = (~src_pad).sum(dim=1).to(torch.int32)
-            cache = torch.zeros(nl, B, L, 2 * D, dtype=cfg.dtype, device=dev)
             kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
             if self.fused_sampling:
-                return self._decode_v3(packed, cross_kv, cross_len, cache, kw, span_types,
-                                       n_spans, no_whole, generator, noise)
+                loop = self._decode_v4 if self.token_chunk > 1 else self._decode_v3
+                return loop(packed, cross_kv, cross_len, kw, span_types, n_spans, no_whole,
+                            generator, noise)
+            cache = torch.zeros(nl, B, L, 2 * D, dtype=cfg.dtype, device=dev)
             emb_table = model.embedding.weight
             pos_table = model.pos_table
         else:
@@ -272,19 +298,25 @@ class InfillDecoder:
             pos += 1
         return DecodeResult(tokens=out, lengths=lengths, steps=int(steps))
 
-    def _decode_v3(self, packed, cross_kv, cross_len, cache, kw, span_types, n_spans,
-                   no_whole, generator, noise) -> DecodeResult:
-        """The v3 token loop (JAX ``_v3_state0`` :704, ``_v3_loop`` :723)."""
+    def _v3_setup(self, kw, span_types, n_spans, no_whole, generator, noise, rows: int):
+        """Noise, state, aux, span types and sampler arguments of the v3 and
+        v4 loops (JAX ``_v3_state0`` :704).  The noise has ``rows`` rows:
+        the first ``max_tgt_len`` drawn as the v3 loop draws them; v4's slop
+        rows past them hold zeros, so the generator advances as under v3 and
+        a retry draws the same noise under both (the slop rows are read only
+        for positions at or past ``max_tgt_len``, whose tokens are trimmed)."""
         t, dev = self.tables, self.device
         B, L, vpad = span_types.shape[0], self.max_tgt_len, kw["vpad"]
         if self.greedy:
             noise = None
         elif noise is None:
             noise = gumbel_noise((L, B, vpad), generator if generator is not None else self.generator, dev)
+            if rows > L:
+                noise = torch.cat([noise, noise.new_zeros(rows - L, B, vpad)])
         else:
             noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
-            if tuple(noise.shape) != (L, B, vpad):
-                raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(L, B, vpad)}")
+            if tuple(noise.shape) != (rows, B, vpad):
+                raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(rows, B, vpad)}")
         i32 = torch.int32
         state = torch.stack([
             torch.full((B,), t.mask_index, dtype=i32, device=dev),  # ST_TOKEN
@@ -295,13 +327,23 @@ class InfillDecoder:
             torch.ones(B, dtype=i32, device=dev),  # ST_LEN
         ])
         aux = torch.stack([n_spans.to(i32), torch.broadcast_to(no_whole, (B,)).to(i32)])
-        span_types = span_types.to(i32).contiguous()
         skw = dict(mode=t.mode, max_spans=self.max_spans, span_cap=self.span_cap,
                    eos_index=t.eos_index, mask_index=t.mask_index, nucleus_p=self.nucleus_p,
                    temperature=self.temperature, greedy=self.greedy, n_sid=N_SID,
                    span_body=SPAN_BODY)
+        return noise, state, aux, span_types.to(i32).contiguous(), skw
+
+    def _decode_v3(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
+                   no_whole, generator, noise) -> DecodeResult:
+        """The v3 token loop (JAX ``_v3_loop`` :723)."""
+        dev, L = self.device, self.max_tgt_len
+        noise, state, aux, span_types, skw = self._v3_setup(
+            kw, span_types, n_spans, no_whole, generator, noise, L)
+        B = state.shape[1]
+        cache = torch.zeros(kw["n_layers"], B, L, 2 * kw["d_model"], dtype=self.model.cfg.dtype,
+                            device=dev)
         out = torch.zeros(B, L, dtype=torch.long, device=dev)
-        out[:, 0] = t.mask_index
+        out[:, 0] = self.tables.mask_index
         pos = 0
         while pos + 1 < L:
             if pos % SYNC_EVERY == 0 and bool(state[ST_DONE].all()):
@@ -325,6 +367,40 @@ class InfillDecoder:
             steps = int(lengths.max())
         else:
             steps = 0
+        return DecodeResult(tokens=out, lengths=lengths, steps=steps)
+
+    def _decode_v4(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
+                   no_whole, generator, noise) -> DecodeResult:
+        """The kernel-looped loop (JAX ``_decode_v4`` :843-917): one
+        ``fused_decode_tokens`` call of ``token_chunk`` tokens a chunk."""
+        dev, L, T = self.device, self.max_tgt_len, self.token_chunk
+        Lp = L + CHUNK_SLOP  # a chunk starting below L - 1 ends below Lp
+        noise, state, aux, span_types, skw = self._v3_setup(
+            kw, span_types, n_spans, no_whole, generator, noise, Lp)
+        B = state.shape[1]
+        cache = torch.zeros(kw["n_layers"], B, Lp, 2 * kw["d_model"], dtype=self.model.cfg.dtype,
+                            device=dev)
+        out = torch.zeros(B, Lp, dtype=torch.long, device=dev)
+        out[:, 0] = self.tables.mask_index
+        pos = 0
+        while pos + 1 < L and not bool(state[ST_DONE].all()):  # one read-back a chunk
+            state, tokens, new_kv = fused_decode_tokens(
+                packed, self.sampling_tables, state, aux, span_types, noise, cache,
+                cross_kv, pos, cross_len, **kw, **skw, T_chunk=T,
+            )
+            out[:, pos + 1 : pos + 1 + T] = tokens.T
+            cache[:, :, pos : pos + T] = new_kv.transpose(1, 2)
+            pos += T
+        # a chunk may overshoot a finish inside it, and a row still live near
+        # the cap decodes into the slop rows: clamp the lengths to L, zero
+        # every position past them and trim the slop (JAX :897-905)
+        lengths = state[ST_LEN].long().clamp(max=L)
+        valid = torch.arange(Lp, device=dev)[None, :] < lengths[:, None]
+        out = torch.where(valid, out, 0)[:, :L]
+        # v3's step count: the slowest row's unclamped length, at most the
+        # L - 1 steps of v3's loop, and 0 when the loop never ran (JAX :906-916)
+        ran = L > 1 and bool((n_spans > 0).any())
+        steps = min(int(state[ST_LEN].max()), L - 1) if ran else 0
         return DecodeResult(tokens=out, lengths=lengths, steps=steps)
 
 

@@ -9,10 +9,15 @@ bar-time retry loop, ``__call__`` :716) and copies of the host helpers
 ``change_controls`` (:256) and ``_repair_durations`` (:1168).  Build the
 masked source, run the decoder, splice results back, repair bar durations.
 
-Not ported yet (they raise ``NotImplementedError``): ``span_retries``,
-``correct_controls`` (ROADMAP.md Queue 1 item 3) and ``mesh`` (item 8).  Sampling noise
-comes from a ``torch.Generator``; a retry draws fresh noise from it where
-JAX folds a new key.
+``quant="int8"`` (with the fused decoder) streams int8 decoder weights
+through every batch: the kernels take any group of 1 to 8 rows, so no call
+shape falls back to unquantized weights as JAX's can (:259-268).
+
+Not ported yet (they raise ``NotImplementedError``): ``span_retries``
+(ROADMAP.md Queue 1 item 5), ``correct_controls`` (Queue 1 item 7) and
+``mesh`` (Queue 1 item 11).  Sampling noise comes from a
+``torch.Generator``; a retry draws fresh noise from it where JAX folds a
+new key.
 """
 
 from __future__ import annotations
@@ -421,7 +426,7 @@ class InfillEngine:
         for a Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``)."""
         if correct_controls:
             raise NotImplementedError(
-                "correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 3)"
+                "correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)"
             )
         if not requests:
             return []
@@ -580,7 +585,7 @@ class InfillEngine:
     ) -> Optional[InfillResult]:
         if span_retries:
             raise NotImplementedError(
-                "span_retries is not ported to PyTorch yet (ROADMAP.md Queue 1 item 3)"
+                "span_retries is not ported to PyTorch yet (ROADMAP.md Queue 1 item 5)"
             )
         req = self.prepare(events, tracks_to_generate, bars_to_generate)
         if req is None:

@@ -42,9 +42,22 @@ def main(argv=None) -> int:
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--greedy", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--correct_controls", action="store_true")
     parser.add_argument("--max_tgt", type=int, default=1024)
+    parser.add_argument("--draft_k", type=int, default=0,
+                        help="speculative decode: prompt-lookup draft width (0 = off); greedy output is bit-identical, nucleus distribution-identical")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+
+    if args.correct_controls:
+        raise NotImplementedError(
+            "--correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)"
+        )
+    if args.draft_k > 0:
+        raise NotImplementedError(
+            "--draft_k > 0 (speculative decode) is not ported to PyTorch yet "
+            "(ROADMAP.md Queue 1 item 4 / Queue 2 item 3)"
+        )
 
     logger = logger_init(None)
     device = torch.device(args.device)

@@ -6,7 +6,7 @@ encoder and decoder layers with a ReLU FFN, the final ``norm_e``/``norm_d``,
 and the KV-cache decode path (``encode`` :560, ``init_cross_cache`` :673,
 ``init_self_cache`` :680, ``decode_step`` :686).  ``decode``,
 ``decode_window`` and the training paths are not ported yet (ROADMAP.md
-Queue 1 items 4 and 6).
+Queue 1 items 4 and 9).
 
 Numerics follow the Flax model: parameters are held in f32 and every
 projection runs in ``cfg.dtype`` (bf16 on the card), while softmax,

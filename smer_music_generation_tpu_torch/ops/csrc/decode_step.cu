@@ -10,13 +10,14 @@
 // over the cross K|V masked by `cross_len`, the two out projections, post-LN
 // (eps 1e-6) and the ReLU FFN; then the final LN and the f32 logits.
 //
-// What bounds it on an H100 SXM (3.35 TB/s): bytes.  At B=1 a step streams
-// 4 x (512*3072 + 2*512*2048) bf16 decoder weights (29.4 MB) plus the
-// 512 x 384 f32 output projection (0.8 MB), and per layer and batch element
-// `index` rows of self cache and `cross_len` rows of cross cache at 2 KB
-// each.  The operations (2 flops per weight byte pair per row of B <= 8) are
-// far below the card's ridge point.  So the design keeps every weight read
-// coalesced and shared by all B rows, and reads each cache row once:
+// What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes.
+// At B=1 a step streams 4 x (512*3072 + 2*512*2048) bf16 decoder weights
+// (29.4 MB) plus the 512 x 384 f32 output projection (0.8 MB), and per
+// layer and batch element `index` rows of self cache and `cross_len` rows
+// of cross cache at 2 KB each.  The operations (2 flops per weight byte
+// pair per row of B <= 8) are far below the card's ridge point.  So the
+// design keeps every weight read coalesced and shared by all B rows, and
+// reads each cache row once:
 //
 //   * `rowvec_kernel`: y[b, n] = act(sum_k x[b, k] W[k, n] + bias[n]) for
 //     B <= 8 rows.  W stays in the (K, N) layout of the packed flax weights;
@@ -34,10 +35,26 @@
 // and no hand-off between blocks: each launch is independent and stream
 // order carries the data from one to the next, 11 launches per layer plus
 // 2 (46 for the 4-layer model).  This first version is right but slow.
-// Measured on an H100 SXM at 700 W, B=4, S=1536, index=512 (PERF.md): 1.98
-// ms a step against a 27.7 us bytes bound, the device busy 97% of it;
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W, B=4, S=1536, index=512
+// (PERF.md, chip_smoke.py): 1.98 ms a step against a 27.7 us bytes bound,
+// the device busy 97% of it;
 // rowvec_kernel takes 70% (the N = 512 projections run on 8 blocks, each
 // warp walking K serially) and attend_kernel 28% (only B x H blocks).
+//
+// int8 weights (the TPU kernel's `scale=` path of `_layer_body`, packed by
+// `quantize_columns` :50): the same rowvec_kernel reads W as int8 (two lanes
+// a load, converted exactly to float) with x rounded to bf16, and scales each
+// output column by its f32 scale before the bias: y = (x . q) * s + b, the
+// order of the TPU kernel's `rescale(dot) + b`.  It halves the decoder's
+// weight bytes (29.4 MB -> 14.7 MB plus a 90 KB scale strip a step; fc_w
+// stays f32).
+//
+// The kernel-looped token chunk (v4, `fused_decode_tokens` :1028) gives
+// attend_kernel a second source of self-attention rows: rows r < n_rows come
+// from the cache, rows n_rows <= r < n_rows + n_chunk from the chunk's own
+// K|V rows (the v4 `new_kv` output, (T, B, 2D) a layer).  The rows keep the
+// warp assignment of a cache that holds them all (row r on warp r % 8), so a
+// v4 token sums exactly what a v3 token sums over the spliced cache.
 //
 // Every launcher has a plain C interface and returns cudaGetLastError().
 
@@ -45,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,6 +78,15 @@ template <>
 struct PairLoad<__nv_bfloat16> {
   static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+// two int8 lanes; |q| <= 127 converts to float exactly
+template <>
+struct PairLoad<int8_t> {
+  static __device__ __forceinline__ float2 load(const int8_t* p) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
   }
 };
 
@@ -78,8 +106,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename WT, int NB, bool ROUND_X, bool RELU>
 __global__ void __launch_bounds__(kThreads) rowvec_kernel(
     const float* __restrict__ x, int ldx, const WT* __restrict__ w, int ldw,
-    const float* __restrict__ bias, float* __restrict__ y, int ldy,
-    __nv_bfloat16* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N) {
+    const float* __restrict__ colscale, const float* __restrict__ bias,
+    float* __restrict__ y, int ldy, __nv_bfloat16* __restrict__ kv_out,
+    int ldkv, int kv_col0, int K, int N) {
+  // int8 weights carry column scales; a bf16 or f32 instantiation is the
+  // kernel without them
+  constexpr bool kScaled = std::is_same<WT, int8_t>::value;
   __shared__ float red[kWarps][NB][kCols];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -117,6 +149,8 @@ __global__ void __launch_bounds__(kThreads) rowvec_kernel(
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi) s += red[wi][b][i % kCols];
+    // int8: the column scale, rounded, then the bias (no contraction)
+    if (kScaled) s = __fmul_rn(s, colscale[col]);
     s += bias[col];
     if (RELU) s = fmaxf(s, 0.f);
     y[(size_t)b * ldy + col] = s;
@@ -125,13 +159,44 @@ __global__ void __launch_bounds__(kThreads) rowvec_kernel(
   }
 }
 
-// head_dim = 32 * EPL; each lane owns EPL adjacent lanes of the head.
+// One K|V row into a warp's f32 online softmax (m, l, acc).
 template <int EPL>
+__device__ __forceinline__ void attend_row(const __nv_bfloat16* row, int d0,
+                                           int D, const float* qv,
+                                           float scale, float& m, float& l,
+                                           float* acc) {
+  float kf[EPL], vf[EPL];
+#pragma unroll
+  for (int e = 0; e < EPL; e += 2) {
+    const float2 kk = PairLoad<__nv_bfloat16>::load(row + d0 + e);
+    const float2 vv = PairLoad<__nv_bfloat16>::load(row + D + d0 + e);
+    kf[e] = kk.x;
+    kf[e + 1] = kk.y;
+    vf[e] = vv.x;
+    vf[e + 1] = vv.y;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) s = fmaf(qv[e], kf[e], s);
+  s = warp_sum(s) * scale;
+  const float m_new = fmaxf(m, s);
+  const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
+  const float p = expf(s - m_new);
+  l = l * alpha + p;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) acc[e] = fmaf(acc[e], alpha, p * vf[e]);
+  m = m_new;
+}
+
+// head_dim = 32 * EPL; each lane owns EPL adjacent lanes of the head.
+// CHUNK: self-attention rows past the cache's come from a v4 chunk.
+template <int EPL, bool CHUNK>
 __global__ void __launch_bounds__(kThreads) attend_kernel(
     const float* __restrict__ q, int ldq, const __nv_bfloat16* __restrict__ kv,
     long long kv_bstride, int D, int n_rows, const int* __restrict__ lens,
-    int max_rows, const float* __restrict__ extra, int ld_extra,
-    float* __restrict__ out, int ldo, float scale) {
+    int max_rows, const __nv_bfloat16* __restrict__ chunk,
+    long long chunk_tstride, int n_chunk, const float* __restrict__ extra,
+    int ld_extra, float* __restrict__ out, int ldo, float scale) {
   constexpr int HD = 32 * EPL;
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
@@ -142,8 +207,10 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(
   const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int n = lens != nullptr ? lens[b] : n_rows;
-  n = max(0, min(n, max_rows));
+  int n_cache = lens != nullptr ? lens[b] : n_rows;
+  n_cache = max(0, min(n_cache, max_rows));
+  // rows past the cache's come from the chunk: (n_chunk, B, 2D) a layer
+  const int n = n_cache + (CHUNK ? n_chunk : 0);
 
   const int d0 = h * HD + lane * EPL;
   float qv[EPL];
@@ -156,30 +223,16 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(
 #pragma unroll
   for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
 
+  // row t on warp t % kWarps, in order: the cache rows, then the chunk rows
+  int t = warp;
 #pragma unroll 4
-  for (int t = warp; t < n; t += kWarps) {
-    const __nv_bfloat16* row = base + (size_t)t * 2 * D;
-    float kf[EPL], vf[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; e += 2) {
-      const float2 kk = PairLoad<__nv_bfloat16>::load(row + d0 + e);
-      const float2 vv = PairLoad<__nv_bfloat16>::load(row + D + d0 + e);
-      kf[e] = kk.x;
-      kf[e + 1] = kk.y;
-      vf[e] = vv.x;
-      vf[e + 1] = vv.y;
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) s = fmaf(qv[e], kf[e], s);
-    s = warp_sum(s) * scale;
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
-    const float p = expf(s - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] = fmaf(acc[e], alpha, p * vf[e]);
-    m = m_new;
+  for (; t < n_cache; t += kWarps)
+    attend_row<EPL>(base + (size_t)t * 2 * D, d0, D, qv, scale, m, l, acc);
+  if (CHUNK) {
+    const __nv_bfloat16* cbase = chunk + (size_t)b * 2 * D;
+    for (; t < n; t += kWarps)
+      attend_row<EPL>(cbase + (size_t)(t - n_cache) * chunk_tstride, d0, D, qv,
+                      scale, m, l, acc);
   }
 
   if (lane == 0) {
@@ -259,13 +312,15 @@ __global__ void __launch_bounds__(kThreads) add_layernorm_kernel(
 
 template <typename WT, bool ROUND_X, bool RELU>
 int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw,
-                  const float* bias, float* y, int ldy, __nv_bfloat16* kv_out,
-                  int ldkv, int kv_col0, int K, int N, cudaStream_t st) {
+                  const float* colscale, const float* bias, float* y, int ldy,
+                  __nv_bfloat16* kv_out, int ldkv, int kv_col0, int K, int N,
+                  cudaStream_t st) {
   const dim3 grid((N + kCols - 1) / kCols);
 #define SMER_ROWVEC_CASE(NB)                                              \
   case NB:                                                                \
     rowvec_kernel<WT, NB, ROUND_X, RELU><<<grid, kThreads, 0, st>>>(      \
-        x, ldx, w, ldw, bias, y, ldy, kv_out, ldkv, kv_col0, K, N);       \
+        x, ldx, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, \
+        N);                                                               \
     break;
   switch (nb) {
     SMER_ROWVEC_CASE(1)
@@ -287,55 +342,78 @@ int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw,
 
 extern "C" {
 
-// w_f32 = 0: W is bf16 and x is rounded to bf16 first; 1: W is f32.
-int smer_rowvec(int w_f32, int relu, int nb, const void* x, int ldx,
-                const void* w, int ldw, const void* bias, void* y, int ldy,
-                void* kv_out, int ldkv, int kv_col0, int K, int N,
-                void* stream) {
+// w_kind 0: W is bf16; 1: W is f32; 2: W is int8 with f32 column scales
+// `colscale` (null otherwise).  A bf16 or int8 W sees x rounded to bf16.
+int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx,
+                const void* w, int ldw, const void* colscale, const void* bias,
+                void* y, int ldy, void* kv_out, int ldkv, int kv_col0, int K,
+                int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
+  const float* cs = static_cast<const float*>(colscale);
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
   __nv_bfloat16* kvo = static_cast<__nv_bfloat16*>(kv_out);
-  if (w_f32) {
+  if ((w_kind == 2) != (cs != nullptr)) return (int)cudaErrorInvalidValue;
+  if (w_kind == 1) {
     if (relu) return (int)cudaErrorInvalidValue;
     return launch_rowvec<float, false, false>(
-        nb, xf, ldx, static_cast<const float*>(w), ldw, bf, yf, ldy, kvo,
+        nb, xf, ldx, static_cast<const float*>(w), ldw, cs, bf, yf, ldy, kvo,
         ldkv, kv_col0, K, N, st);
   }
+  if (w_kind == 2) {
+    const int8_t* wq = static_cast<const int8_t*>(w);
+    if (relu)
+      return launch_rowvec<int8_t, true, true>(nb, xf, ldx, wq, ldw, cs, bf, yf,
+                                               ldy, kvo, ldkv, kv_col0, K, N, st);
+    return launch_rowvec<int8_t, true, false>(nb, xf, ldx, wq, ldw, cs, bf, yf,
+                                              ldy, kvo, ldkv, kv_col0, K, N, st);
+  }
+  if (w_kind != 0) return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
   if (relu)
     return launch_rowvec<__nv_bfloat16, true, true>(
-        nb, xf, ldx, wb, ldw, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
+        nb, xf, ldx, wb, ldw, cs, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
   return launch_rowvec<__nv_bfloat16, true, false>(
-      nb, xf, ldx, wb, ldw, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
+      nb, xf, ldx, wb, ldw, cs, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
 }
 
+// chunk null: no chunk rows (n_chunk and chunk_tstride unused)
 int smer_attend(int head_dim, int B, int H, const void* q, int ldq,
                 const void* kv, long long kv_bstride, int D, int n_rows,
-                const void* lens, int max_rows, const void* extra,
+                const void* lens, int max_rows, const void* chunk,
+                long long chunk_tstride, int n_chunk, const void* extra,
                 int ld_extra, void* out, int ldo, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, H);
   const float* qf = static_cast<const float*>(q);
   const __nv_bfloat16* kvb = static_cast<const __nv_bfloat16*>(kv);
   const int* lp = static_cast<const int*>(lens);
+  const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(chunk);
   const float* ef = static_cast<const float*>(extra);
   float* of = static_cast<float*>(out);
+#define SMER_ATTEND(EPL, CHUNK)                                              \
+  attend_kernel<EPL, CHUNK><<<grid, kThreads, 0, st>>>(                      \
+      qf, ldq, kvb, kv_bstride, D, n_rows, lp, max_rows, cb, chunk_tstride,  \
+      n_chunk, ef, ld_extra, of, ldo, scale)
+  const bool chunked = cb != nullptr;
   switch (head_dim) {
     case 64:
-      attend_kernel<2><<<grid, kThreads, 0, st>>>(qf, ldq, kvb, kv_bstride, D,
-                                                  n_rows, lp, max_rows, ef,
-                                                  ld_extra, of, ldo, scale);
+      if (chunked)
+        SMER_ATTEND(2, true);
+      else
+        SMER_ATTEND(2, false);
       break;
     case 128:
-      attend_kernel<4><<<grid, kThreads, 0, st>>>(qf, ldq, kvb, kv_bstride, D,
-                                                  n_rows, lp, max_rows, ef,
-                                                  ld_extra, of, ldo, scale);
+      if (chunked)
+        SMER_ATTEND(4, true);
+      else
+        SMER_ATTEND(4, false);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef SMER_ATTEND
   return (int)cudaGetLastError();
 }
 

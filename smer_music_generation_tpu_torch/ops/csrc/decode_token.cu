@@ -29,13 +29,27 @@
 //     next token and length exactly as the TPU kernel advances them.  A row
 //     that is done writes padding.
 //
-// What bounds it on an H100 SXM (3.35 TB/s): bytes, those of the v2 step
-// (the decoder weights, the valid cache rows) plus B embedding rows and,
-// a row, one noise row, one grammar mask row and one class row, less the
-// logits, which stay on chip.  This design does nothing about that yet:
-// the two kernels add two launches to v2's 46 and move the host's ~25
-// sampling ops onto the card, and making the whole token fast is later
-// work.
+// What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes,
+// those of the v2 step (the decoder weights, the valid cache rows) plus B
+// embedding rows and, a row, one noise row, one grammar mask row and one
+// class row, less the logits, which stay on chip.  This design does
+// nothing about that yet: the two kernels add two launches to v2's 46 and
+// move the host's ~25 sampling ops onto the card, and making the whole
+// token fast is later work.
+//
+// The kernel-looped chunk (v4) replaces the TPU kernel `fused_decode_tokens`
+// of smer_music_generation_tpu/ops/decode_step.py:1028 (body `_kernel_v4`
+// :916, the chunk block of `_flash_attend` :201-285).  The TPU runs a
+// (T_chunk, n_layers) grid in one program, the state in SMEM and the chunk's
+// K|V rows in VMEM.  Here one call issues T_chunk x 48 launches in stream
+// order with no host synchronisation: token t embeds at position base + t,
+// its QKV launch writes its K|V row straight into the chunk output `new_kv`
+// (nl, T_chunk, B, 2D), the self-attention reads the cache rows below base
+// and the chunk rows before t (decode_step.cu), and `sample_advance_kernel`
+// reads noise row base + t, applies the span cap at that position, writes
+// the next state into the other of two state buffers and the next token
+// into row t of `tokens`.  It is bound by bytes as v3 is, the weights read
+// once a token; keeping them on chip across the chunk is later work.
 //
 // There is no grid-wide synchronisation, no cooperative launch and no
 // spin-wait.  Every launcher has a plain C interface and returns
@@ -111,8 +125,8 @@ __global__ void sample_advance_kernel(
     const int* __restrict__ aux, const int* __restrict__ span_types,
     const int* __restrict__ sid_tbl, const float* __restrict__ masks,
     const float* __restrict__ class_mat, const float* __restrict__ noise,
-    int* __restrict__ state_out, int B, int vpad, int index, int mode,
-    int max_spans, int span_cap, int eos_index, int mask_index,
+    int* __restrict__ state_out, int* __restrict__ tokens_out, int B, int vpad,
+    int index, int mode, int max_spans, int span_cap, int eos_index, int mask_index,
     int use_nucleus, float nucleus_p, float temperature, int n_sid,
     int span_body) {
   extern __shared__ float probs[];  // (vpad,)
@@ -225,6 +239,7 @@ __global__ void sample_advance_kernel(
   state_out[kSpan * B + b] = new_span_idx;
   state_out[kDone * B + b] = now_done ? 1 : 0;
   state_out[kLen * B + b] = next_tok != 0 ? index + 2 : length;
+  if (tokens_out != nullptr) tokens_out[b] = next_tok;  // v4: the chunk's row t
 }
 
 }  // namespace
@@ -241,13 +256,14 @@ int smer_embed_pe(int B, int D, const void* tokens, const void* emb, int vpad,
   return (int)cudaGetLastError();
 }
 
-// noise null = greedy; use_nucleus 0 = no nucleus rule
+// noise null = greedy; use_nucleus 0 = no nucleus rule; tokens_out null =
+// no token row (v3), else the B next tokens are also written there (v4)
 int smer_sample_advance(int B, int vpad, const void* logits, const void* state,
                         const void* aux, const void* span_types,
                         const void* sid_tbl, const void* masks,
                         const void* class_mat, const void* noise,
-                        void* state_out, int index, int mode, int max_spans,
-                        int span_cap, int eos_index, int mask_index,
+                        void* state_out, void* tokens_out, int index, int mode,
+                        int max_spans, int span_cap, int eos_index, int mask_index,
                         int use_nucleus, float nucleus_p, float temperature,
                         int n_sid, int span_body, void* stream) {
   if (vpad % 32 != 0 || vpad > 1024 || vpad < 32) return (int)cudaErrorInvalidValue;
@@ -257,7 +273,8 @@ int smer_sample_advance(int B, int vpad, const void* logits, const void* state,
       static_cast<const int*>(aux), static_cast<const int*>(span_types),
       static_cast<const int*>(sid_tbl), static_cast<const float*>(masks),
       static_cast<const float*>(class_mat), static_cast<const float*>(noise),
-      static_cast<int*>(state_out), B, vpad, index, mode, max_spans, span_cap,
+      static_cast<int*>(state_out), static_cast<int*>(tokens_out), B, vpad,
+      index, mode, max_spans, span_cap,
       eos_index, mask_index, use_nucleus, nucleus_p, temperature, n_sid,
       span_body);
   return (int)cudaGetLastError();

@@ -1,19 +1,26 @@
-"""One decoder step (v2) and one whole token (v3) through hand-written CUDA
-kernels, each beside its plain twin.
+"""One decoder step (v2), one whole token (v3) and a chunk of tokens (v4)
+through hand-written CUDA kernels, each beside its plain twin, with bf16 or
+int8 decoder weights.
 
-Port of ``smer_music_generation_tpu/ops/decode_step.py``: the packers
-``pack_decoder_weights`` (:66), ``stack_kv_cache`` (:154), ``vocab_pad``
-(:551) and ``pack_sampling_tables`` (:571) with the ``ST_*`` / ``AUX_*`` /
-``_CL_*`` constants (:563-568), and the TPU kernels ``fused_decode_step``
-(v2, :456) and ``fused_decode_token`` (v3, :796), which become the kernel
-sets in ``csrc/decode_step.cu`` and ``csrc/decode_token.cu``.
+Port of ``smer_music_generation_tpu/ops/decode_step.py``: ``quantize_columns``
+(:50), the packers ``pack_decoder_weights`` (:66, ``quant="int8"`` included),
+``stack_kv_cache`` (:154), ``vocab_pad`` (:551) and ``pack_sampling_tables``
+(:571) with the ``ST_*`` / ``AUX_*`` / ``_CL_*`` constants (:563-568), and the
+TPU kernels ``fused_decode_step`` (v2, :456), ``fused_decode_token`` (v3,
+:796) and ``fused_decode_tokens`` (v4, :1028), with the int8 ``scale`` path
+of their layer body (:296-400), which become the kernel sets in
+``csrc/decode_step.cu`` and ``csrc/decode_token.cu``.
 
 ``fused_decode_step`` keeps the JAX signature and returns
 ``(logits (B, vpad) f32, new_kv (n_layers, B, 2D))``; ``fused_decode_token``
 keeps it without ``interpret`` and returns ``(new_state (6, B) int32,
-new_kv)``.  A tensor on the CPU goes to the twin
-(:func:`fused_decode_step_reference`, :func:`fused_decode_token_reference`),
-the same math in plain torch; a CUDA tensor launches the kernels or raises.
+new_kv)``; ``fused_decode_tokens`` returns ``(new_state, tokens (T_chunk, B)
+int32, new_kv (n_layers, T_chunk, B, 2D))``.  A packed dict with a
+``"scale"`` strip holds int8 matrices, and every wrapper takes it.  A tensor
+on the CPU goes to the twin (:func:`fused_decode_step_reference`,
+:func:`fused_decode_token_reference`, :func:`fused_decode_tokens_reference`,
+:func:`rowvec_int8_reference`), the same math in plain torch; a CUDA tensor
+launches the kernels or raises.
 There is no fallback from one to the other.  The kernels are built at first
 use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over all the
 sources) and bound with ``ctypes``; nothing is built when this module is
@@ -62,6 +69,20 @@ def vocab_pad(vocab_size: int) -> int:
     return ((vocab_size + 127) // 128) * 128
 
 
+def quantize_columns(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-column int8 quantization (JAX :50).
+
+    ``w`` is (..., rows, cols) f32; each column gets one f32 scale
+    ``max(amax, 1e-8) / 127`` and ``q = clamp(round(w / scale), -127, 127)``,
+    rounding half to even as ``jnp.round`` does.  Returns ``(q int8, scale
+    (..., 1, cols) f32)``."""
+    w = w.float()
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    scale = amax.clamp(min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, torch.Tensor]:
     """Stack per-layer decoder weights into layer-major packed tensors.
 
@@ -79,14 +100,17 @@ def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, tor
 
     torch ``Linear.weight`` is (out, in); it is transposed here back to
     the flax (in, out) layout the kernels read.
+
+    ``quant="int8"`` stores w_attn, w_ff1 and w_ff2 as int8
+    (:func:`quantize_columns`) plus one f32 scale strip
+    ``scale (nl, 1, 7D + F) = [s_attn (6D) | s_ff1 (F) | s_ff2 (D)]``.  They
+    are quantized from the modules' f32 parameters, not from their copy in
+    the compute dtype, as JAX quantizes from its f32 masters.
     """
-    if quant == "int8":
-        raise NotImplementedError(
-            "quant='int8' is not ported yet (ROADMAP.md Queue 2 item 5)"
-        )
-    if quant != "none":
+    if quant not in ("none", "int8"):
         raise ValueError(f"unknown quant mode {quant!r}")
-    dt = model.cfg.dtype
+    # int8 quantizes the f32 masters; the compute dtype would round first
+    dt = torch.float32 if quant == "int8" else model.cfg.dtype
     layers = list(model.decoder_layers)
 
     def kernel(lin):
@@ -121,6 +145,12 @@ def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, tor
             "w_ff1": torch.stack([kernel(lp.ff.fc1) for lp in layers]).to(dt).contiguous(),
             "w_ff2": torch.stack([kernel(lp.ff.fc2) for lp in layers]).to(dt).contiguous(),
         }
+        if quant == "int8":
+            scales = []
+            for k in ("w_attn", "w_ff1", "w_ff2"):
+                packed[k], sc = quantize_columns(packed[k])
+                scales.append(sc)
+            packed["scale"] = torch.cat(scales, dim=-1).contiguous()
         if model.norm_d is not None:
             packed["fin_ln"] = torch.stack(
                 [model.norm_d.weight, model.norm_d.bias]
@@ -132,7 +162,7 @@ def pack_decoder_weights(model, vpad: int, quant: str = "none") -> Dict[str, tor
             model.fc.bias.float(), (0, vpad - V), value=-1e9
         ).contiguous()
         packed["emb"] = torch.nn.functional.pad(
-            model.embedding.weight.detach().to(dt), (0, 0, 0, vpad - V)
+            model.embedding.weight.detach().to(model.cfg.dtype), (0, 0, 0, vpad - V)
         ).contiguous()
     return packed
 
@@ -230,17 +260,37 @@ def fused_decode_step_reference(
     )
 
 
+def _rowvec_math(x, w, cdt, colscale=None):
+    """x @ w with both operands rounded to the compute dtype ``cdt`` (exact
+    for int8 |q| <= 127) and f32 sums; an int8 ``w`` then takes its column
+    scales, as the TPU kernel's ``rescale(dot)``."""
+    y = x.to(cdt).float() @ w.to(cdt).float()
+    return y if colscale is None else y * colscale
+
+
+def rowvec_int8_reference(x, q, scale, bias, *, relu: bool = False,
+                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain-torch twin of :func:`rowvec_int8`: ``act((x . q) * scale +
+    bias)`` with x rounded to ``compute_dtype``, in f32."""
+    rowvec_int8_reference.calls += 1
+    y = _rowvec_math(x, q, compute_dtype, scale) + bias
+    return torch.relu(y) if relu else y
+
+
+rowvec_int8_reference.calls = 0
+
+
 def _decode_step_math(packed, x_emb, self_kv, cross_kv, index, cross_len, *,
                       n_layers, d_model, nhead, d_ff, vpad):
     D, F = d_model, d_ff
-    dt = packed["w_attn"].dtype
+    quant = "scale" in packed
+    # int8 matrices run in the cache dtype, the model's compute dtype (JAX
+    # casts the int8 blocks to it); otherwise in the weights' own dtype
+    cdt = self_kv.dtype if quant else packed["w_attn"].dtype
     index = int(index)
     B = x_emb.shape[0]
     n_self = torch.full((B,), index, dtype=torch.int64, device=x_emb.device)
     cross_len = cross_len.to(torch.int64)
-
-    def mm(a, w):  # operands rounded to the weight dtype, f32 accumulation
-        return a.to(dt).float() @ w.float()
 
     x = x_emb.float()
     new_kv = []
@@ -248,20 +298,25 @@ def _decode_step_math(packed, x_emb, self_kv, cross_kv, index, cross_len, *,
         w = packed["w_attn"][i]
         b = packed["bias"][i, 0]
         ln = packed["ln"][i]
-        qkv = mm(x, w[:, : 3 * D]) + b[: 3 * D]
+        sc = packed["scale"][i, 0] if quant else None
+
+        def mm(a, wm, lo, hi):  # f32 sums of the rounded operands, then + bias
+            return _rowvec_math(a, wm, cdt, None if sc is None else sc[lo:hi]) + b[lo:hi]
+
+        qkv = mm(x, w[:, : 3 * D], 0, 3 * D)
         new_kv.append(qkv[:, D:].to(self_kv.dtype))
         att = _attend(
             qkv[:, :D], self_kv[i, :, :index], n_self, nhead,
             extra_kv=(qkv[:, D : 2 * D], qkv[:, 2 * D :]),
         )
-        o = mm(att, w[:, 3 * D : 4 * D]) + b[3 * D : 4 * D]
+        o = mm(att, w[:, 3 * D : 4 * D], 3 * D, 4 * D)
         x = _layernorm(x + o, ln[0], ln[1])
-        qc = mm(x, w[:, 4 * D : 5 * D]) + b[4 * D : 5 * D]
+        qc = mm(x, w[:, 4 * D : 5 * D], 4 * D, 5 * D)
         att = _attend(qc, cross_kv[i], cross_len, nhead)
-        o = mm(att, w[:, 5 * D : 6 * D]) + b[5 * D : 6 * D]
+        o = mm(att, w[:, 5 * D : 6 * D], 5 * D, 6 * D)
         x = _layernorm(x + o, ln[2], ln[3])
-        h = torch.relu(mm(x, packed["w_ff1"][i]) + b[6 * D : 6 * D + F])
-        y = mm(h, packed["w_ff2"][i]) + b[6 * D + F :]
+        h = torch.relu(mm(x, packed["w_ff1"][i], 6 * D, 6 * D + F))
+        y = mm(h, packed["w_ff2"][i], 6 * D + F, 7 * D + F)
         x = _layernorm(x + y, ln[4], ln[5])
     if "fin_ln" in packed:
         x = _layernorm(x, packed["fin_ln"][0], packed["fin_ln"][1])
@@ -402,6 +457,17 @@ def fused_decode_token_reference(
     before the first layer, as the TPU kernel keeps ``x_s`` in f32), then
     the v2 twin, then the sampler and state advance."""
     fused_decode_token_reference.calls += 1
+    return _decode_token_math(
+        packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index, cross_len,
+        n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
+        mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
+        mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
+        greedy=greedy, n_sid=n_sid, span_body=span_body,
+    )
+
+
+def _decode_token_math(packed, tables, state, aux, span_types, noise, self_kv, cross_kv,
+                       index, cross_len, *, n_layers, d_model, nhead, d_ff, vpad, **skw):
     index = int(index)
     emb = packed["emb"][state[ST_TOKEN].long()].float()
     x = emb * math.sqrt(d_model) + pe_row(index, d_model, emb.device)
@@ -409,16 +475,53 @@ def fused_decode_token_reference(
         packed, x, self_kv, cross_kv, index, cross_len,
         n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
     )
-    new_state = sample_and_advance_reference(
-        logits, state, aux, span_types, noise, index, tables,
-        mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
-        mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
-        greedy=greedy, n_sid=n_sid, span_body=span_body,
-    )
+    new_state = sample_and_advance_reference(logits, state, aux, span_types, noise, index,
+                                             tables, **skw)
     return new_state, new_kv
 
 
 fused_decode_token_reference.calls = 0
+
+
+def fused_decode_tokens_reference(
+    packed: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    state: torch.Tensor,
+    aux: torch.Tensor,
+    span_types: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    self_kv: torch.Tensor,
+    cross_kv: torch.Tensor,
+    index,
+    cross_len: torch.Tensor,
+    *,
+    n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
+    T_chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of :func:`fused_decode_tokens`: the v3 twin's token
+    at positions ``index + t`` for t < T_chunk, token t attending the cache
+    rows below ``index`` and the chunk's rows before t.  ``self_kv`` is not
+    written."""
+    fused_decode_tokens_reference.calls += 1
+    base = int(index)
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
+              mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
+              mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
+              greedy=greedy, n_sid=n_sid, span_body=span_body)
+    tokens, rows = [], []
+    for t in range(T_chunk):
+        cache = self_kv if t == 0 else torch.cat(
+            [self_kv[:, :, :base], torch.stack(rows, dim=2)], dim=2)
+        state, kv = _decode_token_math(packed, tables, state, aux, span_types, noise, cache,
+                                       cross_kv, base + t, cross_len, **kw)
+        rows.append(kv)
+        tokens.append(state[ST_TOKEN])
+    return state, torch.stack(tokens), torch.stack(rows, dim=1)
+
+
+fused_decode_tokens_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -488,12 +591,12 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         i, p, f, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
-        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, i, p, i, i, i, i, p]
-        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, p, i, p, i, f, p]
+        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, p]
+        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, p, ll, i, p, i, p, i, f, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
-            [i, i] + [p] * 9 + [i] * 7 + [f, f, i, i, p]
+            [i, i] + [p] * 10 + [i] * 7 + [f, f, i, i, p]
         )
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance):
@@ -528,17 +631,16 @@ def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D
         raise ValueError(f"d_model={D}, nhead={H}: need d_model % 64 == 0 and head_dim 64 or 128")
     if vpad % 2:
         raise ValueError(f"vpad={vpad} must be even")
-    if "scale" in packed:
-        raise NotImplementedError("int8 weights are not ported yet (ROADMAP.md Queue 2 item 5)")
     bf16, f32 = torch.bfloat16, torch.float32
+    wdt = torch.int8 if "scale" in packed else bf16
     L, S = self_kv.shape[2], cross_kv.shape[2]
     want = {
         "self_kv": (self_kv, bf16, (n_layers, B, L, 2 * D)),
         "cross_kv": (cross_kv, bf16, (n_layers, B, S, 2 * D)),
         "cross_len": (cross_len, torch.int32, (B,)),
-        "w_attn": (packed["w_attn"], bf16, (n_layers, D, 6 * D)),
-        "w_ff1": (packed["w_ff1"], bf16, (n_layers, D, F)),
-        "w_ff2": (packed["w_ff2"], bf16, (n_layers, F, D)),
+        "w_attn": (packed["w_attn"], wdt, (n_layers, D, 6 * D)),
+        "w_ff1": (packed["w_ff1"], wdt, (n_layers, D, F)),
+        "w_ff2": (packed["w_ff2"], wdt, (n_layers, F, D)),
         "bias": (packed["bias"], f32, (n_layers, 1, 7 * D + F)),
         "ln": (packed["ln"], f32, (n_layers, 6, D)),
         "fc_w": (packed["fc_w"], f32, (D, vpad)),
@@ -546,16 +648,39 @@ def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D
     }
     if "fin_ln" in packed:
         want["fin_ln"] = (packed["fin_ln"], f32, (2, D))
+    if "scale" in packed:
+        want["scale"] = (packed["scale"], f32, (n_layers, 1, 7 * D + F))
     _check_tensors(dev, want)
     if not 0 <= index < L:
         raise ValueError(f"index={index} outside the self cache of {L} rows")
 
 
+def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, relu=False, kv_out=None, ldkv=0,
+                   kv_col0=0, colscale=None) -> None:
+    """One ``rowvec_kernel`` launch: ``y = act(x . w [* colscale] + bias)``
+    for the B rows of ``x``; w may be bf16, f32 or int8 (with its column
+    scales ``colscale``), read through a row stride ``ldw``."""
+    kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[w.dtype]
+    B, K = x.shape
+    N = y.shape[1]
+    _check(lib.smer_rowvec(
+        kind, int(relu), B, x.data_ptr(), x.stride(0), w.data_ptr(), ldw,
+        colscale.data_ptr() if colscale is not None else None, bias.data_ptr(),
+        y.data_ptr(), y.stride(0), kv_out.data_ptr() if kv_out is not None else None,
+        ldkv, kv_col0, K, N, stream,
+    ), "rowvec")
+    if kind == 2:
+        rowvec_int8.launches += 1
+
+
 def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
-                   *, n_layers, D, H, F, vpad, stream) -> None:
+                   *, n_layers, D, H, F, vpad, stream, chunk=None) -> None:
     """The v2 launches on an f32 activation ``x`` (B, D), updated in place:
     11 a layer, the final LN and the logits.  Writes ``logits`` (B, vpad)
-    f32 and ``new_kv`` (n_layers, B, 2D)."""
+    f32 and ``new_kv`` (n_layers, B, 2D) (any layer stride, rows
+    contiguous).  ``chunk = (rows (n_layers, T, B, 2D), t)`` adds the first
+    t chunk rows to the self-attention after the ``index`` cache rows (v4).
+    With ``"scale"`` in ``packed`` the six matrices of a layer are int8."""
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
     HD = D // H
     scale = 1.0 / math.sqrt(HD)
@@ -566,19 +691,11 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     o = torch.empty(B, D, **f32)
     h = torch.empty(B, F, **f32)
 
-    def rowvec(xin, w, ldw, bias, y, relu=False, kv_out=None, w_f32=False):
-        K, N = xin.shape[1], y.shape[1]
-        _check(lib.smer_rowvec(
-            int(w_f32), int(relu), B, xin.data_ptr(), K, w.data_ptr(), ldw,
-            bias.data_ptr(), y.data_ptr(), N,
-            kv_out.data_ptr() if kv_out is not None else None, 2 * D, D,
-            K, N, stream,
-        ), "rowvec")
-
-    def attend(q, kv, n_rows, lens, max_rows, extra, out):
+    def attend(q, kv, n_rows, lens, max_rows, chunk_rows, n_chunk, extra, out):
         _check(lib.smer_attend(
             HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), max_rows * 2 * D, D,
             n_rows, lens.data_ptr() if lens is not None else None, max_rows,
+            chunk_rows.data_ptr() if chunk_rows is not None else None, B * 2 * D, n_chunk,
             extra, 3 * D, out.data_ptr(), D, scale, stream,
         ), "attend")
 
@@ -595,20 +712,59 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
         w = packed["w_attn"][i]
         b = packed["bias"][i, 0]
         ln = packed["ln"][i]
-        rowvec(x, w, ldw, b, qkv, kv_out=new_kv[i])
-        attend(qkv, self_kv[i], index, None, L, k_new_ptr, att)
-        rowvec(att, w[:, 3 * D :], ldw, b[3 * D :], o)
+        sc = packed["scale"][i, 0] if "scale" in packed else None
+
+        def rowvec(xin, wm, ldm, lo, y, **kw):  # matrix columns from lo
+            _launch_rowvec(lib, xin, wm, ldm, b[lo:], y, stream=stream,
+                           colscale=None if sc is None else sc[lo:], **kw)
+
+        rowvec(x, w, ldw, 0, qkv, kv_out=new_kv[i], ldkv=2 * D, kv_col0=D)
+        chunk_rows, n_chunk = (chunk[0][i], chunk[1]) if chunk is not None else (None, 0)
+        attend(qkv, self_kv[i], index, None, L, chunk_rows, n_chunk, k_new_ptr, att)
+        rowvec(att, w[:, 3 * D :], ldw, 3 * D, o)
         add_ln(x, o, ln[0], ln[1])
-        rowvec(x, w[:, 4 * D :], ldw, b[4 * D :], qc)
-        attend(qc, cross_kv[i], 0, cross_len, S, None, att)
-        rowvec(att, w[:, 5 * D :], ldw, b[5 * D :], o)
+        rowvec(x, w[:, 4 * D :], ldw, 4 * D, qc)
+        attend(qc, cross_kv[i], 0, cross_len, S, None, 0, None, att)
+        rowvec(att, w[:, 5 * D :], ldw, 5 * D, o)
         add_ln(x, o, ln[2], ln[3])
-        rowvec(x, packed["w_ff1"][i], F, b[6 * D :], h, relu=True)
-        rowvec(h, packed["w_ff2"][i], D, b[6 * D + F :], o)
+        rowvec(x, packed["w_ff1"][i], F, 6 * D, h, relu=True)
+        rowvec(h, packed["w_ff2"][i], D, 6 * D + F, o)
         add_ln(x, o, ln[4], ln[5])
     if "fin_ln" in packed:
         add_ln(x, None, packed["fin_ln"][0], packed["fin_ln"][1])
-    rowvec(x, packed["fc_w"], vpad, packed["fc_b"], logits, w_f32=True)
+    _launch_rowvec(lib, x, packed["fc_w"], vpad, packed["fc_b"], logits, stream=stream)
+
+
+def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                *, relu: bool = False) -> torch.Tensor:
+    """The int8 row-vector product alone: ``act((bf16(x) . q) * scale +
+    bias)`` for x (B, K) f32, q (K, N) int8 (rows may be strided, as a
+    column slice of a packed matrix), scale and bias (N,) f32; returns
+    (B, N) f32.  ``rowvec_kernel`` on CUDA tensors, whose every int8 launch
+    (here and inside the decode wrappers) counts in ``rowvec_int8.launches``;
+    :func:`rowvec_int8_reference` on CPU tensors."""
+    if x.device.type == "cpu":
+        return rowvec_int8_reference(x, q, scale, bias, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"rowvec_int8 runs on cuda or cpu, not {x.device}")
+    B, K = x.shape
+    N = q.shape[1]
+    if not 1 <= B <= 8:
+        raise ValueError(f"rowvec_int8 takes 1 <= B <= 8 rows, got {B}")
+    if q.dtype != torch.int8 or tuple(q.shape) != (K, N) or q.stride(1) != 1 or N % 2:
+        raise ValueError("q must be (K, N) int8 with unit column stride and N even")
+    _check_tensors(x.device, {"x": (x, torch.float32, (B, K)),
+                              "scale": (scale, torch.float32, (N,)),
+                              "bias": (bias, torch.float32, (N,))})
+    if q.device != x.device:
+        raise ValueError(f"q is on {q.device}, expected {x.device}")
+    y = torch.empty(B, N, device=x.device, dtype=torch.float32)
+    _launch_rowvec(load_library(), x, q, q.stride(0), bias, y, relu=relu, colscale=scale,
+                   stream=torch.cuda.current_stream(x.device).cuda_stream)
+    return y
+
+
+rowvec_int8.launches = 0
 
 
 def fused_decode_step(
@@ -672,14 +828,16 @@ def _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, *
 
 def _launch_sample_advance(lib, logits, state, aux, span_types, noise, index, tables, state_out, *,
                            stream, mode, max_spans, span_cap, eos_index, mask_index,
-                           nucleus_p, temperature, greedy, n_sid, span_body) -> None:
+                           nucleus_p, temperature, greedy, n_sid, span_body,
+                           tokens_out=None) -> None:
     B, vpad = logits.shape
     use_nucleus = nucleus_p is not None and not greedy
     _check(lib.smer_sample_advance(
         B, vpad, logits.data_ptr(), state.data_ptr(), aux.data_ptr(), span_types.data_ptr(),
         tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
         tables["class_mat"].data_ptr(), None if greedy else noise.data_ptr(),
-        state_out.data_ptr(), index, mode, max_spans, span_cap, eos_index,
+        state_out.data_ptr(), tokens_out.data_ptr() if tokens_out is not None else None,
+        index, mode, max_spans, span_cap, eos_index,
         mask_index, int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
         float(temperature), n_sid, span_body, stream,
     ), "sample_advance")
@@ -761,8 +919,84 @@ def fused_decode_token(
 fused_decode_token.launches = 0
 
 
+def fused_decode_tokens(
+    packed: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    state: torch.Tensor,  # (6, B) int32 - ST_* rows
+    aux: torch.Tensor,  # (2, B) int32 - AUX_* rows
+    span_types: torch.Tensor,  # (B, max_spans) int32
+    noise: Optional[torch.Tensor],  # (Lp, B, vpad) f32 Gumbel rows; unused when greedy
+    self_kv: torch.Tensor,  # (n_layers, B, Lp, 2D); rows below index are read
+    cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
+    index,  # int base position of the chunk
+    cross_len: torch.Tensor,  # (B,) int32
+    *,
+    n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
+    T_chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``T_chunk`` whole tokens at positions ``index + t`` in one call (v4).
+
+    Returns (new_state (6, B) int32, tokens (T_chunk, B) int32, new_kv
+    (n_layers, T_chunk, B, 2D)); ``self_kv`` is not written, so the caller
+    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 48 launches in
+    stream order with no host synchronisation: each token's K|V rows go
+    straight into ``new_kv``, which later tokens of the chunk attend."""
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    skw = dict(mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
+               mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
+               greedy=greedy, n_sid=n_sid, span_body=span_body)
+    if state.device.type == "cpu":
+        return fused_decode_tokens_reference(packed, tables, state, aux, span_types, noise,
+                                             self_kv, cross_kv, index, cross_len, **kw, **skw,
+                                             T_chunk=T_chunk)
+    if state.device.type != "cuda":
+        raise ValueError(f"fused_decode_tokens runs on cuda or cpu, not {state.device}")
+    base, T = int(index), int(T_chunk)
+    B, D, dev = state.shape[1], d_model, state.device
+    if T < 1:
+        raise ValueError(f"T_chunk={T_chunk} must be at least 1")
+    _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len,
+                       n_layers, D, nhead, d_ff, vpad, base)
+    if base + T > self_kv.shape[2]:
+        raise ValueError(f"the chunk's rows {base}..{base + T - 1} do not fit a self cache "
+                         f"of {self_kv.shape[2]} rows")
+    _check_sampling_inputs(tables, state, aux, span_types, noise, base + T - 1, vpad, **skw)
+    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x = torch.empty(B, D, device=dev, dtype=torch.float32)
+    logits = torch.empty(B, vpad, device=dev, dtype=torch.float32)
+    new_kv = torch.empty(n_layers, T, B, 2 * D, dtype=self_kv.dtype, device=dev)
+    tokens = torch.empty(T, B, dtype=torch.int32, device=dev)
+    states = [torch.empty(6, B, dtype=torch.int32, device=dev) for _ in range(2)]
+    cur = state
+    for t in range(T):
+        _check(lib.smer_embed_pe(
+            B, D, cur.data_ptr() + ST_TOKEN * B * cur.element_size(), packed["emb"].data_ptr(),
+            vpad, math.sqrt(D), base + t, -math.log(10000.0) / D, x.data_ptr(), stream,
+        ), "embed_pe")
+        _launch_layers(lib, packed, x, self_kv, cross_kv, base, cross_len, logits, new_kv[:, t],
+                       n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream,
+                       chunk=(new_kv, t))
+        nxt = states[t % 2]
+        _launch_sample_advance(lib, logits, cur, aux, span_types, noise, base + t, tables, nxt,
+                               stream=stream, tokens_out=tokens[t], **skw)
+        cur = nxt
+    fused_decode_tokens.launches += 1
+    return cur, tokens, new_kv
+
+
+fused_decode_tokens.launches = 0
+
+
 def reset_counts() -> None:
     fused_decode_step.launches = 0
     fused_decode_step_reference.calls = 0
     fused_decode_token.launches = 0
     fused_decode_token_reference.calls = 0
+    fused_decode_tokens.launches = 0
+    fused_decode_tokens_reference.calls = 0
+    rowvec_int8.launches = 0
+    rowvec_int8_reference.calls = 0

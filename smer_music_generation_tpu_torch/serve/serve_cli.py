@@ -48,12 +48,12 @@ def main(argv=None) -> int:
 
     if args.dp > 1:
         raise NotImplementedError(
-            "--dp > 1 (multi-GPU serving) is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8)"
+            "--dp > 1 (multi-GPU serving) is not ported to PyTorch yet (ROADMAP.md Queue 1 item 11)"
         )
     if args.draft_k > 0:
         raise NotImplementedError(
             "--draft_k > 0 (speculative decode) is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 2 item 4)"
+            "(ROADMAP.md Queue 1 item 4 / Queue 2 item 3)"
         )
     logger = logger_init(None)
     device = torch.device(args.device)

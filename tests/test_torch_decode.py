@@ -141,8 +141,8 @@ def test_max_tgt_len_beyond_max_len_raises(setup):
         InfillDecoder(tmodel, tvocab, max_tgt_len=tmodel.cfg.max_len + 1)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(token_chunk=4), dict(draft_k=2), dict(quant="int8"), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [  # token_chunk and quant are ported: test_torch_decode_tokens/quant
+    dict(draft_k=2), dict(draft_k=2, fused=True), dict(mesh=object()), dict(mesh=object(), fused=True),
 ])
 def test_unported_options_raise(setup, kw):
     _, tvocab, _, _, tmodel, _ = setup

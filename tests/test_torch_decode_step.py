@@ -109,10 +109,12 @@ def test_twin_matches_model_decode_step(setup):
 
 def test_cuda_wrapper_rejects_bad_inputs_without_a_card(setup):
     """Validation that runs before any launch: a non-CPU, non-CUDA device
-    is refused, and the int8 packer raises NotImplementedError."""
+    is refused, and the packer refuses a quant mode it does not know (int8
+    is ported: tests/test_torch_quant.py)."""
     _, _, tmodel, vpad = setup
-    with pytest.raises(NotImplementedError, match="int8"):
-        pack_decoder_weights(tmodel, vpad, quant="int8")
+    with pytest.raises(ValueError, match="quant"):
+        pack_decoder_weights(tmodel, vpad, quant="int4")
+    assert pack_decoder_weights(tmodel, vpad, quant="int8")["w_attn"].dtype == torch.int8
     meta = torch.empty(1, 128, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_decode_step({}, meta, meta, meta, 0, meta, n_layers=2, d_model=128, nhead=2, d_ff=256, vpad=vpad)

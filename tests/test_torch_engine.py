@@ -108,3 +108,17 @@ def test_generate_cli_writes_readable_midi(tmp_path):
     decoded = read_midi(str(out_path))
     assert decoded.instruments and sum(len(i.notes) for i in decoded.instruments) > 0
     assert np.isfinite(decoded.instruments[0].notes[0].start)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--correct_controls"], "Queue 1 item 7"),
+    (["--draft_k", "4"], "Queue 1 item 4 / Queue 2 item 3"),
+])
+def test_generate_cli_refuses_unported_flags(tmp_path, flag, item):
+    """JAX's ``--correct_controls`` and ``--draft_k`` parse, then raise naming
+    their ROADMAP items, before any model is loaded."""
+    from smer_music_generation_tpu_torch.infer import generate_cli
+
+    with pytest.raises(NotImplementedError, match=item):
+        generate_cli.main(["--device", "cpu", "-i", str(tmp_path / "in.mid"),
+                           "-o", str(tmp_path / "out.mid"), "--bars", "1", *flag])
