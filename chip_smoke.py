@@ -57,6 +57,30 @@ paths and prints one line per phase with the elapsed seconds:
    through the v3 kernels only.  Then ``serve_cli`` with no flags but its
    address, in a process of its own, answers /health, /encode and one
    /generate, and is stopped;
+2e. verify kernel vs twin: ``fused_verify_window`` (the W-row verify of
+   speculative decode) against its twin on the random SMER and REMI
+   flagships, W in {1, 5, 9, 16}, index in {0, 512, 1530}, S in {512, 1536}:
+   logits and ``new_kv`` within the phase-2 tolerance, and each row against
+   the v2 kernel's step at index + j over the spliced cache (bit-equality
+   counted, else the largest difference); one call timed at W=9, index 512,
+   S 1536 beside its bound, the v2 step at B=1 and its device split;
+2f. flash attention vs twin: ``fused_attention`` at B=3, T=S=1536, H=8,
+   HD=64, bf16, key lengths 1536/1440/1344, causal and not, and at T, S =
+   1000, 777, within atol 1e-3 + rtol 2^-7 (one bf16 ulp of the output);
+   the kernel, the twin and, as a yardstick only, torch's
+   ``scaled_dot_product_attention`` with the same boolean mask, timed;
+3c. speculative decode served on the trained snapshot: one request at B=1
+   through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
+   through v3 at B=1 (verify launches, tokens a verify, ms a verify
+   iteration and an emitted token), ``generate_cli --draft_k 8``, one
+   ``/generate`` on an in-process server with ``draft_k=8`` and a
+   ``serve_cli --draft_k 8`` process; the counters must show the verify
+   kernel alone; the greedy spec streams at draft_k 8 and 15 against the v2
+   stream of the same request under the margin rule of phase 4;
+3d. flash encoder served on the trained snapshot: the 3 requests of phase 3
+   through v3 on the same weights with ``flash_encoder=True``, four
+   ``fused_attention`` launches an encode; its greedy stream against the
+   plain encoder's under the margin rule; one encode timed each way;
 4. kernel path vs twin path: one greedy request decoded through the kernels
    and through the twin on the card, for v2 and for v3, and where they
    first differ; a difference at a step where the twin's margin between
@@ -66,11 +90,14 @@ paths and prints one line per phase with the elapsed seconds:
 
 Then a JSON line describing the kernels, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
-CUDA device it exits 2 before printing any result.
+CUDA device it exits 2 before printing any result.  ``--phases 2e,2f``
+(for bring-up) runs the build and the named phases only and prints no
+result lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import faulthandler
 import json
@@ -110,6 +137,7 @@ from smer_music_generation_tpu_torch.infer.grammar import (
 )
 from smer_music_generation_tpu_torch.infer.sampling import gumbel_noise
 from smer_music_generation_tpu_torch.models.transformer import LayerNorm, ModelConfig, ScoreTransformer
+from smer_music_generation_tpu_torch.ops import attention as attn
 from smer_music_generation_tpu_torch.ops import decode_step as ds
 from smer_music_generation_tpu_torch.serve.app import ServingContext, serve
 from smer_music_generation_tpu_torch.train.state import (
@@ -119,7 +147,7 @@ from smer_music_generation_tpu_torch.train.state import (
 from smer_music_generation_tpu_torch.utils.config import ExperimentConfig
 from smer_music_generation_tpu_torch.vocab import WordVocab
 
-TIME_LIMIT_S = 550  # a hang dumps its traceback and exits before an outer 700 s limit
+TIME_LIMIT_S = 900  # a hang dumps its traceback and exits before an outer 1200 s limit
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM at its full 700 W (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 NL, D, H, F, L = 4, 512, 8, 2048, 1024
@@ -138,7 +166,14 @@ SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
     ("nucleus p0.9 T0.8", False, 0.9, 0.8),
 )
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
-            "embed_pe_kernel", "sample_advance_kernel")
+            "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel")
+# flash attention vs twin: f32 sums on both sides in another order, then the
+# output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
+# value at most) plus what rounds near zero
+ATTN_ATOL, ATTN_RTOL = 1e-3, 2 ** -7
+SPEC_K = 8  # draft_k of the served speculative decode (JAX measured 8)
+SERVED_JOBS = (([0], [2, 3]), ([1], [7]), ([2], [11, 12]))  # (tracks, bars) of phase 3's batch
+HD_ATTN = 64  # the encoder's head_dim, the flash kernel's
 
 T0 = time.perf_counter()
 
@@ -160,9 +195,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_split(fn, iters: int = 20):
-    """Device time of one call, by kernel family, from torch.profiler; None
-    when the profiler records no CUDA kernel on this machine."""
+def profiled(fn, iters: int = 20, top: int = 6):
+    """``fn`` once to warm, then ``iters`` calls under torch.profiler:
+    (device µs a call by kernel family, or None when the profiler records
+    no CUDA kernel on this machine; the ``top`` host ops by self CPU time
+    over the calls, as (name, µs, count))."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -171,14 +208,19 @@ def device_split(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, host = {}, []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if us <= 0:
-            continue
-        family = next((k for k in FAMILIES if k in evt.key), "other")
-        split[family] = split.get(family, 0.0) + us / iters
-    return split or None
+        if us > 0:
+            family = next((k for k in FAMILIES if k in evt.key), "other")
+            split[family] = split.get(family, 0.0) + us / iters
+        host.append((evt.key, evt.self_cpu_time_total, evt.count))
+    host.sort(key=lambda e: -e[1])
+    return split or None, host[:top]
+
+
+def device_split(fn, iters: int = 20):
+    return profiled(fn, iters)[0]
 
 
 def say_split(split, ms: float) -> None:
@@ -686,19 +728,165 @@ def phase_int8(dev, flagship, vocab, vpad):
     return max(worst, worst2, worst3, worst4), report, report3
 
 
+def verify_bytes_flops(packed, W: int, index: int, cross_len: int, vpad: int):
+    """Bytes and bf16 operations of one verify call: every packed decoder
+    weight once (not the embedding), the ``index`` cache rows and the
+    ``cross_len`` cross rows once, the W input rows, the (W, vpad) logits
+    and the new K|V rows; the W rows' matrix products and attention (row j
+    over index + j + 1 self rows and the cross rows)."""
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
+    cache_bytes = NL * (index + cross_len) * 2 * D * 2
+    io_bytes = W * D * 2 + W * vpad * 4 + NL * W * 2 * D * 2 + 4
+    rows = W * index + W * (W + 1) // 2 + W * cross_len
+    flops = 2 * W * NL * (6 * D * D + 2 * D * F) + 2 * W * D * vpad + 4 * D * NL * rows
+    return weight_bytes + cache_bytes + io_bytes, flops
+
+
+def phase_verify_vs_twin(dev, flagships):
+    """``fused_verify_window`` against its twin, and each of its rows
+    against the v2 kernel's step over the spliced cache."""
+    LV = 1600  # the self cache: index + W <= 1546
+    g = torch.Generator(device=dev).manual_seed(8)
+    worst, report, cases, equal, step_diff = 0.0, None, 0, 0, 0.0
+    for vocab, packed, vpad in flagships:
+        kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
+        V = vocab.vocab_size
+        for S in (512, 1536):
+            self_kv = torch.randn(NL, 1, LV, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cross_kv = torch.randn(NL, 1, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            cl = S - S // 16
+            cross_len = torch.tensor([cl], dtype=torch.int32, device=dev)
+            for W in (1, 5, 9, 16):
+                x = torch.randn(W, D, generator=g, device=dev).to(torch.bfloat16)
+                for index in (0, 512, 1530):
+                    args = (packed, x, self_kv, cross_kv, index, cross_len)
+                    lg, kv = ds.fused_verify_window(*args, **kw)
+                    torch.cuda.synchronize()
+                    lr, kr = ds.fused_verify_window_reference(*args, **kw)
+                    ok = (torch.allclose(lg[:, :V], lr[:, :V], atol=ATOL, rtol=RTOL)
+                          and torch.allclose(kv.float(), kr.float(), atol=ATOL, rtol=RTOL)
+                          and torch.isfinite(lg[:, :V]).all().item())
+                    err = max((lg[:, :V] - lr[:, :V]).abs().max().item(),
+                              (kv.float() - kr.float()).abs().max().item())
+                    if not ok:
+                        raise AssertionError(f"verify disagrees with its twin at {vocab.mode=} S={S} "
+                                             f"W={W} index={index}: max |kernel - twin| {err:.3e}")
+                    worst = max(worst, err)
+                    # row j against the v2 kernel's step at index + j
+                    cache = self_kv.clone()
+                    same = True
+                    for j in range(W):
+                        sl, skv = ds.fused_decode_step(packed, x[j : j + 1], cache, cross_kv,
+                                                       index + j, cross_len, **kw)
+                        cache[:, :, index + j] = skv
+                        same &= torch.equal(sl[0], lg[j]) and torch.equal(skv[:, 0], kv[:, j])
+                        step_diff = max(step_diff, (sl[0, :V] - lg[j, :V]).abs().max().item(),
+                                        (skv[:, 0].float() - kv[:, j].float()).abs().max().item())
+                    equal += int(same)
+                    cases += 1
+                    if (vocab.mode, S, W, index) == (0, 1536, 9, 512):
+                        ms = cuda_ms(lambda: ds.fused_verify_window(*args, **kw), iters=20)
+                        plain_ms = cuda_ms(lambda: ds.fused_verify_window_reference(*args, **kw),
+                                           iters=3, warmup=1)
+                        step_ms = cuda_ms(lambda: ds.fused_decode_step(
+                            packed, x[:1], self_kv, cross_kv, index, cross_len, **kw), iters=20)
+                        nbytes, flops = verify_bytes_flops(packed, W, index, cl, vpad)
+                        bound = bound_ms(nbytes, flops)
+                        report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                        say(f"  W={W} index={index} S={S} cross_len={cl}: kernel {ms:.4f} ms "
+                            f"({ms / W:.4f} ms a row), twin {plain_ms:.4f} ms, bound {bound:.5f} ms "
+                            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); one v2 step at B=1 "
+                            f"{step_ms:.4f} ms")
+                        say_split(device_split(lambda: ds.fused_verify_window(*args, **kw)), ms)
+            say(f"  vocab_mode {vocab.mode} S={S}: {cases} cases so far, max|kernel-twin| {worst:.3e}, "
+                f"{equal} bit-equal to the v2 steps")
+    say(f"  {cases} cases within atol {ATOL} + rtol {RTOL} of the twin (max {worst:.3e}); "
+        f"{equal} of {cases} bit-equal to W sequential v2 kernel steps over the spliced cache "
+        f"(largest difference {step_diff:.3e})")
+    return worst, report
+
+
+def attention_bound(B: int, T: int, S: int, lens, causal: bool):
+    """Least time of one flash-attention call and what bounds it: q, k, v
+    read and the output written once (bf16); 4 HD operations for every
+    (query, valid key) pair this call's lengths and mask leave, at the bf16
+    tensor-core rate.  Returns (ms, "bytes" or "operations")."""
+    nbytes = (2 * B * T + 2 * B * S) * H * HD_ATTN * 2
+    pairs = 0
+    for n in lens:
+        n = min(int(n), S)
+        if causal:
+            t = np.arange(T)
+            pairs += int(np.minimum(t + 1, n).sum())
+        else:
+            pairs += T * n
+    flops = 4 * HD_ATTN * H * pairs
+    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
+                                     else "operations")
+
+
+def phase_attention_vs_twin(dev):
+    """``fused_attention`` against its twin (and SDPA as the yardstick)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst, report = 0.0, None
+    cases = [(3, 1536, 1536, [1536, 1440, 1344], False), (3, 1536, 1536, [1536, 1440, 1344], True),
+             (3, 1000, 777, [777, 640, 1], False), (3, 1000, 777, [777, 640, 1], True)]
+    for B, T, S, lens, causal in cases:
+        q = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = attn.fused_attention(q, k, v, kl, causal)
+        torch.cuda.synchronize()
+        ref = attn.attention_reference(q, k, v, kl, causal)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (torch.allclose(out.float(), ref.float(), atol=ATTN_ATOL, rtol=ATTN_RTOL)
+                and torch.isfinite(out.float()).all().item()):
+            raise AssertionError(f"fused_attention disagrees with its twin at B={B} T={T} S={S} "
+                                 f"lens={lens} causal={causal}: max |kernel - twin| {err:.3e}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: attn.fused_attention(q, k, v, kl, causal), iters=20)
+        plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, kl, causal), iters=3, warmup=1)
+        # the yardstick: one torch call of the same function on (B, H, T, HD)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        mask = torch.arange(S, device=dev)[None, None, None, :] < kl[:, None, None, None]
+        if causal:
+            mask = mask & torch.ones(T, S, dtype=torch.bool, device=dev).tril()[None, None]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        sdpa_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
+        library_ms = cuda_ms(sdpa, iters=20)
+        bound, by = attention_bound(B, T, S, lens, causal)
+        say(f"  B={B} T={T} S={S} H={H} HD={HD_ATTN} lens={lens} causal={causal}: "
+            f"max|kernel-twin| {err:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms (max|sdpa-twin| {sdpa_err:.3e}), bound {bound:.5f} ms ({by})")
+        if (T, causal) == (1536, False):
+            report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
+            say_split(device_split(lambda: attn.fused_attention(q, k, v, kl, causal)), ms)
+    say(f"  all cases within atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4g} of the twin (max {worst:.3e})")
+    return worst, report
+
+
+def reset_counts() -> None:
+    ds.reset_counts()
+    attn.reset_counts()
+
+
 def counts():
     return dict(v2=ds.fused_decode_step.launches, v3=ds.fused_decode_token.launches,
                 v4=ds.fused_decode_tokens.launches, int8=ds.rowvec_int8.launches,
+                verify=ds.fused_verify_window.launches, attn=attn.fused_attention.launches,
                 v2_twin=ds.fused_decode_step_reference.calls,
                 v3_twin=ds.fused_decode_token_reference.calls,
                 v4_twin=ds.fused_decode_tokens_reference.calls,
-                int8_twin=ds.rowvec_int8_reference.calls)
+                int8_twin=ds.rowvec_int8_reference.calls,
+                verify_twin=ds.fused_verify_window_reference.calls,
+                attn_twin=attn.attention_reference.calls)
 
 
 def check_counts(what: str, on) -> int:
     """The path just driven launched every kernel named in ``on`` (of v2, v3,
-    v4, int8) and nothing else: no other kernel and no twin.  Returns the
-    launches of the first."""
+    v4, int8, verify, attn) and nothing else: no other kernel and no twin.
+    Returns the launches of the first."""
     got = counts()
     say(f"  {what}: launches {got}")
     if any(got[k] == 0 for k in on) or any(v for k, v in got.items() if k not in on):
@@ -750,10 +938,18 @@ def served_events(score, vocab):
     return change_controls(events, controls, vocab)
 
 
+def served_requests(engine, events):
+    """Phase 3's batch of 3 requests, prepared by ``engine``."""
+    reqs = [engine.prepare(events, tracks, bars) for tracks, bars in SERVED_JOBS]
+    if any(r is None for r in reqs):
+        raise AssertionError("a request could not be prepared")
+    return reqs
+
+
 def serve_path(engine, reqs, workdir, tag, on, to_midi=events_to_midi):
     """One served run with every count at 0 just before it; returns (results,
     the launch counts)."""
-    ds.reset_counts()
+    reset_counts()
     wall, results = serve_requests(engine, reqs, workdir, tag, to_midi)
     check_counts(f"run_batch ({tag})", on)
     got = counts()
@@ -774,7 +970,7 @@ def phase_serve(dev, workdir):
     midi_in = os.path.join(workdir, "in.mid")
     score.write(midi_in)
 
-    ds.reset_counts()
+    reset_counts()
     t = time.perf_counter()
     midi_out = os.path.join(workdir, "cli_out.mid")
     rc = generate_cli.main([
@@ -791,10 +987,7 @@ def phase_serve(dev, workdir):
 
     events = served_events(score, vocab)
     engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
-    reqs = [engine.prepare(events, [0], [2, 3]), engine.prepare(events, [1], [7]),
-            engine.prepare(events, [2], [11, 12])]
-    if any(r is None for r in reqs):
-        raise AssertionError("a request could not be prepared")
+    reqs = served_requests(engine, events)
     v3_results, got = serve_path(engine, reqs, workdir, "v3_", ["v3"])
     launches["v3"] += got["v3"]
 
@@ -836,10 +1029,7 @@ def phase_serve_remi(dev, workdir) -> int:
     say(f"  loaded {path} (epoch {epoch}, vocab_mode {vocab.mode}, {vocab.vocab_size} words) in bf16")
     events = served_events(make_score(), vocab)
     engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
-    reqs = [engine.prepare(events, [0], [2, 3]), engine.prepare(events, [1], [7]),
-            engine.prepare(events, [2], [11, 12])]
-    if any(r is None for r in reqs):
-        raise AssertionError("a REMI request could not be prepared")
+    reqs = served_requests(engine, events)
     return serve_path(engine, reqs, workdir, "remi_v3_", ["v3"], to_midi=remi_to_midi)[1]["v3"]
 
 
@@ -878,7 +1068,7 @@ def phase_http(model, vocab, score) -> int:
     groups = []
     run_batch = ctx.engine.run_batch
     ctx.engine.run_batch = lambda reqs, *a, **k: groups.append(len(reqs)) or run_batch(reqs, *a, **k)
-    ds.reset_counts()
+    reset_counts()
     server = serve(ctx, host="127.0.0.1", port=0)
     try:
         host, port = server.server_address
@@ -928,16 +1118,17 @@ def phase_http(model, vocab, score) -> int:
     return check_counts("HTTP /generate", ["v3"])
 
 
-def phase_serve_cli(score) -> None:
-    """``python -m ...serve.serve_cli`` with no flags but its address, in a
-    process of its own: it loads the committed snapshot onto the card and
-    answers /health, /encode and one /generate; then it is stopped."""
+def phase_serve_cli(score, flags=()) -> None:
+    """``python -m ...serve.serve_cli`` with no flags but its address (and
+    ``flags``), in a process of its own: it loads the committed snapshot
+    onto the card and answers /health, /encode and one /generate; then it is
+    stopped."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     url = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "smer_music_generation_tpu_torch.serve.serve_cli",
-           "--host", "127.0.0.1", "--port", str(port)]
+           "--host", "127.0.0.1", "--port", str(port), *flags]
     with tempfile.TemporaryFile("w+") as log:
         t = time.perf_counter()
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
@@ -961,7 +1152,7 @@ def phase_serve_cli(score) -> None:
                                                "tracks": [1], "bars": [5], "tempo": 100})
             if "events" not in ans or "m_0" in ans["events"]:
                 raise AssertionError(f"serve_cli's /generate answered {str(ans)[:300]}")
-            say(f"  serve_cli /generate (track 1, bar 5): {ans['decode_steps']} decode steps, "
+            say(f"  serve_cli {' '.join(flags)} /generate (track 1, bar 5): {ans['decode_steps']} decode steps, "
                 f"{1e3 * (time.perf_counter() - t):.1f} ms")
         finally:
             proc.terminate()
@@ -975,41 +1166,56 @@ def phase_serve_cli(score) -> None:
             print("   ", line, flush=True)
 
 
+def greedy_request(model, vocab, events):
+    """The one greedy request phase 4 and phases 3c-3d compare streams on,
+    assembled as the engine assembles it."""
+    eng = InfillEngine(model, vocab, max_tgt_len=L)
+    return eng._assemble([eng.prepare(events, [0], [5, 6])])
+
+
+def greedy_stream(model, vocab, asm, **kw) -> torch.Tensor:
+    dec = InfillDecoder(model, vocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=True, **kw)
+    res = dec(*asm[:4])
+    return res.tokens[0, : int(res.lengths[0])].cpu()
+
+
 def first_divergence(model, vocab, events, fused_sampling: bool, quant: str = "none",
                      against_v2: bool = False):
     """One greedy request through the kernels, then through the twin (the
     decoder's call patched to the twin), or, with ``against_v2``, through
     the v3 kernels and then the v2 kernels (JAX's
-    ``test_fused_int8_v2_v3_token_exact_greedy`` on the card).  Where the
-    two token streams first differ, the twin's logits are recomputed on the
-    shared prefix: the two paths may part only where the twin's margin
-    between its token and the other's is within the phase-2 tolerance on
-    each of the two logits."""
-    eng = InfillEngine(model, vocab, max_tgt_len=L)
-    req = eng.prepare(events, [0], [5, 6])
-    asm = eng._assemble([req])
+    ``test_fused_int8_v2_v3_token_exact_greedy`` on the card); then
+    :func:`check_divergence`."""
+    asm = greedy_request(model, vocab, events)
     label = ("v3" if fused_sampling else "v2") + ("-int8" if quant != "none" else "")
-
-    def run(sampling):
-        dec = InfillDecoder(model, vocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=True,
-                            fused_sampling=sampling, quant=quant)
-        res = dec(*asm[:4])
-        return res.tokens[0, : int(res.lengths[0])].cpu()
-
-    a = run(fused_sampling)
+    a = greedy_stream(model, vocab, asm, fused_sampling=fused_sampling, quant=quant)
     if against_v2:
         other = "v2-int8" if quant != "none" else "v2"
-        b = run(False)
+        b = greedy_stream(model, vocab, asm, fused_sampling=False, quant=quant)
     else:
         other = "twin"
         name, twin = (("fused_decode_token", ds.fused_decode_token_reference) if fused_sampling
                       else ("fused_decode_step", ds.fused_decode_step_reference))
         with mock.patch.object(decode_mod, name, twin):
-            b = run(fused_sampling)
+            b = greedy_stream(model, vocab, asm, fused_sampling=fused_sampling, quant=quant)
+    check_divergence(model, vocab, asm, a, b, label, other, f32_row=fused_sampling, quant=quant,
+                     either=against_v2)
+
+
+def check_divergence(model, vocab, asm, a, b, label, other, *, f32_row: bool, quant="none",
+                     either: bool) -> None:
+    """Where the two greedy token streams ``a`` and ``b`` first differ, the
+    twin's logits are recomputed on the shared prefix (``model``'s plain
+    encoder, the v2 twin on ``f32_row`` input rows as v3 builds them, or on
+    rows rounded to the compute dtype as v2 and the verify build them): the
+    two paths may part only where the twin's margin between its token and
+    the other's is within the phase-2 tolerance on each of the two logits.
+    Against the twin, the twin's own token may lead by at most that; with
+    ``either``, between two kernel paths, either may."""
     n = min(len(a), len(b))
     diff = (a[:n] != b[:n]).nonzero()
     if len(diff) == 0 and len(a) == len(b):
-        say(f"  {label} kernel path and {other} path: identical ({len(a)} tokens)")
+        say(f"  {label} path and {other} path: identical ({len(a)} tokens)")
         return
     p = int(diff[0]) if len(diff) else n
     src = torch.as_tensor(asm[0], dtype=torch.long, device=model.device)
@@ -1024,7 +1230,7 @@ def first_divergence(model, vocab, events, fused_sampling: bool, quant: str = "n
         kv = torch.zeros(cfg.num_decoder_layers, 1, L, 2 * cfg.d_model, dtype=cfg.dtype, device=model.device)
         for pos in range(p):  # the step at p - 1 emits position p
             tok = b[pos : pos + 1].to(model.device)
-            if fused_sampling:  # v3: the f32 row with the analytic PE
+            if f32_row:  # v3: the f32 row with the analytic PE
                 x = packed["emb"][tok].float() * math.sqrt(cfg.d_model) + ds.pe_row(pos, cfg.d_model, model.device)
             else:
                 x = (model.embedding.weight[tok] * math.sqrt(cfg.d_model) + model.pos_table[pos]).to(cfg.dtype)
@@ -1041,19 +1247,167 @@ def first_divergence(model, vocab, events, fused_sampling: bool, quant: str = "n
     ta, tb = sampled(a), sampled(b)
     gap = (lg[tb] - lg[ta]).item()
     allowed = 2 * ATOL + RTOL * (abs(lg[ta].item()) + abs(lg[tb].item()))
-    say(f"  {label} kernel path and {other} path first differ at position {p} of {n}: "
+    say(f"  {label} path and {other} path first differ at position {p} of {n}: "
         f"{vocab.index2char(ta)!r} vs {vocab.index2char(tb)!r}; twin logit gap "
         f"{gap:.4f}, tolerance {allowed:.4f}")
-    # against the twin, the twin's own token may lead by at most the
-    # tolerance; between two kernel paths, either may
-    if (abs(gap) if against_v2 else gap) > allowed:
+    if (abs(gap) if either else gap) > allowed:
         raise AssertionError(
-            f"{label} kernel path departs from the {other} path at position {p} where the twin's "
+            f"{label} path departs from the {other} path at position {p} where the twin's "
             f"margin {gap:.4f} exceeds the tolerance {allowed:.4f}"
         )
 
 
-def main() -> int:
+def phase_spec(model, vocab, events, score, workdir):
+    """Speculative decode served at B=1 through the verify kernel."""
+    launches = 0
+    asm = greedy_request(model, vocab, events)
+    say(f"  the request: bars [5, 6] of track 0, src {asm[0].shape[1]} ids")
+    report = {}
+    for name, greedy, p in (("greedy", True, None), ("nucleus", False, 0.9)):
+        for k in (SPEC_K, 0):
+            eng = InfillEngine(model, vocab, greedy=greedy, nucleus_p=p, max_tgt_len=L, draft_k=k, seed=0)
+            eng.decoder(*asm[:4])  # warm: the decoder's packed weights and first launches
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            out = eng.decoder(*asm[:4])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            emitted = out.steps  # the positions decoded, the done padding included
+            if k:
+                verifies = check_counts(f"spec decode (draft_k={k}, {name})", ["verify"])
+                launches += verifies
+                report[name] = dict(verifies=verifies, emitted=emitted, ms_verify=1e3 * wall / verifies,
+                                    ms_token=1e3 * wall / emitted)
+                say(f"  {name} draft_k={k}: {verifies} verify calls for {emitted} positions, "
+                    f"{emitted / verifies:.3f} tokens a verify, {1e3 * wall / verifies:.3f} ms a verify "
+                    f"iteration, {1e3 * wall / emitted:.3f} ms an emitted token ({1e3 * wall:.1f} ms, "
+                    f"the encode included)")
+                # where one decode call's time goes (the profiler's own cost included)
+                split, host = profiled(lambda: eng.decoder(*asm[:4]), iters=1)
+                t = time.perf_counter()
+                eng.decoder(*asm[:4])
+                torch.cuda.synchronize()
+                say_split(split, 1e3 * (time.perf_counter() - t))
+                say("    host ops by self CPU time: " + ", ".join(
+                    f"{key} {us / 1e3:.1f} ms x{n}" for key, us, n in host))
+            else:
+                check_counts(f"v3 at B=1 ({name})", ["v3"])
+                say(f"  {name} v3 at B=1: {emitted} steps, {1e3 * wall / max(emitted, 1):.3f} ms a token "
+                    f"({1e3 * wall:.1f} ms)")
+                report[name]["v3_ms_token"] = 1e3 * wall / max(emitted, 1)
+        # the served path: run_batch of the one request (the bar-time retries included)
+        eng = InfillEngine(model, vocab, greedy=greedy, nucleus_p=p, max_tgt_len=L, draft_k=SPEC_K, seed=0)
+        req = eng.prepare(events, [0], [5, 6])
+        reset_counts()
+        serve_requests(eng, [req], workdir, f"spec_{name}_")
+        launches += check_counts(f"run_batch (draft_k={SPEC_K}, {name})", ["verify"])
+
+    reset_counts()
+    midi_in = os.path.join(workdir, "in.mid")
+    score.write(midi_in)
+    t = time.perf_counter()
+    rc = generate_cli.main(["-i", midi_in, "-o", os.path.join(workdir, "spec_cli.mid"), "--bars", "3", "4",
+                            "--tracks", "1", "--greedy", "--draft_k", str(SPEC_K), "--device", str(model.device)])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"generate_cli --draft_k returned {rc}")
+    say(f"  generate_cli --draft_k {SPEC_K} (greedy, bars 3-4 of track 1): {time.perf_counter() - t:.2f} s")
+    launches += check_counts(f"generate_cli --draft_k {SPEC_K}", ["verify"])
+
+    ctx = ServingContext(model, vocab, draft_k=SPEC_K)
+    reset_counts()
+    server = serve(ctx, host="127.0.0.1", port=0)
+    try:
+        host, port = server.server_address
+        url = f"http://{host}:{port}"
+        enc = http_json(url + "/encode", {"notes": plugin_notes(score), "controls": {"start_bar": 1}})
+        t = time.perf_counter()
+        ans = http_json(url + "/generate", {"events": enc["events"], "controls": unlocked(enc["controls"]),
+                                           "tracks": [2], "bars": [9], "tempo": 100})
+        if "events" not in ans or "m_0" in ans["events"]:
+            raise AssertionError(f"/generate with draft_k answered {str(ans)[:300]}")
+        say(f"  HTTP /generate with draft_k={SPEC_K} (track 2, bar 9): {ans['decode_steps']} positions, "
+            f"{1e3 * (time.perf_counter() - t):.1f} ms")
+    finally:
+        server.shutdown()
+        server.server_close()
+        ctx.close()
+    launches += check_counts(f"HTTP /generate (draft_k={SPEC_K})", ["verify"])
+    phase_serve_cli(score, ["--draft_k", str(SPEC_K)])
+
+    b = greedy_stream(model, vocab, asm, fused_sampling=False)
+    for k in (SPEC_K, ds.MAX_WINDOW - 1):  # the served width and the widest window
+        reset_counts()
+        a = greedy_stream(model, vocab, asm, draft_k=k)
+        check_counts(f"greedy spec decode (draft_k={k})", ["verify"])
+        # both round the input rows to bf16 (the verify as v2 does)
+        check_divergence(model, vocab, asm, a, b, f"spec (draft_k={k})", "v2", f32_row=False,
+                         either=True)
+    return launches, report
+
+
+def phase_flash_encoder(model, vocab, events, workdir):
+    """The 3-request batch of phase 3 through v3 on the same weights with
+    ``flash_encoder=True``: four fused_attention launches an encode."""
+    flash = ScoreTransformer(dataclasses.replace(model.cfg, flash_encoder=True))
+    flash.load_state_dict(model.state_dict())
+    flash = flash.to(model.device).eval().requires_grad_(False)
+    engine = InfillEngine(flash, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    encodes = []
+    dispatch = engine._dispatch
+    engine._dispatch = lambda *a: encodes.append(1) or dispatch(*a)
+    reqs = served_requests(engine, events)
+    _, got = serve_path(engine, reqs, workdir, "flash_v3_", ["v3", "attn"])
+    n_layers = model.cfg.num_encoder_layers
+    if got["attn"] != n_layers * len(encodes):
+        raise AssertionError(f"{got['attn']} fused_attention launches for {len(encodes)} encodes of "
+                             f"{n_layers} layers")
+    say(f"  {got['attn']} fused_attention launches for {len(encodes)} encodes")
+
+    # one encode of the batch each way
+    src_b = torch.as_tensor(engine._assemble(reqs)[0], dtype=torch.long, device=model.device)
+    pad = src_b == 0
+    times = {}
+    with torch.no_grad():
+        for tag, m in (("plain", model), ("flash", flash)):
+            times[tag] = cuda_ms(lambda: m.init_cross_cache(m.encode(src_b, pad)), iters=10)
+        mem_p, mem_f = model.encode(src_b, pad), flash.encode(src_b, pad)
+    valid = ~pad
+    err = (mem_p[valid].float() - mem_f[valid].float()).abs().max().item()
+    say(f"  one encode + cross K/V of the batch (B={src_b.shape[0]}, S={src_b.shape[1]}): "
+        f"plain {times['plain']:.4f} ms, flash {times['flash']:.4f} ms; max |flash - plain| "
+        f"memory on valid rows {err:.3e}")
+    asm = greedy_request(model, vocab, events)
+    a = greedy_stream(flash, vocab, asm)
+    b = greedy_stream(model, vocab, asm)
+    check_divergence(model, vocab, asm, a, b, "flash-encoder v3", "plain-encoder v3", f32_row=True,
+                     either=True)
+    return got["attn"], times
+
+
+def trained_flagship(dev):
+    """The committed trained snapshot in bf16 on the card, with the score
+    and the served events of phase 3 (for a run of some phases alone)."""
+    cfg = ExperimentConfig()
+    vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
+    model, _ = load_inference_model(cfg, vocab.vocab_size, default_flagship_snapshot(), torch.bfloat16,
+                                    device=dev)
+    score = make_score()
+    return model, vocab, score, served_events(score, vocab)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases to run after the build (2..2f, 3, 3c, 3d, 4); "
+                        "default all, with the result lines")
+    args = parser.parse_args(argv)
+    only = None if args.phases is None else set(args.phases.split(","))
+
+    def run(phase: str) -> bool:
+        return only is None or phase in only
+
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1077,44 +1431,76 @@ def main() -> int:
             print("   ", line.strip(), flush=True)
 
     vocab, model, packed, vpad = random_flagship(dev)
-    say("phase 2 v2 kernel vs twin (random bf16 weights, flagship width)")
-    worst, report = phase_kernel_vs_twin(dev, packed, vocab, vpad)
-    say(f"  all cases within atol {ATOL} + rtol {RTOL}; max |kernel - twin| {worst:.3e}")
-
-    say("phase 2b v3 kernel vs twin (same model, random states)")
-    worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad)
     remi_vocab, remi_model, remi_packed, _ = random_flagship(dev, mode=1)
-    say("phase 2b REMI: v3 kernel vs twin on a REMI-vocab flagship (random weights)")
-    worst3 = max(worst3, phase_token_vs_twin(dev, remi_packed, remi_vocab, vpad, Bs=(1, 3, 8),
-                                             Ss=(1536,), indices=(0, 512))[0])
+    if run("2"):
+        say("phase 2 v2 kernel vs twin (random bf16 weights, flagship width)")
+        worst, report = phase_kernel_vs_twin(dev, packed, vocab, vpad)
+        say(f"  all cases within atol {ATOL} + rtol {RTOL}; max |kernel - twin| {worst:.3e}")
 
-    say("phase 2c v4 kernel vs twin and vs v3 x T_chunk (SMER and REMI, random states)")
-    worst4, report4 = phase_tokens_vs_twin(
-        dev, [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)])
+    if run("2b"):
+        say("phase 2b v3 kernel vs twin (same model, random states)")
+        worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad)
+        say("phase 2b REMI: v3 kernel vs twin on a REMI-vocab flagship (random weights)")
+        worst3 = max(worst3, phase_token_vs_twin(dev, remi_packed, remi_vocab, vpad, Bs=(1, 3, 8),
+                                                 Ss=(1536,), indices=(0, 512))[0])
 
-    say("phase 2d int8 weights: rowvec_int8, v2, v3, v4 against their twins")
-    worst8, report8, report3_int8 = phase_int8(dev, model, vocab, vpad)
+    if run("2c"):
+        say("phase 2c v4 kernel vs twin and vs v3 x T_chunk (SMER and REMI, random states)")
+        worst4, report4 = phase_tokens_vs_twin(
+            dev, [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)])
+
+    if run("2d"):
+        say("phase 2d int8 weights: rowvec_int8, v2, v3, v4 against their twins")
+        worst8, report8, report3_int8 = phase_int8(dev, model, vocab, vpad)
+
+    if run("2e"):
+        say("phase 2e verify kernel vs twin and vs W sequential v2 steps (SMER and REMI)")
+        worst_v, report_v = phase_verify_vs_twin(
+            dev, [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)])
     del model, packed, remi_model, remi_packed
 
-    say("phase 3 serve with the trained snapshot")
+    if run("2f"):
+        say("phase 2f fused_attention vs twin (and SDPA as the yardstick)")
+        worst_a, report_a = phase_attention_vs_twin(dev)
+
+    model = None
     with tempfile.TemporaryDirectory() as workdir:
-        model, vocab, score, events, launches = phase_serve(dev, workdir)
-        say("phase 3 REMI: serve with the trained REMI snapshot")
-        launches["v3"] += phase_serve_remi(dev, workdir)
+        if run("3"):
+            say("phase 3 serve with the trained snapshot")
+            model, vocab, score, events, launches = phase_serve(dev, workdir)
+            say("phase 3 REMI: serve with the trained REMI snapshot")
+            launches["v3"] += phase_serve_remi(dev, workdir)
+            say("phase 3b HTTP serving (ServingContext, MicroBatcher) with the trained snapshot")
+            launches["v3"] += phase_http(model, vocab, score)
+            phase_serve_cli(score)
+        if model is None and (run("3c") or run("3d") or run("4")):
+            model, vocab, score, events = trained_flagship(dev)
+        if run("3c"):
+            say(f"phase 3c speculative decode (draft_k={SPEC_K}) served with the trained snapshot")
+            launches_v, spec = phase_spec(model, vocab, events, score, workdir)
+        if run("3d"):
+            say("phase 3d flash encoder served with the trained snapshot")
+            launches_a, encode_ms = phase_flash_encoder(model, vocab, events, workdir)
 
-    say("phase 3b HTTP serving (ServingContext, MicroBatcher) with the trained snapshot")
-    launches["v3"] += phase_http(model, vocab, score)
-    phase_serve_cli(score)
+    if run("4"):
+        say("phase 4 kernel path vs twin path (greedy)")
+        first_divergence(model, vocab, events, fused_sampling=False)
+        first_divergence(model, vocab, events, fused_sampling=True)
+        say("phase 4 int8: the v3-int8 stream against the v2-int8 stream (greedy)")
+        first_divergence(model, vocab, events, fused_sampling=True, quant="int8", against_v2=True)
 
-    say("phase 4 kernel path vs twin path (greedy)")
-    first_divergence(model, vocab, events, fused_sampling=False)
-    first_divergence(model, vocab, events, fused_sampling=True)
-    say("phase 4 int8: the v3-int8 stream against the v2-int8 stream (greedy)")
-    first_divergence(model, vocab, events, fused_sampling=True, quant="int8", against_v2=True)
-
+    if only is not None:
+        say(f"done: phases {sorted(only)} only, no result lines")
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     say(f"  v4 ms a token: T_chunk 8 {report4[8]['ms'] / 8:.4f}, T_chunk 64 "
         f"{report4[64]['ms'] / 64:.4f} (v3 {report3['ms']:.4f}); v3-int8 token "
         f"{report3_int8['ms']:.4f} ms, bound {report3_int8['bound_ms']:.5f} ms")
+    say(f"  verify W={SPEC_K + 1}: {report_v['ms']:.4f} ms; spec decode greedy "
+        f"{spec['greedy']['ms_token']:.3f} ms a token (v3 at B=1 {spec['greedy']['v3_ms_token']:.3f}), "
+        f"nucleus {spec['nucleus']['ms_token']:.3f} (v3 {spec['nucleus']['v3_ms_token']:.3f}); "
+        f"fused_attention {report_a['ms']:.4f} ms vs SDPA {report_a['library_ms']:.4f} ms; "
+        f"encode plain {encode_ms['plain']:.4f} ms, flash {encode_ms['flash']:.4f} ms")
     common = dict(route="cuda", bound_by="bytes", library_ms=None)
     csrc = "smer_music_generation_tpu_torch/ops/csrc/"
     ref = "smer_music_generation_tpu/ops/decode_step.py:"
@@ -1127,6 +1513,11 @@ def main() -> int:
              launches=launches["v4"], max_abs_err=worst4, **report4[8], **common),
         dict(name="rowvec_int8", source=csrc + "decode_step.cu", replaces=ref + "296",
              launches=launches["int8"], max_abs_err=worst8, **report8, **common),
+        dict(name="fused_verify_window", source=csrc + "decode_step.cu", replaces=ref + "1368",
+             launches=launches_v, max_abs_err=worst_v, **report_v, **common),
+        dict(name="fused_attention", source=csrc + "attention.cu",
+             replaces="smer_music_generation_tpu/ops/attention.py:115", launches=launches_a,
+             max_abs_err=worst_a, route="cuda", **report_a),
     ]}
     print(json.dumps(kernels), flush=True)
     say("done")

@@ -10,8 +10,24 @@ the span cap (which counts the introducing ``m_0``) or after a control
 span's one token, the next ``m_0`` is emitted and the element's span index
 advances.
 
-Four loop bodies, as in JAX:
+Five loop bodies, as in JAX:
 
+* ``draft_k > 0`` on a batch of one: speculative decode, ``_decode_v5`` (JAX
+  :411-702), before any other branch.  Each iteration drafts ``draft_k``
+  tokens by prompt lookup (the continuation of the latest bigram match in
+  the emitted stream, else in the source), scores the current token and the
+  drafts in one W = draft_k + 1 row verify, samples all W slots in one
+  batched pass under the grammar state each slot would reach if the slots
+  before it emitted their window tokens, and emits the accepted prefix plus
+  one corrective or bonus token; a single-token tail fills the positions
+  the window no longer fits.  The verify is ``ops.decode_step.
+  fused_verify_window`` with ``fused`` (the CUDA kernel, W <= 16, so
+  draft_k <= 15; its twin on the CPU) and the model's ``decode_window``
+  without.  Greedy output equals the plain loop's; nucleus sampling draws
+  Gumbel rows (L, V) and acceptance uniforms (L,) from the generator (or
+  takes ``noise=`` and ``uniforms=``) and emits the same distribution.  A
+  batch of several rows with ``draft_k`` set decodes through the loops
+  below, as in JAX;
 * ``fused=True``, ``fused_sampling`` True or None and ``token_chunk > 1``:
   the v4 chunk, ``ops.decode_step.fused_decode_tokens`` (JAX ``_decode_v4``
   :843-917): ``token_chunk`` (at most 64) whole tokens a call, the state on
@@ -57,12 +73,14 @@ import torch
 
 from ..models.transformer import ScoreTransformer
 from ..ops.decode_step import (
+    MAX_WINDOW,
     ST_DONE,
     ST_LEN,
     ST_TOKEN,
     fused_decode_step,
     fused_decode_token,
     fused_decode_tokens,
+    fused_verify_window,
     pack_decoder_weights,
     pack_sampling_tables,
     stack_kv_cache,
@@ -77,7 +95,12 @@ from .grammar import (
     build_fast_tables,
     update_bits,
 )
-from .sampling import greedy_sample, gumbel_noise, masked_sample_gumbel
+from .sampling import (
+    greedy_sample,
+    gumbel_noise,
+    masked_sample_gumbel,
+    spec_accept_resample,
+)
 
 SYNC_EVERY = 8
 CHUNK_SLOP = 64  # v4: positions past max_tgt_len a chunk may run into (JAX :860-866)
@@ -123,9 +146,6 @@ class InfillDecoder:
                 "speculative decode (draft_k > 0) runs the plain cache path "
                 "and cannot stream quantized weights; drop one of the two"
             )
-        if self.draft_k > 0:
-            raise _not_ported("draft_k > 0 (speculative decode)",
-                              "ROADMAP.md Queue 1 item 4 / Queue 2 item 3")
         if self.mesh is not None:
             raise _not_ported("mesh (multi-GPU decode)", "ROADMAP.md Queue 1 item 11")
         self.tables = GrammarTables.build(self.vocab)
@@ -139,6 +159,7 @@ class InfillDecoder:
         self.resolve_backend()
         fast = build_fast_tables(self.tables)
         self.fast_tables = tuple(torch.as_tensor(a, device=self.device) for a in fast)
+        self._next_bits = np.asarray(fast[2], np.int64)  # v5's host-side state chain
         self.sampling_tables = {
             k: torch.as_tensor(a, device=self.device)
             for k, a in pack_sampling_tables(
@@ -170,6 +191,11 @@ class InfillDecoder:
                 "the fused decode step needs d_model % 64 == 0, head_dim 64 or 128 "
                 "and, on CUDA, a bfloat16 model; pass fused=False for the plain loop"
             )
+        if self.fused and self.draft_k >= MAX_WINDOW:
+            raise ValueError(
+                f"draft_k={self.draft_k}: the fused verify window takes at most "
+                f"{MAX_WINDOW} rows, so draft_k <= {MAX_WINDOW - 1}"
+            )
 
     def packed(self):
         """The decoder weights in the kernel layout (``self.quant``), packed once."""
@@ -186,9 +212,10 @@ class InfillDecoder:
         n_spans: np.ndarray,  # (B,)
         no_whole_duration,  # bool or (B,) bool
         generator: Optional[torch.Generator] = None,
-        noise=None,  # optional Gumbel noise, (L, B, V); v3: (L, B, vpad); v4: (L + 64, B, vpad)
+        noise=None,  # optional Gumbel noise, (L, B, V); v3: (L, B, vpad); v4: (L + 64, B, vpad); v5: (L, V)
         forced=None,
         forced_len=None,
+        uniforms=None,  # v5 only: the acceptance draws (L,), given with noise
     ) -> DecodeResult:
         if forced is not None or forced_len is not None:
             raise _not_ported("forced-prefix decode", "ROADMAP.md Queue 1 item 5")
@@ -198,9 +225,10 @@ class InfillDecoder:
         n_spans = torch.as_tensor(np.asarray(n_spans), dtype=torch.long, device=dev)
         no_whole = torch.as_tensor(np.asarray(no_whole_duration), dtype=torch.bool, device=dev)
         with torch.no_grad():
-            return self._decode(src, span_types, n_spans, no_whole, generator, noise)
+            return self._decode(src, span_types, n_spans, no_whole, generator, noise, uniforms)
 
-    def _decode(self, src, span_types, n_spans, no_whole, generator, noise) -> DecodeResult:
+    def _decode(self, src, span_types, n_spans, no_whole, generator, noise,
+                uniforms=None) -> DecodeResult:
         model, t = self.model, self.tables
         cfg = model.cfg
         B = src.shape[0]
@@ -211,6 +239,12 @@ class InfillDecoder:
         src_pad = src == 0
         memory = model.encode(src, src_pad)
         cross = model.init_cross_cache(memory)
+
+        # speculative decode takes a batch of one before the other loops (JAX
+        # :273); a batch of several goes on below
+        if self.draft_k > 0 and B == 1:
+            return self._decode_v5(src, src_pad, cross, span_types, n_spans, no_whole,
+                                   generator, noise, uniforms)
 
         use_fused = self.fused
         if use_fused:
@@ -402,6 +436,160 @@ class InfillDecoder:
         ran = L > 1 and bool((n_spans > 0).any())
         steps = min(int(state[ST_LEN].max()), L - 1) if ran else 0
         return DecodeResult(tokens=out, lengths=lengths, steps=steps)
+
+    def _decode_v5(self, src, src_pad, cross, span_types, n_spans, no_whole, generator,
+                   noise, uniforms) -> DecodeResult:
+        """Speculative (draft-and-verify) decode of one sequence (JAX
+        ``_decode_v5`` :411-702).  The token stream, the grammar state and
+        the draft lookup live on the host; the verify and the W slots'
+        sampling run on the model's device, one read-back an iteration.
+        Slot i's logits are valid iff every earlier slot emitted its window
+        token, so the emitted prefix ends at the first slot that did not;
+        each absolute position reads its own noise row and uniform once."""
+        model, t, dev = self.model, self.tables, self.device
+        cfg = model.cfg
+        L, K, V = self.max_tgt_len, self.draft_k, t.vocab_size
+        W = K + 1
+        if self.fused:
+            nl, D = cfg.num_decoder_layers, cfg.d_model
+            kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
+            packed = self.packed()
+            cross_kv = stack_kv_cache(cross, nl)
+            cross_len = (~src_pad).sum(dim=1).to(torch.int32)
+            cache = torch.zeros(nl, 1, L, 2 * D, dtype=cfg.dtype, device=dev)
+            emb_table, pos_table = model.embedding.weight, model.pos_table
+
+            def verify(window, pos):
+                # the f32 embedding x sqrt(D) plus the PE rows, then the
+                # compute dtype (JAX :471-474)
+                n = window.shape[0]
+                x = (emb_table[window] * math.sqrt(D) + pos_table[pos : pos + n]).to(cfg.dtype)
+                logits, new_kv = fused_verify_window(packed, x, cache, cross_kv, pos, cross_len, **kw)
+                cache[:, 0, pos : pos + n] = new_kv
+                return logits[:, :V]
+        else:
+            cache = model.init_self_cache(1, L)
+
+            def verify(window, pos):
+                return model.decode_window(window[None], pos, cache, cross, src_pad)[0]
+
+        if self.greedy:
+            noise = uniforms = None
+        elif noise is None:
+            gen = generator if generator is not None else self.generator
+            noise = gumbel_noise((L, V), gen, dev)
+            uniforms = torch.rand((L,), generator=gen, device=dev, dtype=torch.float32)
+        else:
+            if uniforms is None:
+                raise ValueError("speculative decode takes uniforms (L,) beside its noise (L, V)")
+            noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
+            uniforms = torch.as_tensor(np.array(uniforms), dtype=torch.float32, device=dev)
+            if tuple(noise.shape) != (L, V) or tuple(uniforms.shape) != (L,):
+                raise ValueError(f"noise {tuple(noise.shape)} and uniforms {tuple(uniforms.shape)}: "
+                                 f"expected {(L, V)} and {(L,)}")
+
+        state_masks, sid_from_bits, _ = self.fast_tables
+        next_bits = self._next_bits
+        span_row = span_types[0].cpu().numpy()
+        n_sp = int(n_spans[0])
+        src_row = src[0].cpu().numpy()
+        mode1 = t.mode == 1
+
+        def advance(sampled, states, steps_w, spans_w):
+            """The plain loop's bookkeeping for each slot, vectorized."""
+            cur_type = span_row[np.minimum(spans_w, self.max_spans - 1)]
+            control_done = (cur_type != SPAN_BODY) & (steps_w >= 2)
+            end_span = (sampled == t.eos_index) | (steps_w >= self.span_cap) | control_done
+            new_span = np.where(end_span, spans_w + 1, spans_w)
+            now_done = new_span >= n_sp
+            next_tok = np.where(now_done, 0, np.where(end_span, t.mask_index, sampled))
+            st_post = np.where(end_span, 0, next_bits[states, sampled])
+            steps_post = np.where(end_span, 1, steps_w + 1)
+            return next_tok, now_done, st_post, steps_post, new_span
+
+        def sample(logits, states, steps_w, spans_w, draft, pos):
+            """The slots' tokens in one batched pass: each slot's grammar
+            mask, then greedy, or (nucleus) the speculative accept/resample
+            of each slot's draft and a plain sample in the slot without one."""
+            n = len(states)
+            cur_type = span_row[np.minimum(spans_w, self.max_spans - 1)]
+            rows = torch.as_tensor(np.stack([states, steps_w, cur_type]), device=dev)
+            allowed = allowed_mask_fast(state_masks, sid_from_bits, rows[0], rows[1] == 1, rows[2],
+                                        no_whole, start_overrides=mode1)
+            if self.greedy:
+                return greedy_sample(logits, allowed).cpu().numpy()
+            g, u = noise[pos : pos + n], uniforms[pos : pos + n]
+            tok = masked_sample_gumbel(g, logits, allowed, self.nucleus_p, self.temperature)
+            if draft is not None:
+                proposals = torch.as_tensor(np.append(np.maximum(draft, 0), 0), device=dev)
+                spec, _ = spec_accept_resample(u, g, logits, allowed, proposals,
+                                               self.nucleus_p, self.temperature)
+                tok = torch.where(torch.arange(n, device=dev) == K, tok, spec)
+            return tok.cpu().numpy()
+
+        out = np.zeros(L, np.int64)
+        out[0] = t.mask_index
+        pos, done, state, steps, span, length = 0, n_sp <= 0, 0, 1, 0, 1
+        slots = np.arange(W)
+        while pos + 1 + K < L and not done:
+            draft = _prompt_lookup(out, pos, src_row, K)
+            window = np.concatenate([out[pos : pos + 1], draft])
+            logits = verify(torch.as_tensor(window, device=dev), pos)  # (W, V)
+            # the state each slot samples under if the slots before it
+            # emitted their window tokens: an emitted m_0 ends a span
+            states, steps_w, spans_w = (np.empty(W, np.int64) for _ in range(3))
+            states[0], steps_w[0], spans_w[0] = state, steps, span
+            for i, w in enumerate(draft):
+                ended = w == t.mask_index
+                states[i + 1] = 0 if ended else next_bits[states[i], w]
+                steps_w[i + 1] = 1 if ended else steps_w[i] + 1
+                spans_w[i + 1] = spans_w[i] + int(ended)
+            sampled = sample(logits, states, steps_w, spans_w, draft, pos)
+            next_tok, now_done, st_post, steps_post, new_span = advance(
+                sampled, states, steps_w, spans_w)
+            # slot i emits iff every slot before it emitted its window token
+            # and did not finish the session
+            keep = np.append(next_tok[:K] == draft, False) & ~now_done
+            emit = np.concatenate([[True], np.cumprod(keep)[:K].astype(bool)])
+            m = int(emit.sum())
+            out[pos + 1 : pos + 1 + W] = np.where(emit, next_tok, 0)
+            length = max(length, int(np.where(emit & (next_tok != 0), pos + slots + 2, 0).max()))
+            last = m - 1
+            pos += m
+            done = bool(now_done[last])
+            state, steps, span = int(st_post[last]), int(steps_post[last]), int(new_span[last])
+        # the single-token tail: the window no longer fits before the cap
+        while pos + 1 < L and not done:
+            logits = verify(torch.as_tensor(out[pos : pos + 1], device=dev), pos)
+            slot = tuple(np.asarray([v], np.int64) for v in (state, steps, span))
+            sampled = sample(logits, *slot, None, pos)
+            next_tok, now_done, st_post, steps_post, new_span = advance(sampled, *slot)
+            out[pos + 1] = next_tok[0]
+            if next_tok[0] != 0:
+                length = pos + 2
+            pos += 1
+            done = bool(now_done[0])
+            state, steps, span = int(st_post[0]), int(steps_post[0]), int(new_span[0])
+        return DecodeResult(tokens=torch.as_tensor(out[None], device=dev),
+                            lengths=torch.tensor([length], device=dev), steps=pos)
+
+
+def _prompt_lookup(out: np.ndarray, pos: int, src: np.ndarray, K: int) -> np.ndarray:
+    """The K-token draft at ``pos`` (JAX ``build_draft`` :497-526): the
+    continuation of the latest earlier match of the bigram (out[pos - 1],
+    out[pos]) in the emitted stream, else of its latest match in the source
+    (never at a padding id), else zeros, which no grammar output matches."""
+    key0, key1 = out[max(pos - 1, 0)], out[pos]
+    if pos >= 2:  # a bigram ending at j in 1..pos-1
+        hits = np.flatnonzero((out[: pos - 1] == key0) & (out[1:pos] == key1))
+        if len(hits):
+            start = min(max(int(hits[-1]) + 2, 0), len(out) - K)
+            return out[start : start + K].copy()
+    hits = np.flatnonzero((src[:-1] == key0) & (src[1:] == key1) & (src[1:] != 0))
+    if len(hits):
+        start = min(max(int(hits[-1]) + 2, 0), len(src) - K)
+        return src[start : start + K].astype(np.int64)
+    return np.zeros(K, np.int64)
 
 
 def pad_to_bucket(

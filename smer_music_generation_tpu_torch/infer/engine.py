@@ -12,6 +12,8 @@ masked source, run the decoder, splice results back, repair bar durations.
 ``quant="int8"`` (with the fused decoder) streams int8 decoder weights
 through every batch: the kernels take any group of 1 to 8 rows, so no call
 shape falls back to unquantized weights as JAX's can (:259-268).
+``draft_k > 0`` decodes a group of one request by speculative decode (the
+decoder's v5 loop); a larger group takes the batched loop, as in JAX.
 
 Not ported yet (they raise ``NotImplementedError``): ``span_retries``
 (ROADMAP.md Queue 1 item 5), ``correct_controls`` (Queue 1 item 7) and

@@ -5,12 +5,15 @@ change controls -> generate -> decode -> write):
 
     python -m smer_music_generation_tpu_torch.infer.generate_cli \\
         -i song.mid -o out.mid --tracks 0 --bars 4 5 6 7 \\
-        [--checkpoint ...] [--greedy] [--p 0.9] [--temperature 1.0] [--device cpu]
+        [--checkpoint ...] [--greedy] [--p 0.9] [--temperature 1.0] [--draft_k 8] \
+        [--device cpu]
 
 With no ``--checkpoint`` and no ``--config`` it loads the committed
 trained snapshot ``assets/flagship_params.msgpack``; ``--checkpoint
 random`` gives random weights.  The model computes in bf16 on CUDA and in
-f32 on the CPU.
+f32 on the CPU.  ``--draft_k K`` decodes the request by speculative decode,
+verifying K prompt-lookup drafts a step (on CUDA through the verify kernel,
+K <= 15).
 """
 
 from __future__ import annotations
@@ -52,11 +55,6 @@ def main(argv=None) -> int:
     if args.correct_controls:
         raise NotImplementedError(
             "--correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)"
-        )
-    if args.draft_k > 0:
-        raise NotImplementedError(
-            "--draft_k > 0 (speculative decode) is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 4 / Queue 2 item 3)"
         )
 
     logger = logger_init(None)
@@ -102,6 +100,7 @@ def main(argv=None) -> int:
         max_tgt_len=args.max_tgt,
         # with random weights the bar-closure retry loop always exhausts
         max_time_fix_attempts=10 if args.checkpoint else 0,
+        draft_k=args.draft_k,
         seed=args.seed,
     )
     gen = engine(events, args.tracks, args.bars)

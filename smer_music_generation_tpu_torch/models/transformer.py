@@ -4,15 +4,22 @@ Port of ``smer_music_generation_tpu/models/transformer.py``: the shared
 embedding scaled by sqrt(d_model), the sinusoidal positions (:128), post-LN
 encoder and decoder layers with a ReLU FFN, the final ``norm_e``/``norm_d``,
 and the KV-cache decode path (``encode`` :560, ``init_cross_cache`` :673,
-``init_self_cache`` :680, ``decode_step`` :686).  ``decode``,
-``decode_window`` and the training paths are not ported yet (ROADMAP.md
-Queue 1 items 4 and 9).
+``init_self_cache`` :680, ``decode_step`` :686, ``decode_window`` :730, the
+W-position cached decode that speculative decode verifies with).
+``decode`` and the training paths are not ported yet (ROADMAP.md Queue 1
+item 9).
 
 Numerics follow the Flax model: parameters are held in f32 and every
 projection runs in ``cfg.dtype`` (bf16 on the card), while softmax,
 LayerNorm (eps 1e-6, Flax's mean-of-squares variance) and the output
 projection run in f32.  Masked scores take ``finfo(f32).min`` and a query
-row with no key to attend gets zero weights.  The parameter names mirror
+row with no key to attend gets zero weights.
+
+``ModelConfig.flash_encoder`` (JAX :59) sends the encoder's self-attention
+through ``ops.attention.fused_attention`` (``attend_flash`` :349, the encoder
+branch :433, ``kv_valid_len`` from the suffix padding :564-580): the CUDA
+flash kernel on the card, its twin on the CPU.  As in JAX it is reached
+through the config only.  The parameter names mirror
 the Flax tree (``encoder_{i}`` becomes ``encoder_layers.{i}``) so that
 ``train.state.params_from_flax`` is a rename plus a transpose.
 """
@@ -42,6 +49,9 @@ class ModelConfig:
     max_len: int = 2400
     dtype: torch.dtype = torch.float32
     final_norm: bool = True
+    # encoder self-attention through the flash kernel (ops/attention.py);
+    # needs suffix padding, as the engine's bucketing gives
+    flash_encoder: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -125,6 +135,18 @@ class MultiHeadAttention(nn.Module):
         out = torch.einsum("bhts,bshd->bthd", weights, v).reshape(B, T, c.d_model)
         return self.out(out)
 
+    def attend_flash(self, q_in, kv_in, kv_valid_len: torch.Tensor) -> torch.Tensor:
+        """Self-attention through the flash kernel (JAX :349): keys at or
+        past ``kv_valid_len[b]`` masked, no weights returned."""
+        from ..ops.attention import fused_attention
+
+        c = self.cfg
+        B, T, _ = q_in.shape
+        q = self.q(q_in).reshape(B, T, c.nhead, c.head_dim)
+        k, v = self.project_kv(kv_in)
+        out = fused_attention(q, k, v, kv_valid_len=kv_valid_len)
+        return self.out(out.reshape(B, T, c.d_model))
+
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: ModelConfig):
@@ -144,9 +166,13 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(cfg.d_model)
         self.norm2 = LayerNorm(cfg.d_model)
 
-    def forward(self, x, mask):
-        k, v = self.self_attn.project_kv(x)
-        x = self.norm1(x + self.self_attn.attend(x, k, v, mask))
+    def forward(self, x, mask, kv_valid_len=None):
+        if kv_valid_len is not None:  # flash_encoder (JAX :433)
+            attn_out = self.self_attn.attend_flash(x, x, kv_valid_len)
+        else:
+            k, v = self.self_attn.project_kv(x)
+            attn_out = self.self_attn.attend(x, k, v, mask)
+        x = self.norm1(x + attn_out)
         return self.norm2(x + self.ff(x))
 
 
@@ -203,8 +229,14 @@ class ScoreTransformer(nn.Module):
         x = self.embed_tokens(src)
         x = x + self.pos_table[:T].to(x.dtype)
         mask = None if src_pad_mask is None else (~src_pad_mask)[:, None, None, :]
+        kv_valid_len = None
+        if self.cfg.flash_encoder:  # the valid keys of a suffix-padded row
+            kv_valid_len = (
+                torch.full((src.shape[0],), T, dtype=torch.int32, device=src.device)
+                if src_pad_mask is None else (~src_pad_mask).sum(dim=1).to(torch.int32)
+            )
         for layer in self.encoder_layers:
-            x = layer(x, mask)
+            x = layer(x, mask, kv_valid_len)
         if self.norm_e is not None:
             x = self.norm_e(x)
         return x
@@ -256,3 +288,41 @@ class ScoreTransformer(nn.Module):
         if self.norm_d is not None:
             x = self.norm_d(x)
         return self.fc(x.float())[:, 0, :]
+
+    def decode_window(
+        self,
+        tokens: torch.Tensor,  # (B, W) the tokens at positions index..index+W-1
+        index: int,
+        self_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+        cross_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+        memory_pad_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """W-position cached decode for draft verification (JAX :730);
+        returns logits (B, W, V) f32.  Query row j (position index + j)
+        attends cache positions <= index + j, so ``logits[:, j]`` is the
+        next-token distribution after the prefix and ``tokens[:, :j + 1]``,
+        as W sequential :meth:`decode_step` calls give it.  The K/V of all
+        W positions are written into the cache in place; rows past an
+        accepted prefix sit at positions the masks exclude until they are
+        overwritten."""
+        W = tokens.shape[1]
+        # the embedding and the PE rows in one add, then the compute dtype
+        x = self.embed_tokens(tokens)
+        x = (x + self.pos_table[index : index + W].to(x.dtype)).to(self.cfg.dtype)
+        max_len = next(iter(self_cache.values()))[0].shape[1]
+        positions = torch.arange(max_len, device=x.device)[None, None, None, :]
+        row_pos = index + torch.arange(W, device=x.device)[None, None, :, None]
+        self_mask = positions <= row_pos  # (1, 1, W, max_len)
+        cross_mask = None
+        if memory_pad_mask is not None:
+            cross_mask = (~memory_pad_mask)[:, None, None, :]
+        for i, layer in enumerate(self.decoder_layers):
+            k_cache, v_cache = self_cache[f"layer_{i}"]
+            k_new, v_new = layer.self_attn.project_kv(x)
+            k_cache[:, index : index + W] = k_new
+            v_cache[:, index : index + W] = v_new
+            ck, cv = cross_cache[f"layer_{i}"]
+            x = layer.decode_step(x, k_cache, v_cache, self_mask, ck, cv, cross_mask)
+        if self.norm_d is not None:
+            x = self.norm_d(x)
+        return self.fc(x.float())

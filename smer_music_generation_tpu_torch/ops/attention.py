@@ -1,0 +1,96 @@
+"""Flash-attention forward through a hand-written CUDA kernel, beside its
+plain twin.
+
+Port of ``smer_music_generation_tpu/ops/attention.py``: ``attention_reference``
+(:35) and the TPU kernel ``fused_attention`` (:115, body ``_attn_kernel`` :55),
+which becomes ``flash_fwd_kernel`` in ``csrc/attention.cu``.  The encoder's
+self-attention takes it when ``ModelConfig.flash_encoder`` is set.
+
+``fused_attention(q, k, v, kv_valid_len=None, causal=False)`` takes (B, T, H,
+HD) queries and (B, S, H, HD) keys and values, as JAX's does, and returns
+(B, T, H, HD) in q's dtype: scores in f32 scaled by 1/sqrt(HD), keys at or
+past ``kv_valid_len[b]`` masked with -1e30 (and keys past the query row when
+``causal``), softmax in f32.  A tensor on the CPU goes to the twin
+:func:`attention_reference`; a CUDA tensor launches the kernel (bf16, head_dim
+64, contiguous) or raises.  The kernel is built with the decode kernels into
+one library at first use (``ops.decode_step.load_library``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .decode_step import _check, _check_tensors, load_library
+
+NEG_INF = -1e30
+
+
+def attention_reference(
+    q: torch.Tensor,  # (B, T, H, HD)
+    k: torch.Tensor,  # (B, S, H, HD)
+    v: torch.Tensor,  # (B, S, H, HD)
+    kv_valid_len: Optional[torch.Tensor] = None,  # (B,) valid key length
+    causal: bool = False,
+) -> torch.Tensor:
+    """Plain-torch twin of :func:`fused_attention` (JAX :35): the scores in
+    f32 from the f32 values of q and k, masked to -1e30, a softmax over S,
+    the weighted sum of v in f32, cast to q's dtype.  A row whose keys are
+    all masked weighs every key alike."""
+    attention_reference.calls += 1
+    B, T, H, HD = q.shape
+    S = k.shape[1]
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(HD)
+    if kv_valid_len is not None:
+        key_ok = torch.arange(S, device=q.device)[None, :] < kv_valid_len.to(q.device)[:, None]
+        scores = torch.where(key_ok[:, None, None, :], scores, NEG_INF)
+    if causal:
+        cm = torch.ones(T, S, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(cm[None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", weights, v.float()).to(q.dtype)
+
+
+attention_reference.calls = 0
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Flash attention over (B, T|S, H, HD) tensors; returns (B, T, H, HD)."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, kv_valid_len, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
+    B, T, H, HD = q.shape
+    S = k.shape[1]
+    if HD != 64:
+        raise ValueError(f"the CUDA flash-attention kernel takes head_dim 64, got {HD}")
+    bf16 = torch.bfloat16
+    want = {"q": (q, bf16, (B, T, H, HD)), "k": (k, bf16, (B, S, H, HD)),
+            "v": (v, bf16, (B, S, H, HD))}
+    if kv_valid_len is not None:
+        want["kv_valid_len"] = (kv_valid_len, torch.int32, (B,))
+    _check_tensors(q.device, want)
+    out = torch.empty_like(q)
+    _check(load_library().smer_flash_attention(
+        HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_valid_len.data_ptr() if kv_valid_len is not None else None, int(causal),
+        1.0 / math.sqrt(HD), out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+    ), "flash_attention")
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
+
+def reset_counts() -> None:
+    fused_attention.launches = 0
+    attention_reference.calls = 0

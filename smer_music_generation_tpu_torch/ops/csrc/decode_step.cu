@@ -56,6 +56,20 @@
 // warp assignment of a cache that holds them all (row r on warp r % 8), so a
 // v4 token sums exactly what a v3 token sums over the spliced cache.
 //
+// The teacher-forced verify of speculative decode (`fused_verify_window`
+// :1368, body `_kernel_verify` :1284, `_flash_attend_multi` :1182) runs the
+// same launches on the W <= 16 window rows at B=1: rowvec_kernel takes the W
+// rows as its batch, so each weight is read once for all of them; the cache
+// and the cross K|V are shared by every row (batch stride 0); and
+// attend_kernel's third row source gives row j the `index` cache rows, then
+// window rows 0..j-1 of the `new_kv` output (written by the QKV launch of
+// the same layer), then its own row, again in the row-to-warp order of a
+// cache that holds them all.  Each row sums what one v2 step over the
+// spliced cache sums, in the same order.  Bound by bytes as the step is: at
+// W=9, index 512 and 1440 cross rows a call moves 46.4 MB (13.8 us); it took
+// 1.63 ms on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, chip_smoke.py),
+// 1.18x a v3 token of 3 rows, and is bit-equal to W sequential v2 steps.
+//
 // Every launcher has a plain C interface and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -70,6 +84,9 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 64;  // output columns per rowvec block: two per lane
+// rows a rowvec launch takes: 8 for the batched decode, 16 for a verify
+// window (red[kWarps][16][kCols] is 32 KB of static shared memory)
+constexpr int kMaxRows = 16;
 
 template <typename WT>
 struct PairLoad;
@@ -188,9 +205,15 @@ __device__ __forceinline__ void attend_row(const __nv_bfloat16* row, int d0,
   m = m_new;
 }
 
+// Where self-attention rows past the cache's come from.
+enum RowSource {
+  kCacheOnly = 0,  // v2, v3 and cross-attention
+  kChunk = 1,      // v4: n_chunk rows of the chunk, (n_chunk, B, 2D) a layer
+  kWindow = 2,     // verify: row b reads window rows 0..b-1, (W, 2D) a layer
+};
+
 // head_dim = 32 * EPL; each lane owns EPL adjacent lanes of the head.
-// CHUNK: self-attention rows past the cache's come from a v4 chunk.
-template <int EPL, bool CHUNK>
+template <int EPL, int SRC>
 __global__ void __launch_bounds__(kThreads) attend_kernel(
     const float* __restrict__ q, int ldq, const __nv_bfloat16* __restrict__ kv,
     long long kv_bstride, int D, int n_rows, const int* __restrict__ lens,
@@ -209,8 +232,8 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(
   const int warp = threadIdx.x >> 5;
   int n_cache = lens != nullptr ? lens[b] : n_rows;
   n_cache = max(0, min(n_cache, max_rows));
-  // rows past the cache's come from the chunk: (n_chunk, B, 2D) a layer
-  const int n = n_cache + (CHUNK ? n_chunk : 0);
+  const int n_extra = SRC == kChunk ? n_chunk : (SRC == kWindow ? b : 0);
+  const int n = n_cache + n_extra;
 
   const int d0 = h * HD + lane * EPL;
   float qv[EPL];
@@ -228,8 +251,9 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(
 #pragma unroll 4
   for (; t < n_cache; t += kWarps)
     attend_row<EPL>(base + (size_t)t * 2 * D, d0, D, qv, scale, m, l, acc);
-  if (CHUNK) {
-    const __nv_bfloat16* cbase = chunk + (size_t)b * 2 * D;
+  if (SRC != kCacheOnly) {
+    // a v4 chunk holds B rows a token; the verify window is one row a slot
+    const __nv_bfloat16* cbase = chunk + (SRC == kChunk ? (size_t)b * 2 * D : 0);
     for (; t < n; t += kWarps)
       attend_row<EPL>(cbase + (size_t)(t - n_cache) * chunk_tstride, d0, D, qv,
                       scale, m, l, acc);
@@ -332,7 +356,24 @@ int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw,
     SMER_ROWVEC_CASE(7)
     SMER_ROWVEC_CASE(8)
     default:
-      return (int)cudaErrorInvalidValue;
+      // 9..16 rows: the verify window, which never streams int8 weights
+      if constexpr (!std::is_same<WT, int8_t>::value) {
+        static_assert(kMaxRows == 16, "instantiate every row count");
+        switch (nb) {
+          SMER_ROWVEC_CASE(9)
+          SMER_ROWVEC_CASE(10)
+          SMER_ROWVEC_CASE(11)
+          SMER_ROWVEC_CASE(12)
+          SMER_ROWVEC_CASE(13)
+          SMER_ROWVEC_CASE(14)
+          SMER_ROWVEC_CASE(15)
+          SMER_ROWVEC_CASE(16)
+          default:
+            return (int)cudaErrorInvalidValue;
+        }
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
   }
 #undef SMER_ROWVEC_CASE
   return (int)cudaGetLastError();
@@ -378,12 +419,15 @@ int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx,
       nb, xf, ldx, wb, ldw, cs, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
 }
 
-// chunk null: no chunk rows (n_chunk and chunk_tstride unused)
+// row_source (RowSource): 0 no rows past the cache's (chunk, n_chunk and
+// chunk_tstride unused); 1 a v4 chunk of n_chunk rows; 2 a verify window,
+// row b reading b rows of it (n_chunk unused)
 int smer_attend(int head_dim, int B, int H, const void* q, int ldq,
                 const void* kv, long long kv_bstride, int D, int n_rows,
-                const void* lens, int max_rows, const void* chunk,
-                long long chunk_tstride, int n_chunk, const void* extra,
-                int ld_extra, void* out, int ldo, float scale, void* stream) {
+                const void* lens, int max_rows, int row_source,
+                const void* chunk, long long chunk_tstride, int n_chunk,
+                const void* extra, int ld_extra, void* out, int ldo,
+                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, H);
   const float* qf = static_cast<const float*>(q);
@@ -392,27 +436,37 @@ int smer_attend(int head_dim, int B, int H, const void* q, int ldq,
   const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(chunk);
   const float* ef = static_cast<const float*>(extra);
   float* of = static_cast<float*>(out);
-#define SMER_ATTEND(EPL, CHUNK)                                              \
-  attend_kernel<EPL, CHUNK><<<grid, kThreads, 0, st>>>(                      \
+  if ((row_source == kCacheOnly) != (cb == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define SMER_ATTEND(EPL, SRC)                                                \
+  attend_kernel<EPL, SRC><<<grid, kThreads, 0, st>>>(                        \
       qf, ldq, kvb, kv_bstride, D, n_rows, lp, max_rows, cb, chunk_tstride,  \
       n_chunk, ef, ld_extra, of, ldo, scale)
-  const bool chunked = cb != nullptr;
+#define SMER_ATTEND_SOURCES(EPL)          \
+  switch (row_source) {                   \
+    case kCacheOnly:                      \
+      SMER_ATTEND(EPL, kCacheOnly);       \
+      break;                              \
+    case kChunk:                          \
+      SMER_ATTEND(EPL, kChunk);           \
+      break;                              \
+    case kWindow:                         \
+      SMER_ATTEND(EPL, kWindow);          \
+      break;                              \
+    default:                              \
+      return (int)cudaErrorInvalidValue;  \
+  }
   switch (head_dim) {
     case 64:
-      if (chunked)
-        SMER_ATTEND(2, true);
-      else
-        SMER_ATTEND(2, false);
+      SMER_ATTEND_SOURCES(2)
       break;
     case 128:
-      if (chunked)
-        SMER_ATTEND(4, true);
-      else
-        SMER_ATTEND(4, false);
+      SMER_ATTEND_SOURCES(4)
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef SMER_ATTEND_SOURCES
 #undef SMER_ATTEND
   return (int)cudaGetLastError();
 }

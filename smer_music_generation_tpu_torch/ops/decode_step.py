@@ -1,25 +1,28 @@
-"""One decoder step (v2), one whole token (v3) and a chunk of tokens (v4)
-through hand-written CUDA kernels, each beside its plain twin, with bf16 or
-int8 decoder weights.
+"""One decoder step (v2), one whole token (v3), a chunk of tokens (v4) and
+the W-row verify window of speculative decode through hand-written CUDA
+kernels, each beside its plain twin, with bf16 or int8 decoder weights.
 
 Port of ``smer_music_generation_tpu/ops/decode_step.py``: ``quantize_columns``
 (:50), the packers ``pack_decoder_weights`` (:66, ``quant="int8"`` included),
 ``stack_kv_cache`` (:154), ``vocab_pad`` (:551) and ``pack_sampling_tables``
 (:571) with the ``ST_*`` / ``AUX_*`` / ``_CL_*`` constants (:563-568), and the
 TPU kernels ``fused_decode_step`` (v2, :456), ``fused_decode_token`` (v3,
-:796) and ``fused_decode_tokens`` (v4, :1028), with the int8 ``scale`` path
-of their layer body (:296-400), which become the kernel sets in
-``csrc/decode_step.cu`` and ``csrc/decode_token.cu``.
+:796), ``fused_decode_tokens`` (v4, :1028) and ``fused_verify_window``
+(:1368), with the int8 ``scale`` path of their layer body (:296-400), which
+become the kernel sets in ``csrc/decode_step.cu`` and ``csrc/decode_token.cu``.
 
 ``fused_decode_step`` keeps the JAX signature and returns
-``(logits (B, vpad) f32, new_kv (n_layers, B, 2D))``; ``fused_decode_token``
+``(logits (B, vpad) f32, new_kv (n_layers, B, 2D))``; ``fused_verify_window``
+keeps it and returns ``(logits (W, vpad) f32, new_kv (n_layers, W, 2D))``;
+``fused_decode_token``
 keeps it without ``interpret`` and returns ``(new_state (6, B) int32,
 new_kv)``; ``fused_decode_tokens`` returns ``(new_state, tokens (T_chunk, B)
 int32, new_kv (n_layers, T_chunk, B, 2D))``.  A packed dict with a
 ``"scale"`` strip holds int8 matrices, and every wrapper takes it.  A tensor
 on the CPU goes to the twin (:func:`fused_decode_step_reference`,
 :func:`fused_decode_token_reference`, :func:`fused_decode_tokens_reference`,
-:func:`rowvec_int8_reference`), the same math in plain torch; a CUDA tensor
+:func:`fused_verify_window_reference`, :func:`rowvec_int8_reference`), the
+same math in plain torch; a CUDA tensor
 launches the kernels or raises.
 There is no fallback from one to the other.  The kernels are built at first
 use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over all the
@@ -48,7 +51,9 @@ import torch
 
 LN_EPS = 1e-6
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu")
+# one library for the port's kernels: the decode kernels here and the
+# flash-attention forward of ``ops/attention.py``
+_SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +62,10 @@ NVCC_FLAGS = (
 
 # state rows carried through the v3 loop as one (6, B) int32 array
 ST_TOKEN, ST_BITS, ST_STEPS, ST_SPAN, ST_DONE, ST_LEN = range(6)
+MAX_BATCH = 8  # rows of the batched decode kernels (v2, v3, v4)
+MAX_WINDOW = 16  # rows of a verify window: draft_k <= 15
+# attend_kernel's source of self-attention rows past the cache's (RowSource)
+_ROWS_CACHE_ONLY, _ROWS_CHUNK, _ROWS_WINDOW = range(3)
 # aux rows (constants per session): (2, B) int32
 AUX_NSPANS, AUX_NOWHOLE = range(2)
 # class_mat columns
@@ -524,6 +533,44 @@ def fused_decode_tokens_reference(
 fused_decode_tokens_reference.calls = 0
 
 
+def fused_verify_window_reference(
+    packed: Dict[str, torch.Tensor],
+    x_emb: torch.Tensor,
+    self_kv: torch.Tensor,
+    cross_kv: torch.Tensor,
+    index,
+    cross_len: torch.Tensor,
+    *,
+    n_layers: int,
+    d_model: int,
+    nhead: int,
+    d_ff: int,
+    vpad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of :func:`fused_verify_window`: W sequential v2
+    steps, row j at position ``index + j`` over the cache's first ``index``
+    rows spliced with the window's K|V rows before j (in the cache dtype, as
+    the kernel reads them back from ``new_kv``).  ``self_kv`` is not
+    written."""
+    fused_verify_window_reference.calls += 1
+    if "scale" in packed:
+        raise ValueError("the verify window does not take int8 weights")
+    index = int(index)
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    logits, rows = [], []
+    for j in range(x_emb.shape[0]):
+        cache = self_kv if j == 0 else torch.cat(
+            [self_kv[:, :, :index], torch.stack(rows, dim=2)], dim=2)
+        lg, kv = _decode_step_math(packed, x_emb[j : j + 1], cache, cross_kv, index + j,
+                                   cross_len, **kw)
+        logits.append(lg[0])
+        rows.append(kv)
+    return torch.stack(logits), torch.cat(rows, dim=1)
+
+
+fused_verify_window_reference.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -592,14 +639,15 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library()))
         i, p, f, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
         lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, p]
-        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, p, ll, i, p, i, p, i, f, p]
+        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f, p]
+        lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
             [i, i] + [p] * 10 + [i] * 7 + [f, f, i, i, p]
         )
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
-                   lib.smer_embed_pe, lib.smer_sample_advance):
+                   lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -625,8 +673,15 @@ def _check_tensors(dev, want) -> None:
 
 
 def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad, index):
-    if not 1 <= B <= 8:
-        raise ValueError(f"the CUDA decode step takes 1 <= B <= 8, got B={B}")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"the CUDA decode step takes 1 <= B <= {MAX_BATCH}, got B={B}")
+    _check_layer_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad)
+    if not 0 <= index < self_kv.shape[2]:
+        raise ValueError(f"index={index} outside the self cache of {self_kv.shape[2]} rows")
+
+
+def _check_layer_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad):
+    """The packed weights and the caches of ``B`` cache rows."""
     if D % 64 or D // H not in (64, 128) or D % H:
         raise ValueError(f"d_model={D}, nhead={H}: need d_model % 64 == 0 and head_dim 64 or 128")
     if vpad % 2:
@@ -651,8 +706,6 @@ def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D
     if "scale" in packed:
         want["scale"] = (packed["scale"], f32, (n_layers, 1, 7 * D + F))
     _check_tensors(dev, want)
-    if not 0 <= index < L:
-        raise ValueError(f"index={index} outside the self cache of {L} rows")
 
 
 def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, relu=False, kv_out=None, ldkv=0,
@@ -674,14 +727,20 @@ def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, relu=False, kv_out=None, 
 
 
 def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
-                   *, n_layers, D, H, F, vpad, stream, chunk=None) -> None:
+                   *, n_layers, D, H, F, vpad, stream, chunk=None, window=False) -> None:
     """The v2 launches on an f32 activation ``x`` (B, D), updated in place:
     11 a layer, the final LN and the logits.  Writes ``logits`` (B, vpad)
     f32 and ``new_kv`` (n_layers, B, 2D) (any layer stride, rows
     contiguous).  ``chunk = (rows (n_layers, T, B, 2D), t)`` adds the first
     t chunk rows to the self-attention after the ``index`` cache rows (v4).
+    ``window``: the B rows are one sequence's verify window over a cache of
+    one batch row (batch stride 0 for the self and cross K|V, ``cross_len``
+    (B,) repeating its length); row j attends the ``index`` cache rows,
+    then rows 0..j-1 of ``new_kv``, then its own.
     With ``"scale"`` in ``packed`` the six matrices of a layer are int8."""
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
+    self_bstride = 0 if window else L * 2 * D
+    cross_bstride = 0 if window else S * 2 * D
     HD = D // H
     scale = 1.0 / math.sqrt(HD)
     f32 = dict(device=x.device, dtype=torch.float32)
@@ -691,11 +750,12 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     o = torch.empty(B, D, **f32)
     h = torch.empty(B, F, **f32)
 
-    def attend(q, kv, n_rows, lens, max_rows, chunk_rows, n_chunk, extra, out):
+    def attend(q, kv, bstride, n_rows, lens, max_rows, source, rows, tstride, n_chunk,
+               extra, out):
         _check(lib.smer_attend(
-            HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), max_rows * 2 * D, D,
-            n_rows, lens.data_ptr() if lens is not None else None, max_rows,
-            chunk_rows.data_ptr() if chunk_rows is not None else None, B * 2 * D, n_chunk,
+            HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), bstride, D,
+            n_rows, lens.data_ptr() if lens is not None else None, max_rows, source,
+            rows.data_ptr() if rows is not None else None, tstride, n_chunk,
             extra, 3 * D, out.data_ptr(), D, scale, stream,
         ), "attend")
 
@@ -719,12 +779,18 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
                            colscale=None if sc is None else sc[lo:], **kw)
 
         rowvec(x, w, ldw, 0, qkv, kv_out=new_kv[i], ldkv=2 * D, kv_col0=D)
-        chunk_rows, n_chunk = (chunk[0][i], chunk[1]) if chunk is not None else (None, 0)
-        attend(qkv, self_kv[i], index, None, L, chunk_rows, n_chunk, k_new_ptr, att)
+        if chunk is not None:  # the chunk's rows: (T, B, 2D) a layer
+            rows = (_ROWS_CHUNK, chunk[0][i], B * 2 * D, chunk[1])
+        elif window:  # the window's rows this launch just wrote: (B, 2D)
+            rows = (_ROWS_WINDOW, new_kv[i], 2 * D, 0)
+        else:
+            rows = (_ROWS_CACHE_ONLY, None, 0, 0)
+        attend(qkv, self_kv[i], self_bstride, index, None, L, *rows, k_new_ptr, att)
         rowvec(att, w[:, 3 * D :], ldw, 3 * D, o)
         add_ln(x, o, ln[0], ln[1])
         rowvec(x, w[:, 4 * D :], ldw, 4 * D, qc)
-        attend(qc, cross_kv[i], 0, cross_len, S, None, 0, None, att)
+        attend(qc, cross_kv[i], cross_bstride, 0, cross_len, S, _ROWS_CACHE_ONLY, None, 0, 0,
+               None, att)
         rowvec(att, w[:, 5 * D :], ldw, 5 * D, o)
         add_ln(x, o, ln[2], ln[3])
         rowvec(x, packed["w_ff1"][i], F, 6 * D, h, relu=True)
@@ -749,8 +815,8 @@ def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: tor
         raise ValueError(f"rowvec_int8 runs on cuda or cpu, not {x.device}")
     B, K = x.shape
     N = q.shape[1]
-    if not 1 <= B <= 8:
-        raise ValueError(f"rowvec_int8 takes 1 <= B <= 8 rows, got {B}")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"rowvec_int8 takes 1 <= B <= {MAX_BATCH} rows, got {B}")
     if q.dtype != torch.int8 or tuple(q.shape) != (K, N) or q.stride(1) != 1 or N % 2:
         raise ValueError("q must be (K, N) int8 with unit column stride and N even")
     _check_tensors(x.device, {"x": (x, torch.float32, (B, K)),
@@ -804,6 +870,62 @@ def fused_decode_step(
 
 
 fused_decode_step.launches = 0
+
+
+def fused_verify_window(
+    packed: Dict[str, torch.Tensor],
+    x_emb: torch.Tensor,  # (W, D) compute-dtype embedded window rows (+PE)
+    self_kv: torch.Tensor,  # (n_layers, 1, L, 2D); rows below index are read
+    cross_kv: torch.Tensor,  # (n_layers, 1, S, 2D)
+    index,  # int: valid cached self rows (= position of window row 0)
+    cross_len: torch.Tensor,  # (1,) int32
+    *,
+    n_layers: int,
+    d_model: int,
+    nhead: int,
+    d_ff: int,
+    vpad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced decode of W <= 16 window rows of one sequence (the
+    verify of speculative decode, JAX :1368): row j attends the cached
+    prefix [0, index) and window rows 0..j, so ``logits[j]`` is the
+    next-token distribution after the window's first j + 1 tokens.
+
+    Returns (logits (W, vpad) f32, new_kv (n_layers, W, 2D)); ``self_kv``
+    is not written, so the caller splices ``new_kv`` at ``index``.  On CUDA
+    the v2 launches run once on all W rows, one weight stream a layer;
+    int8 weights are refused, as in JAX (:1397)."""
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    if x_emb.device.type == "cpu":
+        return fused_verify_window_reference(packed, x_emb, self_kv, cross_kv, index,
+                                             cross_len, **kw)
+    if x_emb.device.type != "cuda":
+        raise ValueError(f"fused_verify_window runs on cuda or cpu, not {x_emb.device}")
+    if "scale" in packed:
+        raise ValueError("the verify window does not take int8 weights")
+    index = int(index)
+    W, D, dev = x_emb.shape[0], d_model, x_emb.device
+    if not 1 <= W <= MAX_WINDOW:
+        raise ValueError(f"the verify window takes 1 <= W <= {MAX_WINDOW} rows "
+                         f"(draft_k <= {MAX_WINDOW - 1}), got W={W}")
+    _check_layer_inputs(packed, 1, dev, self_kv, cross_kv, cross_len,
+                        n_layers, D, nhead, d_ff, vpad)
+    if not 0 <= index <= self_kv.shape[2]:
+        raise ValueError(f"index={index} outside the self cache of {self_kv.shape[2]} rows")
+    _check_tensors(dev, {"x_emb": (x_emb, torch.bfloat16, (W, D))})
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x = x_emb.float()  # a copy: the launches update it in place
+    logits = torch.empty(W, vpad, device=dev, dtype=torch.float32)
+    new_kv = torch.empty(n_layers, W, 2 * D, dtype=self_kv.dtype, device=dev)
+    _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len.expand(W).contiguous(),
+                   logits, new_kv, n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad,
+                   stream=stream, window=True)
+    fused_verify_window.launches += 1
+    return logits, new_kv
+
+
+fused_verify_window.launches = 0
 
 
 def _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, *,
@@ -998,5 +1120,7 @@ def reset_counts() -> None:
     fused_decode_token_reference.calls = 0
     fused_decode_tokens.launches = 0
     fused_decode_tokens_reference.calls = 0
+    fused_verify_window.launches = 0
+    fused_verify_window_reference.calls = 0
     rowvec_int8.launches = 0
     rowvec_int8_reference.calls = 0

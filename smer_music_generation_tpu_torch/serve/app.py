@@ -148,8 +148,10 @@ class ServingContext:
     def __init__(self, model, vocab: WordVocab, nucleus_p: float = 0.9,
                  temperature: float = 1.0, batch_window_ms: float = 8.0,
                  max_batch: int = 8, mesh=None, draft_k: int = 0):
-        """``mesh`` and ``draft_k > 0`` raise ``NotImplementedError`` (the
-        engine's decoder names their ROADMAP items)."""
+        """``draft_k > 0`` decodes a request that is alone in its group by
+        speculative decode; a group of several goes through the batched
+        loop, as in JAX.  ``mesh`` raises ``NotImplementedError`` (the
+        engine's decoder names its ROADMAP item)."""
         self.vocab = vocab
         self.device = model.device
         self.engine = InfillEngine(

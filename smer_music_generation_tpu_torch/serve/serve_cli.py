@@ -9,7 +9,9 @@ With no ``--checkpoint`` and no ``--config`` it serves the committed
 trained snapshot ``assets/flagship_params.msgpack``; ``--checkpoint
 random`` gives random weights.  On CUDA (the default) the model computes
 in bf16 and decodes through the v3 kernels; on the CPU it computes in f32
-through the plain loop.  A missing card raises.
+through the plain loop.  A missing card raises.  ``--draft_k K`` decodes a
+request that arrives alone by speculative decode (the verify kernel on
+CUDA, K <= 15); requests the batcher groups go through v3.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def main(argv=None) -> int:
                         "batched decodes for up to this many ms (0 = off)")
     parser.add_argument("--max_batch", type=int, default=8)
     parser.add_argument("--draft_k", type=int, default=0,
-                        help="speculative decode (not ported yet)")
+                        help="speculative decode of single requests: prompt-lookup draft "
+                        "width (0 = off; at most 15 on CUDA)")
     parser.add_argument("--dp", type=int, default=0,
                         help="data-parallel serving over N cards (not ported yet)")
     parser.add_argument("--device", type=str, default="cuda")
@@ -49,11 +52,6 @@ def main(argv=None) -> int:
     if args.dp > 1:
         raise NotImplementedError(
             "--dp > 1 (multi-GPU serving) is not ported to PyTorch yet (ROADMAP.md Queue 1 item 11)"
-        )
-    if args.draft_k > 0:
-        raise NotImplementedError(
-            "--draft_k > 0 (speculative decode) is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 4 / Queue 2 item 3)"
         )
     logger = logger_init(None)
     device = torch.device(args.device)
@@ -76,7 +74,7 @@ def main(argv=None) -> int:
 
     ctx = ServingContext(
         model, vocab, nucleus_p=args.nucleus_p, temperature=args.temperature,
-        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch, draft_k=args.draft_k,
     )
     server = serve(ctx, host=args.host, port=args.port)
     logger.info(f"serving on {server.server_address}")

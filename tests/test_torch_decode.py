@@ -145,7 +145,19 @@ def test_max_tgt_len_beyond_max_len_raises(setup):
     dict(draft_k=2), dict(draft_k=2, fused=True), dict(mesh=object()), dict(mesh=object(), fused=True),
 ])
 def test_unported_options_raise(setup, kw):
-    _, tvocab, _, _, tmodel, _ = setup
+    """``mesh`` raises, naming its ROADMAP item.  ``draft_k`` is ported
+    (tests/test_torch_spec_decode.py): its two cases, whose ids are kept
+    from when it raised too, now check that a B=1 greedy call with it
+    decodes the plain loop's tokens, on the plain and the fused verify."""
+    _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
+    if "draft_k" in kw:
+        args = (src[:1], span_types[:1], n_spans[:1], no_whole[:1])
+        common = dict(max_tgt_len=L, span_cap=24, greedy=True, nucleus_p=None)
+        want = InfillDecoder(tmodel, tvocab, fused=False, **common)(*args)
+        got = InfillDecoder(tmodel, tvocab, **common, **kw)(*args)
+        np.testing.assert_array_equal(got.tokens.numpy(), want.tokens.numpy())
+        np.testing.assert_array_equal(got.lengths.numpy(), want.lengths.numpy())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InfillDecoder(tmodel, tvocab, max_tgt_len=L, **kw)
 

@@ -112,13 +112,27 @@ def test_generate_cli_writes_readable_midi(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--correct_controls"], "Queue 1 item 7"),
-    (["--draft_k", "4"], "Queue 1 item 4 / Queue 2 item 3"),
-])
+    (["--draft_k", "4"], None),
+], ids=["flag0-Queue 1 item 7", "flag1-Queue 1 item 4 / Queue 2 item 3"])
 def test_generate_cli_refuses_unported_flags(tmp_path, flag, item):
-    """JAX's ``--correct_controls`` and ``--draft_k`` parse, then raise naming
-    their ROADMAP items, before any model is loaded."""
+    """JAX's ``--correct_controls`` parses, then raises naming its ROADMAP
+    item, before any model is loaded.  ``--draft_k`` is ported: its case,
+    whose id is kept from when it raised too, runs the CLI with it on a
+    small random model and reads the MIDI file back."""
+    from smer_music_generation_tpu_torch.codec.midi import read_midi
     from smer_music_generation_tpu_torch.infer import generate_cli
+    from tests.test_annotate import make_two_track_score
 
+    if item is None:
+        midi_in, out_path = tmp_path / "in.mid", tmp_path / "out.mid"
+        make_two_track_score().write(str(midi_in))
+        cfg_path = tmp_path / "cfg.json"
+        cfg_path.write_text(json.dumps({"d_model": 64, "nhead": 1, "num_layers": 1, "d_ff": 128}))
+        rc = generate_cli.main(["--device", "cpu", "-i", str(midi_in), "-o", str(out_path),
+                                "--bars", "1", "--config", str(cfg_path), "--max_tgt", "256",
+                                "--greedy", *flag])
+        assert rc == 0 and read_midi(str(out_path)).instruments
+        return
     with pytest.raises(NotImplementedError, match=item):
         generate_cli.main(["--device", "cpu", "-i", str(tmp_path / "in.mid"),
                            "-o", str(tmp_path / "out.mid"), "--bars", "1", *flag])

@@ -268,17 +268,53 @@ def test_micro_batcher_isolates_a_failing_request():
 # the current numbers
 @pytest.mark.parametrize("flags,item", [
     (["--dp", "2"], "Queue 1 item 11"),
-    (["--draft_k", "1"], "Queue 1 item 4 / Queue 2 item 3"),
+    (["--draft_k", "1"], None),
 ], ids=["flags0-Queue 1 item 8", "flags1-Queue 2 item 4"])
-def test_serve_cli_refuses_unported_options(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        serve_cli.main(["--device", "cpu", *flags])
+def test_serve_cli_refuses_unported_options(flags, item, monkeypatch, tmp_path):
+    """``--dp > 1`` raises, naming its ROADMAP item.  ``--draft_k`` is
+    ported: its case, whose id is kept from when it raised too, starts the
+    CLI (its server and its wait stubbed) and finds the option on the
+    serving context's decoder."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            serve_cli.main(["--device", "cpu", *flags])
+        return
+    made = []
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def shutdown(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def interrupt(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve_cli, "serve", lambda ctx, host, port: made.append(ctx) or Server())
+    monkeypatch.setattr(serve_cli.time, "sleep", interrupt)
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps({"d_model": 32, "nhead": 1, "num_layers": 1, "d_ff": 64}))
+    assert serve_cli.main(["--device", "cpu", "--config", str(cfg_path), *flags]) == 0
+    assert made[0].engine.decoder.draft_k == 1
 
 
 def test_serving_context_refuses_mesh_and_draft_k(contexts):
+    """``mesh`` raises, naming its ROADMAP item.  ``draft_k`` is ported (the
+    name is kept from when it raised too): a context built with it serves a
+    greedy /generate with the events of the context without it."""
     _, tctx = contexts
     model = tctx.engine.model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingContext(model, tctx.vocab, mesh=object(), batch_window_ms=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingContext(model, tctx.vocab, draft_k=2, batch_window_ms=0)
+    spec = ServingContext(model, tctx.vocab, draft_k=2, batch_window_ms=0)
+    assert spec.engine.decoder.draft_k == 2
+    spec.engine = InfillEngine(model, tctx.vocab, greedy=True, nucleus_p=None, fused=True, draft_k=2)
+    enc = tctx.handle_encode({"notes": plugin_payload(), "controls": {"start_bar": 1}})
+    payload = {"events": enc["events"], "controls": _unlocked(enc["controls"]),
+               "tracks": [1], "bars": [2], "tempo": 100}
+    got = _json(spec.handle_generate(_json(payload)))
+    want = _json(tctx.handle_generate(_json(payload)))
+    assert got["events"] == want["events"] and got["notes"] == want["notes"]
