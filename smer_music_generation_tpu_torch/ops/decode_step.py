@@ -51,9 +51,11 @@ import torch
 
 LN_EPS = 1e-6
 _CSRC = Path(__file__).resolve().parent / "csrc"
-# one library for the port's kernels: the decode kernels here and the
-# flash-attention forward of ``ops/attention.py``
-_SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu")
+# one library for the port's kernels: the decode kernels here, the
+# flash-attention forward of ``ops/attention.py`` and the training attention
+# of ``ops/train_attention.py``
+_SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu",
+            _CSRC / "train_attention.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -637,17 +639,21 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        i, p, f, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
+        i, p, f, ll, u = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
         lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, p]
         lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
+        lib.smer_train_attn_fwd.argtypes = [i, i, i, i, p, p, p, p, p, u, i, f, i, p, p]
+        lib.smer_train_attn_bwd.argtypes = [i, i, i, i, p, p, p, p, p, p, u, i, f, i, p, p, p, p, p]
+        lib.smer_dropout_keep_mask.argtypes = [i, i, i, p, u, p, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
             [i, i] + [p] * 10 + [i] * 7 + [f, f, i, i, p]
         )
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
-                   lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention):
+                   lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
+                   lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,8 +1,18 @@
-"""Weights for the PyTorch port: the committed flax snapshot, read without flax.
+"""Train state, train and eval steps, the plateau schedule, and the weights:
+the committed flax snapshot, read without flax, and the port's checkpoints.
 
-Port of the inference loaders of ``smer_music_generation_tpu/train/state.py``
-(``default_flagship_snapshot`` and ``load_inference_model``, :227-290).  The
-snapshot ``assets/flagship_params.msgpack`` is a flax msgpack file
+Port of ``smer_music_generation_tpu/train/state.py``: ``TrainState`` (:29),
+``make_optimizer`` (:46), ``make_train_step`` (:55), ``make_eval_step``
+(:135), ``PlateauScheduler`` (:160), ``build_model`` (:189),
+``default_flagship_snapshot`` and ``load_inference_model`` (:227-304).
+
+The step runs eagerly: the model holds the f32 parameters, the optimizer
+is ``torch.optim.Adam`` with optax's ``scale_by_adam`` defaults (b1 0.9, b2
+0.999, eps 1e-8, no eps_root, no weight decay), its learning rate set from
+the state before every step, and the update is made in place.  Dropout draws
+come from the ``torch.Generator`` handed to the step.
+
+The snapshot ``assets/flagship_params.msgpack`` is a flax msgpack file
 (``flax.serialization.to_bytes``): nested maps whose leaves are msgpack ext
 records of type 1 holding ``[shape, dtype name, raw C-order bytes]``.
 :func:`read_flax_msgpack` decodes that format with ``struct`` and numpy
@@ -17,15 +27,18 @@ the flax layout its kernels read (``ops/decode_step.py``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.transformer import ModelConfig, ScoreTransformer
+from .loss import multihead_ce, per_class_accuracy
 
 BF16 = "bfloat16"
 
@@ -163,6 +176,31 @@ def params_from_flax(tree: Dict[str, Any], bf16_leaves_as_bits: bool = False) ->
     return out
 
 
+def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_flax`: a ``ScoreTransformer`` state dict
+    -> the flax params tree ``{"params": ...}`` of f32 numpy arrays, each
+    Linear ``weight`` (out, in) transposed back to a Dense ``kernel`` (in,
+    out)."""
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] in ("encoder_layers", "decoder_layers"):
+            parts = [f"{parts[0].split('_')[0]}_{parts[1]}"] + parts[2:]
+        a = t.detach().cpu().float().numpy()
+        last = parts[-1]
+        if parts[0] == "embedding":
+            last = "embedding"
+        elif last == "weight" and a.ndim == 2:
+            last, a = "kernel", np.ascontiguousarray(a.T)
+        elif last == "weight":
+            last = "scale"
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[last] = a
+    return {"params": tree}
+
+
 def default_flagship_snapshot() -> str | None:
     """Path of the committed trained-flagship snapshot, if it exists."""
     path = os.path.join(
@@ -183,12 +221,30 @@ def check_sidecar(meta: Dict[str, Any], vocab_size: int, vocab_mode: int, path: 
             )
 
 
-def build_model(vocab_size: int, cfg, dtype: torch.dtype, final_norm: bool = True) -> ScoreTransformer:
-    """The flagship architecture from an ``ExperimentConfig``."""
+def build_model(
+    vocab_size: int,
+    d_model: int = 512,
+    nhead: int = 8,
+    num_layers: int = 4,
+    d_ff: int = 2048,
+    max_len: int = 2400,
+    dropout: float = 0.1,
+    dtype: torch.dtype = torch.float32,
+    flash_training: bool = False,
+    final_norm: bool = True,
+    remat: bool = False,
+    bf16_attn_residual: bool = True,
+    fused_attn_bwd: bool = True,
+    fused_attn_train: bool = False,
+) -> ScoreTransformer:
+    """The flagship config (reference ``config/config.yaml:26-43``)."""
     return ScoreTransformer(ModelConfig(
-        vocab_size=vocab_size, d_model=cfg.d_model, nhead=cfg.nhead,
-        num_encoder_layers=cfg.num_layers, num_decoder_layers=cfg.num_layers,
-        d_ff=cfg.d_ff, max_len=cfg.max_seq, dtype=dtype, final_norm=final_norm,
+        vocab_size=vocab_size, d_model=d_model, nhead=nhead,
+        num_encoder_layers=num_layers, num_decoder_layers=num_layers, d_ff=d_ff,
+        max_len=max_len, dropout=dropout, pos_dropout=dropout, dtype=dtype,
+        flash_training=flash_training, final_norm=final_norm, remat=remat,
+        bf16_attn_residual=bf16_attn_residual, fused_attn_bwd=fused_attn_bwd,
+        fused_attn_train=fused_attn_train,
     ))
 
 
@@ -196,35 +252,206 @@ def load_inference_model(
     cfg, vocab_size: int, checkpoint: str | None, dtype: torch.dtype,
     device="cuda", seed: int = 0,
 ) -> Tuple[ScoreTransformer, int]:
-    """Build the model and restore a ``.msgpack`` snapshot into it.
+    """Build the model and restore ``checkpoint`` into it.
 
-    ``checkpoint`` None gives random weights from ``seed``.  Orbax run
-    directories are not read by the port (they need orbax); export them
-    with ``scripts/export_params.py`` first.  Returns ``(model, epoch)``;
-    epoch is -1 without a checkpoint."""
+    ``checkpoint`` is a ``.msgpack`` snapshot (a file) or a checkpoint
+    directory the port's trainer wrote (``train/checkpoint.py``); None gives
+    random weights from ``seed``.  Orbax run directories are not read by the
+    port (they need orbax); export them with ``scripts/export_params.py``
+    first.  The ``final_norm`` layout comes from the snapshot's sidecar or
+    the checkpoint's parameters.  Returns ``(model, epoch)``; epoch is -1
+    without a checkpoint."""
+    from . import checkpoint as ckpt
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     meta: Dict[str, Any] = {}
-    if checkpoint:
+    final_norm = True
+    if checkpoint and os.path.isdir(checkpoint):
+        if not ckpt.is_checkpoint(checkpoint):
+            raise ValueError(
+                f"{checkpoint}: not a checkpoint of the port's trainer; the port reads "
+                "those and params-only .msgpack snapshots (export an orbax run with "
+                "scripts/export_params.py)"
+            )
+        final_norm = ckpt.checkpoint_has_final_norm(checkpoint)
+    elif checkpoint:
         if not os.path.isfile(checkpoint):
             raise ValueError(
-                f"{checkpoint}: the port reads params-only .msgpack snapshots; "
-                "export an orbax run with scripts/export_params.py"
+                f"{checkpoint}: the port reads params-only .msgpack snapshots and its "
+                "own checkpoint directories; export an orbax run with scripts/export_params.py"
             )
         sidecar = checkpoint + ".json"
         if os.path.isfile(sidecar):
             with open(sidecar) as fh:
                 meta = json.load(fh)
             check_sidecar(meta, vocab_size, cfg.vocab_mode, checkpoint)
+        final_norm = bool(meta.get("final_norm", True))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build_model(
-            vocab_size, cfg, dtype, final_norm=bool(meta.get("final_norm", True))
+            vocab_size, d_model=cfg.d_model, nhead=cfg.nhead, num_layers=cfg.num_layers,
+            d_ff=cfg.d_ff, max_len=cfg.max_seq, dropout=0.0, dtype=dtype,
+            final_norm=final_norm,
         )
     epoch = -1
-    if checkpoint:
+    if checkpoint and os.path.isdir(checkpoint):
+        params, epoch = ckpt.restore_params_only(checkpoint)
+        model.load_state_dict(params)
+    elif checkpoint:
         state = params_from_flax(read_flax_msgpack(checkpoint), bf16_leaves_as_bits=True)
         model.load_state_dict(state)
         epoch = int(meta.get("epoch", -1))
     return model.to(device).eval().requires_grad_(False), epoch
+
+
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+def make_optimizer(params) -> torch.optim.Adam:
+    """Adam with optax's ``scale_by_adam`` defaults; the learning rate is
+    set from the state before each step (JAX injects it the same way)."""
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """JAX's ``TrainState`` (:29): the model holds the parameters, the
+    optimizer their Adam moments; ``step`` counts updates, ``lr`` is the
+    learning rate the next step applies."""
+
+    model: ScoreTransformer
+    optimizer: torch.optim.Adam
+    step: int = 0
+    lr: float = 1e-4
+
+    @classmethod
+    def create(cls, model: ScoreTransformer, lr: float) -> "TrainState":
+        return cls(model=model, optimizer=make_optimizer(model.parameters()), step=0, lr=float(lr))
+
+
+def module_name(param_name: str) -> str:
+    """A parameter's top-level flax module: ``encoder_layers.0.x`` ->
+    ``encoder_0``, ``fc.weight`` -> ``fc``."""
+    m = re.match(r"(encoder|decoder)_layers\.(\d+)\.", param_name)
+    return f"{m.group(1)}_{m.group(2)}" if m else param_name.split(".")[0]
+
+
+def _norm(tensors) -> torch.Tensor:
+    """Global L2 norm over a list of tensors, in f32."""
+    return torch.stack(torch._foreach_norm([t.float() for t in tensors])).norm()
+
+
+def _module_norms(named, prefix: str) -> Dict[str, torch.Tensor]:
+    groups: Dict[str, list] = {}
+    for name, t in named:
+        groups.setdefault(module_name(name), []).append(t)
+    return {f"{prefix}/{k}": _norm(v) for k, v in groups.items()}
+
+
+def _forward_batch(model: ScoreTransformer, batch: Dict[str, torch.Tensor], deterministic: bool,
+                   generator: Optional[torch.Generator]):
+    return model(
+        batch["input"], batch["target_in"], src_pad_mask=batch["input_pad_mask"],
+        tgt_pad_mask=batch["target_pad_mask"], deterministic=deterministic,
+        generator=generator,
+    )
+
+
+def make_train_step(
+    model: ScoreTransformer,
+    tables: Dict,
+    dropout: bool = True,
+    with_metrics: bool = True,
+) -> Callable:
+    """Returns ``step(state, batch, eos_weight, generator) -> (state,
+    metrics)`` (JAX :55); the parameters and the optimizer are updated in
+    place and ``metrics`` holds device tensors.  ``with_metrics=False`` is
+    the lean variant (``gated_metrics``): the same update, and only the
+    loss and the global gradient norm."""
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], eos_weight, generator):
+        named = [(n, p) for n, p in model.named_parameters()]
+        metrics: Dict[str, Any] = {}
+        if with_metrics:
+            with torch.no_grad():
+                metrics["param_norm"] = _norm([p for _, p in named])
+                metrics.update(_module_norms([(n, p.detach()) for n, p in named], "pnorm"))
+        logits, _ = _forward_batch(model, batch, not dropout, generator)
+        total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        grads = [(n, p.grad) for n, p in named if p.grad is not None]
+        with torch.no_grad():
+            metrics["grad_norm"] = _norm([g for _, g in grads])
+            if with_metrics:
+                metrics.update(_module_norms(grads, "gnorm"))
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr
+        state.optimizer.step()
+        state.step += 1
+        metrics["loss"] = total.detach()
+        if with_metrics:
+            with torch.no_grad():
+                correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
+                    logits.detach(), batch["target_out"], tables
+                )
+            metrics.update({
+                "accuracy": total_correct / torch.clamp(total_count, min=1),
+                "correct_per_class": correct_pc,
+                "count_per_class": count_pc,
+                **{f"loss/{k}": v.detach() for k, v in per_head.items()},
+            })
+        return state, metrics
+
+    return step_fn
+
+
+def make_eval_step(model: ScoreTransformer, tables: Dict) -> Callable:
+    """Returns ``eval(batch, eos_weight) -> metrics`` (JAX :135), a
+    deterministic pass without gradients."""
+
+    @torch.no_grad()
+    def eval_fn(batch: Dict[str, torch.Tensor], eos_weight):
+        logits, _ = _forward_batch(model, batch, True, None)
+        total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
+        correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
+            logits, batch["target_out"], tables
+        )
+        return {
+            "loss": total,
+            "accuracy": total_correct / torch.clamp(total_count, min=1),
+            "correct_per_class": correct_pc,
+            "count_per_class": count_pc,
+            **{f"loss/{k}": v for k, v in per_head.items()},
+        }
+
+    return eval_fn
+
+
+@dataclasses.dataclass
+class PlateauScheduler:
+    """Host-side ReduceLROnPlateau (patience 2, x0.5, min 1e-7; JAX :160).
+
+    ``threshold`` is torch's default rel-mode threshold (1e-4): an epoch
+    only counts as an improvement when loss < best * (1 - threshold).
+    """
+
+    patience: int = 2
+    factor: float = 0.5
+    min_lr: float = 1e-7
+    threshold: float = 1e-4
+    best: float = float("inf")
+    bad_epochs: int = 0
+
+    def update(self, lr: float, epoch_loss: float) -> float:
+        if epoch_loss < self.best * (1.0 - self.threshold):
+            self.best = epoch_loss
+            self.bad_epochs = 0
+            return lr
+        self.bad_epochs += 1
+        if self.bad_epochs > self.patience:
+            self.bad_epochs = 0
+            return max(lr * self.factor, self.min_lr)
+        return lr

@@ -95,6 +95,7 @@ class ExperimentConfig:
     # train step vs threefry at the real packed shapes (36 -> 18 ms,
     # docs/PERFORMANCE.md).  Applied by the train CLI (global jax config),
     # not by library code — flip off to reproduce threefry-exact runs.
+    # The PyTorch port has no PRNG choice and ignores it.
     rbg_rng: bool = True
     # shape-bucket granularity for collated batches.  Finetuning masks
     # draw continuously-varying target lengths; 128-token buckets produce
@@ -171,7 +172,9 @@ class ExperimentConfig:
                             "(dcn, dp) with gradient reduction across "
                             "slices on DCN")
         parser.add_argument("--no_bf16", action="store_true")
-        parser.add_argument("--no_rbg_rng", action="store_true")
+        parser.add_argument("--no_rbg_rng", action="store_true",
+                            help="selects JAX's PRNG implementation; it has no "
+                            "meaning in the PyTorch port, which ignores it")
         parser.add_argument("--no_bf16_attn_residual", action="store_true")
         parser.add_argument("--no_fused_attn_bwd", action="store_true")
         parser.add_argument("--fused_attn_train", action="store_true")
