@@ -9,8 +9,12 @@ paths and prints one line per phase with the elapsed seconds:
 0. card: ``nvidia-smi`` name and power limit;
 1. build: the CUDA kernels (``ops/csrc/decode_step.cu``,
    ``decode_token.cu``, ``attention.cu`` and ``train_attention.cu``, one nvcc
-   each, started together) into ``build/torch_kernels/``, with each kernel's
-   registers and spills;
+   each, started together; the last two include ``attn_tiles.cuh``) into
+   ``build/torch_kernels/``, with each kernel's registers and spills; then
+   the tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass`` of the
+   library) of ``flash_fwd_kernel`` and ``train_fwd_kernel``, with their
+   registers, spills and shared memory from the ``-Xptxas -v`` log: the
+   phase fails if either kernel has none;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -67,9 +71,14 @@ paths and prints one line per phase with the elapsed seconds:
    S 1536 beside its bound, the v2 step at B=1 and its device split;
 2f. flash attention vs twin: ``fused_attention`` at B=3, T=S=1536, H=8,
    HD=64, bf16, key lengths 1536/1440/1344, causal and not, and at T, S =
-   1000, 777, within atol 1e-3 + rtol 2^-7 (one bf16 ulp of the output);
-   the kernel, the twin and, as a yardstick only, torch's
-   ``scaled_dot_product_attention`` with the same boolean mask, timed;
+   1000, 777; then a peaked case (q x 4, as a trained encoder's softmax) at
+   the served shape and batch rows with key length 0 (all keys weigh alike,
+   causal and not, one of them peaked); every case within atol 1e-3 + rtol
+   2^-7 (one bf16 ulp of the output); the kernel, the twin and, as a
+   yardstick only, torch's ``scaled_dot_product_attention`` with the same
+   boolean mask, timed (SDPA gives NaN on a row with no valid key: printed,
+   not checked); the card's clocks, temperature and power draw before and
+   after (as for 2g);
 2g. train attention vs twins: ``fused_dropout_attention``'s forward and
    backward kernels at B=8, H=8, HD=64, bf16, (T, S) = 640x640, 384x384
    causal, 384x640, 1024x1024 and the ragged 200x333 and 333x333 causal,
@@ -80,8 +89,9 @@ paths and prints one line per phase with the elapsed seconds:
    on the row with no valid key; dq, dk, dv within relative norm 0.02,
    0.02 and 1e-3 of the backward twin; one backward through the autograd
    Function equal to the wrapper's; at 640x640 and 384x640 the forward and
-   backward kernels, the twins and SDPA (forward, backward, its own dropout
-   stream) timed beside the bounds;
+   backward kernels (given the seed on the card and an int32 mask, as the
+   model gives them), the twins and SDPA (forward, backward, its own dropout
+   stream) timed beside the bounds; the card's clocks before and after;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -131,6 +141,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -138,6 +149,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -209,6 +221,9 @@ SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
             "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel",
             "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel")
+# the kernels redesigned for the tensor cores: phase 1 reads their SASS and
+# their ptxas facts
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "train_fwd_kernel")
 # flash attention vs twin: f32 sums on both sides in another order, then the
 # output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
 # value at most) plus what rounds near zero
@@ -895,14 +910,85 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool):
                                      else "operations")
 
 
+def tensor_core_counts(lib_path: str):
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel of
+    ``TENSOR_CORE_KERNELS`` in the built library, by ``cuobjdump -sass``
+    (beside nvcc)."""
+    cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    got, current = {k: 0 for k in TENSOR_CORE_KERNELS}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in TENSOR_CORE_KERNELS if k in line), None)
+        elif current is not None and re.search(r"\bH(G)?MMA\b", line):
+            got[current] += 1
+    return got
+
+
+def ptxas_facts(log: str):
+    """Registers, spill bytes and static shared memory of each kernel of
+    ``TENSOR_CORE_KERNELS``, from the ``-Xptxas -v`` log of the build."""
+    facts, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = next((k for k in TENSOR_CORE_KERNELS if k in entry.group(1)), None)
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            facts.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
+                                                 spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            smem = re.search(r"(\d+) bytes smem", line)
+            facts.setdefault(current, {}).update(registers=int(regs.group(1)),
+                                                 smem_bytes=int(smem.group(1)) if smem else 0)
+    return facts
+
+
+def phase_tensor_cores() -> None:
+    """The redesigned attention forwards were compiled to tensor-core
+    instructions; their registers, spills and shared memory."""
+    counts = tensor_core_counts(str(ds.BUILD_INFO["path"]))
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]))
+    for name in TENSOR_CORE_KERNELS:
+        f = facts.get(name)
+        said = ("not in this process's build log" if f is None else
+                f"{f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
+                f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static shared memory")
+        say(f"  {name}: {counts[name]} tensor-core instructions (HMMA/HGMMA) in its SASS; {said}")
+    if not all(counts.values()):
+        raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {counts}")
+
+
+def say_clocks(when: str) -> None:
+    """The card's SM clock, its maximum, temperature and power draw, beside
+    a timed window (runs on one card differ; this says by how much the
+    clocks did)."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    say(f"  clocks {when} (sm, max sm, temperature, power draw): {q}")
+
+
 def phase_attention_vs_twin(dev):
-    """``fused_attention`` against its twin (and SDPA as the yardstick)."""
+    """``fused_attention`` against its twin (and SDPA as the yardstick).
+    Cases: (B, T, S, key lengths, causal, q scale); q x 4 makes the softmax
+    as peaked as a trained encoder's, and a key length 0 makes a batch row
+    whose keys all weigh alike."""
     g = torch.Generator(device=dev).manual_seed(9)
     worst, report = 0.0, None
-    cases = [(3, 1536, 1536, [1536, 1440, 1344], False), (3, 1536, 1536, [1536, 1440, 1344], True),
-             (3, 1000, 777, [777, 640, 1], False), (3, 1000, 777, [777, 640, 1], True)]
-    for B, T, S, lens, causal in cases:
-        q = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+    served = [1536, 1440, 1344]
+    cases = [(3, 1536, 1536, served, False, 1.0), (3, 1536, 1536, served, True, 1.0),
+             (3, 1000, 777, [777, 640, 1], False, 1.0), (3, 1000, 777, [777, 640, 1], True, 1.0),
+             (3, 1536, 1536, served, False, 4.0), (3, 1000, 777, [0, 640, 1], False, 1.0),
+             (3, 1000, 777, [777, 0, 1], True, 4.0)]
+    for B, T, S, lens, causal, qscale in cases:
+        q = (qscale * torch.randn(B, T, H, HD_ATTN, generator=g, device=dev)).to(torch.bfloat16)
         k, v = (torch.randn(B, S, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
                 for _ in range(2))
         kl = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -913,7 +999,8 @@ def phase_attention_vs_twin(dev):
         if not (torch.allclose(out.float(), ref.float(), atol=ATTN_ATOL, rtol=ATTN_RTOL)
                 and torch.isfinite(out.float()).all().item()):
             raise AssertionError(f"fused_attention disagrees with its twin at B={B} T={T} S={S} "
-                                 f"lens={lens} causal={causal}: max |kernel - twin| {err:.3e}")
+                                 f"lens={lens} causal={causal} q x {qscale:g}: max |kernel - twin| "
+                                 f"{err:.3e}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: attn.fused_attention(q, k, v, kl, causal), iters=20)
         plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, kl, causal), iters=3, warmup=1)
@@ -926,10 +1013,10 @@ def phase_attention_vs_twin(dev):
         sdpa_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
         library_ms = cuda_ms(sdpa, iters=20)
         bound, by = attention_bound(B, T, S, lens, causal)
-        say(f"  B={B} T={T} S={S} H={H} HD={HD_ATTN} lens={lens} causal={causal}: "
+        say(f"  B={B} T={T} S={S} H={H} HD={HD_ATTN} lens={lens} causal={causal} q x {qscale:g}: "
             f"max|kernel-twin| {err:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms (max|sdpa-twin| {sdpa_err:.3e}), bound {bound:.5f} ms ({by})")
-        if (T, causal) == (1536, False):
+        if (T, causal, qscale) == (1536, False, 1.0):
             report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
             say_split(device_split(lambda: attn.fused_attention(q, k, v, kl, causal)), ms)
     say(f"  all cases within atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4g} of the twin (max {worst:.3e})")
@@ -1036,10 +1123,14 @@ def phase_train_attention_vs_twin(dev):
 
 def time_train_attention(dev, q, k, v, go, valid, causal):
     """Times of the forward and backward kernels, their twins and SDPA
-    (forward, backward) at one shape, rate 0.1, beside the bounds."""
+    (forward, backward) at one shape, rate 0.1, beside the bounds.  The
+    wrappers get what the model's training forward hands them: the seed
+    words already on the card and the validity mask as int32 (a host seed
+    would add a synchronous copy to every call)."""
     B, T = q.shape[:2]
     S = k.shape[1]
-    seed, rate = TA_SEEDS[0], 0.1
+    seed, rate = ta.seed_tensor(TA_SEEDS[0], dev), 0.1
+    valid = valid.to(torch.int32)
     fwd = lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, rate, causal)  # noqa: E731
     bwd = lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, rate, causal)  # noqa: E731
     ms_f, ms_b = cuda_ms(fwd, iters=20), cuda_ms(bwd, iters=20)
@@ -1051,7 +1142,7 @@ def time_train_attention(dev, q, k, v, go, valid, causal):
     # own dropout stream
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
     gt = go.transpose(1, 2).contiguous()
-    mask = valid[:, None, None, :].expand(B, 1, T, S)
+    mask = valid.bool()[:, None, None, :].expand(B, 1, T, S)
     if causal:
         mask = mask & torch.ones(T, S, dtype=torch.bool, device=dev).tril()[None, None]
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -1776,6 +1867,7 @@ def main(argv=None) -> int:
     for line in str(ds.BUILD_INFO["log"]).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("   ", line.strip(), flush=True)
+    phase_tensor_cores()
 
     vocab, model, packed, vpad = random_flagship(dev)
     remi_vocab, remi_model, remi_packed, _ = random_flagship(dev, mode=1)
@@ -1808,11 +1900,15 @@ def main(argv=None) -> int:
 
     if run("2f"):
         say("phase 2f fused_attention vs twin (and SDPA as the yardstick)")
+        say_clocks("before 2f")
         worst_a, report_a = phase_attention_vs_twin(dev)
+        say_clocks("after 2f")
 
     if run("2g"):
         say("phase 2g train attention (forward and backward kernels) vs twins, keep mask vs reference")
+        say_clocks("before 2g")
         worst_t, worst_t_grad, report_t = phase_train_attention_vs_twin(dev)
+        say_clocks("after 2g")
 
     model = None
     with tempfile.TemporaryDirectory() as workdir:

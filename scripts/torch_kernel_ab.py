@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's decode kernels of several checkouts on one card, in turns.
+"""Time the PyTorch port's kernels of several checkouts on one card, in turns.
 
     python scripts/torch_kernel_ab.py ROOT [ROOT ...]
 
@@ -11,10 +11,19 @@ B=3, S=1536, index 512, cross lengths 1536/1440/1344, at the flagship width
 (4 decoder layers, d512, 8 heads, d_ff 2048) with seeded random bf16 weights
 and random biases and LayerNorms.  Timed: the v2 step (``fused_decode_step``),
 the v3 nucleus token (``fused_decode_token``) and, where the checkout has int8
-weights, the v3 token on them.  Prints one JSON line per run: the card and its
-power limit, the root, and per kernel the ms a call (CUDA events, the mean of
-200 calls after 20 warm-up calls) and the device microseconds a call by kernel
-family (torch.profiler over 20 calls).
+weights, the v3 token on them.  Then the attention kernels: ``fused_attention``
+(the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; the
+train-attention forward ``dropout_attention_fwd`` at B=8, H=8, 640x640 and
+384x384 causal (rate 0.1, ~10% of keys invalid, one batch row with no valid
+key, as chip_smoke's phase 2g; the seed words on the card and the mask as
+int32, as the model passes them); and its backward at 640x640 as the control.
+Prints one JSON line per run: the card and its power limit, the root, and per
+kernel the ms a call (CUDA events, the mean of 200 back-to-back calls after 20
+warm-up calls), the ms of one call alone (events around a single call queued
+behind a short spin on a drained stream, the mean of 20) and the device
+microseconds a call by kernel family (torch.profiler over 20 calls).
+
+    python scripts/torch_kernel_ab.py build/parent . . build/parent
 """
 
 from __future__ import annotations
@@ -31,14 +40,17 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from smer_music_generation_tpu_torch.infer.grammar import N_SID, SPAN_BODY, GrammarTables, build_fast_tables
 from smer_music_generation_tpu_torch.models.transformer import LayerNorm, ModelConfig, ScoreTransformer
+from smer_music_generation_tpu_torch.ops import attention as attn
 from smer_music_generation_tpu_torch.ops import decode_step as ds
+from smer_music_generation_tpu_torch.ops import train_attention as ta
 from smer_music_generation_tpu_torch.utils.config import ExperimentConfig
 from smer_music_generation_tpu_torch.vocab import WordVocab
 
 NL, D, H, F, L = 4, 512, 8, 2048, 1024
 B, S, INDEX = 3, 1536, 512
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel", "embed_pe_kernel",
-            "sample_advance_kernel")
+            "sample_advance_kernel", "flash_fwd_kernel", "train_fwd_kernel",
+            "train_bwd_rows_kernel", "train_bwd_keys_kernel")
 dev = torch.device("cuda", 0)
 torch.manual_seed(0)
 vocab = WordVocab(0, ExperimentConfig().control_list)
@@ -81,17 +93,33 @@ def timed(fn):
         fn()
     end.record()
     torch.cuda.synchronize()
+    start_end_ms = start.elapsed_time(end) / 200
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
     split = {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if us > 0:
+        # device events only: a host op carries its kernels' time too
+        if us > 0 and evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
             fam = next((k for k in FAMILIES if k in evt.key), "other")
             split[fam] = round(split.get(fam, 0.0) + us / 20, 1)
-    return dict(ms=start.elapsed_time(end) / 200, device_us=split)
+    # one call at a time, nothing queued behind it: the stream drained, a
+    # ~100 us spin on the card so the host's launch work ends before the
+    # start event fires, then events around the single call
+    iso = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        iso.append(start.elapsed_time(end))
+    return dict(ms=start_end_ms, ms_isolated=sum(iso) / len(iso), device_us=split)
 
 
 out = {"root": root}
@@ -104,6 +132,27 @@ for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
     out["v3_token" + tag] = timed(lambda: ds.fused_decode_token(
         packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
         **kw, **skw))
+g = torch.Generator(device=dev).manual_seed(9)
+
+
+def rnd(*shape):
+    return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+qa, ka, va = rnd(3, 1536, H, 64), rnd(3, 1536, H, 64), rnd(3, 1536, H, 64)
+lens = torch.tensor([1536, 1440, 1344], dtype=torch.int32, device=dev)
+out["fused_attention"] = timed(lambda: attn.fused_attention(qa, ka, va, lens, False))
+for T_, S_, causal in ((640, 640, False), (384, 384, True)):
+    q, k, v, go = rnd(8, T_, H, 64), rnd(8, S_, H, 64), rnd(8, S_, H, 64), rnd(8, T_, H, 64)
+    valid = (torch.rand(8, S_, generator=g, device=dev) >= 0.1).to(torch.int32)
+    valid[1] = 0
+    seed = ta.seed_tensor((0, 7), dev)  # on the card, as the model passes it
+    tag = f"{T_}x{S_}" + ("_causal" if causal else "")
+    out["dropout_attention_fwd_" + tag] = timed(
+        lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, causal))
+    if not causal:
+        out["dropout_attention_bwd_" + tag] = timed(
+            lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, causal))
 out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0]
 print(json.dumps(out), flush=True)

@@ -25,9 +25,9 @@ on the CPU goes to the twin (:func:`fused_decode_step_reference`,
 same math in plain torch; a CUDA tensor
 launches the kernels or raises.
 There is no fallback from one to the other.  The kernels are built at first
-use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over all the
-sources) and bound with ``ctypes``; nothing is built when this module is
-imported.
+use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over every
+file of ``csrc/``, headers included) and bound with ``ctypes``; nothing is
+built when this module is imported.
 
 Layouts follow the JAX packer: every packed weight keeps the flax
 ``(in, out)`` layout, K and V of a cache row are interleaved as lanes
@@ -53,7 +53,8 @@ LN_EPS = 1e-6
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one library for the port's kernels: the decode kernels here, the
 # flash-attention forward of ``ops/attention.py`` and the training attention
-# of ``ops/train_attention.py``
+# of ``ops/train_attention.py``; the two attention forwards share the
+# tensor-core tile helpers of ``csrc/attn_tiles.cuh``
 _SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu",
             _CSRC / "train_attention.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -591,15 +592,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA decode kernels cannot be built")
 
 
+def source_digest(csrc: Path = _CSRC) -> str:
+    """A hash over every file under ``csrc`` (the ``.cu`` sources and the
+    headers they include), each by its path relative to ``csrc`` and its
+    bytes, taken in sorted path order: a changed header names a new
+    library, and the order the directory lists its files in does not."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        rel = path.relative_to(csrc).as_posix()
+        data = path.read_bytes()
+        h.update(f"{rel}\0{len(data)}\0".encode() + data)
+    return h.hexdigest()[:16]
+
+
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into one shared library under
-    ``build/torch_kernels/`` unless a library of the same source hash is
-    there already.  One nvcc per source, all started together, then one
-    link.  Raises with nvcc's stderr when a step fails."""
-    h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    digest = h.hexdigest()[:16]
+    ``build/torch_kernels/`` unless a library of the same
+    :func:`source_digest` is there already.  One nvcc per source, all
+    started together (``-I csrc`` for the shared headers), then one link.
+    Raises with nvcc's stderr when a step fails."""
+    digest = source_digest()
     out = _BUILD_DIR / f"libsmer_decode_{digest}.so"
     if out.is_file():
         BUILD_INFO.setdefault("path", str(out))
@@ -613,7 +625,8 @@ def build_library() -> Path:
     jobs = []
     for src in _SOURCES:
         obj = _BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )))

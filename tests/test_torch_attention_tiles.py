@@ -1,0 +1,220 @@
+"""The tile arithmetic of the two tensor-core attention forwards, emulated
+in plain torch on the CPU, against the JAX kernels and the port's twins.
+
+``flash_fwd_kernel`` (``ops/csrc/attention.cu``) and ``train_fwd_kernel``
+(``ops/csrc/train_attention.cu``) cannot run here, so these emulations
+repeat their rounding sequence step by step:
+
+- the flash forward: 64-key tiles in order, the scores as f32 sums of bf16
+  products, -inf on masked keys and keys past S (0 on every key of a batch
+  row with no valid key, which weighs all keys alike), an online max m of
+  the scores times scale * log2(e), p = 2^(s scale log2(e) - m), a sum l and
+  an f32 accumulator, and P applied to V as bf16(P) plus bf16(P - bf16(P)),
+  both products summed in f32; the output divided by max(l, 1e-30), rounded
+  to bf16;
+- the train forward: the scores as f32 sums over head_dim in mma's k16
+  chunk order (chunks 0, 1, 2, 3, each an f32 dot), rounded to bf16, -inf on
+  masked keys; pass 1 over 64-key tiles keeps a running max m of them and a
+  sum l of e = 2^((s - m) log2(e) / 8), rescaled as m grows; pass 2
+  recomputes e, w = e / max(l, 1e-30), bf16, the keep mask and
+  bf16(w16 / bf16(1 - rate)), and sums wd V in f32.
+
+The kernels evaluate s x - m with one FMA where these take two roundings;
+that moves an exponent by a few f32 ulps, far below the tolerances.
+Tiles a kernel skips (past a block's last attendable key) contribute exact
+zeros in both kernels, so the emulations walk every tile.
+
+Each emulation is held against the JAX kernel in interpret mode (as
+``tests/test_torch_attention.py`` and ``tests/test_torch_train_attention.py``
+run it) and against the port's twin, with chip_smoke's tolerances (the ones
+the card holds each kernel to against its twin): ``ATTN_ATOL`` 1e-3 +
+``ATTN_RTOL`` 2^-7 for the flash forward, ``TA_ATOL`` 1e-2 + ``TA_RTOL``
+2^-7 for the train forward.  Inputs are made with numpy from a seed, q
+scaled by 1, 4 and 16 so that the softmax runs from flat to as peaked as a
+trained encoder's.  One case pins why the flash kernel splits P: P rounded
+once to bf16 leaves that tolerance at q x 4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import ATTN_ATOL, ATTN_RTOL, TA_ATOL, TA_RTOL
+from smer_music_generation_tpu.ops.attention import fused_attention as jfused
+from smer_music_generation_tpu.ops import train_attention as jta
+from smer_music_generation_tpu_torch.ops import attention as attn
+from smer_music_generation_tpu_torch.ops import train_attention as ta
+
+KEY_TILE = 64
+MASKED = -1e30
+LOG2E = 1.4426950408889634
+SCALES = (1.0, 4.0, 16.0)
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def _qkv(B, T, S, H, scale, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, 64)) * scale
+    k, v = (rng.standard_normal((B, S, H, 64)) for _ in range(2))
+    return _bf16(q), _bf16(k), _bf16(v)
+
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, 64) -> (B, H, L, 64) in f32."""
+    return x.float().permute(0, 2, 1, 3)
+
+
+def _excess(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 inside the tolerance."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def flash_tiles(q, k, v, lens=None, causal=False, split=True) -> torch.Tensor:
+    """``flash_fwd_kernel``'s arithmetic over (B, T|S, H, 64) bf16 tensors;
+    ``split=False`` rounds P once to bf16 instead."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    qf, kf, vf = _heads(q), _heads(k), _heads(v)
+    n_valid = torch.tensor(lens if lens is not None else [S] * B).clamp(max=S)
+    uniform = (n_valid <= 0)[:, None, None, None]  # every key masked: all S weigh alike
+    sl2 = torch.tensor((1.0 / np.sqrt(D)) * LOG2E, dtype=torch.float32)
+    rows = torch.arange(T)[:, None]
+    m = torch.full((B, H, T), MASKED)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, D)
+    for k0 in range(0, S, KEY_TILE):
+        cols = torch.arange(k0, min(S, k0 + KEY_TILE))
+        s = qf @ kf[:, :, cols].transpose(-1, -2)
+        masked = (cols[None, :] >= n_valid[:, None])[:, None, None, :]
+        if causal:
+            masked = masked | (cols[None, :] > rows)[None, None]
+        s = torch.where(uniform, torch.tensor(0.0), torch.where(masked, -torch.inf, s))
+        m_new = torch.maximum(m, s.amax(-1) * sl2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * sl2 - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vf[:, :, cols]
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[:, :, cols]
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def train_fwd_tiles(q, k, v, valid, keep, rate: float, causal=False) -> torch.Tensor:
+    """``train_fwd_kernel``'s arithmetic: (B, T|S, H, 64) bf16 tensors,
+    ``valid`` (B, S) bool, ``keep`` (B, H, T, S) bool or None at rate 0."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    qf, kf, vf = _heads(q), _heads(k), _heads(v)
+    s = torch.zeros(B, H, T, S)
+    for c0 in range(0, D, 16):  # mma's k16 chunks, in order
+        s = s + qf[..., c0:c0 + 16] @ kf[..., c0:c0 + 16].transpose(-1, -2)
+    s = s.to(torch.bfloat16).float()  # bf16(q . k); the 1/8 lives in sl2
+    sl2 = torch.tensor(LOG2E / 8, dtype=torch.float32)
+    mask = valid.bool()[:, None, None, :].expand(B, H, T, S)
+    if causal:
+        mask = mask & torch.ones(T, S, dtype=torch.bool).tril()[None, None]
+    s = torch.where(mask, s, -torch.inf)
+    # pass 1: the running max and the sum of the exponentials
+    m = torch.full((B, H, T), MASKED)
+    l = torch.zeros(B, H, T)
+    for k0 in range(0, S, KEY_TILE):
+        st = s[..., k0:k0 + KEY_TILE]
+        m_new = torch.maximum(m, st.amax(-1))
+        l = l * torch.exp2((m - m_new) * sl2) + torch.exp2(st * sl2 - (m_new * sl2)[..., None]).sum(-1)
+        m = m_new
+    # pass 2: the weights from the final m and l, dropped, times V
+    e = torch.exp2(s * sl2 - (m * sl2)[..., None])
+    w16 = (e / l.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
+    if rate > 0.0:
+        c = ta.bf16_round(1.0 - rate)
+        w16 = torch.where(keep, (w16.float() / c).to(torch.bfloat16), torch.zeros_like(w16))
+    out = w16.float() @ vf
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+FLASH_CASES = [  # (B, T, S, key lengths or None, causal)
+    (2, 64, 64, None, False),
+    (3, 100, 77, [77, 0, 1], False),
+    (3, 100, 77, [77, 0, 1], True),
+    (2, 130, 200, [200, 150], True),
+]
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=[f"q{s:g}" for s in SCALES])
+@pytest.mark.parametrize("B,T,S,lens,causal", FLASH_CASES,
+                         ids=[f"B{b}-T{t}-S{s}-{'lens' if n else 'full'}-{'causal' if c else 'bidir'}"
+                              for b, t, s, n, c in FLASH_CASES])
+def test_flash_tiles_match_jax_kernel_and_twin(B, T, S, lens, causal, scale):
+    q, k, v = _qkv(B, T, S, H=2, scale=scale, seed=T + S + int(scale))
+    got = flash_tiles(q, k, v, lens, causal)
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    twin = attn.fused_attention(q, k, v, tl, causal)  # CPU tensors: the twin
+    assert _excess(got, twin, ATTN_ATOL, ATTN_RTOL) <= 1.0
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    want = jfused(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+                  kv_valid_len=jl, causal=causal, interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    # a sequence with no valid key: the twin weighs all S keys alike (JAX's
+    # reference), the Pallas kernel all S padded to its block; not compared
+    rows = torch.ones(B, dtype=torch.bool) if lens is None else torch.tensor(lens) > 0
+    assert _excess(got[rows], want[rows], ATTN_ATOL, ATTN_RTOL) <= 1.0
+
+
+def test_flash_row_with_no_valid_key_weighs_all_keys_alike():
+    q, k, v = _qkv(2, 40, 70, H=2, scale=4.0, seed=1)
+    for causal in (False, True):
+        got = flash_tiles(q, k, v, [0, 70], causal)
+        mean = v[0].float().mean(dim=0)  # (H, 64)
+        assert _excess(got[0], mean[None].expand(40, 2, 64), ATTN_ATOL, ATTN_RTOL) <= 1.0
+
+
+def test_p_rounded_once_to_bf16_leaves_the_flash_tolerance():
+    """Why the flash kernel splits P into bf16 hi + lo: at q x 4 (a peaked
+    softmax) one bf16 rounding of P puts outputs outside atol 1e-3 + rtol
+    2^-7 of the f32-P twin, and the split keeps every output inside."""
+    q, k, v = _qkv(1, 512, 512, H=2, scale=4.0, seed=0)
+    twin = attn.attention_reference(q, k, v)
+    assert _excess(flash_tiles(q, k, v, split=True), twin, ATTN_ATOL, ATTN_RTOL) <= 1.0
+    assert _excess(flash_tiles(q, k, v, split=False), twin, ATTN_ATOL, ATTN_RTOL) > 1.0
+
+
+TRAIN_CASES = [  # (T, S, causal, rate)
+    (128, 256, False, 0.1),
+    (200, 333, False, 0.1),
+    (256, 256, True, 0.1),
+    (130, 130, True, 0.0),
+]
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=[f"q{s:g}" for s in SCALES])
+@pytest.mark.parametrize("T,S,causal,rate", TRAIN_CASES,
+                         ids=[f"T{t}-S{s}-{'causal' if c else 'bidir'}-rate{r:g}"
+                              for t, s, c, r in TRAIN_CASES])
+def test_train_fwd_tiles_match_jax_kernel_and_twin(T, S, causal, rate, scale):
+    B, H = 2, 2
+    q, k, v = _qkv(B, T, S, H=H, scale=scale, seed=T + S + int(scale))
+    rng = np.random.default_rng(T * S)
+    valid = rng.random((B, S)) < 0.9
+    valid[1] = False  # one batch row with no valid key
+    key = jax.random.PRNGKey(5)
+    keep = ta.dropout_mask_reference(np.asarray(key), B, H, T, S, rate) if rate > 0 else None
+    got = train_fwd_tiles(q, k, v, torch.from_numpy(valid), keep, rate, causal)
+    assert (got[1] == 0).all()
+    twin = ta.dropout_attention_fwd_reference(q, k, v, torch.from_numpy(valid), np.asarray(key),
+                                              rate, causal)
+    assert _excess(got, twin, TA_ATOL, TA_RTOL) <= 1.0
+    blk_q = T if T % jta.DEFAULT_BLK_Q else jta.DEFAULT_BLK_Q  # the JAX kernel tiles T evenly
+    want = jta.fused_dropout_attention(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+                                       jnp.asarray(valid), key, rate, causal, blk_q)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert _excess(got, want, TA_ATOL, TA_RTOL) <= 1.0
