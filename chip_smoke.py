@@ -12,9 +12,10 @@ paths and prints one line per phase with the elapsed seconds:
    each, started together; the last two include ``attn_tiles.cuh``) into
    ``build/torch_kernels/``, with each kernel's registers and spills; then
    the tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass`` of the
-   library) of ``flash_fwd_kernel`` and ``train_fwd_kernel``, with their
-   registers, spills and shared memory from the ``-Xptxas -v`` log: the
-   phase fails if either kernel has none;
+   library) of the four tensor-core kernels, ``flash_fwd_kernel``,
+   ``train_fwd_kernel``, ``train_bwd_rows_kernel`` and
+   ``train_bwd_keys_kernel``, with their registers, spills and shared
+   memory from the ``-Xptxas -v`` log: the phase fails if any has none;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -87,7 +88,8 @@ paths and prints one line per phase with the elapsed seconds:
    (``smer_dropout_keep_mask``) bit-equal to ``dropout_mask_reference``;
    the output within atol 1e-2 + rtol 2^-7 of the twin (one bf16 ulp) and 0
    on the row with no valid key; dq, dk, dv within relative norm 0.02,
-   0.02 and 1e-3 of the backward twin; one backward through the autograd
+   0.02 and 1e-3 of the backward twin and exactly 0 on the batch row with
+   no valid key; one backward through the autograd
    Function equal to the wrapper's; at 640x640 and 384x640 the forward and
    backward kernels (given the seed on the card and an int32 mask, as the
    model gives them), the twins and SDPA (forward, backward, its own dropout
@@ -223,7 +225,8 @@ FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
             "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel")
 # the kernels redesigned for the tensor cores: phase 1 reads their SASS and
 # their ptxas facts
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "train_fwd_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "train_fwd_kernel", "train_bwd_rows_kernel",
+                       "train_bwd_keys_kernel")
 # flash attention vs twin: f32 sums on both sides in another order, then the
 # output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
 # value at most) plus what rounds near zero
@@ -910,19 +913,21 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool):
                                      else "operations")
 
 
-def tensor_core_counts(lib_path: str):
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel of
-    ``TENSOR_CORE_KERNELS`` in the built library, by ``cuobjdump -sass``
-    (beside nvcc)."""
+def sass_mix(lib_path: str):
+    """The SASS of each kernel of ``TENSOR_CORE_KERNELS`` in the built
+    library, by ``cuobjdump -sass`` (beside nvcc): {kernel: {opcode: static
+    count}}, the opcode without its modifiers (HMMA, MUFU, IMAD, LOP3, ...)."""
     cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    got, current = {k: 0 for k in TENSOR_CORE_KERNELS}, None
+    got, current = {k: {} for k in TENSOR_CORE_KERNELS}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((k for k in TENSOR_CORE_KERNELS if k in line), None)
-        elif current is not None and re.search(r"\bH(G)?MMA\b", line):
-            got[current] += 1
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current is not None and op:
+            got[current][op.group(1)] = got[current].get(op.group(1), 0) + 1
     return got
 
 
@@ -950,9 +955,13 @@ def ptxas_facts(log: str):
 
 
 def phase_tensor_cores() -> None:
-    """The redesigned attention forwards were compiled to tensor-core
-    instructions; their registers, spills and shared memory."""
-    counts = tensor_core_counts(str(ds.BUILD_INFO["path"]))
+    """The attention kernels redesigned for the tensor cores (the two
+    forwards and the train-attention backward pair) were compiled to
+    tensor-core instructions (HMMA, HGMMA); their registers, spills, shared
+    memory and the commonest opcodes of their SASS."""
+    mix = sass_mix(str(ds.BUILD_INFO["path"]))
+    counts = {k: sum(n for op, n in mix[k].items() if op in ("HMMA", "HGMMA"))
+              for k in TENSOR_CORE_KERNELS}
     facts = ptxas_facts(str(ds.BUILD_INFO["log"]))
     for name in TENSOR_CORE_KERNELS:
         f = facts.get(name)
@@ -960,6 +969,9 @@ def phase_tensor_cores() -> None:
                 f"{f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
                 f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static shared memory")
         say(f"  {name}: {counts[name]} tensor-core instructions (HMMA/HGMMA) in its SASS; {said}")
+        top = sorted(mix[name].items(), key=lambda kv: -kv[1])[:14]
+        say(f"    SASS opcodes (static): {sum(mix[name].values())} in all; " +
+            ", ".join(f"{op} {n}" for op, n in top))
     if not all(counts.values()):
         raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {counts}")
 
@@ -1094,6 +1106,10 @@ def phase_train_attention_vs_twin(dev):
                 grads = ta.dropout_attention_bwd(q, k, v, valid, seed, go, rate, causal)
                 torch.cuda.synchronize()
                 ref_grads = ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, rate, causal)
+                if not all((gr[1] == 0).all().item() for gr in grads):
+                    raise AssertionError(f"train-attention backward: the batch row with no valid key "
+                                         f"has a nonzero gradient at T={T} S={S} causal={causal} "
+                                         f"rate={rate}")
                 rels = {}
                 for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
                     rels[name] = rel_norm(a, b)

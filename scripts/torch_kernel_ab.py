@@ -12,11 +12,14 @@ B=3, S=1536, index 512, cross lengths 1536/1440/1344, at the flagship width
 and random biases and LayerNorms.  Timed: the v2 step (``fused_decode_step``),
 the v3 nucleus token (``fused_decode_token``) and, where the checkout has int8
 weights, the v3 token on them.  Then the attention kernels: ``fused_attention``
-(the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; the
-train-attention forward ``dropout_attention_fwd`` at B=8, H=8, 640x640 and
-384x384 causal (rate 0.1, ~10% of keys invalid, one batch row with no valid
-key, as chip_smoke's phase 2g; the seed words on the card and the mask as
-int32, as the model passes them); and its backward at 640x640 as the control.
+(the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; and
+the train attention at B=8, H=8, 640x640 and 384x384 causal (rate 0.1, ~10%
+of keys invalid, one batch row with no valid key, as chip_smoke's phase 2g;
+the seed words on the card and the mask as int32, as the model passes them):
+its backward ``dropout_attention_bwd`` (the two kernels ``train_bwd_rows_kernel``
+and ``train_bwd_keys_kernel``) is the measured kernel, at 640x640 also at rate
+0 (what the keep hash costs it), and its forward ``dropout_attention_fwd``,
+``fused_attention`` and the decode kernels are the control.
 Prints one JSON line per run: the card and its power limit, the root, and per
 kernel the ms a call (CUDA events, the mean of 200 back-to-back calls after 20
 warm-up calls), the ms of one call alone (events around a single call queued
@@ -150,9 +153,11 @@ for T_, S_, causal in ((640, 640, False), (384, 384, True)):
     tag = f"{T_}x{S_}" + ("_causal" if causal else "")
     out["dropout_attention_fwd_" + tag] = timed(
         lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, causal))
-    if not causal:
-        out["dropout_attention_bwd_" + tag] = timed(
-            lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, causal))
+    out["dropout_attention_bwd_" + tag] = timed(
+        lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, causal))
+    if not causal:  # without dropout: what the keep hash costs the backward
+        out["dropout_attention_bwd_" + tag + "_rate0"] = timed(
+            lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.0, causal))
 out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0]
 print(json.dumps(out), flush=True)

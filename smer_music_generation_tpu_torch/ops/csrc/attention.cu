@@ -138,10 +138,10 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) has landed
     __syncthreads();
-    if (it == 0) load_q_frags(qa, qs, warp, lane);
+    if (it == 0) load_a_frags(qa, qs, warp, lane);
 
     float s[kNB][4];
-    qk_tile(s, qa, ks[it & 1], lane);
+    qk_blocks<kNB>(s, qa, ks[it & 1], 0, lane);
     // masking only on a tile some key of which is out of range for some row
     // of this warp: one branch a tile, selects per element.  A masked key
     // takes -inf, so its weight is exactly 0 whatever m is (the TPU kernel's

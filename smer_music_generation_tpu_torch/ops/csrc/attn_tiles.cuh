@@ -1,9 +1,11 @@
-// Tensor-core tile helpers shared by the attention forwards of this
-// directory (attention.cu's flash_fwd_kernel and train_attention.cu's
-// train_fwd_kernel), for Hopper (sm_90a), head_dim 64, bf16 operands.
+// Tensor-core tile helpers shared by the attention kernels of this directory
+// (attention.cu's flash_fwd_kernel, train_attention.cu's train_fwd_kernel and
+// its backward pair train_bwd_rows_kernel + train_bwd_keys_kernel), for
+// Hopper (sm_90a), head_dim 64, bf16 operands.
 //
-// A block of kWarps = 4 warps owns kQTile = 64 query rows, 16 a warp, and
-// streams kKTile = 64-key tiles of K and V through shared memory:
+// A block of kWarps = 4 warps owns 64 rows of one operand, 16 a warp, held as
+// A fragments in registers, and streams 64-row tiles of the others through
+// shared memory:
 //   - tiles are row-major [row][kTileLd] bf16 with the row padded from 64 to
 //     72 elements (144 bytes), so the 8 row addresses of one ldmatrix phase
 //     fall on 8 distinct 16-byte bank groups: no bank conflicts, and every
@@ -11,16 +13,18 @@
 //   - copies are 16-byte cp.async.cg (rows past the tensor's end are
 //     zero-filled), committed as groups, in a two-stage ring: the next tile
 //     is in flight while the current one is used;
-//   - products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
-//     A (16x16) fragments of Q from ldmatrix, B fragments of K (QK^T) from
-//     ldmatrix and of V (PV) from ldmatrix.trans, f32 accumulators;
+//   - products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with
+//     f32 accumulators: A (16x16) fragments from ldmatrix; X Y^T of two
+//     row-major tiles (QK^T, and in the backward g V^T, K Q^T, V g^T) reads
+//     Y's B fragments by ldmatrix (qk_blocks), P Y (PV, and in the backward
+//     ds K, wd^T g, ds^T Q) by ldmatrix.trans (pv_chunk);
 //   - an accumulator of a warp's 16 x 64 tile is 8 n-blocks of 4 f32 a lane:
 //     lane = 4 g + t holds rows g and g + 8, columns 8 j + 2 t and 8 j + 2 t + 1
 //     of n-block j; a row's values sit in the 4 lanes of a quad, so a row
 //     reduction is a quad (xor 1, 2) shuffle;
 //   - the C layout of two neighbouring n-blocks is the A layout of one k16
-//     chunk, so score fragments become the A operand of the PV product in
-//     registers (pack_bf16).
+//     chunk, so a tile computed in registers (P, wd, ds) becomes the A
+//     operand of the next product in registers (pack_bf16).
 
 #pragma once
 
@@ -49,6 +53,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4-byte asynchronous copy global -> shared (through L1); zero-fills when
+// !pred, src then unread but a valid address
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -101,31 +112,35 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The A fragments of this warp's 16 query rows (rows 16 w .. 16 w + 15 of
-// the shared Q tile), one per k16 chunk of head_dim.
-__device__ __forceinline__ void load_q_frags(uint32_t qa[kKC][4], const __nv_bfloat16* qs,
+// The A fragments of this warp's 16 rows (rows 16 w .. 16 w + 15 of a shared
+// tile: Q's in the forwards and the rows kernel, K's and V's in the keys
+// kernel), one per k16 chunk of head_dim.
+__device__ __forceinline__ void load_a_frags(uint32_t a[kKC][4], const __nv_bfloat16* tile,
                                              int warp, int lane) {
 #pragma unroll
   for (int kc = 0; kc < kKC; ++kc)
-    ldsm_x4(qa[kc], qs + (16 * warp + (lane & 15)) * kTileLd + 16 * kc + 8 * (lane >> 4));
+    ldsm_x4(a[kc], tile + (16 * warp + (lane & 15)) * kTileLd + 16 * kc + 8 * (lane >> 4));
 }
 
-// s = Q K^T of this warp's 16 rows against a 64-key shared K tile, f32 sums
-// over head_dim in k16 chunks 0, 1, 2, 3 (always this order, so the same
-// tile gives the same bits every time).
-__device__ __forceinline__ void qk_tile(float s[kNB][4], const uint32_t qa[kKC][4],
-                                        const __nv_bfloat16* ks, int lane) {
+// s[jj] = X Y^T of this warp's 16 rows of X (A fragments xa) against rows
+// 8 (j0 + jj) .. 8 (j0 + jj) + 7 of a shared tile of Y (Q K^T: keys), jj <
+// NJ: the n-blocks j0 .. j0 + NJ - 1 of a 16 x 64 product.  f32 sums over
+// head_dim in k16 chunks 0, 1, 2, 3 (always this order, so the same tiles
+// give the same bits every time, whichever n-blocks a call takes).
+template <int NJ>
+__device__ __forceinline__ void qk_blocks(float s[][4], const uint32_t xa[kKC][4],
+                                          const __nv_bfloat16* ys, int j0, int lane) {
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int jj = 0; jj < NJ; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    // keys 8 j .. 8 j + 7; matrices: dims 0-7, 8-15, 16-23, 24-31 (then 32-63)
+  for (int jj = 0; jj < NJ; ++jj) {
+    // matrices: dims 0-7, 8-15, 16-23, 24-31 (then 32-63)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       uint32_t b[4];
-      ldsm_x4(b, ks + (8 * j + (lane & 7)) * kTileLd + 32 * half + 8 * (lane >> 3));
-      mma_bf16(s[j], qa[2 * half], b[0], b[1]);
-      mma_bf16(s[j], qa[2 * half + 1], b[2], b[3]);
+      ldsm_x4(b, ys + (8 * (j0 + jj) + (lane & 7)) * kTileLd + 32 * half + 8 * (lane >> 3));
+      mma_bf16(s[jj], xa[2 * half], b[0], b[1]);
+      mma_bf16(s[jj], xa[2 * half + 1], b[2], b[3]);
     }
   }
 }
@@ -145,15 +160,16 @@ __device__ __forceinline__ void round_bf16x2(float& a, float& b) {
   b = f.y;
 }
 
-// o += P V for one k16 chunk of keys (rows 16 kc .. 16 kc + 15 of the
-// shared V tile) and all 64 dims; `a` is P's A fragment of that chunk.
+// o += P Y for one k16 chunk of Y's rows (rows 16 kc .. 16 kc + 15 of a
+// shared tile: V's keys in PV) and all 64 dims; `a` is P's A fragment of
+// that chunk.
 __device__ __forceinline__ void pv_chunk(float o[kNB][4], const uint32_t a[4],
-                                         const __nv_bfloat16* vs, int kc, int lane) {
+                                         const __nv_bfloat16* ys, int kc, int lane) {
 #pragma unroll
   for (int jp = 0; jp < kNB / 2; ++jp) {
-    // matrices: keys 0-7 / 8-15 of the chunk, dims 16 jp .. + 7 / + 8 .. + 15
+    // matrices: rows 0-7 / 8-15 of the chunk, dims 16 jp .. + 7 / + 8 .. + 15
     uint32_t b[4];
-    ldsm_x4_trans(b, vs + (16 * kc + (lane & 15)) * kTileLd + 16 * jp + 8 * (lane >> 4));
+    ldsm_x4_trans(b, ys + (16 * kc + (lane & 15)) * kTileLd + 16 * jp + 8 * (lane >> 4));
     mma_bf16(o[2 * jp], a, b[0], b[1]);
     mma_bf16(o[2 * jp + 1], a, b[2], b[3]);
   }

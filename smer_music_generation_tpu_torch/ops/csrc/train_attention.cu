@@ -63,37 +63,57 @@
 // f32 scores in shared memory, f32 FMA pipes) and 0.09-0.12 ms for torch's
 // scaled_dot_product_attention with its own dropout.
 //
-// Backward (the first version, on the f32 FMA pipes): the TPU kernel holds
-// a (128, S <= 1024) f32 score block in VMEM (512 KB); a Hopper block has
-// 227 KB.  So a block takes 32 query rows and keeps their (32, S) f32
-// scores in shared memory (128 KB at S = 1024) while K and V stream through
-// in 64-key tiles staged as f32; eight warps, warp w owning rows 4w..4w+3,
-// each lane two keys (or two output dims) of a tile, so the softmax of a row
-// is one warp's reduction.
-// The backward needs each row's max m, sum l and delta = sum_s w dw before any
-// ds, and dk, dv sum over all rows; it takes no atomics:
-//   train_bwd_rows_kernel, a block per (32 query rows, b * H + h): scores and
-//     w as the forward, delta from a pass over V, then ds and dq from a pass
-//     over K and V (g v^T recomputed rather than held); writes dq once and
-//     m, l, delta to a (3, B*H, T) f32 buffer;
-//   train_bwd_keys_kernel, a block per (64 keys, b * H + h): walks every
-//     32-row query chunk (causal chunks wholly above the tile skipped),
-//     recomputes s, w, the keep mask, wd and ds from m, l, delta, and sums
-//     dk, dv in registers; writes them once.
-// Deterministic, and no O(T*S) tensor reaches device memory.  The two
-// backward kernels compute every score by the same sequential fmaf chain
-// over the 64 dims, so their w agree bit for bit with each other; the
-// forward sums its scores on the tensor cores in another order, so its w
-// may differ from theirs by an f32 rounding (and its bf16 weights by one
-// bf16 ulp).  The gradients do not read the forward's output: the backward
-// recomputes w itself, so the tolerances of dq, dk and dv (chip_smoke's
-// TA_REL) are untouched by the forward's design.  The hash is uint32
-// wraparound arithmetic; the keep threshold is computed in double on the host;
-// no --use_fast_math: the backward's `/` and expf are IEEE-rounded, and the
-// forward divides by a rounded reciprocal and one FMA residual step (div_rn,
-// rounded to nearest) and takes e^(s - m) as 2^(s log2(e) - m log2(e)) on the
-// SFU (exp2_ftz): IEEE division and expf, per element, were the largest
-// share of its time.
+// Backward (FlashAttention-2's deterministic two-kernel backward on the same
+// tiles).  It needs each row's m, l and delta = sum_s w dw before any ds,
+// and dk, dv sum over all rows; it takes no atomics:
+//   train_bwd_rows_kernel, a block per (64 query rows, b * H + h), Q and g
+//     held as A fragments, K and V tiles through the ring in two passes:
+//     pass 1 runs the forward's pass 1 (the same score sequence, so m and l
+//     and every w are bit-identical to the forward's), g V^T by mma.sync
+//     beside it, and a running sum u of e dw rescaled with l, so delta =
+//     u / max(l, 1e-30) at the end (JAX's sum_s w dw up to the f32
+//     rounding of the summation order; tests/test_torch_attention_tiles.py
+//     pins it), and keeps each thread's keep bits of the tile (one word) in
+//     shared memory; pass 2 recomputes s and g V^T, w exactly, reads the
+//     keep bits back, and packs ds = bf16(w (dw - delta) / 8) straight into
+//     A fragments for dq += ds K (K's B fragments by ldmatrix.trans); writes
+//     dq once and m, l, delta to a (3, B*H, T) f32 buffer;
+//   train_bwd_keys_kernel, a block per (64 keys, b * H + h), K and V held as
+//     A fragments, 64-row tiles of Q and g (and their m, l, delta, turned
+//     once a tile into m log2(e) / 8, max(l, 1e-30), its inverse and delta /
+//     8) through the ring: S^T = K Q^T and (g V^T)^T = V g^T by mma.sync, w,
+//     the keep hash, wd and ds (in the transposed tile a query row is a
+//     column), then dv += wd^T g and dk += ds^T Q with g's and Q's B
+//     fragments by ldmatrix.trans; writes dk and dv once.  An invalid key
+//     is the row of its own dk and dv in every product, so it is not masked
+//     per element: its dk and dv are set to 0 at the end.  Causal query
+//     tiles wholly above the block's keys are skipped, and a block none of
+//     whose keys is valid writes zeros.
+// Pass 2 and the keys kernel take the scores and g V^T one k16 chunk (two
+// n-blocks) at a time, so few are live at once: 168 registers a thread,
+// three blocks an SM.  Deterministic: every sum runs in a fixed order, and
+// no O(T*S) tensor reaches device memory.  The products a (row, key) pair
+// costs are 9 (the rows kernel's 2 QK^T, 2 g V^T and ds K; the keys
+// kernel's K Q^T, V g^T, wd^T g and ds^T Q), against the 5 the bound
+// counts; the keep hash runs twice (rows pass 1, keys).  The keys kernel
+// sums the same 64 bf16 products of a score with the operands' roles
+// swapped; the gradients do not depend on that sum's last bit beyond
+// TA_REL.  Measured at 640x640 (B=8, H=8, rate 0.1) on an NVIDIA H100 80GB
+// HBM3, 700.00 W (scripts/torch_kernel_ab.py, chip_smoke.py phase 2g;
+// PERF.md): 0.232 ms a call (rows 0.129, keys 0.101; 0.164 at rate 0),
+// beside 2.11 ms for the first version (32 rows a block, f32 scores in
+// shared memory, f32 FMA pipes) and 0.13-0.56 ms for the backward of
+// torch's scaled_dot_product_attention.  What holds it: per-element ALU
+// work (3,672 and 2,832 SASS instructions in the two kernels, static, of
+// which 160 and 128 HMMA; the keep hash ~20 integer operations an
+// element, ~0.07 ms of the 0.23), a second wave 62% full (640 blocks on
+// 396 slots), and the operands re-read from L2 by every block; the
+// products run at ~12% of the tensor cores' peak.
+// The hash is uint32 wraparound arithmetic; the keep threshold is computed in
+// double on the host; no --use_fast_math: a division is a rounded reciprocal
+// and one FMA residual step (div_rn, rounded to nearest) and e^x is
+// 2^(x log2(e)) on the SFU (exp2_ftz): IEEE division and expf, per element,
+// were the largest share of the first versions' time.
 // smer_dropout_keep_mask writes the keep mask from the same __device__ hash
 // so the card can show it bit-equal to dropout_mask_reference.
 //
@@ -107,16 +127,12 @@
 
 namespace {
 
-namespace tiles = attn_tiles;
+using namespace attn_tiles;
 
-constexpr int kHD = 64;        // head_dim
-constexpr int kRows = 32;      // query rows a block (forward, backward rows)
-constexpr int kKeys = 64;      // keys a staged tile
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-constexpr int kLd = kHD + 1;   // padded row stride of a staged tile
 constexpr float kMasked = -1e30f;
-constexpr int kMaxKeys = 1024;  // the backward's limit (its score rows live in shared memory)
+constexpr int kMaxKeys = 1024;  // JAX's MAX_KLEN: the gate of the TPU kernel, kept
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kQTile == kKTile, "the keys kernel skips causal query tiles by key-tile index");
 
 struct Drop {
   uint32_t s0, s1, thr;
@@ -162,10 +178,6 @@ __device__ __forceinline__ Drop make_drop(const int* seeds, uint32_t thr, int on
   return dr;
 }
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // a / b rounded to nearest, given rb = 1 / b (itself rounded to nearest):
 // one FMA residual step, the fast path of IEEE division without its range
 // check (a and b here are finite, b >= 1e-30 or a bf16 constant near 1)
@@ -174,135 +186,109 @@ __device__ __forceinline__ float div_rn(float a, float b, float rb) {
   return fmaf(fmaf(-q, b, a), rb, q);
 }
 
-// dropout of one bf16 weight: keep ? bf16(w16 / c) : 0
-__device__ __forceinline__ float dropped(float w16, bool keep, const Drop& dr) {
-  if (!dr.on) return w16;
-  return keep ? bf16r(w16 / dr.c) : 0.f;
+// dw of one (row, key) from its g . v: keep ? dwd / c : 0 (dwd itself at rate 0)
+__device__ __forceinline__ float dropped_dw(float dwd, bool keep, const Drop& dr, float rc) {
+  if (!dr.on) return dwd;
+  return keep ? div_rn(dwd, dr.c, rc) : 0.f;
 }
 
-// Stage rows p0 .. p0 + n - 1 of one head of a (B, L, H, 64) bf16 tensor
-// (base offset to (b, 0, h, 0)) into an f32 tile [n][kLd], zero past `limit`.
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* base,
-                                      size_t stride, int p0, int n, int limit) {
-  for (int i = threadIdx.x; i < n * kHD / 2; i += kThreads) {
-    const int r = i / (kHD / 2);
-    const int c = 2 * (i % (kHD / 2));
-    const int p = p0 + r;
-    float2 x = make_float2(0.f, 0.f);
-    if (p < limit)
-      x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(base + (size_t)p * stride + c));
-    dst[r * kLd + c] = x.x;
-    dst[r * kLd + c + 1] = x.y;
+// The validity of one batch row's S keys as bits (bit c % 32 of word c / 32:
+// key c valid); the caller places a block barrier before reading them.
+__device__ __forceinline__ void key_bits(uint32_t* vbits, const int* valid, int S, int warp,
+                                         int lane) {
+  const int words = (S + 31) / 32;
+  for (int wi = warp; wi < words; wi += kWarps) {
+    const int col = 32 * wi + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, col < S && valid[col] != 0);
+    if (lane == 0) vbits[wi] = bits;
   }
 }
 
-// acc[i][j] = sum_d a[r0 + i][d] * b[lane + 32 j][d], d in order: the one
-// dot-product chain every kernel here uses for a score (and for g . v)
-__device__ __forceinline__ void dots(const float* a, int r0, const float* b, int lane,
-                                     float acc[kRowsPerWarp][2]) {
+// The last valid key (-1 when none), the same in every lane (words <= 32).
+__device__ __forceinline__ int last_valid_key(const uint32_t* vbits, int words, int lane) {
+  int last = -1;
+  if (lane < words && vbits[lane] != 0u) last = 32 * lane + 31 - __clz(vbits[lane]);
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < kHD; ++d) {
-    const float b0 = b[lane * kLd + d];
-    const float b1 = b[(lane + 32) * kLd + d];
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  return last;
+}
+
+// s[jj] = bf16(q . k) of this warp's 16 query rows (row0 = its row of lane
+// group g, row0 + 8) against keys k0 + 8 (j0 + jj) .. + 7 of the shared
+// 64-key tile, jj < NJ, in units of bf16(q . k) (the 1/8 lives in the
+// exponent): the one score sequence of train_fwd_kernel and
+// train_bwd_rows_kernel, so both give the same bits, whole tile or a few
+// n-blocks at a time.  A key that is invalid, or past the row when causal,
+// takes -inf.  Each mask runs only on a tile that needs it (some key
+// invalid; some key past the diagonal of some row of this warp): one branch
+// a tile, then a key's validity is one bit test of the lane's pre-shifted
+// word for both rows.
+template <int NJ>
+__device__ __forceinline__ void row_scores(float s[][4], const uint32_t qa[kKC][4],
+                                           const __nv_bfloat16* kt, const uint32_t* vbits,
+                                           int words, int k0, int j0, int causal, int row0,
+                                           int lane) {
+  qk_blocks<NJ>(s, qa, kt, j0, lane);
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float av = a[(r0 + i) * kLd + d];
-      acc[i][0] = fmaf(av, b0, acc[i][0]);
-      acc[i][1] = fmaf(av, b1, acc[i][1]);
-    }
+  for (int jj = 0; jj < NJ; ++jj) {
+    round_bf16x2(s[jj][0], s[jj][1]);
+    round_bf16x2(s[jj][2], s[jj][3]);
   }
-}
-
-__device__ __forceinline__ bool attendable(const int* valid, int causal, int row, int col) {
-  return valid[col] != 0 && (!causal || col <= row);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
+  const int t = lane & 3;
+  const uint32_t w0 = vbits[k0 / 32], w1 = k0 / 32 + 1 < words ? vbits[k0 / 32 + 1] : 0u;
+  if ((w0 & w1) != 0xffffffffu) {
+    // bit 8 (j % 4) + x of (j < 4 ? b0 : b1): key k0 + 8 j + 2 t + x valid
+    const uint32_t b0 = w0 >> (2 * t), b1 = w1 >> (2 * t);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Scores of this block's kRows query rows against all S keys into P
-// [kRows][s_pad] (masked ones at -1e30); qs holds the staged query rows, ts
-// is the K tile buffer.
-__device__ void scores_into(float* P, int s_pad, const float* qs, float* ts,
-                            const __nv_bfloat16* kb, size_t stride, const int* valid,
-                            int causal, int t0, int S, float scale) {
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
-  for (int k0 = 0; k0 < S; k0 += kKeys) {
-    __syncthreads();  // the previous tile is no longer read
-    stage(ts, kb, stride, k0, kKeys, S);
-    __syncthreads();
-    float acc[kRowsPerWarp][2];
-    dots(qs, r0, ts, lane, acc);
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + lane + 32 * j;
-        if (col < S)
-          P[(r0 + i) * s_pad + col] = attendable(valid, causal, t0 + r0 + i, col)
-                                          ? bf16r(acc[i][j]) * scale
-                                          : kMasked;
+      for (int x = 0; x < 2; ++x) {
+        const int j = j0 + jj;
+        const bool ok = ((j < 4 ? b0 : b1) >> (8 * (j % 4) + x)) & 1u;
+        s[jj][x] = ok ? s[jj][x] : -INFINITY;
+        s[jj][2 + x] = ok ? s[jj][2 + x] : -INFINITY;
       }
   }
+  if (causal && k0 + kKTile - 1 > row0 - (lane >> 2)) {
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * (j0 + jj) + 2 * t + (e & 1) > (e < 2 ? row0 : row0 + 8)) s[jj][e] = -INFINITY;
+  }
 }
 
-// The exact softmax of one warp's rows in place: P row -> f32 w.  Returns
-// each row's (m, l) in m_out / l_out (lane-uniform).
-__device__ void softmax_rows(float* P, int s_pad, const int* valid, int causal, int t0,
-                             int S, float m_out[kRowsPerWarp], float l_out[kRowsPerWarp]) {
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
-  __syncwarp();
+// Pass 1 of the forward and of the rows kernel on one tile, row half r: m =
+// max(m, the tile's scores), mb = m sl2, and alpha = 2^((m_old - m) sl2),
+// the factor the running sums take.  The callers then sum e = 2^(s sl2 - mb)
+// as `sum += ea + eb` over the tile's n-blocks and set l = l alpha + sum, in
+// the same expressions, so m, l and every w are bit-identical in both.
+__device__ __forceinline__ float row_max(const float s[kNB][4], int r, float& m, float& mb,
+                                         float sl2) {
+  float mx = kMasked;
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    float* pr = P + (r0 + i) * s_pad;
-    const int row = t0 + r0 + i;
-    float m = kMasked;
-    for (int c = lane; c < S; c += 32) m = fmaxf(m, pr[c]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int c = lane; c < S; c += 32) {
-      const float e = attendable(valid, causal, row, c) ? expf(pr[c] - m) : 0.f;
-      pr[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    const float den = fmaxf(l, 1e-30f);
-    for (int c = lane; c < S; c += 32) pr[c] = pr[c] / den;
-    m_out[i] = m;
-    l_out[i] = l;
-  }
-  __syncwarp();
+  for (int j = 0; j < kNB; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+  const float m_new = fmaxf(m, quad_max(mx));
+  const float alpha = exp2_ftz((m - m_new) * sl2);
+  m = m_new;
+  mb = m_new * sl2;
+  return alpha;
 }
 
 // ---------------------------------------------------------------------------
 // forward: a block per (64 query rows, b * H + h), on the tensor cores
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(tiles::kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 3)
     train_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid,
                      const int* __restrict__ seeds, uint32_t thr, int drop_on, float c,
                      int causal, __nv_bfloat16* __restrict__ out, int T, int S, int H,
                      float scale) {
-  using namespace tiles;
   __shared__ __align__(16) __nv_bfloat16 qs[kTileElems];  // Q, then the output
   __shared__ __align__(16) __nv_bfloat16 ks[2][kTileElems];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kTileElems];
-  __shared__ uint32_t vbits[kMaxKeys / 32];  // bit c % 32 of word c / 32: key c valid
+  __shared__ uint32_t vbits[kMaxKeys / 32];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -314,19 +300,12 @@ __global__ void __launch_bounds__(tiles::kThreads, 3)
   const Drop dr = make_drop(seeds, thr, drop_on, c);
 
   load_tile(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
-  const int words = (S + 31) / 32;
-  for (int wi = warp; wi < words; wi += kWarps) {
-    const int col = 32 * wi + lane;
-    const unsigned bits = __ballot_sync(0xffffffffu, col < S && valid[(size_t)b * S + col] != 0);
-    if (lane == 0) vbits[wi] = bits;
-  }
+  key_bits(vbits, valid + (size_t)b * S, S, warp, lane);
   __syncthreads();
   // the last valid key bounds the walk (and, when causal, the diagonal of
   // the block's last row): tiles past it are skipped in both passes
-  int last = -1;
-  if (lane < words && vbits[lane] != 0u) last = 32 * lane + 31 - __clz(vbits[lane]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  const int words = (S + 31) / 32;
+  const int last = last_valid_key(vbits, words, lane);
   const int n_keys = causal ? min(last + 1, t0 + kQTile) : last + 1;
   const int n_tiles = (n_keys + kKTile - 1) / kKTile;  // 0 when no key is valid
   const int steps = 2 * n_tiles;                      // pass 1, then pass 2
@@ -345,7 +324,7 @@ __global__ void __launch_bounds__(tiles::kThreads, 3)
   // so it folds exactly into the exponent's factor sl2 = log2(e) / 8, and
   // e = 2^(s sl2 - m sl2) is one FFMA and one MUFU.EX2.  m and l are the
   // rows' running max (of bf16(q . k)) and sum; mb = m sl2.
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, mb[2] = {0.f, 0.f};
   float den[2] = {1e-30f, 1e-30f}, rden[2] = {1e30f, 1e30f};  // max(l, 1e-30), its inverse
   const float rc = 1.f / dr.c;
@@ -361,48 +340,20 @@ __global__ void __launch_bounds__(tiles::kThreads, 3)
     cp_async_commit();
     cp_async_wait<1>();  // this step's tiles (and Q) have landed
     __syncthreads();
-    if (i == 0) load_q_frags(qa, qs, warp, lane);
+    if (i == 0) load_a_frags(qa, qs, warp, lane);
 
     float s[kNB][4];
-    qk_tile(s, qa, ks[i & 1], lane);
-#pragma unroll
-    for (int j = 0; j < kNB; ++j) {
-      round_bf16x2(s[j][0], s[j][1]);
-      round_bf16x2(s[j][2], s[j][3]);
-    }
-    // A key that is invalid, or past the row when causal, takes -inf: its e
-    // is exactly 0 and it never raises m (so a row with no valid key keeps
-    // m = -1e30 and gets e = 0 everywhere, l = 0, w = 0).  Masking runs only
-    // on a tile some key of which is invalid, or past the diagonal of some
-    // row of this warp: one branch a tile, selects per element.
-    const uint32_t w0 = vbits[k0 / 32], w1 = k0 / 32 + 1 < words ? vbits[k0 / 32 + 1] : 0u;
-    if ((w0 & w1) != 0xffffffffu || (causal && k0 + kKTile - 1 > t0 + 16 * warp)) {
-#pragma unroll
-      for (int j = 0; j < kNB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          const bool ok = ((j < 4 ? w0 : w1) >> (col & 31) & 1u) &&
-                          (!causal || col <= (e < 2 ? row0 : row1));
-          s[j][e] = ok ? s[j][e] : -INFINITY;
-        }
-    }
+    row_scores<kNB>(s, qa, ks[i & 1], vbits, words, k0, 0, causal, row0, lane);
     if (!pass2) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = kMasked;
-#pragma unroll
-        for (int j = 0; j < kNB; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-        const float m_new = fmaxf(m[r], quad_max(mx));
-        const float mb_new = m_new * sl2;
+        const float alpha = row_max(s, r, m[r], mb[r], sl2);
         float sum = 0.f;
 #pragma unroll
         for (int j = 0; j < kNB; ++j)
-          sum += exp2_ftz(fmaf(s[j][2 * r], sl2, -mb_new)) +
-                 exp2_ftz(fmaf(s[j][2 * r + 1], sl2, -mb_new));
-        l[r] = l[r] * exp2_ftz((m[r] - m_new) * sl2) + sum;
-        m[r] = m_new;
-        mb[r] = mb_new;
+          sum += exp2_ftz(fmaf(s[j][2 * r], sl2, -mb[r])) +
+                 exp2_ftz(fmaf(s[j][2 * r + 1], sl2, -mb[r]));
+        l[r] = l[r] * alpha + sum;
       }
       if (i == n_tiles - 1) {
 #pragma unroll
@@ -449,121 +400,177 @@ __global__ void __launch_bounds__(tiles::kThreads, 3)
 }
 
 // ---------------------------------------------------------------------------
-// backward, rows: a block per (32 query rows, b * H + h): m, l, delta and dq
+// backward, rows: a block per (64 query rows, b * H + h): m, l, delta and dq
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+// K/V ring, Q, g, the keys' validity bits, and the keep bits of pass 1: one
+// word a thread a key tile (bit 16 r + 2 j + x: row half r, n-block j, key x
+// of the pair), read back by the same thread in pass 2
+constexpr size_t kRowsSmem = 6 * kTileElems * sizeof(__nv_bfloat16) + kMaxKeys / 8 +
+                             (kMaxKeys / kKTile) * kThreads * sizeof(uint32_t);
+
+__global__ void __launch_bounds__(kThreads, 3)
     train_bwd_rows_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const int* __restrict__ valid, const int* __restrict__ seeds,
                           const __nv_bfloat16* __restrict__ g, uint32_t thr, int drop_on,
                           float c, int causal, float* __restrict__ stats,
-                          __nv_bfloat16* __restrict__ dq, int T, int S, int H, int s_pad,
-                          float scale) {
-  extern __shared__ float smem[];
-  float* P = smem;                  // [kRows][s_pad]: scores, then f32 w
-  float* qs = P + kRows * s_pad;    // [kRows][kLd]
-  float* gs = qs + kRows * kLd;     // [kRows][kLd]
-  float* dst = gs + kRows * kLd;    // [kRows][kLd]: bf16 ds of one key tile
-  float* ks = dst + kRows * kLd;    // [kKeys][kLd]
-  float* vs = ks + kKeys * kLd;     // [kKeys][kLd]
+                          __nv_bfloat16* __restrict__ dq, int T, int S, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // Q, then dq
+  __nv_bfloat16* gs = qs + kTileElems;                          // g
+  __nv_bfloat16* ks = gs + kTileElems;                          // K ring, 2 stages
+  __nv_bfloat16* vs = ks + 2 * kTileElems;                      // V ring, 2 stages
+  uint32_t* vbits = reinterpret_cast<uint32_t*>(vs + 2 * kTileElems);
+  uint32_t* kbits = vbits + kMaxKeys / 32;  // [kMaxKeys / kKTile][kThreads]
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int t0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
+  const int t0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kQTile;
   const size_t stride = (size_t)H * kHD;
-  const __nv_bfloat16* qb = q + (size_t)b * T * stride + h * kHD;
-  const __nv_bfloat16* gb = g + (size_t)b * T * stride + h * kHD;
   const __nv_bfloat16* kb = k + (size_t)b * S * stride + h * kHD;
   const __nv_bfloat16* vb = v + (size_t)b * S * stride + h * kHD;
-  const int* vrow = valid + (size_t)b * S;
   const Drop dr = make_drop(seeds, thr, drop_on, c);
 
-  stage(qs, qb, stride, t0, kRows, T);
-  stage(gs, gb, stride, t0, kRows, T);
-  scores_into(P, s_pad, qs, ks, kb, stride, vrow, causal, t0, S, scale);
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-  softmax_rows(P, s_pad, vrow, causal, t0, S, m, l);
-
-  // dw of one (row, key) from its g . v
-  auto dw_of = [&](float dwd, int row, int col) {
-    if (!dr.on) return dwd;
-    return keep_at(dr, bh, row, col) ? dwd / dr.c : 0.f;
-  };
-
-  // delta = sum_s w dw
-  float delta[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) delta[i] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += kKeys) {
-    __syncthreads();
-    stage(vs, vb, stride, k0, kKeys, S);
-    __syncthreads();
-    float acc[kRowsPerWarp][2];
-    dots(gs, r0, vs, lane, acc);
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + lane + 32 * j;
-        if (col < S)
-          delta[i] += P[(r0 + i) * s_pad + col] * dw_of(acc[i][j], t0 + r0 + i, col);
-      }
+  load_tile(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
+  load_tile(gs, g + (size_t)b * T * stride + h * kHD, stride, t0, T);
+  key_bits(vbits, valid + (size_t)b * S, S, warp, lane);
+  __syncthreads();
+  const int words = (S + 31) / 32;
+  const int last = last_valid_key(vbits, words, lane);
+  const int n_keys = causal ? min(last + 1, t0 + kQTile) : last + 1;
+  const int n_tiles = (n_keys + kKTile - 1) / kKTile;
+  const int steps = 2 * n_tiles;
+  if (steps > 0) {
+    load_tile(ks, kb, stride, 0, S);
+    load_tile(vs, vb, stride, 0, S);
   }
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) delta[i] = warp_sum(delta[i]);
+  cp_async_commit();
 
-  // ds = bf16(w (dw - delta) * scale), dq = ds k
-  float dqa[kRowsPerWarp][2];
+  const int row0 = t0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
+  const uint32_t row_term[2] = {dr.s0 + (uint32_t)row0 * kRowMul,
+                                dr.s0 + (uint32_t)row1 * kRowMul};
+  const uint32_t bh_term = (uint32_t)bh * kBhMul;
+  uint32_t qa[kKC][4], ga[kKC][4];
+  float dqa[kNB][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) dqa[i][0] = dqa[i][1] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += kKeys) {
+  for (int j = 0; j < kNB; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  const float sl2 = scale * kLog2e;
+  // m, l, mb as in the forward; u the running sum of e dw, rescaled with l
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f}, mb[2] = {0.f, 0.f};
+  float den[2] = {1e-30f, 1e-30f}, rden[2] = {1e30f, 1e30f}, delta[2] = {0.f, 0.f};
+  const float rc = 1.f / dr.c;
+
+  for (int i = 0; i < steps; ++i) {
+    const bool pass2 = i >= n_tiles;
+    const int k0 = (pass2 ? i - n_tiles : i) * kKTile;
+    if (i + 1 < steps) {
+      const int nk0 = (i + 1 < n_tiles ? i + 1 : i + 1 - n_tiles) * kKTile;
+      load_tile(ks + ((i + 1) & 1) * kTileElems, kb, stride, nk0, S);
+      load_tile(vs + ((i + 1) & 1) * kTileElems, vb, stride, nk0, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's tiles (and Q, g) have landed
     __syncthreads();
-    stage(ks, kb, stride, k0, kKeys, S);
-    stage(vs, vb, stride, k0, kKeys, S);
-    __syncthreads();
-    float acc[kRowsPerWarp][2];
-    dots(gs, r0, vs, lane, acc);
+    if (i == 0) {
+      load_a_frags(qa, qs, warp, lane);
+      load_a_frags(ga, gs, warp, lane);
+    }
+    const __nv_bfloat16* kt = ks + (i & 1) * kTileElems;
+    const __nv_bfloat16* vt = vs + (i & 1) * kTileElems;
+    // g . v and (pass 2) the scores, two n-blocks (one k16 chunk of keys)
+    // at a time, so few of them are live at once
+    if (!pass2) {
+      float s[kNB][4];  // bf16(q . k), masked: the whole tile, for the row max
+      row_scores<kNB>(s, qa, kt, vbits, words, k0, 0, causal, row0, lane);
+      float alpha[2], sum[2] = {0.f, 0.f}, us[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
+      for (int r = 0; r < 2; ++r) alpha[r] = row_max(s, r, m[r], mb[r], sl2);
+      uint32_t kw = 0u;  // this tile's keep bits, for pass 2
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + lane + 32 * j;
-        float ds = 0.f;
-        if (col < S) {
-          const float w = P[(r0 + i) * s_pad + col];
-          ds = bf16r((w * (dw_of(acc[i][j], t0 + r0 + i, col) - delta[i])) * scale);
+      for (int kc = 0; kc < kKTile / 16; ++kc) {
+        float dp[2][4];
+        qk_blocks<2>(dp, ga, vt, 2 * kc, lane);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * kc + jj;
+          const uint32_t col_term0 = (uint32_t)(k0 + 8 * j + 2 * t) * kColMul;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float ea = exp2_ftz(fmaf(s[j][2 * r], sl2, -mb[r]));
+            const float eb = exp2_ftz(fmaf(s[j][2 * r + 1], sl2, -mb[r]));
+            sum[r] += ea + eb;
+            const bool keep_a = dr.on && keep_terms(dr, row_term[r], col_term0, bh_term);
+            const bool keep_b = dr.on && keep_terms(dr, row_term[r], col_term0 + kColMul, bh_term);
+            kw |= (uint32_t)keep_a << (16 * r + 2 * j) | (uint32_t)keep_b << (16 * r + 2 * j + 1);
+            us[r] = fmaf(ea, dropped_dw(dp[jj][2 * r], keep_a, dr, rc), us[r]);
+            us[r] = fmaf(eb, dropped_dw(dp[jj][2 * r + 1], keep_b, dr, rc), us[r]);
+          }
         }
-        dst[(r0 + i) * kLd + lane + 32 * j] = ds;
       }
-    __syncwarp();
-    const int n = min(kKeys, S - k0);
-    for (int s = 0; s < n; ++s) {
-      const float k0v = ks[s * kLd + lane];
-      const float k1v = ks[s * kLd + lane + 32];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float p = dst[(r0 + i) * kLd + s];
-        dqa[i][0] = fmaf(p, k0v, dqa[i][0]);
-        dqa[i][1] = fmaf(p, k1v, dqa[i][1]);
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + sum[r];
+        u[r] = u[r] * alpha[r] + us[r];
+      }
+      if (dr.on) kbits[(k0 / kKTile) * kThreads + threadIdx.x] = kw;
+      if (i == n_tiles - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = quad_sum(l[r]);
+          den[r] = fmaxf(l[r], 1e-30f);
+          rden[r] = 1.f / den[r];
+          delta[r] = div_rn(quad_sum(u[r]), den[r], rden[r]);
+        }
+      }
+    } else {
+      // ds = bf16(w (dw - delta) / 8) as the bf16 pairs of the A fragments of
+      // dq += ds K, one k16 chunk of keys at a time; the scale is a power of
+      // two, so w (dw / 8 - delta / 8) is the same f32 value, one FFMA less
+      const float d8[2] = {delta[0] * scale, delta[1] * scale};
+      const uint32_t kw = dr.on ? kbits[(k0 / kKTile) * kThreads + threadIdx.x] : 0u;
+#pragma unroll
+      for (int kc = 0; kc < kKTile / 16; ++kc) {
+        float s[2][4], dp[2][4];
+        row_scores<2>(s, qa, kt, vbits, words, k0, 2 * kc, causal, row0, lane);
+        qk_blocks<2>(dp, ga, vt, 2 * kc, lane);
+        uint32_t a[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * kc + jj;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float wa = div_rn(exp2_ftz(fmaf(s[jj][2 * r], sl2, -mb[r])), den[r], rden[r]);
+            const float wb = div_rn(exp2_ftz(fmaf(s[jj][2 * r + 1], sl2, -mb[r])), den[r], rden[r]);
+            const bool keep_a = (kw >> (16 * r + 2 * j)) & 1u;
+            const bool keep_b = (kw >> (16 * r + 2 * j + 1)) & 1u;
+            const float dwa = dropped_dw(dp[jj][2 * r], keep_a, dr, rc);
+            const float dwb = dropped_dw(dp[jj][2 * r + 1], keep_b, dr, rc);
+            a[2 * jj + r] = pack_bf16(wa * fmaf(dwa, scale, -d8[r]), wb * fmaf(dwb, scale, -d8[r]));
+          }
+        }
+        pv_chunk(dqa, a, kt, kc, lane);
       }
     }
+    __syncthreads();  // this stage is read; the next step refills it
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const size_t BHT = (size_t)gridDim.y * T;
+  stage_out(qs, dqa, 1.f, 1.f, warp, lane);
+  __syncthreads();
+  store_out(dq + (size_t)b * T * stride + h * kHD, qs, stride, t0, T);
+  if (t == 0) {
+    const size_t BHT = (size_t)gridDim.y * T;
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int row = t0 + r0 + i;
-    if (row >= T) continue;
-    __nv_bfloat16* o = dq + ((size_t)b * T + row) * stride + h * kHD;
-    o[lane] = __float2bfloat16_rn(dqa[i][0]);
-    o[lane + 32] = __float2bfloat16_rn(dqa[i][1]);
-    if (lane == 0) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row1 : row0;
+      if (row >= T) continue;
       const size_t at = (size_t)bh * T + row;
-      stats[at] = m[i];
-      stats[BHT + at] = l[i];
-      stats[2 * BHT + at] = delta[i];
+      stats[at] = m[r];
+      stats[BHT + at] = l[r];
+      stats[2 * BHT + at] = delta[r];
     }
   }
 }
@@ -571,7 +578,43 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // backward, keys: a block per (64 keys, b * H + h): dk and dv
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t kKeysSmem = 6 * kTileElems * sizeof(__nv_bfloat16) +
+                             2 * (3 * kQTile * sizeof(float) + kQTile * sizeof(float4));
+
+// Rows r0 .. r0 + 63 of Q and g, and their m, l and delta ([3][kQTile] f32),
+// into one stage of the keys kernel's ring; rows at or past T zero-filled.
+// Thread i < 64 copies row i's three stats itself, so once its own copies
+// have landed it can convert them without a block barrier.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* qt, __nv_bfloat16* gt, float* raw,
+                                          const __nv_bfloat16* qb, const __nv_bfloat16* gb,
+                                          size_t stride, const float* stats_bh, size_t BHT,
+                                          int r0, int T) {
+  load_tile(qt, qb, stride, r0, T);
+  load_tile(gt, gb, stride, r0, T);
+  if (threadIdx.x < kQTile) {
+    const int r = r0 + threadIdx.x;
+#pragma unroll
+    for (int which = 0; which < 3; ++which)
+      cp_async4(raw + which * kQTile + threadIdx.x, r < T ? stats_bh + which * BHT + r : stats_bh,
+                r < T);
+  }
+}
+
+// A stage's row stats as the keys kernel uses them, one float4 a row: m sl2,
+// den = max(l, 1e-30), 1 / den, delta / 8 (the rows kernel's own values, so
+// w is the same f32 in both kernels).  Threads 0 .. 63 convert the rows they
+// copied, after their own cp.async wait; the caller's next block barrier
+// publishes the result.
+__device__ __forceinline__ void convert_rows(float4* st, const float* raw, float sl2,
+                                             float scale) {
+  if (threadIdx.x < kQTile) {
+    const float den = fmaxf(raw[kQTile + threadIdx.x], 1e-30f);
+    st[threadIdx.x] = make_float4(raw[threadIdx.x] * sl2, den, 1.f / den,
+                                  raw[2 * kQTile + threadIdx.x] * scale);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
     train_bwd_keys_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -580,102 +623,140 @@ __global__ void __launch_bounds__(kThreads)
                           float c, int causal, const float* __restrict__ stats,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                           int T, int S, int H, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kKeys][kLd]
-  float* vs = ks + kKeys * kLd;     // [kKeys][kLd]
-  float* qs = vs + kKeys * kLd;     // [kRows][kLd]
-  float* gs = qs + kRows * kLd;     // [kRows][kLd]
-  float* wdt = gs + kRows * kLd;    // [kRows][kLd]: dropped bf16 weights
-  float* dst = wdt + kRows * kLd;   // [kRows][kLd]: bf16 ds
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // K, then dk
+  __nv_bfloat16* vs = ks + kTileElems;                          // V, then dv
+  __nv_bfloat16* qs = vs + kTileElems;                          // Q ring, 2 stages
+  __nv_bfloat16* gs = qs + 2 * kTileElems;                      // g ring, 2 stages
+  float4* sts = reinterpret_cast<float4*>(gs + 2 * kTileElems);  // [2][kQTile] converted
+  float* raw = reinterpret_cast<float*>(sts + 2 * kQTile);        // [2][3][kQTile] m, l, delta
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int c0 = blockIdx.x * kKeys;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
-  const int kg = threadIdx.x / 16;  // keys c0 + 4 kg .. + 3 of the sums
-  const int dd = threadIdx.x % 16;  // dims dd + 16 jj of the sums
+  const int c0 = blockIdx.x * kKTile;
   const size_t stride = (size_t)H * kHD;
   const __nv_bfloat16* qb = q + (size_t)b * T * stride + h * kHD;
   const __nv_bfloat16* gb = g + (size_t)b * T * stride + h * kHD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * stride + h * kHD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * stride + h * kHD;
-  const int* vrow = valid + (size_t)b * S;
   const size_t BHT = (size_t)gridDim.y * T;
-  const float* ms = stats + (size_t)bh * T;
-  const float* ls = stats + BHT + (size_t)bh * T;
-  const float* dls = stats + 2 * BHT + (size_t)bh * T;
+  const float* stats_bh = stats + (size_t)bh * T;
   const Drop dr = make_drop(seeds, thr, drop_on, c);
+  const float sl2 = scale * kLog2e;
 
-  stage(ks, kb, stride, c0, kKeys, S);
-  stage(vs, vb, stride, c0, kKeys, S);
-  float dka[4][4], dva[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) dka[u][jj] = dva[u][jj] = 0.f;
+  // this lane's two keys (rows g and g + 8 of the warp's 16) and whether
+  // each is attendable at all.  An invalid key is not masked per element:
+  // it is the row of its own dk and dv in every product here, so whatever
+  // its w and ds come to touches nothing else, and its dk and dv are set
+  // to 0 at the end.
+  const int key0 = c0 + 16 * warp + (lane >> 2), key1 = key0 + 8;
+  const int* vrow = valid + (size_t)b * S;
+  const bool ok[2] = {key0 < S && vrow[key0] != 0, key1 < S && vrow[key1] != 0};
+  // a block none of whose keys is valid walks no query tile (dk = dv = 0);
+  // causal query tiles wholly above the block's keys are skipped
+  const int n_q = __syncthreads_or(ok[0] || ok[1]) ? (T + kQTile - 1) / kQTile : 0;
+  const int first = causal ? blockIdx.x : 0;
 
-  for (int tq0 = 0; tq0 < T; tq0 += kRows) {
-    if (causal && tq0 + kRows - 1 < c0) continue;  // every row above every key
-    __syncthreads();
-    stage(qs, qb, stride, tq0, kRows, T);
-    stage(gs, gb, stride, tq0, kRows, T);
-    __syncthreads();
-    float sa[kRowsPerWarp][2], ga[kRowsPerWarp][2];
-    dots(qs, r0, ks, lane, sa);
-    dots(gs, r0, vs, lane, ga);
+  load_tile(ks, k + (size_t)b * S * stride + h * kHD, stride, c0, S);
+  load_tile(vs, v + (size_t)b * S * stride + h * kHD, stride, c0, S);
+  if (first < n_q) load_rows(qs, gs, raw, qb, gb, stride, stats_bh, BHT, first * kQTile, T);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  convert_rows(sts, raw, sl2, scale);
+
+  const uint32_t col_term[2] = {(uint32_t)key0 * kColMul, (uint32_t)key1 * kColMul};
+  const uint32_t bh_term = (uint32_t)bh * kBhMul;
+  uint32_t ka[kKC][4], va[kKC][4];
+  load_a_frags(ka, ks, warp, lane);
+  load_a_frags(va, vs, warp, lane);
+  float dka[kNB][4], dva[kNB][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = tq0 + r0 + i;
+  for (int j = 0; j < kNB; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = c0 + lane + 32 * j;
-        float wd = 0.f, ds = 0.f;
-        if (row < T && col < S && attendable(vrow, causal, row, col)) {
-          const float s = bf16r(sa[i][j]) * scale;
-          const float w = expf(s - ms[row]) / fmaxf(ls[row], 1e-30f);
-          const bool keep = dr.on ? keep_at(dr, bh, row, col) : true;
-          wd = dropped(bf16r(w), keep, dr);
-          const float dw = dr.on ? (keep ? ga[i][j] / dr.c : 0.f) : ga[i][j];
-          ds = bf16r((w * (dw - dls[row])) * scale);
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const float rc = 1.f / dr.c;
+
+  for (int i = first; i < n_q; ++i) {
+    const int stg = (i - first) & 1, tq0 = i * kQTile;
+    if (i + 1 < n_q)
+      load_rows(qs + (stg ^ 1) * kTileElems, gs + (stg ^ 1) * kTileElems,
+                raw + (stg ^ 1) * 3 * kQTile, qb, gb, stride, stats_bh, BHT, tq0 + kQTile, T);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's tiles have landed
+    __syncthreads();     // ... for every thread, and so have their converted stats
+    const __nv_bfloat16* qt = qs + stg * kTileElems;
+    const __nv_bfloat16* gt = gs + stg * kTileElems;
+    const float4* st = sts + stg * kQTile;
+    // rows past T (the last tile) and, when causal, keys past the row (the
+    // tile on the block's diagonal) take -inf
+    const bool edge = tq0 + kQTile > T || (causal && c0 + 16 * warp + 15 > tq0);
+#pragma unroll
+    for (int kc = 0; kc < kQTile / 16; ++kc) {
+      // the transposed scores and g . v of rows 16 kc .. 16 kc + 15 of the
+      // tile: row = this warp's key, column = a query row
+      float sT[2][4], dT[2][4];
+      qk_blocks<2>(sT, ka, qt, 2 * kc, lane);
+      qk_blocks<2>(dT, va, gt, 2 * kc, lane);
+      uint32_t aw[4], ad[4];  // A fragments of wd^T and ds^T for this chunk of rows
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int rl = 8 * (2 * kc + jj) + 2 * t;  // the pair's first row in the tile
+        round_bf16x2(sT[jj][0], sT[jj][1]);
+        round_bf16x2(sT[jj][2], sT[jj][3]);
+        if (edge) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = tq0 + rl + (e & 1);
+            if (row >= T || (causal && (e < 2 ? key0 : key1) > row)) sT[jj][e] = -INFINITY;
+          }
         }
-        wdt[(r0 + i) * kLd + lane + 32 * j] = wd;
-        dst[(r0 + i) * kLd + lane + 32 * j] = ds;
-      }
-    }
-    __syncthreads();
-    const int n = min(kRows, T - tq0);
-    for (int r = 0; r < n; ++r) {
-      float gq[4], qq[4];
+        const float4 rs[2] = {st[rl], st[rl + 1]};
+        const uint32_t row_term0 = dr.s0 + (uint32_t)(tq0 + rl) * kRowMul;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        gq[jj] = gs[r * kLd + dd + 16 * jj];
-        qq[jj] = qs[r * kLd + dd + 16 * jj];
-      }
+        for (int r = 0; r < 2; ++r) {
+          float w[2], wd[2], dw[2];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float a = wdt[r * kLd + 4 * kg + u];
-        const float e = dst[r * kLd + 4 * kg + u];
+          for (int x = 0; x < 2; ++x) {
+            w[x] = div_rn(exp2_ftz(fmaf(sT[jj][2 * r + x], sl2, -rs[x].x)), rs[x].y, rs[x].z);
+            wd[x] = w[x];
+          }
+          round_bf16x2(wd[0], wd[1]);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          dva[u][jj] = fmaf(a, gq[jj], dva[u][jj]);
-          dka[u][jj] = fmaf(e, qq[jj], dka[u][jj]);
+          for (int x = 0; x < 2; ++x) {
+            const bool keep = dr.on && keep_terms(dr, row_term0 + x * kRowMul, col_term[r], bh_term);
+            if (dr.on) wd[x] = keep ? div_rn(wd[x], dr.c, rc) : 0.f;
+            dw[x] = dropped_dw(dT[jj][2 * r + x], keep, dr, rc);
+          }
+          aw[2 * jj + r] = pack_bf16(wd[0], wd[1]);
+          // ds = bf16(w (dw - delta) / 8), the scale folded as in the rows kernel
+          ad[2 * jj + r] = pack_bf16(w[0] * fmaf(dw[0], scale, -rs[0].w),
+                                     w[1] * fmaf(dw[1], scale, -rs[1].w));
         }
       }
+      pv_chunk(dva, aw, gt, kc, lane);
+      pv_chunk(dka, ad, qt, kc, lane);
     }
+    if (i + 1 < n_q) {  // the next stage's stats, converted while this one is done
+      cp_async_wait<0>();
+      convert_rows(sts + (stg ^ 1) * kQTile, raw + (stg ^ 1) * 3 * kQTile, sl2, scale);
+    }
+    __syncthreads();  // this stage is read; the next step refills it
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int key = c0 + 4 * kg + u;
-    if (key >= S) continue;
-    __nv_bfloat16* okb = dk + ((size_t)b * S + key) * stride + h * kHD;
-    __nv_bfloat16* ovb = dv + ((size_t)b * S + key) * stride + h * kHD;
+  for (int j = 0; j < kNB; ++j)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      okb[dd + 16 * jj] = __float2bfloat16_rn(dka[u][jj]);
-      ovb[dd + 16 * jj] = __float2bfloat16_rn(dva[u][jj]);
+    for (int e = 0; e < 4; ++e) {
+      dka[j][e] = ok[e >> 1] ? dka[j][e] : 0.f;
+      dva[j][e] = ok[e >> 1] ? dva[j][e] : 0.f;
     }
-  }
+  stage_out(ks, dka, 1.f, 1.f, warp, lane);
+  stage_out(vs, dva, 1.f, 1.f, warp, lane);
+  __syncthreads();
+  store_out(dk + (size_t)b * S * stride + h * kHD, ks, stride, c0, S);
+  store_out(dv + (size_t)b * S * stride + h * kHD, vs, stride, c0, S);
 }
 
 __global__ void keep_mask_kernel(const int* __restrict__ seeds, uint32_t thr, int T, int S,
@@ -689,13 +770,6 @@ __global__ void keep_mask_kernel(const int* __restrict__ seeds, uint32_t thr, in
     out[i] = keep_at(dr, bh, row, col) ? 1 : 0;
   }
 }
-
-int s_pad_of(int S) { return (S + 31) / 32 * 32; }
-
-size_t rows_smem(int S) {
-  return sizeof(float) * ((size_t)kRows * s_pad_of(S) + 3 * kRows * kLd + 2 * kKeys * kLd);
-}
-size_t keys_smem() { return sizeof(float) * (2 * kKeys * kLd + 4 * kRows * kLd); }
 
 bool bad_shape(int B, int T, int S, int H) {
   return B < 1 || T < 1 || S < 1 || H < 1 || S > kMaxKeys || B * H > 65535;
@@ -713,12 +787,11 @@ int smer_train_attn_fwd(int B, int T, int S, int H, const void* q, const void* k
                         unsigned int thr, int drop_on, float c, int causal, void* out,
                         void* stream) {
   if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
-  if (!tiles::aligned16(q) || !tiles::aligned16(k) || !tiles::aligned16(v) ||
-      !tiles::aligned16(out))
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + tiles::kQTile - 1) / tiles::kQTile, B * H);
-  train_fwd_kernel<<<grid, tiles::kThreads, 0, st>>>(
+  const dim3 grid((T + kQTile - 1) / kQTile, B * H);
+  train_fwd_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(valid),
       static_cast<const int*>(seeds), thr, drop_on, c, causal,
@@ -733,6 +806,9 @@ int smer_train_attn_bwd(int B, int T, int S, int H, const void* q, const void* k
                         unsigned int thr, int drop_on, float c, int causal, void* stats,
                         void* dq, void* dk, void* dv, void* stream) {
   if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(g) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
@@ -741,21 +817,20 @@ int smer_train_attn_bwd(int B, int T, int S, int H, const void* q, const void* k
   const int* vl = static_cast<const int*>(valid);
   const int* sd = static_cast<const int*>(seeds);
   float* stt = static_cast<float*>(stats);
-  const size_t smem_a = rows_smem(S), smem_b = keys_smem();
   cudaError_t e = cudaFuncSetAttribute(train_bwd_rows_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(train_bwd_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_b);
+                           (int)kKeysSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid_a((T + kRows - 1) / kRows, B * H);
-  train_bwd_rows_kernel<<<grid_a, kThreads, smem_a, st>>>(
+  const dim3 grid_a((T + kQTile - 1) / kQTile, B * H);
+  train_bwd_rows_kernel<<<grid_a, kThreads, kRowsSmem, st>>>(
       qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt,
-      static_cast<__nv_bfloat16*>(dq), T, S, H, s_pad_of(S), 0.125f);
+      static_cast<__nv_bfloat16*>(dq), T, S, H, 0.125f);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid_b((S + kKeys - 1) / kKeys, B * H);
-  train_bwd_keys_kernel<<<grid_b, kThreads, smem_b, st>>>(
+  const dim3 grid_b((S + kKTile - 1) / kKTile, B * H);
+  train_bwd_keys_kernel<<<grid_b, kThreads, kKeysSmem, st>>>(
       qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, S, H, 0.125f);
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
-"""The tile arithmetic of the two tensor-core attention forwards, emulated
-in plain torch on the CPU, against the JAX kernels and the port's twins.
+"""The tile arithmetic of the tensor-core attention kernels, emulated in
+plain torch on the CPU, against the JAX kernels and the port's twins.
 
-``flash_fwd_kernel`` (``ops/csrc/attention.cu``) and ``train_fwd_kernel``
+``flash_fwd_kernel`` (``ops/csrc/attention.cu``), ``train_fwd_kernel`` and
+the backward pair ``train_bwd_rows_kernel`` + ``train_bwd_keys_kernel``
 (``ops/csrc/train_attention.cu``) cannot run here, so these emulations
 repeat their rounding sequence step by step:
 
@@ -17,7 +18,16 @@ repeat their rounding sequence step by step:
   masked keys; pass 1 over 64-key tiles keeps a running max m of them and a
   sum l of e = 2^((s - m) log2(e) / 8), rescaled as m grows; pass 2
   recomputes e, w = e / max(l, 1e-30), bf16, the keep mask and
-  bf16(w16 / bf16(1 - rate)), and sums wd V in f32.
+  bf16(w16 / bf16(1 - rate)), and sums wd V in f32;
+- the train backward: the scores as the train forward's, g . v in the same
+  k16 chunk order, dw = keep ? (g . v) / bf16(1 - rate) : 0; the rows
+  kernel's pass 1 over 64-key tiles keeps the forward's m and l and a sum u
+  of e dw rescaled with l, so delta = u / max(l, 1e-30) (online, where JAX
+  sums w dw over the whole row); w exact from the final m and l; ds =
+  bf16(w (dw - delta) / 8); dq as bf16(ds) K summed in f32 tile after
+  64-key tile; the keys kernel's dk = ds^T Q and dv = wd^T g summed in f32
+  tile after 64-row query tile, wd = keep ? bf16(bf16(w) / bf16(1 - rate))
+  : 0.
 
 The kernels evaluate s x - m with one FMA where these take two roundings;
 that moves an exponent by a few f32 ulps, far below the tolerances.
@@ -29,7 +39,9 @@ Each emulation is held against the JAX kernel in interpret mode (as
 run it) and against the port's twin, with chip_smoke's tolerances (the ones
 the card holds each kernel to against its twin): ``ATTN_ATOL`` 1e-3 +
 ``ATTN_RTOL`` 2^-7 for the flash forward, ``TA_ATOL`` 1e-2 + ``TA_RTOL``
-2^-7 for the train forward.  Inputs are made with numpy from a seed, q
+2^-7 for the train forward, ``TA_REL`` (relative norm: dq and dk 0.02, dv
+1e-3) for the train backward, whose online delta is also held to JAX's
+exact sum within f32 rounding.  Inputs are made with numpy from a seed, q
 scaled by 1, 4 and 16 so that the softmax runs from flat to as peaked as a
 trained encoder's.  One case pins why the flash kernel splits P: P rounded
 once to bf16 leaves that tolerance at q x 4.
@@ -41,7 +53,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_ATOL, ATTN_RTOL, TA_ATOL, TA_RTOL
+from chip_smoke import ATTN_ATOL, ATTN_RTOL, TA_ATOL, TA_REL, TA_RTOL
 from smer_music_generation_tpu.ops.attention import fused_attention as jfused
 from smer_music_generation_tpu.ops import train_attention as jta
 from smer_music_generation_tpu_torch.ops import attention as attn
@@ -109,37 +121,99 @@ def flash_tiles(q, k, v, lens=None, causal=False, split=True) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
-def train_fwd_tiles(q, k, v, valid, keep, rate: float, causal=False) -> torch.Tensor:
-    """``train_fwd_kernel``'s arithmetic: (B, T|S, H, 64) bf16 tensors,
-    ``valid`` (B, S) bool, ``keep`` (B, H, T, S) bool or None at rate 0."""
-    B, T, H, D = q.shape
-    S = k.shape[1]
-    qf, kf, vf = _heads(q), _heads(k), _heads(v)
-    s = torch.zeros(B, H, T, S)
-    for c0 in range(0, D, 16):  # mma's k16 chunks, in order
-        s = s + qf[..., c0:c0 + 16] @ kf[..., c0:c0 + 16].transpose(-1, -2)
-    s = s.to(torch.bfloat16).float()  # bf16(q . k); the 1/8 lives in sl2
-    sl2 = torch.tensor(LOG2E / 8, dtype=torch.float32)
+SL2 = torch.tensor(LOG2E / 8, dtype=torch.float32)  # log2(e) times the scale 1/8
+
+
+def _k16_sums(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x y^T over head_dim as mma.sync sums it: an f32 dot per k16 chunk,
+    the chunks added in order 0, 1, 2, 3."""
+    out = torch.zeros(*x.shape[:-1], y.shape[-2])
+    for c0 in range(0, x.shape[-1], 16):
+        out = out + x[..., c0:c0 + 16] @ y[..., c0:c0 + 16].transpose(-1, -2)
+    return out
+
+
+def _masked_scores(qf, kf, valid, causal):
+    """bf16(q . k) (the 1/8 lives in SL2), -inf where the key is invalid or
+    past the row when causal: the one score sequence of the train kernels."""
+    B, H, T, _ = qf.shape
+    S = kf.shape[2]
+    s = _k16_sums(qf, kf).to(torch.bfloat16).float()
     mask = valid.bool()[:, None, None, :].expand(B, H, T, S)
     if causal:
         mask = mask & torch.ones(T, S, dtype=torch.bool).tril()[None, None]
-    s = torch.where(mask, s, -torch.inf)
-    # pass 1: the running max and the sum of the exponentials
-    m = torch.full((B, H, T), MASKED)
-    l = torch.zeros(B, H, T)
-    for k0 in range(0, S, KEY_TILE):
+    return torch.where(mask, s, -torch.inf)
+
+
+def _pass1(s, dw=None):
+    """Pass 1 over 64-key tiles: the running max m and sum l of e = 2^(s SL2
+    - m SL2), rescaled as m grows; with ``dw``, also the running sum u of
+    e dw under the same rescaling."""
+    m = torch.full(s.shape[:-1], MASKED)
+    l = torch.zeros(s.shape[:-1])
+    u = torch.zeros(s.shape[:-1])
+    for k0 in range(0, s.shape[-1], KEY_TILE):
         st = s[..., k0:k0 + KEY_TILE]
         m_new = torch.maximum(m, st.amax(-1))
-        l = l * torch.exp2((m - m_new) * sl2) + torch.exp2(st * sl2 - (m_new * sl2)[..., None]).sum(-1)
+        alpha = torch.exp2((m - m_new) * SL2)
+        e = torch.exp2(st * SL2 - (m_new * SL2)[..., None])
+        l = l * alpha + e.sum(-1)
+        if dw is not None:
+            u = u * alpha + (e * dw[..., k0:k0 + KEY_TILE]).sum(-1)
         m = m_new
+    return m, l, u
+
+
+def train_fwd_tiles(q, k, v, valid, keep, rate: float, causal=False) -> torch.Tensor:
+    """``train_fwd_kernel``'s arithmetic: (B, T|S, H, 64) bf16 tensors,
+    ``valid`` (B, S) bool, ``keep`` (B, H, T, S) bool or None at rate 0."""
+    qf, kf, vf = _heads(q), _heads(k), _heads(v)
+    s = _masked_scores(qf, kf, valid, causal)
+    # pass 1: the running max and the sum of the exponentials
+    m, l, _ = _pass1(s)
     # pass 2: the weights from the final m and l, dropped, times V
-    e = torch.exp2(s * sl2 - (m * sl2)[..., None])
+    e = torch.exp2(s * SL2 - (m * SL2)[..., None])
     w16 = (e / l.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
     if rate > 0.0:
         c = ta.bf16_round(1.0 - rate)
         w16 = torch.where(keep, (w16.float() / c).to(torch.bfloat16), torch.zeros_like(w16))
     out = w16.float() @ vf
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def train_bwd_tiles(q, k, v, g, valid, keep, rate: float, causal=False):
+    """``train_bwd_rows_kernel``'s and ``train_bwd_keys_kernel``'s
+    arithmetic: (B, T|S, H, 64) bf16 tensors and the bf16 cotangent ``g``,
+    ``valid`` (B, S) bool, ``keep`` (B, H, T, S) bool or None at rate 0.
+    Returns ((dq, dk, dv) in bf16, delta (B, H, T) f32, the exact f32
+    weights w (B, H, T, S) and dw)."""
+    qf, kf, vf, gf = _heads(q), _heads(k), _heads(v), _heads(g)
+    T, S = qf.shape[2], kf.shape[2]
+    s = _masked_scores(qf, kf, valid, causal)
+    dw = _k16_sums(gf, vf)  # g . v, by the same mma sequence as the scores
+    c = ta.bf16_round(1.0 - rate)
+    if rate > 0.0:
+        dw = torch.where(keep, dw / c, torch.zeros(()))
+    # rows kernel, pass 1: m, l and u = sum e dw online; delta = u / l
+    m, l, u = _pass1(s, dw)
+    den = l.clamp(min=1e-30)
+    delta = u / den
+    # pass 2 (and the keys kernel, from the same m, l, delta): w exact, ds
+    w = torch.exp2(s * SL2 - (m * SL2)[..., None]) / den[..., None]
+    ds16 = ((w * (dw - delta[..., None])) * 0.125).to(torch.bfloat16).float()
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, S, KEY_TILE):  # rows kernel: key tiles in order
+        dq = dq + ds16[..., k0:k0 + KEY_TILE] @ kf[..., k0:k0 + KEY_TILE, :]
+    wd16 = w.to(torch.bfloat16)
+    if rate > 0.0:
+        wd16 = torch.where(keep, (wd16.float() / c).to(torch.bfloat16), torch.zeros_like(wd16))
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for r0 in range(0, T, KEY_TILE):  # keys kernel: 64-row query tiles in order
+        rows = slice(r0, r0 + KEY_TILE)
+        dv = dv + wd16[..., rows, :].float().transpose(-1, -2) @ gf[..., rows, :]
+        dk = dk + ds16[..., rows, :].transpose(-1, -2) @ qf[..., rows, :]
+    grads = tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16) for x in (dq, dk, dv))
+    return grads, delta, w, dw
 
 
 FLASH_CASES = [  # (B, T, S, key lengths or None, causal)
@@ -218,3 +292,57 @@ def test_train_fwd_tiles_match_jax_kernel_and_twin(T, S, causal, rate, scale):
                                        jnp.asarray(valid), key, rate, causal, blk_q)
     want = torch.from_numpy(np.array(want.astype(jnp.float32)))
     assert _excess(got, want, TA_ATOL, TA_RTOL) <= 1.0
+
+
+BWD_CASES = [  # (T, S, causal): the encoder's, the decoder's self and cross attention
+    (640, 640, False),
+    (384, 384, True),
+    (384, 640, False),
+]
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=[f"q{s:g}" for s in SCALES])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("T,S,causal", BWD_CASES,
+                         ids=[f"T{t}-S{s}-{'causal' if c else 'bidir'}" for t, s, c in BWD_CASES])
+def test_train_bwd_tiles_match_jax_vjp_and_twin(T, S, causal, rate, scale):
+    B, H = 2, 2
+    q, k, v = _qkv(B, T, S, H=H, scale=scale, seed=3 * T + S + int(scale))
+    rng = np.random.default_rng(T + S)
+    g = _bf16(rng.standard_normal((B, T, H, 64)))
+    valid = rng.random((B, S)) < 0.9
+    valid[0, S - 45:] = False  # a ragged key length, besides the holes
+    valid[1] = False  # one batch row with no valid key
+    key = jax.random.PRNGKey(9)
+    keep = ta.dropout_mask_reference(np.asarray(key), B, H, T, S, rate) if rate > 0 else None
+    got, delta, w, dw = train_bwd_tiles(q, k, v, g, torch.from_numpy(valid), keep, rate, causal)
+    # the online delta is JAX's sum_s w dw up to f32 rounding: the sums run
+    # in other orders, and the online one takes each e as 2^(s SL2 - m' SL2)
+    # times the rescaling factors, whose f32 exponents round apart from the
+    # final one's (more so as the scores grow); within 2^-16 of the sum of
+    # |w dw| (at most 3.9e-6 of it over these cases, at q x 16)
+    exact = (w * dw).sum(-1)
+    assert ((delta - exact).abs() <= 2 ** -16 * (w * dw).abs().sum(-1)).all()
+    for grad in got:  # the batch row with no valid key: gradients exactly 0
+        assert (grad[1] == 0).all()
+    twin = ta.dropout_attention_bwd_reference(q, k, v, torch.from_numpy(valid), np.asarray(key), g,
+                                              rate, causal)
+    names = ("dq", "dk", "dv")
+    for name, a, b in zip(names, got, twin):
+        assert _rel(a, b) < TA_REL[name], (name, _rel(a, b))
+    jg = jnp.asarray(g.float().numpy())
+
+    def jloss(a, b, c):
+        out = jta.fused_dropout_attention(a, b, c, jnp.asarray(valid), key, rate, causal)
+        return (out.astype(jnp.float32) * jg).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                                                for x in (q, k, v)))
+    for name, a, b in zip(names, got, want):
+        b = torch.from_numpy(np.array(b.astype(jnp.float32)))
+        assert _rel(a, b) < TA_REL[name], (name, _rel(a, b))
