@@ -16,12 +16,33 @@ paths and prints one line per phase with the elapsed seconds:
    ``train_fwd_kernel``, ``train_bwd_rows_kernel`` and
    ``train_bwd_keys_kernel``, with their registers, spills and shared
    memory from the ``-Xptxas -v`` log: the phase fails if any has none;
+   then the registers, spills, shared memory and commonest SASS opcodes of
+   the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
+   with ReLU, int8, int8 with ReLU and f32; ``attend_kernel`` at head_dim
+   64 for each row source): the phase fails if one has no entry in the
+   build log or spills;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
    for B in {1, 3, 4, 8}, L = 1024, S in {512, 1024, 1536}, index in
    {0, 1, 511, 512, 1023} and ragged cross lengths; the kernel's and the
    twin's time (CUDA events) beside the bound (bytes over 3.35 TB/s);
+2h. the decode kernels alone: ``rowvec_kernel`` (through ``smer_rowvec``)
+   at a token's seven projection shapes (QKV, the three 512 x 512, FFN up
+   and down, the f32 logits) in bf16 at B = 1, 3, 8 and 9 rows (the W=9
+   verify) and in int8 at B = 3, each held against its twin within
+   ``REL_2H`` relative norm (the twin with its last K-slice left out must
+   fall outside it) and timed (CUDA events and the profiler's device time)
+   beside its bytes bound and ``torch.mm`` of the bf16-rounded x against
+   the same W (the yardstick, timed the same two ways), with the sums over
+   a token's 25 launches; its time a launch at every row count 1..16 for
+   QKV and FFN down; ``attend_kernel`` at the served case (B=3, self over
+   index 512 plus the current row, cross over 1536/1440/1344 rows) against
+   its twin within ``REL_2H`` (the twin with each row's last 64-row split
+   left out must fall outside it), beside its bound and
+   ``scaled_dot_product_attention`` of a (B, H, 1, 64) query over strided
+   K and V views of the same cache with a boolean length mask (both timed
+   the same two ways), and the sum over a token's 8 launches;
 2b. v3 kernel vs twin: ``fused_decode_token`` against its twin on the same
    model, over random valid states, B in {1, 3, 4, 8}, S in {512, 1536},
    index in {0, 1, 512, 1023}, greedy and nucleus (p 0.9 at temperatures
@@ -65,7 +86,8 @@ paths and prints one line per phase with the elapsed seconds:
    /generate, and is stopped;
 2e. verify kernel vs twin: ``fused_verify_window`` (the W-row verify of
    speculative decode) against its twin on the random SMER and REMI
-   flagships, W in {1, 5, 9, 16}, index in {0, 512, 1530}, S in {512, 1536}:
+   flagships, W in {1, 5, 9, 16, 17, 24} (past 16 rows the row-vector
+   kernel runs in launches of 16), index in {0, 512, 1530}, S in {512, 1536}:
    logits and ``new_kv`` within the phase-2 tolerance, and each row against
    the v2 kernel's step at index + j over the spliced cache (bit-equality
    counted, else the largest difference); one call timed at W=9, index 512,
@@ -100,7 +122,7 @@ paths and prints one line per phase with the elapsed seconds:
    iteration and an emitted token), ``generate_cli --draft_k 8``, one
    ``/generate`` on an in-process server with ``draft_k=8`` and a
    ``serve_cli --draft_k 8`` process; the counters must show the verify
-   kernel alone; the greedy spec streams at draft_k 8 and 15 against the v2
+   kernel alone; the greedy spec streams at draft_k 8 and 24 against the v2
    stream of the same request under the margin rule of phase 4;
 3d. flash encoder served on the trained snapshot: the 3 requests of phase 3
    through v3 on the same weights with ``flash_encoder=True``, four
@@ -212,6 +234,10 @@ MAX_SPANS, SPAN_CAP = 256, 100  # the decoder's defaults
 # rounding boundary moves a downstream value by one bf16 ulp (2^-8
 # relative), so the check is |kernel - twin| <= ATOL + RTOL * |twin|
 ATOL, RTOL = 5e-2, 2e-2
+# phase 2h, a decode kernel alone against its twin (both f32 sums of the
+# same bf16 operands, only the order differs): |kernel - twin| / |twin|,
+# far under what one 64-row split or one K-slice left out moves (~0.1)
+REL_2H = 1e-3
 TIE = 1e-5  # the sampler alone on identical logits may part only at a tie this close
 MAX_CLOSE_SHARE = 0.02  # the share of v3 state rows that may take the margin exception
 SERVED_CASE = (3, 1536, 512)  # (B, S, index): the served batch's shape, where both kernels are timed
@@ -232,14 +258,45 @@ TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "train_fwd_kernel", "train_bwd_rows_k
 # value at most) plus what rounds near zero
 ATTN_ATOL, ATTN_RTOL = 1e-3, 2 ** -7
 SPEC_K = 8  # draft_k of the served speculative decode (JAX measured 8)
+# the six matrices of a decoder layer as the row-vector kernel reads them:
+# (name, packed key, row stride, first column (bias and scale strip), K, N,
+# relu); the logits (D -> vpad, f32) are the seventh projection of a token
+LAYER_MATRICES = (
+    ("QKV", "w_attn", 6 * D, 0, D, 3 * D, False), ("self out", "w_attn", 6 * D, 3 * D, D, D, False),
+    ("cross q", "w_attn", 6 * D, 4 * D, D, D, False),
+    ("cross out", "w_attn", 6 * D, 5 * D, D, D, False),
+    ("FFN up", "w_ff1", F, 6 * D, D, F, True), ("FFN down", "w_ff2", D, 6 * D + F, F, D, False),
+)
+# the decode kernels' instantiations (mangled-name pieces) whose registers,
+# spills and SASS phase 1 prints; each must appear in the build log and
+# spill no more than DECODE_SPILL_BYTES (none; the earlier split-free
+# attend_kernel spilled 4 + 4 bytes, its rowvec_kernel none)
+DECODE_KERNELS = {
+    "rowvec_kernel<bf16>": "rowvec_kernelI13__nv_bfloat16Lb1ELb0E",
+    "rowvec_kernel<bf16, relu>": "rowvec_kernelI13__nv_bfloat16Lb1ELb1E",
+    "rowvec_kernel<int8>": "rowvec_kernelIaLb1ELb0E",
+    "rowvec_kernel<int8, relu>": "rowvec_kernelIaLb1ELb1E",
+    "rowvec_kernel<f32>": "rowvec_kernelIfLb0ELb0E",
+    "attend_kernel<64, cache>": "attend_kernelILi64ELi0E",
+    "attend_kernel<64, chunk>": "attend_kernelILi64ELi1E",
+    "attend_kernel<64, window>": "attend_kernelILi64ELi2E",
+}
+DECODE_SPILL_BYTES = 0
+# phase 2e's window widths: past 16 rows the row-vector kernel runs in
+# launches of 16 rows, which must not change a bit of any row
+VERIFY_WIDTHS = (1, 5, 9, 16, 17, 24)
 SERVED_JOBS = (([0], [2, 3]), ([1], [7]), ([2], [11, 12]))  # (tracks, bars) of phase 3's batch
 HD_ATTN = 64  # the encoder's head_dim, the flash kernel's
 # train attention vs twin: f32 sums in another order, so a weight may round
 # to the neighbouring bf16 value: the output within one bf16 ulp (2^-7 of
 # the value) plus what rounds near zero; the gradients within JAX's own
 # bounds between its kernel and its twin (tests/test_ops.py:621-655), dv
-# loosened from 1e-4 to 1e-3 because the kernel's forward is not bit-equal
-# to the twin here (the JAX kernel's is, in interpret mode)
+# at 1e-3 and not JAX's 1e-4: dv = bf16(w)^T g, and a w that differs from
+# the twin's in its last f32 bits (any other exp or order of l's sum; JAX's
+# kernel computes the twin's bits in interpret mode) rounds to the
+# neighbouring bf16 value often enough to move dv by 0.3-1.3e-4 of its
+# norm even with an exact exp2 and division
+# (tests/test_torch_attention_tiles.py::test_dv_moves_with_the_last_bits_of_w)
 TA_ATOL, TA_RTOL = 1e-2, 2 ** -7
 TA_REL = {"dq": 0.02, "dk": 0.02, "dv": 1e-3}
 TA_SEEDS = ((0, 7), (0xDEADBEEF, 0x12345678))  # raw two-word keys
@@ -760,17 +817,12 @@ def phase_int8(dev, flagship, vocab, vpad):
     error, its report at the served B=3 and the v3-int8 report."""
     packed = ds.pack_decoder_weights(flagship, vpad, quant="int8")
     g = torch.Generator(device=dev).manual_seed(6)
-    shapes = [  # (matrix, row stride, first column, K, N, relu) of layer i
-        ("w_attn", 6 * D, 0, D, 3 * D, False), ("w_attn", 6 * D, 3 * D, D, D, False),
-        ("w_attn", 6 * D, 4 * D, D, D, False), ("w_attn", 6 * D, 5 * D, D, D, False),
-        ("w_ff1", F, 6 * D, D, F, True), ("w_ff2", D, 6 * D + F, F, D, False),
-    ]
 
     def calls(B, fn):
         out = []
         for i in range(NL):
             sc, b = packed["scale"][i, 0], packed["bias"][i, 0]
-            for name, ld, lo, K, N, relu in shapes:
+            for _, name, ld, lo, K, N, relu in LAYER_MATRICES:
                 w = packed[name][i]
                 q = w[:, lo : lo + N] if name == "w_attn" else w
                 x = torch.randn(B, K, generator=g, device=dev)
@@ -833,7 +885,7 @@ def verify_bytes_flops(packed, W: int, index: int, cross_len: int, vpad: int):
 def phase_verify_vs_twin(dev, flagships):
     """``fused_verify_window`` against its twin, and each of its rows
     against the v2 kernel's step over the spliced cache."""
-    LV = 1600  # the self cache: index + W <= 1546
+    LV = 1600  # the self cache: index + W <= 1554
     g = torch.Generator(device=dev).manual_seed(8)
     worst, report, cases, equal, step_diff = 0.0, None, 0, 0, 0.0
     for vocab, packed, vpad in flagships:
@@ -844,7 +896,7 @@ def phase_verify_vs_twin(dev, flagships):
             cross_kv = torch.randn(NL, 1, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
             cl = S - S // 16
             cross_len = torch.tensor([cl], dtype=torch.int32, device=dev)
-            for W in (1, 5, 9, 16):
+            for W in VERIFY_WIDTHS:
                 x = torch.randn(W, D, generator=g, device=dev).to(torch.bfloat16)
                 for index in (0, 512, 1530):
                     args = (packed, x, self_kv, cross_kv, index, cross_len)
@@ -894,6 +946,213 @@ def phase_verify_vs_twin(dev, flagships):
     return worst, report
 
 
+def rowvec_cases(packed, vpad, V):
+    """(label, w view, row stride, bias, column scales or None, K, N, relu,
+    real columns) of a token's seven projection shapes, from layer 0 (the
+    logits from fc_w, whose pad lanes past V carry no weight and a -1e9
+    bias)."""
+    quant = "scale" in packed
+    out = []
+    for label, key, ld, lo, K, N, relu in LAYER_MATRICES:
+        w = packed[key][0]
+        w = w[:, lo : lo + N] if key == "w_attn" else w
+        sc = packed["scale"][0, 0, lo : lo + N] if quant else None
+        out.append((label, w, ld, packed["bias"][0, 0, lo : lo + N], sc, K, N, relu, N))
+    out.append(("logits", packed["fc_w"], vpad, packed["fc_b"], None, D, vpad, False, V))
+    return out
+
+
+def device_us(fn, family=None):
+    """µs a call of ``fn`` on the device (the profiler) in kernels of
+    ``family``, or in all its kernels (a library call's) where family is
+    None; None where the profiler sees no CUDA kernel."""
+    split = device_split(fn, iters=20)
+    if split is None:
+        return None
+    return sum(split.values()) if family is None else split.get(family, 0.0)
+
+
+def us(t) -> str:
+    return "not measured" if t is None else f"{t:.2f} us"
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def hold_to_twin(label, got, want, control) -> float:
+    """``got`` within REL_2H relative norm of the twin's ``want``, and the
+    twin's ``control`` (the same call with its last split left out) outside
+    it, so that the bound can see a lost split.  Returns the error."""
+    err, ctl = rel_err(got, want), rel_err(control, want)
+    if err > REL_2H:
+        raise AssertionError(f"{label} disagrees with its twin: |kernel - twin| / |twin| "
+                             f"{err:.3e} > {REL_2H}")
+    if ctl <= REL_2H:
+        raise AssertionError(f"{label}: the twin without its last split is within {REL_2H} "
+                             f"({ctl:.3e}): the bound cannot see a lost split")
+    return err
+
+
+def rowvec_time(dev, lib, stream, case, B, g, check=True):
+    """One projection through ``_launch_rowvec`` at B rows: held against
+    the twin (``_rowvec_math``; the control leaves out the last K-slice of
+    ``rowvec_k_split``), then its ms a launch (CUDA events over back-to-back
+    launches; where the host's launch rate is the slower, that rate), its
+    device µs (the profiler), its bytes bound (W, x, y, bias and scales each
+    moved once) and, as the yardstick, ``torch.mm`` of the bf16-rounded x
+    against the same W (for int8, a bf16 copy of the same values; for the
+    f32 logits, x and W in f32), in CUDA-event ms and device µs."""
+    label, w, ld, bias, sc, K, N, relu, cols = case
+    x = torch.randn(B, K, generator=g, device=dev)
+    y = torch.empty(B, N, device=dev)
+    ws, tickets = ds._scratch(dev, stream, *ds._rowvec_need(K, N, B))
+    scratch = (ws.data_ptr(), tickets.data_ptr())
+
+    def kernel():
+        ds._launch_rowvec(lib, x, w, ld, bias, y, stream=stream, scratch=scratch, relu=relu,
+                          colscale=sc)
+
+    kernel()
+    torch.cuda.synchronize()
+    err = None
+    if check:
+        cdt = torch.float32 if w.dtype == torch.float32 else torch.bfloat16
+
+        def twin(xs):  # over the real columns
+            out = ds._rowvec_math(xs, w, cdt, sc) + bias
+            return (torch.relu(out) if relu else out)[:, :cols]
+
+        last = (K - 1) // ds.rowvec_k_split(K, N) * ds.rowvec_k_split(K, N)
+        x_ctl = x.clone()
+        x_ctl[:, last:] = 0
+        err = hold_to_twin(f"rowvec_kernel {label} B={B} {w.dtype}", y[:, :cols], twin(x),
+                           twin(x_ctl))
+    ms = cuda_ms(kernel, iters=100, warmup=10)
+    dev_us = device_us(kernel, "rowvec_kernel") if check else None
+    nbytes = K * N * w.element_size() + 4 * (B * K + B * N + N) + (4 * N if sc is not None else 0)
+    bound = bound_ms(nbytes, 2 * B * K * N)
+    if w.dtype == torch.float32:
+        xl, wl = x, w
+    else:
+        xl, wl = x.to(torch.bfloat16), w.to(torch.bfloat16) if w.dtype == torch.int8 else w
+
+    def library():
+        torch.mm(xl, wl)
+
+    lib_ms = cuda_ms(library, iters=100, warmup=10)
+    lib_us = device_us(library) if check else None
+    return dict(ms=ms, dev_us=dev_us, bound=bound, lib_ms=lib_ms, lib_us=lib_us, err=err)
+
+
+def add_up(total, one, n):
+    """Adds n times each number of ``one`` into ``total``; a number not
+    measured (None) leaves its sum not measured."""
+    for k, v in one.items():
+        if k != "err":
+            total[k] = None if v is None or total.get(k, 0.0) is None else total.get(k, 0.0) + n * v
+
+
+def phase_decode_kernels(dev, packed, model, vpad):
+    """Phase 2h: ``rowvec_kernel`` and ``attend_kernel`` alone at the
+    shapes of the served token, each held against its twin within REL_2H
+    relative norm (and a control with one split left out shown outside it)
+    and timed beside its bytes bound and its library yardstick
+    (``torch.mm``; SDPA over strided K and V views of the same cache with a
+    boolean length mask) in CUDA-event ms and device µs, the per-token
+    sums, and rowvec's ms a launch at every row count 1..16 (a launch must
+    not jump from one row count to the next)."""
+    lib = ds.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(12)
+    int8 = ds.pack_decoder_weights(model, vpad, quant="int8")
+    V = model.fc.bias.shape[0]
+    worst = 0.0
+    for wname, pk, rows in (("bf16", packed, (1, 3, 8, SPEC_K + 1)), ("int8", int8, (3,))):
+        for B in rows:
+            token = {}
+            for case in rowvec_cases(pk, vpad, V):
+                t = rowvec_time(dev, lib, stream, case, B, g)
+                worst = max(worst, t["err"])
+                add_up(token, t, 1 if case[0] == "logits" else NL)
+                say(f"  rowvec {wname} {case[0]:9s} K={case[5]:4d} N={case[6]:4d} B={B:2d}: kernel "
+                    f"{1e3 * t['ms']:7.2f} us (device {us(t['dev_us'])}), bound "
+                    f"{1e3 * t['bound']:6.2f} us, torch.mm {1e3 * t['lib_ms']:7.2f} us (device "
+                    f"{us(t['lib_us'])}); |kernel-twin|/|twin| {t['err']:.2e}")
+            say(f"  rowvec {wname} B={B}: a token's 25 launches {1e3 * token['ms']:.1f} us (device "
+                f"{us(token['dev_us'])}), bound {1e3 * token['bound']:.1f} us, torch.mm "
+                f"{1e3 * token['lib_ms']:.1f} us (device {us(token['lib_us'])})")
+    for label in ("QKV", "FFN down"):
+        case = next(c for c in rowvec_cases(packed, vpad, V) if c[0] == label)
+        times = [rowvec_time(dev, lib, stream, case, B, g, check=False)["ms"]
+                 for B in range(1, 17)]
+        say(f"  rowvec bf16 {label} us a launch at rows 1..16: " +
+            " ".join(f"{1e3 * t:.2f}" for t in times))
+
+    # attend_kernel at the served case: self over index 512 plus the current
+    # row, cross over 1536/1440/1344 rows
+    B, S, index = SERVED_CASE
+    HD = D // H
+    qkv = torch.randn(B, 3 * D, generator=g, device=dev)
+    self_kv = torch.randn(B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+    cross_kv = torch.randn(B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+    cl = [S - (S // 16) * b for b in range(B)]
+    cross_len = torch.tensor(cl, dtype=torch.int32, device=dev)
+    out = torch.empty(B, D, device=dev)
+    extra = qkv.data_ptr() + D * qkv.element_size()
+    ws, tickets = ds._scratch(dev, stream, B * H * (-(-S // 64)) * (2 + HD), B * H)
+    kw = dict(H=H, stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()))
+    q, extra_kv = qkv[:, :D], (qkv[:, D : 2 * D], qkv[:, 2 * D :])
+
+    def last_split(n):  # rows of a batch row's last 64-row split
+        return (n - 1) % ds._ATTEND_SPLIT_ROWS + 1
+
+    cases = {  # (kernel, twin over the first n rows of each batch row, cache, rows)
+        "self": (lambda: ds._launch_attend(lib, qkv, self_kv, L * 2 * D, index, None, L,
+                                           ds._ROWS_CACHE_ONLY, None, 0, 0, extra, out, **kw),
+                 lambda n: ds._attend(q, self_kv, n, H, extra_kv=extra_kv), self_kv, [index] * B),
+        "cross": (lambda: ds._launch_attend(lib, qkv, cross_kv, S * 2 * D, 0, cross_len, S,
+                                            ds._ROWS_CACHE_ONLY, None, 0, 0, None, out, **kw),
+                  lambda n: ds._attend(q, cross_kv, n, H), cross_kv, cl),
+    }
+    token = {}
+    for name, (kernel, twin, kv, lens) in cases.items():
+        kernel()
+        torch.cuda.synchronize()
+        n = torch.tensor(lens, device=dev)
+        err = hold_to_twin(f"attend_kernel ({name})", out, twin(n),
+                           twin(n - torch.tensor([last_split(m) for m in lens], device=dev)))
+        worst = max(worst, err)
+        ms = cuda_ms(kernel, iters=100, warmup=10)
+        dev_us = device_us(kernel, "attend_kernel")
+        rows = sum(lens)
+        nbytes = rows * 2 * D * 2 + 4 * B * D * 2 + (8 * B * D if name == "self" else 0)
+        bound = bound_ms(nbytes, 4 * D * rows)
+        # the yardstick: SDPA of a (B, H, 1, 64) query over the cache's K and
+        # V as strided (B, H, L, 64) views, masked to each row's length (the
+        # current row of the self case is not in it)
+        Lk = kv.shape[1]
+        kview = kv[..., :D].view(B, Lk, H, HD).transpose(1, 2)
+        vview = kv[..., D:].view(B, Lk, H, HD).transpose(1, 2)
+        qb = q.to(torch.bfloat16).view(B, H, 1, HD)
+        mask = (torch.arange(Lk, device=dev)[None, :] < n[:, None])[:, None, None, :]
+
+        def library():
+            torch.nn.functional.scaled_dot_product_attention(qb, kview, vview, attn_mask=mask)
+
+        lib_ms = cuda_ms(library, iters=100, warmup=10)
+        lib_us = device_us(library)
+        add_up(token, dict(ms=ms, dev_us=dev_us, bound=bound, lib_ms=lib_ms, lib_us=lib_us), NL)
+        say(f"  attend {name:5s} B={B} rows {lens}: kernel {1e3 * ms:7.2f} us (device "
+            f"{us(dev_us)}), bound {1e3 * bound:6.2f} us, SDPA {1e3 * lib_ms:7.2f} us (device "
+            f"{us(lib_us)}); |kernel-twin|/|twin| {err:.2e}")
+    say(f"  attend B={B}: a token's 8 launches {1e3 * token['ms']:.1f} us (device "
+        f"{us(token['dev_us'])}), bound {1e3 * token['bound']:.1f} us, SDPA "
+        f"{1e3 * token['lib_ms']:.1f} us (device {us(token['lib_us'])})")
+    say(f"  both kernels within {REL_2H} relative norm of their twins (worst {worst:.2e}); the "
+        f"twins without their last split outside it")
+
+
 def attention_bound(B: int, T: int, S: int, lens, causal: bool):
     """Least time of one flash-attention call and what bounds it: q, k, v
     read and the output written once (bf16); 4 HD operations for every
@@ -913,17 +1172,19 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool):
                                      else "operations")
 
 
-def sass_mix(lib_path: str):
-    """The SASS of each kernel of ``TENSOR_CORE_KERNELS`` in the built
-    library, by ``cuobjdump -sass`` (beside nvcc): {kernel: {opcode: static
-    count}}, the opcode without its modifiers (HMMA, MUFU, IMAD, LOP3, ...)."""
+def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS):
+    """The SASS of each kernel in the built library whose (mangled) name
+    holds one of ``names``, by ``cuobjdump -sass`` (beside nvcc): {name:
+    {opcode: static count}}, the opcode without its modifiers (HMMA, MUFU,
+    IMAD, LOP3, ...).  A name matches the first kernel that holds it."""
     cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    got, current = {k: {} for k in TENSOR_CORE_KERNELS}, None
+    got, current, seen = {k: {} for k in names}, None, set()
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in TENSOR_CORE_KERNELS if k in line), None)
+            current = next((k for k in names if k in line and k not in seen), None)
+            seen.add(current)
             continue
         op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if current is not None and op:
@@ -931,14 +1192,15 @@ def sass_mix(lib_path: str):
     return got
 
 
-def ptxas_facts(log: str):
-    """Registers, spill bytes and static shared memory of each kernel of
-    ``TENSOR_CORE_KERNELS``, from the ``-Xptxas -v`` log of the build."""
+def ptxas_facts(log: str, names=TENSOR_CORE_KERNELS):
+    """Registers, spill bytes and static shared memory of each kernel whose
+    (mangled) name holds one of ``names``, from the ``-Xptxas -v`` log of
+    the build (the first entry that holds the name)."""
     facts, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            current = next((k for k in TENSOR_CORE_KERNELS if k in entry.group(1)), None)
+            current = next((k for k in names if k in entry.group(1) and k not in facts), None)
             continue
         if current is None:
             continue
@@ -974,6 +1236,28 @@ def phase_tensor_cores() -> None:
             ", ".join(f"{op} {n}" for op, n in top))
     if not all(counts.values()):
         raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {counts}")
+
+
+def phase_decode_facts() -> None:
+    """Registers, spills, shared memory and the commonest SASS opcodes of
+    the decode kernels' instantiations (``DECODE_KERNELS``); fails if one
+    has no entry in the build log or spills more than DECODE_SPILL_BYTES."""
+    names = tuple(DECODE_KERNELS.values())
+    mix = sass_mix(str(ds.BUILD_INFO["path"]), names)
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), names)
+    for label, name in DECODE_KERNELS.items():
+        f = facts.get(name)
+        if f is None:
+            raise AssertionError(f"{label} ({name}) has no entry in the build log")
+        spilled = f.get("spill_stores", 0) + f.get("spill_loads", 0)
+        say(f"  {label}: {f.get('registers')} registers, spill stores/loads "
+            f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes "
+            f"static shared memory")
+        top = sorted(mix[name].items(), key=lambda kv: -kv[1])[:12]
+        say(f"    SASS opcodes (static): {sum(mix[name].values())} in all; " +
+            ", ".join(f"{op} {n}" for op, n in top))
+        if spilled > DECODE_SPILL_BYTES:
+            raise AssertionError(f"{label} spills {spilled} bytes (at most {DECODE_SPILL_BYTES})")
 
 
 def say_clocks(when: str) -> None:
@@ -1652,7 +1936,7 @@ def phase_spec(model, vocab, events, score, workdir):
     phase_serve_cli(score, ["--draft_k", str(SPEC_K)])
 
     b = greedy_stream(model, vocab, asm, fused_sampling=False)
-    for k in (SPEC_K, ds.MAX_WINDOW - 1):  # the served width and the widest window
+    for k in (SPEC_K, 24):  # the served width, and a window of 25 rows (two row-vector launches)
         reset_counts()
         a = greedy_stream(model, vocab, asm, draft_k=k)
         check_counts(f"greedy spec decode (draft_k={k})", ["verify"])
@@ -1854,7 +2138,7 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2g, 3, 3c, 3d, 5, 4); "
+                        help="comma-separated phases to run after the build (2..2h, 3, 3c, 3d, 5, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -1884,6 +2168,7 @@ def main(argv=None) -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("   ", line.strip(), flush=True)
     phase_tensor_cores()
+    phase_decode_facts()
 
     vocab, model, packed, vpad = random_flagship(dev)
     remi_vocab, remi_model, remi_packed, _ = random_flagship(dev, mode=1)
@@ -1891,6 +2176,10 @@ def main(argv=None) -> int:
         say("phase 2 v2 kernel vs twin (random bf16 weights, flagship width)")
         worst, report = phase_kernel_vs_twin(dev, packed, vocab, vpad)
         say(f"  all cases within atol {ATOL} + rtol {RTOL}; max |kernel - twin| {worst:.3e}")
+
+    if run("2h"):
+        say("phase 2h decode kernels alone: rowvec_kernel and attend_kernel at the served shapes")
+        phase_decode_kernels(dev, packed, model, vpad)
 
     if run("2b"):
         say("phase 2b v3 kernel vs twin (same model, random states)")

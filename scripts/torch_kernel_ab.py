@@ -10,8 +10,11 @@ parent`` compares two versions on one card.  The shape is the served batch:
 B=3, S=1536, index 512, cross lengths 1536/1440/1344, at the flagship width
 (4 decoder layers, d512, 8 heads, d_ff 2048) with seeded random bf16 weights
 and random biases and LayerNorms.  Timed: the v2 step (``fused_decode_step``),
-the v3 nucleus token (``fused_decode_token``) and, where the checkout has int8
-weights, the v3 token on them.  Then the attention kernels: ``fused_attention``
+the v2 step at B=4 (the three rows plus a copy of the first, cross length
+1248), the v3 nucleus token (``fused_decode_token``), the v4 chunk of 8 nucleus
+tokens (``fused_decode_tokens``), the verify window of 9 rows at B=1
+(``fused_verify_window``, index 512, cross length 1440) and, where the
+checkout has int8 weights, the v3 token on them.  Then the attention kernels: ``fused_attention``
 (the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; and
 the train attention at B=8, H=8, 640x640 and 384x384 causal (rate 0.1, ~10%
 of keys invalid, one batch row with no valid key, as chip_smoke's phase 2g;
@@ -23,8 +26,14 @@ and ``train_bwd_keys_kernel``) is the measured kernel, at 640x640 also at rate
 Prints one JSON line per run: the card and its power limit, the root, and per
 kernel the ms a call (CUDA events, the mean of 200 back-to-back calls after 20
 warm-up calls), the ms of one call alone (events around a single call queued
-behind a short spin on a drained stream, the mean of 20) and the device
-microseconds a call by kernel family (torch.profiler over 20 calls).
+behind a short spin on a drained stream, the mean of 20), the device
+microseconds a call by kernel family (torch.profiler over 20 calls) and the
+device busy share (their sum over the ms a call).  Where the run built the
+checkout's kernels, also the registers, spills and commonest SASS opcodes of
+the decode kernels' instantiations (``chip_smoke.DECODE_KERNELS`` and, as the
+earlier split-free designs named them, ``rowvec_kernel`` at 3, 4 and 9 rows and
+``attend_kernel`` at head_dim 64), read with chip_smoke's ``ptxas_facts`` and
+``sass_mix``.
 
     python scripts/torch_kernel_ab.py build/parent . . build/parent
 """
@@ -34,6 +43,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 CHILD = r"""
 import json, math, subprocess, sys
@@ -122,7 +132,9 @@ def timed(fn):
         end.record()
         torch.cuda.synchronize()
         iso.append(start.elapsed_time(end))
-    return dict(ms=start_end_ms, ms_isolated=sum(iso) / len(iso), device_us=split)
+    busy = sum(split.values()) / (1e3 * start_end_ms)
+    return dict(ms=start_end_ms, ms_isolated=sum(iso) / len(iso), device_us=split,
+                busy=round(busy, 4))
 
 
 out = {"root": root}
@@ -132,9 +144,25 @@ for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
     if quant == "none":
         out["v2_step"] = timed(lambda: ds.fused_decode_step(packed, x, self_kv, cross_kv, INDEX,
                                                             cross_len, **kw))
+        # the same step at B=4 (one more row of every input): the row-vector
+        # kernel's cost against its row count
+        b4 = [torch.cat([t, t[:, :1]], dim=1) for t in (self_kv, cross_kv)]
+        cl4 = torch.cat([cross_len, cross_len[-1:] - S // 16])
+        x4 = torch.cat([x, x[:1]])
+        out["v2_step_B4"] = timed(lambda: ds.fused_decode_step(packed, x4, b4[0], b4[1], INDEX,
+                                                               cl4, **kw))
     out["v3_token" + tag] = timed(lambda: ds.fused_decode_token(
         packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
         **kw, **skw))
+    if quant == "none":
+        out["v4_chunk8"] = timed(lambda: ds.fused_decode_tokens(
+            packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
+            **kw, **skw, T_chunk=8))
+        xw = torch.randn(9, D, generator=g, device=dev).to(torch.bfloat16)
+        one = (self_kv[:, :1].contiguous(), cross_kv[:, 1:2].contiguous(),
+               cross_len[1:2].contiguous())  # the second row's cross length, 1440
+        out["verify_w9"] = timed(lambda: ds.fused_verify_window(
+            packed, xw, one[0], one[1], INDEX, one[2], **kw))
 g = torch.Generator(device=dev).manual_seed(9)
 
 
@@ -158,10 +186,41 @@ for T_, S_, causal in ((640, 640, False), (384, 384, True)):
     if not causal:  # without dropout: what the keep hash costs the backward
         out["dropout_attention_bwd_" + tag + "_rate0"] = timed(
             lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.0, causal))
+out["build"] = {"path": str(ds.BUILD_INFO.get("path")), "log": str(ds.BUILD_INFO.get("log", ""))}
 out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0]
 print(json.dumps(out), flush=True)
 """
+
+
+# the decode kernels as the earlier split-free designs instantiated them (rows NB a
+# template argument, head_dim 64 as EPL = 2)
+OLD_DECODE_KERNELS = {
+    "rowvec_kernel<bf16, NB=3>": "rowvec_kernelI13__nv_bfloat16Li3ELb1ELb0E",
+    "rowvec_kernel<bf16, NB=4>": "rowvec_kernelI13__nv_bfloat16Li4ELb1ELb0E",
+    "rowvec_kernel<bf16, NB=9>": "rowvec_kernelI13__nv_bfloat16Li9ELb1ELb0E",
+    "attend_kernel<EPL=2, cache>": "attend_kernelILi2ELi0E",
+}
+
+
+def build_facts(build) -> dict:
+    """{label: registers, spills, shared memory and the 10 commonest SASS
+    opcodes} of the decode kernels in a child's build (none when the child
+    found the library built)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    if "Compiling entry" not in build["log"]:
+        return {}
+    kernels = {**chip_smoke.DECODE_KERNELS, **OLD_DECODE_KERNELS}
+    facts = chip_smoke.ptxas_facts(build["log"], tuple(kernels.values()))
+    mix = chip_smoke.sass_mix(build["path"], tuple(kernels.values()))
+    out = {}
+    for label, name in kernels.items():
+        if name in facts:
+            top = sorted(mix[name].items(), key=lambda kv: -kv[1])[:10]
+            out[label] = dict(facts[name], sass_total=sum(mix[name].values()), sass_top=top)
+    return out
 
 
 def main(argv) -> int:
@@ -174,7 +233,9 @@ def main(argv) -> int:
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["build"] = build_facts(out["build"])
+        print(json.dumps(out), flush=True)
     return 0
 
 

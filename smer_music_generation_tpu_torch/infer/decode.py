@@ -21,8 +21,8 @@ Five loop bodies, as in JAX:
   before it emitted their window tokens, and emits the accepted prefix plus
   one corrective or bonus token; a single-token tail fills the positions
   the window no longer fits.  The verify is ``ops.decode_step.
-  fused_verify_window`` with ``fused`` (the CUDA kernel, W <= 16, so
-  draft_k <= 15; its twin on the CPU) and the model's ``decode_window``
+  fused_verify_window`` with ``fused`` (the CUDA kernel, any W; its twin
+  on the CPU) and the model's ``decode_window``
   without.  Greedy output equals the plain loop's; nucleus sampling draws
   Gumbel rows (L, V) and acceptance uniforms (L,) from the generator (or
   takes ``noise=`` and ``uniforms=``) and emits the same distribution.  A
@@ -73,7 +73,6 @@ import torch
 
 from ..models.transformer import ScoreTransformer
 from ..ops.decode_step import (
-    MAX_WINDOW,
     ST_DONE,
     ST_LEN,
     ST_TOKEN,
@@ -190,11 +189,6 @@ class InfillDecoder:
             raise ValueError(
                 "the fused decode step needs d_model % 64 == 0, head_dim 64 or 128 "
                 "and, on CUDA, a bfloat16 model; pass fused=False for the plain loop"
-            )
-        if self.fused and self.draft_k >= MAX_WINDOW:
-            raise ValueError(
-                f"draft_k={self.draft_k}: the fused verify window takes at most "
-                f"{MAX_WINDOW} rows, so draft_k <= {MAX_WINDOW - 1}"
             )
 
     def packed(self):

@@ -14,61 +14,89 @@
 // At B=1 a step streams 4 x (512*3072 + 2*512*2048) bf16 decoder weights
 // (29.4 MB) plus the 512 x 384 f32 output projection (0.8 MB), and per
 // layer and batch element `index` rows of self cache and `cross_len` rows
-// of cross cache at 2 KB each.  The operations (2 flops per weight byte
-// pair per row of B <= 8) are far below the card's ridge point.  So the
-// design keeps every weight read coalesced and shared by all B rows, and
-// reads each cache row once:
+// of cross cache at 2 KB each.  The operations (2 flops per weight per row
+// of B <= 16) are far below the card's ridge point.  Each launch moves
+// 0.4-12 MB, a few microseconds of HBM time, so what sets a launch's time
+// is how many bytes are in flight at once across the 132 SMs: the design
+// puts a whole matrix (or a whole cache slice) in flight in one wave of
+// 16-byte loads, and combines the partial results in a fixed order:
 //
-//   * `rowvec_kernel`: y[b, n] = act(sum_k x[b, k] W[k, n] + bias[n]) for
-//     B <= 8 rows.  W stays in the (K, N) layout of the packed flax weights;
-//     each lane owns two adjacent output columns, so a warp reads 128
-//     contiguous bytes of a W row, and the block's 8 warps split K.  x and
-//     the sums are f32; a bf16 W sees x rounded to bf16 first, as the TPU
-//     kernel's `x.astype(dt)` does.  The QKV launch also writes the new K|V
-//     row in the cache dtype.
-//   * `attend_kernel`: grid (B, H); each warp walks a strided share of the
-//     valid cache rows with an f32 online softmax, the block merges its
-//     warps, and the current token's K/V row (self-attention) is folded in.
+//   * `rowvec_kernel`: y[b, n] = act((sum_k bf16(x[b, k]) W[k, n]) *
+//     colscale[n] + bias[n]) for up to 16 rows.  W stays in the (K, N)
+//     layout of the packed flax weights.  A block owns a tile of 64 output
+//     columns and one K-slice of 16 * P rows, P = 1..4 passes chosen by the
+//     wrapper from (K, N) so that a projection runs on about 256 blocks
+//     (192-264 for the flagship's: 32 slices of 16 rows for the 512 x 512
+//     and the logits, 11 of 48 for QKV, 8 of 64 for FFN up, 32 of 64 for
+//     FFN down), two an SM, all resident at once.  A thread reads one
+//     16-byte piece of each of its P W rows (8 bf16, 16 int8 or 4 f32
+//     columns), all P loads issued before any product; the block's x
+//     slice is staged once in shared memory,
+//     already rounded to bf16.  The rows of x are taken four at a time
+//     against the W registers, the 16 K rows of a pass are summed by warp
+//     shuffles and shared memory in a fixed tree, and each block writes its
+//     (rows, 64) partial to a workspace.  The last block of a column tile
+//     to finish (a __threadfence and an atomic ticket on the tile's
+//     counter, which it resets) sums the partials in slice order (32 of
+//     them loaded before any is added), then
+//     applies the column scale (int8), the bias, the ReLU and the K|V
+//     write.  No block waits on another and no atomic touches the data.
+//   * `attend_kernel` (flash-decoding): grid (B, H, splits); a block owns
+//     64 rows of the spliced sequence (cache rows, then v4 chunk or verify
+//     window rows).  8 lanes take a row, each reading 16 bytes of K and of
+//     V, so a warp scores 4 rows at once with 3 shuffles; the block takes
+//     the max of its 64 scores, exp(s - m) once a row, and sums p V and p
+//     in a fixed tree.  Its (m, l, acc[head_dim]) go to the workspace; the
+//     last block of the (b, h) (the same ticket) merges the splits in
+//     split order, then the current token's own K/V row.
 //   * `add_layernorm_kernel`: out = LN(x + y) in f32 with eps 1e-6.
 //
-// There is no grid-wide synchronisation, no cooperative launch, no spin-wait
-// and no hand-off between blocks: each launch is independent and stream
-// order carries the data from one to the next, 11 launches per layer plus
-// 2 (46 for the 4-layer model).  This first version is right but slow.
-// Measured on an NVIDIA H100 80GB HBM3, 700.00 W, B=4, S=1536, index=512
-// (PERF.md, chip_smoke.py): 1.98 ms a step against a 27.7 us bytes bound,
-// the device busy 97% of it;
-// rowvec_kernel takes 70% (the N = 512 projections run on 8 blocks, each
-// warp walking K serially) and attend_kernel 28% (only B x H blocks).
+// The workspace and the tickets belong to the stream the launches run on
+// (ops/decode_step.py): launches on one stream run one after another, and
+// each leaves every ticket it took at zero.  There is no grid-wide
+// synchronisation, no cooperative launch and no spin-wait: stream order
+// carries the data from one launch to the next, 11 launches per layer plus
+// 2 (46 for the 4-layer model).
+//
+// Row-independence.  A row's result is a function of its own inputs only:
+// the order of every sum is fixed by (K, N, the tiling) for rowvec_kernel
+// and by the row's index in the spliced sequence for attend_kernel (which
+// split, which place in it), never by the number of rows in the launch, the
+// other rows' values or where the cache ends and the chunk or window rows
+// begin.  So a v4 token sums exactly what a v3 token sums over the spliced
+// cache, a verify row exactly what a v2 step at index + j sums, and a
+// launch of more than 16 rows may be cut into chunks of 16 (the wrapper
+// does) without changing a bit.
 //
 // int8 weights (the TPU kernel's `scale=` path of `_layer_body`, packed by
-// `quantize_columns` :50): the same rowvec_kernel reads W as int8 (two lanes
-// a load, converted exactly to float) with x rounded to bf16, and scales each
-// output column by its f32 scale before the bias: y = (x . q) * s + b, the
-// order of the TPU kernel's `rescale(dot) + b`.  It halves the decoder's
-// weight bytes (29.4 MB -> 14.7 MB plus a 90 KB scale strip a step; fc_w
-// stays f32).
+// `quantize_columns` :50): the same rowvec_kernel reads W as int8 (16
+// columns a 16-byte load, converted exactly to float) with x rounded to
+// bf16, and scales each output column by its f32 scale before the bias:
+// y = (x . q) * s + b, the order of the TPU kernel's `rescale(dot) + b`.
 //
 // The kernel-looped token chunk (v4, `fused_decode_tokens` :1028) gives
 // attend_kernel a second source of self-attention rows: rows r < n_rows come
 // from the cache, rows n_rows <= r < n_rows + n_chunk from the chunk's own
-// K|V rows (the v4 `new_kv` output, (T, B, 2D) a layer).  The rows keep the
-// warp assignment of a cache that holds them all (row r on warp r % 8), so a
-// v4 token sums exactly what a v3 token sums over the spliced cache.
+// K|V rows (the v4 `new_kv` output, (T, B, 2D) a layer).  The teacher-forced
+// verify of speculative decode (`fused_verify_window` :1368, body
+// `_kernel_verify` :1284, `_flash_attend_multi` :1182) runs the same
+// launches on the W window rows at B=1: rowvec_kernel takes the W rows as
+// its batch (16 a launch), the cache and the cross K|V are shared by every
+// row (batch stride 0), and attend_kernel's third row source gives row j
+// the `index` cache rows, then window rows 0..j-1 of the `new_kv` output
+// (written by the QKV launch of the same layer), then its own row.
 //
-// The teacher-forced verify of speculative decode (`fused_verify_window`
-// :1368, body `_kernel_verify` :1284, `_flash_attend_multi` :1182) runs the
-// same launches on the W <= 16 window rows at B=1: rowvec_kernel takes the W
-// rows as its batch, so each weight is read once for all of them; the cache
-// and the cross K|V are shared by every row (batch stride 0); and
-// attend_kernel's third row source gives row j the `index` cache rows, then
-// window rows 0..j-1 of the `new_kv` output (written by the QKV launch of
-// the same layer), then its own row, again in the row-to-warp order of a
-// cache that holds them all.  Each row sums what one v2 step over the
-// spliced cache sums, in the same order.  Bound by bytes as the step is: at
-// W=9, index 512 and 1440 cross rows a call moves 46.4 MB (13.8 us); it took
-// 1.63 ms on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, chip_smoke.py),
-// 1.18x a v3 token of 3 rows, and is bit-equal to W sequential v2 steps.
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W (scripts/torch_kernel_ab.py,
+// chip_smoke.py phase 2h; PERF.md): at the served case (B=3, S=1536, index
+// 512) a v3 token's 25 rowvec launches take 122-155 us of device time and
+// its 8 attend launches 52-66 us, against 751 and 532 us for the first
+// design (N/64 blocks a projection with each warp walking K serially;
+// B x H blocks of attention with a row a warp step).  A launch takes
+// 4.6-6.2 us at 1-3 rows against a bytes bound of 0.16-0.64 us: the launch,
+// one wave of loads and the ticketed combine set it, and the time a launch
+// rises by ~1 us for each 4 rows past 8.  A whole token takes 0.21-0.27 ms
+// of device time against 1.33 ms, and the host's 48 launches now set its
+// pace.
 //
 // Every launcher has a plain C interface and returns cudaGetLastError().
 
@@ -81,91 +109,193 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 64;  // output columns per rowvec block: two per lane
-// rows a rowvec launch takes: 8 for the batched decode, 16 for a verify
-// window (red[kWarps][16][kCols] is 32 KB of static shared memory)
+constexpr int kThreads = kWarps * 32;  // add_layernorm_kernel
+
+// rowvec_kernel's tiling: a block owns kCols output columns and a K-slice
+// of kPassRows * passes rows (passes <= kMaxPasses, chosen by the wrapper
+// from K and N); it takes kGroup rows of x at a time, at most kMaxRows a
+// launch
+constexpr int kCols = 64;
+constexpr int kPassRows = 16;
+constexpr int kMaxPasses = 4;
+constexpr int kGroup = 4;
 constexpr int kMaxRows = 16;
+constexpr int kStage = 32;  // partials of an output the combine loads at once
 
-template <typename WT>
-struct PairLoad;
+// attend_kernel: a block owns kSplitRows rows of the spliced sequence, 8
+// lanes a row, 4 warps
+constexpr int kSplitRows = 64;
+constexpr int kAttnWarps = 4;
+constexpr int kAttnThreads = kAttnWarps * 32;
+constexpr int kLanesPerRow = 8;
 
-template <>
-struct PairLoad<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-
-// two int8 lanes; |q| <= 127 converts to float exactly
-template <>
-struct PairLoad<int8_t> {
-  static __device__ __forceinline__ float2 load(const int8_t* p) {
-    const char2 c = *reinterpret_cast<const char2*>(p);
-    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
-  }
-};
-
-template <>
-struct PairLoad<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename WT, int NB, bool ROUND_X, bool RELU>
-__global__ void __launch_bounds__(kThreads) rowvec_kernel(
-    const float* __restrict__ x, int ldx, const WT* __restrict__ w, int ldw,
-    const float* __restrict__ colscale, const float* __restrict__ bias,
-    float* __restrict__ y, int ldy, __nv_bfloat16* __restrict__ kv_out,
-    int ldkv, int kv_col0, int K, int N) {
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// 16 bytes of W as floats: 8 bf16, 16 int8 (|q| <= 127, exact) or 4 f32
+template <typename WT>
+struct Vec16 {
+  static constexpr int kN = 16 / sizeof(WT);
+};
+
+__device__ __forceinline__ void to_floats(const uint4& r, float (&f)[8]) {
+  // a bf16 is the top half of the f32 of the same value
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void to_floats(const uint4& r, float (&f)[16]) {
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = static_cast<float>(static_cast<int>(u[i] << (24 - 8 * j)) >> 24);
+}
+
+__device__ __forceinline__ void to_floats(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+// Publish a block's partial (written before the call) and take a ticket on
+// `counter`: true in the one block of `arrivals` that comes last, after
+// which it may read every partial; that block resets the counter.
+__device__ __forceinline__ bool last_arrival(unsigned* counter, unsigned arrivals) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == arrivals - 1;
+    if (last) *counter = 0u;  // no other block of this launch touches it again
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+template <typename WT, bool ROUND_X, bool RELU>
+__global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kernel(
+    const float* __restrict__ x, int ldx, int nb, const WT* __restrict__ w, int ldw,
+    const float* __restrict__ colscale, const float* __restrict__ bias, float* __restrict__ y,
+    int ldy, __nv_bfloat16* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N,
+    int k_split, float* __restrict__ ws, unsigned* __restrict__ tickets) {
   // int8 weights carry column scales; a bf16 or f32 instantiation is the
   // kernel without them
   constexpr bool kScaled = std::is_same<WT, int8_t>::value;
-  __shared__ float red[kWarps][NB][kCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + 2 * lane;
+  constexpr int kVec = Vec16<WT>::kN;        // columns a thread
+  constexpr int kTpr = kCols / kVec;         // threads a W row of the tile
+  constexpr int kBlock = kPassRows * kTpr;   // 128 bf16, 64 int8, 256 f32
+  constexpr int kBlockWarps = kBlock / 32;
+  extern __shared__ float smem[];
+  float* xs = smem;                 // [nb][k_split], x rounded as the kernel reads it
+  float* red = smem + nb * k_split; // [kBlockWarps][nb][kCols]
+  const int tile = blockIdx.x, slice = blockIdx.y, slices = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int krow = tid / kTpr, cg = tid % kTpr;
+  const int k0 = slice * k_split;
+  const int passes = k_split / kPassRows;
+  const int n = tile * kCols + cg * kVec;
 
-  float acc[NB][2];
+  // every W load of the thread first: passes 16-byte pieces
+  uint4 wr[kMaxPasses];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) acc[b][0] = acc[b][1] = 0.f;
-
-  if (n < N) {
-    const WT* wp = w + n;
-#pragma unroll 4
-    for (int k = warp; k < K; k += kWarps) {
-      const float2 wv = PairLoad<WT>::load(wp + (size_t)k * ldw);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        float xv = __ldg(x + (size_t)b * ldx + k);
-        if (ROUND_X) xv = __bfloat162float(__float2bfloat16(xv));
-        acc[b][0] = fmaf(xv, wv.x, acc[b][0]);
-        acc[b][1] = fmaf(xv, wv.y, acc[b][1]);
-      }
-    }
+  for (int p = 0; p < kMaxPasses; ++p) {
+    const int k = k0 + p * kPassRows + krow;
+    wr[p] = make_uint4(0u, 0u, 0u, 0u);
+    if (p < passes && k < K && n < N) wr[p] = ldg16(w + (size_t)k * ldw + n);
   }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    red[warp][b][2 * lane] = acc[b][0];
-    red[warp][b][2 * lane + 1] = acc[b][1];
+  for (int i = tid; i < nb * k_split; i += kBlock) {
+    const int b = i / k_split, k = k0 + i % k_split;
+    float v = 0.f;
+    if (k < K) {
+      v = x[(size_t)b * ldx + k];
+      if (ROUND_X) v = bf16_round(v);
+    }
+    xs[i] = v;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < NB * kCols; i += kThreads) {
+  for (int g0 = 0; g0 < nb; g0 += kGroup) {
+    float acc[kGroup][kVec];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) acc[r][c] = 0.f;
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p) {
+      if (p < passes) {
+        float wf[kVec];
+        to_floats(wr[p], wf);
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) {
+          const float xv = g0 + r < nb ? xs[(g0 + r) * k_split + p * kPassRows + krow] : 0.f;
+#pragma unroll
+          for (int c = 0; c < kVec; ++c) acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
+        }
+      }
+    }
+    // the warp's K rows (lanes cg, cg + kTpr, ...) by a shuffle tree
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+#pragma unroll
+      for (int c = 0; c < kVec; ++c)
+#pragma unroll
+        for (int o = kTpr; o < 32; o <<= 1) acc[r][c] += __shfl_xor_sync(kFull, acc[r][c], o);
+    if (lane < kTpr) {
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) {
+        if (g0 + r < nb) {
+#pragma unroll
+          for (int c = 0; c < kVec; ++c)
+            red[(warp * nb + g0 + r) * kCols + cg * kVec + c] = acc[r][c];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's partial, its warps summed in order
+  const int tile_vals = nb * kCols;
+  float* part = ws + (size_t)tile * slices * tile_vals;
+  for (int i = tid; i < tile_vals; i += kBlock) {
+    float s = red[i];
+#pragma unroll
+    for (int wi = 1; wi < kBlockWarps; ++wi) s += red[wi * tile_vals + i];
+    part[(size_t)slice * tile_vals + i] = s;
+  }
+  if (!last_arrival(tickets + tile, (unsigned)slices)) return;
+
+  // each output sums its slices' partials in slice order; up to kStage of
+  // them are loaded before any is added, so a round's loads are in flight
+  // together
+  for (int i = tid; i < tile_vals; i += kBlock) {
     const int b = i / kCols;
-    const int col = blockIdx.x * kCols + i % kCols;
+    const int col = tile * kCols + i % kCols;
     if (col >= N) continue;
     float s = 0.f;
+    for (int s0 = 0; s0 < slices; s0 += kStage) {
+      float v[kStage];
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi][b][i % kCols];
+      for (int j = 0; j < kStage; ++j)
+        v[j] = s0 + j < slices ? __ldcg(part + (size_t)(s0 + j) * tile_vals + i) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kStage; ++j)
+        if (s0 + j < slices) s = s0 + j == 0 ? v[j] : s + v[j];
+    }
     // int8: the column scale, rounded, then the bias (no contraction)
     if (kScaled) s = __fmul_rn(s, colscale[col]);
     s += bias[col];
@@ -176,35 +306,6 @@ __global__ void __launch_bounds__(kThreads) rowvec_kernel(
   }
 }
 
-// One K|V row into a warp's f32 online softmax (m, l, acc).
-template <int EPL>
-__device__ __forceinline__ void attend_row(const __nv_bfloat16* row, int d0,
-                                           int D, const float* qv,
-                                           float scale, float& m, float& l,
-                                           float* acc) {
-  float kf[EPL], vf[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; e += 2) {
-    const float2 kk = PairLoad<__nv_bfloat16>::load(row + d0 + e);
-    const float2 vv = PairLoad<__nv_bfloat16>::load(row + D + d0 + e);
-    kf[e] = kk.x;
-    kf[e + 1] = kk.y;
-    vf[e] = vv.x;
-    vf[e + 1] = vv.y;
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) s = fmaf(qv[e], kf[e], s);
-  s = warp_sum(s) * scale;
-  const float m_new = fmaxf(m, s);
-  const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
-  const float p = expf(s - m_new);
-  l = l * alpha + p;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = fmaf(acc[e], alpha, p * vf[e]);
-  m = m_new;
-}
-
 // Where self-attention rows past the cache's come from.
 enum RowSource {
   kCacheOnly = 0,  // v2, v3 and cross-attention
@@ -212,89 +313,205 @@ enum RowSource {
   kWindow = 2,     // verify: row b reads window rows 0..b-1, (W, 2D) a layer
 };
 
-// head_dim = 32 * EPL; each lane owns EPL adjacent lanes of the head.
-template <int EPL, int SRC>
-__global__ void __launch_bounds__(kThreads) attend_kernel(
-    const float* __restrict__ q, int ldq, const __nv_bfloat16* __restrict__ kv,
-    long long kv_bstride, int D, int n_rows, const int* __restrict__ lens,
-    int max_rows, const __nv_bfloat16* __restrict__ chunk,
-    long long chunk_tstride, int n_chunk, const float* __restrict__ extra,
-    int ld_extra, float* __restrict__ out, int ldo, float scale) {
-  constexpr int HD = 32 * EPL;
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][HD];
-  __shared__ float sm_extra;
+// q . k of one row over the 8 lanes that hold it (kDpl dims each), times
+// scale; every lane of the 8 ends with the same bits
+template <int kDpl>
+__device__ __forceinline__ float row_score(const float (&qv)[kDpl], const float (&kf)[kDpl],
+                                           float scale) {
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < kDpl; ++e) s = fmaf(qv[e], kf[e], s);
+#pragma unroll
+  for (int o = 1; o < kLanesPerRow; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s * scale;
+}
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// head_dim HD (64 or 128): each of a row's 8 lanes owns HD / 8 adjacent dims.
+// Partials in `ws`: [b * H + h][split][2 + HD] = (m, l, acc).
+template <int HD, int SRC>
+__global__ void __launch_bounds__(kAttnThreads) attend_kernel(
+    const float* __restrict__ q, int ldq, const __nv_bfloat16* __restrict__ kv,
+    long long kv_bstride, int D, int n_rows, const int* __restrict__ lens, int max_rows,
+    const __nv_bfloat16* __restrict__ chunk, long long chunk_tstride, int n_chunk,
+    const float* __restrict__ extra, int ld_extra, float* __restrict__ out, int ldo, float scale,
+    float* __restrict__ ws, unsigned* __restrict__ tickets) {
+  constexpr int kDpl = HD / kLanesPerRow;
+  constexpr int kPieces = kDpl / 8;                            // 16-byte bf16 loads a row, of K and of V
+  constexpr int kRowsAtOnce = kAttnThreads / kLanesPerRow;     // 16
+  constexpr int kSteps = kSplitRows / kRowsAtOnce;             // 4
+  // a split's scores; in the merge, a chunk of splits' exp(m - M) (or m)
+  // and l
+  __shared__ float sc[kAttnThreads];
+  __shared__ float sl[kAttnThreads];
+  __shared__ float red[kAttnWarps][HD + 1];
+  __shared__ float sx;
+
+  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int H = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane % kLanesPerRow;  // which dims of the row
+  const int rl = lane / kLanesPerRow;   // which row of the warp's 4
   int n_cache = lens != nullptr ? lens[b] : n_rows;
   n_cache = max(0, min(n_cache, max_rows));
-  const int n_extra = SRC == kChunk ? n_chunk : (SRC == kWindow ? b : 0);
-  const int n = n_cache + n_extra;
+  const int n = n_cache + (SRC == kChunk ? n_chunk : (SRC == kWindow ? b : 0));
+  const int r0 = split * kSplitRows;
+  const int d0 = h * HD + sub * kDpl;
+  float* part = ws + ((size_t)(b * H + h) * splits + split) * (2 + HD);
 
-  const int d0 = h * HD + lane * EPL;
-  float qv[EPL];
+  float qv[kDpl];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) qv[e] = q[(size_t)b * ldq + d0 + e];
+  for (int e = 0; e < kDpl; e += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(q + (size_t)b * ldq + d0 + e);
+    qv[e] = t.x;
+    qv[e + 1] = t.y;
+    qv[e + 2] = t.z;
+    qv[e + 3] = t.w;
+  }
 
-  const __nv_bfloat16* base = kv + (size_t)b * kv_bstride;
-  float m = -INFINITY, l = 0.f;
-  float acc[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
-
-  // row t on warp t % kWarps, in order: the cache rows, then the chunk rows
-  int t = warp;
-#pragma unroll 4
-  for (; t < n_cache; t += kWarps)
-    attend_row<EPL>(base + (size_t)t * 2 * D, d0, D, qv, scale, m, l, acc);
-  if (SRC != kCacheOnly) {
+  if (r0 < n) {
+    const __nv_bfloat16* base = kv + (size_t)b * kv_bstride;
     // a v4 chunk holds B rows a token; the verify window is one row a slot
     const __nv_bfloat16* cbase = chunk + (SRC == kChunk ? (size_t)b * 2 * D : 0);
-    for (; t < n; t += kWarps)
-      attend_row<EPL>(cbase + (size_t)(t - n_cache) * chunk_tstride, d0, D, qv,
-                      scale, m, l, acc);
+    uint4 kr[kSteps][kPieces], vr[kSteps][kPieces];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int r = r0 + st * kRowsAtOnce + warp * 4 + rl;
+      const __nv_bfloat16* row = nullptr;
+      if (r < n_cache)
+        row = base + (size_t)r * 2 * D;
+      else if (SRC != kCacheOnly && r < n)
+        row = cbase + (size_t)(r - n_cache) * chunk_tstride;
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc) {
+        kr[st][pc] = make_uint4(0u, 0u, 0u, 0u);
+        vr[st][pc] = make_uint4(0u, 0u, 0u, 0u);
+        if (row != nullptr) {
+          kr[st][pc] = ldg16(row + d0 + 8 * pc);
+          vr[st][pc] = ldg16(row + D + d0 + 8 * pc);
+        }
+      }
+    }
+    float s[kSteps];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      float kf[kDpl];
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc) {
+        float f[8];
+        to_floats(kr[st][pc], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[8 * pc + e] = f[e];
+      }
+      s[st] = row_score<kDpl>(qv, kf, scale);
+      if (r0 + st * kRowsAtOnce + warp * 4 + rl >= n) s[st] = -INFINITY;
+      if (sub == 0) sc[st * kRowsAtOnce + warp * 4 + rl] = s[st];
+    }
+    __syncthreads();
+    float m = -INFINITY;
+#pragma unroll 8
+    for (int i = 0; i < kSplitRows; ++i) m = fmaxf(m, sc[i]);
+    // p = exp(s - m) once a row; the row's 8 lanes hold the same p
+    float l = 0.f;
+    float acc[kDpl];
+#pragma unroll
+    for (int e = 0; e < kDpl; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const float p = expf(s[st] - m);  // 0 on a row past n
+      l += p;
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc) {
+        float f[8];
+        to_floats(vr[st][pc], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[8 * pc + e] = fmaf(p, f[e], acc[8 * pc + e]);
+      }
+    }
+    // the warp's 4 rows (lanes sub, sub + 8, ...), then the 4 warps in order
+#pragma unroll
+    for (int o = kLanesPerRow; o < 32; o <<= 1) {
+      l += __shfl_xor_sync(kFull, l, o);
+#pragma unroll
+      for (int e = 0; e < kDpl; ++e) acc[e] += __shfl_xor_sync(kFull, acc[e], o);
+    }
+    if (rl == 0) {
+#pragma unroll
+      for (int e = 0; e < kDpl; ++e) red[warp][sub * kDpl + e] = acc[e];
+      if (sub == 0) red[warp][HD] = l;
+    }
+    __syncthreads();
+    for (int i = tid; i <= HD; i += kAttnThreads) {
+      float t = red[0][i];
+#pragma unroll
+      for (int wi = 1; wi < kAttnWarps; ++wi) t += red[wi][i];
+      part[i == HD ? 1 : 2 + i] = t;
+    }
+    if (tid == 0) part[0] = m;
   }
+  if (!last_arrival(tickets + b * H + h, (unsigned)splits)) return;
 
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
+  const bool has_extra = extra != nullptr;
+  if (has_extra && warp == 0) {
+    // the current token's key: it is not in the cache yet; lanes 0-7 as a row
+    float kf[kDpl];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) sm_acc[warp][lane * EPL + e] = acc[e];
-  if (extra != nullptr && warp == 0) {
-    // the current token's key: it is not in the cache yet
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      s = fmaf(qv[e], extra[(size_t)b * ld_extra + d0 + e], s);
-    s = warp_sum(s) * scale;
-    if (lane == 0) sm_extra = s;
+    for (int e = 0; e < kDpl; ++e) kf[e] = extra[(size_t)b * ld_extra + d0 + e];
+    const float t = row_score<kDpl>(qv, kf, scale);
+    if (lane == 0) sx = t;
   }
   __syncthreads();
-
-  for (int d = threadIdx.x; d < HD; d += kThreads) {
-    float M = -INFINITY;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) M = fmaxf(M, sm_m[wi]);
-    if (extra != nullptr) M = fmaxf(M, sm_extra);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) {
-      const float c = expf(sm_m[wi] - M);
-      L = fmaf(sm_l[wi], c, L);
-      A = fmaf(sm_acc[wi][d], c, A);
-    }
-    if (extra != nullptr) {
-      const float c = expf(sm_extra - M);
-      L += c;
-      A = fmaf(c, extra[(size_t)b * ld_extra + D + h * HD + d], A);
-    }
-    out[(size_t)b * ldo + h * HD + d] = A / L;
+  // the splits holding a row (by n alone) in split order: their m and
+  // exp(m - M) staged in shared memory a chunk of 128 splits at a time, a
+  // dim's partials loaded kStage at a time before any is added
+  const int used = (n + kSplitRows - 1) / kSplitRows;
+  const float* p0 = ws + (size_t)(b * H + h) * splits * (2 + HD);
+  float M = has_extra ? sx : -INFINITY;
+  for (int c0 = 0; c0 < used; c0 += kAttnThreads) {
+    __syncthreads();
+    if (c0 + tid < used) sc[tid] = __ldcg(p0 + (size_t)(c0 + tid) * (2 + HD));
+    __syncthreads();
+    for (int j = 0; j < min(kAttnThreads, used - c0); ++j) M = fmaxf(M, sc[j]);
   }
+  float L = 0.f, A = 0.f;
+  for (int c0 = 0; c0 < used; c0 += kAttnThreads) {
+    const int nc = min(kAttnThreads, used - c0);
+    __syncthreads();
+    if (tid < nc) {
+      const float* ps = p0 + (size_t)(c0 + tid) * (2 + HD);
+      sc[tid] = expf(__ldcg(ps) - M);
+      sl[tid] = __ldcg(ps + 1);
+    }
+    __syncthreads();
+    if (tid < HD) {
+      for (int j0 = 0; j0 < nc; j0 += kStage) {
+        float v[kStage];
+#pragma unroll
+        for (int j = 0; j < kStage; ++j)
+          v[j] = j0 + j < nc ? __ldcg(p0 + (size_t)(c0 + j0 + j) * (2 + HD) + 2 + tid) : 0.f;
+#pragma unroll
+        for (int j = 0; j < kStage; ++j) {
+          if (j0 + j < nc) {
+            L = fmaf(sl[j0 + j], sc[j0 + j], L);
+            A = fmaf(v[j], sc[j0 + j], A);
+          }
+        }
+      }
+    }
+  }
+  if (tid < HD) {
+    if (has_extra) {
+      const float c = expf(sx - M);
+      L += c;
+      A = fmaf(c, extra[(size_t)b * ld_extra + D + h * HD + tid], A);
+    }
+    out[(size_t)b * ldo + h * HD + tid] = A / L;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
 __device__ float block_sum(float v, float* scratch) {
@@ -335,47 +552,21 @@ __global__ void __launch_bounds__(kThreads) add_layernorm_kernel(
 }
 
 template <typename WT, bool ROUND_X, bool RELU>
-int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw,
-                  const float* colscale, const float* bias, float* y, int ldy,
-                  __nv_bfloat16* kv_out, int ldkv, int kv_col0, int K, int N,
+int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const float* colscale,
+                  const float* bias, float* y, int ldy, __nv_bfloat16* kv_out, int ldkv,
+                  int kv_col0, int K, int N, int k_split, float* ws, unsigned* tickets,
                   cudaStream_t st) {
-  const dim3 grid((N + kCols - 1) / kCols);
-#define SMER_ROWVEC_CASE(NB)                                              \
-  case NB:                                                                \
-    rowvec_kernel<WT, NB, ROUND_X, RELU><<<grid, kThreads, 0, st>>>(      \
-        x, ldx, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, \
-        N);                                                               \
-    break;
-  switch (nb) {
-    SMER_ROWVEC_CASE(1)
-    SMER_ROWVEC_CASE(2)
-    SMER_ROWVEC_CASE(3)
-    SMER_ROWVEC_CASE(4)
-    SMER_ROWVEC_CASE(5)
-    SMER_ROWVEC_CASE(6)
-    SMER_ROWVEC_CASE(7)
-    SMER_ROWVEC_CASE(8)
-    default:
-      // 9..16 rows: the verify window, which never streams int8 weights
-      if constexpr (!std::is_same<WT, int8_t>::value) {
-        static_assert(kMaxRows == 16, "instantiate every row count");
-        switch (nb) {
-          SMER_ROWVEC_CASE(9)
-          SMER_ROWVEC_CASE(10)
-          SMER_ROWVEC_CASE(11)
-          SMER_ROWVEC_CASE(12)
-          SMER_ROWVEC_CASE(13)
-          SMER_ROWVEC_CASE(14)
-          SMER_ROWVEC_CASE(15)
-          SMER_ROWVEC_CASE(16)
-          default:
-            return (int)cudaErrorInvalidValue;
-        }
-      } else {
-        return (int)cudaErrorInvalidValue;
-      }
-  }
-#undef SMER_ROWVEC_CASE
+  constexpr int kVec = Vec16<WT>::kN;
+  constexpr int kBlock = kPassRows * kCols / kVec;
+  if (nb < 1 || nb > kMaxRows || K < 1 || N < 1 || N % kVec || ldw % kVec ||
+      k_split < kPassRows || k_split > kPassRows * kMaxPasses || k_split % kPassRows ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kCols - 1) / kCols, (K + k_split - 1) / k_split);
+  const size_t smem = sizeof(float) * (size_t)nb * (k_split + kBlock / 32 * kCols);
+  rowvec_kernel<WT, ROUND_X, RELU><<<grid, kBlock, smem, st>>>(
+      x, ldx, nb, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, N, k_split, ws,
+      tickets);
   return (int)cudaGetLastError();
 }
 
@@ -385,83 +576,88 @@ extern "C" {
 
 // w_kind 0: W is bf16; 1: W is f32; 2: W is int8 with f32 column scales
 // `colscale` (null otherwise).  A bf16 or int8 W sees x rounded to bf16.
-int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx,
-                const void* w, int ldw, const void* colscale, const void* bias,
-                void* y, int ldy, void* kv_out, int ldkv, int kv_col0, int K,
-                int N, void* stream) {
+// 1 <= nb <= 16 rows; K is cut into slices of k_split rows (a multiple of
+// 16, at most 64), one block each per 64-column tile; `ws` holds the
+// tiles' partials (ceil(N / 64) * 64 * slices * nb floats) and `tickets`
+// one zeroed counter a tile, which the launch leaves at zero.
+int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void* w, int ldw,
+                const void* colscale, const void* bias, void* y, int ldy, void* kv_out, int ldkv,
+                int kv_col0, int K, int N, int k_split, void* ws, void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* cs = static_cast<const float*>(colscale);
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
   __nv_bfloat16* kvo = static_cast<__nv_bfloat16*>(kv_out);
+  float* wsf = static_cast<float*>(ws);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   if ((w_kind == 2) != (cs != nullptr)) return (int)cudaErrorInvalidValue;
-  if (w_kind == 1) {
-    if (relu) return (int)cudaErrorInvalidValue;
-    return launch_rowvec<float, false, false>(
-        nb, xf, ldx, static_cast<const float*>(w), ldw, cs, bf, yf, ldy, kvo,
-        ldkv, kv_col0, K, N, st);
+#define SMER_ROWVEC(WT, ROUND, RELU)                                                       \
+  launch_rowvec<WT, ROUND, RELU>(nb, xf, ldx, static_cast<const WT*>(w), ldw, cs, bf, yf, \
+                                 ldy, kvo, ldkv, kv_col0, K, N, k_split, wsf, tk, st)
+  switch (w_kind) {
+    case 0:
+      return relu ? SMER_ROWVEC(__nv_bfloat16, true, true)
+                  : SMER_ROWVEC(__nv_bfloat16, true, false);
+    case 1:
+      return relu ? (int)cudaErrorInvalidValue : SMER_ROWVEC(float, false, false);
+    case 2:
+      return relu ? SMER_ROWVEC(int8_t, true, true) : SMER_ROWVEC(int8_t, true, false);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (w_kind == 2) {
-    const int8_t* wq = static_cast<const int8_t*>(w);
-    if (relu)
-      return launch_rowvec<int8_t, true, true>(nb, xf, ldx, wq, ldw, cs, bf, yf,
-                                               ldy, kvo, ldkv, kv_col0, K, N, st);
-    return launch_rowvec<int8_t, true, false>(nb, xf, ldx, wq, ldw, cs, bf, yf,
-                                              ldy, kvo, ldkv, kv_col0, K, N, st);
-  }
-  if (w_kind != 0) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  if (relu)
-    return launch_rowvec<__nv_bfloat16, true, true>(
-        nb, xf, ldx, wb, ldw, cs, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
-  return launch_rowvec<__nv_bfloat16, true, false>(
-      nb, xf, ldx, wb, ldw, cs, bf, yf, ldy, kvo, ldkv, kv_col0, K, N, st);
+#undef SMER_ROWVEC
 }
 
 // row_source (RowSource): 0 no rows past the cache's (chunk, n_chunk and
 // chunk_tstride unused); 1 a v4 chunk of n_chunk rows; 2 a verify window,
-// row b reading b rows of it (n_chunk unused)
-int smer_attend(int head_dim, int B, int H, const void* q, int ldq,
-                const void* kv, long long kv_bstride, int D, int n_rows,
-                const void* lens, int max_rows, int row_source,
-                const void* chunk, long long chunk_tstride, int n_chunk,
-                const void* extra, int ld_extra, void* out, int ldo,
-                float scale, void* stream) {
+// row b reading b rows of it (n_chunk unused).  The grid is (B, H,
+// n_splits): n_splits * 64 must cover every row a (b, h) attends before
+// its `extra` row; `ws` holds B * H * n_splits * (2 + head_dim) floats and
+// `tickets` B * H zeroed counters, which the launch leaves at zero.
+int smer_attend(int head_dim, int B, int H, const void* q, int ldq, const void* kv,
+                long long kv_bstride, int D, int n_rows, const void* lens, int max_rows,
+                int row_source, const void* chunk, long long chunk_tstride, int n_chunk,
+                const void* extra, int ld_extra, void* out, int ldo, float scale, int n_splits,
+                void* ws, void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, H);
+  const dim3 grid(B, H, n_splits);
   const float* qf = static_cast<const float*>(q);
   const __nv_bfloat16* kvb = static_cast<const __nv_bfloat16*>(kv);
   const int* lp = static_cast<const int*>(lens);
   const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(chunk);
   const float* ef = static_cast<const float*>(extra);
   float* of = static_cast<float*>(out);
-  if ((row_source == kCacheOnly) != (cb == nullptr))
+  float* wsf = static_cast<float*>(ws);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  if ((row_source == kCacheOnly) != (cb == nullptr) || n_splits < 1 || D % 8 || ldq % 4 ||
+      reinterpret_cast<uintptr_t>(kvb) % 16 || reinterpret_cast<uintptr_t>(cb) % 16 ||
+      chunk_tstride % 8 || kv_bstride % 8)
     return (int)cudaErrorInvalidValue;
-#define SMER_ATTEND(EPL, SRC)                                                \
-  attend_kernel<EPL, SRC><<<grid, kThreads, 0, st>>>(                        \
-      qf, ldq, kvb, kv_bstride, D, n_rows, lp, max_rows, cb, chunk_tstride,  \
-      n_chunk, ef, ld_extra, of, ldo, scale)
-#define SMER_ATTEND_SOURCES(EPL)          \
+#define SMER_ATTEND(HD, SRC)                                                                 \
+  attend_kernel<HD, SRC><<<grid, kAttnThreads, 0, st>>>(                                    \
+      qf, ldq, kvb, kv_bstride, D, n_rows, lp, max_rows, cb, chunk_tstride, n_chunk, ef,     \
+      ld_extra, of, ldo, scale, wsf, tk)
+#define SMER_ATTEND_SOURCES(HD)           \
   switch (row_source) {                   \
     case kCacheOnly:                      \
-      SMER_ATTEND(EPL, kCacheOnly);       \
+      SMER_ATTEND(HD, kCacheOnly);        \
       break;                              \
     case kChunk:                          \
-      SMER_ATTEND(EPL, kChunk);           \
+      SMER_ATTEND(HD, kChunk);            \
       break;                              \
     case kWindow:                         \
-      SMER_ATTEND(EPL, kWindow);          \
+      SMER_ATTEND(HD, kWindow);           \
       break;                              \
     default:                              \
       return (int)cudaErrorInvalidValue;  \
   }
   switch (head_dim) {
     case 64:
-      SMER_ATTEND_SOURCES(2)
+      SMER_ATTEND_SOURCES(64)
       break;
     case 128:
-      SMER_ATTEND_SOURCES(4)
+      SMER_ATTEND_SOURCES(128)
       break;
     default:
       return (int)cudaErrorInvalidValue;

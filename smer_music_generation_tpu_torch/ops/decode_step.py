@@ -66,7 +66,14 @@ NVCC_FLAGS = (
 # state rows carried through the v3 loop as one (6, B) int32 array
 ST_TOKEN, ST_BITS, ST_STEPS, ST_SPAN, ST_DONE, ST_LEN = range(6)
 MAX_BATCH = 8  # rows of the batched decode kernels (v2, v3, v4)
-MAX_WINDOW = 16  # rows of a verify window: draft_k <= 15
+# rowvec_kernel (csrc/decode_step.cu): rows a launch (more are launched in
+# chunks of this many), output columns a tile, K rows a pass; a K-slice is
+# 1-4 passes, chosen from K and N alone so that a row's sum never depends
+# on the rows beside it
+_ROWVEC_ROWS, _ROWVEC_COLS, _ROWVEC_PASS = 16, 64, 16
+_ROWVEC_BLOCKS = 256  # the blocks a projection aims at
+# attend_kernel: rows of the spliced sequence a split (block) owns
+_ATTEND_SPLIT_ROWS = 64
 # attend_kernel's source of self-attention rows past the cache's (RowSource)
 _ROWS_CACHE_ONLY, _ROWS_CHUNK, _ROWS_WINDOW = range(3)
 # aux rows (constants per session): (2, B) int32
@@ -653,8 +660,9 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         i, p, f, ll, u = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
-        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, p]
-        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f, p]
+        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, i, p, p, p]
+        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
+                                    i, p, p, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
         lib.smer_train_attn_fwd.argtypes = [i, i, i, i, p, p, p, p, p, u, i, f, i, p, p]
         lib.smer_train_attn_bwd.argtypes = [i, i, i, i, p, p, p, p, p, p, u, i, f, i, p, p, p, p, p]
@@ -727,22 +735,89 @@ def _check_layer_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, 
     _check_tensors(dev, want)
 
 
-def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, relu=False, kv_out=None, ldkv=0,
-                   kv_col0=0, colscale=None) -> None:
-    """One ``rowvec_kernel`` launch: ``y = act(x . w [* colscale] + bias)``
-    for the B rows of ``x``; w may be bf16, f32 or int8 (with its column
-    scales ``colscale``), read through a row stride ``ldw``."""
+# the split partials and the tickets of rowvec_kernel and attend_kernel, one
+# set a (device, stream): launches on one stream run one after another and
+# each leaves its tickets at zero, so they share it; two streams never do
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev, stream: int, n_floats: int, n_tickets: int):
+    key = (dev.index, stream)
+    ws, tickets = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1 << 20), device=dev, dtype=torch.float32)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1024), device=dev, dtype=torch.int32)
+    _SCRATCH[key] = (ws, tickets)
+    return ws, tickets
+
+
+def rowvec_k_split(K: int, N: int) -> int:
+    """K rows a block of ``rowvec_kernel`` sums, a function of (K, N)
+    alone: 1-4 passes of 16 rows, as few as keep a projection near 256
+    blocks (two an SM, all resident at once): the flagship's 512 x 512
+    and 2048 x 512 take 32 slices of 16 and 64 rows, QKV 11 slices of 48,
+    FFN up 8 of 64, the logits 32 of 16 (192 to 264 blocks)."""
+    tiles = -(-N // _ROWVEC_COLS)
+    passes = min(4, max(1, -(-K * tiles // (_ROWVEC_PASS * _ROWVEC_BLOCKS))))
+    return _ROWVEC_PASS * passes
+
+
+def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, scratch, relu=False, kv_out=None,
+                   ldkv=0, kv_col0=0, colscale=None) -> None:
+    """``rowvec_kernel``: ``y = act(x . w [* colscale] + bias)`` for the B
+    rows of ``x``, one launch for every 16 rows; w may be bf16, f32 or int8
+    (with its column scales ``colscale``), read through a row stride
+    ``ldw``; ``scratch`` is the stream's (workspace, tickets) pointers."""
     kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[w.dtype]
     B, K = x.shape
     N = y.shape[1]
-    _check(lib.smer_rowvec(
-        kind, int(relu), B, x.data_ptr(), x.stride(0), w.data_ptr(), ldw,
-        colscale.data_ptr() if colscale is not None else None, bias.data_ptr(),
-        y.data_ptr(), y.stride(0), kv_out.data_ptr() if kv_out is not None else None,
-        ldkv, kv_col0, K, N, stream,
-    ), "rowvec")
-    if kind == 2:
-        rowvec_int8.launches += 1
+    k_split = rowvec_k_split(K, N)
+    parts = [(x, y, kv_out)] if B <= _ROWVEC_ROWS else [
+        (x[r : r + _ROWVEC_ROWS], y[r : r + _ROWVEC_ROWS],
+         None if kv_out is None else kv_out[r : r + _ROWVEC_ROWS])
+        for r in range(0, B, _ROWVEC_ROWS)]
+    for xs, ys, kvs in parts:
+        _check(lib.smer_rowvec(
+            kind, int(relu), xs.shape[0], xs.data_ptr(), x.stride(0), w.data_ptr(), ldw,
+            colscale.data_ptr() if colscale is not None else None, bias.data_ptr(),
+            ys.data_ptr(), y.stride(0), kvs.data_ptr() if kvs is not None else None,
+            ldkv, kv_col0, K, N, k_split, *scratch, stream,
+        ), "rowvec")
+        if kind == 2:
+            rowvec_int8.launches += 1
+
+
+def _rowvec_need(K: int, N: int, B: int):
+    """(workspace floats, tickets) of one ``rowvec_kernel`` launch."""
+    tiles = -(-N // _ROWVEC_COLS)
+    return tiles * _ROWVEC_COLS * -(-K // rowvec_k_split(K, N)) * min(B, _ROWVEC_ROWS), tiles
+
+
+def _attend_splits(n_rows, lens, max_rows, source, n_chunk, B) -> int:
+    """The grid's splits of 64 rows: enough for the most rows a (b, h) sees
+    before its current row."""
+    most = max_rows if lens is not None else min(n_rows, max_rows)
+    most += n_chunk if source == _ROWS_CHUNK else (B - 1 if source == _ROWS_WINDOW else 0)
+    return max(1, -(-most // _ATTEND_SPLIT_ROWS))
+
+
+def _launch_attend(lib, q, kv, bstride, n_rows, lens, max_rows, source, rows, tstride, n_chunk,
+                   extra, out, *, H, stream, scratch) -> None:
+    """One ``attend_kernel`` launch: the B query rows of ``q`` over the K|V
+    rows of ``kv`` (``lens`` (B,) or ``n_rows`` of them, at most
+    ``max_rows``), then the ``source`` rows of ``rows``, then the current
+    row at the pointer ``extra`` (None for none), into ``out`` (B, D) f32;
+    ``scratch`` is the stream's (workspace, tickets) pointers."""
+    B, D = out.shape
+    HD = D // H
+    splits = _attend_splits(n_rows, lens, max_rows, source, n_chunk, B)
+    _check(lib.smer_attend(
+        HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), bstride, D,
+        n_rows, lens.data_ptr() if lens is not None else None, max_rows, source,
+        rows.data_ptr() if rows is not None else None, tstride, n_chunk,
+        extra, 3 * D, out.data_ptr(), D, 1.0 / math.sqrt(HD), splits, *scratch, stream,
+    ), "attend")
 
 
 def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
@@ -760,23 +835,23 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
     self_bstride = 0 if window else L * 2 * D
     cross_bstride = 0 if window else S * 2 * D
-    HD = D // H
-    scale = 1.0 / math.sqrt(HD)
     f32 = dict(device=x.device, dtype=torch.float32)
     qkv = torch.empty(B, 3 * D, **f32)
     att = torch.empty(B, D, **f32)
     qc = torch.empty(B, D, **f32)
     o = torch.empty(B, D, **f32)
     h = torch.empty(B, F, **f32)
+    # the stream's workspace, as large as the largest launch of the step needs
+    source = _ROWS_CHUNK if chunk is not None else _ROWS_WINDOW if window else _ROWS_CACHE_ONLY
+    splits = max(_attend_splits(index, None, L, source, chunk[1] if chunk else 0, B),
+                 _attend_splits(0, cross_len, S, _ROWS_CACHE_ONLY, 0, B))
+    need = max([B * H * splits * (2 + D // H)]
+               + [_rowvec_need(K, N, B)[0] for K, N in ((D, 3 * D), (D, F), (F, D), (D, vpad))])
+    ws, tickets = _scratch(x.device, stream, need, max(B * H, -(-max(3 * D, F, vpad) // 64)))
+    scratch = (ws.data_ptr(), tickets.data_ptr())
 
-    def attend(q, kv, bstride, n_rows, lens, max_rows, source, rows, tstride, n_chunk,
-               extra, out):
-        _check(lib.smer_attend(
-            HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), bstride, D,
-            n_rows, lens.data_ptr() if lens is not None else None, max_rows, source,
-            rows.data_ptr() if rows is not None else None, tstride, n_chunk,
-            extra, 3 * D, out.data_ptr(), D, scale, stream,
-        ), "attend")
+    def attend(*args):
+        _launch_attend(lib, *args, H=H, stream=stream, scratch=scratch)
 
     def add_ln(xin, y, gamma, beta):  # in place on xin
         _check(lib.smer_add_layernorm(
@@ -794,7 +869,7 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
         sc = packed["scale"][i, 0] if "scale" in packed else None
 
         def rowvec(xin, wm, ldm, lo, y, **kw):  # matrix columns from lo
-            _launch_rowvec(lib, xin, wm, ldm, b[lo:], y, stream=stream,
+            _launch_rowvec(lib, xin, wm, ldm, b[lo:], y, stream=stream, scratch=scratch,
                            colscale=None if sc is None else sc[lo:], **kw)
 
         rowvec(x, w, ldw, 0, qkv, kv_out=new_kv[i], ldkv=2 * D, kv_col0=D)
@@ -817,7 +892,8 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
         add_ln(x, o, ln[4], ln[5])
     if "fin_ln" in packed:
         add_ln(x, None, packed["fin_ln"][0], packed["fin_ln"][1])
-    _launch_rowvec(lib, x, packed["fc_w"], vpad, packed["fc_b"], logits, stream=stream)
+    _launch_rowvec(lib, x, packed["fc_w"], vpad, packed["fc_b"], logits, stream=stream,
+                   scratch=scratch)
 
 
 def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -836,16 +912,21 @@ def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: tor
     N = q.shape[1]
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"rowvec_int8 takes 1 <= B <= {MAX_BATCH} rows, got {B}")
-    if q.dtype != torch.int8 or tuple(q.shape) != (K, N) or q.stride(1) != 1 or N % 2:
-        raise ValueError("q must be (K, N) int8 with unit column stride and N even")
+    if q.dtype != torch.int8 or tuple(q.shape) != (K, N) or q.stride(1) != 1:
+        raise ValueError("q must be (K, N) int8 with unit column stride")
     _check_tensors(x.device, {"x": (x, torch.float32, (B, K)),
                               "scale": (scale, torch.float32, (N,)),
                               "bias": (bias, torch.float32, (N,))})
     if q.device != x.device:
         raise ValueError(f"q is on {q.device}, expected {x.device}")
+    if N % 16 or q.stride(0) % 16 or q.data_ptr() % 16:
+        raise ValueError("rowvec_kernel reads int8 W in 16-byte pieces: N and the row stride "
+                         "must be multiples of 16 and q 16-byte aligned")
     y = torch.empty(B, N, device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws, tickets = _scratch(x.device, stream, *_rowvec_need(K, N, B))
     _launch_rowvec(load_library(), x, q, q.stride(0), bias, y, relu=relu, colscale=scale,
-                   stream=torch.cuda.current_stream(x.device).cuda_stream)
+                   stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()))
     return y
 
 
@@ -905,15 +986,16 @@ def fused_verify_window(
     d_ff: int,
     vpad: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced decode of W <= 16 window rows of one sequence (the
-    verify of speculative decode, JAX :1368): row j attends the cached
+    """Teacher-forced decode of W window rows of one sequence (the verify
+    of speculative decode, JAX :1368): row j attends the cached
     prefix [0, index) and window rows 0..j, so ``logits[j]`` is the
     next-token distribution after the window's first j + 1 tokens.
 
     Returns (logits (W, vpad) f32, new_kv (n_layers, W, 2D)); ``self_kv``
     is not written, so the caller splices ``new_kv`` at ``index``.  On CUDA
-    the v2 launches run once on all W rows, one weight stream a layer;
-    int8 weights are refused, as in JAX (:1397)."""
+    the v2 launches run once on all W rows, one weight stream a layer for
+    every 16 rows (the row-vector kernel's launch); int8 weights are
+    refused, as in JAX (:1397)."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     if x_emb.device.type == "cpu":
         return fused_verify_window_reference(packed, x_emb, self_kv, cross_kv, index,
@@ -924,9 +1006,8 @@ def fused_verify_window(
         raise ValueError("the verify window does not take int8 weights")
     index = int(index)
     W, D, dev = x_emb.shape[0], d_model, x_emb.device
-    if not 1 <= W <= MAX_WINDOW:
-        raise ValueError(f"the verify window takes 1 <= W <= {MAX_WINDOW} rows "
-                         f"(draft_k <= {MAX_WINDOW - 1}), got W={W}")
+    if W < 1:
+        raise ValueError(f"the verify window takes at least one row, got W={W}")
     _check_layer_inputs(packed, 1, dev, self_kv, cross_kv, cross_len,
                         n_layers, D, nhead, d_ff, vpad)
     if not 0 <= index <= self_kv.shape[2]:

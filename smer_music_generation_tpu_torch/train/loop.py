@@ -14,11 +14,13 @@ and accuracy on the held-out split.
 
 The trainer runs on ``cuda`` unless ``--device cpu`` is given, in bf16 on
 the card and f32 on the CPU (JAX computes in bf16 on the accelerator only).
-It never moves to the CPU by itself: without a card it raises.  One
-difference from JAX: a step that raises is not skipped (JAX keeps its old
-state and goes on); the port updates the parameters in place, so the error
-propagates.  Multi-device training (``n_devices``, ``tp``, ``dcn_slices``
-above 1) is not ported.
+It never moves to the CPU by itself: without a card it raises.  A step
+that raises before the optimizer's update (forward, loss, backward,
+gradient norm) is skipped and logged as ``step N failed: ...``, its batch
+dropped and the state as it was, as JAX skips it; the port updates the
+parameters in place, so an error from the update on propagates.
+Multi-device training (``n_devices``, ``tp``, ``dcn_slices`` above 1) is
+not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from .checkpoint import restore_checkpoint, save_checkpoint
 from .loss import build_loss_tables
 from .state import (
     PlateauScheduler,
+    StepSkipped,
     TrainState,
     build_model,
     make_eval_step,
@@ -237,11 +240,17 @@ class Trainer:
                 if (self._train_step_lean is not None and not logged)
                 else self._train_step
             )
-            with timer:
-                self.state, m = step_fn(self.state, self._device_batch(batch), eos_weight, self._gen)
-                # the host copy waits for the device, so the timer brackets
-                # the step's execution, not its dispatch
-                m = _to_host(m)
+            try:
+                with timer:
+                    self.state, m = step_fn(self.state, self._device_batch(batch), eos_weight,
+                                            self._gen)
+                    # the host copy waits for the device, so the timer brackets
+                    # the step's execution, not its dispatch
+                    m = _to_host(m)
+            except StepSkipped as e:  # failure containment: skip the batch (JAX :262-266)
+                err = e.__cause__
+                self.logger.error(f"step {step} failed: {type(err).__name__}: {err}")
+                continue
             losses.append(m["loss"])
             grad_norms.append(m["grad_norm"])
             if "param_norm" in m:

@@ -359,6 +359,15 @@ def _forward_batch(model: ScoreTransformer, batch: Dict[str, torch.Tensor], dete
     )
 
 
+class StepSkipped(Exception):
+    """A train step failed before the optimizer touched the parameters (in
+    the forward, the loss, the backward or the gradient norm): the
+    gradients are cleared and the parameters, the optimizer's moments and
+    ``state.step`` are as they were before the batch.  ``__cause__`` is the
+    error.  The trainer skips such a batch, as JAX's ``train_epoch`` does
+    (JAX ``train/loop.py:248-268``)."""
+
+
 def make_train_step(
     model: ScoreTransformer,
     tables: Dict,
@@ -369,24 +378,30 @@ def make_train_step(
     metrics)`` (JAX :55); the parameters and the optimizer are updated in
     place and ``metrics`` holds device tensors.  ``with_metrics=False`` is
     the lean variant (``gated_metrics``): the same update, and only the
-    loss and the global gradient norm."""
+    loss and the global gradient norm.  An error before the update raises
+    :class:`StepSkipped` with the state untouched; one from the update on
+    propagates as it is."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], eos_weight, generator):
         named = [(n, p) for n, p in model.named_parameters()]
         metrics: Dict[str, Any] = {}
-        if with_metrics:
-            with torch.no_grad():
-                metrics["param_norm"] = _norm([p for _, p in named])
-                metrics.update(_module_norms([(n, p.detach()) for n, p in named], "pnorm"))
-        logits, _ = _forward_batch(model, batch, not dropout, generator)
-        total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        grads = [(n, p.grad) for n, p in named if p.grad is not None]
-        with torch.no_grad():
-            metrics["grad_norm"] = _norm([g for _, g in grads])
+        try:
             if with_metrics:
-                metrics.update(_module_norms(grads, "gnorm"))
+                with torch.no_grad():
+                    metrics["param_norm"] = _norm([p for _, p in named])
+                    metrics.update(_module_norms([(n, p.detach()) for n, p in named], "pnorm"))
+            logits, _ = _forward_batch(model, batch, not dropout, generator)
+            total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            grads = [(n, p.grad) for n, p in named if p.grad is not None]
+            with torch.no_grad():
+                metrics["grad_norm"] = _norm([g for _, g in grads])
+                if with_metrics:
+                    metrics.update(_module_norms(grads, "gnorm"))
+        except Exception as exc:
+            state.optimizer.zero_grad(set_to_none=True)
+            raise StepSkipped(str(exc)) from exc
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr
         state.optimizer.step()

@@ -1,0 +1,513 @@
+"""The schedules of the decode kernels, emulated in plain torch on the CPU,
+against the port's twins and JAX's ``fused_decode_step`` in interpret mode.
+
+``rowvec_kernel`` and ``attend_kernel`` (``ops/csrc/decode_step.cu``) cannot
+run here, so these emulations repeat their order of operations step by step:
+
+- ``rowvec_tiles``: a block owns 64 output columns and a K-slice of
+  ``ds.rowvec_k_split(K, N)`` rows (16 to 64, a function of K and N); a thread
+  holds one 16-byte piece of W (8 bf16, 16 int8 or 4 f32 columns) in each of
+  the slice's passes of 16 rows and sums its passes with one FMA each; the K
+  rows of a warp are summed by a xor-shuffle tree, the warps of a block in
+  order, the slices in order; then the column scale (int8, rounded), the
+  bias and the ReLU.  Rows are launched 16 at a time, in groups of 4;
+- ``attend_tiles``: the rows of the spliced sequence (the cache rows, then
+  the v4 chunk or verify window rows) in splits of 64 by their index in it;
+  a row's score an FMA chain over each of its 8 lanes' dims, then a
+  xor-shuffle tree over the 8 lanes, times the scale; per split the max of
+  its 64 scores, p = exp(s - m) once a row, p and p V summed by each thread
+  over its 4 rows in order, then a shuffle tree over a warp's 4 rows and the
+  4 warps in order; the splits merged in order (m, l, acc), then the
+  current token's own row.
+
+An FMA is taken in float64 and rounded once to float32; exp is torch's
+(the card's expf may differ in the last bit: the emulation pins the order,
+not the card's bits).  The emulations agree with the twins
+(``_rowvec_math``, ``_attend``, ``fused_decode_step_reference``) and with
+JAX's Pallas step within chip_smoke's ``ATOL`` + ``RTOL``, and show the
+invariants that chip_smoke's phases 2c and 2e hold on the card: a row's
+bits do not depend on how many rows a launch has, on the launch it lands in,
+or on where the cache ends and the chunk or window rows begin, so a verify
+row is bit-equal to the v2 step at index + j and a v4 token to a v3 token
+over the spliced cache.  A control shows the attention rule has teeth:
+summing the cache rows and the chunk rows as separate splits breaks it.
+Small widths: d_model 128, 2 heads of 64, 2 decoder layers, d_ff 256.
+"""
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import ATOL, RTOL
+from smer_music_generation_tpu.ops.decode_step import fused_decode_step as jax_step
+from smer_music_generation_tpu.vocab import CONTROL_SETS, WordVocab
+from smer_music_generation_tpu_torch.ops import decode_step as ds
+from tests.torch_port_helpers import model_pair
+
+SPLIT = 64  # attend_kernel's rows a split
+LAUNCH_ROWS = 16  # rowvec_kernel's rows a launch
+GROUP = 4  # rowvec_kernel's rows a thread holds at once
+
+
+def fma(a, b, c):
+    """fmaf: a * b + c rounded once to f32 (a * b is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def tree(t):
+    """A xor-shuffle tree over the last dim (a power of two): each level adds
+    neighbours, the value every lane of the tree ends with."""
+    while t.shape[-1] > 1:
+        t = t[..., 0::2] + t[..., 1::2]
+    return t[..., 0]
+
+
+def rowvec_launch(x, w, colscale, bias, relu):
+    """One ``rowvec_kernel`` launch on at most 16 rows of x (B, K) f32."""
+    B, K = x.shape
+    N = w.shape[1]
+    vec = 16 // w.element_size()
+    rows_a_warp = 32 // (64 // vec)
+    warps = 16 // rows_a_warp
+    xs = x if w.dtype == torch.float32 else x.to(torch.bfloat16).float()
+    ks = ds.rowvec_k_split(K, N)
+    passes, slices = ks // 16, -(-K // ks)
+    xp = torch.zeros(B, slices * ks)
+    xp[:, :K] = xs
+    wp = torch.zeros(slices * ks, N)
+    wp[:K] = w.float()
+    xp = xp.view(B, slices, passes, 16)
+    wp = wp.view(slices, passes, 16, N)
+    out = []
+    for g0 in range(0, B, GROUP):  # rows a thread holds at once; a group's
+        xg = xp[g0 : g0 + GROUP]  # missing rows are zeros the kernel drops
+        acc = torch.zeros(xg.shape[0], slices, 16, N)
+        for p in range(passes):
+            acc = fma(xg[:, :, p, :, None], wp[None, :, p], acc)
+        # krow = warp * rows_a_warp + j: the shuffle tree over j, warps in order
+        acc = tree(acc.view(-1, slices, warps, rows_a_warp, N).transpose(-1, -2))
+        part = acc[:, :, 0]
+        for wi in range(1, warps):
+            part = part + acc[:, :, wi]
+        s = part[:, 0]
+        for sl in range(1, slices):
+            s = s + part[:, sl]
+        out.append(s)
+    s = torch.cat(out)
+    if colscale is not None:
+        s = s * colscale
+    s = s + bias
+    return torch.relu(s) if relu else s
+
+
+def rowvec_tiles(x, w, colscale, bias, relu=False, rows=LAUNCH_ROWS):
+    """The wrapper's launches: ``rows`` rows at a time."""
+    return torch.cat([rowvec_launch(x[r : r + rows], w, colscale, bias, relu)
+                      for r in range(0, x.shape[0], rows)])
+
+
+def row_scores(q, k, scale):
+    """(B, R, H) scores of q (B, H, 8, dpl) against rows k (B, R, H, 8, dpl)."""
+    s = torch.zeros(k.shape[:-1])
+    for e in range(k.shape[-1]):
+        s = fma(q[:, None, :, :, e], k[..., e], s)
+    return tree(s) * scale
+
+
+def attend_tiles(q, cache, n_cache, more, H, extra=None, separate=False):
+    """``attend_kernel`` for q (B, D) f32 over, for each b, the first
+    ``n_cache[b]`` rows of ``cache`` (B, L, 2D) bf16 then the rows of
+    ``more[b]`` ((n_b, 2D) bf16: v4 chunk or verify window rows), then the
+    current row ``extra = (k, v)`` (B, D) f32.  ``separate`` is the control:
+    the cache's rows and the others as splits of their own."""
+    B, D = q.shape
+    HD = D // H
+    dpl = HD // 8
+    scale = 1.0 / np.sqrt(HD)
+    seqs = [torch.cat([cache[b, : n_cache[b]], more[b]]) for b in range(B)]
+    starts = [[0] * (n_cache[b] > 0) + [n_cache[b]] * (len(more[b]) > 0) if separate else [0]
+              for b in range(B)]
+    R = SPLIT * max(1, max(-(-len(s) // SPLIT) for s in seqs) + (1 if separate else 0))
+    rows = torch.zeros(B, R, 2 * D)
+    valid = torch.zeros(B, R, dtype=torch.bool)
+    for b, s in enumerate(seqs):
+        # each source starts a split of its own in the control, so shift
+        # the chunk rows to the next multiple of 64
+        pos = 0
+        for i, st in enumerate(starts[b]):
+            end = starts[b][i + 1] if i + 1 < len(starts[b]) else len(s)
+            rows[b, pos : pos + end - st] = s[st:end].float()
+            valid[b, pos : pos + end - st] = True
+            pos = -(-(pos + end - st) // SPLIT) * SPLIT
+    k = rows[..., :D].view(B, R, H, 8, dpl)
+    v = rows[..., D:].view(B, R, H, 8, dpl)
+    qv = q.view(B, H, 8, dpl)
+    s = row_scores(qv, k, scale)
+    s = torch.where(valid[..., None], s, -torch.inf)
+    nsp = R // SPLIT
+    # place in a split: st * 16 + warp * 4 + rl
+    s = s.view(B, nsp, 4, 4, 4, H)
+    v = v.view(B, nsp, 4, 4, 4, H, HD)
+    m = s.amax(dim=(2, 3, 4))  # (B, nsp, H)
+    p = torch.exp(s - m[:, :, None, None, None])
+    p = torch.nan_to_num(p, nan=0.0)  # a split with no row: never merged
+    l = torch.zeros(B, nsp, 4, 4, H)
+    acc = torch.zeros(B, nsp, 4, 4, H, HD)
+    for st in range(4):
+        l = l + p[:, :, st]
+        acc = fma(p[:, :, st, ..., None], v[:, :, st], acc)
+    l = tree(l.transpose(-1, -2))  # over rl: (B, nsp, warp, H)
+    acc = tree(acc.permute(0, 1, 2, 4, 5, 3))  # (B, nsp, warp, H, HD)
+    lp, ap = l[:, :, 0], acc[:, :, 0]
+    for wi in range(1, 4):
+        lp, ap = lp + l[:, :, wi], ap + acc[:, :, wi]
+    used = torch.tensor([bool(valid[b, sp * SPLIT:(sp + 1) * SPLIT].any()) for b in range(B)
+                         for sp in range(nsp)]).view(B, nsp)
+    M = torch.full((B, H), -torch.inf)
+    if extra is not None:
+        sx = row_scores(qv, extra[0].view(B, 1, H, 8, dpl), scale)[:, 0]
+        M = sx
+    for sp in range(nsp):
+        M = torch.where(used[:, sp, None], torch.maximum(M, m[:, sp]), M)
+    L, A = torch.zeros(B, H), torch.zeros(B, H, HD)
+    for sp in range(nsp):
+        c = torch.exp(m[:, sp] - M)
+        u = used[:, sp, None]
+        L = torch.where(u, fma(lp[:, sp], c, L), L)
+        A = torch.where(u[..., None], fma(ap[:, sp], c[..., None], A), A)
+    if extra is not None:
+        c = torch.exp(sx - M)
+        L = L + c
+        A = fma(c[..., None], extra[1].view(B, H, HD), A)
+    return (A / L[..., None]).reshape(B, D)
+
+
+def layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, *, H, F, rows=LAUNCH_ROWS,
+                 chunk=None, window=False):
+    """The v2 launches (``_launch_layers``) with both kernels emulated:
+    logits (B, vpad) and new_kv (nl, B, 2D).  ``chunk = (rows (nl, t, B,
+    2D), ...)``: v4 token t after t chunk rows; ``window``: the B rows are
+    one sequence's verify window over a cache of one batch row."""
+    B, D = x.shape
+    nl = packed["w_attn"].shape[0]
+    new_kv = torch.zeros(nl, B, 2 * D, dtype=torch.bfloat16)
+    cl = cross_len.tolist()
+    for i in range(nl):
+        w, b, ln = packed["w_attn"][i], packed["bias"][i, 0], packed["ln"][i]
+
+        def mm(a, wm, lo, hi, relu=False):
+            return rowvec_tiles(a, wm, None, b[lo:hi], relu, rows)
+
+        qkv = mm(x, w[:, : 3 * D], 0, 3 * D)
+        new_kv[i] = qkv[:, D:].to(torch.bfloat16)
+        cache = self_kv[i].expand(B, -1, -1) if window else self_kv[i]
+        if window:
+            more = [new_kv[i, :j] for j in range(B)]
+        elif chunk is not None:
+            more = [chunk[i, :, j] for j in range(B)]
+        else:
+            more = [cache[j, :0] for j in range(B)]
+        att = attend_tiles(qkv[:, :D], cache, [index] * B, more, H,
+                           extra=(qkv[:, D : 2 * D], qkv[:, 2 * D :]))
+        x = ds._layernorm(x + mm(att, w[:, 3 * D : 4 * D], 3 * D, 4 * D), ln[0], ln[1])
+        qc = mm(x, w[:, 4 * D : 5 * D], 4 * D, 5 * D)
+        cross = cross_kv[i].expand(B, -1, -1) if window else cross_kv[i]
+        att = attend_tiles(qc, cross, cl * (B if window else 1), [cross[j, :0] for j in range(B)], H)
+        x = ds._layernorm(x + mm(att, w[:, 5 * D : 6 * D], 5 * D, 6 * D), ln[2], ln[3])
+        h = mm(x, packed["w_ff1"][i], 6 * D, 6 * D + F, relu=True)
+        x = ds._layernorm(x + mm(h, packed["w_ff2"][i], 6 * D + F, 7 * D + F), ln[4], ln[5])
+    if "fin_ln" in packed:
+        x = ds._layernorm(x, packed["fin_ln"][0], packed["fin_ln"][1])
+    return rowvec_tiles(x, packed["fc_w"], None, packed["fc_b"], rows=rows), new_kv
+
+
+def _close(got, want):
+    return torch.allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+RNG = np.random.default_rng(2026)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("K,N,relu", [(128, 192, False), (512, 64, True), (2048, 128, False),
+                                      (100, 64, False)])
+def test_rowvec_tiles_match_the_twin(kind, K, N, relu):
+    """The split-K schedule computes ``_rowvec_math``'s function: K from one
+    slice of 16 to 32 slices of 64 and a ragged K, for each weight type."""
+    rng = np.random.default_rng(K + N)
+    x = torch.from_numpy(rng.standard_normal((5, K)).astype(np.float32))
+    wf = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) / np.sqrt(K)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    sc, cdt = None, torch.bfloat16
+    if kind == "int8":
+        w, sc = ds.quantize_columns(wf)
+        sc = sc[0]
+    elif kind == "bf16":
+        w = wf.to(torch.bfloat16)
+    else:
+        w, cdt = wf, torch.float32
+    got = rowvec_tiles(x, w, sc, bias, relu)
+    want = ds._rowvec_math(x, w, cdt, sc) + bias
+    want = torch.relu(want) if relu else want
+    assert _close(got, want), (got - want).abs().max()
+
+
+def test_rowvec_rows_do_not_depend_on_the_launch():
+    """A row's bits are the same launched alone, in a launch of 3, 4 or 16
+    rows, or as row 17 of 24 (the second launch of a 24-row window)."""
+    x = torch.from_numpy(RNG.standard_normal((24, 512)).astype(np.float32))
+    w = torch.from_numpy(RNG.standard_normal((512, 192)).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(RNG.standard_normal(192).astype(np.float32))
+    whole = rowvec_tiles(x, w, None, bias)
+    for rows in (1, 3, 4, 16):
+        assert torch.equal(rowvec_tiles(x, w, None, bias, rows=rows), whole)
+    assert torch.equal(rowvec_launch(x[16:], w, None, bias, False), whole[16:])
+
+
+def _attend_inputs(B, L, D, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    cache = torch.from_numpy(rng.standard_normal((B, L, 2 * D)).astype(np.float32)).to(torch.bfloat16)
+    extra = tuple(torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)) for _ in range(2))
+    return q, cache, extra
+
+
+@pytest.mark.parametrize("lens", [[300, 1, 64], [0, 65, 200], [128, 127, 129]])
+def test_attend_tiles_match_the_twin(lens):
+    """Splits of 64 rows merged in order compute ``_attend``'s function,
+    with and without the current row, over ragged row counts."""
+    H, D = 2, 128
+    q, cache, extra = _attend_inputs(3, 320, D, seed=sum(lens))
+    n = torch.tensor(lens)
+    none = [cache[b, :0] for b in range(3)]
+    got = attend_tiles(q, cache, lens, none, H, extra=extra)
+    assert _close(got, ds._attend(q, cache, n, H, extra_kv=extra))
+    keep = [b for b in range(3) if lens[b] > 0]  # no row and no current row: 0 / 0 in both
+    got = attend_tiles(q, cache, lens, none, H)
+    assert _close(got[keep], ds._attend(q, cache, n, H)[keep])
+
+
+def test_attend_bits_do_not_depend_on_where_the_cache_ends():
+    """One spliced sequence of 150 rows, its first c rows from the cache and
+    the rest from the chunk (or window), for c on both sides of a split's
+    edge: the same bits at every c.  The control, the cache's rows and the
+    chunk's as splits of their own, moves them."""
+    H, D, n = 2, 128, 150
+    q, cache, extra = _attend_inputs(2, n, D, seed=5)
+    want = attend_tiles(q, cache, [n, n], [cache[b, n:] for b in range(2)], H, extra=extra)
+    for c in (0, 1, 63, 64, 65, 128, 149):
+        got = attend_tiles(q, cache, [c, c], [cache[b, c:n] for b in range(2)], H, extra=extra)
+        assert torch.equal(got, want), c
+    control = attend_tiles(q, cache, [100, 100], [cache[b, 100:n] for b in range(2)], H,
+                           extra=extra, separate=True)
+    assert not torch.equal(control, want)
+    assert _close(control, want)
+
+
+@pytest.fixture(scope="module")
+def step_setup():
+    vocab = WordVocab(0, CONTROL_SETS[5])
+    jmodel, params, tmodel = model_pair(vocab.vocab_size, seed=31)
+    vpad = ds.vocab_pad(vocab.vocab_size)
+    cfg = jmodel.cfg
+    packed = ds.pack_decoder_weights(tmodel, vpad)
+    for k in ("w_attn", "w_ff1", "w_ff2"):  # the card's bf16 weights
+        packed[k] = packed[k].to(torch.bfloat16)
+    return jmodel, params, packed, cfg, vpad
+
+
+def _step_inputs(B, D, nl, L, S, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    self_kv = torch.from_numpy(rng.standard_normal((nl, B, L, 2 * D)).astype(np.float32))
+    cross_kv = torch.from_numpy(rng.standard_normal((nl, B, S, 2 * D)).astype(np.float32))
+    cross_len = torch.tensor([S - 37 * b for b in range(B)], dtype=torch.int32)
+    return x.to(torch.bfloat16).float(), self_kv.to(torch.bfloat16), cross_kv.to(torch.bfloat16), cross_len
+
+
+def test_decode_step_tiles_match_twin_and_jax(step_setup):
+    """A whole v2 step through both emulated kernels against the twin and
+    against JAX's Pallas step (interpret mode) on the same bf16 weights and
+    caches: logits and new_kv within ATOL + RTOL."""
+    _, _, packed, cfg, vpad = step_setup
+    D, nl, H, F = cfg.d_model, cfg.num_decoder_layers, cfg.nhead, cfg.d_ff
+    index = 150
+    x, self_kv, cross_kv, cross_len = _step_inputs(3, D, nl, 512, 512, seed=3)
+    got, got_kv = layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, H=H, F=F)
+    kw = dict(n_layers=nl, d_model=D, nhead=H, d_ff=F, vpad=vpad)
+    want, want_kv = ds.fused_decode_step_reference(packed, x, self_kv, cross_kv, index, cross_len,
+                                                   **kw)
+    V = cfg.vocab_size
+    assert _close(got[:, :V], want[:, :V]) and _close(got_kv.float(), want_kv.float())
+    mats = ("w_attn", "w_ff1", "w_ff2")
+    jpacked = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16 if k in mats else jnp.float32)
+               for k, v in packed.items()}
+    jl, jkv = jax_step(jpacked, jnp.asarray(x.numpy(), jnp.bfloat16),
+                       jnp.asarray(self_kv.float().numpy(), jnp.bfloat16),
+                       jnp.asarray(cross_kv.float().numpy(), jnp.bfloat16), jnp.int32(index),
+                       jnp.asarray(cross_len.numpy()), interpret=True, **kw)
+    jl = torch.from_numpy(np.asarray(jl, np.float32))
+    jkv = torch.from_numpy(np.asarray(jnp.asarray(jkv, jnp.float32)))
+    assert _close(got[:, :V], jl[:, :V]) and _close(got_kv.float(), jkv)
+
+
+def test_verify_and_chunk_rows_equal_sequential_steps(step_setup):
+    """Phase 2e's and 2c's invariants in the emulated schedule: a verify
+    window of 20 rows (launches of 16 + 4) is bit-equal, row by row, to 20
+    v2 steps over the spliced cache; a v4 token after t chunk rows is
+    bit-equal to the v2 step over the cache holding them."""
+    _, _, packed, cfg, _ = step_setup
+    D, nl, H, F = cfg.d_model, cfg.num_decoder_layers, cfg.nhead, cfg.d_ff
+    W, index = 20, 100
+    x, self_kv, cross_kv, cross_len = _step_inputs(W, D, nl, 256, 200, seed=4)
+    self_kv, cross_kv, cross_len = self_kv[:, :1], cross_kv[:, :1], cross_len[:1]
+    logits, new_kv = layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, H=H, F=F,
+                                  window=True)
+    cache = self_kv.clone()
+    for j in range(W):
+        lg, kv = layers_tiles(packed, x[j : j + 1], cache, cross_kv, index + j, cross_len, H=H, F=F)
+        cache[:, :, index + j] = kv
+        assert torch.equal(lg[0], logits[j]) and torch.equal(kv[:, 0], new_kv[:, j]), j
+    # v4: token t attends the cache below index and chunk rows 0..t-1
+    B, t = 3, 5
+    x, self_kv, cross_kv, cross_len = _step_inputs(B, D, nl, 256, 200, seed=6)
+    chunk = self_kv[:, :, index : index + t].transpose(1, 2).contiguous()  # (nl, t, B, 2D)
+    got, got_kv = layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, H=H, F=F,
+                               chunk=chunk)
+    want, want_kv = layers_tiles(packed, x, self_kv, cross_kv, index + t, cross_len, H=H, F=F)
+    assert torch.equal(got, want) and torch.equal(got_kv, want_kv)
+
+
+# ----------------------------------------------------------------------
+# the launch plan's addressing, with a host stand-in for the library
+# ----------------------------------------------------------------------
+class HostLib:
+    """Stands in for the CUDA library on CPU tensors: each entry point
+    ``_launch_layers`` calls reads and writes host memory at the pointers
+    and strides it is given, with the twins' math (``_rowvec_math``,
+    ``_attend``, ``_layernorm``), and checks what the kernels require of a
+    launch (at most 16 rows a row-vector launch, 16-byte W pieces, a split
+    grid that covers every row, a workspace and tickets)."""
+
+    _CT = {torch.float32: ctypes.c_float, torch.bfloat16: ctypes.c_uint16,
+           torch.int8: ctypes.c_int8, torch.int32: ctypes.c_int32}
+
+    def __init__(self):
+        self.rowvec_rows = []
+
+    def _mat(self, ptr, rows, cols, ld, dtype):
+        n = (rows - 1) * ld + cols
+        flat = torch.frombuffer((self._CT[dtype] * n).from_address(ptr), dtype=dtype)
+        return flat.as_strided((rows, cols), (ld, 1))
+
+    def smer_rowvec(self, kind, relu, nb, x, ldx, w, ldw, cs, bias, y, ldy, kv, ldkv, kv_col0, K,
+                    N, k_split, ws, tickets, stream):
+        wdt = (torch.bfloat16, torch.float32, torch.int8)[kind]
+        vec = 16 // torch.tensor([], dtype=wdt).element_size()
+        assert 1 <= nb <= LAUNCH_ROWS and N % vec == 0 and ldw % vec == 0 and w % 16 == 0
+        assert k_split == ds.rowvec_k_split(K, N) and ws and tickets
+        self.rowvec_rows.append(nb)
+        xs = self._mat(x, nb, K, ldx, torch.float32)
+        wm = self._mat(w, K, N, ldw, wdt)
+        sc = self._mat(cs, 1, N, N, torch.float32)[0] if cs is not None else None
+        cdt = torch.float32 if kind == 1 else torch.bfloat16
+        # row by row, as the kernel's sums are (a batched CPU product may
+        # round a row's sums apart from the same row alone)
+        out = torch.cat([ds._rowvec_math(xs[r : r + 1], wm, cdt, sc) for r in range(nb)])
+        out = out + self._mat(bias, 1, N, N, torch.float32)[0]
+        out = torch.relu(out) if relu else out
+        self._mat(y, nb, N, ldy, torch.float32).copy_(out)
+        if kv is not None:
+            self._mat(kv, nb, N - kv_col0, ldkv, torch.bfloat16).copy_(out[:, kv_col0:])
+        return 0
+
+    def smer_attend(self, HD, B, H, q, ldq, kv, bstride, D, n_rows, lens, max_rows, source, rows,
+                    tstride, n_chunk, extra, ld_extra, out, ldo, scale, n_splits, ws, tickets,
+                    stream):
+        assert ws and tickets and abs(scale - 1 / np.sqrt(HD)) < 1e-7
+        qs = self._mat(q, B, D, ldq, torch.float32)
+        n_cache = (self._mat(lens, 1, B, B, torch.int32)[0].tolist() if lens is not None
+                   else [n_rows] * B)
+        for b in range(B):
+            nc = max(0, min(n_cache[b], max_rows))
+            seq = [self._mat(kv + 2 * b * bstride, max(nc, 1), 2 * D, 2 * D, torch.bfloat16)[:nc]]
+            n_more = (n_chunk if source == ds._ROWS_CHUNK else b if source == ds._ROWS_WINDOW
+                      else 0)
+            if n_more:
+                base = rows + (2 * b * 2 * D if source == ds._ROWS_CHUNK else 0)
+                seq.append(self._mat(base, n_more, 2 * D, tstride, torch.bfloat16))
+            seq = torch.cat(seq)
+            assert n_splits * SPLIT >= len(seq)
+            ex = None
+            if extra is not None:
+                e = self._mat(extra + 4 * b * ld_extra, 1, 2 * D, 2 * D, torch.float32)
+                ex = (e[:, :D], e[:, D:])
+            att = ds._attend(qs[b : b + 1], seq[None], torch.tensor([len(seq)]), H, extra_kv=ex)
+            self._mat(out + 4 * b * ldo, 1, D, D, torch.float32).copy_(att)
+        return 0
+
+    def smer_add_layernorm(self, B, D, x, y, gamma, beta, out, eps, stream):
+        xs = self._mat(x, B, D, D, torch.float32)
+        v = xs + (self._mat(y, B, D, D, torch.float32) if y is not None else 0.0)
+        g, b = (self._mat(p, 1, D, D, torch.float32)[0] for p in (gamma, beta))
+        self._mat(out, B, D, D, torch.float32).copy_(ds._layernorm(v, g, b))
+        return 0
+
+
+@pytest.fixture(scope="module")
+def bf16_model():
+    vocab = WordVocab(0, CONTROL_SETS[5])
+    _, _, tmodel = model_pair(vocab.vocab_size, seed=41)
+    vpad = ds.vocab_pad(vocab.vocab_size)
+    return tmodel, vpad
+
+
+@pytest.mark.parametrize("mode,quant", [("step", "none"), ("step", "int8"), ("chunk", "none"),
+                                        ("chunk", "int8"), ("window", "none")])
+def test_launch_plan_addresses_what_the_twin_reads(bf16_model, mode, quant):
+    """``_launch_layers`` hands the library the pointers and strides of
+    every weight, bias, scale strip, LayerNorm row, cache row, chunk or
+    window row and output, and splits a window into row-vector launches of
+    16 rows; run on CPU tensors through ``HostLib`` it computes the twin's
+    step: v2
+    at B=3, v4 token t = 5 over the cache below index and 5 chunk rows, and
+    a verify window of 20 rows (row-vector launches of 16 + 4; the verify
+    takes no int8 weights, as in JAX)."""
+    tmodel, vpad = bf16_model
+    cfg = tmodel.cfg
+    D, nl, H, F = cfg.d_model, cfg.num_decoder_layers, cfg.nhead, cfg.d_ff
+    packed = ds.pack_decoder_weights(tmodel, vpad, quant=quant)
+    if quant == "none":
+        for k in ("w_attn", "w_ff1", "w_ff2"):
+            packed[k] = packed[k].to(torch.bfloat16)
+    B, index, t = {"step": 3, "chunk": 3, "window": 20}[mode], 100, 5
+    x, self_kv, cross_kv, cross_len = _step_inputs(B, D, nl, 256, 200, seed=8)
+    if mode == "window":
+        self_kv, cross_kv = self_kv[:, :1].contiguous(), cross_kv[:, :1].contiguous()
+        cross_len = cross_len[:1]
+    lib = HostLib()
+    logits = torch.empty(B, vpad)
+    new_kv = torch.empty(nl, B, 2 * D, dtype=torch.bfloat16)
+    chunk = None
+    if mode == "chunk":
+        rows = torch.empty(nl, t + 1, B, 2 * D, dtype=torch.bfloat16)
+        rows[:, :t] = self_kv[:, :, index : index + t].transpose(1, 2)
+        chunk, new_kv = (rows, t), rows[:, t]
+    kw = dict(n_layers=nl, d_model=D, nhead=H, d_ff=F, vpad=vpad)
+    ds._launch_layers(lib, packed, x.clone(), self_kv, cross_kv, index,
+                      cross_len.expand(B).contiguous() if mode == "window" else cross_len,
+                      logits, new_kv, n_layers=nl, D=D, H=H, F=F, vpad=vpad, stream=0,
+                      chunk=chunk, window=mode == "window")
+    if mode == "window":
+        want, want_kv = ds.fused_verify_window_reference(packed, x, self_kv, cross_kv, index,
+                                                         cross_len, **kw)
+        assert lib.rowvec_rows.count(16) == lib.rowvec_rows.count(4) == 6 * nl + 1
+    else:
+        at = index + (t if mode == "chunk" else 0)
+        want, want_kv = ds.fused_decode_step_reference(packed, x, self_kv, cross_kv, at, cross_len,
+                                                       **kw)
+    assert torch.allclose(logits, want, atol=1e-4, rtol=1e-4)
+    assert torch.allclose(new_kv.float(), want_kv.float(), atol=1e-2, rtol=1e-2)

@@ -56,6 +56,7 @@ from smer_music_generation_tpu_torch.data.pack import pack_windows, save_batches
 from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
 from smer_music_generation_tpu_torch.ops import train_attention as ta
 from smer_music_generation_tpu_torch.train import loop
+from smer_music_generation_tpu_torch.train import state as state_mod
 from smer_music_generation_tpu_torch.train.checkpoint import (
     checkpoint_has_final_norm,
     export_params_msgpack,
@@ -471,3 +472,90 @@ def test_overfit_one_batch_lowers_the_loss(vocab):
     assert all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0], losses
     ev = make_eval_step(model, tables)(batch, 1.0)
     assert float(ev["loss"]) < losses[0] and 0.0 <= float(ev["accuracy"]) <= 1.0
+
+
+class _Recorder:
+    """Stands in for the trainer's logger: keeps what it is given."""
+
+    def __init__(self):
+        self.errors = []
+
+    def error(self, msg):
+        self.errors.append(msg)
+
+    def info(self, msg):
+        pass
+
+
+def _contained_trainer(tmp_path, name):
+    cfg = ExperimentConfig(d_model=32, nhead=4, num_layers=1, d_ff=64, max_seq=512,
+                           print_every=1, dropout=0.0, output_dir=str(tmp_path / name))
+    trainer = loop.Trainer(cfg, device="cpu")
+    trainer.logger = _Recorder()
+    return trainer
+
+
+def _train_state(trainer):
+    opt = trainer.state.optimizer
+    moments = [{k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state[p].items()}
+               for g in opt.param_groups for p in g["params"] if p in opt.state]
+    return ({k: v.clone() for k, v in trainer.model.state_dict().items()}, moments,
+            int(trainer.state.step))
+
+
+def _assert_same_state(a, b):
+    (pa, ma, sa), (pb, mb, sb) = a, b
+    assert sa == sb
+    assert pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+    assert len(ma) == len(mb)
+    for x, y in zip(ma, mb):
+        assert x.keys() == y.keys()
+        assert all(torch.equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k] for k in x)
+
+
+def test_a_step_that_fails_before_the_update_is_skipped(vocab, tmp_path, monkeypatch):
+    """JAX's ``train_epoch`` skips a batch whose step raises and logs
+    ``step N failed: ...`` (JAX ``train/loop.py:262-266``).  The port's
+    forward raising on the second of three batches: the error is logged,
+    the parameters, Adam's moments and ``state.step`` are those of a run
+    that trained the first batch alone, and the third batch trains them to
+    what a run that never saw the second gives."""
+    V = vocab.vocab_size
+    b1, bad, b3 = (_batch(V, seed=s) for s in (21, 22, 23))
+    forward = state_mod._forward_batch
+
+    def failing(model, batch, *a, **k):
+        if torch.equal(batch["input"], torch.from_numpy(bad["input"])):
+            raise RuntimeError("forward failed on purpose")
+        return forward(model, batch, *a, **k)
+
+    monkeypatch.setattr(state_mod, "_forward_batch", failing)
+    hit, clean = _contained_trainer(tmp_path, "hit"), _contained_trainer(tmp_path, "clean")
+    hit.train_epoch([b1, bad], eos_weight=0.8, epoch=0)
+    clean.train_epoch([b1], eos_weight=0.8, epoch=0)
+    assert hit.logger.errors == ["step 1 failed: RuntimeError: forward failed on purpose"]
+    assert clean.logger.errors == []
+    assert all(p.grad is None for p in hit.model.parameters())
+    _assert_same_state(_train_state(hit), _train_state(clean))
+    assert int(hit.state.step) == 1
+    hit.train_epoch([b3], eos_weight=0.8, epoch=0)
+    clean.train_epoch([b3], eos_weight=0.8, epoch=0)
+    _assert_same_state(_train_state(hit), _train_state(clean))
+    assert int(hit.state.step) == 2
+
+
+def test_a_step_that_fails_in_the_update_propagates(vocab, tmp_path):
+    """Once the optimizer has begun to update the parameters in place, the
+    state cannot be given back: the error propagates and nothing is
+    logged as skipped."""
+    trainer = _contained_trainer(tmp_path, "update")
+    update = trainer.state.optimizer.step
+
+    def failing_update(*a, **k):
+        update(*a, **k)
+        raise RuntimeError("update failed on purpose")
+
+    trainer.state.optimizer.step = failing_update
+    with pytest.raises(RuntimeError, match="update failed on purpose"):
+        trainer.train_epoch([_batch(vocab.vocab_size, seed=24)], eos_weight=0.8, epoch=0)
+    assert trainer.logger.errors == []

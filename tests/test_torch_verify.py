@@ -80,14 +80,15 @@ def test_twin_matches_pallas_verify(setup, W, index):
     np.testing.assert_array_equal(tl[:, :V].numpy().argmax(-1), np.asarray(jl)[:, :V].argmax(-1))
 
 
-def test_twin_equals_sequential_v2_steps(setup):
+@pytest.mark.parametrize("W", [16, 24])
+def test_twin_equals_sequential_v2_steps(setup, W):
     """Row j of the twin is the v2 twin's step at index + j over the cache
-    spliced with rows 0..j-1: the window's definition, W = 16 (the most the
-    CUDA kernel takes)."""
+    spliced with rows 0..j-1: the window's definition, at W = 16 (one
+    row-vector launch on the card) and W = 24 (two, 16 + 8)."""
     _, jmodel, _, tmodel, vpad = setup
     cfg = jmodel.cfg
     kw = _statics(cfg, vpad)
-    W, index = ds.MAX_WINDOW, 100
+    index = 100
     x, self_kv, cross_kv, cross_len = (torch.from_numpy(a) for a in _inputs(
         W, cfg.d_model, cfg.num_decoder_layers, index, seed=5))
     packed = ds.pack_decoder_weights(tmodel, vpad)
