@@ -14,7 +14,15 @@ the v2 step at B=4 (the three rows plus a copy of the first, cross length
 1248), the v3 nucleus token (``fused_decode_token``), the v4 chunk of 8 nucleus
 tokens (``fused_decode_tokens``), the verify window of 9 rows at B=1
 (``fused_verify_window``, index 512, cross length 1440) and, where the
-checkout has int8 weights, the v3 token on them.  Then the attention kernels: ``fused_attention``
+checkout has int8 weights, the v3 token on them; then the served batch
+of ``chip_smoke.py`` phase 3 end to end (3 nucleus requests of the seeded
+score on the committed snapshot, ``InfillEngine.run_batch`` with a seeded
+generator, so both checkouts decode the same tokens: one warm-up run, then
+the wall ms of 5 runs); where the checkout has
+``ops/decode_graph.py``, also the v3 token, the int8 v3 token and the v4
+chunk of 8 as the decoder runs them, one CUDA-graph replay (``DecodeGraph``
+step) each, from index 512 (the replays advance the position: the v3 token
+is timed over positions 512-772, the chunk over 512-760).  Then the attention kernels: ``fused_attention``
 (the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; and
 the train attention at B=8, H=8, 640x640 and 384x384 causal (rate 0.1, ~10%
 of keys invalid, one batch row with no valid key, as chip_smoke's phase 2g;
@@ -46,7 +54,7 @@ import sys
 from pathlib import Path
 
 CHILD = r"""
-import json, math, subprocess, sys
+import json, math, subprocess, sys, time
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -97,18 +105,18 @@ skw = dict(mode=0, max_spans=256, span_cap=100, eos_index=vocab.eos_index,
            n_sid=N_SID, span_body=SPAN_BODY)
 
 
-def timed(fn):
-    for _ in range(20):
+def timed(fn, warm=20, n=200, n_prof=20, n_iso=20):
+    for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(200):
+    for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
-    start_end_ms = start.elapsed_time(end) / 200
+    start_end_ms = start.elapsed_time(end) / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
+        for _ in range(n_prof):
             fn()
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
@@ -119,12 +127,12 @@ def timed(fn):
         # device events only: a host op carries its kernels' time too
         if us > 0 and evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
             fam = next((k for k in FAMILIES if k in evt.key), "other")
-            split[fam] = round(split.get(fam, 0.0) + us / 20, 1)
+            split[fam] = round(split.get(fam, 0.0) + us / n_prof, 1)
     # one call at a time, nothing queued behind it: the stream drained, a
     # ~100 us spin on the card so the host's launch work ends before the
     # start event fires, then events around the single call
     iso = []
-    for _ in range(20):
+    for _ in range(n_iso):
         torch.cuda.synchronize()
         torch.cuda._sleep(200_000)
         start.record()
@@ -135,6 +143,24 @@ def timed(fn):
     busy = sum(split.values()) / (1e3 * start_end_ms)
     return dict(ms=start_end_ms, ms_isolated=sum(iso) / len(iso), device_us=split,
                 busy=round(busy, 4))
+
+
+try:
+    from smer_music_generation_tpu_torch.ops import decode_graph as dg
+except ImportError:  # a checkout from before the decode graph
+    dg = None
+
+
+def replayed(packed, T):
+    # the decoder's step as a graph replay from index 512, as the decoder
+    # opens it (open_graph: the inputs copied into the graph's buffers, the
+    # capture at the first step)
+    with dg.open_graph(dg.GraphCache(), packed, tables, state, aux, span_types, noise, cross_kv,
+                       cross_len, cache_rows=self_kv.shape[2], cache_dtype=self_kv.dtype, T_chunk=T,
+                       start=INDEX, **kw, **skw) as graph:
+        if T is None:
+            return timed(graph.step)
+        return timed(graph.step, warm=3, n=20, n_prof=3, n_iso=5)
 
 
 out = {"root": root}
@@ -154,10 +180,14 @@ for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
     out["v3_token" + tag] = timed(lambda: ds.fused_decode_token(
         packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
         **kw, **skw))
+    if dg is not None:
+        out["v3_token_graph" + tag] = replayed(packed, None)
     if quant == "none":
         out["v4_chunk8"] = timed(lambda: ds.fused_decode_tokens(
             packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
             **kw, **skw, T_chunk=8))
+        if dg is not None:
+            out["v4_chunk8_graph"] = replayed(packed, 8)
         xw = torch.randn(9, D, generator=g, device=dev).to(torch.bfloat16)
         one = (self_kv[:, :1].contiguous(), cross_kv[:, 1:2].contiguous(),
                cross_len[1:2].contiguous())  # the second row's cross length, 1440
@@ -186,6 +216,28 @@ for T_, S_, causal in ((640, 640, False), (384, 384, True)):
     if not causal:  # without dropout: what the keep hash costs the backward
         out["dropout_attention_bwd_" + tag + "_rate0"] = timed(
             lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.0, causal))
+if len(sys.argv) > 2:  # the served batch end to end on the committed snapshot
+    from smer_music_generation_tpu_torch.infer.engine import InfillEngine
+    from smer_music_generation_tpu_torch.train.state import load_inference_model
+
+    with open(sys.argv[2]) as fh:
+        served = json.load(fh)
+    cfg = ExperimentConfig()
+    smodel, _ = load_inference_model(cfg, vocab.vocab_size, served["snapshot"], torch.bfloat16,
+                                     device=dev)
+    engine = InfillEngine(smodel, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    reqs = [engine.prepare(served["events"], t, b) for t, b in served["jobs"]]
+    runs = []
+    for i in range(6):  # the first warms up (and, with the decode graph, captures)
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.run_batch(reqs, gen)
+        torch.cuda.synchronize()
+        runs.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                         tokens=sum(len(r.generated) for r in res if r is not None)))
+    out["served_run_batch"] = dict(first=runs[0], runs=runs[1:],
+                                   ms=sum(r["ms"] for r in runs[1:]) / 5)
 out["build"] = {"path": str(ds.BUILD_INFO.get("path")), "log": str(ds.BUILD_INFO.get("log", ""))}
 out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -223,13 +275,32 @@ def build_facts(build) -> dict:
     return out
 
 
+def served_inputs(path: Path) -> None:
+    """The served batch of ``chip_smoke`` phase 3 (its seeded score, its 3
+    jobs) and the committed snapshot, written as JSON for the children."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from smer_music_generation_tpu_torch.train.state import default_flagship_snapshot
+    from smer_music_generation_tpu_torch.utils.config import ExperimentConfig
+    from smer_music_generation_tpu_torch.vocab import WordVocab
+
+    cfg = ExperimentConfig()
+    vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
+    events = chip_smoke.served_events(chip_smoke.make_score(), vocab)
+    path.write_text(json.dumps(dict(snapshot=default_flagship_snapshot(), events=list(events),
+                                    jobs=[list(j) for j in chip_smoke.SERVED_JOBS])))
+
+
 def main(argv) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
+    served = Path(__file__).resolve().parents[1] / "build" / "ab_served.json"
+    served.parent.mkdir(exist_ok=True)
+    served_inputs(served)
     for root in argv:
-        proc = subprocess.run([sys.executable, "-c", CHILD, root], capture_output=True, text=True,
-                              timeout=600)
+        proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served)], capture_output=True,
+                              text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

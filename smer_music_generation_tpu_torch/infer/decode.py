@@ -29,17 +29,23 @@ Five loop bodies, as in JAX:
   batch of several rows with ``draft_k`` set decodes through the loops
   below, as in JAX;
 * ``fused=True``, ``fused_sampling`` True or None and ``token_chunk > 1``:
-  the v4 chunk, ``ops.decode_step.fused_decode_tokens`` (JAX ``_decode_v4``
-  :843-917): ``token_chunk`` (at most 64) whole tokens a call, the state on
+  the v4 chunk (JAX ``_decode_v4`` :843-917): ``token_chunk`` (at most 64)
+  whole tokens a step of ``ops.decode_graph.DecodeGraph``, the launches of
+  ``ops.decode_step.fused_decode_tokens``, the state and the position on
   the device, the done flags read back once a chunk, the chunk's tokens and
-  K/V rows spliced at its base; the per-position buffers carry 64 slop rows
-  past ``max_tgt_len`` for a live row that runs on inside the last chunk,
-  trimmed after the loop;
-* ``fused=True`` with ``fused_sampling`` True or None: the v3 whole token,
-  ``ops.decode_step.fused_decode_token`` (JAX ``_v3_loop`` / ``_decode_v3``
-  :704-778): embedding, decoder layers, grammar-masked sampling and the
-  (6, B) state advance in one call, so the loop body is that call, the
-  output column and the cache row; the state stays on the device;
+  K/V rows written at its base on the device; the per-position buffers
+  carry 64 slop rows past ``max_tgt_len`` for a live row that runs on
+  inside the last chunk, trimmed after the loop;
+* ``fused=True`` with ``fused_sampling`` True or None: the v3 whole token
+  (JAX ``_v3_loop`` / ``_decode_v3`` :704-778): embedding, decoder layers,
+  grammar-masked sampling and the (6, B) state advance, the launches of
+  ``ops.decode_step.fused_decode_token``, one ``DecodeGraph`` step a token,
+  which also writes the output column and the cache row at the position
+  held on the device, so the loop body is that step alone.  On CUDA a step
+  is one replay of a CUDA graph (v3 and v4, ``quant="int8"`` too), as JAX's
+  token is one ``pallas_call``, captured at a decoder's first decode of a
+  batch size and source bucket and kept in its ``GraphCache``; on the CPU
+  it runs the twins;
 * ``fused=True, fused_sampling=False``: the v2 decoder step,
   ``ops.decode_step.fused_decode_step``, with grammar and sampling in torch;
 * ``fused=False``: the model's own ``decode_step``.
@@ -72,13 +78,11 @@ import numpy as np
 import torch
 
 from ..models.transformer import ScoreTransformer
+from ..ops.decode_graph import GraphCache, open_graph
 from ..ops.decode_step import (
     ST_DONE,
     ST_LEN,
-    ST_TOKEN,
     fused_decode_step,
-    fused_decode_token,
-    fused_decode_tokens,
     fused_verify_window,
     pack_decoder_weights,
     pack_sampling_tables,
@@ -167,6 +171,7 @@ class InfillDecoder:
         }
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._packed = None
+        self.graphs = GraphCache()  # the v3 / v4 loops' captured graphs
 
     def resolve_backend(self) -> None:
         if self.fused is None:
@@ -363,26 +368,21 @@ class InfillDecoder:
 
     def _decode_v3(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
                    no_whole, generator, noise) -> DecodeResult:
-        """The v3 token loop (JAX ``_v3_loop`` :723)."""
-        dev, L = self.device, self.max_tgt_len
+        """The v3 token loop (JAX ``_v3_loop`` :723): one ``DecodeGraph``
+        step a token, a graph replay on CUDA."""
+        L = self.max_tgt_len
         noise, state, aux, span_types, skw = self._v3_setup(
             kw, span_types, n_spans, no_whole, generator, noise, L)
-        B = state.shape[1]
-        cache = torch.zeros(kw["n_layers"], B, L, 2 * kw["d_model"], dtype=self.model.cfg.dtype,
-                            device=dev)
-        out = torch.zeros(B, L, dtype=torch.long, device=dev)
-        out[:, 0] = self.tables.mask_index
         pos = 0
-        while pos + 1 < L:
-            if pos % SYNC_EVERY == 0 and bool(state[ST_DONE].all()):
-                break
-            state, new_kv = fused_decode_token(
-                packed, self.sampling_tables, state, aux, span_types, noise, cache,
-                cross_kv, pos, cross_len, **kw, **skw,
-            )
-            out[:, pos + 1] = state[ST_TOKEN]
-            cache[:, :, pos] = new_kv
-            pos += 1
+        with open_graph(self.graphs, packed, self.sampling_tables, state, aux, span_types, noise,
+                        cross_kv, cross_len, cache_rows=L, cache_dtype=self.model.cfg.dtype, **kw,
+                        **skw) as token:
+            while pos + 1 < L:
+                if pos % SYNC_EVERY == 0 and bool(token.state[ST_DONE].all()):
+                    break
+                token.step()
+                pos += 1
+            state, out = token.state.clone(), token.out.long()
         lengths = state[ST_LEN].long()
         # JAX's loop stops at the first position where every element is
         # done.  An element that becomes done in the step at position s
@@ -400,31 +400,26 @@ class InfillDecoder:
     def _decode_v4(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
                    no_whole, generator, noise) -> DecodeResult:
         """The kernel-looped loop (JAX ``_decode_v4`` :843-917): one
-        ``fused_decode_tokens`` call of ``token_chunk`` tokens a chunk."""
+        ``DecodeGraph`` step of ``token_chunk`` tokens a chunk, a graph
+        replay on CUDA."""
         dev, L, T = self.device, self.max_tgt_len, self.token_chunk
         Lp = L + CHUNK_SLOP  # a chunk starting below L - 1 ends below Lp
         noise, state, aux, span_types, skw = self._v3_setup(
             kw, span_types, n_spans, no_whole, generator, noise, Lp)
-        B = state.shape[1]
-        cache = torch.zeros(kw["n_layers"], B, Lp, 2 * kw["d_model"], dtype=self.model.cfg.dtype,
-                            device=dev)
-        out = torch.zeros(B, Lp, dtype=torch.long, device=dev)
-        out[:, 0] = self.tables.mask_index
         pos = 0
-        while pos + 1 < L and not bool(state[ST_DONE].all()):  # one read-back a chunk
-            state, tokens, new_kv = fused_decode_tokens(
-                packed, self.sampling_tables, state, aux, span_types, noise, cache,
-                cross_kv, pos, cross_len, **kw, **skw, T_chunk=T,
-            )
-            out[:, pos + 1 : pos + 1 + T] = tokens.T
-            cache[:, :, pos : pos + T] = new_kv.transpose(1, 2)
-            pos += T
+        with open_graph(self.graphs, packed, self.sampling_tables, state, aux, span_types, noise,
+                        cross_kv, cross_len, cache_rows=Lp, cache_dtype=self.model.cfg.dtype,
+                        T_chunk=T, **kw, **skw) as chunk:
+            while pos + 1 < L and not bool(chunk.state[ST_DONE].all()):  # one read-back a chunk
+                chunk.step()
+                pos += T
+            state, out = chunk.state.clone(), chunk.out.clone()
         # a chunk may overshoot a finish inside it, and a row still live near
         # the cap decodes into the slop rows: clamp the lengths to L, zero
         # every position past them and trim the slop (JAX :897-905)
         lengths = state[ST_LEN].long().clamp(max=L)
         valid = torch.arange(Lp, device=dev)[None, :] < lengths[:, None]
-        out = torch.where(valid, out, 0)[:, :L]
+        out = torch.where(valid, out, 0)[:, :L].long()
         # v3's step count: the slowest row's unclamped length, at most the
         # L - 1 steps of v3's loop, and 0 when the loop never ran (JAX :906-916)
         ran = L > 1 and bool((n_spans > 0).any())

@@ -96,7 +96,8 @@
 // one wave of loads and the ticketed combine set it, and the time a launch
 // rises by ~1 us for each 4 rows past 8.  A whole token takes 0.21-0.27 ms
 // of device time against 1.33 ms, and the host's 48 launches now set its
-// pace.
+// pace unless the token is replayed as one CUDA graph (ops/decode_graph.py,
+// the self-attention then reading the position through `lens`).
 //
 // Every launcher has a plain C interface and returns cudaGetLastError().
 

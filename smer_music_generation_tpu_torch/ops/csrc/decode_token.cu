@@ -5,51 +5,69 @@
 //
 // Replaces the TPU kernel `fused_decode_token` (v3) of
 // smer_music_generation_tpu/ops/decode_step.py:796 (body `_kernel_v3` :725,
-// `_sample_and_advance_b` :617, `_pe_row` :604).  It computes the same
-// function, not the TPU kernel's shape: the embedding is a gather, not a
-// one-hot matmul; the nucleus rule reads the probabilities from shared
-// memory, not through an identity-matmul transpose; there are no DMA
-// semaphores.  One token is 48 launches in stream order:
+// `_sample_and_advance_b` :617, `_pe_row` :604) and, run T_chunk times, the
+// kernel-looped chunk `fused_decode_tokens` (v4) of the same file, :1028
+// (body `_kernel_v4` :916).  It computes the same function, not the TPU
+// kernel's shape: the embedding is a gather, not a one-hot matmul; the
+// nucleus rule reads the probabilities from shared memory, not through an
+// identity-matmul transpose; there are no DMA semaphores.
+//
+// The position lives on the device.  On the TPU a whole token is one
+// `pallas_call` inside a device-side `lax.while_loop`, the position a loop
+// carry.  Here a token is 48 launches in stream order (embed_pe_kernel,
+// 4 layers x 11 and the final LN and logits of decode_step.cu,
+// sample_advance_kernel), captured once as a CUDA graph and replayed once
+// a token (v3) or once a chunk of T_chunk tokens (v4; ops/decode_graph.py).
+// A graph replays its launches with the arguments they were captured
+// with, so no launch may take the position as a value: it is an int32
+// vector `pos` (B,), one equal entry a batch row, read by every kernel that
+// needs it (the self-attention reads it as attend_kernel's per-row `lens`)
+// and advanced by the last kernel of the token.  A launch's arguments are
+// then the same at every position.
 //
 //   * `embed_pe_kernel` (grid B): reads the token of each row from the
-//     (6, B) state ON THE DEVICE, gathers its embedding row (bf16 -> f32),
-//     scales it by sqrt(D) and adds the analytic sinusoidal row of `index`
-//     (even lanes sin, odd lanes cos of the (l - 1) frequency), in f32; x is
-//     not rounded before the first layer, as the TPU kernel keeps it in f32;
-//   * the 46 v2 launches (4 layers x 11, the final LN, the logits);
+//     (6, B) state and its position pos[b] + t (t, the token's place in a
+//     v4 chunk, is fixed at capture), gathers the token's embedding row
+//     (bf16 -> f32), scales it by sqrt(D) and adds the analytic sinusoidal
+//     row of that position (even lanes sin, odd lanes cos of the (l - 1)
+//     frequency), in f32; x is not rounded before the first layer, as the
+//     TPU kernel keeps it in f32;
 //   * `sample_advance_kernel` (grid B, one thread per padded vocab lane):
 //     grammar-row selection from the state bits, span start and span type;
 //     masked (-1e9) logits over the temperature; an f32 log-softmax; the
 //     sort-free nucleus rule (a lane is kept iff the probability mass
 //     strictly above its own is < p: vpad x vpad multiply-adds over shared
-//     memory); the Gumbel row `noise[index, b]` (greedy reads none); an
-//     argmax that takes the lowest index on ties, as jnp.argmax does; the
-//     class flags of the sampled token; the bits, span end (eos, the span
-//     cap counting the introducing m_0, a control span's one token), done,
-//     next token and length exactly as the TPU kernel advances them.  A row
-//     that is done writes padding.
+//     memory); the Gumbel row `noise[p, b]` of the token's position p =
+//     pos[b] + t (greedy reads none); an argmax that takes the lowest index
+//     on ties, as jnp.argmax does; the class flags of the sampled token;
+//     the bits, span end (eos, the span cap counting the introducing m_0, a
+//     control span's one token), done, next token and length (p + 2) exactly
+//     as the TPU kernel advances them.  A row that is done writes padding.
+//     It writes the next state over the state it read (block b owns column
+//     b, and every thread reads the column before thread 0 writes it, past
+//     the block's barriers), the next token into the decoder's (B, L)
+//     output at column p + 1 when it is given one, and advances pos[b] by
+//     `advance` (1 for a v3 token, T_chunk at a chunk's last token, 0
+//     before it).  Each block advances its own row's entry of `pos` after
+//     its own reads, and every other reader of the position is an earlier
+//     launch in stream order, so no ticket and no extra launch is needed;
+//     this is why the position is a (B,) vector and not one word.
 //
-// What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes,
-// those of the v2 step (the decoder weights, the valid cache rows) plus B
-// embedding rows and, a row, one noise row, one grammar mask row and one
-// class row, less the logits, which stay on chip.  This design does
-// nothing about that yet: the two kernels add two launches to v2's 46 and
-// move the host's ~25 sampling ops onto the card, and making the whole
-// token fast is later work.
+// What bounds them on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes,
+// a few KB a token: embed_pe_kernel reads B embedding rows (1 KB each at
+// d512) and writes B f32 rows; sample_advance_kernel reads B logit rows,
+// grammar mask rows and (nucleus) noise rows of vpad f32 (1.5 KB each) and
+// writes 7 words a row.  Under 0.01 us of HBM time each: the launch (a few
+// us) sets their time, and so what this design does about it is to make
+// them, and the 46 launches between them, replayable as one graph.  The
+// whole token is bound by the bytes of the v2 step (the decoder weights,
+// the valid cache rows).
 //
-// The kernel-looped chunk (v4) replaces the TPU kernel `fused_decode_tokens`
-// of smer_music_generation_tpu/ops/decode_step.py:1028 (body `_kernel_v4`
-// :916, the chunk block of `_flash_attend` :201-285).  The TPU runs a
-// (T_chunk, n_layers) grid in one program, the state in SMEM and the chunk's
-// K|V rows in VMEM.  Here one call issues T_chunk x 48 launches in stream
-// order with no host synchronisation: token t embeds at position base + t,
-// its QKV launch writes its K|V row straight into the chunk output `new_kv`
-// (nl, T_chunk, B, 2D), the self-attention reads the cache rows below base
-// and the chunk rows before t (decode_step.cu), and `sample_advance_kernel`
-// reads noise row base + t, applies the span cap at that position, writes
-// the next state into the other of two state buffers and the next token
-// into row t of `tokens`.  It is bound by bytes as v3 is, the weights read
-// once a token; keeping them on chip across the chunk is later work.
+// In a v4 chunk the QKV launch of token t writes its K|V row into the
+// chunk output `new_kv` (nl, T_chunk, B, 2D), the self-attention reads the
+// cache rows below pos (which stays at the chunk's base until the chunk's
+// last token) and the chunk rows before t (decode_step.cu).  It is bound
+// by bytes as v3 is, the weights read once a token.
 //
 // There is no grid-wide synchronisation, no cooperative launch and no
 // spin-wait.  Every launcher has a plain C interface and returns
@@ -71,15 +89,16 @@ constexpr int kMaxWarps = 32;
 
 __global__ void __launch_bounds__(256) embed_pe_kernel(
     const int* __restrict__ tokens, const __nv_bfloat16* __restrict__ emb,
-    int vpad, int D, float emb_scale, float pos, float neg_log_over_d,
-    float* __restrict__ x) {
+    int vpad, int D, float emb_scale, const int* __restrict__ pos, int pos_offset,
+    float neg_log_over_d, float* __restrict__ x) {
   const int b = blockIdx.x;
   const int tok = tokens[b];
   const bool valid = tok >= 0 && tok < vpad;
+  const float p = (float)(pos[b] + pos_offset);
   for (int l = threadIdx.x; l < D; l += blockDim.x) {
     const float e = valid ? __bfloat162float(emb[(size_t)tok * D + l]) : 0.f;
     const float freq = expf(__fmul_rn((float)(l - (l & 1)), neg_log_over_d));
-    const float angle = __fmul_rn(pos, freq);
+    const float angle = __fmul_rn(p, freq);
     const float pe = (l & 1) ? cosf(angle) : sinf(angle);
     // rows * sqrt(D) + pe as two rounded steps, as the reference computes it
     x[(size_t)b * D + l] = __fadd_rn(__fmul_rn(e, emb_scale), pe);
@@ -119,14 +138,15 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
 }
 
 // One block per batch row, one thread per padded vocab lane (blockDim.x ==
-// vpad, a multiple of 32 and at most 1024).
+// vpad, a multiple of 32 and at most 1024).  `state` is read and written in
+// place, and `pos` too: neither is __restrict__.
 __global__ void sample_advance_kernel(
-    const float* __restrict__ logits, const int* __restrict__ state,
+    const float* __restrict__ logits, int* state,
     const int* __restrict__ aux, const int* __restrict__ span_types,
     const int* __restrict__ sid_tbl, const float* __restrict__ masks,
     const float* __restrict__ class_mat, const float* __restrict__ noise,
-    int* __restrict__ state_out, int* __restrict__ tokens_out, int B, int vpad,
-    int index, int mode, int max_spans, int span_cap, int eos_index, int mask_index,
+    int* pos, int pos_offset, int advance, int* __restrict__ out, int ld_out, int B,
+    int vpad, int mode, int max_spans, int span_cap, int eos_index, int mask_index,
     int use_nucleus, float nucleus_p, float temperature, int n_sid,
     int span_body) {
   extern __shared__ float probs[];  // (vpad,)
@@ -139,6 +159,8 @@ __global__ void sample_advance_kernel(
   const int lane = v & 31;
   const int warp = v >> 5;
 
+  const int row_pos = pos[b];
+  const int index = row_pos + pos_offset;  // this token's position
   const int bits = state[kBits * B + b];
   const int steps = state[kSteps * B + b];
   const int span_idx = state[kSpan * B + b];
@@ -233,50 +255,55 @@ __global__ void sample_advance_kernel(
   if (now_done) next_tok = 0;  // now_done covers done
   if (end_span || done > 0) new_bits = 0;
 
-  state_out[kToken * B + b] = next_tok;
-  state_out[kBits * B + b] = new_bits;
-  state_out[kSteps * B + b] = end_span ? 1 : steps + 1;
-  state_out[kSpan * B + b] = new_span_idx;
-  state_out[kDone * B + b] = now_done ? 1 : 0;
-  state_out[kLen * B + b] = next_tok != 0 ? index + 2 : length;
-  if (tokens_out != nullptr) tokens_out[b] = next_tok;  // v4: the chunk's row t
+  // every thread of the block read the state column and pos[b] above,
+  // before the barriers of the reductions: thread 0 may overwrite them
+  state[kToken * B + b] = next_tok;
+  state[kBits * B + b] = new_bits;
+  state[kSteps * B + b] = end_span ? 1 : steps + 1;
+  state[kSpan * B + b] = new_span_idx;
+  state[kDone * B + b] = now_done ? 1 : 0;
+  state[kLen * B + b] = next_tok != 0 ? index + 2 : length;
+  if (out != nullptr) out[(size_t)b * ld_out + index + 1] = next_tok;
+  if (advance != 0) pos[b] = row_pos + advance;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, D) f32 <- emb[state[ST_TOKEN, b]] * emb_scale + PE(pos)
+// x (B, D) f32 <- emb[state[ST_TOKEN, b]] * emb_scale + PE(pos[b] + pos_offset)
 int smer_embed_pe(int B, int D, const void* tokens, const void* emb, int vpad,
-                  float emb_scale, int pos, float neg_log_over_d, void* x,
-                  void* stream) {
+                  float emb_scale, const void* pos, int pos_offset, float neg_log_over_d,
+                  void* x, void* stream) {
   embed_pe_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tokens), static_cast<const __nv_bfloat16*>(emb),
-      vpad, D, emb_scale, (float)pos, neg_log_over_d, static_cast<float*>(x));
+      vpad, D, emb_scale, static_cast<const int*>(pos), pos_offset, neg_log_over_d,
+      static_cast<float*>(x));
   return (int)cudaGetLastError();
 }
 
-// noise null = greedy; use_nucleus 0 = no nucleus rule; tokens_out null =
-// no token row (v3), else the B next tokens are also written there (v4)
-int smer_sample_advance(int B, int vpad, const void* logits, const void* state,
+// noise null = greedy; use_nucleus 0 = no nucleus rule; the state (6, B) is
+// advanced in place; the token's position is pos[b] + pos_offset, and
+// pos[b] grows by `advance` at the end; out null = no output row, else the
+// next token goes to out[b * ld_out + position + 1]
+int smer_sample_advance(int B, int vpad, const void* logits, void* state,
                         const void* aux, const void* span_types,
                         const void* sid_tbl, const void* masks,
-                        const void* class_mat, const void* noise,
-                        void* state_out, void* tokens_out, int index, int mode,
+                        const void* class_mat, const void* noise, void* pos,
+                        int pos_offset, int advance, void* out, int ld_out, int mode,
                         int max_spans, int span_cap, int eos_index, int mask_index,
                         int use_nucleus, float nucleus_p, float temperature,
                         int n_sid, int span_body, void* stream) {
   if (vpad % 32 != 0 || vpad > 1024 || vpad < 32) return (int)cudaErrorInvalidValue;
   sample_advance_kernel<<<B, vpad, vpad * sizeof(float),
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const int*>(state),
+      static_cast<const float*>(logits), static_cast<int*>(state),
       static_cast<const int*>(aux), static_cast<const int*>(span_types),
       static_cast<const int*>(sid_tbl), static_cast<const float*>(masks),
       static_cast<const float*>(class_mat), static_cast<const float*>(noise),
-      static_cast<int*>(state_out), static_cast<int*>(tokens_out), B, vpad,
-      index, mode, max_spans, span_cap,
-      eos_index, mask_index, use_nucleus, nucleus_p, temperature, n_sid,
-      span_body);
+      static_cast<int*>(pos), pos_offset, advance, static_cast<int*>(out), ld_out, B,
+      vpad, mode, max_spans, span_cap, eos_index, mask_index, use_nucleus, nucleus_p,
+      temperature, n_sid, span_body);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,11 @@ on the CPU goes to the twin (:func:`fused_decode_step_reference`,
 :func:`fused_verify_window_reference`, :func:`rowvec_int8_reference`), the
 same math in plain torch; a CUDA tensor
 launches the kernels or raises.
-There is no fallback from one to the other.  The kernels are built at first
+There is no fallback from one to the other.  ``fused_decode_token`` and
+``fused_decode_tokens`` take the position as a host int or as a (B,) int32
+tensor on the device; their launch plan (:func:`launch_tokens`) reads it
+only there, so ``decode_graph.DecodeGraph`` captures it once and replays it
+at every position.  The kernels are built at first
 use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over every
 file of ``csrc/``, headers included) and bound with ``ctypes``; nothing is
 built when this module is imported.
@@ -257,6 +261,15 @@ def _attend(q, kv, n_valid, H, extra_kv=None):
     return torch.einsum("bhl,blhd->bhd", w, v).reshape(B, D)
 
 
+def host_position(index) -> int:
+    """A position given as a host int or as a (B,) int32 position tensor
+    (one equal entry a batch row, as the CUDA wrappers and the decode graph
+    take it); the twins read it on the host."""
+    if isinstance(index, torch.Tensor):
+        return int(index.reshape(-1)[0])
+    return int(index)
+
+
 def fused_decode_step_reference(
     packed: Dict[str, torch.Tensor],
     x_emb: torch.Tensor,
@@ -409,8 +422,9 @@ def sample_and_advance_reference(
     nucleus_p, temperature: float, greedy: bool, n_sid: int, span_body: int,
 ) -> torch.Tensor:
     """Plain-torch twin of ``sample_advance_kernel``: the sampled token and
-    the (6, B) int32 state advance of JAX :673-722 for every row."""
-    index = int(index)
+    the (6, B) int32 state advance of JAX :673-722 for every row; ``index``
+    a host int or a position tensor."""
+    index = host_position(index)
     final, _ = sampling_scores(
         logits, state, aux, span_types, None if greedy else noise[index], tables,
         mode=mode, max_spans=max_spans, nucleus_p=nucleus_p,
@@ -474,7 +488,8 @@ def fused_decode_token_reference(
     """Plain-torch twin of :func:`fused_decode_token`, on any device: the
     embedding row x sqrt(D) plus the analytic PE row, in f32 (not rounded
     before the first layer, as the TPU kernel keeps ``x_s`` in f32), then
-    the v2 twin, then the sampler and state advance."""
+    the v2 twin, then the sampler and state advance.  ``index`` is a host
+    int or a position tensor."""
     fused_decode_token_reference.calls += 1
     return _decode_token_math(
         packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index, cross_len,
@@ -487,7 +502,7 @@ def fused_decode_token_reference(
 
 def _decode_token_math(packed, tables, state, aux, span_types, noise, self_kv, cross_kv,
                        index, cross_len, *, n_layers, d_model, nhead, d_ff, vpad, **skw):
-    index = int(index)
+    index = host_position(index)
     emb = packed["emb"][state[ST_TOKEN].long()].float()
     x = emb * math.sqrt(d_model) + pe_row(index, d_model, emb.device)
     logits, new_kv = _decode_step_math(
@@ -522,9 +537,9 @@ def fused_decode_tokens_reference(
     """Plain-torch twin of :func:`fused_decode_tokens`: the v3 twin's token
     at positions ``index + t`` for t < T_chunk, token t attending the cache
     rows below ``index`` and the chunk's rows before t.  ``self_kv`` is not
-    written."""
+    written.  ``index`` is a host int or a position tensor."""
     fused_decode_tokens_reference.calls += 1
-    base = int(index)
+    base = host_position(index)
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
               mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
               mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
@@ -668,9 +683,9 @@ def load_library() -> ctypes.CDLL:
         lib.smer_train_attn_bwd.argtypes = [i, i, i, i, p, p, p, p, p, p, u, i, f, i, p, p, p, p, p]
         lib.smer_dropout_keep_mask.argtypes = [i, i, i, p, u, p, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
-        lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, i, f, p, p]
+        lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, p, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
-            [i, i] + [p] * 10 + [i] * 7 + [f, f, i, i, p]
+            [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i, p]
         )
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
@@ -820,30 +835,43 @@ def _launch_attend(lib, q, kv, bstride, n_rows, lens, max_rows, source, rows, ts
     ), "attend")
 
 
+def _layer_work(B: int, D: int, F: int, device) -> Dict[str, torch.Tensor]:
+    """The f32 temporaries of :func:`_launch_layers` for B rows."""
+    f32 = dict(device=device, dtype=torch.float32)
+    return dict(qkv=torch.empty(B, 3 * D, **f32), att=torch.empty(B, D, **f32),
+                qc=torch.empty(B, D, **f32), o=torch.empty(B, D, **f32),
+                h=torch.empty(B, F, **f32))
+
+
 def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
-                   *, n_layers, D, H, F, vpad, stream, chunk=None, window=False) -> None:
+                   *, n_layers, D, H, F, vpad, stream, chunk=None, window=False,
+                   work=None) -> None:
     """The v2 launches on an f32 activation ``x`` (B, D), updated in place:
     11 a layer, the final LN and the logits.  Writes ``logits`` (B, vpad)
     f32 and ``new_kv`` (n_layers, B, 2D) (any layer stride, rows
-    contiguous).  ``chunk = (rows (n_layers, T, B, 2D), t)`` adds the first
-    t chunk rows to the self-attention after the ``index`` cache rows (v4).
+    contiguous).  ``index`` is the host int of cached self rows, or a (B,)
+    int32 position tensor on the device, which the self-attention reads as
+    its per-row lengths, its splits sized from the cache's capacity: then no
+    argument of any launch depends on the position.  ``chunk = (rows
+    (n_layers, T, B, 2D), t)`` adds the first t chunk rows to the
+    self-attention after the ``index`` cache rows (v4).
     ``window``: the B rows are one sequence's verify window over a cache of
     one batch row (batch stride 0 for the self and cross K|V, ``cross_len``
     (B,) repeating its length); row j attends the ``index`` cache rows,
     then rows 0..j-1 of ``new_kv``, then its own.
-    With ``"scale"`` in ``packed`` the six matrices of a layer are int8."""
+    With ``"scale"`` in ``packed`` the six matrices of a layer are int8.
+    ``work``: the temporaries (:func:`_layer_work`), allocated here if None."""
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
     self_bstride = 0 if window else L * 2 * D
     cross_bstride = 0 if window else S * 2 * D
-    f32 = dict(device=x.device, dtype=torch.float32)
-    qkv = torch.empty(B, 3 * D, **f32)
-    att = torch.empty(B, D, **f32)
-    qc = torch.empty(B, D, **f32)
-    o = torch.empty(B, D, **f32)
-    h = torch.empty(B, F, **f32)
+    if work is None:
+        work = _layer_work(B, D, F, x.device)
+    qkv, att, qc, o, h = (work[k] for k in ("qkv", "att", "qc", "o", "h"))
+    lens = index if isinstance(index, torch.Tensor) else None
+    n_rows = 0 if lens is not None else index
     # the stream's workspace, as large as the largest launch of the step needs
     source = _ROWS_CHUNK if chunk is not None else _ROWS_WINDOW if window else _ROWS_CACHE_ONLY
-    splits = max(_attend_splits(index, None, L, source, chunk[1] if chunk else 0, B),
+    splits = max(_attend_splits(n_rows, lens, L, source, chunk[1] if chunk else 0, B),
                  _attend_splits(0, cross_len, S, _ROWS_CACHE_ONLY, 0, B))
     need = max([B * H * splits * (2 + D // H)]
                + [_rowvec_need(K, N, B)[0] for K, N in ((D, 3 * D), (D, F), (F, D), (D, vpad))])
@@ -879,7 +907,7 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
             rows = (_ROWS_WINDOW, new_kv[i], 2 * D, 0)
         else:
             rows = (_ROWS_CACHE_ONLY, None, 0, 0)
-        attend(qkv, self_kv[i], self_bstride, index, None, L, *rows, k_new_ptr, att)
+        attend(qkv, self_kv[i], self_bstride, n_rows, lens, L, *rows, k_new_ptr, att)
         rowvec(att, w[:, 3 * D :], ldw, 3 * D, o)
         add_ln(x, o, ln[0], ln[1])
         rowvec(x, w[:, 4 * D :], ldw, 4 * D, qc)
@@ -1030,6 +1058,9 @@ fused_verify_window.launches = 0
 
 def _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, *,
                            greedy, n_sid, max_spans, **_):
+    """The sampler's tables and state; ``index`` the host's last position
+    to sample (its noise row must exist), or None for a position that lies
+    on the device, which the caller bounds."""
     B = state.shape[1]
     if vpad % 32 or not 32 <= vpad <= 1024:
         raise ValueError(f"vpad={vpad}: the sampling kernel needs a multiple of 32 in [32, 1024]")
@@ -1043,23 +1074,37 @@ def _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, *
     }
     if not greedy:
         want["noise"] = (noise, torch.float32, (noise.shape[0], B, vpad))
-        if not 0 <= index < noise.shape[0]:
+        if index is not None and not 0 <= index < noise.shape[0]:
             raise ValueError(f"index={index} outside the noise of {noise.shape[0]} rows")
     _check_tensors(state.device, want)
 
 
-def _launch_sample_advance(lib, logits, state, aux, span_types, noise, index, tables, state_out, *,
+def _position(index, B: int, dev) -> torch.Tensor:
+    """A private (B,) int32 position vector on ``dev``: filled from a host
+    int, or a copy of a position tensor (which the launches then do not
+    advance)."""
+    if isinstance(index, torch.Tensor):
+        _check_tensors(dev, {"index": (index, torch.int32, (B,))})
+        return index.clone()
+    return torch.full((B,), int(index), dtype=torch.int32, device=dev)
+
+
+def _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tables, *,
                            stream, mode, max_spans, span_cap, eos_index, mask_index,
                            nucleus_p, temperature, greedy, n_sid, span_body,
-                           tokens_out=None) -> None:
+                           pos_offset=0, advance=0, out=None) -> None:
+    """``sample_advance_kernel``: samples at position ``pos[b] +
+    pos_offset`` and advances ``state`` in place, writes the next token to
+    ``out`` (B, *) int32 at column position + 1 when given, then adds
+    ``advance`` to ``pos``."""
     B, vpad = logits.shape
     use_nucleus = nucleus_p is not None and not greedy
     _check(lib.smer_sample_advance(
         B, vpad, logits.data_ptr(), state.data_ptr(), aux.data_ptr(), span_types.data_ptr(),
         tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
-        tables["class_mat"].data_ptr(), None if greedy else noise.data_ptr(),
-        state_out.data_ptr(), tokens_out.data_ptr() if tokens_out is not None else None,
-        index, mode, max_spans, span_cap, eos_index,
+        tables["class_mat"].data_ptr(), None if greedy else noise.data_ptr(), pos.data_ptr(),
+        pos_offset, advance, out.data_ptr() if out is not None else None,
+        out.stride(0) if out is not None else 0, mode, max_spans, span_cap, eos_index,
         mask_index, int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
         float(temperature), n_sid, span_body, stream,
     ), "sample_advance")
@@ -1074,15 +1119,85 @@ def sample_and_advance(logits, state, aux, span_types, noise, index, tables, **s
         return sample_and_advance_reference(logits, state, aux, span_types, noise, index, tables, **skw)
     if logits.device.type != "cuda":
         raise ValueError(f"sample_and_advance runs on cuda or cpu, not {logits.device}")
-    index = int(index)
     B, vpad = logits.shape
+    host = None if isinstance(index, torch.Tensor) else int(index)
     _check_tensors(logits.device, {"logits": (logits, torch.float32, (B, vpad))})
-    _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, **skw)
-    state_out = torch.empty(6, B, dtype=torch.int32, device=logits.device)
-    _launch_sample_advance(load_library(), logits, state, aux, span_types, noise, index, tables,
-                           state_out, stream=torch.cuda.current_stream(logits.device).cuda_stream,
-                           **skw)
-    return state_out
+    _check_sampling_inputs(tables, state, aux, span_types, noise, host, vpad, **skw)
+    new_state = state.clone()
+    _launch_sample_advance(load_library(), logits, new_state, aux, span_types, noise,
+                           _position(index, B, logits.device), tables,
+                           stream=torch.cuda.current_stream(logits.device).cuda_stream, **skw)
+    return new_state
+
+
+def token_work(B: int, D: int, F: int, vpad: int, n_layers: int, T, kv_dtype, device):
+    """The buffers of :func:`launch_tokens` for B rows: ``x`` (B, D) f32,
+    ``logits`` (B, vpad) f32, the layers' temporaries and ``new_kv``,
+    (n_layers, B, 2D) for a token (``T`` None) or (n_layers, T, B, 2D) for a
+    chunk."""
+    work = _layer_work(B, D, F, device)
+    work["x"] = torch.empty(B, D, device=device, dtype=torch.float32)
+    work["logits"] = torch.empty(B, vpad, device=device, dtype=torch.float32)
+    shape = (n_layers, B, 2 * D) if T is None else (n_layers, T, B, 2 * D)
+    work["new_kv"] = torch.empty(shape, dtype=kv_dtype, device=device)
+    return work
+
+
+def launch_tokens(lib, packed, tables, state, aux, span_types, noise, self_kv, cross_kv, pos,
+                  cross_len, work, *, T, stream, out=None, n_layers, d_model, nhead, d_ff, vpad,
+                  **skw) -> None:
+    """The launch plan of one v3 token (``T`` None) or of a v4 chunk of
+    ``T`` tokens, 48 launches a token in stream order on ``stream``: for
+    token t, ``embed_pe_kernel`` at position ``pos[b] + t``, the v2
+    launches (:func:`_launch_layers`, the self-attention over ``pos`` cache
+    rows plus, in a chunk, the chunk rows before t) and
+    ``sample_advance_kernel``, which advances ``state`` (6, B) in place,
+    writes the next token to ``out`` (B, *) int32 at column position + 1
+    when given, and advances ``pos`` (B,) int32 by 1 (v3) or, at the
+    chunk's last token, by ``T``.  K|V rows go to ``work["new_kv"]``.
+
+    No argument of any launch depends on the position's value, so the plan
+    may be captured once and replayed at every position (``decode_graph``);
+    nothing here allocates (``work`` is :func:`token_work`'s) or reads a
+    device value on the host."""
+    D, B = d_model, state.shape[1]
+    x, logits, new_kv = work["x"], work["logits"], work["new_kv"]
+    tok_ptr = state.data_ptr() + ST_TOKEN * B * state.element_size()
+    kw = dict(n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream, work=work)
+    for t in range(1 if T is None else T):
+        _check(lib.smer_embed_pe(
+            B, D, tok_ptr, packed["emb"].data_ptr(), vpad, math.sqrt(D), pos.data_ptr(), t,
+            -math.log(10000.0) / D, x.data_ptr(), stream,
+        ), "embed_pe")
+        if T is None:
+            _launch_layers(lib, packed, x, self_kv, cross_kv, pos, cross_len, logits, new_kv, **kw)
+        else:
+            _launch_layers(lib, packed, x, self_kv, cross_kv, pos, cross_len, logits, new_kv[:, t],
+                           chunk=(new_kv, t), **kw)
+        last = T is None or t == T - 1
+        _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tables,
+                               stream=stream, pos_offset=t, advance=(T or 1) if last else 0,
+                               out=out, **skw)
+
+
+def _check_token_inputs(packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index,
+                        cross_len, T, *, n_layers, d_model, nhead, d_ff, vpad, **skw) -> None:
+    """Every shape, type and device check of a token or chunk, on the host;
+    a host ``index`` is also range-checked (T tokens from it fit the cache
+    and the noise), a position tensor only for its shape."""
+    B, D, dev = state.shape[1], d_model, state.device
+    n = 1 if T is None else T
+    if n < 1:
+        raise ValueError(f"T_chunk={T} must be at least 1")
+    host = None if isinstance(index, torch.Tensor) else int(index)
+    _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len,
+                       n_layers, D, nhead, d_ff, vpad, 0 if host is None else host)
+    if host is not None and host + n > self_kv.shape[2]:
+        raise ValueError(f"the chunk's rows {host}..{host + n - 1} do not fit a self cache "
+                         f"of {self_kv.shape[2]} rows")
+    _check_sampling_inputs(tables, state, aux, span_types, noise,
+                           None if host is None else host + n - 1, vpad, **skw)
+    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
 
 
 def fused_decode_token(
@@ -1094,7 +1209,7 @@ def fused_decode_token(
     noise: Optional[torch.Tensor],  # (L, B, vpad) f32 Gumbel rows; unused when greedy
     self_kv: torch.Tensor,  # (n_layers, B, L, 2D)
     cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
-    index,  # int position
+    index,  # int position, or a (B,) int32 position tensor on the state's device
     cross_len: torch.Tensor,  # (B,) int32
     *,
     n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
@@ -1104,7 +1219,9 @@ def fused_decode_token(
     """One full decode token: embed -> decoder layers -> sample -> advance.
 
     Returns (new_state (6, B) int32, new_kv (n_layers, B, 2D)).  On CUDA,
-    48 launches in stream order with no host synchronisation."""
+    the 48 launches of :func:`launch_tokens` in stream order with no host
+    synchronisation; a position tensor is read on the device (and not
+    changed), and is not range-checked."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     skw = dict(mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
                mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
@@ -1114,28 +1231,17 @@ def fused_decode_token(
                                             self_kv, cross_kv, index, cross_len, **kw, **skw)
     if state.device.type != "cuda":
         raise ValueError(f"fused_decode_token runs on cuda or cpu, not {state.device}")
-    index = int(index)
-    B, D, dev = state.shape[1], d_model, state.device
-    _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len,
-                       n_layers, D, nhead, d_ff, vpad, index)
-    _check_sampling_inputs(tables, state, aux, span_types, noise, index, vpad, **skw)
-    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
-    lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    x = torch.empty(B, D, device=dev, dtype=torch.float32)
-    _check(lib.smer_embed_pe(
-        B, D, state.data_ptr() + ST_TOKEN * B * state.element_size(), packed["emb"].data_ptr(),
-        vpad, math.sqrt(D), index, -math.log(10000.0) / D, x.data_ptr(), stream,
-    ), "embed_pe")
-    logits = torch.empty(B, vpad, device=dev, dtype=torch.float32)
-    new_kv = torch.empty(n_layers, B, 2 * D, dtype=self_kv.dtype, device=dev)
-    _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
-                   n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream)
-    new_state = torch.empty(6, B, dtype=torch.int32, device=dev)
-    _launch_sample_advance(lib, logits, state, aux, span_types, noise, index, tables, new_state,
-                           stream=stream, **skw)
+    B, dev = state.shape[1], state.device
+    _check_token_inputs(packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index,
+                        cross_len, None, **kw, **skw)
+    pos = _position(index, B, dev)
+    new_state = state.clone()
+    work = token_work(B, d_model, d_ff, vpad, n_layers, None, self_kv.dtype, dev)
+    launch_tokens(load_library(), packed, tables, new_state, aux, span_types, noise, self_kv,
+                  cross_kv, pos, cross_len, work, T=None,
+                  stream=torch.cuda.current_stream(dev).cuda_stream, **kw, **skw)
     fused_decode_token.launches += 1
-    return new_state, new_kv
+    return new_state, work["new_kv"]
 
 
 fused_decode_token.launches = 0
@@ -1150,7 +1256,7 @@ def fused_decode_tokens(
     noise: Optional[torch.Tensor],  # (Lp, B, vpad) f32 Gumbel rows; unused when greedy
     self_kv: torch.Tensor,  # (n_layers, B, Lp, 2D); rows below index are read
     cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
-    index,  # int base position of the chunk
+    index,  # int base position of the chunk, or a (B,) int32 position tensor
     cross_len: torch.Tensor,  # (B,) int32
     *,
     n_layers: int, d_model: int, nhead: int, d_ff: int, vpad: int,
@@ -1162,9 +1268,11 @@ def fused_decode_tokens(
 
     Returns (new_state (6, B) int32, tokens (T_chunk, B) int32, new_kv
     (n_layers, T_chunk, B, 2D)); ``self_kv`` is not written, so the caller
-    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 48 launches in
-    stream order with no host synchronisation: each token's K|V rows go
-    straight into ``new_kv``, which later tokens of the chunk attend."""
+    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 48 launches
+    (:func:`launch_tokens`) in stream order with no host synchronisation:
+    each token's K|V rows go straight into ``new_kv``, which later tokens
+    of the chunk attend; the tokens go to an output row of the cache's
+    length and are gathered from it at the positions ``index + 1 + t``."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     skw = dict(mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
                mask_index=mask_index, nucleus_p=nucleus_p, temperature=temperature,
@@ -1175,39 +1283,20 @@ def fused_decode_tokens(
                                              T_chunk=T_chunk)
     if state.device.type != "cuda":
         raise ValueError(f"fused_decode_tokens runs on cuda or cpu, not {state.device}")
-    base, T = int(index), int(T_chunk)
-    B, D, dev = state.shape[1], d_model, state.device
-    if T < 1:
-        raise ValueError(f"T_chunk={T_chunk} must be at least 1")
-    _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len,
-                       n_layers, D, nhead, d_ff, vpad, base)
-    if base + T > self_kv.shape[2]:
-        raise ValueError(f"the chunk's rows {base}..{base + T - 1} do not fit a self cache "
-                         f"of {self_kv.shape[2]} rows")
-    _check_sampling_inputs(tables, state, aux, span_types, noise, base + T - 1, vpad, **skw)
-    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
-    lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    x = torch.empty(B, D, device=dev, dtype=torch.float32)
-    logits = torch.empty(B, vpad, device=dev, dtype=torch.float32)
-    new_kv = torch.empty(n_layers, T, B, 2 * D, dtype=self_kv.dtype, device=dev)
-    tokens = torch.empty(T, B, dtype=torch.int32, device=dev)
-    states = [torch.empty(6, B, dtype=torch.int32, device=dev) for _ in range(2)]
-    cur = state
-    for t in range(T):
-        _check(lib.smer_embed_pe(
-            B, D, cur.data_ptr() + ST_TOKEN * B * cur.element_size(), packed["emb"].data_ptr(),
-            vpad, math.sqrt(D), base + t, -math.log(10000.0) / D, x.data_ptr(), stream,
-        ), "embed_pe")
-        _launch_layers(lib, packed, x, self_kv, cross_kv, base, cross_len, logits, new_kv[:, t],
-                       n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream,
-                       chunk=(new_kv, t))
-        nxt = states[t % 2]
-        _launch_sample_advance(lib, logits, cur, aux, span_types, noise, base + t, tables, nxt,
-                               stream=stream, tokens_out=tokens[t], **skw)
-        cur = nxt
+    T = int(T_chunk)
+    B, dev = state.shape[1], state.device
+    _check_token_inputs(packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index,
+                        cross_len, T, **kw, **skw)
+    pos = _position(index, B, dev)
+    cols = torch.arange(1, T + 1, device=dev) + pos[:1]  # before the launches advance pos
+    out = torch.zeros(B, self_kv.shape[2] + 1, dtype=torch.int32, device=dev)
+    new_state = state.clone()
+    work = token_work(B, d_model, d_ff, vpad, n_layers, T, self_kv.dtype, dev)
+    launch_tokens(load_library(), packed, tables, new_state, aux, span_types, noise, self_kv,
+                  cross_kv, pos, cross_len, work, T=T, out=out,
+                  stream=torch.cuda.current_stream(dev).cuda_stream, **kw, **skw)
     fused_decode_tokens.launches += 1
-    return cur, tokens, new_kv
+    return new_state, out.index_select(1, cols).T.contiguous(), work["new_kv"]
 
 
 fused_decode_tokens.launches = 0

@@ -27,6 +27,7 @@ from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
 from smer_music_generation_tpu_torch.infer.engine import InfillEngine
 from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
+from smer_music_generation_tpu_torch.ops.decode_graph import open_graph
 from smer_music_generation_tpu_torch.ops import decode_step as ds
 from smer_music_generation_tpu_torch.vocab import WordVocab as TWordVocab
 from tests.test_torch_decode_token import _random_state, _statics
@@ -209,12 +210,12 @@ def test_engine_int8_never_decodes_unquantized(setup):
     reqs = [eng.prepare(events, [b % 2], [b % 4]) for b in range(9)]
     seen = []
 
-    def spy(packed, tables, state, *rest, **kw):
+    def spy(graphs, packed, tables, state, *rest, **kw):  # the v3 loop's token steps
         seen.append((state.shape[1], packed["w_attn"].dtype, "scale" in packed))
-        return ds.fused_decode_token(packed, tables, state, *rest, **kw)
+        return open_graph(graphs, packed, tables, state, *rest, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(decode_mod, "fused_decode_token", spy)
+        mp.setattr(decode_mod, "open_graph", spy)
         results = eng.run_batch(reqs)
     assert len(results) == 9
     assert {s[0] for s in seen} == {8, 1}
