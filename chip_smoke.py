@@ -18,9 +18,9 @@ paths and prints one line per phase with the elapsed seconds:
    memory from the ``-Xptxas -v`` log: the phase fails if any has none;
    then the registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
-   with ReLU, int8, int8 with ReLU and f32; ``attend_kernel`` at head_dim
-   64 for each row source): the phase fails if one has no entry in the
-   build log or spills;
+   with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
+   LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source):
+   the phase fails if one has no entry in the build log or spills;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -36,7 +36,14 @@ paths and prints one line per phase with the elapsed seconds:
    beside its bytes bound and ``torch.mm`` of the bf16-rounded x against
    the same W (the yardstick, timed the same two ways), with the sums over
    a token's 25 launches; its time a launch at every row count 1..16 for
-   QKV and FFN down; ``attend_kernel`` at the served case (B=3, self over
+   QKV and FFN down; then the LN tail: the three projections whose output
+   feeds a post-LN (self out, cross out, FFN down, and FFN down with the
+   final LN chained) at B = 1, 3, 8, 9 and 16 in bf16 and B = 3 in int8,
+   each launch with its tail bit-equal (output and LayerNorm) to the
+   unfused pair (the same launch without the tail, then
+   ``add_layernorm_kernel``, twice with the final LN), and timed with and
+   without the tail beside ``add_layernorm_kernel`` alone (CUDA events and
+   device µs); ``attend_kernel`` at the served case (B=3, self over
    index 512 plus the current row, cross over 1536/1440/1344 rows) against
    its twin within ``REL_2H`` (the twin with each row's last 64-row split
    left out must fall outside it), beside its bound and
@@ -83,8 +90,10 @@ paths and prints one line per phase with the elapsed seconds:
    int8 token and a v4 chunk of 8 (over L + 64 cache rows, as the decoder
    opens it), eager
    against replayed (CUDA events, the profiler's device time by kernel and
-   busy share, the replays' host ops), the capture's ms, and the device
-   µs a launch of ``add_layernorm_kernel``, ``embed_pe_kernel`` and
+   busy share, the replays' host ops), the capture's ms; the replayed v3
+   token's profile must hold its 35 port kernels and no
+   ``add_layernorm_kernel``; then the device µs of the LN tail a fused
+   launch (with it less without it, at B=3), of ``embed_pe_kernel`` and of
    ``sample_advance_kernel`` beside their bounds;
 3. serve: the committed trained snapshot on the card in bf16, a seeded
    3-track 16-bar 4/4 score, ``generate_cli.main`` infilling 2 bars of one
@@ -302,16 +311,23 @@ LAYER_MATRICES = (
 # spill no more than DECODE_SPILL_BYTES (none; the earlier split-free
 # attend_kernel spilled 4 + 4 bytes, its rowvec_kernel none)
 DECODE_KERNELS = {
-    "rowvec_kernel<bf16>": "rowvec_kernelI13__nv_bfloat16Lb1ELb0E",
-    "rowvec_kernel<bf16, relu>": "rowvec_kernelI13__nv_bfloat16Lb1ELb1E",
-    "rowvec_kernel<int8>": "rowvec_kernelIaLb1ELb0E",
-    "rowvec_kernel<int8, relu>": "rowvec_kernelIaLb1ELb1E",
-    "rowvec_kernel<f32>": "rowvec_kernelIfLb0ELb0E",
+    "rowvec_kernel<bf16>": "rowvec_kernelI13__nv_bfloat16Lb1ELb0ELb0EE",
+    "rowvec_kernel<bf16, relu>": "rowvec_kernelI13__nv_bfloat16Lb1ELb1ELb0EE",
+    "rowvec_kernel<bf16, LN tail>": "rowvec_kernelI13__nv_bfloat16Lb1ELb0ELb1EE",
+    "rowvec_kernel<int8>": "rowvec_kernelIaLb1ELb0ELb0EE",
+    "rowvec_kernel<int8, relu>": "rowvec_kernelIaLb1ELb1ELb0EE",
+    "rowvec_kernel<int8, LN tail>": "rowvec_kernelIaLb1ELb0ELb1EE",
+    "rowvec_kernel<f32>": "rowvec_kernelIfLb0ELb0ELb0EE",
     "attend_kernel<64, cache>": "attend_kernelILi64ELi0E",
     "attend_kernel<64, chunk>": "attend_kernelILi64ELi1E",
     "attend_kernel<64, window>": "attend_kernelILi64ELi2E",
 }
 DECODE_SPILL_BYTES = 0
+# the projections whose output feeds a post-LN, with the LayerNorm rows of
+# layer 0 they carry (packed["ln"]); the last layer's FFN down chains the
+# final LN (packed["fin_ln"]) too
+LN_TAILS = (("self out", 0, False), ("cross out", 2, False), ("FFN down", 4, False),
+            ("FFN down", 4, True))
 # phase 2e's window widths: past 16 rows the row-vector kernel runs in
 # launches of 16 rows, which must not change a bit of any row
 VERIFY_WIDTHS = (1, 5, 9, 16, 17, 24)
@@ -964,9 +980,10 @@ def empty_splits_bit_equal(dev, flagships, g) -> int:
 
 
 def small_kernel_bounds(B: int, V: int, nucleus: bool):
-    """The bytes bounds (ms) of the three small kernels of a token at B rows
-    and what bounds each: ``add_layernorm_kernel`` reads x and y (B, D) f32
-    and gamma and beta, writes (B, D) f32; ``embed_pe_kernel`` reads B
+    """The bytes bounds (ms) of the three small parts of a token at B rows
+    and what bounds each: the LN tail (as ``add_layernorm_kernel`` was)
+    reads x and o (B, D) f32 and gamma and beta, writes (B, D) f32;
+    ``embed_pe_kernel`` reads B
     tokens, B bf16 embedding rows and the position, writes (B, D) f32;
     ``sample_advance_kernel`` reads a row's V logits, V mask entries,
     (nucleus) V noise entries, its class row, span type, state, aux and
@@ -979,7 +996,7 @@ def small_kernel_bounds(B: int, V: int, nucleus: bool):
                + 6 * 4 + 4 + 4) + 16 * 4
     smp_ops = 2 * B * V * V if nucleus else 0
     out = {}
-    for name, nbytes, ops in (("add_layernorm_kernel", ln, 0), ("embed_pe_kernel", emb, 0),
+    for name, nbytes, ops in (("LN tail", ln, 0), ("embed_pe_kernel", emb, 0),
                               ("sample_advance_kernel", smp, smp_ops)):
         t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOPS
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -1098,7 +1115,7 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
             torch.cuda.synchronize()
             first_ms = 1e3 * (time.perf_counter() - t0)
             ms = cuda_ms(graph.step, iters=100 if T is None else 20)
-            split, host, _ = profiled(graph.step, iters=10 if T is None else 2)
+            split, host, kernels = profiled(graph.step, iters=10 if T is None else 2, top=200)
             end = graph.host_pos
         # the next decode of the same key: the inputs loaded, no capture
         torch.cuda.synchronize()
@@ -1129,14 +1146,35 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
         say_split(eager_split, eager_ms)
         say("    graph replay:")
         say_split(split, ms)
-        say("    host ops of the replays: " + ", ".join(f"{k} {us:.0f} us x{c}" for k, us, c in host))
+        say("    host ops of the replays: " +
+            ", ".join(f"{k} {us:.0f} us x{c}" for k, us, c in host[:6]))
         if name == "v3" and split is not None:
-            per_launch = {"add_layernorm_kernel": 13, "embed_pe_kernel": 1,
-                          "sample_advance_kernel": 1}
+            # every replay runs every node of the graph, and the profiler may
+            # lose a record but never adds one: a family's launches a replay
+            # are the records a replay rounded up
+            seen = {}
+            for key, _, c in kernels:
+                family = next((f for f in FAMILIES if f in key), None)
+                if family is not None:
+                    seen[family] = seen.get(family, 0.0) + c
+            ours = {k: math.ceil(v - 1e-9) for k, v in seen.items()}
+            say(f"    port kernels a replayed token: {sum(ours.values())} "
+                f"({', '.join(f'{k} {v} ({seen[k]:.2f} records a replay)' for k, v in sorted(ours.items()))})")
+            if sum(ours.values()) != 35 or "add_layernorm_kernel" in ours:
+                raise AssertionError(f"2i: a replayed v3 token ran {ours}, not 35 port kernels "
+                                     f"with no add_layernorm_kernel")
+            # the tail a fused launch at this B: the three projections that
+            # carry it, with it less without it
+            lib, stream = ds.load_library(), torch.cuda.current_stream(dev).cuda_stream
+            tails = [ln_tail_time(dev, lib, stream, pk, vpad, V, case, B, g, check=False)["tail_us"]
+                     for case in LN_TAILS if not case[2]]
+            tail_us = None if None in tails else sum(tails) / len(tails)
             bounds = small_kernel_bounds(B, V, nucleus=True)
-            for k, n in per_launch.items():
+            for k, n, t in (("LN tail", 13, tail_us),
+                            ("embed_pe_kernel", 1, split.get("embed_pe_kernel", 0.0)),
+                            ("sample_advance_kernel", 1, split.get("sample_advance_kernel", 0.0))):
                 b_ms, by, nbytes = bounds[k]
-                say(f"    {k}: {split.get(k, 0.0) / n:.2f} device us a launch, {n} a token, bound "
+                say(f"    {k}: {us(t)} of device time a launch, {n} a token, bound "
                     f"{1e3 * b_ms:.4f} us ({by}, {nbytes} bytes)")
     say(f"  captures {dg.DecodeGraph.captures}, ms each {[round(c, 2) for c in dg.DecodeGraph.capture_ms]}")
     return reports
@@ -1377,6 +1415,68 @@ def rowvec_time(dev, lib, stream, case, B, g, check=True):
     return dict(ms=ms, dev_us=dev_us, bound=bound, lib_ms=lib_ms, lib_us=lib_us, err=err)
 
 
+def ln_tail_time(dev, lib, stream, packed, vpad, V, case, B, g, check=True):
+    """One projection with its LN tail (``case`` of LN_TAILS) at B rows:
+    with ``check``, bit-equal in its output and its LayerNorm to the unfused
+    pair, the same launch without the tail and then ``add_layernorm_kernel``
+    (again with no y for the final LN); then the launch with and without
+    the tail and ``add_layernorm_kernel`` alone timed (CUDA-event µs, and
+    device µs: with ``check=False``, device µs only).  Returns their µs
+    and the tail's device µs (with less without)."""
+    label, ln_row, chained = case
+    proj = next(c for c in rowvec_cases(packed, vpad, V) if c[0] == label)
+    _, w, ld, bias, sc, K, N, _, _ = proj
+    gamma, beta = packed["ln"][0, ln_row], packed["ln"][0, ln_row + 1]
+    fin = (packed["fin_ln"][0], packed["fin_ln"][1]) if chained else None
+    x = torch.randn(B, K, generator=g, device=dev)
+    res0 = 2.0 * torch.randn(B, N, generator=g, device=dev)
+    res, y = res0.clone(), torch.empty(B, N, device=dev)
+    ws, tickets = ds._scratch(dev, stream, *ds._rowvec_need(K, N, B))
+    kw = dict(stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()), colscale=sc)
+
+    def fused():
+        ds._launch_rowvec(lib, x, w, ld, bias, y, ln=(res, gamma, beta, fin), **kw)
+
+    def plain():
+        ds._launch_rowvec(lib, x, w, ld, bias, y, **kw)
+
+    def add_layernorm(y_ptr, gb):
+        ds._check(lib.smer_add_layernorm(B, N, res.data_ptr(), y_ptr, gb[0].data_ptr(),
+                                         gb[1].data_ptr(), res.data_ptr(), ds.LN_EPS, stream),
+                  "add_layernorm")
+
+    def unfused_ln():
+        add_layernorm(y.data_ptr(), (gamma, beta))
+        if fin is not None:
+            add_layernorm(None, fin)
+
+    what = f"{label}{' + final LN' if chained else ''} K={K} N={N} B={B} {w.dtype}"
+    if check:
+        fused()
+        torch.cuda.synchronize()
+        got_y, got = y.clone(), res.clone()
+        y.zero_()
+        res.copy_(res0)
+        plain()
+        unfused_ln()
+        torch.cuda.synchronize()
+        for part, a, b in (("output", got_y, y), ("LayerNorm", got, res)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"2h LN tail {what}: the {part} is not bit-equal to the unfused pair (max "
+                    f"|diff| {(a - b).abs().max().item():.3e})")
+    t = dict(fused_us=device_us(fused, "rowvec_kernel"), plain_us=device_us(plain, "rowvec_kernel"),
+             ln_us=device_us(unfused_ln, "add_layernorm_kernel"))
+    if check:
+        t.update(fused_ms=cuda_ms(fused, iters=100, warmup=10),
+                 plain_ms=cuda_ms(plain, iters=100, warmup=10),
+                 ln_ms=cuda_ms(unfused_ln, iters=100, warmup=10))
+    t["tail_us"] = (None if t["fused_us"] is None or t["plain_us"] is None
+                    else t["fused_us"] - t["plain_us"])
+    t["what"] = what
+    return t
+
+
 def add_up(total, one, n):
     """Adds n times each number of ``one`` into ``total``; a number not
     measured (None) leaves its sum not measured."""
@@ -1393,7 +1493,9 @@ def phase_decode_kernels(dev, packed, model, vpad):
     (``torch.mm``; SDPA over strided K and V views of the same cache with a
     boolean length mask) in CUDA-event ms and device µs, the per-token
     sums, and rowvec's ms a launch at every row count 1..16 (a launch must
-    not jump from one row count to the next)."""
+    not jump from one row count to the next); then the LN tail
+    (``ln_tail_time``) of each projection of LN_TAILS at B = 1, 3, 8, 9, 16
+    (bf16) and 3 (int8)."""
     lib = ds.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(12)
@@ -1420,6 +1522,21 @@ def phase_decode_kernels(dev, packed, model, vpad):
                  for B in range(1, 17)]
         say(f"  rowvec bf16 {label} us a launch at rows 1..16: " +
             " ".join(f"{1e3 * t:.2f}" for t in times))
+
+    # the LN tail of the three projections that feed a post-LN: bit-equal
+    # to the unfused pair, and its cost
+    cases = 0
+    for wname, pk, rows in (("bf16", packed, (1, 3, 8, SPEC_K + 1, 16)), ("int8", int8, (3,))):
+        for B in rows:
+            for case in LN_TAILS:
+                t = ln_tail_time(dev, lib, stream, pk, vpad, V, case, B, g)
+                cases += 1
+                say(f"  LN tail {wname} {t['what']}: with the tail {1e3 * t['fused_ms']:.2f} us "
+                    f"(device {us(t['fused_us'])}), without {1e3 * t['plain_ms']:.2f} us (device "
+                    f"{us(t['plain_us'])}), add_layernorm_kernel x{1 + case[2]} alone {1e3 * t['ln_ms']:.2f} us "
+                    f"(device {us(t['ln_us'])}); the tail {us(t['tail_us'])} of device time")
+    say(f"  {cases} launches with the LN tail bit-equal to the unfused pair (the launch without "
+        f"it, then add_layernorm_kernel) in output and LayerNorm")
 
     # attend_kernel at the served case: self over index 512 plus the current
     # row, cross over 1536/1440/1344 rows
@@ -2579,7 +2696,8 @@ def main(argv=None) -> int:
         say(f"  all cases within atol {ATOL} + rtol {RTOL}; max |kernel - twin| {worst:.3e}")
 
     if run("2h"):
-        say("phase 2h decode kernels alone: rowvec_kernel and attend_kernel at the served shapes")
+        say("phase 2h decode kernels alone: rowvec_kernel (and its LN tail) and attend_kernel at "
+            "the served shapes")
         phase_decode_kernels(dev, packed, model, vpad)
 
     if run("2b"):

@@ -41,7 +41,10 @@ checkout's kernels, also the registers, spills and commonest SASS opcodes of
 the decode kernels' instantiations (``chip_smoke.DECODE_KERNELS`` and, as the
 earlier split-free designs named them, ``rowvec_kernel`` at 3, 4 and 9 rows and
 ``attend_kernel`` at head_dim 64), read with chip_smoke's ``ptxas_facts`` and
-``sass_mix``.
+``sass_mix``.  Each run also hashes the outputs of each timed decode call
+(logits, K|V rows, state, tokens; a replayed decode's state, output row
+and cache after its replays; the served batch's tokens), and a last line
+says whether every output is bit-equal across the roots.
 
     python scripts/torch_kernel_ab.py build/parent . . build/parent
 """
@@ -54,7 +57,7 @@ import sys
 from pathlib import Path
 
 CHILD = r"""
-import json, math, subprocess, sys, time
+import hashlib, json, math, subprocess, sys, time
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -103,6 +106,16 @@ kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
 skw = dict(mode=0, max_spans=256, span_cap=100, eos_index=vocab.eos_index,
            mask_index=vocab.mask_index, nucleus_p=0.9, temperature=1.0, greedy=False,
            n_sid=N_SID, span_body=SPAN_BODY)
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+outputs = {}
 
 
 def timed(fn, warm=20, n=200, n_prof=20, n_iso=20):
@@ -159,8 +172,12 @@ def replayed(packed, T):
                        cross_len, cache_rows=self_kv.shape[2], cache_dtype=self_kv.dtype, T_chunk=T,
                        start=INDEX, **kw, **skw) as graph:
         if T is None:
-            return timed(graph.step)
-        return timed(graph.step, warm=3, n=20, n_prof=3, n_iso=5)
+            t = timed(graph.step)
+        else:
+            t = timed(graph.step, warm=3, n=20, n_prof=3, n_iso=5)
+        # the same number of replays on every root: the end state compares
+        t["outputs"] = digest(graph.state, graph.out, graph.cache)
+        return t
 
 
 out = {"root": root}
@@ -168,6 +185,8 @@ for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
     packed = ds.pack_decoder_weights(model, vpad, quant=quant)
     tag = "" if quant == "none" else "_int8"
     if quant == "none":
+        outputs["v2_step"] = digest(*ds.fused_decode_step(packed, x, self_kv, cross_kv, INDEX,
+                                                           cross_len, **kw))
         out["v2_step"] = timed(lambda: ds.fused_decode_step(packed, x, self_kv, cross_kv, INDEX,
                                                             cross_len, **kw))
         # the same step at B=4 (one more row of every input): the row-vector
@@ -177,20 +196,30 @@ for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
         x4 = torch.cat([x, x[:1]])
         out["v2_step_B4"] = timed(lambda: ds.fused_decode_step(packed, x4, b4[0], b4[1], INDEX,
                                                                cl4, **kw))
+    outputs["v3_token" + tag] = digest(*ds.fused_decode_token(
+        packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
+        **kw, **skw))
     out["v3_token" + tag] = timed(lambda: ds.fused_decode_token(
         packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
         **kw, **skw))
     if dg is not None:
         out["v3_token_graph" + tag] = replayed(packed, None)
+        outputs["v3_token_graph" + tag] = out["v3_token_graph" + tag].pop("outputs")
     if quant == "none":
+        outputs["v4_chunk8"] = digest(*ds.fused_decode_tokens(
+            packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
+            **kw, **skw, T_chunk=8))
         out["v4_chunk8"] = timed(lambda: ds.fused_decode_tokens(
             packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
             **kw, **skw, T_chunk=8))
         if dg is not None:
             out["v4_chunk8_graph"] = replayed(packed, 8)
+            outputs["v4_chunk8_graph"] = out["v4_chunk8_graph"].pop("outputs")
         xw = torch.randn(9, D, generator=g, device=dev).to(torch.bfloat16)
         one = (self_kv[:, :1].contiguous(), cross_kv[:, 1:2].contiguous(),
                cross_len[1:2].contiguous())  # the second row's cross length, 1440
+        outputs["verify_w9"] = digest(*ds.fused_verify_window(packed, xw, one[0], one[1], INDEX,
+                                                              one[2], **kw))
         out["verify_w9"] = timed(lambda: ds.fused_verify_window(
             packed, xw, one[0], one[1], INDEX, one[2], **kw))
 g = torch.Generator(device=dev).manual_seed(9)
@@ -227,7 +256,7 @@ if len(sys.argv) > 2:  # the served batch end to end on the committed snapshot
                                      device=dev)
     engine = InfillEngine(smodel, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
     reqs = [engine.prepare(served["events"], t, b) for t, b in served["jobs"]]
-    runs = []
+    runs, served_tokens = [], []
     for i in range(6):  # the first warms up (and, with the decode graph, captures)
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         torch.cuda.synchronize()
@@ -236,8 +265,12 @@ if len(sys.argv) > 2:  # the served batch end to end on the committed snapshot
         torch.cuda.synchronize()
         runs.append(dict(ms=1e3 * (time.perf_counter() - t0),
                          tokens=sum(len(r.generated) for r in res if r is not None)))
+        served_tokens.append([None if r is None else [str(t) for t in r.generated] for r in res])
+    outputs["served_run_batch"] = hashlib.sha256(
+        json.dumps(served_tokens).encode()).hexdigest()[:16]
     out["served_run_batch"] = dict(first=runs[0], runs=runs[1:],
                                    ms=sum(r["ms"] for r in runs[1:]) / 5)
+out["outputs"] = outputs
 out["build"] = {"path": str(ds.BUILD_INFO.get("path")), "log": str(ds.BUILD_INFO.get("log", ""))}
 out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -245,9 +278,12 @@ print(json.dumps(out), flush=True)
 """
 
 
-# the decode kernels as the earlier split-free designs instantiated them (rows NB a
+# the decode kernels as earlier designs instantiated them: rowvec_kernel before
+# its LN tail (three template flags), and the split-free designs (rows NB a
 # template argument, head_dim 64 as EPL = 2)
 OLD_DECODE_KERNELS = {
+    "rowvec_kernel<bf16> (before the LN tail)": "rowvec_kernelI13__nv_bfloat16Lb1ELb0EE",
+    "rowvec_kernel<int8> (before the LN tail)": "rowvec_kernelIaLb1ELb0EE",
     "rowvec_kernel<bf16, NB=3>": "rowvec_kernelI13__nv_bfloat16Li3ELb1ELb0E",
     "rowvec_kernel<bf16, NB=4>": "rowvec_kernelI13__nv_bfloat16Li4ELb1ELb0E",
     "rowvec_kernel<bf16, NB=9>": "rowvec_kernelI13__nv_bfloat16Li9ELb1ELb0E",
@@ -298,6 +334,7 @@ def main(argv) -> int:
     served = Path(__file__).resolve().parents[1] / "build" / "ab_served.json"
     served.parent.mkdir(exist_ok=True)
     served_inputs(served)
+    digests = {}
     for root in argv:
         proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served)], capture_output=True,
                               text=True, timeout=600)
@@ -307,6 +344,11 @@ def main(argv) -> int:
         out = json.loads(proc.stdout.strip().splitlines()[-1])
         out["build"] = build_facts(out["build"])
         print(json.dumps(out), flush=True)
+        for key, d in out["outputs"].items():
+            digests.setdefault(key, set()).add(d)
+    differ = sorted(k for k, d in digests.items() if len(d) > 1)
+    print(json.dumps({"outputs_bit_equal_across_roots": not differ, "differ": differ,
+                      "compared": sorted(digests)}), flush=True)
     return 0
 
 

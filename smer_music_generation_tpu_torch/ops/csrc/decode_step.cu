@@ -41,6 +41,13 @@
 //     them loaded before any is added), then
 //     applies the column scale (int8), the bias, the ReLU and the K|V
 //     write.  No block waits on another and no atomic touches the data.
+//     A projection whose output o feeds a post-LN, x = LN(x + o) (the two
+//     out projections and FFN down), carries the LayerNorm as a tail: each
+//     tile's last block, once its columns of o are written, takes one more
+//     ticket on a counter of the launch; the last of them, which then sees
+//     every column, runs the LN over the launch's rows, a warp a row, in
+//     add_layernorm_kernel's order of sums (so with that kernel's bits),
+//     and writes x in place; the final LN may follow in the same tail.
 //   * `attend_kernel` (flash-decoding): grid (B, H, splits); a block owns
 //     64 rows of the spliced sequence (cache rows, then v4 chunk or verify
 //     window rows).  8 lanes take a row, each reading 16 bytes of K and of
@@ -49,14 +56,16 @@
 //     in a fixed tree.  Its (m, l, acc[head_dim]) go to the workspace; the
 //     last block of the (b, h) (the same ticket) merges the splits in
 //     split order, then the current token's own K/V row.
-//   * `add_layernorm_kernel`: out = LN(x + y) in f32 with eps 1e-6.
+//   * `add_layernorm_kernel`: out = LN(x + y) in f32 with eps 1e-6, a block
+//     a row.  No path launches it since rowvec_kernel carries the LN; it
+//     stays as the bit reference of that tail (chip_smoke.py phase 2h).
 //
 // The workspace and the tickets belong to the stream the launches run on
 // (ops/decode_step.py): launches on one stream run one after another, and
 // each leaves every ticket it took at zero.  There is no grid-wide
 // synchronisation, no cooperative launch and no spin-wait: stream order
-// carries the data from one launch to the next, 11 launches per layer plus
-// 2 (46 for the 4-layer model).
+// carries the data from one launch to the next, 8 launches per layer plus
+// the logits (33 for the 4-layer model).
 //
 // Row-independence.  A row's result is a function of its own inputs only:
 // the order of every sum is fixed by (K, N, the tiling) for rowvec_kernel
@@ -95,9 +104,10 @@
 // 4.6-6.2 us at 1-3 rows against a bytes bound of 0.16-0.64 us: the launch,
 // one wave of loads and the ticketed combine set it, and the time a launch
 // rises by ~1 us for each 4 rows past 8.  A whole token takes 0.21-0.27 ms
-// of device time against 1.33 ms, and the host's 48 launches now set its
-// pace unless the token is replayed as one CUDA graph (ops/decode_graph.py,
-// the self-attention then reading the position through `lens`).
+// of device time against 1.33 ms, and the host's launches set its pace
+// unless the token is replayed as one CUDA graph (ops/decode_graph.py, the
+// self-attention then reading the position through `lens`).  Before the LN
+// tail a token also ran 13 add_layernorm_kernel launches of 2.66 us each.
 //
 // Every launcher has a plain C interface and returns cudaGetLastError().
 
@@ -106,13 +116,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;  // add_layernorm_kernel
+constexpr int kThreads = kWarps * 32;  // add_layernorm_kernel, and the LN tail's order
 
 // rowvec_kernel's tiling: a block owns kCols output columns and a K-slice
 // of kPassRows * passes rows (passes <= kMaxPasses, chosen by the wrapper
@@ -188,12 +199,94 @@ __device__ __forceinline__ bool last_arrival(unsigned* counter, unsigned arrival
   return last;
 }
 
-template <typename WT, bool ROUND_X, bool RELU>
+// The post-LN a projection carries (rowvec_kernel's LN tail): x = LN(x + o)
+// over the launch's rows, in place in the residual x (row stride ldx), then
+// the final LN (gamma2, beta2) where it is given.
+struct LnTail {
+  float* x;
+  int ldx;
+  const float* gamma;
+  const float* beta;
+  const float* gamma2;  // null: no final LN
+  const float* beta2;
+  float eps;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// A row's sum as add_layernorm_kernel's kThreads threads take it, done by
+// one warp: lane l stands for thread w * 32 + l of each warp w, whose sum
+// s[w] went over elements w * 32 + l, + kThreads, ... from 0; then each
+// warp's xor tree (warp_sum), and the warps' totals added in order from 0.
+__device__ __forceinline__ float block_order_sum(const float (&s)[kWarps]) {
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += warp_sum(s[w]);
+  return t;
+}
+
+// LN of the warp's row v (D floats in shared memory) in place, with
+// add_layernorm_kernel's arithmetic in its order, so with its bits.
+__device__ __forceinline__ void layernorm_row(float* v, int D, const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, float eps) {
+  const int lane = threadIdx.x & 31;
+  float s[kWarps];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s[w] = 0.f;
+  for (int i0 = 0; i0 < D; i0 += kThreads)
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (i0 + w * 32 + lane < D) s[w] += v[i0 + w * 32 + lane];
+  const float mean = block_order_sum(s) / D;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s[w] = 0.f;
+  for (int i0 = 0; i0 < D; i0 += kThreads)
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (i0 + w * 32 + lane < D) {
+        const float d = v[i0 + w * 32 + lane] - mean;
+        s[w] = fmaf(d, d, s[w]);
+      }
+  const float r = rsqrtf(block_order_sum(s) / D + eps);
+  for (int i = lane; i < D; i += 32) v[i] = (v[i] - mean) * r * gamma[i] + beta[i];
+}
+
+// The LN tail over nb rows of D, in the block that took the launch's last
+// ticket: warp w of the block's kBlockWarps takes rows w, w + kBlockWarps,
+// ...; x + o into the warp's row of `buf` (kBlockWarps rows of D floats; x
+// and o read through L2, o written by other blocks of the launch), the LN
+// there, the final LN after it where given, and x written in place.
+template <int kBlockWarps>
+__device__ void layernorm_tail(const float* o, int ldo, int nb, int D, const LnTail& ln,
+                               float* buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* v = buf + (size_t)warp * D;
+  for (int b = warp; b < nb; b += kBlockWarps) {
+    float* xr = ln.x + (size_t)b * ln.ldx;
+    const float* orow = o + (size_t)b * ldo;
+    for (int i = lane; i < D; i += 32) v[i] = __ldcg(xr + i) + __ldcg(orow + i);
+    layernorm_row(v, D, ln.gamma, ln.beta, ln.eps);
+    if (ln.gamma2 != nullptr) {
+      // the final LN reads its input as add_layernorm_kernel with no y does
+      for (int i = lane; i < D; i += 32) v[i] = v[i] + 0.f;
+      layernorm_row(v, D, ln.gamma2, ln.beta2, ln.eps);
+    }
+    for (int i = lane; i < D; i += 32) xr[i] = v[i];
+  }
+}
+
+// LN_TAIL: the launch ends with x = LN(x + y) over its rows (N == D), by
+// the last of the tiles' last blocks, on a ticket past the tiles' own
+template <typename WT, bool ROUND_X, bool RELU, bool LN_TAIL>
 __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kernel(
     const float* __restrict__ x, int ldx, int nb, const WT* __restrict__ w, int ldw,
     const float* __restrict__ colscale, const float* __restrict__ bias, float* __restrict__ y,
     int ldy, __nv_bfloat16* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N,
-    int k_split, float* __restrict__ ws, unsigned* __restrict__ tickets) {
+    int k_split, LnTail ln, float* __restrict__ ws, unsigned* __restrict__ tickets) {
   // int8 weights carry column scales; a bf16 or f32 instantiation is the
   // kernel without them
   constexpr bool kScaled = std::is_same<WT, int8_t>::value;
@@ -304,6 +397,13 @@ __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kern
     y[(size_t)b * ldy + col] = s;
     if (kv_out != nullptr && col >= kv_col0)
       kv_out[(size_t)b * ldkv + (col - kv_col0)] = __float2bfloat16(s);
+  }
+  if constexpr (LN_TAIL) {
+    // the tile's columns of y are written: the launch's last tile to get
+    // here sees every column.  No block of the launch reads ln.x (the
+    // projection's input is another buffer), so the tail writes it in place.
+    if (last_arrival(tickets + gridDim.x, gridDim.x))
+      layernorm_tail<kBlockWarps>(y, ldy, nb, N, ln, smem);
   }
 }
 
@@ -509,12 +609,6 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 __device__ float block_sum(float v, float* scratch) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -528,7 +622,9 @@ __device__ float block_sum(float v, float* scratch) {
 }
 
 // out = LN(x + y) over rows of D; y may be null.  out may alias x or y:
-// every element is read into shared memory before any is written.
+// every element is read into shared memory before any is written.  On no
+// path: rowvec_kernel's LN tail computes its bits inside the projection's
+// launch, and this kernel is the tail's reference.
 __global__ void __launch_bounds__(kThreads) add_layernorm_kernel(
     const float* x, const float* y, const float* __restrict__ gamma,
     const float* __restrict__ beta, float* out, int D, float eps) {
@@ -552,11 +648,11 @@ __global__ void __launch_bounds__(kThreads) add_layernorm_kernel(
     out[off + i] = (v[i] - mean) * r * gamma[i] + beta[i];
 }
 
-template <typename WT, bool ROUND_X, bool RELU>
+template <typename WT, bool ROUND_X, bool RELU, bool LN_TAIL>
 int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const float* colscale,
                   const float* bias, float* y, int ldy, __nv_bfloat16* kv_out, int ldkv,
-                  int kv_col0, int K, int N, int k_split, float* ws, unsigned* tickets,
-                  cudaStream_t st) {
+                  int kv_col0, int K, int N, int k_split, const LnTail& ln, float* ws,
+                  unsigned* tickets, cudaStream_t st) {
   constexpr int kVec = Vec16<WT>::kN;
   constexpr int kBlock = kPassRows * kCols / kVec;
   if (nb < 1 || nb > kMaxRows || K < 1 || N < 1 || N % kVec || ldw % kVec ||
@@ -564,9 +660,10 @@ int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const f
       reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kCols - 1) / kCols, (K + k_split - 1) / k_split);
-  const size_t smem = sizeof(float) * (size_t)nb * (k_split + kBlock / 32 * kCols);
-  rowvec_kernel<WT, ROUND_X, RELU><<<grid, kBlock, smem, st>>>(
-      x, ldx, nb, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, N, k_split, ws,
+  size_t smem = sizeof(float) * (size_t)nb * (k_split + kBlock / 32 * kCols);
+  if (LN_TAIL) smem = std::max(smem, sizeof(float) * (size_t)(kBlock / 32) * N);  // a row a warp
+  rowvec_kernel<WT, ROUND_X, RELU, LN_TAIL><<<grid, kBlock, smem, st>>>(
+      x, ldx, nb, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, N, k_split, ln, ws,
       tickets);
   return (int)cudaGetLastError();
 }
@@ -581,9 +678,15 @@ extern "C" {
 // 16, at most 64), one block each per 64-column tile; `ws` holds the
 // tiles' partials (ceil(N / 64) * 64 * slices * nb floats) and `tickets`
 // one zeroed counter a tile, which the launch leaves at zero.
+// `res` non-null (bf16 or int8 W, no ReLU): the LN tail, res = LN(res + y)
+// over the nb rows of N (row stride ldr, in place) with gamma and beta,
+// then LN(res) with gamma2 and beta2 where they are given; `tickets` then
+// holds one more counter, past the tiles'.
 int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void* w, int ldw,
                 const void* colscale, const void* bias, void* y, int ldy, void* kv_out, int ldkv,
-                int kv_col0, int K, int N, int k_split, void* ws, void* tickets, void* stream) {
+                int kv_col0, int K, int N, int k_split, void* res, int ldr, const void* gamma,
+                const void* beta, const void* gamma2, const void* beta2, float eps, void* ws,
+                void* tickets, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* cs = static_cast<const float*>(colscale);
@@ -592,18 +695,28 @@ int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void
   __nv_bfloat16* kvo = static_cast<__nv_bfloat16*>(kv_out);
   float* wsf = static_cast<float*>(ws);
   unsigned* tk = static_cast<unsigned*>(tickets);
+  const LnTail ln{static_cast<float*>(res), ldr, static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), static_cast<const float*>(gamma2),
+                  static_cast<const float*>(beta2), eps};
+  const bool tail = ln.x != nullptr;
   if ((w_kind == 2) != (cs != nullptr)) return (int)cudaErrorInvalidValue;
-#define SMER_ROWVEC(WT, ROUND, RELU)                                                       \
-  launch_rowvec<WT, ROUND, RELU>(nb, xf, ldx, static_cast<const WT*>(w), ldw, cs, bf, yf, \
-                                 ldy, kvo, ldkv, kv_col0, K, N, k_split, wsf, tk, st)
+  if (tail && (relu || w_kind == 1 || ln.gamma == nullptr || ln.beta == nullptr ||
+               (ln.gamma2 == nullptr) != (ln.beta2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+#define SMER_ROWVEC(WT, ROUND, RELU, TAIL)                                                      \
+  launch_rowvec<WT, ROUND, RELU, TAIL>(nb, xf, ldx, static_cast<const WT*>(w), ldw, cs, bf, yf, \
+                                       ldy, kvo, ldkv, kv_col0, K, N, k_split, ln, wsf, tk, st)
   switch (w_kind) {
     case 0:
-      return relu ? SMER_ROWVEC(__nv_bfloat16, true, true)
-                  : SMER_ROWVEC(__nv_bfloat16, true, false);
+      return relu ? SMER_ROWVEC(__nv_bfloat16, true, true, false)
+             : tail ? SMER_ROWVEC(__nv_bfloat16, true, false, true)
+                    : SMER_ROWVEC(__nv_bfloat16, true, false, false);
     case 1:
-      return relu ? (int)cudaErrorInvalidValue : SMER_ROWVEC(float, false, false);
+      return relu ? (int)cudaErrorInvalidValue : SMER_ROWVEC(float, false, false, false);
     case 2:
-      return relu ? SMER_ROWVEC(int8_t, true, true) : SMER_ROWVEC(int8_t, true, false);
+      return relu ? SMER_ROWVEC(int8_t, true, true, false)
+             : tail ? SMER_ROWVEC(int8_t, true, false, true)
+                    : SMER_ROWVEC(int8_t, true, false, false);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,7 @@
 On the TPU a whole token is one ``pallas_call`` (JAX
 ``ops/decode_step.py:796``, v4 ``:1028``) inside a device-side
 ``lax.while_loop`` (JAX ``infer/decode.py:723-765``), three XLA ops a token.
-The port's token is 48 hand-written kernel launches
+The port's token is 35 hand-written kernel launches
 (:func:`~.decode_step.launch_tokens`), each of which costs the host more than
 the card spends in it.  :class:`DecodeGraph` captures them once and replays
 them once a token (v3) or once a chunk of ``T_chunk`` tokens (v4): the

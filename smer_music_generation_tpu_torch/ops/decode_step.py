@@ -675,7 +675,8 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         i, p, f, ll, u = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
-        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, i, p, p, p]
+        lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, i,
+                                    p, i, p, p, p, p, f, p, p, p]
         lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
                                     i, p, p, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
@@ -779,34 +780,43 @@ def rowvec_k_split(K: int, N: int) -> int:
 
 
 def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, scratch, relu=False, kv_out=None,
-                   ldkv=0, kv_col0=0, colscale=None) -> None:
+                   ldkv=0, kv_col0=0, colscale=None, ln=None) -> None:
     """``rowvec_kernel``: ``y = act(x . w [* colscale] + bias)`` for the B
     rows of ``x``, one launch for every 16 rows; w may be bf16, f32 or int8
     (with its column scales ``colscale``), read through a row stride
-    ``ldw``; ``scratch`` is the stream's (workspace, tickets) pointers."""
+    ``ldw``; ``scratch`` is the stream's (workspace, tickets) pointers.
+    ``ln = (res, gamma, beta, fin)``: the launch's LN tail, ``res = LN(res
+    + y)`` in place on res (B, N) f32, then ``LN(res)`` with ``fin =
+    (gamma2, beta2)`` unless fin is None (bf16 or int8 w, no ReLU)."""
     kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[w.dtype]
     B, K = x.shape
     N = y.shape[1]
     k_split = rowvec_k_split(K, N)
-    parts = [(x, y, kv_out)] if B <= _ROWVEC_ROWS else [
-        (x[r : r + _ROWVEC_ROWS], y[r : r + _ROWVEC_ROWS],
-         None if kv_out is None else kv_out[r : r + _ROWVEC_ROWS])
-        for r in range(0, B, _ROWVEC_ROWS)]
-    for xs, ys, kvs in parts:
+    res, tail = None, (0, None, None, None, None, 0.0)
+    if ln is not None:
+        res, gamma, beta, fin = ln
+        g2, b2 = (None, None) if fin is None else (fin[0].data_ptr(), fin[1].data_ptr())
+        tail = (res.stride(0), gamma.data_ptr(), beta.data_ptr(), g2, b2, LN_EPS)
+
+    def rows(t, r):  # a launch's rows of t, if any
+        return None if t is None else t[r : r + _ROWVEC_ROWS].data_ptr()
+
+    for r in range(0, B, _ROWVEC_ROWS):
         _check(lib.smer_rowvec(
-            kind, int(relu), xs.shape[0], xs.data_ptr(), x.stride(0), w.data_ptr(), ldw,
-            colscale.data_ptr() if colscale is not None else None, bias.data_ptr(),
-            ys.data_ptr(), y.stride(0), kvs.data_ptr() if kvs is not None else None,
-            ldkv, kv_col0, K, N, k_split, *scratch, stream,
+            kind, int(relu), min(B - r, _ROWVEC_ROWS), rows(x, r), x.stride(0), w.data_ptr(),
+            ldw, colscale.data_ptr() if colscale is not None else None, bias.data_ptr(),
+            rows(y, r), y.stride(0), rows(kv_out, r), ldkv, kv_col0, K, N, k_split,
+            rows(res, r), *tail, *scratch, stream,
         ), "rowvec")
         if kind == 2:
             rowvec_int8.launches += 1
 
 
 def _rowvec_need(K: int, N: int, B: int):
-    """(workspace floats, tickets) of one ``rowvec_kernel`` launch."""
+    """(workspace floats, tickets) of one ``rowvec_kernel`` launch: a
+    counter a column tile, and one more for the launch's LN tail."""
     tiles = -(-N // _ROWVEC_COLS)
-    return tiles * _ROWVEC_COLS * -(-K // rowvec_k_split(K, N)) * min(B, _ROWVEC_ROWS), tiles
+    return tiles * _ROWVEC_COLS * -(-K // rowvec_k_split(K, N)) * min(B, _ROWVEC_ROWS), tiles + 1
 
 
 def _attend_splits(n_rows, lens, max_rows, source, n_chunk, B) -> int:
@@ -847,7 +857,9 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
                    *, n_layers, D, H, F, vpad, stream, chunk=None, window=False,
                    work=None) -> None:
     """The v2 launches on an f32 activation ``x`` (B, D), updated in place:
-    11 a layer, the final LN and the logits.  Writes ``logits`` (B, vpad)
+    8 a layer and the logits, each post-LN the tail of the projection
+    before it and the final LN chained after the last layer's (the launch
+    of FFN down).  Writes ``logits`` (B, vpad)
     f32 and ``new_kv`` (n_layers, B, 2D) (any layer stride, rows
     contiguous).  ``index`` is the host int of cached self rows, or a (B,)
     int32 position tensor on the device, which the self-attention reads as
@@ -873,19 +885,16 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     source = _ROWS_CHUNK if chunk is not None else _ROWS_WINDOW if window else _ROWS_CACHE_ONLY
     splits = max(_attend_splits(n_rows, lens, L, source, chunk[1] if chunk else 0, B),
                  _attend_splits(0, cross_len, S, _ROWS_CACHE_ONLY, 0, B))
-    need = max([B * H * splits * (2 + D // H)]
-               + [_rowvec_need(K, N, B)[0] for K, N in ((D, 3 * D), (D, F), (F, D), (D, vpad))])
-    ws, tickets = _scratch(x.device, stream, need, max(B * H, -(-max(3 * D, F, vpad) // 64)))
+    shapes = ((D, 3 * D), (D, F), (F, D), (D, vpad))
+    ws, tickets = _scratch(
+        x.device, stream,
+        max([B * H * splits * (2 + D // H)] + [_rowvec_need(K, N, B)[0] for K, N in shapes]),
+        max([B * H] + [_rowvec_need(K, N, B)[1] for K, N in shapes]))
     scratch = (ws.data_ptr(), tickets.data_ptr())
+    fin = (packed["fin_ln"][0], packed["fin_ln"][1]) if "fin_ln" in packed else None
 
     def attend(*args):
         _launch_attend(lib, *args, H=H, stream=stream, scratch=scratch)
-
-    def add_ln(xin, y, gamma, beta):  # in place on xin
-        _check(lib.smer_add_layernorm(
-            B, D, xin.data_ptr(), y.data_ptr() if y is not None else None,
-            gamma.data_ptr(), beta.data_ptr(), xin.data_ptr(), LN_EPS, stream,
-        ), "add_layernorm")
 
     # the current token's K row inside the QKV output; its V row follows at +D
     k_new_ptr = qkv.data_ptr() + D * qkv.element_size()
@@ -908,18 +917,14 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
         else:
             rows = (_ROWS_CACHE_ONLY, None, 0, 0)
         attend(qkv, self_kv[i], self_bstride, n_rows, lens, L, *rows, k_new_ptr, att)
-        rowvec(att, w[:, 3 * D :], ldw, 3 * D, o)
-        add_ln(x, o, ln[0], ln[1])
+        rowvec(att, w[:, 3 * D :], ldw, 3 * D, o, ln=(x, ln[0], ln[1], None))
         rowvec(x, w[:, 4 * D :], ldw, 4 * D, qc)
         attend(qc, cross_kv[i], cross_bstride, 0, cross_len, S, _ROWS_CACHE_ONLY, None, 0, 0,
                None, att)
-        rowvec(att, w[:, 5 * D :], ldw, 5 * D, o)
-        add_ln(x, o, ln[2], ln[3])
+        rowvec(att, w[:, 5 * D :], ldw, 5 * D, o, ln=(x, ln[2], ln[3], None))
         rowvec(x, packed["w_ff1"][i], F, 6 * D, h, relu=True)
-        rowvec(h, packed["w_ff2"][i], D, 6 * D + F, o)
-        add_ln(x, o, ln[4], ln[5])
-    if "fin_ln" in packed:
-        add_ln(x, None, packed["fin_ln"][0], packed["fin_ln"][1])
+        rowvec(h, packed["w_ff2"][i], D, 6 * D + F, o,
+               ln=(x, ln[4], ln[5], fin if i == n_layers - 1 else None))
     _launch_rowvec(lib, x, packed["fc_w"], vpad, packed["fc_b"], logits, stream=stream,
                    scratch=scratch)
 
@@ -1147,7 +1152,7 @@ def launch_tokens(lib, packed, tables, state, aux, span_types, noise, self_kv, c
                   cross_len, work, *, T, stream, out=None, n_layers, d_model, nhead, d_ff, vpad,
                   **skw) -> None:
     """The launch plan of one v3 token (``T`` None) or of a v4 chunk of
-    ``T`` tokens, 48 launches a token in stream order on ``stream``: for
+    ``T`` tokens, 35 launches a token in stream order on ``stream``: for
     token t, ``embed_pe_kernel`` at position ``pos[b] + t``, the v2
     launches (:func:`_launch_layers`, the self-attention over ``pos`` cache
     rows plus, in a chunk, the chunk rows before t) and
@@ -1219,7 +1224,7 @@ def fused_decode_token(
     """One full decode token: embed -> decoder layers -> sample -> advance.
 
     Returns (new_state (6, B) int32, new_kv (n_layers, B, 2D)).  On CUDA,
-    the 48 launches of :func:`launch_tokens` in stream order with no host
+    the 35 launches of :func:`launch_tokens` in stream order with no host
     synchronisation; a position tensor is read on the device (and not
     changed), and is not range-checked."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
@@ -1268,7 +1273,7 @@ def fused_decode_tokens(
 
     Returns (new_state (6, B) int32, tokens (T_chunk, B) int32, new_kv
     (n_layers, T_chunk, B, 2D)); ``self_kv`` is not written, so the caller
-    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 48 launches
+    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 35 launches
     (:func:`launch_tokens`) in stream order with no host synchronisation:
     each token's K|V rows go straight into ``new_kv``, which later tokens
     of the chunk attend; the tokens go to an output row of the cache's

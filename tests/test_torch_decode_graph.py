@@ -208,7 +208,8 @@ def test_launch_plan_is_free_of_the_position(setup, T, quant, greedy):
     assert plans[0] == plans[1]
     names = [name for name, _ in plans[0]]
     nl = kw["n_layers"]
-    assert len(names) == n * (11 * nl + 3 + ("fin_ln" in packed))
+    assert len(names) == n * (8 * nl + 3)  # each LayerNorm the tail of a row-vector launch
+    assert "smer_add_layernorm" not in names
     assert names.count("smer_embed_pe") == names.count("smer_sample_advance") == n
     assert names.count("smer_attend") == 2 * nl * n
     # the control: a host position reaches the self-attention by value

@@ -18,15 +18,25 @@ run here, so these emulations repeat their order of operations step by step:
   its 64 scores, p = exp(s - m) once a row, p and p V summed by each thread
   over its 4 rows in order, then a shuffle tree over a warp's 4 rows and the
   4 warps in order; the splits merged in order (m, l, acc), then the
-  current token's own row.
+  current token's own row;
+- ``ln_tail``: the post-LN that ``rowvec_kernel`` runs at the end of the
+  out projections' and FFN down's launches, in ``add_layernorm_kernel``'s
+  order of sums (which it replaced): thread t of 256 sums elements t, t +
+  256, ... from 0, a xor-shuffle tree from offset 16 down over each warp's
+  32 threads, the 8 warps' totals in order from 0; the mean, then the same
+  for the squared deviations by FMA; ``(v - mean) * r * gamma + beta`` with
+  the last product and sum as one FMA.  A warp takes a row (warp w of the
+  block's rows w, w + warps, ...), and the final LN may follow on the
+  result.
 
-An FMA is taken in float64 and rounded once to float32; exp is torch's
-(the card's expf may differ in the last bit: the emulation pins the order,
-not the card's bits).  The emulations agree with the twins
+An FMA is taken in float64 and rounded once to float32; exp and rsqrt are
+torch's (the card's expf and rsqrtf may differ in the last bit: the
+emulation pins the order, not the card's bits).  The emulations agree with the twins
 (``_rowvec_math``, ``_attend``, ``fused_decode_step_reference``) and with
 JAX's Pallas step within chip_smoke's ``ATOL`` + ``RTOL``, and show the
 invariants that chip_smoke's phases 2c and 2e hold on the card: a row's
-bits do not depend on how many rows a launch has, on the launch it lands in,
+bits (LayerNorm included) do not depend on how many rows a launch has, on
+the launch it lands in,
 or on where the cache ends and the chunk or window rows begin, so a verify
 row is bit-equal to the v2 step at index + j and a v4 token to a v3 token
 over the spliced cache.  A control shows the attention rule has teeth:
@@ -42,6 +52,7 @@ import pytest
 import torch
 
 from chip_smoke import ATOL, RTOL
+from smer_music_generation_tpu.ops.decode_step import _layernorm as jax_layernorm
 from smer_music_generation_tpu.ops.decode_step import fused_decode_step as jax_step
 from smer_music_generation_tpu.vocab import CONTROL_SETS, WordVocab
 from smer_music_generation_tpu_torch.ops import decode_step as ds
@@ -50,6 +61,8 @@ from tests.torch_port_helpers import model_pair
 SPLIT = 64  # attend_kernel's rows a split
 LAUNCH_ROWS = 16  # rowvec_kernel's rows a launch
 GROUP = 4  # rowvec_kernel's rows a thread holds at once
+LN_THREADS, LN_WARPS = 256, 8  # add_layernorm_kernel's block, whose order the LN tail keeps
+TAIL_WARPS = {torch.bfloat16: 4, torch.int8: 2}  # warps of rowvec_kernel's block, by W's type
 
 
 def fma(a, b, c):
@@ -107,6 +120,51 @@ def rowvec_tiles(x, w, colscale, bias, relu=False, rows=LAUNCH_ROWS):
     """The wrapper's launches: ``rows`` rows at a time."""
     return torch.cat([rowvec_launch(x[r : r + rows], w, colscale, bias, relu)
                       for r in range(0, x.shape[0], rows)])
+
+
+def block_order_sum(v, step=None):
+    """(R, D) -> (R,): thread t of 256 folds ``step`` (default a sum) over
+    v[:, t], v[:, t + 256], ... from 0, then a xor-shuffle tree from
+    offset 16 down over each warp's 32 threads, then the 8 warps' totals
+    added in order from 0."""
+    R, D = v.shape
+    per = -(-D // LN_THREADS)
+    vp = torch.zeros(R, per * LN_THREADS)
+    vp[:, :D] = v
+    acc = torch.zeros(R, LN_THREADS)
+    for j in range(per):  # a thread past D folds in zeros, which change no bit
+        col = vp[:, j * LN_THREADS : (j + 1) * LN_THREADS]
+        acc = acc + col if step is None else step(col, acc)
+    total = torch.zeros(R)
+    for w in range(LN_WARPS):
+        t = acc[:, w * 32 : (w + 1) * 32]
+        while t.shape[-1] > 1:  # offsets 16, 8, 4, 2, 1
+            h = t.shape[-1] // 2
+            t = t[:, :h] + t[:, h:]
+        total = total + t[:, 0]
+    return total
+
+
+def ln_rows(v, gamma, beta):
+    """LN of each row of v (R, D) in ``add_layernorm_kernel``'s order."""
+    D = v.shape[1]
+    mean = block_order_sum(v) / D
+    d = v - mean[:, None]
+    var = block_order_sum(d, lambda c, a: fma(c, c, a)) / D
+    r = torch.rsqrt(var + ds.LN_EPS)
+    return fma(d * r[:, None], gamma, beta)
+
+
+def ln_tail(res, o, gamma, beta, fin=None, warps=4):
+    """``rowvec_kernel``'s LN tail on a launch's rows: LN(res + o), then the
+    final LN ``fin = (gamma2, beta2)`` where given; warp w of ``warps``
+    takes rows w, w + warps, ..."""
+    out = torch.empty_like(res)
+    for w in range(warps):
+        rows = slice(w, None, warps)
+        v = ln_rows(res[rows] + o[rows], gamma, beta)
+        out[rows] = v if fin is None else ln_rows(v + 0.0, *fin)
+    return out
 
 
 def row_scores(q, k, scale):
@@ -195,11 +253,18 @@ def layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, *, H, F, rows=L
     nl = packed["w_attn"].shape[0]
     new_kv = torch.zeros(nl, B, 2 * D, dtype=torch.bfloat16)
     cl = cross_len.tolist()
+    fin = (packed["fin_ln"][0], packed["fin_ln"][1]) if "fin_ln" in packed else None
+    warps = TAIL_WARPS[packed["w_attn"].dtype]
     for i in range(nl):
         w, b, ln = packed["w_attn"][i], packed["bias"][i, 0], packed["ln"][i]
 
         def mm(a, wm, lo, hi, relu=False):
             return rowvec_tiles(a, wm, None, b[lo:hi], relu, rows)
+
+        def add_ln(x, o, g, be, last=False):  # the tail of o's launches of ``rows`` rows
+            return torch.cat([ln_tail(x[r : r + rows], o[r : r + rows], g, be,
+                                      fin if last else None, warps)
+                              for r in range(0, B, rows)])
 
         qkv = mm(x, w[:, : 3 * D], 0, 3 * D)
         new_kv[i] = qkv[:, D:].to(torch.bfloat16)
@@ -212,15 +277,14 @@ def layers_tiles(packed, x, self_kv, cross_kv, index, cross_len, *, H, F, rows=L
             more = [cache[j, :0] for j in range(B)]
         att = attend_tiles(qkv[:, :D], cache, [index] * B, more, H,
                            extra=(qkv[:, D : 2 * D], qkv[:, 2 * D :]))
-        x = ds._layernorm(x + mm(att, w[:, 3 * D : 4 * D], 3 * D, 4 * D), ln[0], ln[1])
+        x = add_ln(x, mm(att, w[:, 3 * D : 4 * D], 3 * D, 4 * D), ln[0], ln[1])
         qc = mm(x, w[:, 4 * D : 5 * D], 4 * D, 5 * D)
         cross = cross_kv[i].expand(B, -1, -1) if window else cross_kv[i]
         att = attend_tiles(qc, cross, cl * (B if window else 1), [cross[j, :0] for j in range(B)], H)
-        x = ds._layernorm(x + mm(att, w[:, 5 * D : 6 * D], 5 * D, 6 * D), ln[2], ln[3])
+        x = add_ln(x, mm(att, w[:, 5 * D : 6 * D], 5 * D, 6 * D), ln[2], ln[3])
         h = mm(x, packed["w_ff1"][i], 6 * D, 6 * D + F, relu=True)
-        x = ds._layernorm(x + mm(h, packed["w_ff2"][i], 6 * D + F, 7 * D + F), ln[4], ln[5])
-    if "fin_ln" in packed:
-        x = ds._layernorm(x, packed["fin_ln"][0], packed["fin_ln"][1])
+        x = add_ln(x, mm(h, packed["w_ff2"][i], 6 * D + F, 7 * D + F), ln[4], ln[5],
+                   last=i == nl - 1)
     return rowvec_tiles(x, packed["fc_w"], None, packed["fc_b"], rows=rows), new_kv
 
 
@@ -265,6 +329,47 @@ def test_rowvec_rows_do_not_depend_on_the_launch():
     for rows in (1, 3, 4, 16):
         assert torch.equal(rowvec_tiles(x, w, None, bias, rows=rows), whole)
     assert torch.equal(rowvec_launch(x[16:], w, None, bias, False), whole[16:])
+
+
+def _ln_inputs(R, D, seed):
+    """res, o (R, D) and two (gamma, beta) pairs as a trained model's, f32."""
+    rng = np.random.default_rng(seed)
+    res, o = (torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32)) for _ in range(2))
+    pairs = [(torch.from_numpy((1 + 0.2 * rng.standard_normal(D)).astype(np.float32)),
+              torch.from_numpy((0.5 * rng.standard_normal(D)).astype(np.float32)))
+             for _ in range(2)]
+    return res, 3.0 * o + 1.0, pairs
+
+
+@pytest.mark.parametrize("D", [128, 512])
+def test_ln_tail_matches_twin_and_jax(D):
+    """The LN tail's order of sums computes the twin's ``_layernorm`` and
+    JAX's ``_layernorm`` (``ops/decode_step.py:166``, the TPU kernels' LN)
+    on the same numpy-seeded inputs within ATOL + RTOL, alone and with the
+    final LN chained; and the twin to f32 rounding (1e-5)."""
+    res, o, ((g, b), (g2, b2)) = _ln_inputs(16, D, seed=D)
+    got, got_fin = ln_tail(res, o, g, b), ln_tail(res, o, g, b, fin=(g2, b2))
+    want = ds._layernorm(res + o, g, b)
+    want_fin = ds._layernorm(want, g2, b2)
+    j = jax_layernorm(jnp.asarray((res + o).numpy()), jnp.asarray(g.numpy()), jnp.asarray(b.numpy()))
+    j_fin = jax_layernorm(j, jnp.asarray(g2.numpy()), jnp.asarray(b2.numpy()))
+    for a, tw, jx in ((got, want, j), (got_fin, want_fin, j_fin)):
+        assert torch.allclose(a, tw, atol=1e-5, rtol=1e-5), (a - tw).abs().max()
+        assert _close(a, tw) and _close(a, torch.from_numpy(np.array(jx)))
+
+
+def test_ln_tail_rows_do_not_depend_on_the_launch():
+    """A row's bits are the same whatever the launch's rows (1..16), the warp
+    that takes it (4 warps of a bf16 block, 2 of an int8 one) or its place;
+    with and without the final LN."""
+    res, o, (ln, fin) = _ln_inputs(16, 512, seed=9)
+    for f in (None, fin):
+        alone = torch.cat([ln_tail(res[r : r + 1], o[r : r + 1], *ln, f) for r in range(16)])
+        for nb in range(1, 17):
+            for warps in (4, 2):
+                assert torch.equal(ln_tail(res[:nb], o[:nb], *ln, f, warps), alone[:nb]), (nb, warps)
+        tail = ln_tail(res[5:], o[5:], *ln, f)
+        assert torch.equal(tail, alone[5:])
 
 
 def _attend_inputs(B, L, D, seed):
@@ -390,13 +495,16 @@ class HostLib:
     and strides it is given, with the twins' math (``_rowvec_math``,
     ``_attend``, ``_layernorm``), and checks what the kernels require of a
     launch (at most 16 rows a row-vector launch, 16-byte W pieces, a split
-    grid that covers every row, a workspace and tickets)."""
+    grid that covers every row, a workspace and tickets).  It has no
+    ``smer_add_layernorm``: every LayerNorm of the plan is a row-vector
+    launch's tail, and a plan that called it would fail."""
 
     _CT = {torch.float32: ctypes.c_float, torch.bfloat16: ctypes.c_uint16,
            torch.int8: ctypes.c_int8, torch.int32: ctypes.c_int32}
 
     def __init__(self):
         self.rowvec_rows = []
+        self.rowvec_tails = []  # a launch's (LN tail, final LN chained)
 
     def _mat(self, ptr, rows, cols, ld, dtype):
         n = (rows - 1) * ld + cols
@@ -404,12 +512,13 @@ class HostLib:
         return flat.as_strided((rows, cols), (ld, 1))
 
     def smer_rowvec(self, kind, relu, nb, x, ldx, w, ldw, cs, bias, y, ldy, kv, ldkv, kv_col0, K,
-                    N, k_split, ws, tickets, stream):
+                    N, k_split, res, ldr, gamma, beta, gamma2, beta2, eps, ws, tickets, stream):
         wdt = (torch.bfloat16, torch.float32, torch.int8)[kind]
         vec = 16 // torch.tensor([], dtype=wdt).element_size()
         assert 1 <= nb <= LAUNCH_ROWS and N % vec == 0 and ldw % vec == 0 and w % 16 == 0
         assert k_split == ds.rowvec_k_split(K, N) and ws and tickets
         self.rowvec_rows.append(nb)
+        self.rowvec_tails.append((res is not None, gamma2 is not None))
         xs = self._mat(x, nb, K, ldx, torch.float32)
         wm = self._mat(w, K, N, ldw, wdt)
         sc = self._mat(cs, 1, N, N, torch.float32)[0] if cs is not None else None
@@ -422,6 +531,16 @@ class HostLib:
         self._mat(y, nb, N, ldy, torch.float32).copy_(out)
         if kv is not None:
             self._mat(kv, nb, N - kv_col0, ldkv, torch.bfloat16).copy_(out[:, kv_col0:])
+        if res is not None:  # the LN tail: res = LN(res + out) [then the final LN], in place
+            assert kind != 1 and not relu and eps == ds.LN_EPS
+            assert gamma and beta and (gamma2 is None) == (beta2 is None)
+            r = self._mat(res, nb, N, ldr, torch.float32)
+
+            def vec(ptr):
+                return self._mat(ptr, 1, N, N, torch.float32)[0]
+
+            v = ds._layernorm(r + out, vec(gamma), vec(beta))
+            r.copy_(v if gamma2 is None else ds._layernorm(v, vec(gamma2), vec(beta2)))
         return 0
 
     def smer_attend(self, HD, B, H, q, ldq, kv, bstride, D, n_rows, lens, max_rows, source, rows,
@@ -449,12 +568,6 @@ class HostLib:
             self._mat(out + 4 * b * ldo, 1, D, D, torch.float32).copy_(att)
         return 0
 
-    def smer_add_layernorm(self, B, D, x, y, gamma, beta, out, eps, stream):
-        xs = self._mat(x, B, D, D, torch.float32)
-        v = xs + (self._mat(y, B, D, D, torch.float32) if y is not None else 0.0)
-        g, b = (self._mat(p, 1, D, D, torch.float32)[0] for p in (gamma, beta))
-        self._mat(out, B, D, D, torch.float32).copy_(ds._layernorm(v, g, b))
-        return 0
 
 
 @pytest.fixture(scope="module")
@@ -475,7 +588,9 @@ def test_launch_plan_addresses_what_the_twin_reads(bf16_model, mode, quant):
     step: v2
     at B=3, v4 token t = 5 over the cache below index and 5 chunk rows, and
     a verify window of 20 rows (row-vector launches of 16 + 4; the verify
-    takes no int8 weights, as in JAX)."""
+    takes no int8 weights, as in JAX).  Every LayerNorm runs as the tail of
+    a row-vector launch, 3 a layer (each part of 16 rows its own), the
+    final LN chained on the last, and ``smer_add_layernorm`` not at all."""
     tmodel, vpad = bf16_model
     cfg = tmodel.cfg
     D, nl, H, F = cfg.d_model, cfg.num_decoder_layers, cfg.nhead, cfg.d_ff
@@ -511,3 +626,8 @@ def test_launch_plan_addresses_what_the_twin_reads(bf16_model, mode, quant):
                                                        **kw)
     assert torch.allclose(logits, want, atol=1e-4, rtol=1e-4)
     assert torch.allclose(new_kv.float(), want_kv.float(), atol=1e-2, rtol=1e-2)
+    parts = -(-B // LAUNCH_ROWS)
+    tails = [i for i, (tail, _) in enumerate(lib.rowvec_tails) if tail]
+    fins = [i for i, (_, fin) in enumerate(lib.rowvec_tails) if fin]
+    assert len(lib.rowvec_tails) == (6 * nl + 1) * parts and len(tails) == 3 * nl * parts
+    assert "fin_ln" in packed and fins == tails[-parts:]
