@@ -184,6 +184,20 @@ paths and prints one line per phase with the elapsed seconds:
    the two tokens exceeds what the phase-2 tolerance allows is a failure;
    then the greedy v3-int8 stream against the v2-int8 stream, under the
    same rule.
+6. evaluate on the card, on the committed snapshot (bf16): 6a, six seeded
+   16-bar 3-track scores written as MIDI and ``data/build_cli --pack`` in a
+   process of its own, whose log must say the native tokenizer core
+   (``native/``, built under ``build/native/``) tokenized the tracks; 6b,
+   ``eval_cli --max_time_fix_attempts 0 --max_windows 2`` on its test split,
+   every kind, each (window, kind) one ``run_batch`` decode through the v3
+   kernels alone as graph replays; 6c, ``eval_cli --kinds tensile
+   --max_time_fix_attempts 2 --max_windows 1``, the span-retry settle loop
+   on the plain forced-prefix loop (no port kernel), every forced decode's
+   output beginning with its prefix, its decodes and ms a token printed;
+   6d, the same with ``--correct_controls`` (the in-decode mode,
+   ``--max_time_fix_attempts 1``); 6e, ``generate_cli --correct_controls``
+   on phase 3's greedy request through v3 replays.  Each eval JSON must hold
+   JAX's schema and a measured diff; each leg's wall seconds are printed.
 
 Then a JSON line describing the kernels, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
@@ -216,6 +230,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from smer_music_generation_tpu_torch import native
 from smer_music_generation_tpu_torch.codec.annotate import encode_midi
 from smer_music_generation_tpu_torch.codec.midi import (
     Instrument,
@@ -227,7 +242,8 @@ from smer_music_generation_tpu_torch.codec.midi import (
 from smer_music_generation_tpu_torch.codec.remi import remi_to_midi, smer_to_remi
 from smer_music_generation_tpu_torch.codec.smer import events_to_midi, midi_to_events
 from smer_music_generation_tpu_torch.data.build import process_song
-from smer_music_generation_tpu_torch.data.pack import pack_windows
+from smer_music_generation_tpu_torch.data.pack import load_batches, pack_windows
+from smer_music_generation_tpu_torch.eval import eval_cli
 from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer import generate_cli
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
@@ -1966,13 +1982,14 @@ def counts():
 
 def check_counts(what: str, on) -> int:
     """The path just driven launched every kernel named in ``on`` (of v2, v3,
-    v4, int8, verify, attn) and nothing else: no other kernel and no twin.
-    Returns the launches of the first."""
+    v4, int8, verify, attn) and nothing else: no other kernel and no twin
+    (with ``on`` empty: no kernel and no twin at all).  Returns the launches
+    of the first."""
     got = counts()
     say(f"  {what}: launches {got}")
     if any(got[k] == 0 for k in on) or any(v for k, v in got.items() if k not in on):
         raise AssertionError(f"{what} did not go through the {'+'.join(on)} kernels alone: {got}")
-    return got[on[0]]
+    return got[on[0]] if on else 0
 
 
 def serve_requests(engine, reqs, workdir, tag, to_midi=events_to_midi):
@@ -2642,6 +2659,153 @@ def phase_trainer(dev, workdir):
     return got
 
 
+EVAL_FILES = 6  # seeded 16-bar, 3-track scores phase 6 builds its split from
+EVAL_KEYS = {"control", "n", "mean_abs_diff", "failures", "diffs"}
+
+
+def eval_results(path: str, kinds) -> dict:
+    """``eval_cli``'s JSON: every kind asked for with the keys and counts of
+    JAX's schema, the time stats, and at least one measured diff."""
+    with open(path) as fh:
+        results = json.load(fh)
+    if set(results) != set(kinds) | {"time_stats"}:
+        raise AssertionError(f"eval_cli wrote {sorted(results)} for the kinds {kinds}")
+    for k in kinds:
+        r = results[k]
+        if not EVAL_KEYS <= set(r) or r["n"] != len(r["diffs"]) or any(d < 0 for d in r["diffs"]):
+            raise AssertionError(f"eval_cli's {k} entry is malformed: {str(r)[:300]}")
+    ts = results["time_stats"]
+    if len(ts["time_correct_list"]) != len(ts["failed_times_list"]):
+        raise AssertionError(f"time_stats lists differ in length: {ts}")
+    if not any(results[k]["n"] >= 1 for k in kinds):
+        raise AssertionError(f"eval_cli measured no diff: {results}")
+    for k in kinds:
+        say(f"    {k}: n {results[k]['n']}, mean |set - achieved| {results[k]['mean_abs_diff']}, "
+            f"failures {results[k]['failures']}")
+    say(f"    time stats: mean corrections {ts['mean_corrections']}, failed rate {ts['failed_rate']} "
+        f"over {len(ts['time_correct_list'])} entries")
+    return results
+
+
+def eval_leg(dev, tag, argv, out, kinds, on, plain=None):
+    """``eval_cli.main(argv)`` with every count at 0 just before it: the
+    JSON holds, and the run launched the kernels ``on`` alone (none: only
+    the plain loop ran).  ``plain`` (a dict) collects the plain-loop
+    decodes: each forced decode's output must begin with its forced prefix.
+    Returns the leg's wall seconds."""
+    inner = InfillDecoder.__call__
+
+    def settle_call(dec, *a, **kw):
+        t = time.perf_counter()
+        res = inner(dec, *a, **kw)
+        if dec.fused:
+            return res
+        torch.cuda.synchronize()
+        plain["s"] += time.perf_counter() - t
+        plain["decodes"] += 1
+        plain["steps"] += res.steps
+        if kw.get("forced") is not None:
+            # the prefix's closing m_0 ends the session (0, not m_0) when it
+            # closes the last span: the replay that materialises a substitution
+            n = int(np.asarray(kw["forced_len"])[0])
+            m = min(n, int(res.lengths[0]))
+            if m < n - 1 or not np.array_equal(res.tokens[0, :m].cpu().numpy(), np.asarray(kw["forced"])[0, :m]):
+                raise AssertionError(f"{tag}: a settle decode does not begin with its forced prefix")
+            plain["forced"] += 1
+        return res
+
+    reset_counts()
+    t = time.perf_counter()
+    with mock.patch.object(InfillDecoder, "__call__", settle_call) if plain is not None \
+            else contextlib.nullcontext():
+        rc = eval_cli.main([*argv, "--output", out, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise RuntimeError(f"eval_cli ({tag}) returned {rc}")
+    say(f"  eval_cli {tag}: {wall:.2f} s")
+    eval_results(out, kinds)
+    check_counts(f"eval_cli ({tag})", on)
+    return wall
+
+
+def phase_eval(dev, workdir):
+    """Phase 6: the controllability evaluation on the card, on the committed
+    snapshot (``eval_cli``, ``data/build_cli``, ``generate_cli
+    --correct_controls``).  Returns {leg: wall seconds}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    snapshot = default_flagship_snapshot()
+    walls = {}
+    # 6a: a packed split built by build_cli in a process of its own, its
+    # SMER tokenization on the native core
+    midi_dir, data_dir = os.path.join(workdir, "eval_midi"), os.path.join(workdir, "eval_data")
+    os.makedirs(midi_dir)
+    for i in range(EVAL_FILES):
+        make_score(seed=40 + i).write(os.path.join(midi_dir, f"s{i}.mid"))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "smer_music_generation_tpu_torch.data.build_cli",
+                           "-i", midi_dir, "-o", data_dir, "--pack"],
+                          capture_output=True, text=True, timeout=300, cwd=root)
+    walls["6a"] = time.perf_counter() - t
+    with open(os.path.join(data_dir, "build.log")) as fh:
+        log = fh.read()
+    for line in log.splitlines():
+        print("   ", line, flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"build_cli exited with {proc.returncode}:\n{proc.stderr[-3000:]}")
+    m = re.search(r"native tokenizer: loaded (\S+); tokenized (\d+) tracks", log)
+    if m is None or int(m.group(2)) == 0 or native.load_library() is None:
+        raise AssertionError(f"build_cli did not tokenize on the native core ({native.BUILD_INFO})")
+    split = os.path.join(data_dir, "smer_test")
+    n_windows = sum(len(g) for g in load_batches(split)[0])
+    say(f"  6a build_cli --pack: {walls['6a']:.2f} s, {n_windows} test windows; the native core "
+        f"{native.BUILD_INFO['path']} (loaded in {native.BUILD_INFO['seconds']:.2f} s here)")
+    base = ["--checkpoint", snapshot, "--test_batches", split, "--seed", "0"]
+    kinds = ["tensile", "density", "occupation", "polyphony"]
+
+    # 6b: one run_batch decode a (window, kind), the v3 kernels as graph replays
+    walls["6b"] = eval_leg(dev, "--max_time_fix_attempts 0 --max_windows 2",
+                           [*base, "--max_time_fix_attempts", "0", "--max_windows", "2"],
+                           os.path.join(workdir, "eval_6b.json"), kinds, ["v3"])
+    caps, reps = dg.DecodeGraph.captures, dg.DecodeGraph.replays
+    got = counts()
+    say(f"  6b: {caps} graph captures, {reps} replays, v3 launches {got['v3']}")
+    if reps == 0 or got["v3"] != reps + caps:
+        raise AssertionError(f"6b: the evaluation's decodes were not v3 graph replays: {caps} captures, "
+                             f"{reps} replays, launches {got}")
+
+    # 6c, 6d: the settle loop on the plain forced-prefix loop, no port kernel
+    for leg, extra in (("6c", ["--max_time_fix_attempts", "2"]),
+                       ("6d", ["--max_time_fix_attempts", "1", "--correct_controls"])):
+        plain = dict(s=0.0, decodes=0, forced=0, steps=0)
+        walls[leg] = eval_leg(dev, " ".join(["--kinds tensile --max_windows 1", *extra]),
+                              [*base, "--kinds", "tensile", "--max_windows", "1", *extra],
+                              os.path.join(workdir, f"eval_{leg}.json"), ["tensile"], [], plain)
+        if plain["decodes"] == 0:
+            raise AssertionError(f"{leg}: no decode ran on the plain loop")
+        say(f"  {leg}: {plain['decodes']} plain-loop decodes ({plain['forced']} with a forced prefix, "
+            f"each beginning with it), {plain['steps']} steps, {1e3 * plain['s'] / max(plain['steps'], 1):.3f} "
+            f"ms a token (the encode included), {plain['s']:.2f} s of decode")
+
+    # 6e: the post-hoc rewrite through run_batch, v3 graph replays
+    midi_in, midi_out = os.path.join(workdir, "eval_in.mid"), os.path.join(workdir, "eval_cc.mid")
+    make_score().write(midi_in)
+    reset_counts()
+    t = time.perf_counter()
+    rc = generate_cli.main(["-i", midi_in, "-o", midi_out, "--bars", "3", "4", "--tracks", "1",
+                            "--greedy", "--correct_controls", "--device", str(dev)])
+    torch.cuda.synchronize()
+    walls["6e"] = time.perf_counter() - t
+    if rc != 0 or not read_midi(midi_out).instruments:
+        raise AssertionError(f"generate_cli --correct_controls returned {rc} or wrote no readable MIDI")
+    say(f"  6e generate_cli --correct_controls (greedy, bars 3-4 of track 1): {walls['6e']:.2f} s")
+    check_counts("generate_cli --correct_controls", ["v3"])
+    if dg.DecodeGraph.replays == 0:
+        raise AssertionError("6e: the decode did not run as graph replays")
+    say("  phase 6 legs (s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    return walls
+
+
 def trained_flagship(dev):
     """The committed trained snapshot in bf16 on the card, with the score
     and the served events of phase 3 (for a run of some phases alone)."""
@@ -2656,7 +2820,7 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2i, 3, 3c, 3d, 5, 4); "
+                        help="comma-separated phases to run after the build (2..2i, 3, 3c, 3d, 6, 5, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -2759,6 +2923,11 @@ def main(argv=None) -> int:
             say("phase 3d flash encoder served with the trained snapshot")
             launches_a, encode_ms = phase_flash_encoder(model, vocab, events, workdir)
 
+        if run("6"):
+            say("phase 6 evaluate on the card: build_cli, eval_cli (v3 replays, span retries, "
+                "in-decode controls), generate_cli --correct_controls")
+            phase_eval(dev, workdir)
+
         if run("5"):
             say(f"phase 5 train the flagship on the card: {TRAIN_STEPS} steps at {TRAIN_B} x "
                 f"{TRAIN_SRC} + {TRAIN_TGT}, fused_attn_train and the default path")
@@ -2824,7 +2993,7 @@ def main(argv=None) -> int:
              max_abs_err=worst_t_grad, route="cuda", **report_t[(640, 640)][1]),
     ]}
     print(json.dumps(kernels), flush=True)
-    say("done")
+    say(f"done: the whole script took {time.perf_counter() - T0:.1f} s on {card}")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,9 @@ Documented conscious divergences from the reference (SURVEY.md §2.6):
   in the reference only to coax ``pretty_midi`` into computing beats).
 
 Host copy of ``smer_music_generation_tpu/codec/smer.py`` for the PyTorch port,
-which imports nothing of the JAX package. The copy keeps only the pure-Python
-tokenizer: the C++ core of ``smer_music_generation_tpu/native`` is left out.
+which imports nothing of the JAX package.  Tokenization dispatches to the
+port's copy of the C++ core (``native/``) when it builds, as JAX's does, and
+falls back to the Python loops otherwise; both give the same tokens.
 """
 
 from __future__ import annotations
@@ -168,6 +169,45 @@ def _flush_chord_group(
             out.append(f"p_{n.pitch}")
             duration_event = emit(n)
     out.extend(duration_event)
+
+
+_USE_NATIVE_TOKENIZER = True
+_native_tokenize = None
+_native_track_tokenize = None
+
+
+def set_native_tokenizer(enabled: bool) -> None:
+    """Toggle the C++ tokenizer core (``native/smer_tokenizer.cpp``)."""
+    global _USE_NATIVE_TOKENIZER
+    _USE_NATIVE_TOKENIZER = enabled
+
+
+def tokenize_bar(
+    notes: List[Note],
+    bar_time: float,
+    next_bar_time: float,
+    beat_times: Sequence[float],
+    table: DurationTable,
+    minimum_difference: float,
+    grid_division: int = 4,
+) -> Tuple[List[str], Dict[int, Note]]:
+    """Per-bar tokenization; dispatches to the native core when built."""
+    if _USE_NATIVE_TOKENIZER:
+        global _native_tokenize
+        if _native_tokenize is None:
+            from ..native.tokenizer import bar_notes_to_event_native
+
+            _native_tokenize = bar_notes_to_event_native
+        result = _native_tokenize(
+            notes, bar_time, next_bar_time, beat_times, table,
+            minimum_difference, grid_division=grid_division,
+        )
+        if result is not None:
+            return result
+    return bar_notes_to_event(
+        notes, bar_time, next_bar_time, beat_times, table,
+        minimum_difference, grid_division=grid_division,
+    )
 
 
 def bar_notes_to_event(
@@ -360,7 +400,7 @@ def midi_to_events_window(
                 beat_in_this_bar = beats[dbi[bar] : dbi[bar] + beat_in_bar + 1]
             if continue_note_dict:
                 bar_notes = list(continue_note_dict.values()) + bar_notes
-            bar_events, continue_note_dict = bar_notes_to_event(
+            bar_events, continue_note_dict = tokenize_bar(
                 bar_notes,
                 bar_time,
                 next_bar_time,
@@ -393,6 +433,39 @@ ROLE_TO_TRACK = {
     "accompaniment": "track_2",
     "chord": "track_2",
 }
+
+
+def _tokenize_tracks_native(
+    score: MidiScore,
+    track_num: int,
+    down_beats,
+    beats,
+    dbi,
+    bar_tables,
+    grid_division: int,
+):
+    """All tracks through the one-call-per-track native core; None -> caller
+    falls back to the per-bar loop."""
+    global _native_track_tokenize
+    if _native_track_tokenize is None:
+        from ..native.tokenizer import track_notes_to_events_native
+
+        _native_track_tokenize = track_notes_to_events_native
+    out = []
+    for t in range(track_num):
+        notes = [
+            n
+            for n in score.instruments[t].notes
+            if TRACK_0_RANGE[0] <= n.pitch <= TRACK_0_RANGE[1]
+        ]
+        res = _native_track_tokenize(
+            notes, down_beats, beats, dbi, bar_tables,
+            grid_division=grid_division,
+        )
+        if res is None:
+            return None
+        out.append(res)
+    return out
 
 
 def midi_to_events(
@@ -448,6 +521,18 @@ def midi_to_events(
         for bar in range(n_bars)
     ]
 
+    if _USE_NATIVE_TOKENIZER:
+        per_track = _tokenize_tracks_native(
+            score, track_num, down_beats, beats, dbi, bar_tables, grid_division
+        )
+        if per_track is not None:
+            for bar in range(n_bars):
+                events.append("bar")
+                for track in range(track_num):
+                    events.append(labels[track])
+                    events.extend(per_track[track][bar])
+            return events, score
+
     continue_dicts: List[Dict[int, Note]] = [{} for _ in range(track_num)]
 
     # notes are sorted by start, so each bar's notes are a contiguous
@@ -484,7 +569,7 @@ def midi_to_events(
             beat_in_this_bar = beats[dbi[bar] : dbi[bar + 1] + 1]
             if continue_note_dict:
                 bar_notes = list(continue_note_dict.values()) + bar_notes
-            bar_events, continue_note_dict = bar_notes_to_event(
+            bar_events, continue_note_dict = tokenize_bar(
                 bar_notes,
                 bar_time,
                 next_bar_time,

@@ -48,7 +48,10 @@ Five loop bodies, as in JAX:
   it runs the twins;
 * ``fused=True, fused_sampling=False``: the v2 decoder step,
   ``ops.decode_step.fused_decode_step``, with grammar and sampling in torch;
-* ``fused=False``: the model's own ``decode_step``.
+* ``fused=False``: the model's own ``decode_step``; the one loop that takes
+  a teacher-forced prefix (``forced``/``forced_len``, JAX :184-220 and
+  :376-386), which the engine's span-retry and in-decode correct-control
+  paths resume a session with; the kernel loops raise on it, as in JAX.
 
 The fused calls launch the CUDA kernels on the card and run their plain
 twins on the CPU.  ``fused=None`` resolves to the kernel on CUDA, as JAX's
@@ -212,22 +215,36 @@ class InfillDecoder:
         no_whole_duration,  # bool or (B,) bool
         generator: Optional[torch.Generator] = None,
         noise=None,  # optional Gumbel noise, (L, B, V); v3: (L, B, vpad); v4: (L + 64, B, vpad); v5: (L, V)
-        forced=None,
-        forced_len=None,
+        forced=None,  # (B, n) int teacher-forced output prefix; plain loop only
+        forced_len=None,  # (B,) its lengths
         uniforms=None,  # v5 only: the acceptance draws (L,), given with noise
     ) -> DecodeResult:
-        if forced is not None or forced_len is not None:
-            raise _not_ported("forced-prefix decode", "ROADMAP.md Queue 1 item 5")
+        """``forced`` (B, n) / ``forced_len`` (B,): teacher-force the first
+        ``forced_len`` positions of each row's output stream (``m_0`` span
+        markers, no ``<eos>``); sampling takes over at ``forced_len`` (JAX
+        :184-220).  The plain loop only: a fused decoder raises, as JAX's
+        does."""
         dev = self.device
         src = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
+        if forced is not None:
+            if self.fused:
+                raise ValueError(
+                    "forced-prefix decode requires the plain loop; build the decoder with fused=False"
+                )
+            forced = np.asarray(forced, np.int64)
+            f = np.zeros((src.shape[0], self.max_tgt_len), np.int64)
+            n = min(forced.shape[1], self.max_tgt_len)
+            f[:, :n] = forced[:, :n]
+            forced = (torch.as_tensor(f, device=dev),
+                      torch.as_tensor(np.asarray(forced_len), dtype=torch.long, device=dev))
         span_types = torch.as_tensor(np.asarray(span_types), dtype=torch.long, device=dev)
         n_spans = torch.as_tensor(np.asarray(n_spans), dtype=torch.long, device=dev)
         no_whole = torch.as_tensor(np.asarray(no_whole_duration), dtype=torch.bool, device=dev)
         with torch.no_grad():
-            return self._decode(src, span_types, n_spans, no_whole, generator, noise, uniforms)
+            return self._decode(src, span_types, n_spans, no_whole, generator, noise, uniforms, forced)
 
     def _decode(self, src, span_types, n_spans, no_whole, generator, noise,
-                uniforms=None) -> DecodeResult:
+                uniforms=None, forced=None) -> DecodeResult:
         model, t = self.model, self.tables
         cfg = model.cfg
         B = src.shape[0]
@@ -240,8 +257,8 @@ class InfillDecoder:
         cross = model.init_cross_cache(memory)
 
         # speculative decode takes a batch of one before the other loops (JAX
-        # :273); a batch of several goes on below
-        if self.draft_k > 0 and B == 1:
+        # :273); a batch of several, or a forced prefix, goes on below
+        if self.draft_k > 0 and B == 1 and forced is None:
             return self._decode_v5(src, src_pad, cross, span_types, n_spans, no_whole,
                                    generator, noise, uniforms)
 
@@ -314,6 +331,14 @@ class InfillDecoder:
             # the cap counts the introducing m_0: a span ends once it holds
             # span_cap tokens (reference generation.py:542)
             end_span = (sampled == t.eos_index) | (steps_in_span >= self.span_cap) | control_done
+            if forced is not None:
+                # within the prefix the forced token is the sample, and only
+                # a forced m_0 ends a span (JAX :376-386)
+                f_next = forced[0][:, pos + 1]
+                in_force = (pos + 1) < forced[1]
+                forced_end = in_force & (f_next == t.mask_index)
+                sampled = torch.where(in_force & ~forced_end, f_next, sampled)
+                end_span = torch.where(in_force, forced_end, end_span)
             new_span_idx = torch.where(end_span, span_idx + 1, span_idx)
             now_done = done | (new_span_idx >= n_spans)
 

@@ -3,11 +3,15 @@
 Port of ``smer_music_generation_tpu/infer/engine.py``: ``InfillEngine``
 (``__init__``, ``prepare`` :425, ``run_batch`` :478 without its group padding
 to B in {1, 4, 8}, ``_assemble`` :565, ``_finish_group`` :585 with its
-bar-time retry loop, ``__call__`` :716) and copies of the host helpers
-``fill_empty_bars`` (:41), ``mask_bar_and_track`` (:72),
-``restore_marked_input`` (:154), ``check_track_total_time`` (:180),
-``change_controls`` (:256) and ``_repair_durations`` (:1168).  Build the
-masked source, run the decoder, splice results back, repair bar durations.
+bar-time retry loop and the post-hoc ``correct_controls`` rewrite,
+``__call__`` :716, the span-retry settle loop ``run_with_span_retries``
+:760-983 with its plain-loop ``_eval_decoder`` :987, and the in-decode
+``run_with_correct_controls`` :1006-1166) and copies of the host helpers
+``_split_spans`` (:30), ``fill_empty_bars`` (:41), ``mask_bar_and_track``
+(:72), ``decode_headers`` (:146), ``restore_marked_input`` (:154),
+``check_track_total_time`` (:180), ``change_controls`` (:256) and
+``_repair_durations`` (:1168).  Build the masked source, run the decoder,
+splice results back, repair bar durations.
 
 ``quant="int8"`` (with the fused decoder) streams int8 decoder weights
 through every batch: the kernels take any group of 1 to 8 rows, so no call
@@ -15,11 +19,10 @@ shape falls back to unquantized weights as JAX's can (:259-268).
 ``draft_k > 0`` decodes a group of one request by speculative decode (the
 decoder's v5 loop); a larger group takes the batched loop, as in JAX.
 
-Not ported yet (they raise ``NotImplementedError``): ``span_retries``
-(ROADMAP.md Queue 1 item 5), ``correct_controls`` (Queue 1 item 7) and
-``mesh`` (Queue 1 item 11).  Sampling noise comes from a
-``torch.Generator``; a retry draws fresh noise from it where JAX folds a
-new key.
+``mesh`` is not ported yet (it raises ``NotImplementedError``, ROADMAP.md
+Queue 1 item 11).  Sampling noise comes from a ``torch.Generator``: a retry,
+and each decode of the settle loop, draws fresh noise from it in decode
+order where JAX folds a new key (``fold_in(rng, i)``).
 """
 
 from __future__ import annotations
@@ -33,11 +36,22 @@ import torch
 from ..codec.durations import DurationTable, duration_table_for_signature
 from ..codec.structure import bar_with_track_positions, track_names_of
 from ..data.masking import copy_bar_controls_to_end
-from ..vocab import WordVocab
+from ..vocab import ALL_KEY_NAMES, WordVocab
 from .decode import InfillDecoder, pad_to_bucket
 from .grammar import SPAN_CODE
 
 TOTAL_TRACK_CONTROL_TYPES = 3
+
+
+def _split_spans(generated: Sequence[str]) -> List[List[str]]:
+    """Decoder output stream -> list of spans (split on ``m_0`` markers)."""
+    spans: List[List[str]] = []
+    for tok in generated:
+        if tok == "m_0":
+            spans.append([])
+        elif spans:
+            spans[-1].append(tok)
+    return spans
 
 
 def fill_empty_bars(
@@ -143,6 +157,14 @@ def is_control_copy_run(c: Sequence[str]) -> bool:
     return len(c) == TOTAL_TRACK_CONTROL_TYPES and all(
         t == "unk" or t[:2] in ("d_", "o_", "y_") for t in c
     )
+
+
+def decode_headers(events: Sequence[str]) -> List[str]:
+    """``[time_sig, tempo, i_* programs...]`` — the header slice
+    ``bar_events_to_midi`` consumes when re-measuring decoded bars
+    (reference ``preprocessing.py:755-958`` header parse)."""
+    bar0 = next(i for i, t in enumerate(events) if t == "bar")
+    return [events[0], events[1]] + [t for t in events[:bar0] if t.startswith("i_")]
 
 
 def restore_marked_input(
@@ -310,6 +332,10 @@ class InfillResult:
     decode_steps: int
     time_corrections: int = 0  # re-decode attempts before spans closed
     time_failed: bool = False  # exhausted retries; forced repair applied
+    # per-span-group counts (the settle loop only) — the reference's
+    # per-span time_correct_list granularity (evaluation.py:1319-1328)
+    time_corrections_per_span: Optional[List[int]] = None
+    time_failed_per_span: Optional[List[int]] = None
 
 
 @dataclass
@@ -425,11 +451,9 @@ class InfillEngine:
         requests run as groups of 8 and a last smaller group, as the JAX
         engine groups them; a group is never padded with dummy rows, since
         the CUDA kernels take any batch of 1 to 8 (JAX pads to 1, 4 or 8
-        for a Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``)."""
-        if correct_controls:
-            raise NotImplementedError(
-                "correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)"
-            )
+        for a Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``).
+        ``correct_controls`` rewrites each regenerated slot's control copies
+        with the measured controls of its body after the decode."""
         if not requests:
             return []
         if generator is None:
@@ -443,9 +467,10 @@ class InfillEngine:
             pending.append((grp, asm, out))
         results: List[Optional[InfillResult]] = []
         for grp, asm, out in pending:
-            results.extend(
-                self._finish_group(grp, generator, asm, out, fix_durations=fix_durations)
-            )
+            results.extend(self._finish_group(
+                grp, generator, asm, out,
+                fix_durations=fix_durations, correct_controls=correct_controls,
+            ))
         return results
 
     def _assemble(self, requests: Sequence["PreparedRequest"]):
@@ -475,6 +500,7 @@ class InfillEngine:
         asm,
         out0,
         fix_durations: bool,
+        correct_controls: bool = False,
     ) -> List[Optional[InfillResult]]:
         src_b, span_types, n_spans, no_whole, overflow = asm
 
@@ -527,6 +553,8 @@ class InfillEngine:
             restored, generated, steps_i, attempts_i, closed_i = settled[i]
             if fix_durations and self.vocab.mode == 0:
                 restored = self._repair_durations(restored, r.table)
+            if correct_controls:
+                restored = self._correct_controls(restored, r.mask_bars, r.mask_tracks)
             results.append(
                 InfillResult(
                     events=restored,
@@ -585,17 +613,414 @@ class InfillEngine:
         correct_controls=False,
         span_retries: bool = False,
     ) -> Optional[InfillResult]:
-        if span_retries:
-            raise NotImplementedError(
-                "span_retries is not ported to PyTorch yet (ROADMAP.md Queue 1 item 5)"
-            )
+        """``correct_controls``: False, True (post-hoc rewrite of the
+        restored stream) or ``"in_decode"`` (the reference's
+        ``use_correct_control``: later spans condition on measured
+        controls; see :meth:`run_with_correct_controls`).
+
+        ``span_retries``: regenerate per span group with a teacher-forced
+        settled prefix (the reference's eval retry loop,
+        ``evaluation.py:1300-1397``) instead of re-decoding the whole
+        request.  Both settle-loop modes run the plain forced-prefix loop
+        (``_eval_decoder``); the rest goes through ``run_batch`` and the
+        engine's own decoder (the v3 kernels on CUDA)."""
         req = self.prepare(events, tracks_to_generate, bars_to_generate)
         if req is None:
             return None
+        if correct_controls == "in_decode":
+            return self.run_with_correct_controls(req, generator, fix_durations=fix_durations)
+        if (
+            span_retries
+            and fix_durations
+            and self.vocab.mode == 0
+            and not self.decoder.greedy
+            and self.max_time_fix_attempts > 0
+        ):
+            result = self.run_with_span_retries(req, generator, fix_durations=True)
+            if result is not None and correct_controls:
+                result.events = self._correct_controls(
+                    result.events, req.mask_bars, req.mask_tracks
+                )
+            return result
         return self.run_batch(
             [req], generator, fix_durations=fix_durations,
             correct_controls=correct_controls,
         )[0]
+
+    def run_with_span_retries(
+        self,
+        req: "PreparedRequest",
+        generator: Optional[torch.Generator] = None,
+        fix_durations: bool = True,
+    ) -> Optional[InfillResult]:
+        """Per-span-group regeneration (reference ``evaluation.py:1300-1397``).
+
+        Masked (bar, track) groups settle in source order: a group whose
+        body closes the bar duration is accepted; otherwise it is re-decoded
+        with fresh sampling noise while every already-settled group is
+        teacher-forced, up to ``max_time_fix_attempts`` times, after which
+        it is accepted as-is (and later rewritten by the forced duration
+        repair) and the loop moves on (the reference's ``corrected_times >
+        10, continue generation`` branch, ``:1326-1335``).  Unlike
+        :meth:`run_batch`'s whole-request retry, each group retries on its
+        own.
+        """
+        state = self._settle_loop(
+            req, generator,
+            check_close=True,
+            retry_time=True,
+            # terminates: every decode settles >= 1 group or increments the
+            # current group's capped attempt counter
+            max_decodes=self._n_groups(req) * (self.max_time_fix_attempts + 1),
+            settle_fn=None,
+            final_replay=False,
+        )
+        return self._settled_result(state, req, fix_durations)
+
+    def _settled_result(
+        self, state, req: "PreparedRequest", fix_durations: bool
+    ) -> Optional[InfillResult]:
+        """`_settle_loop` state -> InfillResult (shared by both eval paths)."""
+        if state is None:
+            return None
+        generated, restored, corrections, failed = state
+        if fix_durations and self.vocab.mode == 0:
+            restored = self._repair_durations(restored, req.table)
+        return InfillResult(
+            events=restored,
+            generated=generated,
+            mask_tracks=req.mask_tracks,
+            mask_bars=req.mask_bars,
+            decode_steps=len(generated),
+            time_corrections=sum(corrections),
+            time_failed=any(failed),
+            time_corrections_per_span=corrections,
+            time_failed_per_span=failed,
+        )
+
+    @staticmethod
+    def _span_groups(req: "PreparedRequest") -> List[List[int]]:
+        """Span indices grouped per masked (bar, track): each SPAN_BODY
+        opens a group; the control spans that follow belong to it."""
+        groups: List[List[int]] = []
+        for k, code in enumerate(req.span_codes):
+            if code == SPAN_CODE["r"]:
+                groups.append([k])
+            elif groups:
+                groups[-1].append(k)
+        return groups
+
+    def _n_groups(self, req: "PreparedRequest") -> int:
+        return len(self._span_groups(req))
+
+    def _settle_loop(
+        self,
+        req: "PreparedRequest",
+        generator: Optional[torch.Generator],
+        check_close: bool,
+        retry_time: bool,
+        max_decodes: int,
+        settle_fn,
+        final_replay: bool,
+    ):
+        """Shared per-group settle loop of the eval retry paths
+        (reference ``evaluation.py:1217-1397``).
+
+        Masked (bar, track) groups settle in source order.  A group whose
+        body fails the bar-duration closure check is re-decoded with fresh
+        noise (already-settled groups teacher-forced) up to
+        ``max_time_fix_attempts`` times, then accepted as-is.  At settle
+        time ``settle_fn(group, slot, spans, restored) -> {span_idx: token}``
+        (``group`` = the group's span indices, ``slot`` = its
+        ``(bar, track)``) may substitute tokens into later spans (the
+        in-decode ``use_correct_control`` hook); a substitution forces the
+        remainder to re-decode conditioned on it.  ``final_replay`` keeps
+        looping after the last group settles so a trailing substitution is
+        materialised by one fully-forced replay.  Each decode draws its
+        noise from ``generator`` (the engine's when None), in decode order.
+
+        Returns ``(generated, restored, corrections, failed)`` or None for
+        empty/oversized requests.
+        """
+        decoder = self._eval_decoder
+        if generator is None:
+            generator = self.decoder.generator
+        src_tokens = [self.vocab.index2char(int(t)) for t in req.src]
+        span_codes = list(req.span_codes)
+        n_spans = len(span_codes)
+        if n_spans == 0 or n_spans > decoder.max_spans:
+            return None
+
+        groups = self._span_groups(req)
+        group_slots = sorted(zip(req.mask_bars, req.mask_tracks))
+
+        src_b = pad_to_bucket(np.asarray(req.src, np.int32)[None])
+        span_types = np.zeros((1, decoder.max_spans), np.int32)
+        span_types[0, :n_spans] = span_codes
+        n_spans_b = np.asarray([n_spans], np.int32)
+        no_whole = np.asarray([req.no_whole_duration])
+
+        settled = 0
+        attempts: Dict[int, int] = {}
+        corrections: List[int] = []
+        failed: List[int] = []
+        forced_stream: List[str] = []
+        generated: List[str] = []
+        restored = src_tokens
+        decode_i = 0
+        while decode_i < max_decodes and (final_replay or settled < len(groups)):
+            if forced_stream:
+                forced_ids = np.asarray(
+                    [[self.vocab.char2index(t) for t in forced_stream]], np.int32
+                )
+                forced_len = np.asarray([len(forced_stream)], np.int32)
+            else:
+                forced_ids = forced_len = None
+            out = decoder(
+                src_b, span_types, n_spans_b, no_whole, generator=generator,
+                forced=forced_ids, forced_len=forced_len,
+            )
+            decode_i += 1
+            tokens = out.tokens[0].cpu().numpy()
+            generated = [self.vocab.index2char(int(t)) for t in tokens[: int(out.lengths[0])]]
+            spans = _split_spans(generated)
+            restored = restore_marked_input(src_tokens, generated)
+            if len(spans) < n_spans:
+                # token budget exhausted; keep the partial splice
+                # (unfilled slots retain their m_0 markers)
+                break
+
+            substituted = False
+            progressed = True
+            while settled < len(groups) and progressed:
+                gi = settled
+                bar_num, track_pos = group_slots[gi]
+                time_ok = not check_close or self._group_closes(
+                    restored, req, bar_num, track_pos
+                )
+                if (
+                    not time_ok
+                    and retry_time
+                    and attempts.get(gi, 0) < self.max_time_fix_attempts
+                ):
+                    attempts[gi] = attempts.get(gi, 0) + 1
+                    progressed = False
+                    break
+                # time settled (closed or retries exhausted)
+                subs = (
+                    settle_fn(groups[gi], group_slots[gi], spans, restored)
+                    if settle_fn
+                    else None
+                )
+                if subs:
+                    for si, tok in subs.items():
+                        spans[si] = [tok]
+                corrections.append(attempts.get(gi, 0))
+                failed.append(0 if time_ok else 1)
+                settled = gi + 1
+                if subs:
+                    # later spans must re-decode conditioned on the
+                    # substituted value
+                    substituted = True
+                    progressed = False
+            if settled >= len(groups) and not substituted:
+                break
+            last_span = groups[settled - 1][-1] if settled else -1
+            forced_stream = []
+            for si in range(last_span + 1):
+                forced_stream.append("m_0")
+                forced_stream.extend(spans[si])
+            if forced_stream:
+                # close the LAST forced span: the decoder ends a forced span
+                # only on a forced m_0, so a body-terminal prefix would
+                # otherwise resume sampling inside content that already
+                # passed its closure check
+                forced_stream.append("m_0")
+            # if everything settled but the final substitution is not in
+            # `generated` yet, the next iteration is a fully-forced replay
+            # that materialises it, then breaks
+
+        # groups left unsettled by an early break (token budget exhausted)
+        # count as failed; the forced repair rewrites them downstream
+        for gi in range(settled, len(groups)):
+            corrections.append(attempts.get(gi, 0))
+            failed.append(1)
+        return generated, restored, corrections, failed
+
+    def _group_closes(
+        self, events: List[str], req: "PreparedRequest", bar_num: int, track_pos: int
+    ) -> bool:
+        """One (bar, track) group's body sums exactly to the bar duration."""
+        try:
+            _, _, bars = bar_with_track_positions(events)
+        except (IndexError, ValueError):
+            return False
+        if bar_num >= len(bars) or track_pos >= len(bars[bar_num]):
+            return False
+        track_start, track_end = bars[bar_num][track_pos]
+        body_start, body_end = self._body_bounds(events, track_start, track_end)
+        ok, _ = check_track_total_time(events[body_start:body_end], req.table)
+        return ok
+
+    @property
+    def _eval_decoder(self) -> InfillDecoder:
+        """The plain-loop decoder (``fused=False``) that takes a forced
+        prefix, on the engine model's device, built once; the kernel loops
+        do not take a teacher-forced prefix (JAX :987-1004)."""
+        dec = getattr(self, "_eval_decoder_cache", None)
+        if dec is None:
+            dec = InfillDecoder(
+                self.model,
+                self.vocab,
+                max_tgt_len=self.decoder.max_tgt_len,
+                max_spans=self.decoder.max_spans,
+                nucleus_p=self.decoder.nucleus_p,
+                temperature=self.decoder.temperature,
+                greedy=self.decoder.greedy,
+                fused=False,
+            )
+            self._eval_decoder_cache = dec
+        return dec
+
+    def run_with_correct_controls(
+        self,
+        req: "PreparedRequest",
+        generator: Optional[torch.Generator] = None,
+        fix_durations: bool = True,
+        max_rounds: Optional[int] = None,
+    ) -> Optional[InfillResult]:
+        """In-decode ``use_correct_control`` (reference
+        ``evaluation.py:1217-1288``): after each masked (bar, track) body
+        decodes, its measured density/occupation/polyphony (and, on the last
+        track of a bar, the bar's measured tensile strain) replace the
+        sampled control tokens, so every later span conditions on measured
+        values.  The seam is between decodes: decode the whole session,
+        measure the earliest span group whose sampled controls disagree with
+        the measured ones, substitute, teacher-force the stream up to that
+        point and re-decode the remainder.  Like
+        :meth:`run_with_span_retries`, a group only settles (and only then
+        has its controls measured and substituted) once its body closes the
+        bar duration or ``max_time_fix_attempts`` fresh samples were spent
+        on it.
+        """
+        from ..eval.controllability import recompute_bar_track_control
+
+        span_codes = list(req.span_codes)
+        if not span_codes or len(span_codes) > self._eval_decoder.max_spans:
+            # degenerate request (e.g. n_spans = 0 padding): bail before
+            # parsing the header below
+            return None
+        src_tokens = [self.vocab.index2char(int(t)) for t in req.src]
+
+        header = decode_headers(src_tokens)
+        key_token = src_tokens[2] if src_tokens[2].startswith("k_") else None
+        key_name = ALL_KEY_NAMES[int(key_token[2:])] if key_token is not None else None
+
+        def measure_and_substitute(group, slot, spans, restored):
+            """Measure the settled group's body; substitute its sampled
+            control copies with the measured values."""
+            bar_num = slot[0]
+            body = spans[group[0]]
+            subs: Dict[int, str] = {}
+            d, o, y = recompute_bar_track_control(body, header)
+            measured = {
+                SPAN_CODE["d"]: f"d_{d}" if d >= 0 else None,
+                SPAN_CODE["o"]: f"o_{o}" if o >= 0 else None,
+                SPAN_CODE["p"]: f"y_{y}" if y >= 0 else None,
+            }
+            for si in group[1:]:
+                code = span_codes[si]
+                if code == SPAN_CODE["t"]:
+                    want = self._measured_tensile(spans, src_tokens, bar_num, header, key_name)
+                else:
+                    want = measured.get(code)
+                if want is not None and spans[si] and spans[si][0] != want:
+                    subs[si] = want
+            return subs
+
+        check_close = fix_durations and self.vocab.mode == 0
+        state = self._settle_loop(
+            req, generator,
+            check_close=check_close,
+            retry_time=(
+                check_close
+                and not self.decoder.greedy  # fresh noise needs sampling
+                and self.max_time_fix_attempts > 0
+            ),
+            # terminates: every decode either increments one group's attempt
+            # counter (capped) or settles >= 1 group; a settled group can
+            # force at most one extra replay (its control substitution)
+            max_decodes=(
+                max_rounds
+                if max_rounds is not None
+                else self._n_groups(req) * (self.max_time_fix_attempts + 2) + 1
+            ),
+            settle_fn=measure_and_substitute,
+            final_replay=True,
+        )
+        return self._settled_result(state, req, fix_durations)
+
+    def _measured_tensile(
+        self,
+        spans: List[List[str]],
+        src_tokens: List[str],
+        bar_num: int,
+        header: List[str],
+        key_name: Optional[str],
+    ) -> Optional[str]:
+        """True ``s_*`` of a bar, measured from the restored stream (the
+        bar's tracks include unmasked source content)."""
+        from ..eval.controllability import recompute_bar_tension
+
+        flat: List[str] = []
+        for s in spans:
+            flat.append("m_0")
+            flat.extend(s)
+        restored = restore_marked_input(src_tokens, flat)
+        try:
+            _, bar_poses, _ = bar_with_track_positions(restored)
+        except (IndexError, ValueError):
+            return None
+        if bar_num >= len(bar_poses):
+            return None
+        lo = bar_poses[bar_num]
+        hi = bar_poses[bar_num + 1] if bar_num + 1 < len(bar_poses) else len(restored)
+        cat = recompute_bar_tension(restored[lo + 1 : hi], header, key_name)
+        return f"s_{cat}" if cat is not None else None
+
+    def _correct_controls(
+        self, events: List[str], mask_bars: List[int], mask_tracks: List[int]
+    ) -> List[str]:
+        """Rewrite each regenerated slot's control copies with the
+        *measured* controls of the generated body (post-hoc approximation
+        of the reference's ``use_correct_control``,
+        ``evaluation.py:1217-1288``)."""
+        from ..eval.controllability import recompute_bar_track_control
+
+        out = list(events)
+        header = decode_headers(out)
+        _, _, bars = bar_with_track_positions(out)
+        for bar_num, track_num in zip(mask_bars, mask_tracks):
+            if bar_num >= len(bars) or track_num >= len(bars[bar_num]):
+                continue
+            track_start, track_end = bars[bar_num][track_num]
+            tensile_end = (
+                1
+                if out[track_end - 1] in self.vocab.name_to_tokens.get("tensile", [])
+                else 0
+            )
+            body = out[
+                track_start + TOTAL_TRACK_CONTROL_TYPES
+                : track_end - TOTAL_TRACK_CONTROL_TYPES - tensile_end
+            ]
+            d, o, y = recompute_bar_track_control(body, header)
+            if o < 0:
+                continue
+            tokens = [f"d_{d}", f"o_{o}", f"y_{y}"]
+            for k in range(TOTAL_TRACK_CONTROL_TYPES):
+                out[track_start + k] = tokens[k]
+                out[track_end - TOTAL_TRACK_CONTROL_TYPES - tensile_end + k] = tokens[k]
+        return out
 
     def _repair_durations(self, events: List[str], table: DurationTable) -> List[str]:
         """Check every track body sums to the bar duration; rewrite tails."""

@@ -6,14 +6,15 @@ change controls -> generate -> decode -> write):
     python -m smer_music_generation_tpu_torch.infer.generate_cli \\
         -i song.mid -o out.mid --tracks 0 --bars 4 5 6 7 \\
         [--checkpoint ...] [--greedy] [--p 0.9] [--temperature 1.0] [--draft_k 8] \
-        [--device cpu]
+        [--correct_controls] [--device cpu]
 
 With no ``--checkpoint`` and no ``--config`` it loads the committed
 trained snapshot ``assets/flagship_params.msgpack``; ``--checkpoint
 random`` gives random weights.  The model computes in bf16 on CUDA and in
 f32 on the CPU.  ``--draft_k K`` decodes the request by speculative decode,
 verifying K prompt-lookup drafts a step (on CUDA through the verify kernel,
-K <= 15).
+K <= 15).  ``--correct_controls`` rewrites each regenerated slot's control
+copies with the measured controls of its body after the decode.
 """
 
 from __future__ import annotations
@@ -51,11 +52,6 @@ def main(argv=None) -> int:
                         help="speculative decode: prompt-lookup draft width (0 = off); greedy output is bit-identical, nucleus distribution-identical")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-
-    if args.correct_controls:
-        raise NotImplementedError(
-            "--correct_controls is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)"
-        )
 
     logger = logger_init(None)
     device = torch.device(args.device)
@@ -103,7 +99,7 @@ def main(argv=None) -> int:
         draft_k=args.draft_k,
         seed=args.seed,
     )
-    gen = engine(events, args.tracks, args.bars)
+    gen = engine(events, args.tracks, args.bars, correct_controls=args.correct_controls)
     if gen is None:
         logger.error("generation failed")
         return 1

@@ -163,11 +163,19 @@ def test_unported_options_raise(setup, kw):
 
 
 def test_forced_prefix_raises(setup):
+    """A forced prefix runs on the plain loop only (its parity with JAX is
+    in ``tests/test_torch_eval.py``): the kernel loops (v2, v3, v4) raise
+    on it, as JAX's fused decoder does, and the plain loop reproduces it."""
     _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
-    dec = InfillDecoder(tmodel, tvocab, max_tgt_len=L)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec(src[:1], span_types[:1], n_spans[:1], no_whole[:1],
-            forced=np.zeros((1, 4), np.int32), forced_len=np.asarray([2]))
+    args = (src[:1], span_types[:1], n_spans[:1], no_whole[:1])
+    forced = np.full((1, 4), tvocab.mask_index, np.int32)
+    kw = dict(max_tgt_len=L, span_cap=12, greedy=True, nucleus_p=None)
+    for loop in (dict(fused_sampling=False), dict(), dict(token_chunk=8)):
+        dec = InfillDecoder(tmodel, tvocab, fused=True, **kw, **loop)
+        with pytest.raises(ValueError, match="fused=False"):
+            dec(*args, forced=forced, forced_len=np.asarray([3]))
+    got = InfillDecoder(tmodel, tvocab, fused=False, **kw)(*args, forced=forced, forced_len=np.asarray([3]))
+    np.testing.assert_array_equal(got.tokens.numpy()[0, :3], forced[0, :3])
 
 
 def test_decoder_defaults_to_plain_loop_on_cpu(setup):

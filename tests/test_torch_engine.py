@@ -79,13 +79,20 @@ def test_run_batch_padded_to_four_equals_one_by_one(setup):
 
 
 def test_unported_engine_options_raise(setup):
-    _, tvocab, _, _, tmodel, events = setup
-    eng = InfillEngine(tmodel, tvocab, max_tgt_len=512)
-    with pytest.raises(NotImplementedError):
-        eng(events, [0], [1], span_retries=True)
-    with pytest.raises(NotImplementedError):
-        eng(events, [0], [1], correct_controls=True)
-    with pytest.raises(NotImplementedError):
+    """``mesh`` alone still raises, naming its ROADMAP item; the name is
+    kept from when ``span_retries`` and ``correct_controls`` raised too.
+    They run now: greedy ``span_retries`` takes ``run_batch`` as in JAX,
+    and the post-hoc rewrite gives JAX's stream (their parity under noise
+    is in ``tests/test_torch_eval.py``)."""
+    vocab, tvocab, jmodel, params, tmodel, events = setup
+    kw = dict(greedy=True, nucleus_p=None, max_tgt_len=512)
+    eng = InfillEngine(tmodel, tvocab, **kw)
+    jeng = JEngine(jmodel, params, vocab, **kw)
+    for opts in (dict(span_retries=True), dict(correct_controls=True)):
+        got = eng(events, [0], [1], **opts)
+        want = jeng(events, [0], [1], jax.random.PRNGKey(0), **opts)
+        assert got.events == want.events and got.generated == want.generated
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         InfillEngine(tmodel, tvocab, mesh=object())
 
 
@@ -110,29 +117,24 @@ def test_generate_cli_writes_readable_midi(tmp_path):
     assert np.isfinite(decoded.instruments[0].notes[0].start)
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--correct_controls"], "Queue 1 item 7"),
-    (["--draft_k", "4"], None),
-], ids=["flag0-Queue 1 item 7", "flag1-Queue 1 item 4 / Queue 2 item 3"])
-def test_generate_cli_refuses_unported_flags(tmp_path, flag, item):
-    """JAX's ``--correct_controls`` parses, then raises naming its ROADMAP
-    item, before any model is loaded.  ``--draft_k`` is ported: its case,
-    whose id is kept from when it raised too, runs the CLI with it on a
-    small random model and reads the MIDI file back."""
+@pytest.mark.parametrize("flag", [["--correct_controls"], ["--draft_k", "4"]],
+                         ids=["flag0-Queue 1 item 7", "flag1-Queue 1 item 4 / Queue 2 item 3"])
+def test_generate_cli_refuses_unported_flags(tmp_path, flag):
+    """Both flags are ported; each case, whose id is kept from when the flag
+    raised naming its ROADMAP item, runs the CLI with it on a small random
+    model and reads the MIDI file back (the rewrite's parity with JAX is
+    ``test_unported_engine_options_raise``)."""
     from smer_music_generation_tpu_torch.codec.midi import read_midi
     from smer_music_generation_tpu_torch.infer import generate_cli
     from tests.test_annotate import make_two_track_score
 
-    if item is None:
-        midi_in, out_path = tmp_path / "in.mid", tmp_path / "out.mid"
-        make_two_track_score().write(str(midi_in))
-        cfg_path = tmp_path / "cfg.json"
-        cfg_path.write_text(json.dumps({"d_model": 64, "nhead": 1, "num_layers": 1, "d_ff": 128}))
-        rc = generate_cli.main(["--device", "cpu", "-i", str(midi_in), "-o", str(out_path),
-                                "--bars", "1", "--config", str(cfg_path), "--max_tgt", "256",
-                                "--greedy", *flag])
-        assert rc == 0 and read_midi(str(out_path)).instruments
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        generate_cli.main(["--device", "cpu", "-i", str(tmp_path / "in.mid"),
-                           "-o", str(tmp_path / "out.mid"), "--bars", "1", *flag])
+    midi_in, out_path = tmp_path / "in.mid", tmp_path / "out.mid"
+    make_two_track_score().write(str(midi_in))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps({"d_model": 64, "nhead": 1, "num_layers": 1, "d_ff": 128}))
+    rc = generate_cli.main(["--device", "cpu", "-i", str(midi_in), "-o", str(out_path),
+                            "--bars", "1", "--config", str(cfg_path), "--max_tgt", "256",
+                            "--greedy", *flag])
+    decoded = read_midi(str(out_path))
+    assert rc == 0 and decoded.instruments
+    assert sum(len(i.notes) for i in decoded.instruments) > 0
