@@ -8,11 +8,13 @@ paths and prints one line per phase with the elapsed seconds:
 
 0. card: ``nvidia-smi`` name and power limit;
 1. build: the CUDA kernels (``ops/csrc/decode_step.cu``,
-   ``decode_token.cu``, ``attention.cu`` and ``train_attention.cu``, one nvcc
-   each, started together; the last two include ``attn_tiles.cuh``) into
-   ``build/torch_kernels/``, with each kernel's registers and spills; then
-   the tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass`` of the
-   library) of the four tensor-core kernels, ``flash_fwd_kernel``,
+   ``decode_token.cu``, ``attention.cu``, ``train_attention.cu`` and
+   ``flash_train.cu``, one nvcc each, started together; the last three
+   include ``attn_tiles.cuh``) into ``build/torch_kernels/``, with each
+   kernel's registers and spills; then the tensor-core instructions
+   (HMMA/HGMMA in ``cuobjdump -sass`` of the library) of the seven
+   tensor-core kernels, ``flash_fwd_kernel``, ``flash_train_fwd_kernel``,
+   ``flash_train_dq_kernel``, ``flash_train_dkv_kernel``,
    ``train_fwd_kernel``, ``train_bwd_rows_kernel`` and
    ``train_bwd_keys_kernel``, with their registers, spills and shared
    memory from the ``-Xptxas -v`` log: the phase fails if any has none;
@@ -152,6 +154,19 @@ paths and prints one line per phase with the elapsed seconds:
    backward kernels (given the seed on the card and an int32 mask, as the
    model gives them), the twins and SDPA (forward, backward, its own dropout
    stream) timed beside the bounds; the card's clocks before and after;
+2j. flash-train kernels (``ops/flash_train.py``, the port of the library
+   flash attention ``flash_training`` runs) against their twins at B=8,
+   H=8 and (T, S, causal) in ``FT_CASES`` (640x640, 384x384 causal,
+   384x640, 2048x2048, 512x512 causal, 512x2048), with a key mask that is
+   not a suffix, one batch row with no valid key (whose output must be the
+   mean of V over its visited keys) and one suffix-padded: the output
+   within ``TA_ATOL`` + ``TA_RTOL`` of the twin, dq, dk and dv within
+   ``TA_REL`` of the backward twin fed the kernel's output and m, l, dv's
+   reading printed beside JAX's kernel-to-twin bound of 1e-4; one backward
+   through the autograd Function equal to the wrappers'; at every shape the
+   forward and backward ms (CUDA events) beside the operations bound and
+   SDPA's forward and backward with the same boolean mask, the twins too at
+   640x640 and 2048x2048;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -177,7 +192,17 @@ paths and prints one line per phase with the elapsed seconds:
    seeded 32-bar, 2-track score (binned loader, seq_bucket 256), the
    kernels launched 12 times each on every step; the last checkpoint
    restored; a snapshot exported; the checkpoint and the snapshot each
-   loaded and serving one greedy infill through v3;
+   loaded and serving one greedy infill through v3; 5c: the same 20 steps
+   with ``flash_training`` at 8 x 640 + 384 and at 8 x 2048 + 512 (JAX's
+   long-sequence shape for it): 12 forward and 12 backward flash-train
+   launches a step and nothing else, the loss finite and falling, ms a
+   step, tokens/s and the busy share; at 8 x 2048 + 512 one step's loss
+   and gradients with ``remat`` against one without from one generator
+   state (within 1e-6 relative norm, the generator left alike) and the peak
+   memory of each; then ``Trainer.run`` for 1 epoch with
+   ``flash_training`` and ``remat`` as in 5b, every step through the
+   flash-train kernels, its checkpoint serving one greedy infill through
+   v3;
 4. kernel path vs twin path: one greedy request decoded through the kernels
    and through the twin on the card, for v2 and for v3, and where they
    first differ; a difference at a step where the twin's margin between
@@ -204,7 +229,7 @@ Then a JSON line describing the kernels, and last
 CUDA device it exits 2 before printing any result.  ``--phases 2e,2f``
 (for bring-up) runs the build and the named phases only and prints no
 result lines; ``--phases 2g,5`` is the short first call for the training
-kernels.
+kernels, ``--phases 2j,5c`` for the flash-train kernels.
 """
 
 from __future__ import annotations
@@ -259,6 +284,7 @@ from smer_music_generation_tpu_torch.models.transformer import LayerNorm, ModelC
 from smer_music_generation_tpu_torch.ops import attention as attn
 from smer_music_generation_tpu_torch.ops import decode_graph as dg
 from smer_music_generation_tpu_torch.ops import decode_step as ds
+from smer_music_generation_tpu_torch.ops import flash_train as ft
 from smer_music_generation_tpu_torch.ops import train_attention as ta
 from smer_music_generation_tpu_torch.serve.app import ServingContext, serve
 from smer_music_generation_tpu_torch.train.checkpoint import (
@@ -267,9 +293,10 @@ from smer_music_generation_tpu_torch.train.checkpoint import (
     restore_checkpoint,
 )
 from smer_music_generation_tpu_torch.train.loop import Trainer
-from smer_music_generation_tpu_torch.train.loss import build_loss_tables
+from smer_music_generation_tpu_torch.train.loss import build_loss_tables, multihead_ce
 from smer_music_generation_tpu_torch.train.state import (
     TrainState,
+    _forward_batch,
     build_model,
     default_flagship_snapshot,
     load_inference_model,
@@ -301,13 +328,16 @@ SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
     ("nucleus p0.9 T1.0", False, 0.9, 1.0),
     ("nucleus p0.9 T0.8", False, 0.9, 0.8),
 )
+# the flash-train kernels come before the train kernels, whose names their
+# own hold: a name matches the first family (or SASS function) it is in
+FLASH_TRAIN_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train_dkv_kernel")
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
-            "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel",
+            "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel", *FLASH_TRAIN_KERNELS,
             "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel")
-# the kernels redesigned for the tensor cores: phase 1 reads their SASS and
-# their ptxas facts
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "train_fwd_kernel", "train_bwd_rows_kernel",
-                       "train_bwd_keys_kernel")
+# the kernels on the tensor cores: phase 1 reads their SASS and their ptxas
+# facts
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", *FLASH_TRAIN_KERNELS, "train_fwd_kernel",
+                       "train_bwd_rows_kernel", "train_bwd_keys_kernel")
 # flash attention vs twin: f32 sums on both sides in another order, then the
 # output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
 # value at most) plus what rounds near zero
@@ -353,12 +383,12 @@ HD_ATTN = 64  # the encoder's head_dim, the flash kernel's
 # to the neighbouring bf16 value: the output within one bf16 ulp (2^-7 of
 # the value) plus what rounds near zero; the gradients within JAX's own
 # bounds between its kernel and its twin (tests/test_ops.py:621-655), dv
-# at 1e-3 and not JAX's 1e-4: dv = bf16(w)^T g, and a w that differs from
-# the twin's in its last f32 bits (any other exp or order of l's sum; JAX's
-# kernel computes the twin's bits in interpret mode) rounds to the
-# neighbouring bf16 value often enough to move dv by 0.3-1.3e-4 of its
-# norm even with an exact exp2 and division
-# (tests/test_torch_attention_tiles.py::test_dv_moves_with_the_last_bits_of_w)
+# at 1e-3 and not JAX's 1e-4: dv = bf16(w)^T g summed by the tensor cores,
+# whose f32 accumulation does not round to nearest, reads 1.0-1.6e-4 from
+# the same sum in float64 on an H100 where the twin's f32 sum reads
+# 1-4.5e-5 from it; the exp (ex2.approx gives torch.exp2's bits) and the
+# order of w's formula are not what moves it (scripts/dv_order_probe.py;
+# tests/test_torch_attention_tiles.py::test_dv_moves_with_the_last_bits_of_w)
 TA_ATOL, TA_RTOL = 1e-2, 2 ** -7
 TA_REL = {"dq": 0.02, "dk": 0.02, "dv": 1e-3}
 TA_SEEDS = ((0, 7), (0xDEADBEEF, 0x12345678))  # raw two-word keys
@@ -369,6 +399,14 @@ TA_SEEDS = ((0, 7), (0xDEADBEEF, 0x12345678))  # raw two-word keys
 TA_CASES = ((640, 640, False), (384, 384, True), (384, 640, False), (1024, 1024, False),
             (200, 333, False), (333, 333, True))
 TA_TIMED = ((640, 640), (384, 640))
+# (T, S, causal) of phase 2j, the flash-train kernels at B=8, H=8: the
+# training step's 640 + 384 bucket (encoder, decoder self, cross) and JAX's
+# long-sequence shape for flash_training, B8 x (src 2048, tgt 512)
+# (docs/PERFORMANCE.md:566-570); held as phase 2g holds its kernels
+FT_CASES = ((640, 640, False), (384, 384, True), (384, 640, False), (2048, 2048, False),
+            (512, 512, True), (512, 2048, False))
+FT_TIMED = (640, 640, False), (2048, 2048, False)  # twins timed too; the last is the kernels line's
+TRAIN_LONG_SRC, TRAIN_LONG_TGT = 2048, 512  # phase 5c's long bucket
 TRAIN_B = 8  # rows of the training step of phases 2g and 5
 TRAIN_SRC, TRAIN_TGT = 640, 384  # the dominant bucket of the packed corpus
 TRAIN_STEPS, TRAIN_WARM = 20, 5  # phase 5's steps, and how many the timing skips
@@ -1958,11 +1996,152 @@ def time_train_attention(dev, q, k, v, go, valid, causal):
             dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b, library_ms=lib_b))
 
 
+def flash_train_pairs(B: int, T: int, S: int, causal: bool) -> int:
+    """(query row, key) pairs the flash-train function needs over all heads:
+    every key when not causal (the mask is added, not skipped), the keys at
+    or before the row when causal."""
+    if not causal:
+        return B * H * T * S
+    return B * H * int(np.minimum(np.arange(T) + 1, S).sum())
+
+
+def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool):
+    """Least time of the flash-train forward or backward and what bounds it.
+    Bytes: the forward reads q, k, v (bf16) and the int32 mask and writes
+    the output and each row's m and l (f32); the backward reads q, k, v,
+    the output, g, m, l and the mask and writes dq, dk, dv.  Operations:
+    2 HD for every pair and product, the forward's two (scores, p v) and
+    the backward's five (scores recomputed, g v^T, p^T g, ds k, ds^T q),
+    at the bf16 tensor-core rate.  Returns (ms, "bytes" or "operations")."""
+    qb, kb, st = B * T * H * HD_ATTN * 2, B * S * H * HD_ATTN * 2, 2 * B * H * T * 4
+    nbytes = (2 * qb + 2 * kb + st if not backward else 4 * qb + 4 * kb + st) + B * S * 4
+    flops = 2 * HD_ATTN * flash_train_pairs(B, T, S, causal) * (5 if backward else 2)
+    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
+                                     else "operations")
+
+
+def flash_train_inputs(g, dev, T: int, S: int):
+    """Seeded bf16 q, k, v, g at B=8, H=8 and a key mask that is not a suffix
+    (~10% of keys invalid anywhere, the first three of row 0 among them),
+    batch row 1 with no valid key and row 2 suffix-padded from 0.7 S."""
+    B = TRAIN_B
+    q = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    go = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.rand(B, S, generator=g, device=dev) >= 0.1
+    valid[0, :3] = False
+    valid[1] = False
+    valid[2] = torch.arange(S, device=dev) < int(0.7 * S)
+    return q, k, v, go, valid
+
+
+def phase_flash_train_vs_twin(dev):
+    """The flash-train kernels (forward; dq then dk/dv) against their twins
+    at FT_CASES, timed beside the operations bound and SDPA with the same
+    boolean mask.  Returns (max forward error, max |kernel - twin| of a
+    gradient, the worst dv relative norm, {(T, S, causal): (forward report,
+    backward report)} at FT_TIMED)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    worst, worst_grad, worst_rel = 0.0, 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    reports = {}
+    for T, S, causal in FT_CASES:
+        q, k, v, go, valid = flash_train_inputs(g, dev, T, S)
+        out, stats = ft.flash_train_fwd(q, k, v, valid, causal)
+        torch.cuda.synchronize()
+        ref, ref_stats = ft.flash_train_fwd_reference(q, k, v, valid, causal)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (torch.allclose(out.float(), ref.float(), atol=TA_ATOL, rtol=TA_RTOL)
+                and torch.isfinite(out.float()).all().item()):
+            raise AssertionError(f"flash-train forward disagrees with its twin at T={T} S={S} "
+                                 f"causal={causal}: max {err:.3e}")
+        stat_err = rel_norm(stats, ref_stats)
+        grads = ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)
+        torch.cuda.synchronize()
+        # the twin's backward from the kernel's forward (its output and m, l),
+        # so the check holds the backward kernels alone
+        ref_grads = ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, causal)
+        rels = {}
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+            rels[name] = rel_norm(a, b)
+            worst_grad = max(worst_grad, (a.float() - b.float()).abs().max().item())
+            worst_rel[name] = max(worst_rel[name], rels[name])
+            if not (rels[name] < TA_REL[name] and torch.isfinite(a.float()).all().item()):
+                raise AssertionError(f"flash-train backward {name} disagrees with its twin at T={T} "
+                                     f"S={S} causal={causal}: relative norm {rels[name]:.3e}")
+        worst = max(worst, err)
+        # the row with no valid key weighs the keys of its visited blocks alike
+        keys = min(S, 128) if causal else S
+        mean = v[1, :keys].float().mean(dim=0)
+        if not torch.allclose(out[1, 0].float(), mean, atol=TA_ATOL, rtol=TA_RTOL):
+            raise AssertionError(f"flash-train forward: the row with no valid key is not the mean "
+                                 f"of V over its visited keys at T={T} S={S} causal={causal}")
+        say(f"  T={T} S={S} causal={causal}: fwd max|kernel-twin| {err:.3e}, m and l relative norm "
+            f"{stat_err:.2e}; backward relative norms " +
+            ", ".join(f"{n} {r:.2e}" for n, r in rels.items()) +
+            f" (dv beside JAX's kernel-to-twin bound 1e-4)")
+        # the autograd Function on the card: one forward and backward through it
+        qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ft.flash_train_attention(qa, ka, va, valid, causal).backward(go)
+        for name, a, b in zip(("dq", "dk", "dv"), (qa.grad, ka.grad, va.grad), grads):
+            if not torch.equal(a, b):
+                raise AssertionError(f"autograd through flash_train_attention gives another {name}")
+        reports[(T, S, causal)] = time_flash_train(dev, q, k, v, go, valid, causal,
+                                                   twin=(T, S, causal) in FT_TIMED)
+        del q, k, v, go, out, ref, grads, ref_grads, qa, ka, va
+        torch.cuda.empty_cache()
+    say(f"  forward within atol {TA_ATOL} + rtol {TA_RTOL:.4g} (max {worst:.3e}); backward relative "
+        "norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items()) +
+        f" (max |kernel - twin| of a gradient {worst_grad:.3e})")
+    return worst, worst_grad, worst_rel["dv"], reports
+
+
+def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
+    """Times of the flash-train forward and backward kernels (CUDA events),
+    their twins (``twin``) and SDPA (forward, backward) with the same
+    boolean mask, beside the bounds."""
+    B, T = q.shape[:2]
+    S = k.shape[1]
+    valid = valid.to(torch.int32)
+    out, stats = ft.flash_train_fwd(q, k, v, valid, causal)
+    fwd = lambda: ft.flash_train_fwd(q, k, v, valid, causal)  # noqa: E731
+    bwd = lambda: ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)  # noqa: E731
+    ms_f, ms_b = cuda_ms(fwd, iters=20), cuda_ms(bwd, iters=20)
+    plain_f = plain_b = None
+    if twin:
+        plain_f = cuda_ms(lambda: ft.flash_train_fwd_reference(q, k, v, valid, causal), iters=2,
+                          warmup=1)
+        plain_b = cuda_ms(lambda: ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, causal),
+                          iters=2, warmup=1)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
+    gt = go.transpose(1, 2).contiguous()
+    mask = valid.bool()[:, None, None, :].expand(B, 1, T, S)
+    if causal:
+        mask = mask & torch.ones(T, S, dtype=torch.bool, device=dev).tril()[None, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    lib_f = cuda_ms(lambda: sdpa().detach(), iters=20)
+    sd_out = sdpa()
+    lib_b = cuda_ms(lambda: torch.autograd.grad(sd_out, (qt, kt, vt), gt, retain_graph=True),
+                    iters=20)
+    bound_f, by_f = flash_train_bound(B, T, S, causal, backward=False)
+    bound_b, by_b = flash_train_bound(B, T, S, causal, backward=True)
+    twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
+    say(f"    times at B={B} T={T} S={S} H={H} causal={causal}: forward kernel {ms_f:.4f} ms, SDPA "
+        f"{lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward kernels {ms_b:.4f} ms, SDPA backward "
+        f"{lib_b:.4f}, bound {bound_b:.5f} ({by_b}){twins}")
+    if twin:
+        say_split(device_split(fwd), ms_f)
+        say_split(device_split(bwd), ms_b)
+    return (dict(ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f, library_ms=lib_f),
+            dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b, library_ms=lib_b))
+
+
 def reset_counts() -> None:
     ds.reset_counts()
     dg.reset_counts()
     attn.reset_counts()
     ta.reset_counts()
+    ft.reset_counts()
 
 
 def counts():
@@ -1977,7 +2156,10 @@ def counts():
                 ta_fwd_twin=ta.dropout_attention_fwd_reference.calls,
                 ta_bwd_twin=ta.dropout_attention_bwd_reference.calls,
                 verify_twin=ds.fused_verify_window_reference.calls,
-                attn_twin=attn.attention_reference.calls)
+                attn_twin=attn.attention_reference.calls,
+                ft_fwd=ft.flash_train_fwd.launches, ft_bwd=ft.flash_train_bwd.launches,
+                ft_fwd_twin=ft.flash_train_fwd_reference.calls,
+                ft_bwd_twin=ft.flash_train_bwd_reference.calls)
 
 
 def check_counts(what: str, on) -> int:
@@ -2542,14 +2724,15 @@ def train_batch(vocab, dev, B: int = TRAIN_B, S: int = TRAIN_SRC, T: int = TRAIN
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, real
 
 
-def train_steps(dev, vocab, tables, batch, fused: bool):
+def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = False):
     """TRAIN_STEPS lean train steps of the seeded flagship (bf16, dropout
-    0.1) on one batch; every count at 0 just before them.  Returns (losses,
-    ms a step over the steps after the first TRAIN_WARM, the counts, the
-    step function and the attention blocks a step)."""
+    0.1) on one batch, with ``fused_attn_train`` or ``flash_training``; every
+    count at 0 just before them.  Returns (losses, ms a step over the steps
+    after the first TRAIN_WARM, the counts, the step function and the
+    attention blocks a step)."""
     torch.manual_seed(0)
     model = build_model(vocab.vocab_size, dropout=0.1, dtype=torch.bfloat16,
-                        fused_attn_train=fused).to(dev)
+                        fused_attn_train=fused, flash_training=flash).to(dev)
     per_step = len(model.encoder_layers) + 2 * len(model.decoder_layers)
     state = TrainState.create(model, lr=ExperimentConfig().lr)
     step = make_train_step(model, tables, with_metrics=False)
@@ -2611,20 +2794,105 @@ def phase_train(dev):
     return out
 
 
-def phase_trainer(dev, workdir):
+def phase_flash_train(dev):
+    """TRAIN_STEPS flagship train steps with ``flash_training`` at 8 x 640 +
+    384 and at 8 x 2048 + 512: 12 forward and 12 backward flash-train
+    launches a step and nothing else, a finite falling loss, ms a step,
+    tokens/s and the busy share.  Then at 8 x 2048 + 512 one step's loss and
+    gradients with ``remat`` against one without, from one generator state,
+    and the peak memory of each.  Returns {(S, T): report} and the remat
+    report."""
+    vocab = WordVocab(ExperimentConfig().vocab_mode, ExperimentConfig().control_list)
+    tables = build_loss_tables(vocab)
+    out = {}
+    for S, T in ((TRAIN_SRC, TRAIN_TGT), (TRAIN_LONG_SRC, TRAIN_LONG_TGT)):
+        batch, real = train_batch(vocab, dev, S=S, T=T)
+        padded = TRAIN_B * (S + T)
+        tag = f"flash_training at {TRAIN_B} x {S} + {T}"
+        losses, ms, got, again, per_step = train_steps(dev, vocab, tables, batch, flash=True)
+        say(f"  {tag}: losses " + ", ".join(f"{x:.4f}" for x in losses))
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{tag}: the loss is not finite or did not fall over "
+                                 f"{TRAIN_STEPS} steps: {losses}")
+        say(f"  {tag}: launches {got}")
+        want = per_step * TRAIN_STEPS  # 12 a step at the flagship's 4 + 4 layers
+        if got["ft_fwd"] != want or got["ft_bwd"] != want or any(
+                v for k, v in got.items() if k not in ("ft_fwd", "ft_bwd")):
+            raise AssertionError(f"{tag}: expected {want} forward and {want} backward flash-train "
+                                 f"launches and nothing else, got {got}")
+        split, _, dev_top = profiled(again, iters=5, top=8)
+        say(f"  {tag}: {ms:.3f} ms a step (CUDA events, steps {TRAIN_WARM + 1}-{TRAIN_STEPS}), "
+            f"{1e3 * padded / ms:.0f} tokens/s padded ({padded} a step), "
+            f"{1e3 * real / ms:.0f} real ({real})")
+        say_split(split, ms)
+        for name, us, n in dev_top:
+            say(f"      {us:9.1f} us a step in {n:6.1f} launches: {name[:110]}")
+        out[(S, T)] = dict(ms=ms, losses=losses, launches=got, split=split)
+        del again
+        torch.cuda.empty_cache()
+    return out, flash_remat_step(dev, vocab, tables)
+
+
+def flash_remat_step(dev, vocab, tables):
+    """One step's loss and gradients of the flash_training flagship at 8 x
+    2048 + 512 with ``remat`` and without, the same weights and generator
+    state: equal within 1e-6 relative norm (the kernels take no atomics, so
+    the recompute gives the same bits); the peak memory of each."""
+    batch, _ = train_batch(vocab, dev, S=TRAIN_LONG_SRC, T=TRAIN_LONG_TGT)
+    torch.manual_seed(0)
+    base = build_model(vocab.vocab_size, dropout=0.1, dtype=torch.bfloat16, flash_training=True)
+    weights = base.state_dict()
+    res = {}
+    for remat in (False, True):
+        model = build_model(vocab.vocab_size, dropout=0.1, dtype=torch.bfloat16, flash_training=True,
+                            remat=remat).to(dev)
+        model.load_state_dict(weights)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        logits, _ = _forward_batch(model, batch, False, gen)
+        loss, _ = multihead_ce(logits, batch["target_out"], tables, 1.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        res[remat] = dict(loss=loss.item(), peak=peak, launches=counts(), gen=gen.get_state(),
+                          grads={n: p.grad.detach().float().clone() for n, p in model.named_parameters()})
+        del model, logits, loss
+        torch.cuda.empty_cache()
+    a, b = res[False], res[True]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    grad_rel = max(rel_norm(b["grads"][n], a["grads"][n]) for n in a["grads"])
+    say(f"  remat at {TRAIN_B} x {TRAIN_LONG_SRC} + {TRAIN_LONG_TGT}: loss {a['loss']:.6f} without, "
+        f"{b['loss']:.6f} with (relative {loss_rel:.2e}); worst gradient relative norm {grad_rel:.2e}; "
+        f"peak memory {a['peak'] / 2**30:.3f} GiB without, {b['peak'] / 2**30:.3f} GiB with; "
+        f"flash-train launches without {a['launches']['ft_fwd']}+{a['launches']['ft_bwd']}, with "
+        f"{b['launches']['ft_fwd']}+{b['launches']['ft_bwd']}")
+    if not (loss_rel <= 1e-6 and grad_rel <= 1e-6 and torch.equal(a["gen"], b["gen"])):
+        raise AssertionError(f"remat changes the flash_training step: loss {loss_rel:.3e}, "
+                             f"gradients {grad_rel:.3e}, generator equal {torch.equal(a['gen'], b['gen'])}")
+    return dict(peak=a["peak"], peak_remat=b["peak"], loss_rel=loss_rel, grad_rel=grad_rel)
+
+
+def phase_trainer(dev, workdir, flash: bool = False):
     """``Trainer.run`` for 2 epochs (1 pretraining, 1 finetuning) at the
     flagship width with ``fused_attn_train``, warm-started from the
     committed snapshot, on the windows of a seeded 32-bar, 2-track score;
     then a snapshot export, and the checkpoint and the snapshot each served
-    one greedy infill through v3.  Returns the kernel launches."""
+    one greedy infill through v3.  With ``flash``: 1 epoch with
+    ``flash_training`` and ``remat`` (its checkpoint alone served).  Returns
+    the kernel launches."""
     score = make_score(bars=32, tracks=2)
     windows = process_song(midi_to_events(score)[0])
     groups, _ = pack_windows(windows)
     say(f"  {len(windows)} windows of {[len(w) for w in windows]} tokens, {len(groups)} groups")
-    out_dir = os.path.join(workdir, "train_run")
-    cfg = dataclasses.replace(ExperimentConfig(), epochs=2, pretraining_epochs=1,
-                              fused_attn_train=True, output_dir=out_dir, print_every=1,
-                              resume_from=default_flagship_snapshot())
+    out_dir = os.path.join(workdir, "flash_train_run" if flash else "train_run")
+    if flash:
+        opts = dict(epochs=1, pretraining_epochs=1, flash_training=True, remat=True)
+    else:
+        opts = dict(epochs=2, pretraining_epochs=1, fused_attn_train=True)
+    cfg = dataclasses.replace(ExperimentConfig(), output_dir=out_dir, print_every=1,
+                              resume_from=default_flagship_snapshot(), **opts)
     trainer = Trainer(cfg, device=dev)
     reset_counts()
     t = time.perf_counter()
@@ -2633,17 +2901,33 @@ def phase_trainer(dev, workdir):
     got = counts()
     steps = trainer.state.step
     per_step = len(trainer.model.encoder_layers) + 2 * len(trainer.model.decoder_layers)
-    say(f"  Trainer.run: 2 epochs, {steps} steps in {time.perf_counter() - t:.2f} s; launches {got}")
-    if steps < 2 or got["ta_fwd"] != per_step * steps or got["ta_bwd"] != per_step * steps or any(
-            v for k, v in got.items() if k not in ("ta_fwd", "ta_bwd")):
-        raise AssertionError(f"Trainer.run did not launch the train kernels {per_step} times each on every "
-                             f"one of its {steps} steps alone: {got}")
+    say(f"  Trainer.run: {cfg.epochs} epochs, {steps} steps in {time.perf_counter() - t:.2f} s; "
+        f"launches {got}")
+    fwd, bwd = ("ft_fwd", "ft_bwd") if flash else ("ta_fwd", "ta_bwd")
+    # under remat every layer's forward runs again in the backward pass; the
+    # validation passes (no gradients) launch forwards alone
+    if flash:
+        ok = steps >= 1 and got[bwd] == per_step * steps and got[fwd] >= 2 * got[bwd]
+    else:
+        ok = steps >= 2 and got[fwd] == per_step * steps and got[bwd] == per_step * steps
+    if not ok or any(v for k, v in got.items() if k not in (fwd, bwd)):
+        raise AssertionError(f"Trainer.run did not launch the {fwd}/{bwd} kernels on every one of its "
+                             f"{steps} steps alone: {got}")
     latest = latest_checkpoint(os.path.join(out_dir, cfg.checkpoint_dir))
-    if latest is None or not latest.endswith("checkpoint_1"):
-        raise AssertionError(f"Trainer.run wrote no checkpoint_1 ({latest})")
+    last = f"checkpoint_{cfg.epochs - 1}"
+    if latest is None or not latest.endswith(last):
+        raise AssertionError(f"Trainer.run wrote no {last} ({latest})")
     _, epoch, loss = restore_checkpoint(latest, trainer.state)
     say(f"  restored {latest}: epoch {epoch}, valid loss {loss:.4f}")
     vocab = trainer.vocab
+    if flash:
+        del trainer
+        model, ep = load_inference_model(cfg, vocab.vocab_size, latest, torch.bfloat16, device=dev)
+        engine = InfillEngine(model, vocab, greedy=True, nucleus_p=None, max_tgt_len=L, seed=0)
+        reqs = [engine.prepare(served_events(make_score(), vocab), [0], [2, 3])]
+        serve_path(engine, reqs, workdir, "flash_trained_", ["v3"])
+        say(f"  served {latest} (epoch {ep}) through v3")
+        return got
     snap = os.path.join(workdir, "trained.msgpack")
     export_params_msgpack(snap, trainer.model.state_dict(), meta={
         "epoch": epoch, "final_norm": True, "vocab_size": vocab.vocab_size,
@@ -2820,7 +3104,7 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2i, 3, 3c, 3d, 6, 5, 4); "
+                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 5c, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -2904,6 +3188,12 @@ def main(argv=None) -> int:
         worst_t, worst_t_grad, report_t = phase_train_attention_vs_twin(dev)
         say_clocks("after 2g")
 
+    if run("2j"):
+        say("phase 2j flash-train kernels (forward; dq, dk/dv) vs twins, SDPA as the yardstick")
+        say_clocks("before 2j")
+        worst_f, worst_f_grad, worst_f_dv, report_f = phase_flash_train_vs_twin(dev)
+        say_clocks("after 2j")
+
     model = None
     with tempfile.TemporaryDirectory() as workdir:
         if run("3"):
@@ -2936,6 +3226,16 @@ def main(argv=None) -> int:
                 "and snapshot served through v3")
             launches_t = phase_trainer(dev, workdir)
 
+        if run("5c"):
+            say(f"phase 5c train the flagship with flash_training: {TRAIN_STEPS} steps at {TRAIN_B} x "
+                f"{TRAIN_SRC} + {TRAIN_TGT} and at {TRAIN_B} x {TRAIN_LONG_SRC} + {TRAIN_LONG_TGT}, "
+                "remat against none, Trainer.run with flash_training and remat")
+            flash_train_steps, remat = phase_flash_train(dev)
+            launches_f = {k: v for k, v in phase_trainer(dev, workdir, flash=True).items()}
+            for steps5 in flash_train_steps.values():
+                for k in ("ft_fwd", "ft_bwd"):
+                    launches_f[k] += steps5["launches"][k]
+
     if run("4"):
         say("phase 4 kernel path vs twin path (greedy)")
         first_divergence(model, vocab, events, fused_sampling=False)
@@ -2963,6 +3263,13 @@ def main(argv=None) -> int:
     say(f"  train step at {TRAIN_B} x {TRAIN_SRC} + {TRAIN_TGT}: fused_attn_train {train[True]['ms']:.3f} ms, "
         f"default {train[False]['ms']:.3f} ms; train-attention forward "
         f"{report_t[(640, 640)][0]['ms']:.4f} ms, backward {report_t[(640, 640)][1]['ms']:.4f} ms at 640 x 640")
+    long_ = report_f[FT_TIMED[-1]]
+    say(f"  flash_training step: {flash_train_steps[(TRAIN_SRC, TRAIN_TGT)]['ms']:.3f} ms at {TRAIN_B} x "
+        f"{TRAIN_SRC} + {TRAIN_TGT}, {flash_train_steps[(TRAIN_LONG_SRC, TRAIN_LONG_TGT)]['ms']:.3f} ms at "
+        f"{TRAIN_B} x {TRAIN_LONG_SRC} + {TRAIN_LONG_TGT}; peak memory {remat['peak'] / 2**30:.3f} GiB, "
+        f"{remat['peak_remat'] / 2**30:.3f} with remat; flash-train forward {long_[0]['ms']:.4f} ms "
+        f"(SDPA {long_[0]['library_ms']:.4f}), backward {long_[1]['ms']:.4f} ms (SDPA "
+        f"{long_[1]['library_ms']:.4f}) at 2048 x 2048; dv {worst_f_dv:.2e} of the twin at worst")
     common = dict(route="cuda", bound_by="bytes", library_ms=None)
     csrc = "smer_music_generation_tpu_torch/ops/csrc/"
     ref = "smer_music_generation_tpu/ops/decode_step.py:"
@@ -2991,6 +3298,16 @@ def main(argv=None) -> int:
              replaces="smer_music_generation_tpu/ops/train_attention.py:163",
              launches=train[True]["launches"]["ta_bwd"] + launches_t["ta_bwd"],
              max_abs_err=worst_t_grad, route="cuda", **report_t[(640, 640)][1]),
+        dict(name="flash_attention_train_fwd", source=csrc + "flash_train.cu",
+             replaces="smer_music_generation_tpu/models/transformer.py:360 (library "
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:758)",
+             launches=launches_f["ft_fwd"], max_abs_err=worst_f, route="cuda",
+             **report_f[FT_TIMED[-1]][0]),
+        dict(name="flash_attention_train_bwd", source=csrc + "flash_train.cu",
+             replaces="smer_music_generation_tpu/models/transformer.py:360 (library "
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 and :1456)",
+             launches=launches_f["ft_bwd"], max_abs_err=worst_f_grad, route="cuda",
+             **report_f[FT_TIMED[-1]][1]),
     ]}
     print(json.dumps(kernels), flush=True)
     say(f"done: the whole script took {time.perf_counter() - T0:.1f} s on {card}")

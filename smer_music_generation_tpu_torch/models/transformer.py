@@ -21,8 +21,14 @@ JAX's custom-VJP paths as ``torch.autograd.Function``s
 :168): the softmax VJP reads the bf16-rounded weights.
 ``fused_attn_train`` (:112) sends all three attentions of a layer through
 ``ops.train_attention.fused_dropout_attention`` behind JAX's gate
-(``_fused_train_ok`` :545).  ``flash_training`` (:71) and ``remat`` (:121)
-are not ported and raise.
+(``_fused_train_ok`` :545).  ``flash_training`` (:71) sends them through
+``ops.flash_train.flash_train_attention`` (``attend_flash_vjp`` :360, the
+port of the library flash kernel JAX calls there) wherever the lengths are
+multiples of 128 (encoder :566-580, decoder :599-621), on deterministic
+passes too, ahead of ``flash_encoder`` and ``fused_attn_train``: no
+attention-weight dropout and no cross weights there.  ``remat`` (:121,
+:515-522) runs each layer under ``torch.utils.checkpoint``, replaying the
+layer's draws from the explicit generator in the recompute.
 
 Numerics follow the Flax model: parameters are held in f32 and every
 projection runs in ``cfg.dtype`` (bf16 on the card), while softmax,
@@ -48,6 +54,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
 NEG = torch.finfo(torch.float32).min
@@ -71,7 +78,8 @@ class ModelConfig:
     # encoder self-attention through the flash kernel (ops/attention.py);
     # needs suffix padding, as the engine's bucketing gives
     flash_encoder: bool = False
-    # JAX's library flash kernel for all training attention; not ported
+    # all training attention through the port of JAX's library flash
+    # kernel (ops/flash_train.py) where the lengths are multiples of 128
     flash_training: bool = False
     # the bf16 softmax residual (JAX :84): active under bf16 compute with
     # key length <= 1024; the gradient reads the bf16-rounded weights
@@ -82,7 +90,8 @@ class ModelConfig:
     # all training attention through the hand-written dropout-attention
     # kernels (ops/train_attention.py) behind JAX's gate (JAX :112)
     fused_attn_train: bool = False
-    # per-layer rematerialisation in the backward pass; not ported
+    # per-layer rematerialisation in the backward pass (torch.utils.checkpoint,
+    # the explicit generator's draws replayed)
     remat: bool = False
 
     @property
@@ -300,6 +309,19 @@ class MultiHeadAttention(nn.Module):
         out = fused_attention(q, k, v, kv_valid_len=kv_valid_len)
         return self.out(out.reshape(B, T, c.d_model))
 
+    def attend_flash_vjp(self, q_in, kv_in, kv_valid: torch.Tensor, causal: bool) -> torch.Tensor:
+        """Differentiable flash attention (JAX :360): only keys are masked
+        (``kv_valid`` (B, S), True = real token), no weight dropout, no
+        weights returned."""
+        from ..ops.flash_train import flash_train_attention
+
+        c = self.cfg
+        B, T, _ = q_in.shape
+        q = self.q(q_in).reshape(B, T, c.nhead, c.head_dim)
+        k, v = self.project_kv(kv_in)
+        out = flash_train_attention(q, k, v, kv_valid, causal)
+        return self.out(out.reshape(B, T, c.d_model))
+
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: ModelConfig):
@@ -327,10 +349,13 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, mask, kv_valid_len=None, deterministic: bool = True,
                 fused_train: bool = False, kv_valid=None,
-                generator: Optional[torch.Generator] = None):
-        """JAX :423.  ``kv_valid_len`` (deterministic passes only) takes the
-        flash encoder; ``fused_train`` with ``kv_valid`` the train kernels."""
-        if kv_valid_len is not None:  # flash_encoder (JAX :433)
+                generator: Optional[torch.Generator] = None, flash: bool = False):
+        """JAX :423.  ``flash`` with ``kv_valid`` takes the flash training
+        kernels; ``kv_valid_len`` (deterministic passes only) the flash
+        encoder; ``fused_train`` with ``kv_valid`` the dropout kernels."""
+        if flash:  # flash_training (JAX :431)
+            attn_out = self.self_attn.attend_flash_vjp(x, x, kv_valid, causal=False)
+        elif kv_valid_len is not None:  # flash_encoder (JAX :433)
             attn_out = self.self_attn.attend_flash(x, x, kv_valid_len)
         else:
             k, v = self.self_attn.project_kv(x)
@@ -358,11 +383,20 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, memory, self_mask, cross_mask, deterministic: bool = True,
                 fused_train: bool = False, tgt_valid=None, mem_valid=None,
-                generator: Optional[torch.Generator] = None):
-        """JAX :460: returns (x, head-averaged cross weights or None)."""
+                generator: Optional[torch.Generator] = None, flash: bool = False):
+        """JAX :460: returns (x, head-averaged cross weights or None).
+        ``flash`` takes the flash training kernels for both attentions
+        (JAX :466-472)."""
         def drop(t):
             return t if deterministic else dropout(t, self.rate, generator)
 
+        if flash:
+            attn_out = self.self_attn.attend_flash_vjp(x, x, tgt_valid, causal=True)
+            x = self.norm1(x + drop(attn_out))
+            cross_out = self.cross_attn.attend_flash_vjp(x, memory, mem_valid, causal=False)
+            x = self.norm2(x + drop(cross_out))
+            x = self.norm3(x + drop(self.ff(x, deterministic, generator)))
+            return x, None
         k, v = self.self_attn.project_kv(x)
         attn_out = self.self_attn.attend(
             x, k, v, self_mask, deterministic, kv_valid=tgt_valid, causal=True,
@@ -390,16 +424,6 @@ class ScoreTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.flash_training:
-            raise NotImplementedError(
-                "flash_training is not ported: ROADMAP.md Queue 1 item 13 "
-                "(it maps to scaled_dot_product_attention)"
-            )
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported: ROADMAP.md Queue 1 item 14 "
-                "(it maps to torch.utils.checkpoint)"
-            )
         self.cfg = cfg
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.d_model)
         nn.init.xavier_normal_(self.embedding.weight)
@@ -451,6 +475,33 @@ class ScoreTransformer(nn.Module):
             and S <= MAX_KLEN
         )
 
+    def _layer(self, layer, generator, *args, **kw):
+        """``layer(*args, generator=generator, **kw)``; under ``remat`` with
+        gradients on, through ``torch.utils.checkpoint`` (JAX's ``nn.remat``
+        :515-522): the layer's activations are recomputed in the backward
+        pass.  The checkpoint keeps the global RNG states only, so the
+        recompute replays the layer's draws from the generator's state
+        before the layer, then puts back the state the generator had, so
+        that the draws after it are unchanged."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return layer(*args, generator=generator, **kw)
+        before = None if generator is None else generator.get_state()
+        ran = []
+
+        def run(*a, **k):
+            if not ran or generator is None:
+                ran.append(True)
+                return layer(*a, generator=generator, **k)
+            now = generator.get_state()
+            generator.set_state(before)
+            try:
+                return layer(*a, generator=generator, **k)
+            finally:
+                generator.set_state(now)
+
+        # draws come from the explicit generator alone: no global RNG to stash
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
     def _check_generator(self, deterministic: bool, generator) -> None:
         if not deterministic and generator is None and (self.cfg.dropout > 0 or self.cfg.pos_dropout > 0):
             raise ValueError("a train-mode pass needs a torch.Generator for its dropout draws")
@@ -462,19 +513,23 @@ class ScoreTransformer(nn.Module):
         T = src.shape[-1]
         x = self.embed(src, deterministic, generator)
         mask = None if src_pad_mask is None else (~src_pad_mask)[:, None, None, :]
+        # the flash training kernels take 128-multiple lengths (JAX :566-568),
+        # on deterministic passes too, ahead of the other two paths
+        flash = self.cfg.flash_training and T % 128 == 0
         fused_train = self._fused_train_ok(deterministic, T, T)
         kv_valid = None
-        if fused_train:
+        if flash or fused_train:
             kv_valid = (torch.ones(src.shape, dtype=torch.bool, device=src.device)
                         if src_pad_mask is None else ~src_pad_mask)
         kv_valid_len = None
-        if self.cfg.flash_encoder and deterministic:  # the valid keys of a suffix-padded row
+        if self.cfg.flash_encoder and deterministic and not flash:  # the valid keys of a suffix-padded row
             kv_valid_len = (
                 torch.full((src.shape[0],), T, dtype=torch.int32, device=src.device)
                 if src_pad_mask is None else (~src_pad_mask).sum(dim=1).to(torch.int32)
             )
         for layer in self.encoder_layers:
-            x = layer(x, mask, kv_valid_len, deterministic, fused_train, kv_valid, generator)
+            x = self._layer(layer, generator, x, mask, kv_valid_len, deterministic, fused_train,
+                            kv_valid, flash=flash)
         if self.norm_e is not None:
             x = self.norm_e(x)
         return x
@@ -493,19 +548,22 @@ class ScoreTransformer(nn.Module):
         self_mask = causal if tgt_pad_mask is None else causal & (~tgt_pad_mask)[:, None, None, :]
         cross_mask = None if memory_pad_mask is None else (~memory_pad_mask)[:, None, None, :]
         # the decoder layer sends both its attentions through the kernels,
-        # so self (S = T) and cross (S = memory) must both pass the gate
-        fused_train = (self._fused_train_ok(deterministic, T, T)
-                       and self._fused_train_ok(deterministic, T, memory.shape[1]))
+        # so self (S = T) and cross (S = memory) must both pass the gate:
+        # the flash training kernels' (JAX :599-603), on deterministic
+        # passes too, ahead of the dropout kernels'
+        flash = self.cfg.flash_training and T % 128 == 0 and memory.shape[1] % 128 == 0
+        fused_train = not flash and (self._fused_train_ok(deterministic, T, T)
+                                     and self._fused_train_ok(deterministic, T, memory.shape[1]))
         tgt_valid = mem_valid = None
-        if fused_train:
+        if flash or fused_train:
             tgt_valid = (torch.ones(B, T, dtype=torch.bool, device=tgt.device)
                          if tgt_pad_mask is None else ~tgt_pad_mask)
             mem_valid = (torch.ones(memory.shape[:2], dtype=torch.bool, device=tgt.device)
                          if memory_pad_mask is None else ~memory_pad_mask)
         weights = []
         for layer in self.decoder_layers:
-            x, w = layer(x, memory, self_mask, cross_mask, deterministic, fused_train,
-                         tgt_valid, mem_valid, generator)
+            x, w = self._layer(layer, generator, x, memory, self_mask, cross_mask, deterministic,
+                               fused_train, tgt_valid, mem_valid, flash=flash)
             weights.append(w)
         if self.norm_d is not None:
             x = self.norm_d(x)

@@ -20,7 +20,7 @@ def csrc_copy(tmp_path):
 def test_the_shared_header_is_among_the_sources():
     names = {p.name for p in ds._CSRC.iterdir()}
     assert "attn_tiles.cuh" in names
-    for src in ("attention.cu", "train_attention.cu"):
+    for src in ("attention.cu", "train_attention.cu", "flash_train.cu"):
         assert '#include "attn_tiles.cuh"' in (ds._CSRC / src).read_text()
 
 

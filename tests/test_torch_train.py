@@ -277,10 +277,6 @@ def test_bf16_model_with_fused_attn_train_on_and_off(vocab):
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        ScoreTransformer(ModelConfig(vocab_size=16, d_model=8, nhead=2, flash_training=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        ScoreTransformer(ModelConfig(vocab_size=16, d_model=8, nhead=2, remat=True))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         loop.Trainer(ExperimentConfig(tp=2), device="cpu")
     if not torch.cuda.is_available():
