@@ -10,15 +10,17 @@ paths and prints one line per phase with the elapsed seconds:
 1. build: the CUDA kernels (``ops/csrc/decode_step.cu``,
    ``decode_token.cu``, ``attention.cu``, ``train_attention.cu`` and
    ``flash_train.cu``, one nvcc each, started together; the last three
-   include ``attn_tiles.cuh``) into ``build/torch_kernels/``, with each
+   include ``attn_tiles.cuh``, ``flash_train.cu`` also ``hopper.cuh``) into
+   ``build/torch_kernels/``, with each
    kernel's registers and spills; then the tensor-core instructions
    (HMMA/HGMMA in ``cuobjdump -sass`` of the library) of the seven
    tensor-core kernels, ``flash_fwd_kernel``, ``flash_train_fwd_kernel``,
    ``flash_train_dq_kernel``, ``flash_train_dkv_kernel``,
    ``train_fwd_kernel``, ``train_bwd_rows_kernel`` and
    ``train_bwd_keys_kernel``, with their registers, spills and shared
-   memory from the ``-Xptxas -v`` log: the phase fails if any has none;
-   then the registers, spills, shared memory and commonest SASS opcodes of
+   memory from the ``-Xptxas -v`` log: the phase fails if any has none,
+   or if the flash-train backward pair (on wgmma) has no HGMMA; then the
+   registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
    LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source):
@@ -166,7 +168,10 @@ paths and prints one line per phase with the elapsed seconds:
    through the autograd Function equal to the wrappers'; at every shape the
    forward and backward ms (CUDA events) beside the operations bound and
    SDPA's forward and backward with the same boolean mask, the twins too at
-   640x640 and 2048x2048;
+   640x640 and 2048x2048, and ``flash_train_dq_kernel`` and
+   ``flash_train_dkv_kernel`` each alone (the profiler's device time) beside
+   its own operations bound; first the pair's registers and spills from the
+   build log;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -338,6 +343,9 @@ FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
 # facts
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", *FLASH_TRAIN_KERNELS, "train_fwd_kernel",
                        "train_bwd_rows_kernel", "train_bwd_keys_kernel")
+# the warp-specialised kernels on wgmma and TMA: phase 1 fails unless their
+# SASS holds HGMMA
+WGMMA_KERNELS = ("flash_train_dq_kernel", "flash_train_dkv_kernel")
 # flash attention vs twin: f32 sums on both sides in another order, then the
 # output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
 # value at most) plus what rounds near zero
@@ -1739,6 +1747,9 @@ def phase_tensor_cores() -> None:
             ", ".join(f"{op} {n}" for op, n in top))
     if not all(counts.values()):
         raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {counts}")
+    hgmma = {k: mix[k].get("HGMMA", 0) for k in WGMMA_KERNELS}
+    if not all(hgmma.values()):
+        raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
 
 
 def phase_decode_facts() -> None:
@@ -2020,6 +2031,25 @@ def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool):
                                      else "operations")
 
 
+def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str):
+    """Least time of one of the two backward kernels alone and what bounds
+    it.  ``flash_train_dq_kernel`` reads q, k, v, the output, g, m, l and
+    the mask and writes dq and di, and does 3 products (scores, g v^T, ds
+    k); ``flash_train_dkv_kernel`` reads q, k, v, g, m, l, di and the mask
+    and writes dk and dv, and does 4 (scores, g v^T, p^T g, ds^T q): the
+    scores and g v^T are recomputed in both, 7 products for the pair where
+    the function needs 5.  2 HD operations a pair and product at the bf16
+    rate.  Returns (ms, "bytes" or "operations")."""
+    qb, kb, row = B * T * H * HD_ATTN * 2, B * S * H * HD_ATTN * 2, B * H * T * 4
+    if kernel == "flash_train_dq_kernel":
+        nbytes, products = 4 * qb + 2 * kb + 3 * row + B * S * 4, 3
+    else:
+        nbytes, products = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
+    flops = 2 * HD_ATTN * flash_train_pairs(B, T, S, causal) * products
+    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
+                                     else "operations")
+
+
 def flash_train_inputs(g, dev, T: int, S: int):
     """Seeded bf16 q, k, v, g at B=8, H=8 and a key mask that is not a suffix
     (~10% of keys invalid anywhere, the first three of row 0 among them),
@@ -2042,6 +2072,14 @@ def phase_flash_train_vs_twin(dev):
     boolean mask.  Returns (max forward error, max |kernel - twin| of a
     gradient, the worst dv relative norm, {(T, S, causal): (forward report,
     backward report)} at FT_TIMED)."""
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), WGMMA_KERNELS)
+    for name in WGMMA_KERNELS:
+        f = facts.get(name)
+        say(f"  {name}: " + ("not in this process's build log" if f is None else
+                             f"{f.get('registers')} registers at launch (setmaxnreg moves them to "
+                             f"the consumers), spill stores/loads {f.get('spill_stores')}/"
+                             f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static "
+                             "shared memory (its ring is dynamic)"))
     g = torch.Generator(device=dev).manual_seed(23)
     worst, worst_grad, worst_rel = 0.0, 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     reports = {}
@@ -2128,10 +2166,16 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
     say(f"    times at B={B} T={T} S={S} H={H} causal={causal}: forward kernel {ms_f:.4f} ms, SDPA "
         f"{lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward kernels {ms_b:.4f} ms, SDPA backward "
-        f"{lib_b:.4f}, bound {bound_b:.5f} ({by_b}){twins}")
+        f"{lib_b:.4f}, bound {bound_b:.5f} ({by_b}, the function's 5 products){twins}")
+    # each backward kernel alone: its device time by name, beside its own bound
+    split_b = device_split(bwd)
+    for name in WGMMA_KERNELS:
+        kb_ms, kb_by = flash_train_kernel_bound(B, T, S, causal, name)
+        us_k = "not measured" if split_b is None else f"{split_b.get(name, 0.0):.1f} us"
+        say(f"      {name}: {us_k} a call (profiler), bound {1e3 * kb_ms:.1f} us ({kb_by})")
     if twin:
         say_split(device_split(fwd), ms_f)
-        say_split(device_split(bwd), ms_b)
+        say_split(split_b, ms_b)
     return (dict(ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f, library_ms=lib_f),
             dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b, library_ms=lib_b))
 

@@ -47,6 +47,17 @@ and cache after its replays; the served batch's tokens), and a last line
 says whether every output is bit-equal across the roots.
 
     python scripts/torch_kernel_ab.py build/parent . . build/parent
+
+The train attention is also timed at 384x640, and, where the checkout has
+``ops/flash_train.py``, the flash-train kernels at B=8, H=8, 640x640 and
+2048x2048 (~10% of keys invalid, one batch row with no valid key): the
+backward ``flash_train_bwd`` (``flash_train_dq_kernel`` then
+``flash_train_dkv_kernel``, each kernel's device µs by name), the forward,
+and SDPA's backward with the same boolean mask.  ``--attention`` before the
+roots times the attention kernels alone (no decode kernels, no served
+batch):
+
+    python scripts/torch_kernel_ab.py --attention build/parent . . build/parent
 """
 
 from __future__ import annotations
@@ -73,8 +84,10 @@ from smer_music_generation_tpu_torch.vocab import WordVocab
 NL, D, H, F, L = 4, 512, 8, 2048, 1024
 B, S, INDEX = 3, 1536, 512
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel", "embed_pe_kernel",
-            "sample_advance_kernel", "flash_fwd_kernel", "train_fwd_kernel",
+            "sample_advance_kernel", "flash_fwd_kernel", "flash_train_fwd_kernel",
+            "flash_train_dq_kernel", "flash_train_dkv_kernel", "train_fwd_kernel",
             "train_bwd_rows_kernel", "train_bwd_keys_kernel")
+ATTENTION_ONLY = len(sys.argv) > 3 and sys.argv[3] == "attention"
 dev = torch.device("cuda", 0)
 torch.manual_seed(0)
 vocab = WordVocab(0, ExperimentConfig().control_list)
@@ -181,7 +194,7 @@ def replayed(packed, T):
 
 
 out = {"root": root}
-for quant in ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
+for quant in () if ATTENTION_ONLY else ("none", "int8") if hasattr(ds, "quantize_columns") else ("none",):
     packed = ds.pack_decoder_weights(model, vpad, quant=quant)
     tag = "" if quant == "none" else "_int8"
     if quant == "none":
@@ -232,7 +245,7 @@ def rnd(*shape):
 qa, ka, va = rnd(3, 1536, H, 64), rnd(3, 1536, H, 64), rnd(3, 1536, H, 64)
 lens = torch.tensor([1536, 1440, 1344], dtype=torch.int32, device=dev)
 out["fused_attention"] = timed(lambda: attn.fused_attention(qa, ka, va, lens, False))
-for T_, S_, causal in ((640, 640, False), (384, 384, True)):
+for T_, S_, causal in ((640, 640, False), (384, 384, True), (384, 640, False)):
     q, k, v, go = rnd(8, T_, H, 64), rnd(8, S_, H, 64), rnd(8, S_, H, 64), rnd(8, T_, H, 64)
     valid = (torch.rand(8, S_, generator=g, device=dev) >= 0.1).to(torch.int32)
     valid[1] = 0
@@ -242,10 +255,36 @@ for T_, S_, causal in ((640, 640, False), (384, 384, True)):
         lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, causal))
     out["dropout_attention_bwd_" + tag] = timed(
         lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, causal))
-    if not causal:  # without dropout: what the keep hash costs the backward
+    outputs["dropout_attention_bwd_" + tag] = digest(
+        *ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, causal))
+    if (T_, S_) == (640, 640):  # without dropout: what the keep hash costs the backward
         out["dropout_attention_bwd_" + tag + "_rate0"] = timed(
             lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.0, causal))
-if len(sys.argv) > 2:  # the served batch end to end on the committed snapshot
+try:
+    from smer_music_generation_tpu_torch.ops import flash_train as ft
+except ImportError:  # a checkout from before the flash-train kernels
+    ft = None
+# the flash-train kernels (flash_training's attention) at B=8, H=8, ~10% of
+# keys invalid and one batch row with none, as chip_smoke's phase 2j; the
+# backward (flash_train_dq_kernel + flash_train_dkv_kernel) beside SDPA's
+# backward with the same boolean mask, the forward as the control
+for T_ in (640, 2048) if ft is not None else ():
+    q, k, v, go = (rnd(8, T_, H, 64) for _ in range(4))
+    valid = (torch.rand(8, T_, generator=g, device=dev) >= 0.1).to(torch.int32)
+    valid[1] = 0
+    o, stats = ft.flash_train_fwd(q, k, v, valid, False)
+    tag = f"{T_}x{T_}"
+    out["flash_train_fwd_" + tag] = timed(lambda: ft.flash_train_fwd(q, k, v, valid, False))
+    out["flash_train_bwd_" + tag] = timed(
+        lambda: ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
+    outputs["flash_train_bwd_" + tag] = digest(*ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
+    mask = valid.bool()[:, None, None, :].expand(8, 1, T_, T_)
+    sd_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = go.transpose(1, 2).contiguous()
+    out["sdpa_bwd_" + tag] = timed(
+        lambda: torch.autograd.grad(sd_out, (qt, kt, vt), gt, retain_graph=True))
+if len(sys.argv) > 2 and not ATTENTION_ONLY:  # the served batch end to end on the committed snapshot
     from smer_music_generation_tpu_torch.infer.engine import InfillEngine
     from smer_music_generation_tpu_torch.train.state import load_inference_model
 
@@ -328,6 +367,9 @@ def served_inputs(path: Path) -> None:
 
 
 def main(argv) -> int:
+    mode = "all"
+    if argv and argv[0] == "--attention":
+        mode, argv = "attention", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -336,8 +378,8 @@ def main(argv) -> int:
     served_inputs(served)
     digests = {}
     for root in argv:
-        proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served)], capture_output=True,
-                              text=True, timeout=600)
+        proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served), mode],
+                              capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

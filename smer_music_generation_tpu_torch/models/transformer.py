@@ -60,6 +60,24 @@ LN_EPS = 1e-6
 NEG = torch.finfo(torch.float32).min
 # static key-length ceiling of the bf16 softmax residual (JAX :143)
 BF16_RESIDUAL_MAX_KLEN = 1024
+KERNEL_HEAD_DIM = 64  # the head_dim the CUDA attention kernels of flash_encoder and the training options take
+
+
+def _kernel_device(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies where the attention options launch CUDA kernels
+    (and not their CPU twins, which take any head_dim and dtype)."""
+    return t.device.type == "cuda"
+
+
+def check_kernel_domain(option: str, t: torch.Tensor, head_dim: int, dtype: torch.dtype) -> None:
+    """Refuse, before any attention call, a model that sends its attention
+    through ``option``'s CUDA kernels at a head_dim or dtype they do not
+    take (bf16 and head_dim 64 only; JAX's kernels take any).  Decided from
+    ``t``'s device at call time; the CPU twins are not gated."""
+    if _kernel_device(t) and (head_dim != KERNEL_HEAD_DIM or dtype != torch.bfloat16):
+        raise NotImplementedError(
+            f"attention kernels on CUDA take bf16 and head_dim {KERNEL_HEAD_DIM} only: {option} "
+            f"got head_dim {head_dim} and {dtype}; f32 and head_dim 128 are ROADMAP Queue 3 item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -527,6 +545,12 @@ class ScoreTransformer(nn.Module):
                 torch.full((src.shape[0],), T, dtype=torch.int32, device=src.device)
                 if src_pad_mask is None else (~src_pad_mask).sum(dim=1).to(torch.int32)
             )
+        # the path the layers take (flash, then the flash encoder, then the
+        # dropout kernels), refused on CUDA where its kernels cannot run it
+        option = ("flash_training" if flash else "flash_encoder" if kv_valid_len is not None
+                  else "fused_attn_train" if fused_train else None)
+        if option is not None:
+            check_kernel_domain(option, x, self.cfg.head_dim, self.cfg.dtype)
         for layer in self.encoder_layers:
             x = self._layer(layer, generator, x, mask, kv_valid_len, deterministic, fused_train,
                             kv_valid, flash=flash)
@@ -554,6 +578,9 @@ class ScoreTransformer(nn.Module):
         flash = self.cfg.flash_training and T % 128 == 0 and memory.shape[1] % 128 == 0
         fused_train = not flash and (self._fused_train_ok(deterministic, T, T)
                                      and self._fused_train_ok(deterministic, T, memory.shape[1]))
+        if flash or fused_train:
+            check_kernel_domain("flash_training" if flash else "fused_attn_train", x,
+                                self.cfg.head_dim, self.cfg.dtype)
         tgt_valid = mem_valid = None
         if flash or fused_train:
             tgt_valid = (torch.ones(B, T, dtype=torch.bool, device=tgt.device)

@@ -1,9 +1,10 @@
-// Tensor-core tile helpers shared by the attention kernels of this directory
-// (attention.cu's flash_fwd_kernel, train_attention.cu's train_fwd_kernel and
-// its backward pair train_bwd_rows_kernel + train_bwd_keys_kernel,
-// flash_train.cu's flash_train_fwd_kernel and its backward pair
-// flash_train_dq_kernel + flash_train_dkv_kernel), for Hopper (sm_90a),
-// head_dim 64, bf16 operands.
+// Tensor-core tile helpers shared by the mma.sync attention kernels of this
+// directory (attention.cu's flash_fwd_kernel, train_attention.cu's
+// train_fwd_kernel and its backward pair train_bwd_rows_kernel +
+// train_bwd_keys_kernel, flash_train.cu's flash_train_fwd_kernel), for
+// Hopper (sm_90a), head_dim 64, bf16 operands.  flash_train.cu's backward
+// pair runs on wgmma and TMA (hopper.cuh) and takes only the scalar helpers
+// here (ldmatrix, pack_bf16, exp2_ftz, quad_sum) and the constants.
 //
 // A block of kWarps = 4 warps owns 64 rows of one operand, 16 a warp, held as
 // A fragments in registers, and streams 64-row tiles of the others through

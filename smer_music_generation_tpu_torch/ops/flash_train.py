@@ -149,6 +149,16 @@ def _check_inputs(q, k, v, kv_valid, *extra):
     return B, T, H, S
 
 
+def _check_aligned(**tensors) -> None:
+    """Every tensor's first element 16-byte aligned: the backward's TMA loads
+    and bulk copies (and the forward's 16-byte vectors) need it; a view into
+    a larger tensor may not be."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned for the flash-train kernels' "
+                             f"TMA loads, got address {t.data_ptr():#x}")
+
+
 def _device(q) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_train_attention runs on cuda or cpu, not {q.device}")
@@ -162,6 +172,7 @@ def flash_train_fwd(q, k, v, kv_valid, causal: bool = False):
     _device(q)
     valid = kv_valid.to(torch.int32).contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid)
+    _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     stats = torch.empty(2, B * H, T, dtype=torch.float32, device=q.device)
     _check(load_library().smer_flash_train_fwd(
@@ -187,6 +198,7 @@ def flash_train_bwd(q, k, v, kv_valid, out, stats, g, causal: bool = False):
     B, T, H, S = q.shape[0], q.shape[1], q.shape[2], k.shape[1]
     _check_inputs(q, k, v, valid, ("out", out, torch.bfloat16, q.shape),
                   ("g", g, torch.bfloat16, q.shape), ("stats", stats, torch.float32, (2, B * H, T)))
+    _check_aligned(q=q, k=k, v=v, out=out, g=g, stats=stats)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty(B * H, T, dtype=torch.float32, device=q.device)  # sum(out g), dq kernel to dkv
     _check(load_library().smer_flash_train_bwd(

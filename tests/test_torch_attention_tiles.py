@@ -403,3 +403,56 @@ def test_dv_moves_with_the_last_bits_of_w():
     assert worst["twin w"] < 1e-6
     assert 1e-4 < worst["exact exp2, online l"] < TA_REL["dv"]
     assert 1e-4 < worst["exp(s - m), l in tiles"] < TA_REL["dv"]
+
+
+def _dv_in_chunks(w, keep, rate, gf, rows=16):
+    """``_dv`` summed as a per-mma FADD design takes it: each ``rows``-row
+    chunk's products summed apart (an f32 product here), the chunks added
+    to the running dv in f32, in row order."""
+    wd16 = w.to(torch.bfloat16)
+    if rate > 0.0:
+        c = ta.bf16_round(1.0 - rate)
+        wd16 = torch.where(keep, (wd16.float() / c).to(torch.bfloat16), torch.zeros_like(wd16))
+    dv = torch.zeros(*gf.shape[:2], w.shape[-1], gf.shape[-1])
+    for r0 in range(0, w.shape[2], rows):
+        dv = dv + wd16[..., r0:r0 + rows, :].float().transpose(-1, -2) @ gf[..., r0:r0 + rows, :]
+    return dv.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def test_dv_in_16_row_chunks_meets_jax_bound_on_the_cpu():
+    """dv summed 16 query rows at a time with every longer sum rounded to
+    nearest (the order a per-mma FADD gives train_bwd_keys_kernel) is within
+    JAX's kernel-to-twin bound of 1e-4 (tests/test_ops.py:654) of the twin
+    at phase 2g's shapes, and of JAX's kernel at JAX's own case (B=2, T=256,
+    S=512, H=2, inputs of ``_fda_inputs(seed=3)``, key PRNGKey(5), rate 0.1)
+    fed one cotangent.  So the order of the sums alone does not keep the
+    card's dv from 1e-4: what does is the tensor cores' own accumulation
+    inside each 16-term product, which no f32 order here emulates."""
+    B, H, rate = 2, 8, 0.1
+    key = jax.random.PRNGKey(9)
+    for T, S, causal in TA_CASES:
+        q, k, v = _qkv(B, T, S, H=H, scale=1.0, seed=3 * T + S)
+        rng = np.random.default_rng(T + S)
+        g = _bf16(rng.standard_normal((B, T, H, 64)))
+        valid = rng.random((B, S)) >= 0.1
+        valid[1] = False
+        vt = torch.from_numpy(valid)
+        keep = ta.dropout_mask_reference(np.asarray(key), B, H, T, S, rate)
+        twin = ta.dropout_attention_bwd_reference(q, k, v, vt, np.asarray(key), g, rate, causal)[2]
+        w = ta._weights(q, k, vt.to(torch.int32), causal)[0]
+        assert _rel(_dv_in_chunks(w, keep, rate, _heads(g)), twin) < 1e-4, (T, S, causal)
+    # JAX's own case, both sides fed one g
+    rng = np.random.default_rng(3)
+    q, k, v = (_bf16(rng.normal(size=(2, n, 2, 64))) for n in (256, 512, 512))
+    valid = rng.random((2, 512)) < 0.9
+    g = _bf16(np.random.default_rng(4).standard_normal((2, 256, 2, 64)))
+    jkey = jax.random.PRNGKey(5)
+    _, vjp = jax.vjp(lambda a, b, c: jta.fused_dropout_attention(a, b, c, jnp.asarray(valid), jkey,
+                                                                 rate, False),
+                     *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)))
+    want = torch.from_numpy(np.array(vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))[2]
+                                     .astype(jnp.float32)))
+    vt = torch.from_numpy(valid)
+    keep = ta.dropout_mask_reference(np.asarray(jkey), 2, 2, 256, 512, rate)
+    w = ta._weights(q, k, vt.to(torch.int32), False)[0]
+    assert _rel(_dv_in_chunks(w, keep, rate, _heads(g)), want) < 1e-4
