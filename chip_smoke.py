@@ -8,18 +8,23 @@ paths and prints one line per phase with the elapsed seconds:
 
 0. card: ``nvidia-smi`` name and power limit;
 1. build: the CUDA kernels (``ops/csrc/decode_step.cu``,
-   ``decode_token.cu``, ``attention.cu``, ``train_attention.cu`` and
-   ``flash_train.cu``, one nvcc each, started together; the last three
-   include ``attn_tiles.cuh``, ``flash_train.cu`` also ``hopper.cuh``) into
+   ``decode_token.cu``, ``attention.cu``, ``train_attention.cu``,
+   ``flash_train.cu`` and ``attention_f32.cu``, one nvcc each, started
+   together; the attention sources but the f32 one include
+   ``attn_tiles.cuh``, ``flash_train.cu`` also ``hopper.cuh``) into
    ``build/torch_kernels/``, with each
    kernel's registers and spills; then the tensor-core instructions
    (HMMA/HGMMA in ``cuobjdump -sass`` of the library) of the seven
    tensor-core kernels, ``flash_fwd_kernel``, ``flash_train_fwd_kernel``,
    ``flash_train_dq_kernel``, ``flash_train_dkv_kernel``,
    ``train_fwd_kernel``, ``train_bwd_rows_kernel`` and
-   ``train_bwd_keys_kernel``, with their registers, spills and shared
-   memory from the ``-Xptxas -v`` log: the phase fails if any has none,
-   or if the flash-train backward pair (on wgmma) has no HGMMA; then the
+   ``train_bwd_keys_kernel``, each at head_dim 64 and 128, with their
+   registers, spills and shared memory from the ``-Xptxas -v`` log: the
+   phase fails if any has none, or if the flash-train trio (on wgmma) has
+   no HGMMA; the registers, spills and shared memory of the f32 kernels
+   (``F32_KERNELS``: the forward for both mask semantics and the backward
+   pair, each at head_dim 64 and 128; the phase fails on a missing entry);
+   then the
    registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
@@ -138,7 +143,12 @@ paths and prints one line per phase with the elapsed seconds:
    yardstick only, torch's ``scaled_dot_product_attention`` with the same
    boolean mask, timed (SDPA gives NaN on a row with no valid key: printed,
    not checked); the card's clocks, temperature and power draw before and
-   after (as for 2g);
+   after (as for 2g); then at head_dim 128 in bf16 (H=4, d512 with nhead 4)
+   and at head_dim 64 and 128 in f32 (``attn_f32_fwd_kernel``) the served
+   shape and a causal one with a batch row of no valid key, bf16 within the
+   same bound, f32 within atol 2e-5 + rtol 1e-4 (``F32_ATOL``/``F32_RTOL``,
+   JAX's own f32 bound), each timed beside its bound and SDPA (f32 without
+   TF32);
 2g. train attention vs twins: ``fused_dropout_attention``'s forward and
    backward kernels at B=8, H=8, HD=64, bf16, (T, S) = 640x640, 384x384
    causal, 384x640, 1024x1024 and the ragged 200x333 and 333x333 causal,
@@ -155,7 +165,9 @@ paths and prints one line per phase with the elapsed seconds:
    Function equal to the wrapper's; at 640x640 and 384x640 the forward and
    backward kernels (given the seed on the card and an int32 mask, as the
    model gives them), the twins and SDPA (forward, backward, its own dropout
-   stream) timed beside the bounds; the card's clocks before and after;
+   stream) timed beside the bounds; then at head_dim 128 (H=4) at 640x640,
+   384x384 causal, 384x640 and 200x333, rates 0 and 0.1, held as above and
+   timed at 640x640; the card's clocks before and after;
 2j. flash-train kernels (``ops/flash_train.py``, the port of the library
    flash attention ``flash_training`` runs) against their twins at B=8,
    H=8 and (T, S, causal) in ``FT_CASES`` (640x640, 384x384 causal,
@@ -170,8 +182,13 @@ paths and prints one line per phase with the elapsed seconds:
    SDPA's forward and backward with the same boolean mask, the twins too at
    640x640 and 2048x2048, and ``flash_train_dq_kernel`` and
    ``flash_train_dkv_kernel`` each alone (the profiler's device time) beside
-   its own operations bound; first the pair's registers and spills from the
-   build log;
+   its own operations bound; first the trio's registers and spills from the
+   build log; then at head_dim 128 in bf16 (H=4; 640x640, 384x384 causal,
+   384x640, 512x512 causal, 512x2048, 640x384 causal, 2048x2048, timed
+   there) and in f32 at head_dim 64 and
+   128 (640x640, 384x384 causal, 384x640, timed at 640x640), each forward
+   run twice and bit-equal to itself, f32 held at ``F32_ATOL`` +
+   ``F32_RTOL`` (output) and ``F32_REL`` (gradients);
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -207,7 +224,14 @@ paths and prints one line per phase with the elapsed seconds:
    memory of each; then ``Trainer.run`` for 1 epoch with
    ``flash_training`` and ``remat`` as in 5b, every step through the
    flash-train kernels, its checkpoint serving one greedy infill through
-   v3;
+   v3; 5d: the flagship width through the attention kernels at head_dim
+   128 and in f32, 8 steps each at 8 x 640 + 384: ``flash_training`` at
+   nhead 4 (bf16) and in f32 at nhead 8, ``fused_attn_train`` at nhead 4,
+   each launching its option's kernels on every attention call and no twin,
+   the loss finite and falling, ms a step; then one encode of the batch's
+   sources through ``flash_encoder`` at d512/h4 in bf16 and d512/h8 in f32,
+   four ``fused_attention`` launches each, against the plain encode on the
+   same weights;
 4. kernel path vs twin path: one greedy request decoded through the kernels
    and through the twin on the card, for v2 and for v3, and where they
    first differ; a difference at a step where the twin's margin between
@@ -234,7 +258,8 @@ Then a JSON line describing the kernels, and last
 CUDA device it exits 2 before printing any result.  ``--phases 2e,2f``
 (for bring-up) runs the build and the named phases only and prints no
 result lines; ``--phases 2g,5`` is the short first call for the training
-kernels, ``--phases 2j,5c`` for the flash-train kernels.
+kernels, ``--phases 2j,5c`` for the flash-train kernels, ``--phases
+2f,2g,2j,5c,5d`` for every attention kernel at both head_dims and in f32.
 """
 
 from __future__ import annotations
@@ -338,14 +363,32 @@ SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
 FLASH_TRAIN_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train_dkv_kernel")
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
             "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel", *FLASH_TRAIN_KERNELS,
-            "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel")
+            "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel",
+            "attn_f32_fwd_kernel", "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
 # the kernels on the tensor cores: phase 1 reads their SASS and their ptxas
 # facts
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", *FLASH_TRAIN_KERNELS, "train_fwd_kernel",
                        "train_bwd_rows_kernel", "train_bwd_keys_kernel")
 # the warp-specialised kernels on wgmma and TMA: phase 1 fails unless their
 # SASS holds HGMMA
-WGMMA_KERNELS = ("flash_train_dq_kernel", "flash_train_dkv_kernel")
+WGMMA_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train_dkv_kernel")
+# every attention kernel is instantiated for each head_dim of
+# attn.KERNEL_HEAD_DIMS: phase 1 reads each instantiation (the mangled-name
+# piece <name>ILi<head_dim>E)
+# the f32 attention kernels (attention_f32.cu, on the FMA pipes): phase 1
+# prints their registers, spills and shared memory and fails on a missing entry
+F32_KERNELS = (*(f"attn_f32_fwd_kernelILi{hd}ELi{mode}E" for hd in attn.KERNEL_HEAD_DIMS
+                 for mode in (0, 1)),
+               *(f"flash_train_f32_{k}_kernelILi{hd}E" for k in ("dq", "dkv")
+                 for hd in attn.KERNEL_HEAD_DIMS))
+# f32 kernels vs twin: outputs within JAX's own f32 bound between its kernel
+# and its reference (tests/test_ops.py:25), gradients within 1e-4 relative
+# norm, JAX's tightest kernel-to-twin gradient bound (tests/test_ops.py:654):
+# both sides sum f32 products of f32 operands, only the order differs
+F32_ATOL, F32_RTOL = 2e-5, 1e-4
+F32_REL = 1e-4
+# the wide head: d512 with nhead 4, head_dim 128, beside the flagship's 8 x 64
+H_WIDE, HD_WIDE = 4, 128
 # flash attention vs twin: f32 sums on both sides in another order, then the
 # output rounded to bf16, so the two may differ by one bf16 ulp (2^-7 of the
 # value at most) plus what rounds near zero
@@ -499,8 +542,8 @@ def step_bytes_flops(packed, B: int, index: int, cross_len):
     return weight_bytes + cache_bytes + io_bytes, flops
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> float:
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / rate)
 
 
 def token_bound_ms(packed, B: int, index: int, cross_len, V: int, nucleus: bool) -> float:
@@ -1664,12 +1707,14 @@ def phase_decode_kernels(dev, packed, model, vpad):
         f"twins without their last split outside it")
 
 
-def attention_bound(B: int, T: int, S: int, lens, causal: bool):
+def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, hd: int = HD_ATTN,
+                    f32: bool = False):
     """Least time of one flash-attention call and what bounds it: q, k, v
-    read and the output written once (bf16); 4 HD operations for every
-    (query, valid key) pair this call's lengths and mask leave, at the bf16
-    tensor-core rate.  Returns (ms, "bytes" or "operations")."""
-    nbytes = (2 * B * T + 2 * B * S) * H * HD_ATTN * 2
+    read and the output written once (bf16, or f32); 4 HD operations for
+    every (query, valid key) pair this call's lengths and mask leave, at the
+    bf16 tensor-core rate (f32: the FMA pipes' rate).  Returns (ms, "bytes"
+    or "operations")."""
+    nbytes = (2 * B * T + 2 * B * S) * heads * hd * (4 if f32 else 2)
     pairs = 0
     for n in lens:
         n = min(int(n), S)
@@ -1678,9 +1723,10 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool):
             pairs += int(np.minimum(t + 1, n).sum())
         else:
             pairs += T * n
-    flops = 4 * HD_ATTN * H * pairs
-    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
-                                     else "operations")
+    flops = 4 * hd * heads * pairs
+    rate = F32_FLOPS if f32 else BF16_FLOPS
+    return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
+                                           else "operations")
 
 
 def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS):
@@ -1727,16 +1773,24 @@ def ptxas_facts(log: str, names=TENSOR_CORE_KERNELS):
     return facts
 
 
+def kernel_insts(names=TENSOR_CORE_KERNELS):
+    """Each kernel's head_dim instantiations as mangled-name pieces
+    (``<name>ILi<head_dim>E``), in the order of ``names``."""
+    return tuple(f"{n}ILi{hd}E" for n in names for hd in attn.KERNEL_HEAD_DIMS)
+
+
 def phase_tensor_cores() -> None:
-    """The attention kernels redesigned for the tensor cores (the two
-    forwards and the train-attention backward pair) were compiled to
-    tensor-core instructions (HMMA, HGMMA); their registers, spills, shared
-    memory and the commonest opcodes of their SASS."""
-    mix = sass_mix(str(ds.BUILD_INFO["path"]))
-    counts = {k: sum(n for op, n in mix[k].items() if op in ("HMMA", "HGMMA"))
-              for k in TENSOR_CORE_KERNELS}
-    facts = ptxas_facts(str(ds.BUILD_INFO["log"]))
-    for name in TENSOR_CORE_KERNELS:
+    """The attention kernels on the tensor cores (the two forwards, the
+    train-attention backward pair and the flash-train trio), each at head_dim
+    64 and 128, were compiled to tensor-core instructions (HMMA, HGMMA; the
+    flash-train trio to HGMMA); their registers, spills, shared memory and
+    the commonest opcodes of their SASS.  Then the registers, spills and
+    shared memory of the f32 kernels."""
+    insts = kernel_insts()
+    mix = sass_mix(str(ds.BUILD_INFO["path"]), insts)
+    counts = {k: sum(n for op, n in mix[k].items() if op in ("HMMA", "HGMMA")) for k in insts}
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), insts + F32_KERNELS)
+    for name in insts:
         f = facts.get(name)
         said = ("not in this process's build log" if f is None else
                 f"{f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
@@ -1747,9 +1801,16 @@ def phase_tensor_cores() -> None:
             ", ".join(f"{op} {n}" for op, n in top))
     if not all(counts.values()):
         raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {counts}")
-    hgmma = {k: mix[k].get("HGMMA", 0) for k in WGMMA_KERNELS}
+    hgmma = {k: mix[k].get("HGMMA", 0) for k in kernel_insts(WGMMA_KERNELS)}
     if not all(hgmma.values()):
         raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
+    for name in F32_KERNELS:
+        f = facts.get(name)
+        if f is None:
+            raise AssertionError(f"the f32 kernel {name} has no entry in the build log")
+        say(f"  {name} (f32, FMA pipes): {f.get('registers')} registers, spill stores/loads "
+            f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static "
+            "shared memory (its tiles are dynamic)")
 
 
 def phase_decode_facts() -> None:
@@ -1830,7 +1891,51 @@ def phase_attention_vs_twin(dev):
             report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms)
             say_split(device_split(lambda: attn.fused_attention(q, k, v, kl, causal)), ms)
     say(f"  all cases within atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4g} of the twin (max {worst:.3e})")
+    attention_wide_cases(dev, g)
     return worst, report
+
+
+# phase 2f's cases at head_dim 128 and in f32: (B, T, S, key lengths, causal),
+# the served encoder shape and a causal one with a batch row of no valid key
+ATTN_WIDE_CASES = ((3, 1536, 1536, [1536, 1440, 1344], False), (3, 1000, 777, [777, 0, 1], True))
+
+
+def attention_wide_cases(dev, g) -> None:
+    """``fused_attention`` at head_dim 128 in bf16 (d512 with nhead 4) and
+    at head_dim 64 and 128 in f32 (``attn_f32_fwd_kernel``) against its
+    twin, each timed beside its bound and SDPA on the same inputs (f32 SDPA
+    without TF32, as ``main`` sets it)."""
+    for hd, heads, dtype in ((HD_WIDE, H_WIDE, torch.bfloat16), (HD_ATTN, H, torch.float32),
+                             (HD_WIDE, H_WIDE, torch.float32)):
+        f32 = dtype == torch.float32
+        atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (ATTN_ATOL, ATTN_RTOL)
+        worst = 0.0
+        for B, T, S, lens, causal in ATTN_WIDE_CASES:
+            q, k, v = (torch.randn(B, n, heads, hd, generator=g, device=dev).to(dtype) for n in (T, S, S))
+            kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = attn.fused_attention(q, k, v, kl, causal)
+            torch.cuda.synchronize()
+            ref = attn.attention_reference(q, k, v, kl, causal)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+                    and torch.isfinite(out.float()).all().item()):
+                raise AssertionError(f"fused_attention ({dtype}, head_dim {hd}) disagrees with its twin at "
+                                     f"B={B} T={T} S={S} lens={lens} causal={causal}: max {err:.3e}")
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: attn.fused_attention(q, k, v, kl, causal), iters=20)
+            plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, kl, causal), iters=3, warmup=1)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            mask = torch.arange(S, device=dev)[None, None, None, :] < kl[:, None, None, None]
+            if causal:
+                mask = mask & torch.ones(T, S, dtype=torch.bool, device=dev).tril()[None, None]
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), iters=20)
+            bound, by = attention_bound(B, T, S, lens, causal, heads, hd, f32)
+            say(f"  {str(dtype).split('.')[-1]} B={B} T={T} S={S} H={heads} HD={hd} lens={lens} "
+                f"causal={causal}: max|kernel-twin| {err:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+                f"sdpa {library_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+        say(f"  {str(dtype).split('.')[-1]} head_dim {hd}: within atol {atol:g} + rtol {rtol:.4g} of the "
+            f"twin (max {worst:.3e})")
 
 
 def train_attention_pairs(valid, T: int, causal: bool, H_: int) -> int:
@@ -1844,7 +1949,8 @@ def train_attention_pairs(valid, T: int, causal: bool, H_: int) -> int:
     return int(csum[:, :T].sum().item()) * H_
 
 
-def train_attention_bound(B: int, T: int, S: int, valid, causal: bool, backward: bool):
+def train_attention_bound(B: int, T: int, S: int, valid, causal: bool, backward: bool,
+                          heads: int = H, hd: int = HD_ATTN):
     """Least time of the train-attention forward or backward and what bounds
     it.  Bytes: forward reads q, k, v (bf16) and the int32 validity mask and
     writes the output; backward also reads g and writes dq, dk, dv.
@@ -1852,10 +1958,10 @@ def train_attention_bound(B: int, T: int, S: int, valid, causal: bool, backward:
     the forward's two (scores, then weights x V), the backward's five
     (scores recomputed, wd^T g, g v^T, ds k, ds^T q), at the bf16
     tensor-core rate.  Returns (ms, "bytes" or "operations")."""
-    qb, kb = B * T * H * HD_ATTN * 2, B * S * H * HD_ATTN * 2
+    qb, kb = B * T * heads * hd * 2, B * S * heads * hd * 2
     nbytes = (2 * qb + 2 * kb if not backward else 3 * qb + 4 * kb) + B * S * 4 + 16
-    pairs = train_attention_pairs(valid, T, causal, H)
-    flops = 2 * HD_ATTN * pairs * (5 if backward else 2)
+    pairs = train_attention_pairs(valid, T, causal, heads)
+    flops = 2 * hd * pairs * (5 if backward else 2)
     return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
                                      else "operations")
 
@@ -1932,8 +2038,55 @@ def phase_train_attention_vs_twin(dev):
     say(f"  keep masks bit-equal; forward within atol {TA_ATOL} + rtol {TA_RTOL:.4g} (max {worst:.3e}); "
         "backward relative norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items())
         + f" (max |kernel - twin| of a gradient {worst_grad:.3e})")
+    train_attention_wide(dev, g)
     train_attention_jax_case(dev)
     return worst, worst_grad, reports
+
+
+# phase 2g's cases at head_dim 128 (d512 with nhead 4): (T, S, causal)
+TA_WIDE_CASES = ((640, 640, False), (384, 384, True), (384, 640, False), (200, 333, False))
+
+
+def train_attention_wide(dev, g) -> None:
+    """The train-attention kernels at head_dim 128 (bf16, d512 with nhead 4)
+    against their twins at TA_WIDE_CASES, rate 0 and 0.1, a batch row with
+    no valid key; timed at 640 x 640 beside the bounds and SDPA."""
+    B, worst, worst_rel = TRAIN_B, 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for T, S, causal in TA_WIDE_CASES:
+        q, go = (torch.randn(B, T, H_WIDE, HD_WIDE, generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, H_WIDE, HD_WIDE, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        valid = torch.rand(B, S, generator=g, device=dev) >= 0.1
+        valid[1] = False
+        for rate in (0.0, 0.1):
+            seed = TA_SEEDS[0]
+            out = ta.dropout_attention_fwd(q, k, v, valid, seed, rate, causal)
+            torch.cuda.synchronize()
+            ref = ta.dropout_attention_fwd_reference(q, k, v, valid, seed, rate, causal)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not (torch.allclose(out.float(), ref.float(), atol=TA_ATOL, rtol=TA_RTOL)
+                    and torch.isfinite(out.float()).all().item() and (out[1] == 0).all().item()):
+                raise AssertionError(f"train-attention forward at head_dim {HD_WIDE} disagrees with its "
+                                     f"twin at T={T} S={S} causal={causal} rate={rate}: max {err:.3e}")
+            worst = max(worst, err)
+            grads = ta.dropout_attention_bwd(q, k, v, valid, seed, go, rate, causal)
+            torch.cuda.synchronize()
+            ref_grads = ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, rate, causal)
+            rels = {n: rel_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+            for n, a in zip(("dq", "dk", "dv"), grads):
+                worst_rel[n] = max(worst_rel[n], rels[n])
+                if not (rels[n] < TA_REL[n] and torch.isfinite(a.float()).all().item()
+                        and (a[1] == 0).all().item()):
+                    raise AssertionError(f"train-attention backward {n} at head_dim {HD_WIDE} disagrees "
+                                         f"with its twin at T={T} S={S} causal={causal} rate={rate}: "
+                                         f"relative norm {rels[n]:.3e}")
+            say(f"  head_dim {HD_WIDE} T={T} S={S} causal={causal} rate={rate}: fwd max|kernel-twin| "
+                f"{err:.3e}; backward relative norms " + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()))
+        if (T, S) == (640, 640):
+            time_train_attention(dev, q, k, v, go, valid, causal)
+    say(f"  head_dim {HD_WIDE}: forward within atol {TA_ATOL} + rtol {TA_RTOL:.4g} (max {worst:.3e}); "
+        "backward relative norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items()))
 
 
 def train_attention_jax_case(dev) -> dict:
@@ -1996,9 +2149,11 @@ def time_train_attention(dev, q, k, v, go, valid, causal):
     lib_f = cuda_ms(lambda: sdpa().detach(), iters=20)
     out = sdpa()
     lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True), iters=20)
-    bound_f, by_f = train_attention_bound(B, T, S, valid, causal, backward=False)
-    bound_b, by_b = train_attention_bound(B, T, S, valid, causal, backward=True)
-    say(f"  times at B={B} T={T} S={S} H={H} causal={causal} rate {rate}: forward kernel {ms_f:.4f} ms, "
+    heads, hd = q.shape[2:]
+    bound_f, by_f = train_attention_bound(B, T, S, valid, causal, False, heads, hd)
+    bound_b, by_b = train_attention_bound(B, T, S, valid, causal, True, heads, hd)
+    say(f"  times at B={B} T={T} S={S} H={heads} HD={hd} causal={causal} rate {rate}: forward kernel "
+        f"{ms_f:.4f} ms, "
         f"twin {plain_f:.4f}, SDPA {lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward kernels "
         f"{ms_b:.4f} ms, twin {plain_b:.4f}, SDPA backward {lib_b:.4f}, bound {bound_b:.5f} ({by_b})")
     say_split(device_split(fwd), ms_f)
@@ -2007,31 +2162,36 @@ def time_train_attention(dev, q, k, v, go, valid, causal):
             dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b, library_ms=lib_b))
 
 
-def flash_train_pairs(B: int, T: int, S: int, causal: bool) -> int:
+def flash_train_pairs(B: int, T: int, S: int, causal: bool, heads: int = H) -> int:
     """(query row, key) pairs the flash-train function needs over all heads:
     every key when not causal (the mask is added, not skipped), the keys at
     or before the row when causal."""
     if not causal:
-        return B * H * T * S
-    return B * H * int(np.minimum(np.arange(T) + 1, S).sum())
+        return B * heads * T * S
+    return B * heads * int(np.minimum(np.arange(T) + 1, S).sum())
 
 
-def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool):
+def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool, heads: int = H,
+                      hd: int = HD_ATTN, f32: bool = False):
     """Least time of the flash-train forward or backward and what bounds it.
     Bytes: the forward reads q, k, v (bf16) and the int32 mask and writes
     the output and each row's m and l (f32); the backward reads q, k, v,
     the output, g, m, l and the mask and writes dq, dk, dv.  Operations:
     2 HD for every pair and product, the forward's two (scores, p v) and
     the backward's five (scores recomputed, g v^T, p^T g, ds k, ds^T q),
-    at the bf16 tensor-core rate.  Returns (ms, "bytes" or "operations")."""
-    qb, kb, st = B * T * H * HD_ATTN * 2, B * S * H * HD_ATTN * 2, 2 * B * H * T * 4
+    at the bf16 tensor-core rate (f32: the FMA pipes' rate, 4-byte
+    elements).  Returns (ms, "bytes" or "operations")."""
+    el = 4 if f32 else 2
+    qb, kb, st = B * T * heads * hd * el, B * S * heads * hd * el, 2 * B * heads * T * 4
     nbytes = (2 * qb + 2 * kb + st if not backward else 4 * qb + 4 * kb + st) + B * S * 4
-    flops = 2 * HD_ATTN * flash_train_pairs(B, T, S, causal) * (5 if backward else 2)
-    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
-                                     else "operations")
+    flops = 2 * hd * flash_train_pairs(B, T, S, causal, heads) * (5 if backward else 2)
+    rate = F32_FLOPS if f32 else BF16_FLOPS
+    return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
+                                           else "operations")
 
 
-def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str):
+def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, heads: int = H,
+                             hd: int = HD_ATTN, f32: bool = False):
     """Least time of one of the two backward kernels alone and what bounds
     it.  ``flash_train_dq_kernel`` reads q, k, v, the output, g, m, l and
     the mask and writes dq and di, and does 3 products (scores, g v^T, ds
@@ -2039,26 +2199,29 @@ def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str):
     and writes dk and dv, and does 4 (scores, g v^T, p^T g, ds^T q): the
     scores and g v^T are recomputed in both, 7 products for the pair where
     the function needs 5.  2 HD operations a pair and product at the bf16
-    rate.  Returns (ms, "bytes" or "operations")."""
-    qb, kb, row = B * T * H * HD_ATTN * 2, B * S * H * HD_ATTN * 2, B * H * T * 4
-    if kernel == "flash_train_dq_kernel":
+    rate (f32: the FMA pipes').  Returns (ms, "bytes" or "operations")."""
+    el = 4 if f32 else 2
+    qb, kb, row = B * T * heads * hd * el, B * S * heads * hd * el, B * heads * T * 4
+    if "_dq_" in kernel:
         nbytes, products = 4 * qb + 2 * kb + 3 * row + B * S * 4, 3
     else:
         nbytes, products = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
-    flops = 2 * HD_ATTN * flash_train_pairs(B, T, S, causal) * products
-    return bound_ms(nbytes, flops), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
-                                     else "operations")
+    flops = 2 * hd * flash_train_pairs(B, T, S, causal, heads) * products
+    rate = F32_FLOPS if f32 else BF16_FLOPS
+    return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
+                                           else "operations")
 
 
-def flash_train_inputs(g, dev, T: int, S: int):
-    """Seeded bf16 q, k, v, g at B=8, H=8 and a key mask that is not a suffix
-    (~10% of keys invalid anywhere, the first three of row 0 among them),
-    batch row 1 with no valid key and row 2 suffix-padded from 0.7 S."""
+def flash_train_inputs(g, dev, T: int, S: int, heads: int = H, hd: int = HD_ATTN,
+                       dtype=torch.bfloat16):
+    """Seeded q, k, v, g (bf16 at B=8, H=8 unless asked otherwise) and a key
+    mask that is not a suffix (~10% of keys invalid anywhere, the first
+    three of row 0 among them), batch row 1 with no valid key and row 2
+    suffix-padded from 0.7 S."""
     B = TRAIN_B
-    q = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    go = torch.randn(B, T, H, HD_ATTN, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, T, heads, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, heads, hd, generator=g, device=dev).to(dtype) for _ in range(2))
+    go = torch.randn(B, T, heads, hd, generator=g, device=dev).to(dtype)
     valid = torch.rand(B, S, generator=g, device=dev) >= 0.1
     valid[0, :3] = False
     valid[1] = False
@@ -2072,8 +2235,8 @@ def phase_flash_train_vs_twin(dev):
     boolean mask.  Returns (max forward error, max |kernel - twin| of a
     gradient, the worst dv relative norm, {(T, S, causal): (forward report,
     backward report)} at FT_TIMED)."""
-    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), WGMMA_KERNELS)
-    for name in WGMMA_KERNELS:
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), kernel_insts(WGMMA_KERNELS))
+    for name in kernel_insts(WGMMA_KERNELS):
         f = facts.get(name)
         say(f"  {name}: " + ("not in this process's build log" if f is None else
                              f"{f.get('registers')} registers at launch (setmaxnreg moves them to "
@@ -2131,7 +2294,79 @@ def phase_flash_train_vs_twin(dev):
     say(f"  forward within atol {TA_ATOL} + rtol {TA_RTOL:.4g} (max {worst:.3e}); backward relative "
         "norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items()) +
         f" (max |kernel - twin| of a gradient {worst_grad:.3e})")
+    flash_train_wide(dev, g)
     return worst, worst_grad, worst_rel["dv"], reports
+
+
+# phase 2j's cases at head_dim 128 in bf16 (d512 with nhead 4) and in f32 at
+# head_dim 64 and 128: (head_dim, heads, dtype, (T, S, causal) ..., the
+# timed case)
+FT_WIDE = (
+    (HD_WIDE, H_WIDE, torch.bfloat16, ((640, 640, False), (384, 384, True), (384, 640, False),
+                                       (512, 512, True), (512, 2048, False), (640, 384, True),
+                                       (2048, 2048, False)), (2048, 2048, False)),
+    (HD_ATTN, H, torch.float32, ((640, 640, False), (384, 384, True), (384, 640, False)),
+     (640, 640, False)),
+    (HD_WIDE, H_WIDE, torch.float32, ((640, 640, False), (384, 384, True), (384, 640, False)),
+     (640, 640, False)),
+)
+
+
+def flash_train_wide(dev, g) -> None:
+    """The flash-train kernels at head_dim 128 in bf16 and in f32 at head_dim
+    64 and 128 against their twins (bf16 at phase 2j's tolerances, f32 at
+    F32_ATOL/F32_RTOL and F32_REL), each forward twice for its bits (the
+    forward is deterministic, so remat recomputes the same output), the row
+    with no valid key against the mean of V over its visited keys, the
+    autograd Function against the wrappers; the timed case's forward and
+    backward beside the bounds, the twins and SDPA."""
+    for hd, heads, dtype, cases, timed in FT_WIDE:
+        f32 = dtype == torch.float32
+        atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (TA_ATOL, TA_RTOL)
+        rel_bound = {n: F32_REL for n in ("dq", "dk", "dv")} if f32 else TA_REL
+        tag = f"{str(dtype).split('.')[-1]} head_dim {hd}"
+        worst, worst_rel = 0.0, {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        for T, S, causal in cases:
+            q, k, v, go, valid = flash_train_inputs(g, dev, T, S, heads, hd, dtype)
+            out, stats = ft.flash_train_fwd(q, k, v, valid, causal)
+            again, stats2 = ft.flash_train_fwd(q, k, v, valid, causal)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again) and torch.equal(stats, stats2)):
+                raise AssertionError(f"flash-train forward ({tag}) is not deterministic at T={T} S={S}")
+            ref, ref_stats = ft.flash_train_fwd_reference(q, k, v, valid, causal)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+                    and torch.isfinite(out.float()).all().item()):
+                raise AssertionError(f"flash-train forward ({tag}) disagrees with its twin at T={T} S={S} "
+                                     f"causal={causal}: max {err:.3e}")
+            worst = max(worst, err)
+            keys = min(S, 128) if causal else S
+            if not torch.allclose(out[1, 0].float(), v[1, :keys].float().mean(dim=0), atol=atol, rtol=rtol):
+                raise AssertionError(f"flash-train forward ({tag}): the row with no valid key is not the "
+                                     f"mean of V over its visited keys at T={T} S={S} causal={causal}")
+            grads = ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)
+            torch.cuda.synchronize()
+            ref_grads = ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, causal)
+            rels = {n: rel_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+            for n, a in zip(("dq", "dk", "dv"), grads):
+                worst_rel[n] = max(worst_rel[n], rels[n])
+                if not (rels[n] < rel_bound[n] and torch.isfinite(a.float()).all().item()):
+                    raise AssertionError(f"flash-train backward {n} ({tag}) disagrees with its twin at "
+                                         f"T={T} S={S} causal={causal}: relative norm {rels[n]:.3e}")
+            qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+            ft.flash_train_attention(qa, ka, va, valid, causal).backward(go)
+            if not all(torch.equal(a, b) for a, b in zip((qa.grad, ka.grad, va.grad), grads)):
+                raise AssertionError(f"autograd through flash_train_attention ({tag}) gives other gradients")
+            say(f"  {tag} T={T} S={S} causal={causal}: fwd max|kernel-twin| {err:.3e}, m and l relative "
+                f"norm {rel_norm(stats, ref_stats):.2e}; backward relative norms " +
+                ", ".join(f"{n} {r:.2e}" for n, r in rels.items()))
+            if (T, S, causal) == timed:
+                time_flash_train(dev, q, k, v, go, valid, causal, twin=True)
+            del q, k, v, go, out, again, ref, grads, ref_grads, qa, ka, va
+            torch.cuda.empty_cache()
+        say(f"  {tag}: forward within atol {atol:g} + rtol {rtol:.4g} (max {worst:.3e}); backward "
+            "relative norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items()) +
+            f" (held at {', '.join(f'{n} {b:g}' for n, b in rel_bound.items())})")
 
 
 def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
@@ -2161,16 +2396,20 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     sd_out = sdpa()
     lib_b = cuda_ms(lambda: torch.autograd.grad(sd_out, (qt, kt, vt), gt, retain_graph=True),
                     iters=20)
-    bound_f, by_f = flash_train_bound(B, T, S, causal, backward=False)
-    bound_b, by_b = flash_train_bound(B, T, S, causal, backward=True)
+    heads, hd = q.shape[2:]
+    f32 = q.dtype == torch.float32
+    bound_f, by_f = flash_train_bound(B, T, S, causal, False, heads, hd, f32)
+    bound_b, by_b = flash_train_bound(B, T, S, causal, True, heads, hd, f32)
     twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
-    say(f"    times at B={B} T={T} S={S} H={H} causal={causal}: forward kernel {ms_f:.4f} ms, SDPA "
-        f"{lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward kernels {ms_b:.4f} ms, SDPA backward "
-        f"{lib_b:.4f}, bound {bound_b:.5f} ({by_b}, the function's 5 products){twins}")
+    say(f"    times at B={B} T={T} S={S} H={heads} HD={hd} {str(q.dtype).split('.')[-1]} causal={causal}: "
+        f"forward kernel {ms_f:.4f} ms, SDPA {lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward "
+        f"kernels {ms_b:.4f} ms, SDPA backward {lib_b:.4f}, bound {bound_b:.5f} ({by_b}, the "
+        f"function's 5 products){twins}")
     # each backward kernel alone: its device time by name, beside its own bound
     split_b = device_split(bwd)
-    for name in WGMMA_KERNELS:
-        kb_ms, kb_by = flash_train_kernel_bound(B, T, S, causal, name)
+    names = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel") if f32 else WGMMA_KERNELS[1:]
+    for name in names:
+        kb_ms, kb_by = flash_train_kernel_bound(B, T, S, causal, name, heads, hd, f32)
         us_k = "not measured" if split_b is None else f"{split_b.get(name, 0.0):.1f} us"
         say(f"      {name}: {us_k} a call (profiler), bound {1e3 * kb_ms:.1f} us ({kb_by})")
     if twin:
@@ -2768,14 +3007,16 @@ def train_batch(vocab, dev, B: int = TRAIN_B, S: int = TRAIN_SRC, T: int = TRAIN
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, real
 
 
-def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = False):
-    """TRAIN_STEPS lean train steps of the seeded flagship (bf16, dropout
-    0.1) on one batch, with ``fused_attn_train`` or ``flash_training``; every
-    count at 0 just before them.  Returns (losses, ms a step over the steps
-    after the first TRAIN_WARM, the counts, the step function and the
-    attention blocks a step)."""
+def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = False,
+                steps: int = TRAIN_STEPS, warm: int = TRAIN_WARM, dtype=torch.bfloat16, nhead: int = H):
+    """``steps`` lean train steps of the seeded flagship (bf16 and 8 heads
+    unless asked otherwise, dropout 0.1) on one batch, with
+    ``fused_attn_train`` or ``flash_training``; every count at 0 just before
+    them.  Returns (losses, ms a step over the steps after the first
+    ``warm``, the counts, the step function and the attention blocks a
+    step)."""
     torch.manual_seed(0)
-    model = build_model(vocab.vocab_size, dropout=0.1, dtype=torch.bfloat16,
+    model = build_model(vocab.vocab_size, nhead=nhead, dropout=0.1, dtype=dtype,
                         fused_attn_train=fused, flash_training=flash).to(dev)
     per_step = len(model.encoder_layers) + 2 * len(model.decoder_layers)
     state = TrainState.create(model, lr=ExperimentConfig().lr)
@@ -2785,15 +3026,15 @@ def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = Fa
     end = torch.cuda.Event(enable_timing=True)
     losses = []
     reset_counts()
-    for i in range(TRAIN_STEPS):
-        if i == TRAIN_WARM:
+    for i in range(steps):
+        if i == warm:
             start.record()
         state, m = step(state, batch, 1.0, gen)
         losses.append(m["loss"])
     end.record()
     torch.cuda.synchronize()
     got = counts()
-    ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARM)
+    ms = start.elapsed_time(end) / (steps - warm)
     return (torch.stack(losses).float().tolist(), ms, got, (lambda: step(state, batch, 1.0, gen)),
             per_step)
 
@@ -2877,11 +3118,83 @@ def phase_flash_train(dev):
     return out, flash_remat_step(dev, vocab, tables)
 
 
+WIDE_STEPS, WIDE_WARM = 8, 3  # phase 5d's steps a configuration, and how many the timing skips
+# phase 5d's configurations at the flagship width: (tag, option, nhead, dtype)
+WIDE_TRAIN = (("flash_training, nhead 4 (head_dim 128), bf16", "flash", H_WIDE, torch.bfloat16),
+              ("flash_training, nhead 8 (head_dim 64), f32", "flash", H, torch.float32),
+              ("fused_attn_train, nhead 4 (head_dim 128), bf16", "fused", H_WIDE, torch.bfloat16))
+# phase 5d's flash encodes against the plain encode on the same weights, bf16
+# within the phase-2 tolerance; f32 within 1e-4 + 1e-3 relative: the kernel
+# and the plain path sum the same f32 products in another order, through 4
+# layers with their LayerNorms
+WIDE_ENCODE = ((H_WIDE, torch.bfloat16, ATOL, RTOL), (H, torch.float32, 1e-4, 1e-3))
+
+
+def phase_wide(dev):
+    """The flagship width (d512, 4 + 4 layers, d_ff 2048) trained at 8 x 640
+    + 384 through the attention kernels at head_dim 128 and in f32: each of
+    WIDE_TRAIN for WIDE_STEPS steps, which must launch its option's kernels on
+    every attention call and no twin, with a finite falling loss; then one
+    encode of the batch's sources through ``flash_encoder`` at d512/h4 in
+    bf16 and d512/h8 in f32, held against the plain encode."""
+    vocab = WordVocab(ExperimentConfig().vocab_mode, ExperimentConfig().control_list)
+    tables = build_loss_tables(vocab)
+    batch, real = train_batch(vocab, dev)
+    padded = TRAIN_B * (TRAIN_SRC + TRAIN_TGT)
+    out = {}
+    for tag, option, nhead, dtype in WIDE_TRAIN:
+        losses, ms, got, _, per_step = train_steps(
+            dev, vocab, tables, batch, fused=option == "fused", flash=option == "flash",
+            steps=WIDE_STEPS, warm=WIDE_WARM, dtype=dtype, nhead=nhead)
+        say(f"  {tag}: losses " + ", ".join(f"{x:.4f}" for x in losses))
+        say(f"  {tag}: launches {got}")
+        fwd, bwd = ("ft_fwd", "ft_bwd") if option == "flash" else ("ta_fwd", "ta_bwd")
+        want = per_step * WIDE_STEPS
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{tag}: the loss is not finite or did not fall: {losses}")
+        if got[fwd] != want or got[bwd] != want or any(v for k, v in got.items() if k not in (fwd, bwd)):
+            raise AssertionError(f"{tag}: expected {want} {fwd} and {want} {bwd} launches and nothing "
+                                 f"else, got {got}")
+        say(f"  {tag}: {ms:.3f} ms a step (CUDA events, steps {WIDE_WARM + 1}-{WIDE_STEPS}), "
+            f"{1e3 * padded / ms:.0f} tokens/s padded, {1e3 * real / ms:.0f} real")
+        out[tag] = dict(ms=ms, losses=losses, launches=got)
+        torch.cuda.empty_cache()
+    src, pad = batch["input"], batch["input_pad_mask"]
+    for nhead, dtype, atol, rtol in WIDE_ENCODE:
+        torch.manual_seed(0)
+        plain = build_model(vocab.vocab_size, nhead=nhead, dtype=dtype).to(dev).eval()
+        flash = ScoreTransformer(dataclasses.replace(plain.cfg, flash_encoder=True)).to(dev).eval()
+        flash.load_state_dict(plain.state_dict())
+        with torch.no_grad():
+            mem_p = plain.encode(src, pad)
+            reset_counts()
+            mem_f = flash.encode(src, pad)
+            torch.cuda.synchronize()
+            got = counts()
+            ms_p = cuda_ms(lambda: plain.encode(src, pad), iters=5)
+            ms_f = cuda_ms(lambda: flash.encode(src, pad), iters=5)
+        keep = ~pad
+        err = (mem_f[keep].float() - mem_p[keep].float()).abs().max().item()
+        tag = f"flash_encoder d512/h{nhead} {str(dtype).split('.')[-1]}"
+        say(f"  {tag}: encode of {tuple(src.shape)}: launches {got}; max |flash - plain| on valid rows "
+            f"{err:.3e} (atol {atol:g} + rtol {rtol:g}); plain {ms_p:.3f} ms, flash {ms_f:.3f} ms")
+        if got["attn"] != plain.cfg.num_encoder_layers or any(v for k, v in got.items() if k != "attn"):
+            raise AssertionError(f"{tag}: expected {plain.cfg.num_encoder_layers} fused_attention launches "
+                                 f"and nothing else, got {got}")
+        if not torch.allclose(mem_f[keep].float(), mem_p[keep].float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"{tag}: the flash encode disagrees with the plain one: max {err:.3e}")
+        del plain, flash
+        torch.cuda.empty_cache()
+    return out
+
+
 def flash_remat_step(dev, vocab, tables):
     """One step's loss and gradients of the flash_training flagship at 8 x
     2048 + 512 with ``remat`` and without, the same weights and generator
     state: equal within 1e-6 relative norm (the kernels take no atomics, so
-    the recompute gives the same bits); the peak memory of each."""
+    the recompute gives the same bits); the peak memory of each, and the
+    step's own share of it (the peak less what was allocated before the
+    step: the model, and whatever earlier phases still hold)."""
     batch, _ = train_batch(vocab, dev, S=TRAIN_LONG_SRC, T=TRAIN_LONG_TGT)
     torch.manual_seed(0)
     base = build_model(vocab.vocab_size, dropout=0.1, dtype=torch.bfloat16, flash_training=True)
@@ -2894,13 +3207,15 @@ def flash_remat_step(dev, vocab, tables):
         gen = torch.Generator(device=dev).manual_seed(3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)  # the model and what earlier phases still hold
         reset_counts()
         logits, _ = _forward_batch(model, batch, False, gen)
         loss, _ = multihead_ce(logits, batch["target_out"], tables, 1.0)
         loss.backward()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
-        res[remat] = dict(loss=loss.item(), peak=peak, launches=counts(), gen=gen.get_state(),
+        res[remat] = dict(loss=loss.item(), peak=peak, step=peak - held, launches=counts(),
+                          gen=gen.get_state(),
                           grads={n: p.grad.detach().float().clone() for n, p in model.named_parameters()})
         del model, logits, loss
         torch.cuda.empty_cache()
@@ -2909,7 +3224,8 @@ def flash_remat_step(dev, vocab, tables):
     grad_rel = max(rel_norm(b["grads"][n], a["grads"][n]) for n in a["grads"])
     say(f"  remat at {TRAIN_B} x {TRAIN_LONG_SRC} + {TRAIN_LONG_TGT}: loss {a['loss']:.6f} without, "
         f"{b['loss']:.6f} with (relative {loss_rel:.2e}); worst gradient relative norm {grad_rel:.2e}; "
-        f"peak memory {a['peak'] / 2**30:.3f} GiB without, {b['peak'] / 2**30:.3f} GiB with; "
+        f"peak memory {a['peak'] / 2**30:.3f} GiB without, {b['peak'] / 2**30:.3f} GiB with (the step's "
+        f"own {a['step'] / 2**30:.3f} and {b['step'] / 2**30:.3f} over what was held before it); "
         f"flash-train launches without {a['launches']['ft_fwd']}+{a['launches']['ft_bwd']}, with "
         f"{b['launches']['ft_fwd']}+{b['launches']['ft_bwd']}")
     if not (loss_rel <= 1e-6 and grad_rel <= 1e-6 and torch.equal(a["gen"], b["gen"])):
@@ -3148,7 +3464,8 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 5c, 4); "
+                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 5c, 5d, "
+                        "4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -3279,6 +3596,11 @@ def main(argv=None) -> int:
             for steps5 in flash_train_steps.values():
                 for k in ("ft_fwd", "ft_bwd"):
                     launches_f[k] += steps5["launches"][k]
+
+    if run("5d"):
+        say(f"phase 5d the flagship width through the attention kernels at head_dim 128 and in f32: "
+            f"{WIDE_STEPS} steps at {TRAIN_B} x {TRAIN_SRC} + {TRAIN_TGT} each, flash encodes")
+        phase_wide(dev)
 
     if run("4"):
         say("phase 4 kernel path vs twin path (greedy)")

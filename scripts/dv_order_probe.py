@@ -25,7 +25,8 @@ bound of 1e-4 (``tests/test_ops.py:654``), and the kernel's and the
 twin's dv each against the same product summed in float64 (the twin's
 bf16 weights and g), which says whether either side is the more accurate.
 Last, the same readings for the flash-train backward
-(``ops/flash_train.py``) at phase 2j's cases and inputs, by batch row too.
+(``ops/flash_train.py``) at phase 2j's cases and inputs, by batch row too,
+at head_dim 64 (H=8) and at head_dim 128 (H=4, d512 with nhead 4).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    FT_CASES, HD_ATTN, TA_CASES, TA_SEEDS, TRAIN_B, H, flash_train_inputs, rel_norm,
+    FT_CASES, H_WIDE, HD_ATTN, HD_WIDE, TA_CASES, TA_SEEDS, TRAIN_B, H, flash_train_inputs, rel_norm,
 )
 from smer_music_generation_tpu_torch.ops import decode_step as ds  # noqa: E402
 from smer_music_generation_tpu_torch.ops import flash_train as ft  # noqa: E402
@@ -147,25 +148,26 @@ def probe(label, q, k, v, valid, seed, g, rate, causal):
     return r
 
 
-def flash_probe(dev) -> None:
+def flash_probe(dev, heads: int = H, hd: int = HD_ATTN) -> None:
     """The flash-train backward's dv at phase 2j's cases, on its inputs
     (``chip_smoke.FT_CASES`` from one generator seeded 23, as 2j draws
-    them): against the twin and, each, against bf16(p)^T g summed in
-    float64 (the twin's p, the kernel's forward), whole and by batch row."""
+    them at head_dim 64): against the twin and, each, against bf16(p)^T g
+    summed in float64 (the twin's p, the kernel's forward), whole and by
+    batch row."""
     gen = torch.Generator(device=dev).manual_seed(23)
     for T, S, causal in FT_CASES:
-        q, k, v, go, valid = flash_train_inputs(gen, dev, T, S)
+        q, k, v, go, valid = flash_train_inputs(gen, dev, T, S, heads, hd)
         out, stats = ft.flash_train_fwd(q, k, v, valid, causal)
         dv_kernel = ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)[2]
         dv_twin = ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, causal)[2]
         B, T = q.shape[:2]
         s = ft._masked_scores(q, k, valid, causal)
-        m, l = (x.reshape(B, H, T, 1) for x in stats)
+        m, l = (x.reshape(B, heads, T, 1) for x in stats)
         p16 = (ft._exp(s - m) * (1.0 / l)).to(torch.bfloat16)
         del s
         dv_f64 = torch.einsum("bhts,bthd->bshd", p16.double(), go.double()).to(torch.bfloat16)
         rows = ", ".join(f"{rel_norm(dv_kernel[b], dv_twin[b]):.1e}" for b in range(B))
-        print(f"flash-train T={T} S={S} causal={causal}: dv relative norm kernel-twin "
+        print(f"flash-train head_dim {hd} T={T} S={S} causal={causal}: dv relative norm kernel-twin "
               f"{rel_norm(dv_kernel, dv_twin):.3e} (by batch row {rows}); against the float64 sum: "
               f"kernel {rel_norm(dv_kernel, dv_f64):.3e}, twin {rel_norm(dv_twin, dv_f64):.3e}",
               flush=True)
@@ -219,6 +221,7 @@ def main() -> int:
           f"twin-float64 {worst[4]:.3e}; JAX's case kernel-kernel_order_twin {worst_jax[1]:.3e} "
           f"(JAX's bound 1e-4) on {card}", flush=True)
     flash_probe(dev)
+    flash_probe(dev, H_WIDE, HD_WIDE)
     return 0
 
 

@@ -11,9 +11,11 @@ HD) queries and (B, S, H, HD) keys and values, as JAX's does, and returns
 (B, T, H, HD) in q's dtype: scores in f32 scaled by 1/sqrt(HD), keys at or
 past ``kv_valid_len[b]`` masked with -1e30 (and keys past the query row when
 ``causal``), softmax in f32.  A tensor on the CPU goes to the twin
-:func:`attention_reference`; a CUDA tensor launches the kernel (bf16, head_dim
-64, contiguous) or raises.  The kernel is built with the decode kernels into
-one library at first use (``ops.decode_step.load_library``).
+:func:`attention_reference`; a CUDA tensor launches a kernel (head_dim in
+:data:`KERNEL_HEAD_DIMS`, contiguous: bf16 to ``flash_fwd_kernel``, f32 to
+``attn_f32_fwd_kernel`` of ``csrc/attention_f32.cu``) or raises.  The
+kernels are built with the decode kernels into one library at first use
+(``ops.decode_step.load_library``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ import torch
 from .decode_step import _check, _check_tensors, load_library
 
 NEG_INF = -1e30
+# the head_dims the CUDA attention kernels are built for (attention.cu,
+# attention_f32.cu, train_attention.cu, flash_train.cu), in bf16 and, for
+# this module's and flash_train's kernels, f32
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def attention_reference(
@@ -56,6 +62,22 @@ def attention_reference(
 attention_reference.calls = 0
 
 
+def _check_inputs(q, k, v, kv_valid_len) -> None:
+    """What the CUDA kernels take: head_dim in KERNEL_HEAD_DIMS, bf16 or f32
+    (q, k and v alike), contiguous tensors on q's device."""
+    B, T, H, HD = q.shape
+    S = k.shape[1]
+    if HD not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA flash-attention kernels take head_dim {KERNEL_HEAD_DIMS}, got {HD}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA flash-attention kernels take bf16 or f32, got {q.dtype}")
+    want = {"q": (q, q.dtype, (B, T, H, HD)), "k": (k, q.dtype, (B, S, H, HD)),
+            "v": (v, q.dtype, (B, S, H, HD))}
+    if kv_valid_len is not None:
+        want["kv_valid_len"] = (kv_valid_len, torch.int32, (B,))
+    _check_tensors(q.device, want)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -70,20 +92,19 @@ def fused_attention(
         raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
     B, T, H, HD = q.shape
     S = k.shape[1]
-    if HD != 64:
-        raise ValueError(f"the CUDA flash-attention kernel takes head_dim 64, got {HD}")
-    bf16 = torch.bfloat16
-    want = {"q": (q, bf16, (B, T, H, HD)), "k": (k, bf16, (B, S, H, HD)),
-            "v": (v, bf16, (B, S, H, HD))}
-    if kv_valid_len is not None:
-        want["kv_valid_len"] = (kv_valid_len, torch.int32, (B,))
-    _check_tensors(q.device, want)
+    _check_inputs(q, k, v, kv_valid_len)
     out = torch.empty_like(q)
-    _check(load_library().smer_flash_attention(
-        HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_valid_len.data_ptr() if kv_valid_len is not None else None, int(causal),
-        1.0 / math.sqrt(HD), out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_attention")
+    lens = kv_valid_len.data_ptr() if kv_valid_len is not None else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = load_library()
+    if q.dtype == torch.bfloat16:
+        rc = lib.smer_flash_attention(HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      lens, int(causal), 1.0 / math.sqrt(HD), out.data_ptr(), stream)
+    else:
+        rc = lib.smer_attention_f32_fwd(0, HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        lens, int(causal), 1.0 / math.sqrt(HD), out.data_ptr(), None,
+                                        stream)
+    _check(rc, "flash_attention")
     fused_attention.launches += 1
     return out
 

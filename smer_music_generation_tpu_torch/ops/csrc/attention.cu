@@ -1,5 +1,6 @@
-// Flash-attention forward over (B, T, H, HD) bf16 tensors with a per-batch
-// key length and an optional causal mask, for Hopper (sm_90a).
+// Flash-attention forward over (B, T, H, HD) bf16 tensors, HD 64 or 128,
+// with a per-batch key length and an optional causal mask, for Hopper
+// (sm_90a).  f32 inputs take the kernel of attention_f32.cu.
 //
 // Replaces the TPU kernel `fused_attention` of
 // smer_music_generation_tpu/ops/attention.py:115 (body `_attn_kernel` :55),
@@ -47,8 +48,10 @@
 // score is 0, which does the same.  Causal blocks run in reverse row order
 // so the longest start first.  168 registers a thread and 45 KB of shared
 // memory: three blocks an SM (the launch bounds ask so; at four ptxas
-// spilled).  The epilogue divides by max(l, 1e-30) and writes bf16 through
-// the Q tile in 16-byte stores.
+// spilled).  At head_dim 128 the Q fragments and the accumulator double
+// (32 + 64 registers) and the tiles take 87 KB of dynamic shared memory:
+// two blocks an SM.  The epilogue divides by max(l, 1e-30) and writes bf16
+// through the Q tile in 16-byte stores.
 //
 // The launcher has a plain C interface and returns cudaGetLastError().
 
@@ -65,7 +68,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // o += P V over one 64-key tile, P given as f32 C fragments and applied as
 // bf16 hi + lo halves; each V fragment is loaded once for both.
-__device__ __forceinline__ void pv_tile_split(float o[kNB][4], const float p[kNB][4],
+template <int HD>
+__device__ __forceinline__ void pv_tile_split(float o[kONB<HD>][4], const float p[kNB][4],
                                               const __nv_bfloat16* vs, int lane) {
 #pragma unroll
   for (int kc = 0; kc < kKTile / 16; ++kc) {
@@ -80,9 +84,9 @@ __device__ __forceinline__ void pv_tile_split(float o[kNB][4], const float p[kNB
       al[u] = *reinterpret_cast<const uint32_t*>(&lo);
     }
 #pragma unroll
-    for (int jp = 0; jp < kNB / 2; ++jp) {
+    for (int jp = 0; jp < HD / 16; ++jp) {
       uint32_t b[4];
-      ldsm_x4_trans(b, vs + (16 * kc + (lane & 15)) * kTileLd + 16 * jp + 8 * (lane >> 4));
+      ldsm_x4_trans(b, vs + (16 * kc + (lane & 15)) * kLd<HD> + 16 * jp + 8 * (lane >> 4));
       mma_bf16(o[2 * jp], ah, b[0], b[1]);
       mma_bf16(o[2 * jp + 1], ah, b[2], b[3]);
       mma_bf16(o[2 * jp], al, b[0], b[1]);
@@ -91,13 +95,27 @@ __device__ __forceinline__ void pv_tile_split(float o[kNB][4], const float p[kNB
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(
+// Q (then the output), the K ring and the V ring, 2 stages each: dynamic
+// shared memory at head_dim 128 (87 KB), static at 64
+template <int HD>
+constexpr size_t kFwdSmem = HD == 64 ? 0 : 5 * kTileElems<HD> * sizeof(__nv_bfloat16);
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lens,
     __nv_bfloat16* __restrict__ out, int T, int S, int H, int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTileElems];  // Q, then the output
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kTileElems];
+  constexpr int kHD = HD, kTE = kTileElems<HD>;
+  __nv_bfloat16* qs;  // Q, then the output; then the K ring and the V ring, [2][kTE] each
+  if constexpr (HD == 64) {  // 45 KB: static, as before head_dim 128
+    __shared__ __align__(16) __nv_bfloat16 tiles[5 * kTE];
+    qs = tiles;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem[];
+    qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  }
+  __nv_bfloat16* ks = qs + kTE;
+  __nv_bfloat16* vs = ks + 2 * kTE;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -117,31 +135,31 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(
   const int row0 = t0 + 16 * warp + g, row1 = row0 + 8;
   const float sl2 = scale * kLog2e;
 
-  load_tile(qs, qb, ld, t0, T);
-  load_tile(ks[0], kb, ld, 0, S);
-  load_tile(vs[0], vb, ld, 0, S);
+  load_tile<HD>(qs, qb, ld, t0, T);
+  load_tile<HD>(ks, kb, ld, 0, S);
+  load_tile<HD>(vs, vb, ld, 0, S);
   cp_async_commit();
 
-  uint32_t qa[kKC][4];
-  float o[kNB][4];
+  RegA<HD> qa;
+  float o[kONB<HD>][4];
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < kONB<HD>; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   // running max in the log2 domain (m = max s * sl2) and sum, rows g, g + 8
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kKTile;
     if (it + 1 < n_tiles) {
-      load_tile(ks[(it + 1) & 1], kb, ld, k0 + kKTile, S);
-      load_tile(vs[(it + 1) & 1], vb, ld, k0 + kKTile, S);
+      load_tile<HD>(ks + ((it + 1) & 1) * kTE, kb, ld, k0 + kKTile, S);
+      load_tile<HD>(vs + ((it + 1) & 1) * kTE, vb, ld, k0 + kKTile, S);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) has landed
     __syncthreads();
-    if (it == 0) load_a_frags(qa, qs, warp, lane);
+    if (it == 0) qa.load(qs, warp, lane);
 
     float s[kNB][4];
-    qk_blocks<kNB>(s, qa, ks[it & 1], 0, lane);
+    qk_blocks<HD, kNB>(s, qa, ks + (it & 1) * kTE, 0, lane);
     // masking only on a tile some key of which is out of range for some row
     // of this warp: one branch a tile, selects per element.  A masked key
     // takes -inf, so its weight is exactly 0 whatever m is (the TPU kernel's
@@ -177,18 +195,38 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(
         o[j][2 * r] *= alpha;
         o[j][2 * r + 1] *= alpha;
       }
+#pragma unroll
+      for (int j = kNB; j < kONB<HD>; ++j) {  // head_dim 128: the accumulator's other half
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
       l[r] = l[r] * alpha + sum;
     }
-    pv_tile_split(o, s, vs[it & 1], lane);
+    pv_tile_split<HD>(o, s, vs + (it & 1) * kTE, lane);
     __syncthreads();  // this stage is read; the next iteration refills it
   }
   cp_async_wait<0>();
 
   const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
   const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
-  stage_out(qs, o, inv0, inv1, warp, lane);
+  stage_out<HD>(qs, o, inv0, inv1, warp, lane);
   __syncthreads();
-  store_out(out + (size_t)b * T * ld + h * kHD, qs, ld, t0, T);
+  store_out<HD>(out + (size_t)b * T * ld + h * kHD, qs, ld, t0, T);
+}
+
+template <int HD>
+int launch_flash_fwd(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
+                     const void* lens, void* out, int T, int S, int H, int causal, float scale) {
+  if (kFwdSmem<HD> > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem<HD>);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_fwd_kernel<HD><<<grid, kThreads, kFwdSmem<HD>, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
+      static_cast<__nv_bfloat16*>(out), T, S, H, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -196,7 +234,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(
 extern "C" {
 
 // q (B, T, H, HD), k and v (B, S, H, HD), out (B, T, H, HD), all bf16,
-// contiguous and 16-byte aligned; lens (B,) int32 or null (every key valid).
+// contiguous and 16-byte aligned, HD = head_dim 64 or 128; lens (B,) int32
+// or null (every key valid).
 int smer_flash_attention(int head_dim, int B, int T, int S, int H,
                          const void* q, const void* k, const void* v,
                          const void* lens, int causal, float scale, void* out,
@@ -208,16 +247,13 @@ int smer_flash_attention(int head_dim, int B, int T, int S, int H,
     return (int)cudaErrorMisalignedAddress;
   const dim3 grid((T + kQTile - 1) / kQTile, B * H);
   switch (head_dim) {
-    case kHD:
-      flash_fwd_kernel<<<grid, kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
-          static_cast<__nv_bfloat16*>(out), T, S, H, causal, scale);
-      break;
+    case 64:
+      return launch_flash_fwd<64>(grid, st, q, k, v, lens, out, T, S, H, causal, scale);
+    case 128:
+      return launch_flash_fwd<128>(grid, st, q, k, v, lens, out, T, S, H, causal, scale);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

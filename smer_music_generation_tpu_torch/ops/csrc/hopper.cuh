@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels of this
-// directory (flash_train.cu's backward pair): mbarriers, TMA loads, wgmma
-// with B from 128-byte-swizzled shared memory and A from registers, and the
-// host's tensor maps.
+// directory (flash_train.cu's forward and backward pair): mbarriers, TMA
+// loads, wgmma with B from 128-byte-swizzled shared memory and A from
+// registers or shared memory, and the host's tensor maps.
 //
 // Shared tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes:
 // a 64-row box of 64 bf16 (128-byte rows), each row's eight 16-byte chunks
@@ -12,7 +12,12 @@
 //     as in X Y^T; a k16 step advances the start address by 32 bytes;
 //   - MN-major (the rows are the reduction): B = Y, as in P Y; a k16 step
 //     advances it by 16 rows, 2048 bytes.
-// In both the 8-row groups lie 1024 bytes apart (the stride byte offset).
+// In both the 8-row groups lie 1024 bytes apart (the stride byte offset), so
+// two boxes of 64 rows written one after the other are one 128-row K-major
+// operand (m64n128's B).  At head_dim 128 a row is two boxes wide: a tile
+// keeps its 64-column halves apart, each a run of 64-row boxes, and a
+// product over head_dim takes its k16 steps 0-3 from the first half and 4-7
+// from the second; an MN-major B over 128 columns is two 64-column products.
 // The accumulator of a 64 x N wgmma has the layout of mma.sync's C per warp
 // (warp w of the warpgroup: rows 16 w + g and 16 w + g + 8, lane = 4 g + t,
 // columns 8 j + 2 t and + 1 of n-block j at registers 4 j .. 4 j + 3), and
@@ -103,6 +108,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // ---------------------------------------------------------------------------
+// named barriers (id 0 is __syncthreads'): `n` threads in all, those that
+// wait (sync) and those that only signal (arrive)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // register budget of warp-specialised blocks: 3 warpgroups launched at 168
 // registers a thread; the producer gives back to 24, the two consumers take
 // 240 (128 x 144 = 256 x 72 registers move)
@@ -130,9 +146,21 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses of an accumulator across the
 // asynchronous wgmma that reads and writes it
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for register A fragments a wgmma still reads after it issues:
+// placed after its wait, it keeps their registers from being handed to
+// other values while the product runs
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // the descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned, or
@@ -182,6 +210,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (+)= A B for a 64 x 128 x 16 step with both operands K-major tiles in
+// shared memory, by descriptor (B: 128 rows, 16 groups of 8 at 1024 bytes)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps through the CUDA driver entry point (no -lcuda at link time)
 // ---------------------------------------------------------------------------
@@ -207,15 +261,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (rows, H * 64) bf16 view with a row stride of H * 64 elements (a (B, L,
-// H, 64) tensor, rows = B L), boxes of 64 rows x 64 columns (one head),
-// swizzled by 128 bytes.  Returns 0, or the CUDA driver's nonzero CUresult when
-// it refuses the map (CUDA_ERROR_NOT_FOUND without the entry point).
-inline int head_map(CUtensorMap* map, const void* base, long long rows, int H) {
+// A (rows, H * HD) bf16 view with a row stride of H * HD elements (a (B, L,
+// H, HD) tensor, rows = B L), boxes of 64 rows x 64 columns (one head at
+// HD 64, one half of one at 128), swizzled by 128 bytes.  Returns 0, or the
+// CUDA driver's nonzero CUresult when it refuses the map
+// (CUDA_ERROR_NOT_FOUND without the entry point).
+inline int head_map(CUtensorMap* map, const void* base, long long rows, int H, int HD) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)H * 64, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)H * 64 * sizeof(__nv_bfloat16)};
+  const cuuint64_t dims[2] = {(cuuint64_t)H * HD, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)H * HD * sizeof(__nv_bfloat16)};
   const cuuint32_t box[2] = {64, 64};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,

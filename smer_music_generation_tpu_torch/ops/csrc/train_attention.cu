@@ -1,13 +1,13 @@
 // Training attention with weight dropout (scores -> softmax -> dropout -> V)
-// and its recomputing backward, over (B, T|S, H, 64) bf16 tensors, for Hopper
-// (sm_90a).
+// and its recomputing backward, over (B, T|S, H, HD) bf16 tensors, HD = 64 or
+// 128 (every kernel a template of it), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `fused_dropout_attention` of
 // smer_music_generation_tpu/ops/train_attention.py:316: its forward
 // `_fwd_kernel` (:111, pallas_call :263) becomes train_fwd_kernel, and its
 // backward `_bwd_kernel` (:163, pallas_call :288) becomes the pair
 // train_bwd_rows_kernel + train_bwd_keys_kernel.  The same function:
-//   s  = bf16(q . k, f32 sums) * 1/sqrt(64), -1e30 where the key is invalid
+//   s  = bf16(q . k, f32 sums) * 1/sqrt(HD), -1e30 where the key is invalid
 //        (or past the query row when causal);
 //   e  = exp(s - max s) on valid keys, 0 elsewhere; w = e / max(sum e, 1e-30)
 //        (exact, not online: w is normalised before it is rounded);
@@ -40,9 +40,11 @@
 //     hash, bf16(w16 / c), packed straight into the bf16 A fragments of the
 //     PV mma (wd is bf16 by definition, so one bf16 product is exact to the
 //     function).
-// The scale 1/8 is a power of two, so the scores stay bf16(q . k) and the
-// scale folds exactly into the exponent: e = 2^(s log2(e) / 8 - m log2(e) /
-// 8), one FFMA and one MUFU.EX2.  A key that is invalid, or past the row
+// The scores stay bf16(q . k) and the scale folds into the exponent: e =
+// 2^(s sl2 - m sl2) with sl2 = scale log2(e), one FFMA and one MUFU.EX2
+// (exact to the twin's bf16(q . k) * scale at head_dim 64, where the scale
+// 1/8 is a power of two; at 128 the two differ by the rounding of the
+// product, far inside the tolerance).  A key that is invalid, or past the row
 // when causal, takes -inf: its e is exactly 0 (zeroed, not left to
 // underflow) and it never raises m, so a row with no valid key keeps m =
 // -1e30 and gives output 0.  Shared memory holds only the Q tile and the K/V
@@ -62,6 +64,11 @@
 // a call, beside 0.61-0.72 ms for the first version (32 rows a block, their
 // f32 scores in shared memory, f32 FMA pipes) and 0.09-0.12 ms for torch's
 // scaled_dot_product_attention with its own dropout.
+// At head_dim 128 the tiles double (87 KB of shared memory for the forward,
+// 104 KB for each backward kernel: two blocks an SM), and the backward pair,
+// which holds two 16 x 128 f32 accumulators (rows: dq; keys: dk and dv),
+// reads its held A operands (Q and g; K and V) from the shared tile at each
+// product (SmemA) rather than keeping them in registers.
 //
 // Backward (FlashAttention-2's deterministic two-kernel backward on the same
 // tiles).  It needs each row's m, l and delta = sum_s w dw before any ds,
@@ -75,13 +82,13 @@
 //     rounding of the summation order; tests/test_torch_attention_tiles.py
 //     pins it), and keeps each thread's keep bits of the tile (one word) in
 //     shared memory; pass 2 recomputes s and g V^T, w exactly, reads the
-//     keep bits back, and packs ds = bf16(w (dw - delta) / 8) straight into
+//     keep bits back, and packs ds = bf16(w (dw - delta) scale) straight into
 //     A fragments for dq += ds K (K's B fragments by ldmatrix.trans); writes
 //     dq once and m, l, delta to a (3, B*H, T) f32 buffer;
 //   train_bwd_keys_kernel, a block per (64 keys, b * H + h), K and V held as
 //     A fragments, 64-row tiles of Q and g (and their m, l, delta, turned
-//     once a tile into m log2(e) / 8, max(l, 1e-30), its inverse and delta /
-//     8) through the ring: S^T = K Q^T and (g V^T)^T = V g^T by mma.sync, w,
+//     once a tile into m scale log2(e), max(l, 1e-30), its inverse and delta
+//     scale) through the ring: S^T = K Q^T and (g V^T)^T = V g^T by mma.sync, w,
 //     the keep hash, wd and ds (in the transposed tile a query row is a
 //     column), then dv += wd^T g and dk += ds^T Q with g's and Q's B
 //     fragments by ldmatrix.trans; writes dk and dv once.  An invalid key
@@ -123,6 +130,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attn_tiles.cuh"
 
 namespace {
@@ -133,6 +142,12 @@ constexpr float kMasked = -1e30f;
 constexpr int kMaxKeys = 1024;  // JAX's MAX_KLEN: the gate of the TPU kernel, kept
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kQTile == kKTile, "the keys kernel skips causal query tiles by key-tile index");
+
+// the A operands the backward kernels hold: in registers at head_dim 64, read
+// from the shared tile at head_dim 128 (two 128-column accumulators beside
+// them leave no room)
+template <int HD>
+using HeldA = std::conditional_t<HD == 64, RegA<HD>, SmemA<HD>>;
 
 struct Drop {
   uint32_t s0, s1, thr;
@@ -215,7 +230,7 @@ __device__ __forceinline__ int last_valid_key(const uint32_t* vbits, int words, 
 
 // s[jj] = bf16(q . k) of this warp's 16 query rows (row0 = its row of lane
 // group g, row0 + 8) against keys k0 + 8 (j0 + jj) .. + 7 of the shared
-// 64-key tile, jj < NJ, in units of bf16(q . k) (the 1/8 lives in the
+// 64-key tile, jj < NJ, in units of bf16(q . k) (the scale lives in the
 // exponent): the one score sequence of train_fwd_kernel and
 // train_bwd_rows_kernel, so both give the same bits, whole tile or a few
 // n-blocks at a time.  A key that is invalid, or past the row when causal,
@@ -223,12 +238,11 @@ __device__ __forceinline__ int last_valid_key(const uint32_t* vbits, int words, 
 // invalid; some key past the diagonal of some row of this warp): one branch
 // a tile, then a key's validity is one bit test of the lane's pre-shifted
 // word for both rows.
-template <int NJ>
-__device__ __forceinline__ void row_scores(float s[][4], const uint32_t qa[kKC][4],
-                                           const __nv_bfloat16* kt, const uint32_t* vbits,
-                                           int words, int k0, int j0, int causal, int row0,
-                                           int lane) {
-  qk_blocks<NJ>(s, qa, kt, j0, lane);
+template <int HD, int NJ, class A>
+__device__ __forceinline__ void row_scores(float s[][4], const A& qa, const __nv_bfloat16* kt,
+                                           const uint32_t* vbits, int words, int k0, int j0,
+                                           int causal, int row0, int lane) {
+  qk_blocks<HD, NJ>(s, qa, kt, j0, lane);
 #pragma unroll
   for (int jj = 0; jj < NJ; ++jj) {
     round_bf16x2(s[jj][0], s[jj][1]);
@@ -278,17 +292,32 @@ __device__ __forceinline__ float row_max(const float s[kNB][4], int r, float& m,
 // ---------------------------------------------------------------------------
 // forward: a block per (64 query rows, b * H + h), on the tensor cores
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 3)
+// Q (then the output), the K ring and the V ring, the keys' validity bits:
+// dynamic shared memory at head_dim 128 (87 KB), static at 64
+template <int HD>
+constexpr size_t kFwdSmem =
+    HD == 64 ? 0 : 5 * kTileElems<HD> * sizeof(__nv_bfloat16) + kMaxKeys / 8;
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
     train_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid,
                      const int* __restrict__ seeds, uint32_t thr, int drop_on, float c,
                      int causal, __nv_bfloat16* __restrict__ out, int T, int S, int H,
                      float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTileElems];  // Q, then the output
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kTileElems];
-  __shared__ uint32_t vbits[kMaxKeys / 32];
+  constexpr int kHD = HD, kTE = kTileElems<HD>;
+  __nv_bfloat16* qs;  // Q, then the output; then the K ring and the V ring, [2][kTE] each
+  if constexpr (HD == 64) {  // 45 KB: static, as before head_dim 128
+    __shared__ __align__(16) __nv_bfloat16 tiles[5 * kTE + kMaxKeys / 16];
+    qs = tiles;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem[];
+    qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  }
+  __nv_bfloat16* ks = qs + kTE;
+  __nv_bfloat16* vs = ks + 2 * kTE;
+  uint32_t* vbits = reinterpret_cast<uint32_t*>(vs + 2 * kTE);  // [kMaxKeys / 32]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -299,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const __nv_bfloat16* vb = v + (size_t)b * S * stride + h * kHD;
   const Drop dr = make_drop(seeds, thr, drop_on, c);
 
-  load_tile(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
+  load_tile<HD>(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
   key_bits(vbits, valid + (size_t)b * S, S, warp, lane);
   __syncthreads();
   // the last valid key bounds the walk (and, when causal, the diagonal of
@@ -309,20 +338,20 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int n_keys = causal ? min(last + 1, t0 + kQTile) : last + 1;
   const int n_tiles = (n_keys + kKTile - 1) / kKTile;  // 0 when no key is valid
   const int steps = 2 * n_tiles;                      // pass 1, then pass 2
-  if (steps > 0) load_tile(ks[0], kb, stride, 0, S);
+  if (steps > 0) load_tile<HD>(ks, kb, stride, 0, S);
   cp_async_commit();
 
   const int row0 = t0 + 16 * warp + g, row1 = row0 + 8;
   const uint32_t row_term[2] = {dr.s0 + (uint32_t)row0 * kRowMul,
                                 dr.s0 + (uint32_t)row1 * kRowMul};
   const uint32_t bh_term = (uint32_t)bh * kBhMul;
-  uint32_t qa[kKC][4];
-  float o[kNB][4];
+  RegA<HD> qa;
+  float o[kONB<HD>][4];
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  // Scores stay in units of bf16(q . k): the scale 1/8 is a power of two,
-  // so it folds exactly into the exponent's factor sl2 = log2(e) / 8, and
-  // e = 2^(s sl2 - m sl2) is one FFMA and one MUFU.EX2.  m and l are the
+  for (int j = 0; j < kONB<HD>; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // Scores stay in units of bf16(q . k): the scale folds into the
+  // exponent's factor sl2 = scale log2(e), and e = 2^(s sl2 - m sl2) is one
+  // FFMA and one MUFU.EX2.  m and l are the
   // rows' running max (of bf16(q . k)) and sum; mb = m sl2.
   const float sl2 = scale * kLog2e;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, mb[2] = {0.f, 0.f};
@@ -334,16 +363,16 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int k0 = (pass2 ? i - n_tiles : i) * kKTile;
     if (i + 1 < steps) {
       const int nk0 = (i + 1 < n_tiles ? i + 1 : i + 1 - n_tiles) * kKTile;
-      load_tile(ks[(i + 1) & 1], kb, stride, nk0, S);
-      if (i + 1 >= n_tiles) load_tile(vs[(i + 1) & 1], vb, stride, nk0, S);
+      load_tile<HD>(ks + ((i + 1) & 1) * kTE, kb, stride, nk0, S);
+      if (i + 1 >= n_tiles) load_tile<HD>(vs + ((i + 1) & 1) * kTE, vb, stride, nk0, S);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this step's tiles (and Q) have landed
     __syncthreads();
-    if (i == 0) load_a_frags(qa, qs, warp, lane);
+    if (i == 0) qa.load(qs, warp, lane);
 
     float s[kNB][4];
-    row_scores<kNB>(s, qa, ks[i & 1], vbits, words, k0, 0, causal, row0, lane);
+    row_scores<HD, kNB>(s, qa, ks + (i & 1) * kTE, vbits, words, k0, 0, causal, row0, lane);
     if (!pass2) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -386,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 3)
       for (int kc = 0; kc < kKTile / 16; ++kc) {
         const uint32_t a[4] = {wd[2 * kc][0], wd[2 * kc][1], wd[2 * kc + 1][0],
                                wd[2 * kc + 1][1]};
-        pv_chunk(o, a, vs[i & 1], kc, lane);
+        pv_chunk<HD>(o, a, vs + (i & 1) * kTE, kc, lane);
       }
     }
     __syncthreads();  // this stage is read; the next step refills it
@@ -394,9 +423,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   cp_async_wait<0>();
   __syncthreads();  // every thread's copies into the Q tile have landed
 
-  stage_out(qs, o, 1.f, 1.f, warp, lane);
+  stage_out<HD>(qs, o, 1.f, 1.f, warp, lane);
   __syncthreads();
-  store_out(out + (size_t)b * T * stride + h * kHD, qs, stride, t0, T);
+  store_out<HD>(out + (size_t)b * T * stride + h * kHD, qs, stride, t0, T);
 }
 
 // ---------------------------------------------------------------------------
@@ -405,10 +434,12 @@ __global__ void __launch_bounds__(kThreads, 3)
 // K/V ring, Q, g, the keys' validity bits, and the keep bits of pass 1: one
 // word a thread a key tile (bit 16 r + 2 j + x: row half r, n-block j, key x
 // of the pair), read back by the same thread in pass 2
-constexpr size_t kRowsSmem = 6 * kTileElems * sizeof(__nv_bfloat16) + kMaxKeys / 8 +
+template <int HD>
+constexpr size_t kRowsSmem = 6 * kTileElems<HD> * sizeof(__nv_bfloat16) + kMaxKeys / 8 +
                              (kMaxKeys / kKTile) * kThreads * sizeof(uint32_t);
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
     train_bwd_rows_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -416,12 +447,13 @@ __global__ void __launch_bounds__(kThreads, 3)
                           const __nv_bfloat16* __restrict__ g, uint32_t thr, int drop_on,
                           float c, int causal, float* __restrict__ stats,
                           __nv_bfloat16* __restrict__ dq, int T, int S, int H, float scale) {
+  constexpr int kHD = HD, kTE = kTileElems<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // Q, then dq
-  __nv_bfloat16* gs = qs + kTileElems;                          // g
-  __nv_bfloat16* ks = gs + kTileElems;                          // K ring, 2 stages
-  __nv_bfloat16* vs = ks + 2 * kTileElems;                      // V ring, 2 stages
-  uint32_t* vbits = reinterpret_cast<uint32_t*>(vs + 2 * kTileElems);
+  __nv_bfloat16* gs = qs + kTE;                                 // g
+  __nv_bfloat16* ks = gs + kTE;                                 // K ring, 2 stages
+  __nv_bfloat16* vs = ks + 2 * kTE;                             // V ring, 2 stages
+  uint32_t* vbits = reinterpret_cast<uint32_t*>(vs + 2 * kTE);
   uint32_t* kbits = vbits + kMaxKeys / 32;  // [kMaxKeys / kKTile][kThreads]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -433,8 +465,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const __nv_bfloat16* vb = v + (size_t)b * S * stride + h * kHD;
   const Drop dr = make_drop(seeds, thr, drop_on, c);
 
-  load_tile(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
-  load_tile(gs, g + (size_t)b * T * stride + h * kHD, stride, t0, T);
+  load_tile<HD>(qs, q + (size_t)b * T * stride + h * kHD, stride, t0, T);
+  load_tile<HD>(gs, g + (size_t)b * T * stride + h * kHD, stride, t0, T);
   key_bits(vbits, valid + (size_t)b * S, S, warp, lane);
   __syncthreads();
   const int words = (S + 31) / 32;
@@ -443,8 +475,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int n_tiles = (n_keys + kKTile - 1) / kKTile;
   const int steps = 2 * n_tiles;
   if (steps > 0) {
-    load_tile(ks, kb, stride, 0, S);
-    load_tile(vs, vb, stride, 0, S);
+    load_tile<HD>(ks, kb, stride, 0, S);
+    load_tile<HD>(vs, vb, stride, 0, S);
   }
   cp_async_commit();
 
@@ -452,10 +484,10 @@ __global__ void __launch_bounds__(kThreads, 3)
   const uint32_t row_term[2] = {dr.s0 + (uint32_t)row0 * kRowMul,
                                 dr.s0 + (uint32_t)row1 * kRowMul};
   const uint32_t bh_term = (uint32_t)bh * kBhMul;
-  uint32_t qa[kKC][4], ga[kKC][4];
-  float dqa[kNB][4];
+  HeldA<HD> qa, ga;
+  float dqa[kONB<HD>][4];
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+  for (int j = 0; j < kONB<HD>; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
   const float sl2 = scale * kLog2e;
   // m, l, mb as in the forward; u the running sum of e dw, rescaled with l
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f}, mb[2] = {0.f, 0.f};
@@ -467,23 +499,23 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int k0 = (pass2 ? i - n_tiles : i) * kKTile;
     if (i + 1 < steps) {
       const int nk0 = (i + 1 < n_tiles ? i + 1 : i + 1 - n_tiles) * kKTile;
-      load_tile(ks + ((i + 1) & 1) * kTileElems, kb, stride, nk0, S);
-      load_tile(vs + ((i + 1) & 1) * kTileElems, vb, stride, nk0, S);
+      load_tile<HD>(ks + ((i + 1) & 1) * kTE, kb, stride, nk0, S);
+      load_tile<HD>(vs + ((i + 1) & 1) * kTE, vb, stride, nk0, S);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this step's tiles (and Q, g) have landed
     __syncthreads();
     if (i == 0) {
-      load_a_frags(qa, qs, warp, lane);
-      load_a_frags(ga, gs, warp, lane);
+      qa.load(qs, warp, lane);
+      ga.load(gs, warp, lane);
     }
-    const __nv_bfloat16* kt = ks + (i & 1) * kTileElems;
-    const __nv_bfloat16* vt = vs + (i & 1) * kTileElems;
+    const __nv_bfloat16* kt = ks + (i & 1) * kTE;
+    const __nv_bfloat16* vt = vs + (i & 1) * kTE;
     // g . v and (pass 2) the scores, two n-blocks (one k16 chunk of keys)
     // at a time, so few of them are live at once
     if (!pass2) {
       float s[kNB][4];  // bf16(q . k), masked: the whole tile, for the row max
-      row_scores<kNB>(s, qa, kt, vbits, words, k0, 0, causal, row0, lane);
+      row_scores<HD, kNB>(s, qa, kt, vbits, words, k0, 0, causal, row0, lane);
       float alpha[2], sum[2] = {0.f, 0.f}, us[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) alpha[r] = row_max(s, r, m[r], mb[r], sl2);
@@ -491,7 +523,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
       for (int kc = 0; kc < kKTile / 16; ++kc) {
         float dp[2][4];
-        qk_blocks<2>(dp, ga, vt, 2 * kc, lane);
+        qk_blocks<HD, 2>(dp, ga, vt, 2 * kc, lane);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int j = 2 * kc + jj;
@@ -525,16 +557,17 @@ __global__ void __launch_bounds__(kThreads, 3)
         }
       }
     } else {
-      // ds = bf16(w (dw - delta) / 8) as the bf16 pairs of the A fragments of
-      // dq += ds K, one k16 chunk of keys at a time; the scale is a power of
-      // two, so w (dw / 8 - delta / 8) is the same f32 value, one FFMA less
+      // ds = bf16(w (dw - delta) scale) as the bf16 pairs of the A fragments
+      // of dq += ds K, one k16 chunk of keys at a time, taken as w (dw scale -
+      // delta scale), one FFMA less (the same f32 value at head_dim 64, where
+      // the scale is a power of two)
       const float d8[2] = {delta[0] * scale, delta[1] * scale};
       const uint32_t kw = dr.on ? kbits[(k0 / kKTile) * kThreads + threadIdx.x] : 0u;
 #pragma unroll
       for (int kc = 0; kc < kKTile / 16; ++kc) {
         float s[2][4], dp[2][4];
-        row_scores<2>(s, qa, kt, vbits, words, k0, 2 * kc, causal, row0, lane);
-        qk_blocks<2>(dp, ga, vt, 2 * kc, lane);
+        row_scores<HD, 2>(s, qa, kt, vbits, words, k0, 2 * kc, causal, row0, lane);
+        qk_blocks<HD, 2>(dp, ga, vt, 2 * kc, lane);
         uint32_t a[4];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -550,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 3)
             a[2 * jj + r] = pack_bf16(wa * fmaf(dwa, scale, -d8[r]), wb * fmaf(dwb, scale, -d8[r]));
           }
         }
-        pv_chunk(dqa, a, kt, kc, lane);
+        pv_chunk<HD>(dqa, a, kt, kc, lane);
       }
     }
     __syncthreads();  // this stage is read; the next step refills it
@@ -558,9 +591,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   cp_async_wait<0>();
   __syncthreads();
 
-  stage_out(qs, dqa, 1.f, 1.f, warp, lane);
+  stage_out<HD>(qs, dqa, 1.f, 1.f, warp, lane);
   __syncthreads();
-  store_out(dq + (size_t)b * T * stride + h * kHD, qs, stride, t0, T);
+  store_out<HD>(dq + (size_t)b * T * stride + h * kHD, qs, stride, t0, T);
   if (t == 0) {
     const size_t BHT = (size_t)gridDim.y * T;
 #pragma unroll
@@ -578,19 +611,21 @@ __global__ void __launch_bounds__(kThreads, 3)
 // ---------------------------------------------------------------------------
 // backward, keys: a block per (64 keys, b * H + h): dk and dv
 // ---------------------------------------------------------------------------
-constexpr size_t kKeysSmem = 6 * kTileElems * sizeof(__nv_bfloat16) +
+template <int HD>
+constexpr size_t kKeysSmem = 6 * kTileElems<HD> * sizeof(__nv_bfloat16) +
                              2 * (3 * kQTile * sizeof(float) + kQTile * sizeof(float4));
 
 // Rows r0 .. r0 + 63 of Q and g, and their m, l and delta ([3][kQTile] f32),
 // into one stage of the keys kernel's ring; rows at or past T zero-filled.
 // Thread i < 64 copies row i's three stats itself, so once its own copies
 // have landed it can convert them without a block barrier.
+template <int HD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* qt, __nv_bfloat16* gt, float* raw,
                                           const __nv_bfloat16* qb, const __nv_bfloat16* gb,
                                           size_t stride, const float* stats_bh, size_t BHT,
                                           int r0, int T) {
-  load_tile(qt, qb, stride, r0, T);
-  load_tile(gt, gb, stride, r0, T);
+  load_tile<HD>(qt, qb, stride, r0, T);
+  load_tile<HD>(gt, gb, stride, r0, T);
   if (threadIdx.x < kQTile) {
     const int r = r0 + threadIdx.x;
 #pragma unroll
@@ -601,7 +636,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* qt, __nv_bfloat16* gt, 
 }
 
 // A stage's row stats as the keys kernel uses them, one float4 a row: m sl2,
-// den = max(l, 1e-30), 1 / den, delta / 8 (the rows kernel's own values, so
+// den = max(l, 1e-30), 1 / den, delta scale (the rows kernel's own values, so
 // w is the same f32 in both kernels).  Threads 0 .. 63 convert the rows they
 // copied, after their own cp.async wait; the caller's next block barrier
 // publishes the result.
@@ -614,7 +649,8 @@ __device__ __forceinline__ void convert_rows(float4* st, const float* raw, float
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
     train_bwd_keys_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -623,12 +659,13 @@ __global__ void __launch_bounds__(kThreads, 3)
                           float c, int causal, const float* __restrict__ stats,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                           int T, int S, int H, float scale) {
+  constexpr int kHD = HD, kTE = kTileElems<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // K, then dk
-  __nv_bfloat16* vs = ks + kTileElems;                          // V, then dv
-  __nv_bfloat16* qs = vs + kTileElems;                          // Q ring, 2 stages
-  __nv_bfloat16* gs = qs + 2 * kTileElems;                      // g ring, 2 stages
-  float4* sts = reinterpret_cast<float4*>(gs + 2 * kTileElems);  // [2][kQTile] converted
+  __nv_bfloat16* vs = ks + kTE;                                 // V, then dv
+  __nv_bfloat16* qs = vs + kTE;                                 // Q ring, 2 stages
+  __nv_bfloat16* gs = qs + 2 * kTE;                             // g ring, 2 stages
+  float4* sts = reinterpret_cast<float4*>(gs + 2 * kTE);        // [2][kQTile] converted
   float* raw = reinterpret_cast<float*>(sts + 2 * kQTile);        // [2][3][kQTile] m, l, delta
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -656,9 +693,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int n_q = __syncthreads_or(ok[0] || ok[1]) ? (T + kQTile - 1) / kQTile : 0;
   const int first = causal ? blockIdx.x : 0;
 
-  load_tile(ks, k + (size_t)b * S * stride + h * kHD, stride, c0, S);
-  load_tile(vs, v + (size_t)b * S * stride + h * kHD, stride, c0, S);
-  if (first < n_q) load_rows(qs, gs, raw, qb, gb, stride, stats_bh, BHT, first * kQTile, T);
+  load_tile<HD>(ks, k + (size_t)b * S * stride + h * kHD, stride, c0, S);
+  load_tile<HD>(vs, v + (size_t)b * S * stride + h * kHD, stride, c0, S);
+  if (first < n_q) load_rows<HD>(qs, gs, raw, qb, gb, stride, stats_bh, BHT, first * kQTile, T);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -666,12 +703,12 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   const uint32_t col_term[2] = {(uint32_t)key0 * kColMul, (uint32_t)key1 * kColMul};
   const uint32_t bh_term = (uint32_t)bh * kBhMul;
-  uint32_t ka[kKC][4], va[kKC][4];
-  load_a_frags(ka, ks, warp, lane);
-  load_a_frags(va, vs, warp, lane);
-  float dka[kNB][4], dva[kNB][4];
+  HeldA<HD> ka, va;
+  ka.load(ks, warp, lane);
+  va.load(vs, warp, lane);
+  float dka[kONB<HD>][4], dva[kONB<HD>][4];
 #pragma unroll
-  for (int j = 0; j < kNB; ++j)
+  for (int j = 0; j < kONB<HD>; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
   const float rc = 1.f / dr.c;
@@ -679,13 +716,13 @@ __global__ void __launch_bounds__(kThreads, 3)
   for (int i = first; i < n_q; ++i) {
     const int stg = (i - first) & 1, tq0 = i * kQTile;
     if (i + 1 < n_q)
-      load_rows(qs + (stg ^ 1) * kTileElems, gs + (stg ^ 1) * kTileElems,
-                raw + (stg ^ 1) * 3 * kQTile, qb, gb, stride, stats_bh, BHT, tq0 + kQTile, T);
+      load_rows<HD>(qs + (stg ^ 1) * kTE, gs + (stg ^ 1) * kTE, raw + (stg ^ 1) * 3 * kQTile, qb,
+                    gb, stride, stats_bh, BHT, tq0 + kQTile, T);
     cp_async_commit();
     cp_async_wait<1>();  // this step's tiles have landed
     __syncthreads();     // ... for every thread, and so have their converted stats
-    const __nv_bfloat16* qt = qs + stg * kTileElems;
-    const __nv_bfloat16* gt = gs + stg * kTileElems;
+    const __nv_bfloat16* qt = qs + stg * kTE;
+    const __nv_bfloat16* gt = gs + stg * kTE;
     const float4* st = sts + stg * kQTile;
     // rows past T (the last tile) and, when causal, keys past the row (the
     // tile on the block's diagonal) take -inf
@@ -695,8 +732,8 @@ __global__ void __launch_bounds__(kThreads, 3)
       // the transposed scores and g . v of rows 16 kc .. 16 kc + 15 of the
       // tile: row = this warp's key, column = a query row
       float sT[2][4], dT[2][4];
-      qk_blocks<2>(sT, ka, qt, 2 * kc, lane);
-      qk_blocks<2>(dT, va, gt, 2 * kc, lane);
+      qk_blocks<HD, 2>(sT, ka, qt, 2 * kc, lane);
+      qk_blocks<HD, 2>(dT, va, gt, 2 * kc, lane);
       uint32_t aw[4], ad[4];  // A fragments of wd^T and ds^T for this chunk of rows
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -728,13 +765,13 @@ __global__ void __launch_bounds__(kThreads, 3)
             dw[x] = dropped_dw(dT[jj][2 * r + x], keep, dr, rc);
           }
           aw[2 * jj + r] = pack_bf16(wd[0], wd[1]);
-          // ds = bf16(w (dw - delta) / 8), the scale folded as in the rows kernel
+          // ds = bf16(w (dw - delta) scale), the scale folded as in the rows kernel
           ad[2 * jj + r] = pack_bf16(w[0] * fmaf(dw[0], scale, -rs[0].w),
                                      w[1] * fmaf(dw[1], scale, -rs[1].w));
         }
       }
-      pv_chunk(dva, aw, gt, kc, lane);
-      pv_chunk(dka, ad, qt, kc, lane);
+      pv_chunk<HD>(dva, aw, gt, kc, lane);
+      pv_chunk<HD>(dka, ad, qt, kc, lane);
     }
     if (i + 1 < n_q) {  // the next stage's stats, converted while this one is done
       cp_async_wait<0>();
@@ -746,17 +783,17 @@ __global__ void __launch_bounds__(kThreads, 3)
   __syncthreads();
 
 #pragma unroll
-  for (int j = 0; j < kNB; ++j)
+  for (int j = 0; j < kONB<HD>; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dka[j][e] = ok[e >> 1] ? dka[j][e] : 0.f;
       dva[j][e] = ok[e >> 1] ? dva[j][e] : 0.f;
     }
-  stage_out(ks, dka, 1.f, 1.f, warp, lane);
-  stage_out(vs, dva, 1.f, 1.f, warp, lane);
+  stage_out<HD>(ks, dka, 1.f, 1.f, warp, lane);
+  stage_out<HD>(vs, dva, 1.f, 1.f, warp, lane);
   __syncthreads();
-  store_out(dk + (size_t)b * S * stride + h * kHD, ks, stride, c0, S);
-  store_out(dv + (size_t)b * S * stride + h * kHD, vs, stride, c0, S);
+  store_out<HD>(dk + (size_t)b * S * stride + h * kHD, ks, stride, c0, S);
+  store_out<HD>(dv + (size_t)b * S * stride + h * kHD, vs, stride, c0, S);
 }
 
 __global__ void keep_mask_kernel(const int* __restrict__ seeds, uint32_t thr, int T, int S,
@@ -775,41 +812,29 @@ bool bad_shape(int B, int T, int S, int H) {
   return B < 1 || T < 1 || S < 1 || H < 1 || S > kMaxKeys || B * H > 65535;
 }
 
-}  // namespace
-
-extern "C" {
-
-// q (B, T, H, 64), k and v (B, S, H, 64), out (B, T, H, 64): bf16, contiguous;
-// valid (B, S) int32 (nonzero = attendable); seeds (4,) int32 on the device;
-// thr the keep threshold, drop_on = rate > 0, c = bf16(1 - rate).
-int smer_train_attn_fwd(int B, int T, int S, int H, const void* q, const void* k,
-                        const void* v, const void* valid, const void* seeds,
-                        unsigned int thr, int drop_on, float c, int causal, void* out,
-                        void* stream) {
-  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return (int)cudaErrorMisalignedAddress;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int HD>
+int launch_fwd(int B, int T, int S, int H, const void* q, const void* k, const void* v,
+               const void* valid, const void* seeds, unsigned int thr, int drop_on, float c,
+               int causal, float scale, void* out, cudaStream_t st) {
+  if (kFwdSmem<HD> > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        train_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem<HD>);
+    if (e != cudaSuccess) return (int)e;
+  }
   const dim3 grid((T + kQTile - 1) / kQTile, B * H);
-  train_fwd_kernel<<<grid, kThreads, 0, st>>>(
+  train_fwd_kernel<HD><<<grid, kThreads, kFwdSmem<HD>, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(valid),
       static_cast<const int*>(seeds), thr, drop_on, c, causal,
-      static_cast<__nv_bfloat16*>(out), T, S, H, 0.125f);
+      static_cast<__nv_bfloat16*>(out), T, S, H, scale);
   return (int)cudaGetLastError();
 }
 
-// The backward of smer_train_attn_fwd: g (B, T, H, 64) bf16; stats a
-// (3, B*H, T) f32 scratch buffer; dq, dk, dv bf16 in the layouts of q, k, v.
-int smer_train_attn_bwd(int B, int T, int S, int H, const void* q, const void* k,
-                        const void* v, const void* valid, const void* seeds, const void* g,
-                        unsigned int thr, int drop_on, float c, int causal, void* stats,
-                        void* dq, void* dk, void* dv, void* stream) {
-  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(g) || !aligned16(dq) ||
-      !aligned16(dk) || !aligned16(dv))
-    return (int)cudaErrorMisalignedAddress;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int HD>
+int launch_bwd(int B, int T, int S, int H, const void* q, const void* k, const void* v,
+               const void* valid, const void* seeds, const void* g, unsigned int thr,
+               int drop_on, float c, int causal, float scale, void* stats, void* dq, void* dk,
+               void* dv, cudaStream_t st) {
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
@@ -817,23 +842,75 @@ int smer_train_attn_bwd(int B, int T, int S, int H, const void* q, const void* k
   const int* vl = static_cast<const int*>(valid);
   const int* sd = static_cast<const int*>(seeds);
   float* stt = static_cast<float*>(stats);
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_rows_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_rows_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kRowsSmem<HD>);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(train_bwd_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kKeysSmem);
+  e = cudaFuncSetAttribute(train_bwd_keys_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kKeysSmem<HD>);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid_a((T + kQTile - 1) / kQTile, B * H);
-  train_bwd_rows_kernel<<<grid_a, kThreads, kRowsSmem, st>>>(
-      qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt,
-      static_cast<__nv_bfloat16*>(dq), T, S, H, 0.125f);
+  train_bwd_rows_kernel<HD><<<grid_a, kThreads, kRowsSmem<HD>, st>>>(
+      qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt, static_cast<__nv_bfloat16*>(dq), T,
+      S, H, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid_b((S + kKTile - 1) / kKTile, B * H);
-  train_bwd_keys_kernel<<<grid_b, kThreads, kKeysSmem, st>>>(
-      qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, S, H, 0.125f);
+  train_bwd_keys_kernel<HD><<<grid_b, kThreads, kKeysSmem<HD>, st>>>(
+      qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), T, S, H, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, T, H, HD), k and v (B, S, H, HD), out (B, T, H, HD): bf16,
+// contiguous, HD = head_dim 64 or 128; valid (B, S) int32 (nonzero =
+// attendable); seeds (4,) int32 on the device; thr the keep threshold,
+// drop_on = rate > 0, c = bf16(1 - rate); scale = 1 / sqrt(HD).
+int smer_train_attn_fwd(int head_dim, int B, int T, int S, int H, const void* q, const void* k,
+                        const void* v, const void* valid, const void* seeds,
+                        unsigned int thr, int drop_on, float c, int causal, float scale,
+                        void* out, void* stream) {
+  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_fwd<64>(B, T, S, H, q, k, v, valid, seeds, thr, drop_on, c, causal, scale, out,
+                            st);
+    case 128:
+      return launch_fwd<128>(B, T, S, H, q, k, v, valid, seeds, thr, drop_on, c, causal, scale, out,
+                             st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of smer_train_attn_fwd: g (B, T, H, HD) bf16; stats a
+// (3, B*H, T) f32 scratch buffer; dq, dk, dv bf16 in the layouts of q, k, v.
+int smer_train_attn_bwd(int head_dim, int B, int T, int S, int H, const void* q, const void* k,
+                        const void* v, const void* valid, const void* seeds, const void* g,
+                        unsigned int thr, int drop_on, float c, int causal, float scale,
+                        void* stats, void* dq, void* dk, void* dv, void* stream) {
+  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(g) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_bwd<64>(B, T, S, H, q, k, v, valid, seeds, g, thr, drop_on, c, causal, scale,
+                            stats, dq, dk, dv, st);
+    case 128:
+      return launch_bwd<128>(B, T, S, H, q, k, v, valid, seeds, g, thr, drop_on, c, causal, scale,
+                             stats, dq, dk, dv, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The keep mask of the kernels' hash: out (BH, T, S) uint8, 1 = keep.

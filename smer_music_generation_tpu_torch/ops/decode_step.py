@@ -58,10 +58,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 # one library for the port's kernels: the decode kernels here, the
 # flash-attention forward of ``ops/attention.py``, the training attention
 # of ``ops/train_attention.py`` and the flash training attention of
-# ``ops/flash_train.py``; the attention kernels share the tensor-core tile
-# helpers of ``csrc/attn_tiles.cuh``
+# ``ops/flash_train.py`` (their f32 kernels in ``attention_f32.cu``); the
+# attention kernels share the tensor-core tile helpers of
+# ``csrc/attn_tiles.cuh``
 _SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu",
-            _CSRC / "train_attention.cu", _CSRC / "flash_train.cu")
+            _CSRC / "train_attention.cu", _CSRC / "flash_train.cu", _CSRC / "attention_f32.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -681,11 +682,15 @@ def load_library() -> ctypes.CDLL:
         lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
                                     i, p, p, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
-        lib.smer_train_attn_fwd.argtypes = [i, i, i, i, p, p, p, p, p, u, i, f, i, p, p]
-        lib.smer_train_attn_bwd.argtypes = [i, i, i, i, p, p, p, p, p, p, u, i, f, i, p, p, p, p, p]
+        lib.smer_train_attn_fwd.argtypes = [i, i, i, i, i, p, p, p, p, p, u, i, f, i, f, p, p]
+        lib.smer_train_attn_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, u, i, f, i, f, p, p, p,
+                                            p, p]
         lib.smer_dropout_keep_mask.argtypes = [i, i, i, p, u, p, p]
-        lib.smer_flash_train_fwd.argtypes = [i, i, i, i, p, p, p, p, i, p, p, p]
-        lib.smer_flash_train_bwd.argtypes = [i, i, i, i, p, p, p, p, p, p, p, i, p, p, p, p, p]
+        lib.smer_flash_train_fwd.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p, p]
+        lib.smer_flash_train_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p, p, p]
+        lib.smer_attention_f32_fwd.argtypes = [i, i, i, i, i, i, p, p, p, p, i, f, p, p, p]
+        lib.smer_flash_train_bwd_f32.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p,
+                                                 p, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, p, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
@@ -694,7 +699,8 @@ def load_library() -> ctypes.CDLL:
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
                    lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask,
-                   lib.smer_flash_train_fwd, lib.smer_flash_train_bwd):
+                   lib.smer_flash_train_fwd, lib.smer_flash_train_bwd, lib.smer_attention_f32_fwd,
+                   lib.smer_flash_train_bwd_f32):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -6,13 +6,16 @@ Port of what ``MultiHeadAttention.attend_flash_vjp``
 (``smer_music_generation_tpu/models/transformer.py:360``) calls: the library
 kernel ``jax.experimental.pallas.ops.tpu.flash_attention`` with its custom
 VJP, at the model's arguments (q segment ids all ones, kv segment ids the key
-validity, ``sm_scale = 1/sqrt(64)``, default 128 blocks).  Its forward, dq
+validity, ``sm_scale = 1/sqrt(D)``, default 128 blocks).  Its forward, dq
 and dkv kernels become ``flash_train_fwd_kernel``, ``flash_train_dq_kernel``
-and ``flash_train_dkv_kernel`` in ``csrc/flash_train.cu``.
+and ``flash_train_dkv_kernel`` in ``csrc/flash_train.cu`` for bf16, and
+``attn_f32_fwd_kernel``, ``flash_train_f32_dq_kernel`` and
+``flash_train_f32_dkv_kernel`` in ``csrc/attention_f32.cu`` for f32 (the
+library runs in the inputs' dtype).
 
 ``flash_train_attention(q, k, v, kv_valid, causal=False)`` takes (B, T, H,
-64) queries and (B, S, H, 64) keys and values, T and S multiples of 128, and
-a (B, S) key-validity mask (True = attendable); it returns (B, T, H, 64) in
+D) queries and (B, S, H, D) keys and values, T and S multiples of 128, and
+a (B, S) key-validity mask (True = attendable); it returns (B, T, H, D) in
 q's dtype.  What it computes, as the library does:
 
 - scores ``q . k * scale`` in f32, plus ``MASK_VALUE`` (-0.7 * f32 max)
@@ -28,9 +31,10 @@ q's dtype.  What it computes, as the library does:
 
 The exponent is ``2^((s - m) log2(e))``, the kernels' and the twins' alike.
 A tensor on the CPU goes to the twins (:func:`flash_train_fwd_reference`,
-:func:`flash_train_bwd_reference`); a CUDA tensor launches the kernels (bf16,
-head_dim 64, contiguous) or raises.  The kernels are built with the port's
-others into one library at first use (``ops.decode_step.load_library``).
+:func:`flash_train_bwd_reference`); a CUDA tensor launches the kernels (bf16
+or f32, head_dim in ``KERNEL_HEAD_DIMS``, contiguous) or raises.  The
+kernels are built with the port's others into one library at first use
+(``ops.decode_step.load_library``).
 """
 
 from __future__ import annotations
@@ -39,10 +43,10 @@ import math
 
 import torch
 
+from .attention import KERNEL_HEAD_DIMS
 from .decode_step import _check, _check_tensors, load_library
 
 BLOCK = 128  # the library's block size (BlockSizes.get_default), every axis
-HEAD_DIM = 64  # the head_dim the CUDA kernels take
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library's DEFAULT_MASK_VALUE
 LOG2E = 1.4426950408889634
 
@@ -135,14 +139,16 @@ flash_train_bwd_reference.calls = 0
 def _check_inputs(q, k, v, kv_valid, *extra):
     B, T, H, D = q.shape
     S = k.shape[1]
-    if D != HEAD_DIM:
-        raise ValueError(f"the CUDA flash-train kernels take head_dim {HEAD_DIM}, got {D}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA flash-train kernels take head_dim {KERNEL_HEAD_DIMS}, got {D}")
     if T % BLOCK or S % BLOCK or T < BLOCK or S < BLOCK:
         raise ValueError(f"the CUDA flash-train kernels take T and S multiples of {BLOCK}, "
                          f"got T={T} S={S}")
-    bf16 = torch.bfloat16
-    want = {"q": (q, bf16, (B, T, H, D)), "k": (k, bf16, (B, S, H, D)),
-            "v": (v, bf16, (B, S, H, D)), "kv_valid": (kv_valid, torch.int32, (B, S))}
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA flash-train kernels take bf16 or f32, got {q.dtype}")
+    dt = q.dtype
+    want = {"q": (q, dt, (B, T, H, D)), "k": (k, dt, (B, S, H, D)),
+            "v": (v, dt, (B, S, H, D)), "kv_valid": (kv_valid, torch.int32, (B, S))}
     for name, t, dtype, shape in extra:
         want[name] = (t, dtype, shape)
     _check_tensors(q.device, want)
@@ -165,20 +171,26 @@ def _device(q) -> None:
 
 
 def flash_train_fwd(q, k, v, kv_valid, causal: bool = False):
-    """The forward: the twin for CPU tensors, ``flash_train_fwd_kernel`` for
-    CUDA ones or an error.  Returns (out, stats (2, B*H, T) f32)."""
+    """The forward: the twin for CPU tensors, ``flash_train_fwd_kernel``
+    (bf16) or ``attn_f32_fwd_kernel`` (f32) for CUDA ones, or an error.
+    Returns (out, stats (2, B*H, T) f32)."""
     if q.device.type == "cpu":
         return flash_train_fwd_reference(q, k, v, kv_valid, causal)
     _device(q)
     valid = kv_valid.to(torch.int32).contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid)
     _check_aligned(q=q, k=k, v=v)
+    D = q.shape[3]
     out = torch.empty_like(q)
     stats = torch.empty(2, B * H, T, dtype=torch.float32, device=q.device)
-    _check(load_library().smer_flash_train_fwd(
-        B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), int(causal),
-        out.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_train_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), int(causal),
+            1.0 / math.sqrt(D), out.data_ptr(), stats.data_ptr(), stream)
+    if q.dtype == torch.bfloat16:
+        rc = load_library().smer_flash_train_fwd(D, B, T, S, H, *ptrs)
+    else:
+        rc = load_library().smer_attention_f32_fwd(1, D, B, T, S, H, *ptrs)
+    _check(rc, "flash_train_fwd")
     flash_train_fwd.launches += 1
     return out, stats
 
@@ -187,25 +199,29 @@ flash_train_fwd.launches = 0
 
 
 def flash_train_bwd(q, k, v, kv_valid, out, stats, g, causal: bool = False):
-    """The backward: the twin for CPU tensors, ``flash_train_dq_kernel``
-    then ``flash_train_dkv_kernel`` for CUDA ones or an error.  Returns
-    (dq, dk, dv) in bf16."""
+    """The backward: the twin for CPU tensors, the dq kernel then the dk/dv
+    kernel for CUDA ones (``flash_train_dq_kernel`` and
+    ``flash_train_dkv_kernel`` in bf16, their f32 counterparts in f32) or
+    an error.  Returns (dq, dk, dv) in q's dtype."""
     if q.device.type == "cpu":
         return flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal)
     _device(q)
     valid = kv_valid.to(torch.int32).contiguous()
     g = g.to(q.dtype).contiguous()
     B, T, H, S = q.shape[0], q.shape[1], q.shape[2], k.shape[1]
-    _check_inputs(q, k, v, valid, ("out", out, torch.bfloat16, q.shape),
-                  ("g", g, torch.bfloat16, q.shape), ("stats", stats, torch.float32, (2, B * H, T)))
+    _check_inputs(q, k, v, valid, ("out", out, q.dtype, q.shape),
+                  ("g", g, q.dtype, q.shape), ("stats", stats, torch.float32, (2, B * H, T)))
     _check_aligned(q=q, k=k, v=v, out=out, g=g, stats=stats)
+    D = q.shape[3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty(B * H, T, dtype=torch.float32, device=q.device)  # sum(out g), dq kernel to dkv
-    _check(load_library().smer_flash_train_bwd(
-        B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), g.data_ptr(), int(causal), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_train_bwd")
+    args = (D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), g.data_ptr(), int(causal), 1.0 / math.sqrt(D),
+            di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = load_library()
+    rc = (lib.smer_flash_train_bwd if q.dtype == torch.bfloat16 else lib.smer_flash_train_bwd_f32)(*args)
+    _check(rc, "flash_train_bwd")
     flash_train_bwd.launches += 1
     return dq, dk, dv
 

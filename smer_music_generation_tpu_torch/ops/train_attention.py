@@ -12,8 +12,9 @@ its recomputing backward ``_bwd_kernel`` (:163), which become
 in ``csrc/train_attention.cu``.
 
 ``fused_dropout_attention(q, k, v, kv_valid, seed, rate, causal=False)`` takes
-(B, T, H, 64) bf16 queries and (B, S, H, 64) bf16 keys and values, a (B, S)
-key-validity mask (True = attendable) and the seed, and returns (B, T, H, 64)
+(B, T, H, D) bf16 queries and (B, S, H, D) bf16 keys and values (on the card
+D in ``KERNEL_HEAD_DIMS``, 64 or 128), a (B, S)
+key-validity mask (True = attendable) and the seed, and returns (B, T, H, D)
 in q's dtype, as JAX's does.  ``seed`` is the four uint32 words of
 ``_seed_words`` or a raw two-word key, padded the same way, as a sequence of
 ints or an integer tensor of bit patterns.  The forward saves q, k, v, the
@@ -27,7 +28,8 @@ or raises.  The kernels are built with the decode kernels into one library at
 first use (``ops.decode_step.load_library``).  The hash is plain uint32
 arithmetic: here it runs on uint32 values held in int64 and masked to 32 bits
 after every multiply and add, in the CUDA source on ``uint32_t``, so the two
-and JAX's ``dropout_mask_reference`` agree bit for bit.
+and JAX's ``dropout_mask_reference`` agree bit for bit.  The kernels take the
+scale 1/sqrt(D) from here.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .attention import KERNEL_HEAD_DIMS
 from .decode_step import _check, _check_tensors, load_library
 
 NEG_INF = -1e30
@@ -45,7 +48,6 @@ DEFAULT_BLK_Q = 128
 # the static gate of the TPU kernel, kept as JAX keeps it
 # (models/transformer._fused_train_ok): the key length fits one block
 MAX_KLEN = 1024
-HEAD_DIM = 64  # the head_dim the CUDA kernels take
 _M32 = 0xFFFFFFFF
 
 Seed = Union[torch.Tensor, Sequence[int], np.ndarray]
@@ -215,8 +217,8 @@ dropout_attention_bwd_reference.calls = 0
 def _check_inputs(q, k, v, kv_valid, *extra):
     B, T, H, D = q.shape
     S = k.shape[1]
-    if D != HEAD_DIM:
-        raise ValueError(f"the CUDA train-attention kernels take head_dim {HEAD_DIM}, got {D}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA train-attention kernels take head_dim {KERNEL_HEAD_DIMS}, got {D}")
     if not 1 <= S <= MAX_KLEN:
         raise ValueError(f"the CUDA train-attention kernels take 1 <= S <= {MAX_KLEN}, got S={S}")
     bf16 = torch.bfloat16
@@ -235,7 +237,7 @@ def _stream(dev) -> int:
 def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
                           causal: bool = False) -> torch.Tensor:
     """The forward: the twin for CPU tensors, ``train_fwd_kernel`` for CUDA
-    ones (bf16, head_dim 64, contiguous, S <= 1024) or an error."""
+    ones (bf16, head_dim 64 or 128, contiguous, S <= 1024) or an error."""
     if q.device.type == "cpu":
         return dropout_attention_fwd_reference(q, k, v, kv_valid, seed, rate, causal)
     if q.device.type != "cuda":
@@ -244,10 +246,11 @@ def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
     B, T, H, S = _check_inputs(q, k, v, valid)
     seeds = seed_tensor(seed, q.device)
     out = torch.empty_like(q)
+    D = q.shape[3]
     _check(load_library().smer_train_attn_fwd(
-        B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), keep_threshold(rate), int(rate > 0.0), bf16_round(1.0 - rate),
-        int(causal), out.data_ptr(), _stream(q.device),
+        int(causal), 1.0 / math.sqrt(D), out.data_ptr(), _stream(q.device),
     ), "train_attn_fwd")
     dropout_attention_fwd.launches += 1
     return out
@@ -272,10 +275,11 @@ def dropout_attention_bwd(q, k, v, kv_valid, seed: Seed, g, rate: float,
     # per-row m, l and delta = sum_s w dw, written by the row kernel and
     # read by the key kernel: 3 x (B*H, T) f32, no O(T*S) tensor
     stats = torch.empty(3, B * H, T, dtype=torch.float32, device=q.device)
+    D = q.shape[3]
     _check(load_library().smer_train_attn_bwd(
-        B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), g.data_ptr(), keep_threshold(rate), int(rate > 0.0),
-        bf16_round(1.0 - rate), int(causal), stats.data_ptr(), dq.data_ptr(),
+        bf16_round(1.0 - rate), int(causal), 1.0 / math.sqrt(D), stats.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _stream(q.device),
     ), "train_attn_bwd")
     dropout_attention_bwd.launches += 1

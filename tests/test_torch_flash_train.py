@@ -152,13 +152,24 @@ def test_autograd_function_matches_the_twins_and_counts_them():
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """Off the card a non-CPU tensor raises; the shape checks name the 128
-    multiples and head_dim 64 (they run before any launch)."""
+    multiples and the head_dims 64 and 128, and the dtype check bf16 and f32
+    (they run before any launch)."""
     q = torch.zeros(1, 100, 1, 64, dtype=torch.bfloat16)
     k = torch.zeros(1, 128, 1, 64, dtype=torch.bfloat16)
+    ones = torch.ones(1, 128, dtype=torch.int32)
     with pytest.raises(ValueError, match="multiples of 128"):
-        ft._check_inputs(q, k, k, torch.ones(1, 128, dtype=torch.int32))
-    with pytest.raises(ValueError, match="head_dim 64"):
-        ft._check_inputs(torch.zeros(1, 128, 1, 32), k, k, torch.ones(1, 128, dtype=torch.int32))
+        ft._check_inputs(q, k, k, ones)
+    for hd in (32, 96, 256):
+        kh = torch.zeros(1, 128, 1, hd)
+        with pytest.raises(ValueError, match=r"head_dim \(64, 128\), got " + str(hd)):
+            ft._check_inputs(torch.zeros(1, 128, 1, hd), kh, kh, ones)
+    for hd, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32),
+                      (128, torch.float32)):
+        kh = torch.zeros(1, 128, 1, hd, dtype=dtype)
+        assert ft._check_inputs(kh, kh, kh, ones) == (1, 128, 1, 128)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        kh = torch.zeros(1, 128, 1, 64, dtype=torch.float16)
+        ft._check_inputs(kh, kh, kh, ones)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ft.flash_train_fwd(q.to("meta"), k.to("meta"), k.to("meta"), torch.ones(1, 128).to("meta"))
 

@@ -1,7 +1,7 @@
 """The flash-train backward kernels' order of work, emulated in plain torch
 on the CPU, against the port's twin and JAX's library kernel; the wrapper's
-refusals; and the model's gate on the head_dim and dtype the CUDA attention
-kernels take.
+refusals; and the model's gate on the head_dims and dtypes the CUDA
+attention kernels take.
 
 ``flash_train_dq_kernel`` and ``flash_train_dkv_kernel``
 (``ops/csrc/flash_train.cu``) cannot run here, so ``bwd_tiles`` walks their
@@ -208,7 +208,8 @@ def test_cuda_wrappers_refuse_misaligned_views():
 
 
 # ----------------------------------------------------------------------
-# the model's gate: CUDA kernels take bf16 and head_dim 64 only
+# the model's gate: CUDA kernels take head_dim 64 and 128 (bf16 and f32 for
+# flash_training and flash_encoder, bf16 for fused_attn_train)
 # ----------------------------------------------------------------------
 V = 40
 KW = dict(vocab_size=V, num_encoder_layers=1, num_decoder_layers=1, d_ff=64, max_len=256,
@@ -236,12 +237,18 @@ def _twin_calls():
             + attn.attention_reference.calls)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
 GATED = [  # (option, d_model, nhead, dtype, train mode, what the message names)
-    ("flash_training", 128, 4, torch.bfloat16, True, "head_dim 32"),
-    ("flash_training", 128, 2, torch.float32, False, "torch.float32"),
-    ("flash_encoder", 128, 4, torch.bfloat16, False, "head_dim 32"),
-    ("flash_encoder", 128, 2, torch.float32, False, "torch.float32"),
-    ("fused_attn_train", 256, 2, torch.bfloat16, True, "head_dim 128"),
+    ("flash_training", 128, 4, BF16, True, "head_dim 32"),
+    ("flash_training", 128, 4, F32, False, "head_dim 32"),
+    ("flash_training", 192, 2, BF16, True, "head_dim 96"),
+    ("flash_training", 192, 2, F32, True, "head_dim 96"),
+    ("flash_encoder", 128, 4, BF16, False, "head_dim 32"),
+    ("flash_encoder", 128, 4, F32, False, "head_dim 32"),
+    ("flash_encoder", 192, 2, BF16, False, "head_dim 96"),
+    ("flash_encoder", 192, 2, F32, False, "head_dim 96"),
+    ("fused_attn_train", 128, 4, BF16, True, "head_dim 32"),
+    ("fused_attn_train", 192, 2, BF16, True, "head_dim 96"),
 ]
 
 
@@ -251,7 +258,7 @@ def test_gate_refuses_on_cuda_before_any_attention_call(monkeypatch, option, d_m
                                                         train, named):
     """With the device check standing in for CUDA (the tensors stay on the
     CPU), a model whose option would send its attention through the CUDA
-    kernels at a head_dim or dtype they do not take raises
+    kernels at a head_dim they do not take (neither 64 nor 128) raises
     NotImplementedError naming the option, what it got and ROADMAP Queue 3
     item 4, before any attention runs; on the CPU itself the same model
     runs its twins as before."""
@@ -273,23 +280,35 @@ def test_gate_refuses_on_cuda_before_any_attention_call(monkeypatch, option, d_m
     assert _twin_calls() == 0
 
 
-@pytest.mark.parametrize("option", ["flash_training", "flash_encoder", "fused_attn_train"])
-def test_gate_passes_what_the_kernels_take(monkeypatch, option):
-    """bf16 at head_dim 64 passes the gate on CUDA; so does f32 with
-    fused_attn_train, which JAX's own gate (``_fused_train_ok``) already
-    sends to the plain path, as it does on the CPU."""
+PASSED = [  # (option, d_model, nhead, dtype): head_dim 64 and 128, bf16 and f32
+    ("flash_training", 128, 2, BF16), ("flash_training", 128, 2, F32),
+    ("flash_training", 256, 2, BF16), ("flash_training", 256, 2, F32),
+    ("flash_encoder", 128, 2, BF16), ("flash_encoder", 128, 2, F32),
+    ("flash_encoder", 256, 2, BF16), ("flash_encoder", 256, 2, F32),
+    ("fused_attn_train", 128, 2, BF16), ("fused_attn_train", 128, 2, F32),
+    ("fused_attn_train", 256, 2, BF16),
+]
+
+
+@pytest.mark.parametrize("option,d_model,nhead,dtype", PASSED,
+                         ids=[f"{o}-hd{d // h}-{str(t).split('.')[-1]}" for o, d, h, t in PASSED])
+def test_gate_passes_what_the_kernels_take(monkeypatch, option, d_model, nhead, dtype):
+    """Head_dim 64 and 128 pass the gate on CUDA, in bf16 and f32 for
+    flash_training and flash_encoder, in bf16 for fused_attn_train; f32
+    with fused_attn_train passes too, since JAX's own gate
+    (``_fused_train_ok``) already sends it to the plain path, as it does on
+    the CPU."""
     monkeypatch.setattr(tr, "_kernel_device", lambda t: True)
     src, tgt = _batch()
-    for dtype in (torch.bfloat16, torch.float32) if option == "fused_attn_train" else (torch.bfloat16,):
-        model = _model(128, 2, dtype, **{option: True})
-        _reset()
-        if option == "flash_encoder":
-            out = model.encode(src)
-        else:
-            out = model(src, tgt, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
-        assert torch.isfinite(out).all()
-        # f32 with fused_attn_train takes the plain path: no kernel, no twin
-        assert (_twin_calls() > 0) == (dtype == torch.bfloat16)
+    model = _model(d_model, nhead, dtype, **{option: True})
+    _reset()
+    if option == "flash_encoder":
+        out = model.encode(src)
+    else:
+        out = model(src, tgt, deterministic=False, generator=torch.Generator().manual_seed(0))[0]
+    assert torch.isfinite(out).all()
+    # f32 with fused_attn_train takes the plain path: no kernel, no twin
+    assert (_twin_calls() > 0) == (option != "fused_attn_train" or dtype == BF16)
 
 
 def test_gate_message_cites_an_item_that_names_every_option():
