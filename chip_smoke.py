@@ -23,8 +23,10 @@ paths and prints one line per phase with the elapsed seconds:
    phase fails if any has none, or if the flash-train trio (on wgmma) has
    no HGMMA; the registers, spills and shared memory of the f32 kernels
    (``F32_KERNELS``: the forward for both mask semantics and the backward
-   pair, each at head_dim 64 and 128; the phase fails on a missing entry);
-   then the
+   pair, each at head_dim 64 and 128; the phase fails on a missing entry,
+   and unless each instantiation of the backward pair, on the tensor cores
+   in split TF32, holds HMMA on TF32 operands and spills nothing), with the
+   pair's blocks an SM from the occupancy calculator; then the
    registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
@@ -187,8 +189,10 @@ paths and prints one line per phase with the elapsed seconds:
    384x640, 512x512 causal, 512x2048, 640x384 causal, 2048x2048, timed
    there) and in f32 at head_dim 64 and
    128 (640x640, 384x384 causal, 384x640, timed at 640x640), each forward
-   run twice and bit-equal to itself, f32 held at ``F32_ATOL`` +
-   ``F32_RTOL`` (output) and ``F32_REL`` (gradients);
+   and backward run twice and bit-equal to itself, f32 held at
+   ``F32_ATOL`` + ``F32_RTOL`` (output) and ``F32_REL`` (gradients); the
+   f32 pair timed beside the FMA pipes' bound and the split-TF32 bound
+   (``SPLIT_TF32_FLOPS``), the pair's and each kernel's;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -266,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import faulthandler
 import json
@@ -375,18 +380,24 @@ WGMMA_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train
 # every attention kernel is instantiated for each head_dim of
 # attn.KERNEL_HEAD_DIMS: phase 1 reads each instantiation (the mangled-name
 # piece <name>ILi<head_dim>E)
-# the f32 attention kernels (attention_f32.cu, on the FMA pipes): phase 1
-# prints their registers, spills and shared memory and fails on a missing entry
+# the f32 attention kernels (attention_f32.cu; the forwards on the FMA
+# pipes, the backward pair on the tensor cores in split TF32): phase 1
+# prints their registers, spills and shared memory and fails on a missing
+# entry; the pair's instantiations must hold HMMA on TF32 operands
+# (mma.sync m16n8k8, HMMA.1688.F32.TF32) and spill nothing
+F32_PAIR = tuple(f"flash_train_f32_{k}_kernelILi{hd}E" for k in ("dq", "dkv")
+                 for hd in attn.KERNEL_HEAD_DIMS)
 F32_KERNELS = (*(f"attn_f32_fwd_kernelILi{hd}ELi{mode}E" for hd in attn.KERNEL_HEAD_DIMS
-                 for mode in (0, 1)),
-               *(f"flash_train_f32_{k}_kernelILi{hd}E" for k in ("dq", "dkv")
-                 for hd in attn.KERNEL_HEAD_DIMS))
+                 for mode in (0, 1)), *F32_PAIR)
 # f32 kernels vs twin: outputs within JAX's own f32 bound between its kernel
 # and its reference (tests/test_ops.py:25), gradients within 1e-4 relative
 # norm, JAX's tightest kernel-to-twin gradient bound (tests/test_ops.py:654):
 # both sides sum f32 products of f32 operands, only the order differs
 F32_ATOL, F32_RTOL = 2e-5, 1e-4
 F32_REL = 1e-4
+# the f32 backward pair's products: three TF32 passes each (hi hi, hi lo, lo
+# hi) at the tensor cores' 495 TFLOP/s of TF32
+SPLIT_TF32_FLOPS = 495e12 / 3
 # the wide head: d512 with nhead 4, head_dim 128, beside the flagship's 8 x 64
 H_WIDE, HD_WIDE = 4, 128
 # flash attention vs twin: f32 sums on both sides in another order, then the
@@ -1729,11 +1740,12 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, 
                                            else "operations")
 
 
-def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS):
+def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS, modifiers: bool = False):
     """The SASS of each kernel in the built library whose (mangled) name
     holds one of ``names``, by ``cuobjdump -sass`` (beside nvcc): {name:
     {opcode: static count}}, the opcode without its modifiers (HMMA, MUFU,
-    IMAD, LOP3, ...).  A name matches the first kernel that holds it."""
+    IMAD, LOP3, ...), or with them (``modifiers``: HMMA.1688.F32.TF32, ...).
+    A name matches the first kernel that holds it."""
     cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -1743,7 +1755,8 @@ def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS):
             current = next((k for k in names if k in line and k not in seen), None)
             seen.add(current)
             continue
-        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*"
+                      + (r"(?:\.[A-Z0-9_]+)*)" if modifiers else ")"), line)
         if current is not None and op:
             got[current][op.group(1)] = got[current].get(op.group(1), 0) + 1
     return got
@@ -1804,13 +1817,35 @@ def phase_tensor_cores() -> None:
     hgmma = {k: mix[k].get("HGMMA", 0) for k in kernel_insts(WGMMA_KERNELS)}
     if not all(hgmma.values()):
         raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
+    tf32 = sass_mix(str(ds.BUILD_INFO["path"]), F32_PAIR, modifiers=True)
     for name in F32_KERNELS:
         f = facts.get(name)
         if f is None:
             raise AssertionError(f"the f32 kernel {name} has no entry in the build log")
-        say(f"  {name} (f32, FMA pipes): {f.get('registers')} registers, spill stores/loads "
+        where = "FMA pipes"
+        if name in F32_PAIR:
+            n_tf32 = sum(n for op, n in tf32[name].items() if op.startswith("HMMA") and ".TF32" in op)
+            where = f"split TF32, {n_tf32} HMMA on TF32 operands in its SASS"
+            if not n_tf32:
+                raise AssertionError(f"the f32 backward kernel {name} has no HMMA on TF32 operands: "
+                                     f"{sorted(tf32[name].items(), key=lambda kv: -kv[1])[:8]}")
+            if f.get("spill_stores", 0) + f.get("spill_loads", 0):
+                raise AssertionError(f"the f32 backward kernel {name} spills: {f}")
+        say(f"  {name} (f32, {where}): {f.get('registers')} registers, spill stores/loads "
             f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static "
             "shared memory (its tiles are dynamic)")
+        if name in F32_PAIR:
+            top = sorted(tf32[name].items(), key=lambda kv: -kv[1])[:10]
+            say(f"    SASS opcodes (static): {sum(tf32[name].values())} in all; " +
+                ", ".join(f"{op} {n}" for op, n in top))
+    lib = ds.load_library()
+    for hd in attn.KERNEL_HEAD_DIMS:
+        dq_blocks, dkv_blocks = ctypes.c_int(0), ctypes.c_int(0)
+        ds._check(lib.smer_flash_train_bwd_f32_blocks(hd, ctypes.addressof(dq_blocks),
+                                                      ctypes.addressof(dkv_blocks)),
+                  "the occupancy of the f32 backward pair")
+        say(f"  the f32 backward pair at head_dim {hd}: {dq_blocks.value} dq blocks and "
+            f"{dkv_blocks.value} dk/dv blocks an SM (4 warps each)")
 
 
 def phase_decode_facts() -> None:
@@ -2172,7 +2207,7 @@ def flash_train_pairs(B: int, T: int, S: int, causal: bool, heads: int = H) -> i
 
 
 def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool, heads: int = H,
-                      hd: int = HD_ATTN, f32: bool = False):
+                      hd: int = HD_ATTN, f32: bool = False, rate: float | None = None):
     """Least time of the flash-train forward or backward and what bounds it.
     Bytes: the forward reads q, k, v (bf16) and the int32 mask and writes
     the output and each row's m and l (f32); the backward reads q, k, v,
@@ -2180,18 +2215,18 @@ def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool, head
     2 HD for every pair and product, the forward's two (scores, p v) and
     the backward's five (scores recomputed, g v^T, p^T g, ds k, ds^T q),
     at the bf16 tensor-core rate (f32: the FMA pipes' rate, 4-byte
-    elements).  Returns (ms, "bytes" or "operations")."""
+    elements; or at ``rate``).  Returns (ms, "bytes" or "operations")."""
     el = 4 if f32 else 2
     qb, kb, st = B * T * heads * hd * el, B * S * heads * hd * el, 2 * B * heads * T * 4
     nbytes = (2 * qb + 2 * kb + st if not backward else 4 * qb + 4 * kb + st) + B * S * 4
     flops = 2 * hd * flash_train_pairs(B, T, S, causal, heads) * (5 if backward else 2)
-    rate = F32_FLOPS if f32 else BF16_FLOPS
+    rate = rate or (F32_FLOPS if f32 else BF16_FLOPS)
     return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
                                            else "operations")
 
 
 def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, heads: int = H,
-                             hd: int = HD_ATTN, f32: bool = False):
+                             hd: int = HD_ATTN, f32: bool = False, rate: float | None = None):
     """Least time of one of the two backward kernels alone and what bounds
     it.  ``flash_train_dq_kernel`` reads q, k, v, the output, g, m, l and
     the mask and writes dq and di, and does 3 products (scores, g v^T, ds
@@ -2199,7 +2234,8 @@ def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, 
     and writes dk and dv, and does 4 (scores, g v^T, p^T g, ds^T q): the
     scores and g v^T are recomputed in both, 7 products for the pair where
     the function needs 5.  2 HD operations a pair and product at the bf16
-    rate (f32: the FMA pipes').  Returns (ms, "bytes" or "operations")."""
+    rate (f32: the FMA pipes'; or ``rate``).  Returns (ms, "bytes" or
+    "operations")."""
     el = 4 if f32 else 2
     qb, kb, row = B * T * heads * hd * el, B * S * heads * hd * el, B * heads * T * 4
     if "_dq_" in kernel:
@@ -2207,7 +2243,7 @@ def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, 
     else:
         nbytes, products = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
     flops = 2 * hd * flash_train_pairs(B, T, S, causal, heads) * products
-    rate = F32_FLOPS if f32 else BF16_FLOPS
+    rate = rate or (F32_FLOPS if f32 else BF16_FLOPS)
     return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
                                            else "operations")
 
@@ -2345,7 +2381,10 @@ def flash_train_wide(dev, g) -> None:
                 raise AssertionError(f"flash-train forward ({tag}): the row with no valid key is not the "
                                      f"mean of V over its visited keys at T={T} S={S} causal={causal}")
             grads = ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)
+            grads2 = ft.flash_train_bwd(q, k, v, valid, out, stats, go, causal)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, grads2)):
+                raise AssertionError(f"flash-train backward ({tag}) is not deterministic at T={T} S={S}")
             ref_grads = ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, causal)
             rels = {n: rel_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
             for n, a in zip(("dq", "dk", "dv"), grads):
@@ -2362,7 +2401,7 @@ def flash_train_wide(dev, g) -> None:
                 ", ".join(f"{n} {r:.2e}" for n, r in rels.items()))
             if (T, S, causal) == timed:
                 time_flash_train(dev, q, k, v, go, valid, causal, twin=True)
-            del q, k, v, go, out, again, ref, grads, ref_grads, qa, ka, va
+            del q, k, v, go, out, again, ref, grads, grads2, ref_grads, qa, ka, va
             torch.cuda.empty_cache()
         say(f"  {tag}: forward within atol {atol:g} + rtol {rtol:.4g} (max {worst:.3e}); backward "
             "relative norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items()) +
@@ -2401,17 +2440,27 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     bound_f, by_f = flash_train_bound(B, T, S, causal, False, heads, hd, f32)
     bound_b, by_b = flash_train_bound(B, T, S, causal, True, heads, hd, f32)
     twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
+    tc = ""
+    if f32:  # the f32 pair runs in split TF32: its bound at that rate too
+        tc_ms, tc_by = flash_train_bound(B, T, S, causal, True, heads, hd, f32, SPLIT_TF32_FLOPS)
+        tc = f"; {tc_ms:.5f} at split TF32's {SPLIT_TF32_FLOPS / 1e12:.0f} TFLOP/s ({tc_by})"
     say(f"    times at B={B} T={T} S={S} H={heads} HD={hd} {str(q.dtype).split('.')[-1]} causal={causal}: "
         f"forward kernel {ms_f:.4f} ms, SDPA {lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward "
         f"kernels {ms_b:.4f} ms, SDPA backward {lib_b:.4f}, bound {bound_b:.5f} ({by_b}, the "
-        f"function's 5 products){twins}")
+        f"function's 5 products{', f32 FMA' if f32 else ''}{tc}){twins}")
     # each backward kernel alone: its device time by name, beside its own bound
     split_b = device_split(bwd)
     names = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel") if f32 else WGMMA_KERNELS[1:]
     for name in names:
         kb_ms, kb_by = flash_train_kernel_bound(B, T, S, causal, name, heads, hd, f32)
         us_k = "not measured" if split_b is None else f"{split_b.get(name, 0.0):.1f} us"
-        say(f"      {name}: {us_k} a call (profiler), bound {1e3 * kb_ms:.1f} us ({kb_by})")
+        tc_k = ""
+        if f32:
+            tc_ms, tc_by = flash_train_kernel_bound(B, T, S, causal, name, heads, hd, f32,
+                                                    SPLIT_TF32_FLOPS)
+            tc_k = f", {1e3 * tc_ms:.1f} us at split TF32 ({tc_by})"
+        say(f"      {name}: {us_k} a call (profiler), bound {1e3 * kb_ms:.1f} us ({kb_by}"
+            f"{', f32 FMA' if f32 else ''}){tc_k}")
     if twin:
         say_split(device_split(fwd), ms_f)
         say_split(split_b, ms_b)

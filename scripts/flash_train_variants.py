@@ -3,6 +3,7 @@
 
     python3 scripts/flash_train_variants.py [VARIANT ...]
     python3 scripts/flash_train_variants.py --forward [VARIANT ...]
+    python3 scripts/flash_train_variants.py --f32 [VARIANT ...]
 
 Each variant is ``ops/csrc/flash_train.cu`` with a few lines edited (the
 edits are below, each checked to apply), built alone with nvcc into
@@ -16,7 +17,12 @@ dv are bit-equal to the unedited source's.  Two rounds, in the order given.
 With ``--forward`` the variants are the forward's (``FORWARD_VARIANTS``),
 each timed alone (``flash_train_fwd_kernel``) at B=8, H=8, T=S=2048, head_dim
 64 and 128, with ~10% of keys invalid and with every key valid, its output
-and m, l compared bit for bit with the unedited source's.
+and m, l compared bit for bit with the unedited source's.  With ``--f32`` the
+variants are ``ops/csrc/attention_f32.cu``'s (``F32_VARIANTS``): the f32
+backward pair (``flash_train_f32_dq_kernel`` then
+``flash_train_f32_dkv_kernel``) timed at B=8, T=S=640, head_dim 64 (H=8)
+and 128 (H=4), its dq, dk, dv against the unedited source's (bit-equal, and
+the worst relative norm).
 
 The variants say what each part of the design costs:
 - ``two_stages``: a ring of two 64-row tiles, not four;
@@ -28,6 +34,20 @@ The variants say what each part of the design costs:
   as the head_dim-64-only kernel made them (the same bits);
 - ``dkv_no_elementwise`` / ``dq_no_elementwise``: the mask, p and ds left
   out (wrong results, timing only): the products and the pipeline alone.
+
+The f32 pair's:
+- ``f32_one_pass``: hi hi alone, one TF32 pass a product (wrong results,
+  ~5e-4: timing only): what the split's other two passes cost;
+- ``f32_no_split``: each operand handed to all three passes as it is, no
+  split instructions (wrong results: timing only): what the splits cost;
+- ``f32_no_elementwise``: the mask, p and ds left out (timing only);
+- ``f32_scalar_loads``: X Y^T's fragments by scalar loads (4 for A, 2 a
+  B n-block) instead of ldmatrix (the same bits);
+- ``f32_t64_s2_b2__t16_s2_b2`` (the first split-TF32 build's),
+  ``f32_t32_s2_b3__t32_s1_b2``, ``f32_t64_s1_b3__t64_s1_b1``,
+  ``f32_t16_s2_b3__t32_s2_b1``: other (rows a streamed tile, stages,
+  blocks an SM) at head_dim 64 / 128 than the source's (32, 2, 3) / (16,
+  2, 2).
 
 The forward's:
 - ``fwd_defer_flipped``: ``kDeferPV`` the other way at each head_dim (block
@@ -101,6 +121,51 @@ VARIANTS = {
          "      for (int e = 0; e < 4; ++e) s[4 * j + e] += dp[4 * j + e];"),
     ],
 }
+# the f32 backward pair's (ops/csrc/attention_f32.cu)
+_F32_ONE_PASS = [("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "")]
+F32_VARIANTS = {
+    "base": [],
+    "f32_one_pass": _F32_ONE_PASS,
+    "f32_scalar_loads": [
+        ("  const float* x = X + ((lane & 7) + (lane & 8)) * ld + ((lane >> 4) << 2);\n"
+         "  const float* y = Y + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 2);",
+         "  const float* x = X + (lane >> 2) * ld + (lane & 3);\n"
+         "  const float* y = Y + (lane >> 2) * ld + (lane & 3);"),
+        ("    attn_tiles::ldsm_x4(a, reinterpret_cast<const __nv_bfloat16*>(x + kk));",
+         "    a[0] = __float_as_uint(x[kk]);\n    a[1] = __float_as_uint(x[8 * ld + kk]);\n"
+         "    a[2] = __float_as_uint(x[kk + 4]);\n    a[3] = __float_as_uint(x[8 * ld + kk + 4]);"),
+        ("      attn_tiles::ldsm_x4(b, reinterpret_cast<const __nv_bfloat16*>(y + 8 * j * ld + kk));",
+         "      b[0] = __float_as_uint(y[8 * j * ld + kk]);\n"
+         "      b[1] = __float_as_uint(y[8 * j * ld + kk + 4]);\n"
+         "      b[2] = __float_as_uint(y[8 * (j + 1) * ld + kk]);\n"
+         "      b[3] = __float_as_uint(y[8 * (j + 1) * ld + kk + 4]);")],
+    "f32_no_split": [
+        ("  hi = tf32_rna(x);\n  lo = __float_as_uint(x - __uint_as_float(hi));",
+         "  hi = __float_as_uint(x);\n  lo = hi;")],
+    "f32_no_elementwise": [
+        ("        const float p = attn_tiles::exp2_ftz((sv - m[hi]) * kLog2e) * rl[hi];\n"
+         "        s[j][e] = (dp[j][e] - di[hi]) * p * scale;  // ds",
+         "        s[j][e] = sv + dp[j][e];"),
+        ("          const float p = attn_tiles::exp2_ftz((sv - mr) * kLog2e) * rl;\n"
+         "          sT[j][e] = p;\n"
+         "          dT[j][e] = (dT[j][e] - dr) * p * scale;  // ds",
+         "          sT[j][e] = sv + mr;\n          dT[j][e] += dr * rl;"),
+    ],
+    # (rows a streamed tile, stages, blocks an SM) at head_dim 64 / 128
+    "f32_t64_s2_b2__t16_s2_b2": [
+        ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = HD == 64 ? 64 : 16;"),
+        ("constexpr int kMinBlocks = HD == 64 ? 3 : 2;", "constexpr int kMinBlocks = 2;")],
+    "f32_t32_s2_b3__t32_s1_b2": [
+        ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = 32;"),
+        ("constexpr int kStages = 2;", "constexpr int kStages = HD == 64 ? 2 : 1;")],
+    "f32_t64_s1_b3__t64_s1_b1": [
+        ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = 64;"),
+        ("constexpr int kStages = 2;", "constexpr int kStages = 1;"),
+        ("constexpr int kMinBlocks = HD == 64 ? 3 : 2;", "constexpr int kMinBlocks = HD == 64 ? 3 : 1;")],
+    "f32_t16_s2_b3__t32_s2_b1": [
+        ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = HD == 64 ? 16 : 32;"),
+        ("constexpr int kMinBlocks = HD == 64 ? 3 : 2;", "constexpr int kMinBlocks = HD == 64 ? 3 : 1;")],
+}
 _SYNC = "    hopper::named_sync(1 + wg, kConsumerThreads);\n"
 _ARRIVE = "    if (wg == 0 || i + 1 < n_blk) hopper::named_arrive(2 - wg, kConsumerThreads);\n"
 _FIRST = "  if (wg == 1) hopper::named_arrive(1, kConsumerThreads);\n"
@@ -135,9 +200,9 @@ FORWARD_VARIANTS = {
 }
 
 
-def build(names, variants=VARIANTS):
+def build(names, variants=VARIANTS, source_name="flash_train.cu"):
     """{name: ctypes library} of the variants, built in parallel."""
-    source = (CSRC / "flash_train.cu").read_text()
+    source = (CSRC / source_name).read_text()
     jobs = {}
     for name in names:
         text = source
@@ -147,11 +212,11 @@ def build(names, variants=VARIANTS):
             text = text.replace(old, new)
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_train.cu").write_text(text)
+        (d / source_name).write_text(text)
         for header in ("attn_tiles.cuh", "hopper.cuh"):
             shutil.copy(CSRC / header, d)
         cmd = [ds._nvcc(), *ds.NVCC_FLAGS, "-shared", "-Xptxas", "-v", "-I", str(d), "-o",
-               str(d / "lib.so"), str(d / "flash_train.cu")]
+               str(d / "lib.so"), str(d / source_name)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
     i, p = ctypes.c_int, ctypes.c_void_p
@@ -160,11 +225,17 @@ def build(names, variants=VARIANTS):
         if proc.returncode:
             raise SystemExit(f"variant {name} failed to build:\n{err[-3000:]}")
         facts = [ln.strip() for ln in err.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"{name}: " + " | ".join(facts[:4]), flush=True)
+        print(f"{name}: " + " | ".join(facts), flush=True)
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         f = ctypes.c_float
-        lib.smer_flash_train_fwd.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p, p]
-        lib.smer_flash_train_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p, p, p]
+        if source_name == "flash_train.cu":
+            lib.smer_flash_train_fwd.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p, p]
+            lib.smer_flash_train_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p,
+                                                 p, p]
+        else:
+            lib.smer_attention_f32_fwd.argtypes = [i, i, i, i, i, i, p, p, p, p, i, f, p, p, p]
+            lib.smer_flash_train_bwd_f32.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p,
+                                                     p, p, p]
         libs[name] = lib
     return libs
 
@@ -175,19 +246,21 @@ def main(argv) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    forward = bool(argv) and argv[0] == "--forward"
-    argv = argv[1:] if forward else argv
-    variants = FORWARD_VARIANTS if forward else VARIANTS
+    mode = argv[0] if argv and argv[0] in ("--forward", "--f32") else None
+    argv = argv[1:] if mode else argv
+    variants = {"--forward": FORWARD_VARIANTS, "--f32": F32_VARIANTS}.get(mode, VARIANTS)
     names = argv or list(variants)
     if "base" not in names:
         names = ["base", *names]
-    libs = build(names, variants)
+    libs = build(names, variants, "attention_f32.cu" if mode == "--f32" else "flash_train.cu")
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    if forward:
+    if mode == "--forward":
         return time_forward(libs, names, dev, profile, ProfilerActivity)
+    if mode == "--f32":
+        return time_f32(libs, names, dev, profile, ProfilerActivity)
     B, H = 8, 8
     for T in (2048, 640):
         g = torch.Generator(device=dev).manual_seed(0)
@@ -291,6 +364,66 @@ def time_forward(libs, names, dev, profile, ProfilerActivity) -> int:
                     print(f"head_dim {D} {'10% keys invalid' if masked else 'every key valid'} "
                           f"round {rnd} {name:24s} {start.elapsed_time(end) / 50:.4f} ms a call, "
                           f"device us {us}, bit-equal to base: {same}", flush=True)
+    return 0
+
+
+def time_f32(libs, names, dev, profile, ProfilerActivity) -> int:
+    """The f32 backward pair's variants at B=8, T=S=640, head_dim 64 (H=8)
+    and 128 (H=4), f32, ~10% of keys invalid (one batch row with none), not
+    causal: ms a call (50 back-to-back calls, CUDA events), each kernel's
+    device µs by the profiler, and dq, dk, dv against the base's (bit-equal,
+    and the worst relative norm)."""
+    B, T = 8, 640
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
+    for D, H in ((64, 8), (128, 4)):
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v, go = (torch.randn(B, T, H, D, generator=g, device=dev) for _ in range(4))
+        valid = (torch.rand(B, T, generator=g, device=dev) >= 0.1).to(torch.int32)
+        valid[1] = 0
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr())
+        out, stats = torch.empty_like(q), torch.empty(2, B * H, T, device=dev)
+        di = torch.empty(B * H, T, device=dev)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        if libs["base"].smer_attention_f32_fwd(1, D, B, T, T, H, *ptrs, 0, D ** -0.5, out.data_ptr(),
+                                               stats.data_ptr(), stream):
+            raise SystemExit("the f32 forward launch failed")
+        want = None
+        for rnd in range(2):
+            for name in names:
+                lib = libs[name]
+
+                def bwd():
+                    rc = lib.smer_flash_train_bwd_f32(D, B, T, T, H, *ptrs, out.data_ptr(),
+                                                      stats.data_ptr(), go.data_ptr(), 0, D ** -0.5,
+                                                      di.data_ptr(), *(t.data_ptr() for t in grads),
+                                                      stream)
+                    if rc:
+                        raise SystemExit(f"{name}: backward launch failed: {rc}")
+
+                for _ in range(5):
+                    bwd()
+                torch.cuda.synchronize()
+                got = [t.clone() for t in grads]
+                if name == "base":
+                    want = got
+                rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, want))
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for _ in range(50):
+                    bwd()
+                end.record()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        bwd()
+                    torch.cuda.synchronize()
+                us = {kname: round(e.self_device_time_total / 10, 1) for e in prof.key_averages()
+                      for kname in kernels if kname in e.key}
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                print(f"f32 head_dim {D} H={H} {T}x{T} round {rnd} {name:24s} "
+                      f"{start.elapsed_time(end) / 50:.4f} ms a call, device us {us}, bit-equal to base: "
+                      f"{same}, worst relative norm to base {rel:.2e}", flush=True)
     return 0
 
 

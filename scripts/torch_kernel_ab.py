@@ -53,8 +53,12 @@ The train attention is also timed at 384x640, and, where the checkout has
 2048x2048 (~10% of keys invalid, one batch row with no valid key): the
 backward ``flash_train_bwd`` (``flash_train_dq_kernel`` then
 ``flash_train_dkv_kernel``, each kernel's device µs by name), the forward,
-and SDPA's backward with the same boolean mask.  ``--attention`` before the
-roots times the attention kernels alone (no decode kernels, no served
+and SDPA's backward with the same boolean mask; and the f32 backward pair
+(``flash_train_f32_dq_kernel`` then ``flash_train_f32_dkv_kernel``) at B=8,
+640x640, head_dim 64 (H=8) and 128 (H=4) beside f32 SDPA's backward, with
+its largest relative norm from the twin (the f32 outputs are not hashed:
+another design of the pair sums in another order).  ``--attention`` before
+the roots times the attention kernels alone (no decode kernels, no served
 batch):
 
     python scripts/torch_kernel_ab.py --attention build/parent . . build/parent
@@ -86,7 +90,8 @@ B, S, INDEX = 3, 1536, 512
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel", "embed_pe_kernel",
             "sample_advance_kernel", "flash_fwd_kernel", "flash_train_fwd_kernel",
             "flash_train_dq_kernel", "flash_train_dkv_kernel", "train_fwd_kernel",
-            "train_bwd_rows_kernel", "train_bwd_keys_kernel")
+            "train_bwd_rows_kernel", "train_bwd_keys_kernel", "attn_f32_fwd_kernel",
+            "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
 ATTENTION_ONLY = len(sys.argv) > 3 and sys.argv[3] == "attention"
 dev = torch.device("cuda", 0)
 torch.manual_seed(0)
@@ -280,6 +285,31 @@ for T_ in (640, 2048) if ft is not None else ():
     outputs["flash_train_bwd_" + tag] = digest(*ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
     mask = valid.bool()[:, None, None, :].expand(8, 1, T_, T_)
+    sd_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = go.transpose(1, 2).contiguous()
+    out["sdpa_bwd_" + tag] = timed(
+        lambda: torch.autograd.grad(sd_out, (qt, kt, vt), gt, retain_graph=True))
+# the f32 backward pair (flash_train_f32_dq_kernel + flash_train_f32_dkv_kernel)
+# at B=8, 640x640, head_dim 64 (H=8) and 128 (H=4), f32 inputs made from a
+# generator of their own, beside f32 SDPA's backward with the same mask (TF32
+# off); the largest relative norm of dq, dk, dv from the twin beside each
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
+    gf = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, go = (torch.randn(8, 640, H_, D_, generator=gf, device=dev) for _ in range(4))
+    valid = (torch.rand(8, 640, generator=gf, device=dev) >= 0.1).to(torch.int32)
+    valid[1] = 0
+    o, stats = ft.flash_train_fwd(q, k, v, valid, False)
+    tag = f"f32_hd{D_}_640x640"
+    out["flash_train_bwd_" + tag] = timed(
+        lambda: ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
+    got = ft.flash_train_bwd(q, k, v, valid, o, stats, go, False)
+    ref = ft.flash_train_bwd_reference(q, k, v, valid, o, stats, go, False)
+    out["flash_train_bwd_" + tag]["rel_to_twin"] = max(
+        ((a - b).norm() / b.norm()).item() for a, b in zip(got, ref))
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
+    mask = valid.bool()[:, None, None, :].expand(8, 1, 640, 640)
     sd_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     gt = go.transpose(1, 2).contiguous()
     out["sdpa_bwd_" + tag] = timed(

@@ -1,6 +1,7 @@
-// Attention in f32 for Hopper (sm_90a), on the FMA pipes: the forward of
-// `fused_attention` and the forward and recomputing backward of flash
-// training attention, over (B, T|S, H, HD) f32 tensors, HD = 64 or 128.
+// Attention in f32 for Hopper (sm_90a): the forward of `fused_attention`
+// and the forward and recomputing backward of flash training attention,
+// over (B, T|S, H, HD) f32 tensors, HD = 64 or 128.  The forwards run on the
+// FMA pipes; the backward pair on the tensor cores in split TF32.
 //
 // Replaces, for f32 inputs, the same TPU kernels as attention.cu and
 // flash_train.cu: `fused_attention` (smer_music_generation_tpu/ops/
@@ -25,28 +26,30 @@
 // p = exp(s - m) / l, di = sum_d out g, dv = p^T g, ds = (g v^T - di) p
 // scale, dq = ds k, dk = ds^T q, all in f32.
 //
-// What bounds it on an NVIDIA H100 (67 TFLOP/s of f32 FMA, 3.35 TB/s at
-// 700 W): at B=8, H=8, T=S=640, head_dim 64 the forward does 4 B H T S HD =
-// 6.7 GFLOP (0.10 ms at the FMA peak) and moves 42 MB (0.013 ms): operations.
-// JAX's f32 bound (atol 2e-5, rtol 1e-4 on outputs) rules out single-pass
-// TF32 on the tensor cores; this first version is a simple tiled kernel on
-// the FMA pipes.  Design: a block of 256 threads owns 64 rows of one
-// (b, h) (query rows in the forward and dq kernels, keys in the dk/dv
-// kernel) and walks 64-row tiles of the other operands through shared
-// memory (f32, rows padded by 4 floats so that 16 rows read as float4 fall
-// on distinct banks); thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x
-// 4 tile of a 64 x 64 product (rows 4 ty + i, columns tx + 16 j, sums over
-// head_dim in order) and holds a 4 x HD / 16 slice of each output
-// accumulator (rows 4 ty + i, columns tx + 16 j).  A row's reductions (max,
-// sum) are 16-lane shuffles.  P (and ds) go through shared memory as a 64 x
-// 64 tile into the next product.  exp is exp2f((s - m) log2(e)), the
-// difference taken first, as the bf16 kernels and the twins take it.
+// What bounds the forward on an NVIDIA H100 (67 TFLOP/s of f32 FMA, 3.35
+// TB/s at 700 W): at B=8, H=8, T=S=640, head_dim 64 it does 4 B H T S HD =
+// 6.7 GFLOP (0.10 ms at the FMA peak) and moves 42 MB (0.013 ms):
+// operations.  One TF32 pass cannot meet JAX's f32 bound (atol 2e-5, rtol
+// 1e-4 on outputs; one pass reads ~3e-4 from float64).  The forward is a
+// simple tiled kernel on the FMA pipes: a block of 256 threads owns 64 query
+// rows of one (b, h) and walks 64-row tiles of K and V through shared memory
+// (f32, rows padded by 4 floats so that 16 rows read as float4 fall on
+// distinct banks); thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x 4
+// tile of a 64 x 64 product (rows 4 ty + i, columns tx + 16 j, sums over
+// head_dim in order) and holds a 4 x HD / 16 slice of the output (rows 4 ty
+// + i, columns tx + 16 j).  A row's reductions (max, sum) are 16-lane
+// shuffles.  P goes through shared memory as a 64 x 64 tile into P V.  exp
+// is exp2f((s - m) log2(e)), the difference taken first, as the bf16
+// kernels and the twins take it.  The backward's design is set out above
+// its kernels.
 //
 // The launchers have a plain C interface and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attn_tiles.cuh"
 
 namespace {
 
@@ -268,167 +271,389 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // ---------------------------------------------------------------------------
-// backward, dq: a block per (64 query rows, b * H + h); writes di for dk/dv
+// backward: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
-template <int HD>
-constexpr size_t kDqSmemF = (4 * kTileF<HD> + kRows * kPLd) * sizeof(float) + kRows * sizeof(int);
+// Every product of the backward pair is mma.sync m16n8k8 TF32 with f32
+// sums.  Each operand x is split in registers as hi = cvt.rna.tf32(x) and
+// lo = x - hi (exact in f32; the tensor cores read its top 19 bits), and a
+// k8 step adds lo_a hi_b, hi_a lo_b, hi_a hi_b to the accumulator in that
+// order (lo_a lo_b dropped).  Every sum is one accumulator chain: the
+// products over head_dim, and dq, dk, dv over all their keys or rows,
+// tile after tile (scheme (a) of scripts/f32_tc_probe.py, whose readings on
+// an H100 chose it: at most 4.5e-6 relative norm from float64 at the five
+// products, F32_REL is 1e-4).
+//
+// A block of 4 warps owns 64 rows of one (b, h) (query rows in dq, keys in
+// dk/dv), 16 a warp; its two resident operands (Q and g, or K and V) sit in
+// shared memory and the other two stream through a two-stage cp.async ring
+// of kBT-row tiles: tile it + 1 is in flight while tile it's products run,
+// one __syncthreads a tile.  Tiles are f32 rows padded from HD to HD + 4
+// floats: a fragment's 32 lanes then read 32 banks, both as rows (the A
+// operands and X Y^T's B) and as columns (P Y's B, rows 2 t and 2 t + 1).
+// S = X Y^T leaves each row's 16 x kBT scores in C fragments (lane 4 g + t:
+// rows g, g + 8, columns 8 j + 2 t, 8 j + 2 t + 1); P and ds go from there
+// to the next product's A fragments in registers, the k8 chunk's columns
+// taken in the order 0 2 4 6 1 3 5 7 (a0 = c0, a1 = c2, a2 = c1, a3 = c3),
+// the B fragment reading rows 2 t and 2 t + 1 to match.
+//
+// What bounds it on an H100: 5 products of 2 HD flops a (row, key) pair
+// (7 with the recomputed S and dP), three TF32 passes each: at 495 TFLOP/s
+// of TF32 that is 165 TFLOP/s of split products, against 67 TFLOP/s of f32
+// FMA; B8 H8 640x640 head_dim 64 is 16.8 GFLOP, 0.102 ms at 165.  Each
+// warp splits every B operand it reads (3 instructions a float), so the
+// pair is bound by its HMMA stream and the splits that feed it, not by
+// device memory.  The streamed tiles are 32 rows at head_dim 64 (70 KB of
+// shared memory a block, registers capped at 168: three blocks an SM) and
+// 16 at head_dim 128 (101 KB: two); scripts/flash_train_variants.py --f32
+// times the other shapes.  Each (b, h) walks its whole reduction in one
+// block, so the grid is (64-row blocks) x B H: 640 blocks at B8 H8 640x640,
+// 1.6 waves of 396 slots at head_dim 64, 320 blocks and 1.2 waves of 264 at
+// head_dim 128 (H4).
 
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+constexpr int kBT = HD == 64 ? 32 : 16;  // rows of a streamed tile
+template <int HD>
+constexpr int kStages = 2;  // streamed tiles in flight (1: loaded after the last is read)
+template <int HD>
+constexpr int kMinBlocks = HD == 64 ? 3 : 2;  // blocks an SM that the registers must allow
+constexpr int kTcThreads = 128;          // 4 warps, 16 of the block's 64 rows each
+template <int HD>
+constexpr int kTileT = kBT<HD> * kLdF<HD>;  // floats of a streamed tile
+
+// x rounded to TF32, nearest with ties away from zero: cvt.rna.tf32.f32's
+// bits for every finite x (half an ulp added to the magnitude, the low 13
+// bits cut; scripts/f32_tc_probe.py holds the two equal on every finite f32
+// value).  ptxas expands cvt.rna into four or five instructions with checks
+// for inf and NaN; this is two.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi rounded to TF32 (nearest, ties away), lo the exact rest
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32: lo_a hi_b, hi_a lo_b, hi_a hi_b
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                          float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// c[j] = X Y^T over head_dim for a warp's 16 rows of X (row-major at X,
+// stride kLdF) and rows 8 j .. 8 j + 7 of Y (the same layout), j < NB.
+// The fragments come by ldmatrix.x4, each f32 taken as two b16: lane 4 g +
+// t receives row g, float t of each 8 x 4-float matrix, the m16n8k8 TF32
+// layout; one ldmatrix gives a k8 step's A fragment, one the B fragments of
+// two n-blocks (4 and 2 scalar loads a lane)
+template <int HD, int NB>
+__device__ __forceinline__ void xyt_tc(float (&c)[NB][4], const float* X, const float* Y,
+                                       int lane) {
+  static_assert(NB % 2 == 0, "an ldmatrix gives the B fragments of two n-blocks");
+  constexpr int ld = kLdF<HD>;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  // the row this lane addresses: matrices (rows 0-7 | 8-15) x (floats 0-3 |
+  // 4-7) in the A fragment's order a0 a1 a2 a3; for B, n-block j's b0 b1,
+  // then n-block j + 1's
+  const float* x = X + ((lane & 7) + (lane & 8)) * ld + ((lane >> 4) << 2);
+  const float* y = Y + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 2);
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 8) {
+    uint32_t a[4], ah[4], al[4];
+    attn_tiles::ldsm_x4(a, reinterpret_cast<const __nv_bfloat16*>(x + kk));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+      uint32_t b[4];
+      attn_tiles::ldsm_x4(b, reinterpret_cast<const __nv_bfloat16*>(y + 8 * j * ld + kk));
+      mma_split(c[j], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
+      mma_split(c[j + 1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
+    }
+  }
+}
+
+// acc += P Y: P a warp's 16 x 8 NB tile in C fragments, Y 8 NB rows of HD
+// (row-major, stride kLdF); chunk j's columns in the order 0 2 4 6 1 3 5 7
+template <int HD, int NB>
+__device__ __forceinline__ void pv_tc(float (&acc)[HD / 8][4], const float (&p)[NB][4],
+                                      const float* Y, int gq, int tq) {
+  constexpr int ld = kLdF<HD>;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[j][0], ah[0], al[0]);
+    split_tf32(p[j][2], ah[1], al[1]);
+    split_tf32(p[j][1], ah[2], al[2]);
+    split_tf32(p[j][3], ah[3], al[3]);
+    const float* y = Y + (8 * j + 2 * tq) * ld + gq;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) mma_split(acc[nb], ah, al, y[8 * nb], y[ld + 8 * nb]);
+  }
+}
+
+// rows p0 .. p0 + ROWS - 1 of one head of a (B, L, H, HD) f32 tensor into a
+// shared tile (stride kLdF) by 16-byte cp.async, every thread taking part
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* base, size_t stride,
+                                                int p0) {
+  constexpr int kChunks = HD / 4;
+  static_assert(ROWS * kChunks % kTcThreads == 0, "every thread copies as many chunks");
+#pragma unroll
+  for (int u = 0; u < ROWS * kChunks / kTcThreads; ++u) {
+    const int i = threadIdx.x + u * kTcThreads, r = i / kChunks, c = 4 * (i % kChunks);
+    attn_tiles::cp_async16(dst + r * kLdF<HD> + c, base + (size_t)(p0 + r) * stride + c, true);
+  }
+}
+
+// a warp's 16 x HD accumulator (C fragments) to rows p0 + gq, p0 + gq + 8
+template <int HD>
+__device__ __forceinline__ void store_acc(float* base, size_t stride, const float (&acc)[HD / 8][4],
+                                          int p0, int gq, int tq) {
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    float* row = base + (size_t)(p0 + gq + 8 * hi) * stride + 2 * tq;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+      *reinterpret_cast<float2*>(row + 8 * nb) = make_float2(acc[nb][2 * hi], acc[nb][2 * hi + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dq: a block per (64 query rows, b * H + h); writes di for dk/dv.
+// Replaces, for f32 inputs, the library flash kernel's dq pallas_call
+// (jax/experimental/pallas/ops/tpu/flash_attention.py:1456).  Q and g stay
+// in shared memory; K and V (and the keys' validity) stream.  Products: S =
+// Q K^T, dP = g V^T, dq += ds K.
+// ---------------------------------------------------------------------------
+template <int HD>
+constexpr size_t kDqSmemF =
+    (2 * kTileF<HD> + 2 * kStages<HD> * kTileT<HD>) * sizeof(float) + kStages<HD> * kBT<HD> * sizeof(int);
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, kMinBlocks<HD>)
     flash_train_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const int* __restrict__ valid,
                               const float* __restrict__ out, const float* __restrict__ stats,
                               const float* __restrict__ g, int causal, float scale,
                               float* __restrict__ di_out, float* __restrict__ dq, int T, int S,
                               int H) {
+  constexpr int BT = kBT<HD>, NB = BT / 8;
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;
   float* gs = qs + kTileF<HD>;
-  float* ks = gs + kTileF<HD>;  // the output rows first, for di
-  float* vs = ks + kTileF<HD>;
-  float* ds = vs + kTileF<HD>;  // [64][kPLd]
-  int* kok = reinterpret_cast<int*>(ds + kRows * kPLd);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* ring = gs + kTileF<HD>;  // stage st: K tile at ring + 2 st kTileT, V after it
+  int* kok = reinterpret_cast<int*>(ring + 2 * kStages<HD> * kTileT<HD>);  // [stage][BT]: validity
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int t0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
+  const int r0 = 16 * warp;  // the warp's rows within the block
   const size_t stride = (size_t)H * HD;
   const size_t qofs = (size_t)b * T * stride + h * HD;
   const float* kb = k + (size_t)b * S * stride + h * HD;
   const float* vb = v + (size_t)b * S * stride + h * HD;
-  const int n_keys = causal ? min((t0 / kBlk + 1) * kBlk, S) : S;
+  const int* vl = valid + (size_t)b * S;
+  const int n_tiles = (causal ? min((t0 / kBlk + 1) * kBlk, S) : S) / BT;
   const size_t BHT = (size_t)gridDim.y * T;
 
-  load_f32<HD>(qs, q + qofs, stride, t0, T);
-  load_f32<HD>(gs, g + qofs, stride, t0, T);
-  load_f32<HD>(ks, out + qofs, stride, t0, T);
-  __syncthreads();
-  float m[4], rl[4], di[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j)
-      acc = fmaf(ks[r * kLdF<HD> + tx + 16 * j], gs[r * kLdF<HD> + tx + 16 * j], acc);
-    di[i] = sum16(acc);
-    const size_t at = (size_t)bh * T + t0 + r;
-    if (tx == 0) di_out[at] = di[i];
-    m[i] = stats[at];
-    rl[i] = 1.f / stats[BHT + at];
-  }
-  __syncthreads();  // the output rows are read; the key tiles overwrite them
+  auto load_tile = [&](int it) {
+    float* ks = ring + 2 * (it % kStages<HD>) * kTileT<HD>;
+    load_rows_async<HD, BT>(ks, kb, stride, it * BT);
+    load_rows_async<HD, BT>(ks + kTileT<HD>, vb, stride, it * BT);
+    if (threadIdx.x < BT)
+      attn_tiles::cp_async4(kok + (it % kStages<HD>) * BT + threadIdx.x, vl + it * BT + threadIdx.x,
+                            true);
+  };
+  load_rows_async<HD, kRows>(qs, q + qofs, stride, t0);
+  load_rows_async<HD, kRows>(gs, g + qofs, stride, t0);
+  load_tile(0);
+  attn_tiles::cp_async_commit();
 
-  float dqa[4][HD / 16];
+  // di = sum_d out g of the warp's 16 rows, from device memory while the
+  // tiles come in: HD / 4 lanes a row, a float4 each, then a lane shuffle
+  constexpr int kLanesRow = HD / 4, kRowsIt = 32 / kLanesRow;
+  float di[2] = {0.f, 0.f}, m[2], rl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 16; i += kRowsIt) {
+    const size_t at = qofs + (size_t)(t0 + r0 + i + lane / kLanesRow) * stride + 4 * (lane % kLanesRow);
+    const float4 o4 = __ldg(reinterpret_cast<const float4*>(out + at));
+    const float4 g4 = __ldg(reinterpret_cast<const float4*>(g + at));
+    float acc = fmaf(o4.w, g4.w, fmaf(o4.z, g4.z, fmaf(o4.y, g4.y, o4.x * g4.x)));
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dqa[i][j] = 0.f;
-  for (int k0 = 0; k0 < n_keys; k0 += kRows) {
-    load_f32<HD>(ks, kb, stride, k0, S);
-    load_f32<HD>(vs, vb, stride, k0, S);
-    if (threadIdx.x < kRows) kok[threadIdx.x] = valid[(size_t)b * S + k0 + threadIdx.x];
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    xyt<HD>(s, qs, ks, tx, ty);
-    xyt<HD>(dp, gs, vs, tx, ty);
+    for (int o = 1; o < kLanesRow; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = t0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = kok[tx + 16 * j] != 0 && !(causal && col > row);
-        const float sv = fmaf(s[i][j], scale, ok ? 0.f : kMaskValue);
-        const float p = exp2f((sv - m[i]) * kLog2e) * rl[i];
-        ds[(4 * ty + i) * kPLd + tx + 16 * j] = (dp[i][j] - di[i]) * p * scale;
-      }
+    for (int u = 0; u < kRowsIt; ++u) {
+      const float row_di = __shfl_sync(0xffffffffu, acc, u * kLanesRow);
+      if (i + u == gq) di[0] = row_di;
+      if (i + u == gq + 8) di[1] = row_di;
     }
-    __syncthreads();
-    pv<HD>(dqa, ds, ks, tx, ty);
-    __syncthreads();
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_f32<HD>(dq + qofs, stride, dqa, one, t0, T, tx, ty);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const size_t at = (size_t)bh * T + t0 + r0 + gq + 8 * hi;
+    if (tq == 0) di_out[at] = di[hi];
+    m[hi] = stats[at];
+    rl[hi] = 1.f / stats[BHT + at];
+  }
+
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb) dqa[nb][0] = dqa[nb][1] = dqa[nb][2] = dqa[nb][3] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    attn_tiles::cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1, whose stage the next load takes
+    if (kStages<HD> == 2 && it + 1 < n_tiles) {
+      load_tile(it + 1);
+      attn_tiles::cp_async_commit();
+    }
+    const float* ks = ring + 2 * (it % kStages<HD>) * kTileT<HD>;
+    const float* vs = ks + kTileT<HD>;
+    const int* ok = kok + (it % kStages<HD>) * BT;
+    float s[NB][4], dp[NB][4];
+    xyt_tc<HD, NB>(s, qs + r0 * kLdF<HD>, ks, lane);
+    xyt_tc<HD, NB>(dp, gs + r0 * kLdF<HD>, vs, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, c = 8 * j + 2 * tq + (e & 1);
+        const bool keep = ok[c] != 0 && !(causal && it * BT + c > t0 + r0 + gq + 8 * hi);
+        const float sv = fmaf(s[j][e], scale, keep ? 0.f : kMaskValue);
+        const float p = attn_tiles::exp2_ftz((sv - m[hi]) * kLog2e) * rl[hi];
+        s[j][e] = (dp[j][e] - di[hi]) * p * scale;  // ds
+      }
+    pv_tc<HD, NB>(dqa, s, ks, gq, tq);
+    if (kStages<HD> == 1 && it + 1 < n_tiles) {
+      __syncthreads();  // every warp is done with the one stage
+      load_tile(it + 1);
+      attn_tiles::cp_async_commit();
+    }
+  }
+  store_acc<HD>(dq + qofs, stride, dqa, t0 + r0, gq, tq);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dk and dv: a block per (64 keys, b * H + h)
+// backward, dk and dv: a block per (64 keys, b * H + h).  Replaces, for f32
+// inputs, the library flash kernel's dkv pallas_call (flash_attention.py:
+// 1121).  K and V stay in shared memory; Q, g and each row's m, l, di
+// stream, from the keys' 128-block on when causal.  Products: S^T = K Q^T,
+// dP^T = V g^T, dv += p^T g, dk += ds^T Q.
 // ---------------------------------------------------------------------------
 template <int HD>
-constexpr size_t kDkvSmemF = (4 * kTileF<HD> + 2 * kRows * kPLd + 3 * kRows) * sizeof(float);
+constexpr size_t kDkvSmemF =
+    (2 * kTileF<HD> + 2 * kStages<HD> * kTileT<HD> + 3 * kStages<HD> * kBT<HD>) * sizeof(float);
 
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kTcThreads, kMinBlocks<HD>)
     flash_train_f32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const int* __restrict__ valid,
                                const float* __restrict__ stats, const float* __restrict__ di_in,
                                const float* __restrict__ g, int causal, float scale,
                                float* __restrict__ dk, float* __restrict__ dv, int T, int S,
                                int H) {
+  constexpr int BT = kBT<HD>, NB = BT / 8;
   extern __shared__ __align__(16) float fsm[];
   float* ks = fsm;
   float* vs = ks + kTileF<HD>;
-  float* qs = vs + kTileF<HD>;
-  float* gs = qs + kTileF<HD>;
-  float* ps = gs + kTileF<HD>;  // [64 keys][kPLd rows]: p^T
-  float* dss = ps + kRows * kPLd;  // ds^T
-  float* rst = dss + kRows * kPLd;  // [3][64]: m, 1 / l, di of the tile's rows
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* ring = vs + kTileF<HD>;  // stage st: Q tile at ring + 2 st kTileT, g after it
+  float* rst = ring + 2 * kStages<HD> * kTileT<HD>;  // [stage][3][BT]: m, l, di of the tile's rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int c0 = blockIdx.x * kRows;
+  const int r0 = 16 * warp;  // the warp's keys within the block
   const size_t stride = (size_t)H * HD;
   const size_t kofs = (size_t)b * S * stride + h * HD;
   const float* qb = q + (size_t)b * T * stride + h * HD;
   const float* gb = g + (size_t)b * T * stride + h * HD;
   // query rows: all, or those of the 128-blocks at or below the keys'
   const int first = causal ? (c0 / kBlk) * kBlk : 0;
+  const int n_tiles = (T - first) / BT;
   const size_t BHT = (size_t)gridDim.y * T;
 
-  load_f32<HD>(ks, k + kofs, stride, c0, S);
-  load_f32<HD>(vs, v + kofs, stride, c0, S);
-  float madd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) madd[i] = valid[(size_t)b * S + c0 + 4 * ty + i] != 0 ? 0.f : kMaskValue;
-
-  float dka[4][HD / 16], dva[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dka[i][j] = dva[i][j] = 0.f;
-  for (int r0 = first; r0 < T; r0 += kRows) {
-    load_f32<HD>(qs, qb, stride, r0, T);
-    load_f32<HD>(gs, gb, stride, r0, T);
-    if (threadIdx.x < kRows) {
-      const size_t at = (size_t)bh * T + r0 + threadIdx.x;
-      rst[threadIdx.x] = stats[at];
-      rst[kRows + threadIdx.x] = 1.f / stats[BHT + at];
-      rst[2 * kRows + threadIdx.x] = di_in[at];
+  auto load_tile = [&](int it) {
+    const int p0 = first + it * BT;
+    float* qs = ring + 2 * (it % kStages<HD>) * kTileT<HD>;
+    load_rows_async<HD, BT>(qs, qb, stride, p0);
+    load_rows_async<HD, BT>(qs + kTileT<HD>, gb, stride, p0);
+    float* rs = rst + 3 * BT * (it % kStages<HD>);
+    if (threadIdx.x < 3 * BT / 4) {
+      const int a = threadIdx.x / (BT / 4), c = 4 * (threadIdx.x % (BT / 4));
+      const size_t at = (size_t)bh * T + p0 + c;
+      const float* src = a == 0 ? stats + at : (a == 1 ? stats + BHT + at : di_in + at);
+      attn_tiles::cp_async16(rs + a * BT + c, src, true);
     }
-    __syncthreads();
-    float sT[4][4], dT[4][4];  // row = this thread's key, column = a query row
-    xyt<HD>(sT, ks, qs, tx, ty);
-    xyt<HD>(dT, vs, gs, tx, ty);
+  };
+  load_rows_async<HD, kRows>(ks, k + kofs, stride, c0);
+  load_rows_async<HD, kRows>(vs, v + kofs, stride, c0);
+  load_tile(0);
+  attn_tiles::cp_async_commit();
+  float madd[2];
+  int key[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = c0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rr = tx + 16 * j, row = r0 + rr;
-        const float mk = causal && key > row ? kMaskValue : madd[i];
-        const float sv = fmaf(sT[i][j], scale, mk);
-        const float p = exp2f((sv - rst[rr]) * kLog2e) * rst[kRows + rr];
-        ps[(4 * ty + i) * kPLd + rr] = p;
-        dss[(4 * ty + i) * kPLd + rr] = (dT[i][j] - rst[2 * kRows + rr]) * p * scale;
-      }
-    }
-    __syncthreads();
-    pv<HD>(dva, ps, gs, tx, ty);
-    pv<HD>(dka, dss, qs, tx, ty);
-    __syncthreads();
+  for (int hi = 0; hi < 2; ++hi) {
+    key[hi] = c0 + r0 + gq + 8 * hi;
+    madd[hi] = valid[(size_t)b * S + key[hi]] != 0 ? 0.f : kMaskValue;
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_f32<HD>(dk + kofs, stride, dka, one, c0, S, tx, ty);
-  store_f32<HD>(dv + kofs, stride, dva, one, c0, S, tx, ty);
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nb][e] = dva[nb][e] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    attn_tiles::cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1, whose stage the next load takes
+    if (kStages<HD> == 2 && it + 1 < n_tiles) {
+      load_tile(it + 1);
+      attn_tiles::cp_async_commit();
+    }
+    const float* qs = ring + 2 * (it % kStages<HD>) * kTileT<HD>;
+    const float* gs = qs + kTileT<HD>;
+    const float* rs = rst + 3 * BT * (it % kStages<HD>);
+    const int p0 = first + it * BT;
+    float sT[NB][4], dT[NB][4];  // row: one of the warp's keys; column: a query row of the tile
+    xyt_tc<HD, NB>(sT, ks + r0 * kLdF<HD>, qs, lane);
+    xyt_tc<HD, NB>(dT, vs + r0 * kLdF<HD>, gs, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = 8 * j + 2 * tq + e2;
+        const float mr = rs[c], rl = __frcp_rn(rs[BT + c]), dr = rs[2 * BT + c];
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int e = 2 * hi + e2;
+          const float mk = causal && key[hi] > p0 + c ? kMaskValue : madd[hi];
+          const float sv = fmaf(sT[j][e], scale, mk);
+          const float p = attn_tiles::exp2_ftz((sv - mr) * kLog2e) * rl;
+          sT[j][e] = p;
+          dT[j][e] = (dT[j][e] - dr) * p * scale;  // ds
+        }
+      }
+    pv_tc<HD, NB>(dva, sT, gs, gq, tq);
+    pv_tc<HD, NB>(dka, dT, qs, gq, tq);
+    if (kStages<HD> == 1 && it + 1 < n_tiles) {
+      __syncthreads();  // every warp is done with the one stage
+      load_tile(it + 1);
+      attn_tiles::cp_async_commit();
+    }
+  }
+  store_acc<HD>(dk + kofs, stride, dka, c0 + r0, gq, tq);
+  store_acc<HD>(dv + kofs, stride, dva, c0 + r0, gq, tq);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -461,6 +686,27 @@ int launch_fwd_f32(int mode, int B, int T, int S, int H, const void* q, const vo
   return (int)cudaGetLastError();
 }
 
+// the pair's dynamic shared memory, and the whole of the SM's shared memory
+// preferred over L1, so that two blocks of each fit an SM
+template <int HD>
+cudaError_t bwd_f32_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(flash_train_f32_dq_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kDqSmemF<HD>);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_train_f32_dq_kernel<HD>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_train_f32_dkv_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemF<HD>);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_train_f32_dkv_kernel<HD>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 template <int HD>
 int launch_bwd_f32(int B, int T, int S, int H, const void* q, const void* k, const void* v,
                    const void* valid, const void* out, const void* stats, const void* g,
@@ -473,22 +719,29 @@ int launch_bwd_f32(int B, int T, int S, int H, const void* q, const void* k, con
   const int* vl = static_cast<const int*>(valid);
   const auto* sf = static_cast<const float*>(stats);
   float* dib = static_cast<float*>(di);
-  cudaError_t e = cudaFuncSetAttribute(flash_train_f32_dq_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kDqSmemF<HD>);
+  cudaError_t e = bwd_f32_attributes<HD>();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_train_f32_dkv_kernel<HD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemF<HD>);
-  if (e != cudaSuccess) return (int)e;
-  flash_train_f32_dq_kernel<HD><<<dim3(T / kRows, B * H), kF32Threads, kDqSmemF<HD>, st>>>(
+  flash_train_f32_dq_kernel<HD><<<dim3(T / kRows, B * H), kTcThreads, kDqSmemF<HD>, st>>>(
       qf, kf, vf, vl, static_cast<const float*>(out), sf, gf, causal, scale, dib,
       static_cast<float*>(dq), T, S, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_train_f32_dkv_kernel<HD><<<dim3(S / kRows, B * H), kF32Threads, kDkvSmemF<HD>, st>>>(
+  flash_train_f32_dkv_kernel<HD><<<dim3(S / kRows, B * H), kTcThreads, kDkvSmemF<HD>, st>>>(
       qf, kf, vf, vl, sf, dib, gf, causal, scale, static_cast<float*>(dk), static_cast<float*>(dv),
       T, S, H);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int bwd_f32_blocks(int* dq_blocks, int* dkv_blocks) {
+  cudaError_t e = bwd_f32_attributes<HD>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dq_blocks, flash_train_f32_dq_kernel<HD>,
+                                                      kTcThreads, kDqSmemF<HD>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dkv_blocks, flash_train_f32_dkv_kernel<HD>,
+                                                      kTcThreads, kDkvSmemF<HD>);
+  return (int)e;
 }
 
 }  // namespace
@@ -529,7 +782,8 @@ int smer_flash_train_bwd_f32(int head_dim, int B, int T, int S, int H, const voi
                              void* dq, void* dk, void* dv, void* stream) {
   if (B < 1 || H < 1 || T < kBlk || S < kBlk || T % kBlk || S % kBlk || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) || !aligned16(g))
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) || !aligned16(g) ||
+      !aligned16(stats) || !aligned16(di))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
@@ -539,6 +793,19 @@ int smer_flash_train_bwd_f32(int head_dim, int B, int T, int S, int H, const voi
     case 128:
       return launch_bwd_f32<128>(B, T, S, H, q, k, v, valid, out, stats, g, causal, scale, di, dq,
                                  dk, dv, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of the backward pair an SM holds at once (the occupancy
+// calculator, with the launch's attributes set): dq then dk/dv.
+int smer_flash_train_bwd_f32_blocks(int head_dim, int* dq_blocks, int* dkv_blocks) {
+  switch (head_dim) {
+    case 64:
+      return bwd_f32_blocks<64>(dq_blocks, dkv_blocks);
+    case 128:
+      return bwd_f32_blocks<128>(dq_blocks, dkv_blocks);
     default:
       return (int)cudaErrorInvalidValue;
   }
