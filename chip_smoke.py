@@ -23,10 +23,10 @@ paths and prints one line per phase with the elapsed seconds:
    phase fails if any has none, or if the flash-train trio (on wgmma) has
    no HGMMA; the registers, spills and shared memory of the f32 kernels
    (``F32_KERNELS``: the forward for both mask semantics and the backward
-   pair, each at head_dim 64 and 128; the phase fails on a missing entry,
-   and unless each instantiation of the backward pair, on the tensor cores
-   in split TF32, holds HMMA on TF32 operands and spills nothing), with the
-   pair's blocks an SM from the occupancy calculator; then the
+   pair, each at head_dim 64 and 128, all on the tensor cores in split
+   TF32; the phase fails on a missing entry, and unless each instantiation
+   holds HMMA on TF32 operands and spills nothing), with their blocks an SM
+   from the occupancy calculator; then the
    registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
@@ -149,8 +149,8 @@ paths and prints one line per phase with the elapsed seconds:
    and at head_dim 64 and 128 in f32 (``attn_f32_fwd_kernel``) the served
    shape and a causal one with a batch row of no valid key, bf16 within the
    same bound, f32 within atol 2e-5 + rtol 1e-4 (``F32_ATOL``/``F32_RTOL``,
-   JAX's own f32 bound), each timed beside its bound and SDPA (f32 without
-   TF32);
+   JAX's own f32 bound), each timed beside its bound (f32: the FMA pipes'
+   and split TF32's, ``SPLIT_TF32_FLOPS``) and SDPA (f32 without TF32);
 2g. train attention vs twins: ``fused_dropout_attention``'s forward and
    backward kernels at B=8, H=8, HD=64, bf16, (T, S) = 640x640, 384x384
    causal, 384x640, 1024x1024 and the ragged 200x333 and 333x333 causal,
@@ -191,8 +191,8 @@ paths and prints one line per phase with the elapsed seconds:
    128 (640x640, 384x384 causal, 384x640, timed at 640x640), each forward
    and backward run twice and bit-equal to itself, f32 held at
    ``F32_ATOL`` + ``F32_RTOL`` (output) and ``F32_REL`` (gradients); the
-   f32 pair timed beside the FMA pipes' bound and the split-TF32 bound
-   (``SPLIT_TF32_FLOPS``), the pair's and each kernel's;
+   f32 forward and pair timed beside the FMA pipes' bound and the split-TF32
+   bound (``SPLIT_TF32_FLOPS``), the pair's and each kernel's;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
    through v3 at B=1 (verify launches, tokens a verify, ms a verify
@@ -380,23 +380,22 @@ WGMMA_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train
 # every attention kernel is instantiated for each head_dim of
 # attn.KERNEL_HEAD_DIMS: phase 1 reads each instantiation (the mangled-name
 # piece <name>ILi<head_dim>E)
-# the f32 attention kernels (attention_f32.cu; the forwards on the FMA
-# pipes, the backward pair on the tensor cores in split TF32): phase 1
-# prints their registers, spills and shared memory and fails on a missing
-# entry; the pair's instantiations must hold HMMA on TF32 operands
-# (mma.sync m16n8k8, HMMA.1688.F32.TF32) and spill nothing
-F32_PAIR = tuple(f"flash_train_f32_{k}_kernelILi{hd}E" for k in ("dq", "dkv")
-                 for hd in attn.KERNEL_HEAD_DIMS)
+# the f32 attention kernels (attention_f32.cu: the forward of both MODEs and
+# the backward pair, all on the tensor cores in split TF32): phase 1 fails
+# unless every instantiation has an entry in the build log, holds HMMA on
+# TF32 operands (mma.sync m16n8k8, HMMA.1688.F32.TF32) and spills nothing
 F32_KERNELS = (*(f"attn_f32_fwd_kernelILi{hd}ELi{mode}E" for hd in attn.KERNEL_HEAD_DIMS
-                 for mode in (0, 1)), *F32_PAIR)
+                 for mode in (0, 1)),
+               *(f"flash_train_f32_{k}_kernelILi{hd}E" for k in ("dq", "dkv")
+                 for hd in attn.KERNEL_HEAD_DIMS))
 # f32 kernels vs twin: outputs within JAX's own f32 bound between its kernel
 # and its reference (tests/test_ops.py:25), gradients within 1e-4 relative
 # norm, JAX's tightest kernel-to-twin gradient bound (tests/test_ops.py:654):
 # both sides sum f32 products of f32 operands, only the order differs
 F32_ATOL, F32_RTOL = 2e-5, 1e-4
 F32_REL = 1e-4
-# the f32 backward pair's products: three TF32 passes each (hi hi, hi lo, lo
-# hi) at the tensor cores' 495 TFLOP/s of TF32
+# the f32 kernels' products: three TF32 passes each (hi hi, hi lo, lo hi) at
+# the tensor cores' 495 TFLOP/s of TF32
 SPLIT_TF32_FLOPS = 495e12 / 3
 # the wide head: d512 with nhead 4, head_dim 128, beside the flagship's 8 x 64
 H_WIDE, HD_WIDE = 4, 128
@@ -1719,12 +1718,12 @@ def phase_decode_kernels(dev, packed, model, vpad):
 
 
 def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, hd: int = HD_ATTN,
-                    f32: bool = False):
+                    f32: bool = False, rate: float | None = None):
     """Least time of one flash-attention call and what bounds it: q, k, v
     read and the output written once (bf16, or f32); 4 HD operations for
     every (query, valid key) pair this call's lengths and mask leave, at the
-    bf16 tensor-core rate (f32: the FMA pipes' rate).  Returns (ms, "bytes"
-    or "operations")."""
+    bf16 tensor-core rate (f32: the FMA pipes' rate; or ``rate``).  Returns
+    (ms, "bytes" or "operations")."""
     nbytes = (2 * B * T + 2 * B * S) * heads * hd * (4 if f32 else 2)
     pairs = 0
     for n in lens:
@@ -1735,7 +1734,7 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, 
         else:
             pairs += T * n
     flops = 4 * hd * heads * pairs
-    rate = F32_FLOPS if f32 else BF16_FLOPS
+    rate = rate or (F32_FLOPS if f32 else BF16_FLOPS)
     return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
                                            else "operations")
 
@@ -1797,8 +1796,10 @@ def phase_tensor_cores() -> None:
     train-attention backward pair and the flash-train trio), each at head_dim
     64 and 128, were compiled to tensor-core instructions (HMMA, HGMMA; the
     flash-train trio to HGMMA); their registers, spills, shared memory and
-    the commonest opcodes of their SASS.  Then the registers, spills and
-    shared memory of the f32 kernels."""
+    the commonest opcodes of their SASS.  Then the f32 kernels (the forward
+    of both MODEs, the backward pair), each at head_dim 64 and 128, were
+    compiled to HMMA on TF32 operands and spill nothing; their registers,
+    shared memory, commonest opcodes and blocks an SM."""
     insts = kernel_insts()
     mix = sass_mix(str(ds.BUILD_INFO["path"]), insts)
     counts = {k: sum(n for op, n in mix[k].items() if op in ("HMMA", "HGMMA")) for k in insts}
@@ -1817,35 +1818,38 @@ def phase_tensor_cores() -> None:
     hgmma = {k: mix[k].get("HGMMA", 0) for k in kernel_insts(WGMMA_KERNELS)}
     if not all(hgmma.values()):
         raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
-    tf32 = sass_mix(str(ds.BUILD_INFO["path"]), F32_PAIR, modifiers=True)
+    tf32 = sass_mix(str(ds.BUILD_INFO["path"]), F32_KERNELS, modifiers=True)
     for name in F32_KERNELS:
         f = facts.get(name)
         if f is None:
             raise AssertionError(f"the f32 kernel {name} has no entry in the build log")
-        where = "FMA pipes"
-        if name in F32_PAIR:
-            n_tf32 = sum(n for op, n in tf32[name].items() if op.startswith("HMMA") and ".TF32" in op)
-            where = f"split TF32, {n_tf32} HMMA on TF32 operands in its SASS"
-            if not n_tf32:
-                raise AssertionError(f"the f32 backward kernel {name} has no HMMA on TF32 operands: "
-                                     f"{sorted(tf32[name].items(), key=lambda kv: -kv[1])[:8]}")
-            if f.get("spill_stores", 0) + f.get("spill_loads", 0):
-                raise AssertionError(f"the f32 backward kernel {name} spills: {f}")
-        say(f"  {name} (f32, {where}): {f.get('registers')} registers, spill stores/loads "
-            f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static "
-            "shared memory (its tiles are dynamic)")
-        if name in F32_PAIR:
-            top = sorted(tf32[name].items(), key=lambda kv: -kv[1])[:10]
-            say(f"    SASS opcodes (static): {sum(tf32[name].values())} in all; " +
-                ", ".join(f"{op} {n}" for op, n in top))
+        n_tf32 = sum(n for op, n in tf32[name].items() if op.startswith("HMMA") and ".TF32" in op)
+        if not n_tf32:
+            raise AssertionError(f"the f32 kernel {name} has no HMMA on TF32 operands: "
+                                 f"{sorted(tf32[name].items(), key=lambda kv: -kv[1])[:8]}")
+        if f.get("spill_stores", 0) + f.get("spill_loads", 0):
+            raise AssertionError(f"the f32 kernel {name} spills: {f}")
+        say(f"  {name} (f32, split TF32, {n_tf32} HMMA on TF32 operands in its SASS): "
+            f"{f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
+            f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static shared memory (its "
+            "tiles are dynamic)")
+        top = sorted(tf32[name].items(), key=lambda kv: -kv[1])[:10]
+        say(f"    SASS opcodes (static): {sum(tf32[name].values())} in all; " +
+            ", ".join(f"{op} {n}" for op, n in top))
     lib = ds.load_library()
     for hd in attn.KERNEL_HEAD_DIMS:
+        blocks = {}
+        for mode in (0, 1):
+            n = ctypes.c_int(0)
+            ds._check(lib.smer_attention_f32_fwd_blocks(hd, mode, ctypes.addressof(n)),
+                      "the occupancy of the f32 forward")
+            blocks[mode] = n.value
         dq_blocks, dkv_blocks = ctypes.c_int(0), ctypes.c_int(0)
         ds._check(lib.smer_flash_train_bwd_f32_blocks(hd, ctypes.addressof(dq_blocks),
                                                       ctypes.addressof(dkv_blocks)),
                   "the occupancy of the f32 backward pair")
-        say(f"  the f32 backward pair at head_dim {hd}: {dq_blocks.value} dq blocks and "
-            f"{dkv_blocks.value} dk/dv blocks an SM (4 warps each)")
+        say(f"  the f32 kernels at head_dim {hd}, blocks an SM (4 warps each): forward {blocks[0]} "
+            f"(MODE 0) and {blocks[1]} (MODE 1), dq {dq_blocks.value}, dk/dv {dkv_blocks.value}")
 
 
 def phase_decode_facts() -> None:
@@ -1966,9 +1970,14 @@ def attention_wide_cases(dev, g) -> None:
             library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask), iters=20)
             bound, by = attention_bound(B, T, S, lens, causal, heads, hd, f32)
+            tc = ""
+            if f32:  # the f32 forward runs in split TF32: its bound at that rate too
+                tc_ms, tc_by = attention_bound(B, T, S, lens, causal, heads, hd, f32, SPLIT_TF32_FLOPS)
+                tc = (f", f32 FMA; {tc_ms:.5f} at split TF32's {SPLIT_TF32_FLOPS / 1e12:.0f} TFLOP/s "
+                      f"({tc_by})")
             say(f"  {str(dtype).split('.')[-1]} B={B} T={T} S={S} H={heads} HD={hd} lens={lens} "
                 f"causal={causal}: max|kernel-twin| {err:.3e}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-                f"sdpa {library_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+                f"sdpa {library_ms:.4f} ms, bound {bound:.5f} ms ({by}{tc})")
         say(f"  {str(dtype).split('.')[-1]} head_dim {hd}: within atol {atol:g} + rtol {rtol:.4g} of the "
             f"twin (max {worst:.3e})")
 
@@ -2440,14 +2449,17 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     bound_f, by_f = flash_train_bound(B, T, S, causal, False, heads, hd, f32)
     bound_b, by_b = flash_train_bound(B, T, S, causal, True, heads, hd, f32)
     twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
-    tc = ""
-    if f32:  # the f32 pair runs in split TF32: its bound at that rate too
+    tc_f = tc_b = ""
+    if f32:  # the f32 kernels run in split TF32: their bounds at that rate too
+        rate = SPLIT_TF32_FLOPS / 1e12
+        tc_ms, tc_by = flash_train_bound(B, T, S, causal, False, heads, hd, f32, SPLIT_TF32_FLOPS)
+        tc_f = f", f32 FMA; {tc_ms:.5f} at split TF32's {rate:.0f} TFLOP/s ({tc_by})"
         tc_ms, tc_by = flash_train_bound(B, T, S, causal, True, heads, hd, f32, SPLIT_TF32_FLOPS)
-        tc = f"; {tc_ms:.5f} at split TF32's {SPLIT_TF32_FLOPS / 1e12:.0f} TFLOP/s ({tc_by})"
+        tc_b = f"; {tc_ms:.5f} at split TF32's {rate:.0f} TFLOP/s ({tc_by})"
     say(f"    times at B={B} T={T} S={S} H={heads} HD={hd} {str(q.dtype).split('.')[-1]} causal={causal}: "
-        f"forward kernel {ms_f:.4f} ms, SDPA {lib_f:.4f}, bound {bound_f:.5f} ({by_f}); backward "
+        f"forward kernel {ms_f:.4f} ms, SDPA {lib_f:.4f}, bound {bound_f:.5f} ({by_f}{tc_f}); backward "
         f"kernels {ms_b:.4f} ms, SDPA backward {lib_b:.4f}, bound {bound_b:.5f} ({by_b}, the "
-        f"function's 5 products{', f32 FMA' if f32 else ''}{tc}){twins}")
+        f"function's 5 products{', f32 FMA' if f32 else ''}{tc_b}){twins}")
     # each backward kernel alone: its device time by name, beside its own bound
     split_b = device_split(bwd)
     names = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel") if f32 else WGMMA_KERNELS[1:]

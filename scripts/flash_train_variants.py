@@ -19,10 +19,13 @@ each timed alone (``flash_train_fwd_kernel``) at B=8, H=8, T=S=2048, head_dim
 64 and 128, with ~10% of keys invalid and with every key valid, its output
 and m, l compared bit for bit with the unedited source's.  With ``--f32`` the
 variants are ``ops/csrc/attention_f32.cu``'s (``F32_VARIANTS``): the f32
+forward (``attn_f32_fwd_kernel``) timed in MODE 1 at B=8, T=S=640 (~10% of
+keys invalid, flash training's) and in MODE 0 at B=3, T=S=1536, key lengths
+1536/1440/1344 (``fused_attention``'s, the served encoder shape), and the
 backward pair (``flash_train_f32_dq_kernel`` then
-``flash_train_f32_dkv_kernel``) timed at B=8, T=S=640, head_dim 64 (H=8)
-and 128 (H=4), its dq, dk, dv against the unedited source's (bit-equal, and
-the worst relative norm).
+``flash_train_f32_dkv_kernel``) at B=8, T=S=640, each at head_dim 64 (H=8)
+and 128 (H=4); the outputs and dq, dk, dv against the unedited source's
+(bit-equal, and the worst relative norm).
 
 The variants say what each part of the design costs:
 - ``two_stages``: a ring of two 64-row tiles, not four;
@@ -35,7 +38,7 @@ The variants say what each part of the design costs:
 - ``dkv_no_elementwise`` / ``dq_no_elementwise``: the mask, p and ds left
   out (wrong results, timing only): the products and the pipeline alone.
 
-The f32 pair's:
+The f32 kernels' (the forward's and the pair's):
 - ``f32_one_pass``: hi hi alone, one TF32 pass a product (wrong results,
   ~5e-4: timing only): what the split's other two passes cost;
 - ``f32_no_split``: each operand handed to all three passes as it is, no
@@ -43,6 +46,18 @@ The f32 pair's:
 - ``f32_no_elementwise``: the mask, p and ds left out (timing only);
 - ``f32_scalar_loads``: X Y^T's fragments by scalar loads (4 for A, 2 a
   B n-block) instead of ldmatrix (the same bits);
+- ``f32_fwd_split_once``: the forward's K and V tiles split once a block
+  into hi and lo copies, behind a second ``__syncthreads`` a tile, instead
+  of by every warp at each use (the same bits; one block an SM at head_dim
+  128), and ``f32_fwd_split_once_t16`` the same with 16-key tiles at head_dim
+  128 (two blocks);
+- ``f32_fwd_t16_b3``: 16-key tiles and three blocks an SM at head_dim 128;
+- ``f32_fwd_t64_b2``: 64-key tiles and two blocks an SM at head_dim 64;
+- ``f32_fwd_q_regs``: Q's A fragments split once into registers at head_dim
+  64 (the same bits; 168 registers, the MODE 1 instantiation spills);
+- ``f32_fwd_b4``: four blocks an SM at head_dim 64 (registers capped at 128);
+- ``f32_fwd_scheme_b``: each tile's P V into a zeroed fragment, added to o
+  by FMA (the probe's scheme (b); other bits);
 - ``f32_t64_s2_b2__t16_s2_b2`` (the first split-TF32 build's),
   ``f32_t32_s2_b3__t32_s1_b2``, ``f32_t64_s1_b3__t64_s1_b1``,
   ``f32_t16_s2_b3__t32_s2_b1``: other (rows a streamed tile, stages,
@@ -121,7 +136,156 @@ VARIANTS = {
          "      for (int e = 0; e < 4; ++e) s[4 * j + e] += dp[4 * j + e];"),
     ],
 }
-# the f32 backward pair's (ops/csrc/attention_f32.cu)
+# the f32 kernels' (ops/csrc/attention_f32.cu)
+_FWD_KERNEL = "template <int HD, int MODE>\n__global__"  # definitions a variant adds go before it
+_FWD_S = "    xyt_tc<HD, NB>(s, qs + r0 * kLdF<HD>, ks, lane);\n    float alpha[2];\n"
+_FWD_PV = "    pv_tc<HD, NB>(o, s, vs, gq, tq);\n"
+# the forward's K and V split once a block into hi and lo copies of the
+# tile (a stage K hi, K lo, V hi, V lo), behind a second __syncthreads
+_SPLIT_ONCE = [
+    ("constexpr int kFwdStage = 2 * kFwdTile<HD>;  // a ring stage: K's tile, then V's",
+     "constexpr int kFwdStage = 4 * kFwdTile<HD>;  // K hi, K lo, V hi, V lo"),
+    ("    load_rows_async<HD, BT, MODE == 0>(ks + kFwdTile<HD>, vb, stride, it * BT, S);",
+     "    load_rows_async<HD, BT, MODE == 0>(ks + 2 * kFwdTile<HD>, vb, stride, it * BT, S);"),
+    (_FWD_KERNEL, """\
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+template <int HD>
+__device__ __forceinline__ void split_stage(float* st) {
+  constexpr int kVec = kFwdBT<HD> * HD / 4;
+  static_assert(2 * kVec % kTcThreads == 0, "every thread splits as many");
+#pragma unroll
+  for (int u = 0; u < 2 * kVec / kTcThreads; ++u) {
+    const int i = threadIdx.x + u * kTcThreads, w = i / kVec, j = i % kVec;
+    float* x = st + 2 * w * kFwdTile<HD> + (j / (HD / 4)) * kLdF<HD> + 4 * (j % (HD / 4));
+    const float4 f = *reinterpret_cast<const float4*>(x);
+    uint4 hi, lo;
+    split_tf32(f.x, hi.x, lo.x);
+    split_tf32(f.y, hi.y, lo.y);
+    split_tf32(f.z, hi.z, lo.z);
+    split_tf32(f.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(x) = hi;
+    *reinterpret_cast<uint4*>(x + kFwdTile<HD>) = lo;
+  }
+}
+
+template <int HD, int NB>
+__device__ __forceinline__ void xyt_hl(float (&c)[NB][4], const float* X, const float* Y,
+                                       const float* YL, int lane) {
+  constexpr int ld = kLdF<HD>;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const float* x = X + ((lane & 7) + (lane & 8)) * ld + ((lane >> 4) << 2);
+  const int yo = ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 2);
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 8) {
+    uint32_t a[4], ah[4], al[4];
+    attn_tiles::ldsm_x4(a, reinterpret_cast<const __nv_bfloat16*>(x + kk));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+      uint32_t b[4], bl[4];
+      attn_tiles::ldsm_x4(b, reinterpret_cast<const __nv_bfloat16*>(Y + yo + 8 * j * ld + kk));
+      attn_tiles::ldsm_x4(bl, reinterpret_cast<const __nv_bfloat16*>(YL + yo + 8 * j * ld + kk));
+      mma3(c[j], ah, al, b[0], b[1], bl[0], bl[1]);
+      mma3(c[j + 1], ah, al, b[2], b[3], bl[2], bl[3]);
+    }
+  }
+}
+
+template <int HD, int NB>
+__device__ __forceinline__ void pv_hl(float (&acc)[HD / 8][4], const float (&p)[NB][4],
+                                      const float* Y, const float* YL, int gq, int tq) {
+  constexpr int ld = kLdF<HD>;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[j][0], ah[0], al[0]);
+    split_tf32(p[j][2], ah[1], al[1]);
+    split_tf32(p[j][1], ah[2], al[2]);
+    split_tf32(p[j][3], ah[3], al[3]);
+    const int at = (8 * j + 2 * tq) * ld + gq;
+    const float *y = Y + at, *z = YL + at;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+      mma3(acc[nb], ah, al, __float_as_uint(y[8 * nb]), __float_as_uint(y[ld + 8 * nb]),
+           __float_as_uint(z[8 * nb]), __float_as_uint(z[ld + 8 * nb]));
+  }
+}
+
+""" + _FWD_KERNEL),
+    ("    const float* ks = ring + (it % 2) * kFwdStage<HD>;\n    const float* vs = ks + kFwdTile<HD>;\n",
+     "    float* ks = ring + (it % 2) * kFwdStage<HD>;\n    const float* vs = ks + 2 * kFwdTile<HD>;\n"
+     "    split_stage<HD>(ks);\n    __syncthreads();  // the stage's hi and lo are in\n"),
+    (_FWD_S, "    xyt_hl<HD, NB>(s, qs + r0 * kLdF<HD>, ks, ks + kFwdTile<HD>, lane);\n"
+             "    float alpha[2];\n"),
+    (_FWD_PV, "    pv_hl<HD, NB>(o, s, vs, vs + kFwdTile<HD>, gq, tq);\n"),
+]
+_FWD_T16 = ("constexpr int kFwdBT = 32;", "constexpr int kFwdBT = HD == 64 ? 32 : 16;")
+# the probe's scheme (b): each tile's P V into a zeroed fragment, o = fma(o, alpha, pv)
+_SCHEME_B = [(
+    "#pragma unroll\n    for (int nb = 0; nb < HD / 8; ++nb)\n#pragma unroll\n"
+    "      for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e >> 1];\n" + _FWD_PV,
+    "    float pv[HD / 8][4];\n#pragma unroll\n"
+    "    for (int nb = 0; nb < HD / 8; ++nb) pv[nb][0] = pv[nb][1] = pv[nb][2] = pv[nb][3] = 0.f;\n"
+    "    pv_tc<HD, NB>(pv, s, vs, gq, tq);\n#pragma unroll\n    for (int nb = 0; nb < HD / 8; ++nb)\n"
+    "#pragma unroll\n      for (int e = 0; e < 4; ++e) o[nb][e] = fmaf(o[nb][e], alpha[e >> 1], pv[nb][e]);\n")]
+# Q's A fragments split once into registers at head_dim 64
+_Q_REGS = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n\n#include <type_traits>\n"),
+    (_FWD_KERNEL, """\
+template <int HD>
+struct RegA {
+  uint32_t h[HD / 8][4], l[HD / 8][4];
+  __device__ __forceinline__ RegA(const float* X, int lane) {
+    const float* x = X + ((lane & 7) + (lane & 8)) * kLdF<HD> + ((lane >> 4) << 2);
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t a[4];
+      attn_tiles::ldsm_x4(a, reinterpret_cast<const __nv_bfloat16*>(x + kk));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), h[kk / 8][i], l[kk / 8][i]);
+    }
+  }
+};
+
+struct NoA {
+  __device__ __forceinline__ NoA(const float*, int) {}
+};
+
+template <int HD, int NB>
+__device__ __forceinline__ void xyt_reg(float (&c)[NB][4], const RegA<HD>& xa, const float* Y,
+                                        int lane) {
+  constexpr int ld = kLdF<HD>;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const float* y = Y + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 2);
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 8) {
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+      uint32_t b[4];
+      attn_tiles::ldsm_x4(b, reinterpret_cast<const __nv_bfloat16*>(y + 8 * j * ld + kk));
+      mma_split(c[j], xa.h[kk / 8], xa.l[kk / 8], __uint_as_float(b[0]), __uint_as_float(b[1]));
+      mma_split(c[j + 1], xa.h[kk / 8], xa.l[kk / 8], __uint_as_float(b[2]), __uint_as_float(b[3]));
+    }
+  }
+}
+
+""" + _FWD_KERNEL),
+    ("  attn_tiles::cp_async_wait<0>();\n  __syncthreads();\n\n  float o[HD / 8][4];\n",
+     "  attn_tiles::cp_async_wait<0>();\n  __syncthreads();\n"
+     "  const std::conditional_t<HD == 64, RegA<HD>, NoA> qa(qs + r0 * kLdF<HD>, lane);\n\n"
+     "  float o[HD / 8][4];\n"),
+    (_FWD_S, "    if constexpr (HD == 64) xyt_reg<HD, NB>(s, qa, ks, lane);\n"
+             "    else xyt_tc<HD, NB>(s, qs + r0 * kLdF<HD>, ks, lane);\n    float alpha[2];\n"),
+]
 _F32_ONE_PASS = [("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "")]
 F32_VARIANTS = {
     "base": [],
@@ -162,6 +326,17 @@ F32_VARIANTS = {
         ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = 64;"),
         ("constexpr int kStages = 2;", "constexpr int kStages = 1;"),
         ("constexpr int kMinBlocks = HD == 64 ? 3 : 2;", "constexpr int kMinBlocks = HD == 64 ? 3 : 1;")],
+    "f32_fwd_split_once": _SPLIT_ONCE,
+    "f32_fwd_split_once_t16": [*_SPLIT_ONCE, _FWD_T16],
+    "f32_fwd_t16_b3": [_FWD_T16, ("constexpr int kFwdMinBlocks = HD == 64 ? 3 : 2;",
+                                  "constexpr int kFwdMinBlocks = 3;")],
+    "f32_fwd_t64_b2": [("constexpr int kFwdBT = 32;", "constexpr int kFwdBT = HD == 64 ? 64 : 32;"),
+                       ("constexpr int kFwdMinBlocks = HD == 64 ? 3 : 2;",
+                        "constexpr int kFwdMinBlocks = 2;")],
+    "f32_fwd_q_regs": _Q_REGS,
+    "f32_fwd_b4": [("constexpr int kFwdMinBlocks = HD == 64 ? 3 : 2;",
+                    "constexpr int kFwdMinBlocks = HD == 64 ? 4 : 2;")],
+    "f32_fwd_scheme_b": _SCHEME_B,
     "f32_t16_s2_b3__t32_s2_b1": [
         ("constexpr int kBT = HD == 64 ? 32 : 16;", "constexpr int kBT = HD == 64 ? 16 : 32;"),
         ("constexpr int kMinBlocks = HD == 64 ? 3 : 2;", "constexpr int kMinBlocks = HD == 64 ? 3 : 1;")],
@@ -368,14 +543,16 @@ def time_forward(libs, names, dev, profile, ProfilerActivity) -> int:
 
 
 def time_f32(libs, names, dev, profile, ProfilerActivity) -> int:
-    """The f32 backward pair's variants at B=8, T=S=640, head_dim 64 (H=8)
-    and 128 (H=4), f32, ~10% of keys invalid (one batch row with none), not
-    causal: ms a call (50 back-to-back calls, CUDA events), each kernel's
-    device µs by the profiler, and dq, dk, dv against the base's (bit-equal,
-    and the worst relative norm)."""
+    """The f32 variants at head_dim 64 (H=8) and 128 (H=4): the forward in
+    MODE 1 at B=8, T=S=640 and in MODE 0 at B=3, T=S=1536 (key lengths
+    1536/1440/1344), then the backward pair at B=8, T=S=640 (~10% of keys
+    invalid, one batch row with none, not causal): ms a call (50
+    back-to-back calls, CUDA events), each kernel's device µs by the
+    profiler, and the outputs (out; dq, dk, dv) against the base's
+    (bit-equal, and the worst relative norm)."""
     B, T = 8, 640
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernels = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
+    kernels = ("attn_f32_fwd_kernel", "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
     for D, H in ((64, 8), (128, 4)):
         g = torch.Generator(device=dev).manual_seed(0)
         q, k, v, go = (torch.randn(B, T, H, D, generator=g, device=dev) for _ in range(4))
@@ -388,10 +565,25 @@ def time_f32(libs, names, dev, profile, ProfilerActivity) -> int:
         if libs["base"].smer_attention_f32_fwd(1, D, B, T, T, H, *ptrs, 0, D ** -0.5, out.data_ptr(),
                                                stats.data_ptr(), stream):
             raise SystemExit("the f32 forward launch failed")
-        want = None
+        # MODE 0 at the served encoder shape
+        q0, k0, v0 = (torch.randn(3, 1536, H, D, generator=g, device=dev) for _ in range(3))
+        lens = torch.tensor([1536, 1440, 1344], dtype=torch.int32, device=dev)
+        out1, stats1, out0 = torch.empty_like(q), torch.empty_like(stats), torch.empty_like(q0)
+        want = {}
         for rnd in range(2):
             for name in names:
                 lib = libs[name]
+
+                def fwd1():
+                    if lib.smer_attention_f32_fwd(1, D, B, T, T, H, *ptrs, 0, D ** -0.5, out1.data_ptr(),
+                                                  stats1.data_ptr(), stream):
+                        raise SystemExit(f"{name}: MODE 1 forward launch failed")
+
+                def fwd0():
+                    if lib.smer_attention_f32_fwd(0, D, 3, 1536, 1536, H, q0.data_ptr(), k0.data_ptr(),
+                                                  v0.data_ptr(), lens.data_ptr(), 0, D ** -0.5,
+                                                  out0.data_ptr(), None, stream):
+                        raise SystemExit(f"{name}: MODE 0 forward launch failed")
 
                 def bwd():
                     rc = lib.smer_flash_train_bwd_f32(D, B, T, T, H, *ptrs, out.data_ptr(),
@@ -401,29 +593,32 @@ def time_f32(libs, names, dev, profile, ProfilerActivity) -> int:
                     if rc:
                         raise SystemExit(f"{name}: backward launch failed: {rc}")
 
-                for _ in range(5):
-                    bwd()
-                torch.cuda.synchronize()
-                got = [t.clone() for t in grads]
-                if name == "base":
-                    want = got
-                rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, want))
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                for _ in range(50):
-                    bwd()
-                end.record()
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(10):
-                        bwd()
+                for what, fn, res in (("forward MODE 1 B8 640x640", fwd1, [out1, stats1]),
+                                      ("forward MODE 0 B3 1536x1536", fwd0, [out0]),
+                                      ("backward pair B8 640x640", bwd, grads)):
+                    for _ in range(5):
+                        fn()
                     torch.cuda.synchronize()
-                us = {kname: round(e.self_device_time_total / 10, 1) for e in prof.key_averages()
-                      for kname in kernels if kname in e.key}
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                print(f"f32 head_dim {D} H={H} {T}x{T} round {rnd} {name:24s} "
-                      f"{start.elapsed_time(end) / 50:.4f} ms a call, device us {us}, bit-equal to base: "
-                      f"{same}, worst relative norm to base {rel:.2e}", flush=True)
+                    got = [t.clone() for t in res]
+                    if name == "base":
+                        want[what] = got
+                    rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, want[what]))
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    for _ in range(50):
+                        fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fn()
+                        torch.cuda.synchronize()
+                    us = {kname: round(e.self_device_time_total / 10, 1) for e in prof.key_averages()
+                          for kname in kernels if kname in e.key}
+                    same = all(torch.equal(a, b) for a, b in zip(got, want[what]))
+                    print(f"f32 head_dim {D} H={H} {what} round {rnd} {name:24s} "
+                          f"{start.elapsed_time(end) / 50:.4f} ms a call, device us {us}, bit-equal to "
+                          f"base: {same}, worst relative norm to base {rel:.2e}", flush=True)
     return 0
 
 

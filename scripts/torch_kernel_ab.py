@@ -57,7 +57,11 @@ and SDPA's backward with the same boolean mask; and the f32 backward pair
 (``flash_train_f32_dq_kernel`` then ``flash_train_f32_dkv_kernel``) at B=8,
 640x640, head_dim 64 (H=8) and 128 (H=4) beside f32 SDPA's backward, with
 its largest relative norm from the twin (the f32 outputs are not hashed:
-another design of the pair sums in another order).  ``--attention`` before
+another design of the pair sums in another order); and the f32 forward
+(``attn_f32_fwd_kernel``) in both modes: ``flash_train_fwd`` at B=8, 640x640
+and ``fused_attention`` at B=3, 1536x1536 (key lengths 1536/1440/1344), each
+at head_dim 64 (H=8) and 128 (H=4), beside f32 SDPA's forward with the same
+mask and with its relative norm from the twin.  ``--attention`` before
 the roots times the attention kernels alone (no decode kernels, no served
 batch):
 
@@ -314,6 +318,34 @@ for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
     gt = go.transpose(1, 2).contiguous()
     out["sdpa_bwd_" + tag] = timed(
         lambda: torch.autograd.grad(sd_out, (qt, kt, vt), gt, retain_graph=True))
+# the f32 forward (attn_f32_fwd_kernel) in MODE 1 (flash_train_fwd) at B=8,
+# 640x640 with ~10% of keys invalid and in MODE 0 (fused_attention) at B=3,
+# 1536x1536 with key lengths 1536/1440/1344, each at head_dim 64 (H=8) and
+# 128 (H=4), beside f32 SDPA with the same mask; the relative norm of the
+# output from the twin beside each
+for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
+    gf = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(8, 640, H_, D_, generator=gf, device=dev) for _ in range(3))
+    valid = (torch.rand(8, 640, generator=gf, device=dev) >= 0.1).to(torch.int32)
+    valid[1] = 0
+    tag = f"f32_hd{D_}_640x640"
+    out["flash_train_fwd_" + tag] = timed(lambda: ft.flash_train_fwd(q, k, v, valid, False))
+    got = ft.flash_train_fwd(q, k, v, valid, False)[0]
+    ref = ft.flash_train_fwd_reference(q, k, v, valid, False)[0]
+    out["flash_train_fwd_" + tag]["rel_to_twin"] = ((got - ref).norm() / ref.norm()).item()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = valid.bool()[:, None, None, :].expand(8, 1, 640, 640)
+    out["sdpa_fwd_" + tag] = timed(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    q, k, v = (torch.randn(3, 1536, H_, D_, generator=gf, device=dev) for _ in range(3))
+    tag = f"f32_hd{D_}_1536x1536"
+    out["fused_attention_" + tag] = timed(lambda: attn.fused_attention(q, k, v, lens, False))
+    got, ref = attn.fused_attention(q, k, v, lens, False), attn.attention_reference(q, k, v, lens, False)
+    out["fused_attention_" + tag]["rel_to_twin"] = ((got - ref).norm() / ref.norm()).item()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = (torch.arange(1536, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    out["sdpa_fwd_" + tag] = timed(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
 if len(sys.argv) > 2 and not ATTENTION_ONLY:  # the served batch end to end on the committed snapshot
     from smer_music_generation_tpu_torch.infer.engine import InfillEngine
     from smer_music_generation_tpu_torch.train.state import load_inference_model

@@ -1,7 +1,7 @@
 // Attention in f32 for Hopper (sm_90a): the forward of `fused_attention`
 // and the forward and recomputing backward of flash training attention,
-// over (B, T|S, H, HD) f32 tensors, HD = 64 or 128.  The forwards run on the
-// FMA pipes; the backward pair on the tensor cores in split TF32.
+// over (B, T|S, H, HD) f32 tensors, HD = 64 or 128.  Every product of the
+// three kernels runs on the tensor cores in split TF32.
 //
 // Replaces, for f32 inputs, the same TPU kernels as attention.cu and
 // flash_train.cu: `fused_attention` (smer_music_generation_tpu/ops/
@@ -21,27 +21,38 @@
 //     with no attendable key weighs its keys alike); a causal row of
 //     128-block qb visits the key blocks kb <= qb only; out = o / l, each
 //     row's m and l written for the backward.
+// In both, p = exp2f((s - m) log2(e)), the difference taken first, as the
+// bf16 kernels and the twins take it.
 // The backward is the library's two kernels (FlashAttention-2's
 // deterministic pair: no atomics, so a recompute gives the same bits):
 // p = exp(s - m) / l, di = sum_d out g, dv = p^T g, ds = (g v^T - di) p
 // scale, dq = ds k, dk = ds^T q, all in f32.
 //
-// What bounds the forward on an NVIDIA H100 (67 TFLOP/s of f32 FMA, 3.35
-// TB/s at 700 W): at B=8, H=8, T=S=640, head_dim 64 it does 4 B H T S HD =
-// 6.7 GFLOP (0.10 ms at the FMA peak) and moves 42 MB (0.013 ms):
-// operations.  One TF32 pass cannot meet JAX's f32 bound (atol 2e-5, rtol
-// 1e-4 on outputs; one pass reads ~3e-4 from float64).  The forward is a
-// simple tiled kernel on the FMA pipes: a block of 256 threads owns 64 query
-// rows of one (b, h) and walks 64-row tiles of K and V through shared memory
-// (f32, rows padded by 4 floats so that 16 rows read as float4 fall on
-// distinct banks); thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x 4
-// tile of a 64 x 64 product (rows 4 ty + i, columns tx + 16 j, sums over
-// head_dim in order) and holds a 4 x HD / 16 slice of the output (rows 4 ty
-// + i, columns tx + 16 j).  A row's reductions (max, sum) are 16-lane
-// shuffles.  P goes through shared memory as a 64 x 64 tile into P V.  exp
-// is exp2f((s - m) log2(e)), the difference taken first, as the bf16
-// kernels and the twins take it.  The backward's design is set out above
-// its kernels.
+// Split TF32.  Every product is mma.sync m16n8k8 TF32 with f32 sums.  Each
+// operand x is split as hi = x rounded to TF32 (nearest, ties away from
+// zero) and lo = x - hi (exact in f32; the tensor cores read its top 19
+// bits), and a k8 step adds lo_a hi_b, hi_a lo_b, hi_a hi_b to the
+// accumulator in that order (lo_a lo_b dropped).  Every sum is one
+// accumulator chain: the products over head_dim, and the forward's o, the
+// backward's dq, dk, dv over all their keys or rows, tile after tile
+// (scheme (a) of scripts/f32_tc_probe.py, whose readings on an H100 chose
+// it: at most 4.5e-6 relative norm from float64 at the backward's five
+// products; with --forward, at most 1.08e-5 and 0.12 of atol 2e-5 + rtol
+// 1e-4 at the forward's cases, the 1536-key chain the worst; JAX's f32
+// bounds are 1e-4 relative norm and that atol + rtol).  One TF32 pass reads
+// ~3e-4: outside them.
+//
+// Tiles are f32 rows padded from HD to HD + 4 floats: a fragment's 32
+// lanes then read 32 banks, both as rows (the A operands and X Y^T's B, by
+// ldmatrix.x4, an f32 taken as two b16) and as columns (P Y's B, rows 2 t
+// and 2 t + 1).  S = X Y^T leaves each row's scores in C fragments (lane
+// 4 g + t: rows g, g + 8, columns 8 j + 2 t, 8 j + 2 t + 1); P and ds go
+// from there to the next product's A fragments in registers, the k8
+// chunk's columns taken in the order 0 2 4 6 1 3 5 7 (a0 = c0, a1 = c2, a2
+// = c1, a3 = c3), the B fragment reading rows 2 t and 2 t + 1 to match.
+// A block of 4 warps owns 64 rows of one (b, h) (query rows in the forward
+// and dq, keys in dk/dv), 16 a warp, and walks its whole reduction: no
+// atomics, and each output written once.
 //
 // The launchers have a plain C interface and return cudaGetLastError().
 
@@ -53,272 +64,17 @@
 
 namespace {
 
-constexpr int kRows = 64;       // rows a block owns, rows a tile
-constexpr int kF32Threads = 256;
-constexpr int kPLd = kRows + 4;  // padded row of a 64 x 64 P or ds tile
+constexpr int kRows = 64;        // rows a block owns, 16 a warp
+constexpr int kTcThreads = 128;  // 4 warps
 constexpr int kBlk = 128;        // the library's block (MODE 1)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;
 constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
 
 template <int HD>
-constexpr int kLdF = HD + 4;  // padded row of a 64 x HD f32 tile
+constexpr int kLdF = HD + 4;  // padded row of an f32 tile
 template <int HD>
 constexpr int kTileF = kRows * kLdF<HD>;
-
-// rows p0 .. p0 + 63 of one head of a (B, L, H, HD) f32 tensor (base at
-// (b, 0, h, 0), `stride` floats between positions) into a shared tile, rows
-// at or past `limit` zero-filled; every thread takes part, float4 loads
-template <int HD>
-__device__ __forceinline__ void load_f32(float* dst, const float* base, size_t stride, int p0,
-                                         int limit) {
-  constexpr int kVec = HD / 4;
-  for (int i = threadIdx.x; i < kRows * kVec; i += kF32Threads) {
-    const int r = i / kVec, c = 4 * (i % kVec);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p0 + r < limit) v = *reinterpret_cast<const float4*>(base + (size_t)(p0 + r) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * kLdF<HD> + c) = v;
-  }
-}
-
-// acc[i][j] = sum_d X[4 ty + i][d] Y[tx + 16 j][d], d in order
-template <int HD>
-__device__ __forceinline__ void xyt(float (&acc)[4][4], const float* X, const float* Y, int tx,
-                                    int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(X + (4 * ty + i) * kLdF<HD> + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(Y + (tx + 16 * j) * kLdF<HD> + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = acc[i][j];
-        a = fmaf(x[i].x, y[j].x, a);
-        a = fmaf(x[i].y, y[j].y, a);
-        a = fmaf(x[i].z, y[j].z, a);
-        acc[i][j] = fmaf(x[i].w, y[j].w, a);
-      }
-  }
-}
-
-// acc[i][j] += sum_c P[4 ty + i][c] Y[c][tx + 16 j], c < 64 in order
-template <int HD>
-__device__ __forceinline__ void pv(float (&acc)[4][HD / 16], const float* P, const float* Y,
-                                   int tx, int ty) {
-#pragma unroll 2
-  for (int c = 0; c < kRows; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kPLd + c);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      const float y0 = Y[c * kLdF<HD> + tx + 16 * j], y1 = Y[(c + 1) * kLdF<HD> + tx + 16 * j];
-      const float y2 = Y[(c + 2) * kLdF<HD> + tx + 16 * j], y3 = Y[(c + 3) * kLdF<HD> + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a = acc[i][j];
-        a = fmaf(p[i].x, y0, a);
-        a = fmaf(p[i].y, y1, a);
-        a = fmaf(p[i].z, y2, a);
-        acc[i][j] = fmaf(p[i].w, y3, a);
-      }
-    }
-  }
-}
-
-// over the 16 lanes that share ty (tx is the lane's low four bits)
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// a 4 x HD / 16 accumulator slice (rows 4 ty + i of the block, times
-// scl[i]) to rows p0 + 4 ty + i of one head of a (B, L, H, HD) f32 tensor
-template <int HD>
-__device__ __forceinline__ void store_f32(float* base, size_t stride, const float (&acc)[4][HD / 16],
-                                          const float (&scl)[4], int p0, int limit, int tx,
-                                          int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = p0 + 4 * ty + i;
-    if (r >= limit) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) base[(size_t)r * stride + tx + 16 * j] = acc[i][j] * scl[i];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: a block per (64 query rows, b * H + h)
-// ---------------------------------------------------------------------------
-template <int HD>
-constexpr size_t kFwdSmemF = (3 * kTileF<HD> + kRows * kPLd) * sizeof(float) + kRows * sizeof(int);
-
-template <int HD, int MODE>
-__global__ void __launch_bounds__(kF32Threads)
-    attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const int* __restrict__ keys, int causal,
-                        float scale, float* __restrict__ out, float* __restrict__ stats, int T,
-                        int S, int H) {
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* ks = qs + kTileF<HD>;
-  float* vs = ks + kTileF<HD>;
-  float* ps = vs + kTileF<HD>;                                  // [64][kPLd]
-  int* kok = reinterpret_cast<int*>(ps + kRows * kPLd);         // MODE 1: the tile's validity
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int t0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
-  const size_t stride = (size_t)H * HD;
-  const float* kb = k + (size_t)b * S * stride + h * HD;
-  const float* vb = v + (size_t)b * S * stride + h * HD;
-
-  // the keys the block visits, and (MODE 0) how the row's keys are masked
-  int n_keys, n_valid = S;
-  bool uniform = false, clip = false;
-  if (MODE == 0) {
-    n_valid = min(keys != nullptr ? keys[b] : S, S);
-    uniform = n_valid <= 0;  // every key masked: all weigh alike
-    clip = causal && !uniform;
-    n_keys = clip ? min(n_valid, t0 + kRows) : (uniform ? S : n_valid);
-  } else {
-    n_keys = causal ? min((t0 / kBlk + 1) * kBlk, S) : S;
-  }
-  load_f32<HD>(qs, q + (size_t)b * T * stride + h * HD, stride, t0, T);
-
-  float o[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) o[i][j] = 0.f;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = MODE == 0 ? kMasked : -INFINITY;
-    l[i] = 0.f;  // this lane's partial sum over its columns
-  }
-
-  for (int k0 = 0; k0 < n_keys; k0 += kRows) {
-    load_f32<HD>(ks, kb, stride, k0, S);
-    load_f32<HD>(vs, vb, stride, k0, S);
-    if (MODE == 1 && threadIdx.x < kRows) kok[threadIdx.x] = keys[(size_t)b * S + k0 + threadIdx.x];
-    __syncthreads();
-    float s[4][4];
-    xyt<HD>(s, qs, ks, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = t0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (MODE == 0) {
-          const bool masked = col >= n_valid || (clip && col > row);
-          s[i][j] = col >= S || (masked && !uniform) ? -INFINITY : (uniform ? 0.f : s[i][j] * scale);
-        } else {
-          const bool ok = kok[tx + 16 * j] != 0 && !(causal && col > row);
-          s[i][j] = fmaf(s[i][j], scale, ok ? 0.f : kMaskValue);
-        }
-      }
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = exp2f((m[i] - m_new) * kLog2e);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f((s[i][j] - m_new) * kLog2e);
-        ps[(4 * ty + i) * kPLd + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = fmaf(alpha, l[i], sum);
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();
-    pv<HD>(o, ps, vs, tx, ty);
-    __syncthreads();  // this tile is read; the next one overwrites it
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = sum16(l[i]);
-    inv[i] = 1.f / (MODE == 0 ? fmaxf(l[i], 1e-30f) : l[i]);
-  }
-  store_f32<HD>(out + (size_t)b * T * stride + h * HD, stride, o, inv, t0, T, tx, ty);
-  if (MODE == 1 && tx == 0) {
-    const size_t BHT = (size_t)gridDim.y * T;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t at = (size_t)bh * T + t0 + 4 * ty + i;
-      stats[at] = m[i];
-      stats[BHT + at] = l[i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: split TF32 on the tensor cores
-// ---------------------------------------------------------------------------
-// Every product of the backward pair is mma.sync m16n8k8 TF32 with f32
-// sums.  Each operand x is split in registers as hi = cvt.rna.tf32(x) and
-// lo = x - hi (exact in f32; the tensor cores read its top 19 bits), and a
-// k8 step adds lo_a hi_b, hi_a lo_b, hi_a hi_b to the accumulator in that
-// order (lo_a lo_b dropped).  Every sum is one accumulator chain: the
-// products over head_dim, and dq, dk, dv over all their keys or rows,
-// tile after tile (scheme (a) of scripts/f32_tc_probe.py, whose readings on
-// an H100 chose it: at most 4.5e-6 relative norm from float64 at the five
-// products, F32_REL is 1e-4).
-//
-// A block of 4 warps owns 64 rows of one (b, h) (query rows in dq, keys in
-// dk/dv), 16 a warp; its two resident operands (Q and g, or K and V) sit in
-// shared memory and the other two stream through a two-stage cp.async ring
-// of kBT-row tiles: tile it + 1 is in flight while tile it's products run,
-// one __syncthreads a tile.  Tiles are f32 rows padded from HD to HD + 4
-// floats: a fragment's 32 lanes then read 32 banks, both as rows (the A
-// operands and X Y^T's B) and as columns (P Y's B, rows 2 t and 2 t + 1).
-// S = X Y^T leaves each row's 16 x kBT scores in C fragments (lane 4 g + t:
-// rows g, g + 8, columns 8 j + 2 t, 8 j + 2 t + 1); P and ds go from there
-// to the next product's A fragments in registers, the k8 chunk's columns
-// taken in the order 0 2 4 6 1 3 5 7 (a0 = c0, a1 = c2, a2 = c1, a3 = c3),
-// the B fragment reading rows 2 t and 2 t + 1 to match.
-//
-// What bounds it on an H100: 5 products of 2 HD flops a (row, key) pair
-// (7 with the recomputed S and dP), three TF32 passes each: at 495 TFLOP/s
-// of TF32 that is 165 TFLOP/s of split products, against 67 TFLOP/s of f32
-// FMA; B8 H8 640x640 head_dim 64 is 16.8 GFLOP, 0.102 ms at 165.  Each
-// warp splits every B operand it reads (3 instructions a float), so the
-// pair is bound by its HMMA stream and the splits that feed it, not by
-// device memory.  The streamed tiles are 32 rows at head_dim 64 (70 KB of
-// shared memory a block, registers capped at 168: three blocks an SM) and
-// 16 at head_dim 128 (101 KB: two); scripts/flash_train_variants.py --f32
-// times the other shapes.  Each (b, h) walks its whole reduction in one
-// block, so the grid is (64-row blocks) x B H: 640 blocks at B8 H8 640x640,
-// 1.6 waves of 396 slots at head_dim 64, 320 blocks and 1.2 waves of 264 at
-// head_dim 128 (H4).
-
-template <int HD>
-constexpr int kBT = HD == 64 ? 32 : 16;  // rows of a streamed tile
-template <int HD>
-constexpr int kStages = 2;  // streamed tiles in flight (1: loaded after the last is read)
-template <int HD>
-constexpr int kMinBlocks = HD == 64 ? 3 : 2;  // blocks an SM that the registers must allow
-constexpr int kTcThreads = 128;          // 4 warps, 16 of the block's 64 rows each
-template <int HD>
-constexpr int kTileT = kBT<HD> * kLdF<HD>;  // floats of a streamed tile
 
 // x rounded to TF32, nearest with ties away from zero: cvt.rna.tf32.f32's
 // bits for every finite x (half an ulp added to the magnitude, the low 13
@@ -358,7 +114,8 @@ __device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], cons
 // The fragments come by ldmatrix.x4, each f32 taken as two b16: lane 4 g +
 // t receives row g, float t of each 8 x 4-float matrix, the m16n8k8 TF32
 // layout; one ldmatrix gives a k8 step's A fragment, one the B fragments of
-// two n-blocks (4 and 2 scalar loads a lane)
+// two n-blocks (4 and 2 scalar loads a lane).  Both operands are split at
+// each use.
 template <int HD, int NB>
 __device__ __forceinline__ void xyt_tc(float (&c)[NB][4], const float* X, const float* Y,
                                        int lane) {
@@ -407,16 +164,19 @@ __device__ __forceinline__ void pv_tc(float (&acc)[HD / 8][4], const float (&p)[
 }
 
 // rows p0 .. p0 + ROWS - 1 of one head of a (B, L, H, HD) f32 tensor into a
-// shared tile (stride kLdF) by 16-byte cp.async, every thread taking part
-template <int HD, int ROWS>
+// shared tile (stride kLdF) by 16-byte cp.async, every thread taking part;
+// with GUARD, rows at or past `limit` zero-filled
+template <int HD, int ROWS, bool GUARD = false>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* base, size_t stride,
-                                                int p0) {
+                                                int p0, int limit = 0) {
   constexpr int kChunks = HD / 4;
   static_assert(ROWS * kChunks % kTcThreads == 0, "every thread copies as many chunks");
 #pragma unroll
   for (int u = 0; u < ROWS * kChunks / kTcThreads; ++u) {
     const int i = threadIdx.x + u * kTcThreads, r = i / kChunks, c = 4 * (i % kChunks);
-    attn_tiles::cp_async16(dst + r * kLdF<HD> + c, base + (size_t)(p0 + r) * stride + c, true);
+    const bool ok = !GUARD || p0 + r < limit;
+    attn_tiles::cp_async16(dst + r * kLdF<HD> + c, ok ? base + (size_t)(p0 + r) * stride + c : base,
+                           ok);
   }
 }
 
@@ -432,6 +192,217 @@ __device__ __forceinline__ void store_acc(float* base, size_t stride, const floa
       *reinterpret_cast<float2*>(row + 8 * nb) = make_float2(acc[nb][2 * hi], acc[nb][2 * hi + 1]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// forward: a block per (64 query rows, b * H + h).  Replaces, for f32
+// inputs, `fused_attention`'s `_attn_kernel` (MODE 0) and the library flash
+// kernel's forward pallas_call (flash_attention.py:758; MODE 1).  Q stays;
+// K and V (and, MODE 1, the keys' validity) stream.  Products: S = Q K^T,
+// o += P V.
+//
+// What bounds it on an H100: 2 products of 2 HD flops a (row, visited key)
+// pair, three TF32 passes each: at 495 TFLOP/s of TF32 that is 165 TFLOP/s
+// of split products (67 on the FMA pipes); B8 H8 640x640 head_dim 64 is 6.7
+// GFLOP, 0.041 ms at 165 (0.100 on the FMA pipes).  The HMMA stream and the
+// splits that feed it bound it, as they bound the pair (one TF32 pass alone
+// takes half its time); device memory does not (42 MB, 0.013 ms).
+//
+// Order of work, per warp and tile of kFwdBT keys: S's k8 steps over
+// head_dim in order into a zeroed accumulator; the scores scaled and masked
+// in f32 (per MODE); each row's max over the tile by a quad shuffle, m_new =
+// max(m, that), alpha = exp2f((m - m_new) log2e), p = exp2f((s - m_new)
+// log2e), this lane's partial l = alpha l + (its p summed in order); o
+// scaled by alpha, then P V's k8 chunks (8 keys each, in order) into o's one
+// chain (the probe's scheme (a)).  At the end l is summed over the quad and
+// out = o / l (MODE 0: max(l, 1e-30)).
+//
+// Q's A fragments are read from shared memory by ldmatrix and split at each
+// use; K and V come through a two-stage cp.async ring of 32-key tiles, one
+// __syncthreads a tile, and every warp splits the B fragments it reads.
+// 128 (head_dim 64) and 190-193 registers (128), no spill: four and three
+// blocks an SM at head_dim 64 (MODE 0, MODE 1; 52 KB of shared memory a
+// block), two at 128 (101 KB).  scripts/flash_train_variants.py --f32 times
+// the alternatives as edits of this source: Q split once into registers at
+// head_dim 64 (168 registers, MODE 1 spills: 12% slower in MODE 1, 1-3%
+// faster in MODE 0), the block splitting each tile once into hi and lo
+// copies behind a second __syncthreads (the same bits, 15-35% slower; one
+// block an SM at 128), each tile's P V apart (scheme (b): 157-237
+// registers, within 2% of the time), 16- or 64-key tiles and other blocks
+// an SM (0-4% slower).  Causal blocks run from the last rows first, the
+// longest first.
+// ---------------------------------------------------------------------------
+template <int HD>
+constexpr int kFwdBT = 32;  // keys a streamed tile
+template <int HD>
+constexpr int kFwdMinBlocks = HD == 64 ? 3 : 2;  // blocks an SM that the registers must allow
+template <int HD>
+constexpr int kFwdTile = kFwdBT<HD> * kLdF<HD>;  // floats of a streamed tile
+template <int HD>
+constexpr int kFwdStage = 2 * kFwdTile<HD>;  // a ring stage: K's tile, then V's
+template <int HD>
+constexpr size_t kFwdSmemF =
+    (kTileF<HD> + 2 * kFwdStage<HD>) * sizeof(float) + 2 * kFwdBT<HD> * sizeof(int);
+
+template <int HD, int MODE>
+__global__ void __launch_bounds__(kTcThreads, kFwdMinBlocks<HD>)
+    attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ keys, int causal,
+                        float scale, float* __restrict__ out, float* __restrict__ stats, int T,
+                        int S, int H) {
+  constexpr int BT = kFwdBT<HD>, NB = BT / 8;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* ring = qs + kTileF<HD>;  // stage st at ring + st kFwdStage: K tile, then V
+  int* kok = reinterpret_cast<int*>(ring + 2 * kFwdStage<HD>);  // MODE 1: [stage][BT], validity
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int t0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
+  const int r0 = 16 * warp;  // the warp's rows within the block
+  const size_t stride = (size_t)H * HD;
+  const size_t qofs = (size_t)b * T * stride + h * HD;
+  const float* kb = k + (size_t)b * S * stride + h * HD;
+  const float* vb = v + (size_t)b * S * stride + h * HD;
+
+  // the keys the block visits, and (MODE 0) how the row's keys are masked
+  int n_keys, n_valid = S;
+  bool uniform = false, clip = false;
+  if (MODE == 0) {
+    n_valid = min(keys != nullptr ? keys[b] : S, S);
+    uniform = n_valid <= 0;  // every key masked: all weigh alike
+    clip = causal && !uniform;
+    n_keys = clip ? min(n_valid, t0 + kRows) : (uniform ? S : n_valid);
+  } else {
+    n_keys = causal ? min((t0 / kBlk + 1) * kBlk, S) : S;
+  }
+  const int n_tiles = (n_keys + BT - 1) / BT;
+
+  auto load_tile = [&](int it) {
+    float* ks = ring + (it % 2) * kFwdStage<HD>;
+    load_rows_async<HD, BT, MODE == 0>(ks, kb, stride, it * BT, S);
+    load_rows_async<HD, BT, MODE == 0>(ks + kFwdTile<HD>, vb, stride, it * BT, S);
+    if (MODE == 1 && threadIdx.x < BT)
+      attn_tiles::cp_async4(kok + (it % 2) * BT + threadIdx.x,
+                            keys + (size_t)b * S + it * BT + threadIdx.x, true);
+  };
+  load_rows_async<HD, kRows, MODE == 0>(qs, q + qofs, stride, t0, T);
+  load_tile(0);
+  attn_tiles::cp_async_commit();
+  attn_tiles::cp_async_wait<0>();
+  __syncthreads();
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  float m[2], l[2];  // each row's running max; this lane's partial sum over its columns
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    m[hi] = MODE == 0 ? kMasked : -INFINITY;
+    l[hi] = 0.f;
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    attn_tiles::cp_async_wait<0>();
+    __syncthreads();  // tile it is in; every warp is past tile it - 1, whose stage the next load takes
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      attn_tiles::cp_async_commit();
+    }
+    const float* ks = ring + (it % 2) * kFwdStage<HD>;
+    const float* vs = ks + kFwdTile<HD>;
+    const int* ok = kok + (it % 2) * BT;
+    const int k0 = it * BT;
+    float s[NB][4];
+    xyt_tc<HD, NB>(s, qs + r0 * kLdF<HD>, ks, lane);
+    float alpha[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = t0 + r0 + gq + 8 * hi;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+          const int c = 8 * j + 2 * tq + (e & 1), col = k0 + c;
+          float x = s[j][e];
+          if (MODE == 0) {
+            const bool masked = col >= n_valid || (clip && col > row);
+            x = col >= S || (masked && !uniform) ? -INFINITY : (uniform ? 0.f : x * scale);
+          } else {
+            const bool keep = ok[c] != 0 && !(causal && col > row);
+            x = fmaf(x, scale, keep ? 0.f : kMaskValue);
+          }
+          s[j][e] = x;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[hi], attn_tiles::quad_max(mx));
+      alpha[hi] = exp2f((m[hi] - m_new) * kLog2e);
+      m[hi] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+          const float p = exp2f((s[j][e] - m_new) * kLog2e);
+          s[j][e] = p;
+          sum += p;
+        }
+      l[hi] = fmaf(alpha[hi], l[hi], sum);
+    }
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e >> 1];
+    pv_tc<HD, NB>(o, s, vs, gq, tq);
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = t0 + r0 + gq + 8 * hi;
+    l[hi] = attn_tiles::quad_sum(l[hi]);
+    const float inv = 1.f / (MODE == 0 ? fmaxf(l[hi], 1e-30f) : l[hi]);
+    if (r < T) {
+      float* row = out + qofs + (size_t)r * stride + 2 * tq;
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb)
+        *reinterpret_cast<float2*>(row + 8 * nb) =
+            make_float2(o[nb][2 * hi] * inv, o[nb][2 * hi + 1] * inv);
+    }
+    if (MODE == 1 && tq == 0) {
+      const size_t at = (size_t)bh * T + r, BHT = (size_t)gridDim.y * T;
+      stats[at] = m[hi];
+      stats[BHT + at] = l[hi];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: the pair
+// ---------------------------------------------------------------------------
+// Each product as the forward's (split TF32, one chain).  The two resident
+// operands of a block (Q and g, or K and V) sit in shared memory and the
+// other two stream through a two-stage cp.async ring of kBT-row tiles: tile
+// it + 1 is in flight while tile it's products run, one __syncthreads a
+// tile.
+//
+// What bounds it on an H100: 5 products of 2 HD flops a (row, key) pair
+// (7 with the recomputed S and dP), three TF32 passes each: at 165 TFLOP/s
+// of split products B8 H8 640x640 head_dim 64 is 16.8 GFLOP, 0.102 ms.
+// Each warp splits every B operand it reads (3 instructions a float), so
+// the pair is bound by its HMMA stream and the splits that feed it, not by
+// device memory.  The streamed tiles are 32 rows at head_dim 64 (70 KB of
+// shared memory a block, registers capped at 168: three blocks an SM) and
+// 16 at head_dim 128 (101 KB: two); scripts/flash_train_variants.py --f32
+// times the other shapes.  The grid is (64-row blocks) x B H: 640 blocks at
+// B8 H8 640x640, 1.6 waves of 396 slots at head_dim 64, 320 blocks and 1.2
+// waves of 264 at head_dim 128 (H4).
+
+template <int HD>
+constexpr int kBT = HD == 64 ? 32 : 16;  // rows of a streamed tile
+template <int HD>
+constexpr int kStages = 2;  // streamed tiles in flight (1: loaded after the last is read)
+template <int HD>
+constexpr int kMinBlocks = HD == 64 ? 3 : 2;  // blocks an SM that the registers must allow
+template <int HD>
+constexpr int kTileT = kBT<HD> * kLdF<HD>;  // floats of a streamed tile
 
 // ---------------------------------------------------------------------------
 // backward, dq: a block per (64 query rows, b * H + h); writes di for dk/dv.
@@ -658,52 +629,45 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<HD>)
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// a kernel's dynamic shared memory, and the whole of the SM's shared memory
+// preferred over L1, so that as many blocks as the registers allow fit an SM
+template <class K>
+cudaError_t smem_attributes(K* kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 template <int HD>
 int launch_fwd_f32(int mode, int B, int T, int S, int H, const void* q, const void* k,
                    const void* v, const void* keys, int causal, float scale, void* out,
                    void* stats, cudaStream_t st) {
-  const dim3 grid((T + kRows - 1) / kRows, B * H);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const int* kk = static_cast<const int*>(keys);
-  float* of = static_cast<float*>(out);
-  float* sf = static_cast<float*>(stats);
-  cudaError_t e;
-  if (mode == 0) {
-    e = cudaFuncSetAttribute(attn_f32_fwd_kernel<HD, 0>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmemF<HD>);
-    if (e != cudaSuccess) return (int)e;
-    attn_f32_fwd_kernel<HD, 0><<<grid, kF32Threads, kFwdSmemF<HD>, st>>>(
-        qf, kf, vf, kk, causal, scale, of, sf, T, S, H);
-  } else {
-    e = cudaFuncSetAttribute(attn_f32_fwd_kernel<HD, 1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmemF<HD>);
-    if (e != cudaSuccess) return (int)e;
-    attn_f32_fwd_kernel<HD, 1><<<grid, kF32Threads, kFwdSmemF<HD>, st>>>(
-        qf, kf, vf, kk, causal, scale, of, sf, T, S, H);
-  }
+  auto kernel = mode == 0 ? &attn_f32_fwd_kernel<HD, 0> : &attn_f32_fwd_kernel<HD, 1>;
+  const cudaError_t e = smem_attributes(kernel, kFwdSmemF<HD>);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((T + kRows - 1) / kRows, B * H), kTcThreads, kFwdSmemF<HD>, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(keys), causal, scale, static_cast<float*>(out),
+      static_cast<float*>(stats), T, S, H);
   return (int)cudaGetLastError();
 }
 
-// the pair's dynamic shared memory, and the whole of the SM's shared memory
-// preferred over L1, so that two blocks of each fit an SM
+template <int HD>
+int fwd_f32_blocks(int mode, int* blocks) {
+  auto kernel = mode == 0 ? &attn_f32_fwd_kernel<HD, 0> : &attn_f32_fwd_kernel<HD, 1>;
+  cudaError_t e = smem_attributes(kernel, kFwdSmemF<HD>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kTcThreads, kFwdSmemF<HD>);
+  return (int)e;
+}
+
+// the pair's shared memory, so that two blocks of each fit an SM
 template <int HD>
 cudaError_t bwd_f32_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(flash_train_f32_dq_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kDqSmemF<HD>);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_train_f32_dq_kernel<HD>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_train_f32_dkv_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemF<HD>);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_train_f32_dkv_kernel<HD>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+  cudaError_t e = smem_attributes(flash_train_f32_dq_kernel<HD>, kDqSmemF<HD>);
+  if (e == cudaSuccess) e = smem_attributes(flash_train_f32_dkv_kernel<HD>, kDkvSmemF<HD>);
   return e;
 }
 
@@ -793,6 +757,20 @@ int smer_flash_train_bwd_f32(int head_dim, int B, int T, int S, int H, const voi
     case 128:
       return launch_bwd_f32<128>(B, T, S, H, q, k, v, valid, out, stats, g, causal, scale, di, dq,
                                  dk, dv, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of the forward of `mode` an SM holds at once (the occupancy
+// calculator, with the launch's attributes set).
+int smer_attention_f32_fwd_blocks(int head_dim, int mode, int* blocks) {
+  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 64:
+      return fwd_f32_blocks<64>(mode, blocks);
+    case 128:
+      return fwd_f32_blocks<128>(mode, blocks);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -692,6 +692,7 @@ def load_library() -> ctypes.CDLL:
         lib.smer_flash_train_bwd_f32.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p,
                                                  p, p]
         lib.smer_flash_train_bwd_f32_blocks.argtypes = [i, p, p]
+        lib.smer_attention_f32_fwd_blocks.argtypes = [i, i, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, p, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
@@ -701,7 +702,8 @@ def load_library() -> ctypes.CDLL:
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
                    lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask,
                    lib.smer_flash_train_fwd, lib.smer_flash_train_bwd, lib.smer_attention_f32_fwd,
-                   lib.smer_flash_train_bwd_f32, lib.smer_flash_train_bwd_f32_blocks):
+                   lib.smer_flash_train_bwd_f32, lib.smer_flash_train_bwd_f32_blocks,
+                   lib.smer_attention_f32_fwd_blocks):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

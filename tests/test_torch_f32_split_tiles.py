@@ -26,10 +26,27 @@ the port's twin within ``chip_smoke.F32_REL`` (1e-4, JAX's tightest
 kernel-to-twin gradient bound), the bound the card holds the kernels to; the
 same emulation with one TF32 pass (hi hi alone) must fall outside it, so the
 check can see a missing pass.
+
+``attn_f32_fwd_kernel`` (the forward of both mask semantics) is emulated the
+same way by ``fwd_split``: blocks of 64 query rows visiting the kernel's
+key tiles (``kFwdBT`` keys, read from the source, as its ``n_keys``
+gives them); S = Q K^T of each tile in split TF32 into a zeroed accumulator;
+the scores scaled and masked in f32 (MODE 0: -inf past the key length or
+the row, a row with no valid key weighing all keys alike; MODE 1: -0.7 f32
+max added); each row's running max m, alpha = 2^((m - m_new) log2 e), p =
+2^((s - m_new) log2 e), each lane's partial l = alpha l + its p in order,
+summed over the quad at the end; o scaled by alpha, then P V added to o's
+one chain.  MODE 0
+is held to JAX's ``fused_attention`` and MODE 1 to the library flash
+kernel's forward (both f32, interpret mode) within ``chip_smoke.F32_ATOL``
++ ``F32_RTOL``, MODE 1's m and l to the port's twin; one TF32 pass must
+fall outside that bound.
 """
 
 import math
+import re
 from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,12 +56,25 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, flash_attention
 
-from chip_smoke import F32_REL
+from chip_smoke import F32_ATOL, F32_REL, F32_RTOL
+from smer_music_generation_tpu.ops.attention import fused_attention as jfused
+from smer_music_generation_tpu_torch.ops import attention as attn
 from smer_music_generation_tpu_torch.ops import flash_train as ft
 
 BLK = 128
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 MASK = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The emulations take thousands of tiny float64 products, which a
+    torch thread pool runs no faster and, when the other test workers hold
+    the cores, much slower: one thread runs them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -210,6 +240,145 @@ def test_one_tf32_pass_misses_the_f32_bound(D, T, S, causal):
     got = bwd_split(q, k, v, valid, out, stats, g, causal, passes=1)
     twin = ft.flash_train_bwd_reference(q, k, v, valid, out, stats, g, causal)
     assert max(_rel(a, b) for a, b in zip(got, twin)) > F32_REL
+
+
+# ----------------------------------------------------------------------
+# the forward, attn_f32_fwd_kernel
+# ----------------------------------------------------------------------
+_SRC = (Path(__file__).resolve().parents[1] / "smer_music_generation_tpu_torch" / "ops" / "csrc"
+        / "attention_f32.cu").read_text()
+FWD_BT = int(re.search(r"constexpr int kFwdBT = (\d+);", _SRC).group(1))
+ROWS = 64  # query rows a block
+
+
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """(..., C) -> (..., 4, C / 4): lane t's columns of a C-wide tile in its
+    order, the C fragments' 8 j + 2 t and 8 j + 2 t + 1, j = 0, 1, ..."""
+    c = x.shape[-1]
+    idx = torch.tensor([[8 * j + 2 * t + e for j in range(c // 8) for e in (0, 1)] for t in range(4)])
+    return x[..., idx]
+
+
+def fwd_split(q, k, v, keys, causal, mode, passes=3):
+    """(out (B, T, H, D), m, l (B, H, T)) f32 in attn_f32_fwd_kernel's
+    arithmetic; ``keys`` the key lengths (B,) or None (MODE 0) or the
+    validity (B, S) (MODE 1)."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    out = torch.zeros(B, H, T, D)
+    m_out, l_out = torch.zeros(B, H, T), torch.zeros(B, H, T)
+    for b in range(B):
+        n_valid = S if keys is None or mode == 1 else min(int(keys[b]), S)
+        uniform = mode == 0 and n_valid <= 0
+        clip = mode == 0 and causal and not uniform
+        for t0 in range(0, T, ROWS):
+            rs = slice(t0, min(t0 + ROWS, T))
+            r = torch.arange(rs.start, rs.stop)
+            if mode == 0:
+                n_keys = min(n_valid, t0 + ROWS) if clip else (S if uniform else n_valid)
+            else:
+                n_keys = min((t0 // BLK + 1) * BLK, S) if causal else S
+            o = torch.zeros(H, len(r), D)
+            m = torch.full((H, len(r)), -1e30 if mode == 0 else -math.inf)
+            lanes = torch.zeros(H, len(r), 4)
+            for k0 in range(0, n_keys, FWD_BT):
+                c = torch.arange(k0, k0 + FWD_BT)
+                kt, vt = (torch.zeros(H, FWD_BT, D) for _ in range(2))
+                inside = c < S
+                kt[:, inside], vt[:, inside] = kh[b][:, c[inside]], vh[b][:, c[inside]]
+                s = chain(qh[b][:, rs], kt.transpose(-1, -2), passes=passes)
+                if mode == 0:
+                    masked = (c[None, :] >= n_valid) | (clip & (c[None, :] > r[:, None]))
+                    s = torch.where((c[None, :] >= S) | (masked & (not uniform)), -math.inf,
+                                    torch.zeros_like(s) if uniform else s * scale)
+                else:
+                    keep = keys[b][c].bool()[None, :] & ~(causal & (c[None, :] > r[:, None]))
+                    s = fma(s, scale, torch.where(keep, 0.0, MASK))
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2((m - m_new) * LOG2E)
+                p = torch.exp2((s - m_new[..., None]) * LOG2E)
+                part, pl = torch.zeros_like(lanes), _lanes(p)
+                for i in range(FWD_BT // 4):
+                    part = part + pl[..., i]
+                lanes = fma(alpha[..., None], lanes, part)
+                m = m_new
+                o = chain(p, vt, acc=o * alpha[..., None], passes=passes)
+            l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+            inv = 1.0 / (l.clamp(min=1e-30) if mode == 0 else l)
+            out[b, :, rs] = o * inv[..., None]
+            m_out[b, :, rs], l_out[b, :, rs] = m, l
+    return out.permute(0, 2, 1, 3), m_out, l_out
+
+
+def _jax_flash_out(q, k, v, valid, causal):
+    """The library flash kernel's forward in f32, interpret mode, as
+    ``attend_flash_vjp`` calls it: (B, T, H, D)."""
+    B, T, _, D = q.shape
+    seg = SegmentIds(q=jnp.ones((B, T), jnp.int32), kv=jnp.asarray(valid, jnp.int32))
+    t = lambda a: jnp.asarray(a.numpy(), jnp.float32).transpose(0, 2, 1, 3)  # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        o = flash_attention(t(q), t(k), t(v), segment_ids=seg, causal=causal, sm_scale=1.0 / math.sqrt(D))
+    return torch.from_numpy(np.asarray(o, np.float32)).permute(0, 2, 1, 3)
+
+
+def _jax_fused_out(q, k, v, lens, causal):
+    """JAX's ``fused_attention`` in f32, interpret mode."""
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    o = jfused(*(jnp.asarray(a.numpy(), jnp.float32) for a in (q, k, v)), kv_valid_len=jl,
+               causal=causal, blk_q=32, blk_kv=32, interpret=True)
+    return torch.from_numpy(np.asarray(o, np.float32))
+
+
+def _within_f32(a, b) -> bool:
+    return torch.allclose(a, b, atol=F32_ATOL, rtol=F32_RTOL)
+
+
+FWD0_CASES = [  # (head_dim, B, T, S, key lengths, causal): T, S not multiples of the tiles
+    (64, 2, 96, 120, [120, 70], False),
+    (64, 3, 100, 96, [96, 0, 1], True),  # a batch row with no valid key (JAX pads S to 32s)
+    (128, 2, 70, 77, [77, 40], True),
+]
+
+
+@pytest.mark.parametrize("D,B,T,S,lens,causal", FWD0_CASES,
+                         ids=[f"hd{d}-T{t}-S{s}-{'causal' if c else 'full'}"
+                              for d, _, t, s, _, c in FWD0_CASES])
+def test_split_tf32_forward_mode0_meets_f32_bound_against_jax_and_twin(D, B, T, S, lens, causal):
+    rng = np.random.default_rng(D + T + S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((B, T, 2, D), (B, S, 2, D), (B, S, 2, D)))
+    kl = torch.tensor(lens, dtype=torch.int32)
+    got, _, _ = fwd_split(q, k, v, kl, causal, mode=0)
+    assert torch.isfinite(got).all()
+    assert _within_f32(got, attn.attention_reference(q, k, v, kl, causal))
+    assert _within_f32(got, _jax_fused_out(q, k, v, lens, causal))
+
+
+FWD1_CASES = [(64, 128, 256, False), (64, 256, 256, True), (128, 256, 128, False),
+              (128, 128, 128, True)]
+
+
+@pytest.mark.parametrize("D,T,S,causal", FWD1_CASES,
+                         ids=[f"hd{d}-T{t}-S{s}-{'causal' if c else 'full'}" for d, t, s, c in FWD1_CASES])
+def test_split_tf32_forward_mode1_meets_f32_bound_against_jax_and_twin(D, T, S, causal):
+    q, k, v, _, valid = _inputs(T, S, D, seed=7 * D + T + S + causal)
+    got, m, l = fwd_split(q, k, v, valid, causal, mode=1)
+    want, stats = ft.flash_train_fwd_reference(q, k, v, valid, causal)
+    assert torch.isfinite(got).all()
+    assert _within_f32(got, want)
+    assert _within_f32(got, _jax_flash_out(q, k, v, valid.numpy(), causal))
+    B, _, H, _ = q.shape
+    for got_stat, want_stat in zip((m, l), stats):
+        assert torch.allclose(got_stat.reshape(B * H, T), want_stat, atol=F32_ATOL, rtol=F32_RTOL)
+
+
+def test_one_tf32_pass_forward_misses_the_f32_bound():
+    """The control: hi hi alone moves the output outside atol + rtol."""
+    q, k, v, _, valid = _inputs(128, 256, 64, seed=11)
+    got, _, _ = fwd_split(q, k, v, valid, False, mode=1, passes=1)
+    assert not _within_f32(got, ft.flash_train_fwd_reference(q, k, v, valid, False)[0])
 
 
 def _bits(x: int) -> torch.Tensor:
