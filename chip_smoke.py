@@ -30,8 +30,9 @@ paths and prints one line per phase with the elapsed seconds:
    registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
-   LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source):
-   the phase fails if one has no entry in the build log or spills;
+   LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source;
+   ``embed_pe_kernel`` and ``sample_advance_kernel``): the phase fails if
+   one has no entry in the build log or spills;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -69,7 +70,11 @@ paths and prints one line per phase with the elapsed seconds:
    what that tolerance allows (counted, at most 2% of the rows); then
    ``sample_advance_kernel`` alone on the twin's logits, equal to the
    twin's sampler except at exact ties (margin within a 1e-5 move of the
-   log-probabilities, counted); times and bound at the served shape; then
+   log-probabilities, counted), and the next token's input row it writes
+   (its fold) bit-equal to ``embed_pe_kernel``'s row of the new state's
+   tokens at index + 1 and, on the rows whose token it shares with the
+   twin, within ``x_atol(index + 1)`` of the twin's row; times and bound at
+   the served shape; then
    the same on a REMI-vocabulary flagship (B in {1, 3, 8}, S 1536, index 0
    and 512);
 2c. v4 kernel: ``fused_decode_tokens`` for B in {1, 3, 8}, T_chunk in
@@ -102,10 +107,18 @@ paths and prints one line per phase with the elapsed seconds:
    opens it), eager
    against replayed (CUDA events, the profiler's device time by kernel and
    busy share, the replays' host ops), the capture's ms; the replayed v3
-   token's profile must hold its 35 port kernels and no
-   ``add_layernorm_kernel``; then the device µs of the LN tail a fused
-   launch (with it less without it, at B=3), of ``embed_pe_kernel`` and of
-   ``sample_advance_kernel`` beside their bounds;
+   token's profile must hold its 34 port kernels (no ``embed_pe_kernel``:
+   each sampler writes the next token's input row) and no
+   ``add_layernorm_kernel``; whether the sampler, a programmatic dependent
+   launch, began before the logits launch ended (the replays' profiler
+   trace); then the device µs of the LN tail a fused launch (with it less
+   without it, at B=3), of ``embed_pe_kernel`` (an eager token's) and of
+   ``sample_advance_kernel`` (a replayed token's, which counts its wait
+   for the logits, and alone) beside their bounds (the sampler's nucleus
+   operations counted over the nonzero probabilities of its row), their
+   plain twins' µs
+   and the launch floor: an empty kernel of the same grid and block
+   (``scripts/launch_floor.cu``), captured in a graph;
 3. serve: the committed trained snapshot on the card in bf16, a seeded
    3-track 16-bar 4/4 score, ``generate_cli.main`` infilling 2 bars of one
    track (greedy), then ``InfillEngine.run_batch`` on 3 nucleus requests,
@@ -273,6 +286,7 @@ import contextlib
 import ctypes
 import dataclasses
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -428,6 +442,8 @@ DECODE_KERNELS = {
     "attend_kernel<64, cache>": "attend_kernelILi64ELi0E",
     "attend_kernel<64, chunk>": "attend_kernelILi64ELi1E",
     "attend_kernel<64, window>": "attend_kernelILi64ELi2E",
+    "embed_pe_kernel": "embed_pe_kernel",
+    "sample_advance_kernel": "sample_advance_kernel",
 }
 DECODE_SPILL_BYTES = 0
 # the projections whose output feeds a post-LN, with the LayerNorm rows of
@@ -523,6 +539,21 @@ def profiled(fn, iters: int = 20, top: int = 6):
     host.sort(key=lambda e: -e[1])
     dev.sort(key=lambda e: -e[1])
     return split or None, host[:top], dev[:top]
+
+
+def whole_trace(fn, iters: int, tries: int = 3):
+    """``profiled(fn, iters, top=200)`` of a graph's replays, taken again (at
+    most ``tries`` times) while the profiler has lost records: every replay
+    runs every node of the graph, so in a whole trace each kernel's records
+    a replay are a whole number.  Returns the last trace and the device
+    kernels of every trace taken."""
+    kernels = []
+    for _ in range(tries):
+        trace = profiled(fn, iters=iters, top=200)
+        kernels.append(trace[2])
+        if trace[0] is not None and all(abs(c - round(c)) < 1e-9 for _, _, c in trace[2]):
+            break
+    return trace, kernels
 
 
 def device_split(fn, iters: int = 20):
@@ -732,6 +763,16 @@ def sampler_kw(vocab, greedy, p, temp):
                 span_body=SPAN_BODY)
 
 
+def x_atol(position: int) -> float:
+    """How far the sampler's next input row may lie from its plain twin's at
+    ``position``: the two take the embedding and its scale to the same bits,
+    but the kernel's expf and torch's exp may part in the last bit of a
+    frequency (<= 1), which the angle multiplies by the position, and their
+    sin and cos in the last bit of a value (the bound of
+    ``tests/test_torch_decode_token.py``)."""
+    return 1e-5 + 4 * 2.0 ** -24 * position
+
+
 def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536),
                         indices=(0, 1, 512, 1023)):
     tables = sampling_tables(vocab, vpad, dev)
@@ -740,7 +781,8 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
     g = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(3)
     worst, report, cases = 0.0, None, 0
-    close_rows = tie_rows = rows = 0
+    close_rows = tie_rows = rows = x_rows = 0
+    x_worst = 0.0
     for B in Bs:
         for S in Ss:
             self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
@@ -772,10 +814,20 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
                             f"in a row with a decisive margin: kernel {ks.tolist()} twin {rs.tolist()}")
                     close_rows += int((differ & close).sum())
                     rows += B
-                    # the sampler alone on the twin's logits: equal but at exact ties
-                    alone = ds.sample_and_advance(lg, state, aux, span_types, noise, index, tables, **skw)
-                    want = ds.sample_and_advance_reference(lg, state, aux, span_types, noise, index,
-                                                           tables, **skw)
+                    # the sampler alone on the twin's logits: equal but at exact
+                    # ties; its fold bit-equal to embed_pe_kernel's row of its tokens
+                    alone, x = ds.sample_and_advance(lg, state, aux, span_types, noise, index,
+                                                     tables, emb=packed["emb"], **skw)
+                    x_emb = ds.embed_pe(packed["emb"], alone, index + 1)
+                    torch.cuda.synchronize()
+                    if not torch.equal(x, x_emb):
+                        raise AssertionError(
+                            f"sample_advance_kernel's next input row is not embed_pe_kernel's at "
+                            f"B={B} S={S} index={index} {name} (max |diff| "
+                            f"{(x - x_emb).abs().max().item():.3e})")
+                    x_rows += B
+                    want, want_x = ds.sample_advance_embed_reference(
+                        lg, state, aux, span_types, noise, index, tables, packed["emb"], **skw)
                     tie = decision_flips(lg, state, aux, span_types, noise, index, tables, skw,
                                          eps=torch.full((B,), TIE, device=dev))
                     differ_alone = (alone != want).any(dim=0)
@@ -784,6 +836,15 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
                             f"sample_advance_kernel differs from its twin at B={B} S={S} index={index} "
                             f"{name}: kernel {alone.tolist()} twin {want.tolist()}")
                     tie_rows += int((differ_alone & tie).sum())
+                    # the fold's row against the twin's, on the rows whose
+                    # token they share
+                    same = ~differ_alone
+                    x_err = (x[same] - want_x[same]).abs().max().item() if same.any() else 0.0
+                    if x_err > x_atol(index + 1):
+                        raise AssertionError(
+                            f"sample_advance_kernel's next input row is {x_err:.3e} from its twin's "
+                            f"at B={B} S={S} index={index} {name} (atol {x_atol(index + 1):.3e})")
+                    x_worst = max(x_worst, x_err)
                     cases += 1
                     if (B, S, index) == SERVED_CASE and name == SAMPLERS[1][0]:
                         ms = cuda_ms(lambda: ds.fused_decode_token(*args, **kw, **skw), iters=20)
@@ -796,7 +857,9 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
             say(f"  B={B} S={S}: max|kernel-twin| of new_kv so far {worst:.3e}")
     say(f"  {cases} cases: new_kv within atol {ATOL} + rtol {RTOL} (max {worst:.3e}); "
         f"{close_rows} of {rows} state rows differ where the twin's margin is within that tolerance; "
-        f"sample_advance_kernel alone differs in {tie_rows} rows, all exact ties (< {TIE})")
+        f"sample_advance_kernel alone differs in {tie_rows} rows, all exact ties (< {TIE}); "
+        f"its next input rows bit-equal to embed_pe_kernel's in all {x_rows} and within "
+        f"{x_worst:.3e} of the twin's (atol x_atol(index + 1), at most {x_atol(max(indices) + 1):.3e})")
     if close_rows > MAX_CLOSE_SHARE * rows:
         raise AssertionError(f"{close_rows} of {rows} state rows needed the margin exception "
                              f"(more than {MAX_CLOSE_SHARE:.0%})")
@@ -1094,28 +1157,111 @@ def empty_splits_bit_equal(dev, flagships, g) -> int:
     return cases
 
 
-def small_kernel_bounds(B: int, V: int, nucleus: bool):
-    """The bytes bounds (ms) of the three small parts of a token at B rows
-    and what bounds each: the LN tail (as ``add_layernorm_kernel`` was)
+def small_kernel_bounds(B: int, V: int, allowed):
+    """The bounds (ms) of the three small parts of a token at B rows, what
+    sets each and its bytes: the LN tail (as ``add_layernorm_kernel`` was)
     reads x and o (B, D) f32 and gamma and beta, writes (B, D) f32;
-    ``embed_pe_kernel`` reads B
-    tokens, B bf16 embedding rows and the position, writes (B, D) f32;
-    ``sample_advance_kernel`` reads a row's V logits, V mask entries,
-    (nucleus) V noise entries, its class row, span type, state, aux and
-    position and sid_tbl, writes its state, token and position, and does
-    V x V f32 multiply-adds a row for the nucleus rule (at 67 TFLOP/s, the
-    f32 rate outside the tensor cores)."""
+    ``embed_pe_kernel`` reads B tokens, B bf16 embedding rows and the
+    position, writes (B, D) f32; ``sample_advance_kernel`` reads a row's V
+    logits, V mask entries, (nucleus) V noise entries, its class row, span
+    type, state, aux and position and sid_tbl, writes its state, token and
+    position, then (its fold) reads the next token's bf16 embedding row and
+    writes its (D,) f32 input row.  Its nucleus rule needs a compare and an
+    add for each pair of a row's nonzero probabilities (a zero adds
+    nothing): ``allowed`` is the (B,) count of them on this run's inputs,
+    None when greedy; the operations are at 67 TFLOP/s, the f32 rate
+    outside the tensor cores."""
     ln = (3 * B + 2) * D * 4
     emb = B * (4 + 2 * D + 4 + 4 * D)
+    nucleus = allowed is not None
     smp = B * (V * 4 * (3 if nucleus else 2) + ds._N_CLASSES * 4 + 4 + 6 * 4 + 2 * 4 + 4
-               + 6 * 4 + 4 + 4) + 16 * 4
-    smp_ops = 2 * B * V * V if nucleus else 0
+               + 6 * 4 + 4 + 4 + 2 * D + 4 * D) + 16 * 4
+    smp_ops = 2 * sum(int(n) ** 2 for n in allowed) if nucleus else 0
     out = {}
     for name, nbytes, ops in (("LN tail", ln, 0), ("embed_pe_kernel", emb, 0),
                               ("sample_advance_kernel", smp, smp_ops)):
         t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOPS
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
     return out
+
+
+def graph_step_at(graphs, packed, tables, state, aux, span_types, noise, cross_kv, cross_len,
+                  opened, kw, skw):
+    """One replay of the graph of ``graphs`` for these inputs, loaded at
+    its start position: a step to profile."""
+
+    def step():
+        with dg.open_graph(graphs, packed, tables, state, aux, span_types, noise, cross_kv,
+                           cross_len, **opened, **kw, **skw) as graph:
+            graph.step()
+
+    return step
+
+
+def device_spans(fn, iters: int):
+    """(name, start µs, end µs) of every device event of ``iters`` calls of
+    ``fn`` under the profiler, in the order they began."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sorted(spans, key=lambda e: e[1])
+
+
+def pdl_gaps(fn, iters: int):
+    """For each ``sample_advance_kernel`` of ``iters`` calls of ``fn``: its
+    start less the end of the device event that began before it (µs;
+    negative when it began while that one ran), and that event's name."""
+    spans = device_spans(fn, iters)
+    gaps, before = [], set()
+    for i, (name, start, _) in enumerate(spans):
+        if "sample_advance_kernel" in name and i > 0:
+            prev = spans[i - 1]
+            gaps.append(start - prev[2])
+            before.add(next((f for f in FAMILIES if f in prev[0]), prev[0][:40]))
+    return {"us": gaps, "before": ", ".join(sorted(before))}
+
+
+LAUNCH_FLOOR_N = 50  # empty launches a captured graph holds
+
+
+def launch_floor_us(dev, grid: int, block: int, smem: int):
+    """The launch floor of a grid: ``scripts/launch_floor.cu``'s empty
+    kernel at (grid, block, dynamic shared memory) captured
+    LAUNCH_FLOOR_N times in a CUDA graph, replayed: (device µs a launch by
+    the profiler, µs a launch of CUDA events over the replays)."""
+    src = Path(__file__).resolve().parent / "scripts" / "launch_floor.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib_path = ds._BUILD_DIR / f"liblaunch_floor_{digest}.so"
+    if not lib_path.is_file():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        subprocess.run([ds._nvcc(), *ds.NVCC_FLAGS, "-shared", "-o", str(tmp), str(src)],
+                       check=True, timeout=300)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.launch_floor_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.launch_floor_empty.restype = ctypes.c_int
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ds._check(lib.launch_floor_empty(grid, block, smem, side.cuda_stream), "empty_kernel")
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        for _ in range(LAUNCH_FLOOR_N):
+            lib.launch_floor_empty(grid, block, smem, side.cuda_stream)
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    events_us = 1e3 * cuda_ms(graph.replay, iters=20) / LAUNCH_FLOOR_N
+    spans = [e - s for name, s, e in device_spans(graph.replay, iters=4) if "empty_kernel" in name]
+    return (sum(spans) / len(spans) if spans else float("nan")), events_us
 
 
 def phase_graph_vs_eager(dev, flagships, int8_flagship):
@@ -1221,7 +1367,8 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
         eager_ms = cuda_ms(eager, iters=40 if T is None else 10)
         eager_split, _, _ = profiled(eager, iters=10)
         # the replays advance the position: 3 + 100 + 11 tokens from 512 (v3)
-        # or 3 + 20 + 3 chunks of 8 (v4), inside the cache
+        # or 3 + 20 + 3 chunks of 8 (v4), up to three times the last for the
+        # traces whole_trace takes, inside the cache
         opened = dict(cache_rows=Lc, cache_dtype=torch.bfloat16, T_chunk=T, start=index)
         with dg.open_graph(graphs, pk, tables, state, aux, span_types, noise, cross_kv, cross_len,
                            **opened, **kw, **skw) as graph:
@@ -1230,7 +1377,8 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
             torch.cuda.synchronize()
             first_ms = 1e3 * (time.perf_counter() - t0)
             ms = cuda_ms(graph.step, iters=100 if T is None else 20)
-            split, host, kernels = profiled(graph.step, iters=10 if T is None else 2, top=200)
+            (split, host, _), traces = whole_trace(graph.step, iters=10 if T is None else 2)
+            tries = len(traces)
             end = graph.host_pos
         # the next decode of the same key: the inputs loaded, no capture
         torch.cuda.synchronize()
@@ -1259,38 +1407,90 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
             f"first replay {hit_ms:.2f} ms")
         say("    eager:")
         say_split(eager_split, eager_ms)
-        say("    graph replay:")
+        say(f"    graph replay (trace {tries}: the profiler had lost records of the "
+            f"earlier ones):" if tries > 1 else "    graph replay:")
         say_split(split, ms)
         say("    host ops of the replays: " +
             ", ".join(f"{k} {us:.0f} us x{c}" for k, us, c in host[:6]))
         if name == "v3" and split is not None:
             # every replay runs every node of the graph, and the profiler may
             # lose a record but never adds one: a family's launches a replay
-            # are the records a replay rounded up
+            # are its records a replay rounded up, the most of any trace
             seen = {}
-            for key, _, c in kernels:
-                family = next((f for f in FAMILIES if f in key), None)
-                if family is not None:
-                    seen[family] = seen.get(family, 0.0) + c
+            for kernels in traces:
+                by_family = {}
+                for key, _, c in kernels:
+                    family = next((f for f in FAMILIES if f in key), None)
+                    if family is not None:
+                        by_family[family] = by_family.get(family, 0.0) + c
+                for k, v in by_family.items():
+                    seen[k] = max(seen.get(k, 0.0), v)
             ours = {k: math.ceil(v - 1e-9) for k, v in seen.items()}
             say(f"    port kernels a replayed token: {sum(ours.values())} "
                 f"({', '.join(f'{k} {v} ({seen[k]:.2f} records a replay)' for k, v in sorted(ours.items()))})")
-            if sum(ours.values()) != 35 or "add_layernorm_kernel" in ours:
-                raise AssertionError(f"2i: a replayed v3 token ran {ours}, not 35 port kernels "
-                                     f"with no add_layernorm_kernel")
+            if (sum(ours.values()) != 34 or "add_layernorm_kernel" in ours
+                    or "embed_pe_kernel" in ours):
+                raise AssertionError(f"2i: a replayed v3 token ran {ours}, not 34 port kernels "
+                                     f"with no add_layernorm_kernel and no embed_pe_kernel")
+            # the sampler is a programmatic dependent launch behind the logits
+            # launch: its start against the end of the launch before it
+            gaps = pdl_gaps(graph_step_at(graphs, pk, tables, state, aux, span_types, noise,
+                                          cross_kv, cross_len, opened, kw, skw), iters=5)
+            say(f"    sample_advance_kernel's start after the end of the launch before it "
+                f"(the logits' {gaps['before']}), {len(gaps['us'])} replays: "
+                f"{', '.join(f'{g:.2f}' for g in gaps['us'])} us (negative: it began first)")
             # the tail a fused launch at this B: the three projections that
             # carry it, with it less without it
             lib, stream = ds.load_library(), torch.cuda.current_stream(dev).cuda_stream
             tails = [ln_tail_time(dev, lib, stream, pk, vpad, V, case, B, g, check=False)["tail_us"]
                      for case in LN_TAILS if not case[2]]
             tail_us = None if None in tails else sum(tails) / len(tails)
-            bounds = small_kernel_bounds(B, V, nucleus=True)
-            for k, n, t in (("LN tail", 13, tail_us),
-                            ("embed_pe_kernel", 1, split.get("embed_pe_kernel", 0.0)),
-                            ("sample_advance_kernel", 1, split.get("sample_advance_kernel", 0.0))):
+            # the sampler alone (the launch before it a copy of the logits,
+            # so no wait), with its fold, on logits of the served width
+            logits = 3 * torch.randn(B, vpad, generator=g, device=dev)
+            logits[:, V:] = ds.NEG
+            # the nonzero probabilities a row, which the nucleus rule sums over
+            logp, _ = ds.sampling_scores(logits, state, aux, span_types, None, tables,
+                                         mode=skw["mode"], max_spans=skw["max_spans"],
+                                         nucleus_p=skw["nucleus_p"], temperature=skw["temperature"],
+                                         greedy=True, n_sid=skw["n_sid"])
+            allowed = (logp.exp() > 0).sum(dim=-1).tolist()
+            bounds = small_kernel_bounds(B, V, allowed)
+            alone = profiled(lambda: ds.sample_and_advance(logits, state, aux, span_types, noise,
+                                                           index, tables, emb=pk["emb"], **skw),
+                             iters=20)[0]
+            floor = {k: launch_floor_us(dev, B, block, smem)
+                     for k, block, smem in (("embed_pe_kernel", 256, 0),
+                                            ("sample_advance_kernel", vpad, 4 * (vpad + D)))}
+            # their plain twins on the same inputs, CUDA events
+            plain_us = {
+                "embed_pe_kernel": 1e3 * cuda_ms(lambda: ds.embed_pe_reference(
+                    pk["emb"], state[ds.ST_TOKEN], index, D), iters=20),
+                "sample_advance_kernel": 1e3 * cuda_ms(lambda: ds.sample_advance_embed_reference(
+                    logits, state, aux, span_types, noise, index, tables, pk["emb"], **skw),
+                    iters=20)}
+            small = {"LN tail": (13, tail_us, None),
+                     "embed_pe_kernel": (0, (eager_split or {}).get("embed_pe_kernel"),
+                                         "an eager token's; 1 a decode, outside the graph"),
+                     "sample_advance_kernel": (1, split.get("sample_advance_kernel"),
+                                               "a replayed token's, its wait for the logits "
+                                               "included; alone "
+                                               f"{us((alone or {}).get('sample_advance_kernel'))}, "
+                                               f"{allowed} nonzero probabilities a row")}
+            reports["small"] = {}
+            for k, (n, t, note) in small.items():
                 b_ms, by, nbytes = bounds[k]
-                say(f"    {k}: {us(t)} of device time a launch, {n} a token, bound "
-                    f"{1e3 * b_ms:.4f} us ({by}, {nbytes} bytes)")
+                fl = floor.get(k)
+                how = note or "with it less without it"
+                say(f"    {k}: {us(t)} of device time a launch ({how}), "
+                    f"{n} a replayed token, bound {1e3 * b_ms:.4f} us ({by}, {nbytes} bytes)"
+                    + ("" if fl is None else f", launch floor {fl[0]:.2f} us of device time "
+                       f"({fl[1]:.2f} us of events a launch in a graph of {LAUNCH_FLOOR_N}), "
+                       f"plain twin {plain_us[k]:.1f} us of events"))
+                reports["small"][k] = dict(us=t, bound_us=1e3 * b_ms, floor=fl,
+                                           plain_us=plain_us.get(k))
+            reports["small"]["sample_advance_kernel"].update(
+                alone_us=(alone or {}).get("sample_advance_kernel"), allowed=allowed)
     say(f"  captures {dg.DecodeGraph.captures}, ms each {[round(c, 2) for c in dg.DecodeGraph.capture_ms]}")
     return reports
 

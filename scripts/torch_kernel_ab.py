@@ -22,7 +22,14 @@ the wall ms of 5 runs); where the checkout has
 ``ops/decode_graph.py``, also the v3 token, the int8 v3 token and the v4
 chunk of 8 as the decoder runs them, one CUDA-graph replay (``DecodeGraph``
 step) each, from index 512 (the replays advance the position: the v3 token
-is timed over positions 512-772, the chunk over 512-760).  Then the attention kernels: ``fused_attention``
+is timed over positions 512-772, the chunk over 512-760), the replayed v3
+token with each ``sample_advance_kernel``'s start less the end of the
+device event before it (``sampler_gap_us``, from the profiler's trace;
+negative where the sampler, a programmatic dependent launch, began while
+the logits launch ran); and the two ends of a token alone: the sampler
+(``sample_and_advance``, nucleus, on the v2 step's logits; with
+``sampler_fold`` also its fold where the checkout has one) and
+``embed_pe_kernel`` through its C entry point.  Then the attention kernels: ``fused_attention``
 (the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; and
 the train attention at B=8, H=8, 640x640 and 384x384 causal (rate 0.1, ~10%
 of keys invalid, one batch row with no valid key, as chip_smoke's phase 2g;
@@ -66,6 +73,12 @@ the roots times the attention kernels alone (no decode kernels, no served
 batch):
 
     python scripts/torch_kernel_ab.py --attention build/parent . . build/parent
+
+``--decode`` before the roots times the decode kernels and the served batch
+alone (no attention kernels), for roots that differ only there, such as the
+design variants of ``scripts/decode_token_variants.py``:
+
+    python scripts/torch_kernel_ab.py --decode build/parent . . build/parent
 """
 
 from __future__ import annotations
@@ -76,7 +89,7 @@ import sys
 from pathlib import Path
 
 CHILD = r"""
-import hashlib, json, math, subprocess, sys, time
+import hashlib, inspect, json, math, subprocess, sys, time
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -97,6 +110,7 @@ FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel", "embed_pe_
             "train_bwd_rows_kernel", "train_bwd_keys_kernel", "attn_f32_fwd_kernel",
             "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
 ATTENTION_ONLY = len(sys.argv) > 3 and sys.argv[3] == "attention"
+DECODE_ONLY = len(sys.argv) > 3 and sys.argv[3] == "decode"
 dev = torch.device("cuda", 0)
 torch.manual_seed(0)
 vocab = WordVocab(0, ExperimentConfig().control_list)
@@ -186,6 +200,17 @@ except ImportError:  # a checkout from before the decode graph
     dg = None
 
 
+def sampler_gaps(fn, n=5):
+    # chip_smoke's measure (this script's checkout, after the root's package
+    # on the path): each sample_advance_kernel's start less the end of the
+    # device event that began before it (us; negative: it began while that
+    # one ran)
+    sys.path.append(sys.argv[4])
+    from chip_smoke import pdl_gaps
+
+    return [round(u, 2) for u in pdl_gaps(fn, n)["us"]]
+
+
 def replayed(packed, T):
     # the decoder's step as a graph replay from index 512, as the decoder
     # opens it (open_graph: the inputs copied into the graph's buffers, the
@@ -195,6 +220,7 @@ def replayed(packed, T):
                        start=INDEX, **kw, **skw) as graph:
         if T is None:
             t = timed(graph.step)
+            t["sampler_gap_us"] = sampler_gaps(graph.step)
         else:
             t = timed(graph.step, warm=3, n=20, n_prof=3, n_iso=5)
         # the same number of replays on every root: the end state compares
@@ -228,6 +254,33 @@ for quant in () if ATTENTION_ONLY else ("none", "int8") if hasattr(ds, "quantize
         out["v3_token_graph" + tag] = replayed(packed, None)
         outputs["v3_token_graph" + tag] = out["v3_token_graph" + tag].pop("outputs")
     if quant == "none":
+        # the two ends of a token alone, on the served shape: the sampler
+        # (nucleus) on the logits of the v2 step, with its fold where the
+        # checkout has one, and embed_pe_kernel through its C entry point
+        logits = ds.fused_decode_step(packed, x, self_kv, cross_kv, INDEX, cross_len, **kw)[0]
+        folds = "emb" in inspect.signature(ds.sample_and_advance).parameters
+        fold = dict(emb=packed["emb"]) if folds else {}
+        outputs["sampler"] = digest(ds.sample_and_advance(
+            logits, state, aux, span_types, noise, INDEX, tables, **skw))
+        out["sampler"] = timed(lambda: ds.sample_and_advance(
+            logits, state, aux, span_types, noise, INDEX, tables, **skw))
+        if folds:
+            out["sampler_fold"] = timed(lambda: ds.sample_and_advance(
+                logits, state, aux, span_types, noise, INDEX, tables, **fold, **skw))
+        lib = ds.load_library()
+        xe = torch.empty(B, D, device=dev)
+        pos_t = torch.full((B,), INDEX, dtype=torch.int32, device=dev)
+
+        def embed():
+            ds._check(lib.smer_embed_pe(
+                B, D, state.data_ptr(), packed["emb"].data_ptr(), vpad, math.sqrt(D),
+                pos_t.data_ptr(), 0, -math.log(10000.0) / D, xe.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream), "embed_pe")
+
+        embed()
+        outputs["embed_pe"] = digest(xe)
+        out["embed_pe"] = timed(embed)
+    if quant == "none":
         outputs["v4_chunk8"] = digest(*ds.fused_decode_tokens(
             packed, tables, state, aux, span_types, noise, self_kv, cross_kv, INDEX, cross_len,
             **kw, **skw, T_chunk=8))
@@ -253,8 +306,10 @@ def rnd(*shape):
 
 qa, ka, va = rnd(3, 1536, H, 64), rnd(3, 1536, H, 64), rnd(3, 1536, H, 64)
 lens = torch.tensor([1536, 1440, 1344], dtype=torch.int32, device=dev)
-out["fused_attention"] = timed(lambda: attn.fused_attention(qa, ka, va, lens, False))
-for T_, S_, causal in ((640, 640, False), (384, 384, True), (384, 640, False)):
+if not DECODE_ONLY:
+    out["fused_attention"] = timed(lambda: attn.fused_attention(qa, ka, va, lens, False))
+for T_, S_, causal in () if DECODE_ONLY else ((640, 640, False), (384, 384, True),
+                                              (384, 640, False)):
     q, k, v, go = rnd(8, T_, H, 64), rnd(8, S_, H, 64), rnd(8, S_, H, 64), rnd(8, T_, H, 64)
     valid = (torch.rand(8, S_, generator=g, device=dev) >= 0.1).to(torch.int32)
     valid[1] = 0
@@ -277,7 +332,7 @@ except ImportError:  # a checkout from before the flash-train kernels
 # keys invalid and one batch row with none, as chip_smoke's phase 2j; the
 # backward (flash_train_dq_kernel + flash_train_dkv_kernel) beside SDPA's
 # backward with the same boolean mask, the forward as the control
-for T_ in (640, 2048) if ft is not None else ():
+for T_ in (640, 2048) if ft is not None and not DECODE_ONLY else ():
     q, k, v, go = (rnd(8, T_, H, 64) for _ in range(4))
     valid = (torch.rand(8, T_, generator=g, device=dev) >= 0.1).to(torch.int32)
     valid[1] = 0
@@ -299,7 +354,7 @@ for T_ in (640, 2048) if ft is not None else ():
 # off); the largest relative norm of dq, dk, dv from the twin beside each
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
+for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
     gf = torch.Generator(device=dev).manual_seed(2)
     q, k, v, go = (torch.randn(8, 640, H_, D_, generator=gf, device=dev) for _ in range(4))
     valid = (torch.rand(8, 640, generator=gf, device=dev) >= 0.1).to(torch.int32)
@@ -323,7 +378,7 @@ for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
 # 1536x1536 with key lengths 1536/1440/1344, each at head_dim 64 (H=8) and
 # 128 (H=4), beside f32 SDPA with the same mask; the relative norm of the
 # output from the twin beside each
-for D_, H_ in ((64, H), (128, 4)) if ft is not None else ():
+for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
     gf = torch.Generator(device=dev).manual_seed(3)
     q, k, v = (torch.randn(8, 640, H_, D_, generator=gf, device=dev) for _ in range(3))
     valid = (torch.rand(8, 640, generator=gf, device=dev) >= 0.1).to(torch.int32)
@@ -430,8 +485,8 @@ def served_inputs(path: Path) -> None:
 
 def main(argv) -> int:
     mode = "all"
-    if argv and argv[0] == "--attention":
-        mode, argv = "attention", argv[1:]
+    if argv and argv[0] in ("--attention", "--decode"):
+        mode, argv = argv[0][2:], argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -440,7 +495,8 @@ def main(argv) -> int:
     served_inputs(served)
     digests = {}
     for root in argv:
-        proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served), mode],
+        proc = subprocess.run([sys.executable, "-c", CHILD, root, str(served), mode,
+                               str(Path(__file__).resolve().parents[1])],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

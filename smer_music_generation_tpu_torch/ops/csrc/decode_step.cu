@@ -287,6 +287,11 @@ __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kern
     const float* __restrict__ colscale, const float* __restrict__ bias, float* __restrict__ y,
     int ldy, __nv_bfloat16* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N,
     int k_split, LnTail ln, float* __restrict__ ws, unsigned* __restrict__ tickets) {
+  // the launch after this one may begin now: a token's sampler, launched
+  // as a programmatic dependent launch behind the logits, runs the loads
+  // that do not read this launch's output meanwhile (decode_token.cu);
+  // for any other launch after it this changes nothing
+  asm volatile("griddepcontrol.launch_dependents;");
   // int8 weights carry column scales; a bf16 or f32 instantiation is the
   // kernel without them
   constexpr bool kScaled = std::is_same<WT, int8_t>::value;

@@ -3,7 +3,7 @@
 On the TPU a whole token is one ``pallas_call`` (JAX
 ``ops/decode_step.py:796``, v4 ``:1028``) inside a device-side
 ``lax.while_loop`` (JAX ``infer/decode.py:723-765``), three XLA ops a token.
-The port's token is 35 hand-written kernel launches
+The port's token is 34 hand-written kernel launches
 (:func:`~.decode_step.launch_tokens`), each of which costs the host more than
 the card spends in it.  :class:`DecodeGraph` captures them once and replays
 them once a token (v3) or once a chunk of ``T_chunk`` tokens (v4): the
@@ -23,13 +23,17 @@ of 8 is 384 launches to record; PERF.md.)  The graphs live as long as the
 decoder, as JAX's jit keeps its compiled decode loop per shape.
 
 What makes the launches replayable is that the position lives on the
-device: ``pos`` (B,) int32, read by ``embed_pe_kernel``, by the
-self-attention (as ``attend_kernel``'s per-row lengths, its splits sized
-from the cache's capacity) and by ``sample_advance_kernel``, which samples
-the noise row of the position, writes the next token into the (B, L)
-output at column position + 1, advances the state in place and advances
-``pos``.  The K|V rows of the token go into the cache by a captured
-``index_copy_`` at the position.  The self-attention's splits cover the
+device: ``pos`` (B,) int32, read by the self-attention (as
+``attend_kernel``'s per-row lengths, its splits sized from the cache's
+capacity) and by ``sample_advance_kernel``, which samples the noise row of
+the position, writes the next token into the (B, L) output at column
+position + 1, advances the state in place, advances ``pos`` and writes the
+next token's input row x at the new position.  So the graph's body starts
+from an x that is already there: ``embed_pe_kernel`` writes the first
+token's row when a graph is built and in :meth:`DecodeGraph.load`, outside
+the captured body, and each replay leaves the next one's.  The K|V rows of
+the token go into the cache by a captured ``index_copy_`` at the
+position.  The self-attention's splits cover the
 cache's capacity, so those past the position hold no row; the merge of
 ``attend_kernel`` reads only the splits that hold a row (counted from the
 row's length alone), so an empty split adds nothing, and a row's bits are
@@ -46,9 +50,9 @@ stream, one after another, each launch leaving its tickets at zero.  Two
 decoders share no scratch and no lock.
 The first :meth:`DecodeGraph.step` of a decode runs the token's launches
 once eagerly on the side stream (the warm-up: loads the kernels, sizes the
-scratch), puts back what it wrote (state, position, output, cache rows),
-then captures.  Nothing inside the capture allocates, loads the library or
-reads a device value on the host; the shape checks run before it.  A failed
+scratch), puts back what it wrote (state, position, output, cache rows and
+x), then captures.  Nothing inside the capture allocates, loads the library
+or reads a device value on the host; the shape checks run before it.  A failed
 capture or replay raises: nothing falls back to the eager launches.
 
 Counts: a replay adds one to ``fused_decode_token.launches`` (v3) or
@@ -79,6 +83,8 @@ from .decode_step import (
     _SCRATCH,
     ST_TOKEN,
     _check_token_inputs,
+    _launch_embed_pe,
+    embed_pe_reference,
     fused_decode_token,
     fused_decode_token_reference,
     fused_decode_tokens,
@@ -101,7 +107,9 @@ class DecodeGraph:
 
     ``state`` (6, B) int32 is advanced in place; ``out`` (B, Lo) int32
     takes token t of a step at column position + t + 1; ``cache`` (n_layers,
-    B, Lc, 2D) takes the step's K|V rows at position + t.  ``noise``,
+    B, Lc, 2D) takes the step's K|V rows at position + t; the input row of
+    the first token is written here and by :meth:`load`, each later one by
+    the sampler of the token before it.  ``noise``,
     ``aux``, ``span_types``, ``cross_kv`` and ``cross_len`` are read.
     ``stream``: the side stream to capture on (a new one if None).  The
     decoder reaches it through :func:`open_graph`."""
@@ -138,6 +146,7 @@ class DecodeGraph:
         self.stream = stream
         self._graph = None
         self._work = token_work(B, d_model, d_ff, vpad, n_layers, self.T, cache.dtype, dev)
+        self._embed()
 
     def load(self, state, aux, span_types, noise, cross_kv, cross_len, start: int = 0) -> None:
         """A new decode's inputs into this graph's buffers (in place, so a
@@ -157,6 +166,20 @@ class DecodeGraph:
         self.out[:, start] = state[ST_TOKEN]
         self.pos.fill_(start)
         self.host_pos = int(start)
+        self._embed()
+
+    def _embed(self) -> None:
+        """The first token's input row into the graph's x: the state's
+        token at the position, by ``embed_pe_kernel`` on the caller's
+        stream (its twin on the CPU, where the launch plan runs only on a
+        host stand-in for the library)."""
+        x = self._work["x"]
+        if self.device.type == "cpu":
+            x.copy_(embed_pe_reference(self.packed["emb"], self.state[ST_TOKEN], self.pos,
+                                       self.kw["d_model"]))
+        else:
+            _launch_embed_pe(load_library(), self.packed["emb"], self.state, self.pos, x,
+                             stream=torch.cuda.current_stream(self.device).cuda_stream)
 
     # ------------------------------------------------------------------
     def step(self) -> None:
@@ -185,7 +208,8 @@ class DecodeGraph:
         torch.add(self._steps, self.pos[:1], out=self._rows)  # before pos advances
         launch_tokens(lib, self.packed, self.tables, self.state, self.aux, self.span_types,
                       self.noise, self.cache, self.cross_kv, self.pos, self.cross_len, self._work,
-                      T=self.T, stream=stream, out=self.out, **self.kw, **self.skw)
+                      T=self.T, stream=stream, embed_first=False, out=self.out, **self.kw,
+                      **self.skw)
         kv = self._work["new_kv"]  # (nl, B, 2D) or (nl, T, B, 2D)
         self.cache.index_copy_(2, self._rows, kv.unsqueeze(2) if self.T is None
                                else kv.transpose(1, 2))
@@ -197,8 +221,9 @@ class DecodeGraph:
         side = self.stream
         cur = torch.cuda.current_stream(self.device)
         p, n = self.host_pos, self.n
+        x = self._work["x"]
         saved = (self.state.clone(), self.pos.clone(), self.out.clone(),
-                 self.cache[:, :, p : p + n].clone())
+                 self.cache[:, :, p : p + n].clone(), x.clone())
         # the warm-up: one real run of the step on the side stream
         before = rowvec_int8.launches
         side.wait_stream(cur)
@@ -213,6 +238,7 @@ class DecodeGraph:
         self.pos.copy_(saved[1])
         self.out.copy_(saved[2])
         self.cache[:, :, p : p + n] = saved[3]
+        x.copy_(saved[4])  # the warm-up's sampler wrote the next token's row
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.stream(side):

@@ -371,6 +371,16 @@ def pe_row(index, D: int, device=None) -> torch.Tensor:
     return torch.where(lane % 2 == 0, torch.sin(angle), torch.cos(angle))
 
 
+def embed_pe_reference(emb: torch.Tensor, tokens: torch.Tensor, index, D: int) -> torch.Tensor:
+    """Plain-torch twin of ``embed_pe_kernel``: the input row (B, D) f32 of
+    ``tokens`` (B,) at position ``index`` (a host int or a position
+    tensor): the embedding row x sqrt(D) plus the analytic PE row, in f32
+    (not rounded before the first layer, as the TPU kernel keeps ``x_s`` in
+    f32)."""
+    return (emb[tokens.long()].float() * math.sqrt(D)
+            + pe_row(host_position(index), D, emb.device))
+
+
 def sampling_scores(
     logits: torch.Tensor,  # (B, vpad) f32
     state: torch.Tensor,  # (6, B) int32
@@ -471,6 +481,18 @@ def sample_and_advance_reference(
     ).to(torch.int32)
 
 
+def sample_advance_embed_reference(logits, state, aux, span_types, noise, index, tables, emb,
+                                   **skw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of ``sample_advance_kernel`` with its fold: the
+    state advance of :func:`sample_and_advance_reference` and the next
+    token's input row x (B, D) f32, :func:`embed_pe_reference` of the new
+    state's token at position ``index + 1``."""
+    new_state = sample_and_advance_reference(logits, state, aux, span_types, noise, index,
+                                             tables, **skw)
+    x = embed_pe_reference(emb, new_state[ST_TOKEN], host_position(index) + 1, emb.shape[1])
+    return new_state, x
+
+
 def fused_decode_token_reference(
     packed: Dict[str, torch.Tensor],
     tables: Dict[str, torch.Tensor],
@@ -505,8 +527,7 @@ def fused_decode_token_reference(
 def _decode_token_math(packed, tables, state, aux, span_types, noise, self_kv, cross_kv,
                        index, cross_len, *, n_layers, d_model, nhead, d_ff, vpad, **skw):
     index = host_position(index)
-    emb = packed["emb"][state[ST_TOKEN].long()].float()
-    x = emb * math.sqrt(d_model) + pe_row(index, d_model, emb.device)
+    x = embed_pe_reference(packed["emb"], state[ST_TOKEN], index, d_model)
     logits, new_kv = _decode_step_math(
         packed, x, self_kv, cross_kv, index, cross_len,
         n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad,
@@ -696,7 +717,7 @@ def load_library() -> ctypes.CDLL:
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
         lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, p, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
-            [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i, p]
+            [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i] + [p, i, f, f, p, p]
         )
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
@@ -1107,16 +1128,34 @@ def _position(index, B: int, dev) -> torch.Tensor:
     return torch.full((B,), int(index), dtype=torch.int32, device=dev)
 
 
+def _launch_embed_pe(lib, emb, state, pos, x, *, stream, pos_offset=0) -> None:
+    """``embed_pe_kernel``: ``x`` (B, D) f32 <- the input row of the token
+    in ``state`` (6, B) at position ``pos[b] + pos_offset``."""
+    B, D = x.shape
+    tok_ptr = state.data_ptr() + ST_TOKEN * B * state.element_size()
+    _check(lib.smer_embed_pe(
+        B, D, tok_ptr, emb.data_ptr(), emb.shape[0], math.sqrt(D), pos.data_ptr(), pos_offset,
+        -math.log(10000.0) / D, x.data_ptr(), stream,
+    ), "embed_pe")
+
+
 def _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tables, *,
                            stream, mode, max_spans, span_cap, eos_index, mask_index,
                            nucleus_p, temperature, greedy, n_sid, span_body,
-                           pos_offset=0, advance=0, out=None) -> None:
+                           pos_offset=0, advance=0, out=None, emb=None, x=None) -> None:
     """``sample_advance_kernel``: samples at position ``pos[b] +
     pos_offset`` and advances ``state`` in place, writes the next token to
-    ``out`` (B, *) int32 at column position + 1 when given, then adds
-    ``advance`` to ``pos``."""
+    ``out`` (B, *) int32 at column position + 1 when given, adds
+    ``advance`` to ``pos``, and, given ``x`` (B, D) f32 and the embedding
+    ``emb`` (vpad, D) bf16, writes the next token's input row at position
+    + 1 into ``x``.  A programmatic dependent launch: it may begin while the
+    launch before it (the logits) runs, and reads its logits once that
+    launch has finished.  So the launch just before it may write the
+    logits and nothing else that it reads (``smer_sample_advance``'s
+    rule)."""
     B, vpad = logits.shape
     use_nucleus = nucleus_p is not None and not greedy
+    D = 0 if x is None else x.shape[1]
     _check(lib.smer_sample_advance(
         B, vpad, logits.data_ptr(), state.data_ptr(), aux.data_ptr(), span_types.data_ptr(),
         tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
@@ -1124,28 +1163,64 @@ def _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tabl
         pos_offset, advance, out.data_ptr() if out is not None else None,
         out.stride(0) if out is not None else 0, mode, max_spans, span_cap, eos_index,
         mask_index, int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
-        float(temperature), n_sid, span_body, stream,
+        float(temperature), n_sid, span_body, None if x is None else emb.data_ptr(), D,
+        math.sqrt(D) if D else 0.0, -math.log(10000.0) / D if D else 0.0,
+        None if x is None else x.data_ptr(), stream,
     ), "sample_advance")
 
 
-def sample_and_advance(logits, state, aux, span_types, noise, index, tables, **skw) -> torch.Tensor:
+def sample_and_advance(logits, state, aux, span_types, noise, index, tables, emb=None,
+                       **skw):
     """The last stage of the v3 token alone: ``sample_advance_kernel`` on a
-    CUDA tensor, :func:`sample_and_advance_reference` on a CPU one.  For
-    holding the kernel against its twin on the same logits; the decoder
-    never calls it, and it counts no launch."""
+    CUDA tensor, :func:`sample_and_advance_reference` on a CPU one; with
+    ``emb`` (vpad, D) the kernel's fold too, and then ``(new_state, x)``
+    with x the next token's input row (:func:`sample_advance_embed_reference`
+    on the CPU).  For holding the kernel against its twin on the same
+    logits; the decoder never calls it, and it counts no launch."""
     if logits.device.type == "cpu":
-        return sample_and_advance_reference(logits, state, aux, span_types, noise, index, tables, **skw)
+        if emb is None:
+            return sample_and_advance_reference(logits, state, aux, span_types, noise, index,
+                                                tables, **skw)
+        return sample_advance_embed_reference(logits, state, aux, span_types, noise, index,
+                                              tables, emb, **skw)
     if logits.device.type != "cuda":
         raise ValueError(f"sample_and_advance runs on cuda or cpu, not {logits.device}")
     B, vpad = logits.shape
     host = None if isinstance(index, torch.Tensor) else int(index)
-    _check_tensors(logits.device, {"logits": (logits, torch.float32, (B, vpad))})
+    want = {"logits": (logits, torch.float32, (B, vpad))}
+    if emb is not None:
+        want["emb"] = (emb, torch.bfloat16, (vpad, emb.shape[1]))
+    _check_tensors(logits.device, want)
     _check_sampling_inputs(tables, state, aux, span_types, noise, host, vpad, **skw)
     new_state = state.clone()
-    _launch_sample_advance(load_library(), logits, new_state, aux, span_types, noise,
-                           _position(index, B, logits.device), tables,
-                           stream=torch.cuda.current_stream(logits.device).cuda_stream, **skw)
-    return new_state
+    pos = _position(index, B, logits.device)
+    x = None if emb is None else torch.empty(B, emb.shape[1], device=logits.device)
+    # the launch just before the sampler writes only what it reads after
+    # its wait, as the logits launch does on the decoder's path
+    logits = logits.clone()
+    _launch_sample_advance(load_library(), logits, new_state, aux, span_types, noise, pos,
+                           tables, stream=torch.cuda.current_stream(logits.device).cuda_stream,
+                           emb=emb, x=x, **skw)
+    return new_state if emb is None else (new_state, x)
+
+
+def embed_pe(emb: torch.Tensor, state: torch.Tensor, index) -> torch.Tensor:
+    """The input row (B, D) f32 of the token in ``state`` (6, B) at
+    ``index`` (a host int or a position tensor) alone: ``embed_pe_kernel``
+    on a CUDA tensor, :func:`embed_pe_reference` on a CPU one.  For holding
+    the kernel against its twin and the sampler's fold; it counts no
+    launch."""
+    if state.device.type == "cpu":
+        return embed_pe_reference(emb, state[ST_TOKEN], index, emb.shape[1])
+    if state.device.type != "cuda":
+        raise ValueError(f"embed_pe runs on cuda or cpu, not {state.device}")
+    B, (vpad, D), dev = state.shape[1], emb.shape, state.device
+    _check_tensors(dev, {"state": (state, torch.int32, (6, B)),
+                         "emb": (emb, torch.bfloat16, (vpad, D))})
+    x = torch.empty(B, D, device=dev)
+    _launch_embed_pe(load_library(), emb, state, _position(index, B, dev), x,
+                     stream=torch.cuda.current_stream(dev).cuda_stream)
+    return x
 
 
 def token_work(B: int, D: int, F: int, vpad: int, n_layers: int, T, kv_dtype, device):
@@ -1162,31 +1237,32 @@ def token_work(B: int, D: int, F: int, vpad: int, n_layers: int, T, kv_dtype, de
 
 
 def launch_tokens(lib, packed, tables, state, aux, span_types, noise, self_kv, cross_kv, pos,
-                  cross_len, work, *, T, stream, out=None, n_layers, d_model, nhead, d_ff, vpad,
-                  **skw) -> None:
+                  cross_len, work, *, T, stream, embed_first: bool, out=None, n_layers, d_model,
+                  nhead, d_ff, vpad, **skw) -> None:
     """The launch plan of one v3 token (``T`` None) or of a v4 chunk of
-    ``T`` tokens, 35 launches a token in stream order on ``stream``: for
-    token t, ``embed_pe_kernel`` at position ``pos[b] + t``, the v2
-    launches (:func:`_launch_layers`, the self-attention over ``pos`` cache
-    rows plus, in a chunk, the chunk rows before t) and
-    ``sample_advance_kernel``, which advances ``state`` (6, B) in place,
-    writes the next token to ``out`` (B, *) int32 at column position + 1
-    when given, and advances ``pos`` (B,) int32 by 1 (v3) or, at the
-    chunk's last token, by ``T``.  K|V rows go to ``work["new_kv"]``.
+    ``T`` tokens, 34 launches a token in stream order on ``stream``: for
+    token t, the v2 launches (:func:`_launch_layers` on ``work["x"]``, the
+    self-attention over ``pos`` cache rows plus, in a chunk, the chunk rows
+    before t) and ``sample_advance_kernel``, which advances ``state`` (6,
+    B) in place, writes the next token to ``out`` (B, *) int32 at column
+    position + 1 when given, advances ``pos`` (B,) int32 by 1 (v3) or, at
+    the chunk's last token, by ``T``, and writes the next token's input row
+    into ``work["x"]``.  ``embed_first``: ``embed_pe_kernel`` writes the
+    first token's row at position ``pos[b]`` first (an eager call); without
+    it ``work["x"]`` holds that row already (a graph's body: the row of
+    ``DecodeGraph.load``, then of each replay's last sampler).  K|V rows go
+    to ``work["new_kv"]``.
 
     No argument of any launch depends on the position's value, so the plan
     may be captured once and replayed at every position (``decode_graph``);
     nothing here allocates (``work`` is :func:`token_work`'s) or reads a
     device value on the host."""
-    D, B = d_model, state.shape[1]
+    D = d_model
     x, logits, new_kv = work["x"], work["logits"], work["new_kv"]
-    tok_ptr = state.data_ptr() + ST_TOKEN * B * state.element_size()
     kw = dict(n_layers=n_layers, D=D, H=nhead, F=d_ff, vpad=vpad, stream=stream, work=work)
+    if embed_first:
+        _launch_embed_pe(lib, packed["emb"], state, pos, x, stream=stream)
     for t in range(1 if T is None else T):
-        _check(lib.smer_embed_pe(
-            B, D, tok_ptr, packed["emb"].data_ptr(), vpad, math.sqrt(D), pos.data_ptr(), t,
-            -math.log(10000.0) / D, x.data_ptr(), stream,
-        ), "embed_pe")
         if T is None:
             _launch_layers(lib, packed, x, self_kv, cross_kv, pos, cross_len, logits, new_kv, **kw)
         else:
@@ -1195,7 +1271,7 @@ def launch_tokens(lib, packed, tables, state, aux, span_types, noise, self_kv, c
         last = T is None or t == T - 1
         _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tables,
                                stream=stream, pos_offset=t, advance=(T or 1) if last else 0,
-                               out=out, **skw)
+                               out=out, emb=packed["emb"], x=x, **skw)
 
 
 def _check_token_inputs(packed, tables, state, aux, span_types, noise, self_kv, cross_kv, index,
@@ -1237,8 +1313,8 @@ def fused_decode_token(
     """One full decode token: embed -> decoder layers -> sample -> advance.
 
     Returns (new_state (6, B) int32, new_kv (n_layers, B, 2D)).  On CUDA,
-    the 35 launches of :func:`launch_tokens` in stream order with no host
-    synchronisation; a position tensor is read on the device (and not
+    the 1 + 34 launches of :func:`launch_tokens` in stream order with no
+    host synchronisation; a position tensor is read on the device (and not
     changed), and is not range-checked."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     skw = dict(mode=mode, max_spans=max_spans, span_cap=span_cap, eos_index=eos_index,
@@ -1256,7 +1332,7 @@ def fused_decode_token(
     new_state = state.clone()
     work = token_work(B, d_model, d_ff, vpad, n_layers, None, self_kv.dtype, dev)
     launch_tokens(load_library(), packed, tables, new_state, aux, span_types, noise, self_kv,
-                  cross_kv, pos, cross_len, work, T=None,
+                  cross_kv, pos, cross_len, work, T=None, embed_first=True,
                   stream=torch.cuda.current_stream(dev).cuda_stream, **kw, **skw)
     fused_decode_token.launches += 1
     return new_state, work["new_kv"]
@@ -1286,7 +1362,7 @@ def fused_decode_tokens(
 
     Returns (new_state (6, B) int32, tokens (T_chunk, B) int32, new_kv
     (n_layers, T_chunk, B, 2D)); ``self_kv`` is not written, so the caller
-    splices ``new_kv`` at ``index``.  On CUDA, T_chunk x 35 launches
+    splices ``new_kv`` at ``index``.  On CUDA, 1 + T_chunk x 34 launches
     (:func:`launch_tokens`) in stream order with no host synchronisation:
     each token's K|V rows go straight into ``new_kv``, which later tokens
     of the chunk attend; the tokens go to an output row of the cache's
@@ -1311,7 +1387,7 @@ def fused_decode_tokens(
     new_state = state.clone()
     work = token_work(B, d_model, d_ff, vpad, n_layers, T, self_kv.dtype, dev)
     launch_tokens(load_library(), packed, tables, new_state, aux, span_types, noise, self_kv,
-                  cross_kv, pos, cross_len, work, T=T, out=out,
+                  cross_kv, pos, cross_len, work, T=T, out=out, embed_first=True,
                   stream=torch.cuda.current_stream(dev).cuda_stream, **kw, **skw)
     fused_decode_tokens.launches += 1
     return new_state, out.index_select(1, cols).T.contiguous(), work["new_kv"]

@@ -27,6 +27,8 @@ B <= 4, SMER and REMI; inputs made with numpy from a seed.  Tolerance: every
 comparison is exact (the two sides run the same arithmetic).
 """
 
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -124,24 +126,33 @@ class GraphHostLib(HostLib):
     with the twins' math, reading the position from the (B,) int32 vector
     at its pointer, as the kernels do: the embedding at position pos[b] +
     offset, the sampler's noise row and length there, its token into the
-    output at column position + 1, the state in place, then pos += advance."""
+    output at column position + 1, the state in place, then pos += advance,
+    and the sampler's fold: the next token's input row at position + 1
+    into x.  ``embeds`` counts the embedding launches."""
+
+    def __init__(self):
+        super().__init__()
+        self.embeds = 0
 
     def _ints(self, ptr, n):
         return self._mat(ptr, 1, n, n, torch.int32)[0]
 
-    def smer_embed_pe(self, B, D, tokens, emb, vpad, scale, pos, pos_offset, neg_log, x, stream):
-        tok = self._ints(tokens, B).long()
+    def _embed_rows(self, emb, vpad, D, scale, tokens, index, x, B):
+        assert abs(scale / math.sqrt(D) - 1) < 1e-6  # sqrt(D) as an f32
         table = self._mat(emb, vpad, D, D, torch.bfloat16)
+        self._mat(x, B, D, D, torch.float32).copy_(ds.embed_pe_reference(table, tokens, index, D))
+
+    def smer_embed_pe(self, B, D, tokens, emb, vpad, scale, pos, pos_offset, neg_log, x, stream):
+        self.embeds += 1
         p = self._ints(pos, B) + pos_offset
-        rows = [(table[tok[b]].float() if 0 <= tok[b] < vpad else torch.zeros(D)) * scale
-                + ds.pe_row(int(p[b]), D) for b in range(B)]
-        self._mat(x, B, D, D, torch.float32).copy_(torch.stack(rows))
+        assert (p == p[0]).all()
+        self._embed_rows(emb, vpad, D, scale, self._ints(tokens, B), int(p[0]), x, B)
         return 0
 
     def smer_sample_advance(self, B, vpad, logits, state, aux, span_types, sid, masks, cls, noise,
                             pos, pos_offset, advance, out, ld_out, mode, max_spans, span_cap,
                             eos_index, mask_index, use_nucleus, nucleus_p, temperature, n_sid,
-                            span_body, stream):
+                            span_body, emb, D, scale, neg_log, x, stream):
         row_pos = self._ints(pos, B)
         index = row_pos + pos_offset
         assert (index == index[0]).all()
@@ -165,6 +176,8 @@ class GraphHostLib(HostLib):
             self._mat(out, B, index + 2, ld_out, torch.int32)[:, index + 1] = new[ds.ST_TOKEN]
         if advance:
             row_pos += advance
+        if x is not None:  # the fold: the next token's row at position + 1
+            self._embed_rows(emb, vpad, D, scale, new[ds.ST_TOKEN], index + 1, x, B)
         return 0
 
 
@@ -184,9 +197,12 @@ PLAN_CASES = [  # (T_chunk or None for v3, quant, greedy)
                               for t, q, g in PLAN_CASES])
 def test_launch_plan_is_free_of_the_position(setup, T, quant, greedy):
     """Every argument of every launch of a token (or chunk) is the same at
-    position 5 and at 300: the position reaches the kernels only through
-    the (B,) vector's pointer.  Control: the v2 launches with a host
-    position do see it."""
+    position 5 and at 300, in an eager call's plan and in a graph's body:
+    the position reaches the kernels only through the (B,) vector's
+    pointer.  An eager call embeds its first token (one ``smer_embed_pe``
+    at its head), a graph's body none; each token's sampler writes the
+    next token's input row into the x the layers read.  Control: the v2
+    launches with a host position do see it."""
     _, tvocab, _, _, tmodel, vpad, tables = setup
     B = 3
     packed = _kernel_packed(tmodel, vpad, quant)
@@ -198,20 +214,38 @@ def test_launch_plan_is_free_of_the_position(setup, T, quant, greedy):
                          state.device)
     out = torch.zeros(B, L + 1, dtype=torch.int32)
     pos = torch.zeros(B, dtype=torch.int32)
-    plans = []
+    rows = 320 + n  # the graph's cache: positions 300.. fit it
+    graph = dg.DecodeGraph(packed, tables, state.clone(), aux, span_types, noise,
+                           torch.zeros(kw["n_layers"], B, rows, 2 * kw["d_model"],
+                                       dtype=cache.dtype), cross_kv, cross_len,
+                           torch.zeros(B, rows + 1, dtype=torch.int32), T_chunk=T, **kw, **skw)
+    plans = {"eager": [], "graph": []}
     for p in (5, 300):
         pos.fill_(p)
         lib = RecordingLib()
         ds.launch_tokens(lib, packed, tables, state, aux, span_types, noise, cache, cross_kv, pos,
-                         cross_len, work, T=T, stream=0, out=out, **kw, **skw)
-        plans.append(lib.calls)
-    assert plans[0] == plans[1]
-    names = [name for name, _ in plans[0]]
+                         cross_len, work, T=T, stream=0, embed_first=True, out=out, **kw, **skw)
+        plans["eager"].append(lib.calls)
+        graph.pos.fill_(p)
+        lib = RecordingLib()
+        graph._body(lib, 0)
+        plans["graph"].append(lib.calls)
     nl = kw["n_layers"]
-    assert len(names) == n * (8 * nl + 3)  # each LayerNorm the tail of a row-vector launch
-    assert "smer_add_layernorm" not in names
-    assert names.count("smer_embed_pe") == names.count("smer_sample_advance") == n
-    assert names.count("smer_attend") == 2 * nl * n
+    for plan, embeds, x in (("eager", 1, work["x"]), ("graph", 0, graph._work["x"])):
+        first, second = plans[plan]
+        assert first == second, plan
+        names = [name for name, _ in first]
+        # each LayerNorm the tail of a row-vector launch; the embedding in the sampler
+        assert len(names) == embeds + n * (8 * nl + 2), plan
+        assert "smer_add_layernorm" not in names
+        assert names.count("smer_embed_pe") == embeds
+        assert names[:embeds] == ["smer_embed_pe"] * embeds
+        assert names.count("smer_sample_advance") == n and names[-1] == "smer_sample_advance"
+        assert names.count("smer_attend") == 2 * nl * n
+        # the rows each sampler writes are the rows the next token's layers read
+        folds = [args[-2] for name, args in first if name == "smer_sample_advance"]
+        assert folds == [x.data_ptr()] * n, plan
+        assert [args[3] for name, args in first if name == "smer_rowvec"][0] == x.data_ptr()
     # the control: a host position reaches the self-attention by value
     control = []
     for p in (5, 300):
@@ -315,7 +349,7 @@ def test_writes_by_position_equal_slice_writes(setup, through, T, quant, greedy)
         else:
             ds.launch_tokens(lib, packed, tables, st, aux, span_types, noise, kv_cache, cross_kv,
                              torch.full((B,), p, dtype=torch.int32), cross_len, work, T=None,
-                             stream=0, **kw, **skw)
+                             stream=0, embed_first=True, **kw, **skw)
             new_kv = work["new_kv"]
         o[:, p + 1] = st[ds.ST_TOKEN]
         kv_cache[:, :, p] = new_kv
@@ -358,6 +392,52 @@ def test_reloaded_graph_equals_a_new_one(setup, T):
         run(reused)
     for name in ("state", "out", "cache", "pos"):
         assert torch.equal(getattr(reused, name), getattr(fresh, name)), name
+    assert torch.equal(reused._work["x"], fresh._work["x"])
+
+
+@pytest.mark.parametrize("T", [None, 4], ids=["v3", "v4-T4"])
+def test_reloaded_graph_starts_from_loads_x(setup, T):
+    """The captured body embeds no token: a graph's first token reads the
+    x that ``load`` wrote, the row of the loaded state's token at the
+    loaded position, not the row the previous decode's last sampler left.
+    Control: the body run from the stale row decodes something else."""
+    _, tvocab, _, _, tmodel, vpad, tables = setup
+    B, D = 3, tmodel.cfg.d_model
+    packed = _kernel_packed(tmodel, vpad, "none")
+    kw, skw = _statics(tmodel, tvocab, vpad, False)
+    lib = GraphHostLib()
+    first, second = (_inputs(tmodel, tvocab, vpad, B, seed, greedy=False) for seed in (8, 9))
+    state, aux, span_types, noise, _, cross_kv, cross_len = second
+    opened = dict(cache_rows=L, cache_dtype=torch.bfloat16, T_chunk=T, **kw, **skw)
+    a = first
+    with dg.open_graph(dg.GraphCache(), packed, tables, a[0], a[1], a[2], a[3], a[5], a[6],
+                       **opened) as graph:
+        for _ in range(4):
+            graph._body(lib, 0)
+        stale = graph._work["x"].clone()
+        graph.load(state, aux, span_types, noise, cross_kv, cross_len, start=7)
+        want = ds.embed_pe_reference(packed["emb"], state[ds.ST_TOKEN], 7, D)
+        assert torch.equal(graph._work["x"], want) and not torch.equal(stale, want)
+        assert lib.embeds == 0  # the body launched no embedding
+        graph._body(lib, 0)
+        n = 1 if T is None else T
+        loaded = graph.state.clone(), graph.out.clone(), graph.cache[:, :, 7 : 7 + n].clone()
+        graph.load(state, aux, span_types, noise, cross_kv, cross_len, start=7)
+        graph._work["x"].copy_(stale)
+        graph._body(lib, 0)
+        assert not torch.equal(graph.cache[:, :, 7 : 7 + n], loaded[2])
+    # the same token(s) eagerly, embedded at the head of the call
+    eager = ds.token_work(B, D, kw["d_ff"], vpad, kw["n_layers"], T, torch.bfloat16,
+                          state.device)
+    st, out = state.clone(), torch.zeros(B, L, dtype=torch.int32)
+    ds.launch_tokens(lib, packed, tables, st, aux, span_types, noise,
+                     torch.zeros(kw["n_layers"], B, L, 2 * D, dtype=torch.bfloat16), cross_kv,
+                     torch.full((B,), 7, dtype=torch.int32), cross_len, eager, T=T,
+                     stream=0, embed_first=True, out=out, **kw, **skw)
+    assert lib.embeds == 1
+    rows = eager["new_kv"].unsqueeze(2) if T is None else eager["new_kv"].transpose(1, 2)
+    assert torch.equal(rows, loaded[2])
+    assert torch.equal(st, loaded[0]) and torch.equal(out[:, 8:], loaded[1][:, 8:])
 
 
 def test_step_past_the_buffers_raises(setup):

@@ -7,13 +7,26 @@ REMI.  Inputs, states and Gumbel noise are made with numpy from a seed.
 
 Tolerances: ``new_state`` and the sampling tables are compared exactly;
 ``new_kv`` within atol 1e-4, as the v2 step (the two sum the same f32
-products in another order).
+products in another order).  The sampler's fold (the next token's input
+row, the embedding x sqrt(D) plus the PE row at the next position) within
+``x_atol(position)`` of JAX's: the two packages take the embedding and its
+scale to the same bits, but their exp may part in the last bit of a
+frequency (<= 1, an ulp 2^-24 or less), which the angle multiplies by the
+position, and their sin and cos in the last bit of a value (up to ~40
+here, an ulp ~4e-6): 1e-5 plus four ulps of a frequency times the position
+(a PE row of the two packages parts by up to 4.5e-5 at positions up to
+1100).
 """
 
+import functools
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from smer_music_generation_tpu.infer import grammar as jg
 from smer_music_generation_tpu.ops import decode_step as jds
@@ -25,6 +38,11 @@ from smer_music_generation_tpu_torch.vocab import WordVocab as TWordVocab
 from tests.torch_port_helpers import model_pair, to_torch
 
 ATOL = 1e-4
+
+
+def x_atol(position: int) -> float:
+    return 1e-5 + 4 * 2.0 ** -24 * position
+
 L = S = 512
 MAX_SPANS = 16
 SPAN_CAP = 40
@@ -220,3 +238,72 @@ def test_cuda_wrappers_refuse_other_devices(setup):
     with pytest.raises(ValueError, match="cuda or cpu"):
         ds.sample_and_advance(torch.empty(1, vpad, device="meta"), meta, meta, meta, None, 0, {},
                               **_sampler_kw(vocab, True, None, 1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sampler(B, vpad, greedy, **kw):
+    """JAX's ``_sample_and_advance_b`` (the v3 and v4 kernels' sampler and
+    state advance) for B rows, in a Pallas call run in interpret mode, as
+    the kernels run it: (position, state, aux, span_types, sid_tbl, masks,
+    class_mat, logits (B, vpad), noise row (B, vpad)) -> new state (6, B)."""
+
+    def kernel(scalars, state, aux, span_types, sid_tbl, masks, class_mat, logits, g, out):
+        for b in range(B):
+            jds._sample_and_advance_b(
+                b, logits[b : b + 1, :], None if greedy else g[b : b + 1, :], scalars, state, aux,
+                span_types, sid_tbl, masks, class_mat, out, greedy=greedy, vpad=vpad, **kw)
+
+    return jax.jit(pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct((6, B), jnp.int32),
+                                  interpret=True))
+
+
+FOLD_CASES = [  # (name, tokens, base position)
+    ("v3", 1, 300),
+    ("v4-T4", 4, 61),
+]
+
+
+@pytest.mark.parametrize("greedy,nucleus_p,temperature", SAMPLERS[:2], ids=SAMPLER_IDS[:2])
+@pytest.mark.parametrize("name,T,base", FOLD_CASES, ids=[c[0] for c in FOLD_CASES])
+def test_folded_sampler_matches_jax(setup, name, T, base, greedy, nucleus_p, temperature):
+    """The twin of ``sample_advance_kernel`` with its fold
+    (``sample_advance_embed_reference``) against JAX: the state advance of
+    ``_sample_and_advance_b`` exactly, and the next token's input row
+    within x_atol of JAX's own: the one-hot embedding of the new state's
+    token x sqrt(D) plus ``_pe_row`` at the next position, as ``_kernel_v3``
+    (and ``_kernel_v4`` at each token of a chunk) builds x.  Token t of a
+    chunk samples at base + t and embeds at base + t + 1; each token starts
+    from the state the one before left, on fresh logits."""
+    mode, vocab, jmodel, params, tmodel, vpad, jtables, ttables = setup
+    B, D = 4, jmodel.cfg.d_model
+    kw = _sampler_kw(vocab, greedy, nucleus_p, temperature)
+    jsample = _jax_sampler(B, vpad, greedy, **{k: v for k, v in kw.items() if k != "greedy"})
+    jemb = jds.pack_decoder_weights(params, jmodel.cfg, vpad)["emb"]
+    temb = torch.from_numpy(np.array(jemb))
+    ttab = {k: torch.from_numpy(v) for k, v in ttables.items()}
+    rng = np.random.default_rng(500 + 10 * mode + T)
+    state, aux, span_types = _random_state(rng, B, vocab.vocab_size)
+    noise = rng.gumbel(size=(base + T, B, vpad)).astype(np.float32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (1, vpad), 1)
+    for t in range(T):
+        index = base + t
+        logits = (3 * rng.normal(size=(B, vpad))).astype(np.float32)
+        logits[:, vocab.vocab_size:] = ds.NEG
+        want = np.array(jsample(
+            jnp.asarray([index], jnp.int32), jnp.asarray(state), jnp.asarray(aux),
+            jnp.asarray(span_types), jnp.asarray(jtables["sid_tbl"]),
+            jnp.asarray(jtables["state_masks_f"]), jnp.asarray(jtables["class_mat"]),
+            jnp.asarray(logits), jnp.asarray(noise[index])))
+        rows = [jnp.dot((lane == int(tok)).astype(jemb.dtype), jemb,
+                        preferred_element_type=jnp.float32) for tok in want[ds.ST_TOKEN]]
+        want_x = np.asarray(jnp.concatenate(rows, axis=0) * math.sqrt(D)
+                            + jds._pe_row(jnp.int32(index + 1), D))
+        got, x = ds.sample_and_advance(  # CPU tensors: the wrapper runs the twin
+            torch.from_numpy(logits), torch.from_numpy(state), torch.from_numpy(aux),
+            torch.from_numpy(span_types), None if greedy else torch.from_numpy(noise), index,
+            ttab, emb=temb, **kw)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{name} token {t}")
+        assert x.dtype == torch.float32 and tuple(x.shape) == (B, D)
+        np.testing.assert_allclose(x.numpy(), want_x, atol=x_atol(index + 1), rtol=0,
+                                   err_msg=f"{name} token {t}")
+        state = want
