@@ -269,6 +269,25 @@ paths and prints one line per phase with the elapsed seconds:
    ``--max_time_fix_attempts 1``); 6e, ``generate_cli --correct_controls``
    on phase 3's greedy request through v3 replays.  Each eval JSON must hold
    JAX's schema and a measured diff; each leg's wall seconds are printed.
+7. the mesh on the one card (``parallel/``), on the committed snapshot: 7a,
+   ``run_batch`` of 4 nucleus requests (phase 3's and one more) and of 3
+   greedy ones (padded with a dummy to 2 x 2 rows) on ``make_mesh(1)`` and
+   on a two-shard mesh over ``[cuda:0, cuda:0]``, each bit-equal to the
+   unsharded engine's results, through the v3 kernels alone (counts at 0
+   just before), and the profiler's count of ``sample_advance_kernel`` and
+   ``rowvec_kernel`` launches equal to 1 and 25 a replay of the two
+   shards, each shard's own graphs serving its rows; 7b, one ``nccl`` rank
+   through the Trainer's distributed path (``fused_attn_train``, 8 x 640 +
+   384): loss and grad norm bit-equal to the single-process Trainer's
+   step; 7c, two spawned ranks on ``cuda:0`` over ``gloo`` with CUDA
+   tensors, a Trainer at dp=2 and at tp=2 each: one step within rtol 2e-5
+   (loss) and 2e-4 (grad norm) of the single-process step, JAX's
+   ``tests/test_parallel.py`` tolerances, the train-attention kernels
+   launched; 7d, ``ClassifyTransformer`` at the flagship width (4 layers,
+   d512, h8) in bf16 on the card against its f32 CPU result on the same
+   weights, each head within ``CLS_REL`` relative norm, no port kernel
+   launched (its attention is the plain one, as in JAX).  Each part's
+   wall seconds are printed beside the card's name and power limit.
 
 Then a JSON line describing the kernels, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
@@ -2270,6 +2289,7 @@ def phase_train_attention_vs_twin(dev):
                 say(f"  T={T} S={S} causal={causal} seed={seed} rate={rate}: fwd max|kernel-twin| "
                     f"{err:.3e}; backward relative norms " +
                     ", ".join(f"{n} {r:.2e}" for n, r in rels.items()))
+        shard_slices_equal(q, k, v, valid, go, causal, dev)
         # the autograd Function on the card: one forward and backward through it
         qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
         ta.fused_dropout_attention(qa, ka, va, valid, TA_SEEDS[0], 0.1, causal).backward(go)
@@ -2279,12 +2299,44 @@ def phase_train_attention_vs_twin(dev):
                 raise AssertionError(f"autograd through fused_dropout_attention gives another {name}")
         if (T, S) in TA_TIMED:
             reports[(T, S)] = time_train_attention(dev, q, k, v, go, valid, causal)
-    say(f"  keep masks bit-equal; forward within atol {TA_ATOL} + rtol {TA_RTOL:.4g} (max {worst:.3e}); "
+    say(f"  keep masks bit-equal, a shard's the slice of the whole; forward within atol {TA_ATOL} + "
+        f"rtol {TA_RTOL:.4g} (max {worst:.3e}); "
         "backward relative norms max " + ", ".join(f"{n} {r:.2e}" for n, r in worst_rel.items())
         + f" (max |kernel - twin| of a gradient {worst_grad:.3e})")
     train_attention_wide(dev, g)
     train_attention_jax_case(dev)
     return worst, worst_grad, reports
+
+
+TA_SHARD = (2, 3, 5, 4)  # (b0, h0, rows, heads): a shard of phase 2g's B=8, H=8 batch
+
+
+def shard_slices_equal(q, k, v, valid, go, causal, dev) -> None:
+    """Under sharded training a launch holds rows from b0 and heads from h0
+    of H: its keep mask (the kernels' hash at the global (b, h)) and its
+    forward and backward kernels must give the slices of the unsharded
+    launch's, bit for bit."""
+    b0, h0, nb, nh = TA_SHARD
+    B, T, H_, _ = q.shape
+    S = k.shape[1]
+    seed, rate = TA_SEEDS[1], 0.1
+    full = ta.dropout_keep_mask(seed, B, H_, T, S, rate, dev)
+    part = ta.dropout_keep_mask(seed, nb, nh, T, S, rate, dev, b0=b0, h0=h0, H_global=H_)
+    ref = ta.dropout_mask_reference(seed, nb, nh, T, S, rate, dev, b0=b0, h0=h0, H_global=H_)
+    rows, heads = slice(b0, b0 + nb), slice(h0, h0 + nh)
+    if not (torch.equal(part, full[rows, heads]) and torch.equal(part, ref)):
+        raise AssertionError(f"a shard's keep mask is not the slice of the whole at T={T} S={S}")
+    cut = [t[rows, :, heads].contiguous() for t in (q, k, v, go)]
+    shard = (b0, h0, H_)
+    out = ta.dropout_attention_fwd(q, k, v, valid, seed, rate, causal)
+    got = ta.dropout_attention_fwd(*cut[:3], valid[rows].contiguous(), seed, rate, causal, shard)
+    grads = ta.dropout_attention_bwd(q, k, v, valid, seed, go, rate, causal)
+    got_grads = ta.dropout_attention_bwd(*cut[:3], valid[rows].contiguous(), seed, cut[3], rate,
+                                         causal, shard)
+    if not torch.equal(got, out[rows, :, heads]) or not all(
+            torch.equal(a, b[rows, :, heads]) for a, b in zip(got_grads, grads)):
+        raise AssertionError(f"a shard's train-attention launch is not the slice of the whole at "
+                             f"T={T} S={S} causal={causal}")
 
 
 # phase 2g's cases at head_dim 128 (d512 with nhead 4): (T, S, causal)
@@ -3711,6 +3763,252 @@ def phase_eval(dev, workdir):
     return walls
 
 
+# ----------------------------------------------------------------------
+# phase 7: the mesh on one card (multi-GPU serving and training)
+# ----------------------------------------------------------------------
+PARALLEL_JOB = ([1], [3])  # a fourth request beside phase 3's, so 4 rows split over dp=2
+PAR_RTOL_LOSS, PAR_RTOL_GNORM = 2e-5, 2e-4  # JAX's tests/test_parallel.py
+PAR_TIME_S = 300  # the two-rank processes of phase 7c, spawn and build load included
+CLS_REL = 3e-2  # phase 7d: bf16 classifier logits against f32, relative norm
+ONE_RANK_BACKEND = "nccl"  # phase 7b's process group of one rank
+
+
+def served_tokens(results):
+    return [(r.generated, r.events, r.decode_steps) for r in results]
+
+
+def sharded_profile(engine, reqs, tries: int = 3):
+    """``run_batch`` on a warm sharded engine under the profiler: every v3
+    replay of each shard must launch one ``sample_advance_kernel`` and 25
+    ``rowvec_kernel``s (retaken while the profiler has lost records), and
+    each shard's own graphs must have served the decode.  Returns (the
+    replays, the kernels counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        hits = [rep.graphs.hits for rep in engine.decoder.shards]
+        replays = dg.DecodeGraph.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.run_batch(reqs)
+            torch.cuda.synchronize()
+        replays = dg.DecodeGraph.replays - replays
+        seen = {"sample_advance_kernel": 0, "rowvec_kernel": 0}
+        for evt in prof.key_averages():
+            for name in seen:
+                if name in evt.key and (getattr(evt, "self_device_time_total", 0) or 0) > 0:
+                    seen[name] += evt.count
+        if not all(rep.graphs.hits > h for rep, h in zip(engine.decoder.shards, hits)):
+            raise AssertionError("a shard did not decode through its own graphs")
+        if seen == {"sample_advance_kernel": replays, "rowvec_kernel": 25 * replays}:
+            return replays, seen
+    raise AssertionError(f"the sharded replays did not launch the v3 kernels: {replays} replays, {seen}")
+
+
+def trainer_step(trainer, batch):
+    """One train step of ``trainer`` on a numpy ``batch`` (its rows placed
+    as the Trainer places them): (loss, grad_norm, launch counts)."""
+    reset_counts()
+    _, m = trainer._train_step(trainer.state, trainer._device_batch(batch), 1.0, trainer._gen)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    return loss, gnorm, counts()
+
+
+def parallel_rank(rank, store, cfgs, batch, device, q):
+    """Phase 7c's rank: gloo over the tensors of ``device`` (``cuda:0`` for
+    both ranks), a Trainer a configuration, one step each."""
+    import torch.distributed as dist
+    import traceback
+
+    try:
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+        for label, cfg in cfgs:
+            trainer = Trainer(cfg, device=device)
+            q.put((rank, label, trainer_step(trainer, batch)))
+            del trainer
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_parallel(dev, workdir, model, vocab, events, card):
+    """7a sharded serving: ``run_batch`` of 4 nucleus requests on meshes of
+    one shard (``make_mesh(1)``) and of two shards on the one card
+    (``devices=[cuda:0, cuda:0]``), and 3 greedy requests (padded with a
+    dummy to 2 x 2 rows), each bit-equal to the unsharded engine's, through
+    the v3 graph replays alone, every count at 0 just before; the
+    profiler sees each shard's replays launch the sampler and the
+    row-vector kernel.  7b one ``nccl`` rank through the Trainer's
+    distributed path: a train step bit-equal to the single-process
+    Trainer's.  7c two ranks on the one card over ``gloo`` with CUDA
+    tensors, at dp=2 and at tp=2, with ``fused_attn_train``: loss and grad
+    norm within JAX's rtols of the single-process step.  7d
+    ``ClassifyTransformer`` at the flagship width in bf16 against its f32
+    CPU result.  Returns the launches of the paths driven."""
+    out = {"v3": parallel_serve(dev, model, vocab, events, card)}
+    cfg = dataclasses.replace(ExperimentConfig(), fused_attn_train=True,
+                              output_dir=os.path.join(workdir, "parallel_single"))
+    cpu_batch, _ = train_batch(vocab, "cpu")
+    batch = {k: v.numpy() for k, v in cpu_batch.items()}
+    single, one = parallel_one_rank(dev, workdir, cfg, batch, card)
+    out.update(ta_fwd=one["ta_fwd"], ta_bwd=one["ta_bwd"])
+    parallel_two_ranks(dev, workdir, cfg, batch, single, card)
+    classifier_check(dev, vocab, cpu_batch, card)
+    return out
+
+
+def parallel_serve(dev, model, vocab, events, card) -> int:
+    """Phase 7a; returns the v3 launches."""
+    from smer_music_generation_tpu_torch.parallel.mesh import make_mesh
+
+    launches = 0
+    base = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    reqs = [base.prepare(events, t, b) for t, b in SERVED_JOBS + (PARALLEL_JOB,)]
+    t = time.perf_counter()
+    want = served_tokens(base.run_batch(reqs))
+    torch.cuda.synchronize()
+    say(f"  unsharded run_batch of {len(reqs)} nucleus requests: {time.perf_counter() - t:.3f} s on {card}")
+    greedy_base = InfillEngine(model, vocab, greedy=True, nucleus_p=None, max_tgt_len=L, seed=0)
+    want_g = served_tokens(greedy_base.run_batch(reqs[:3]))
+    meshes = (("mesh of 1", make_mesh(1)), ("dp=2 on one card", make_mesh(2, devices=[dev, dev])))
+    for label, mesh in meshes:
+        for greedy, n, ref in ((False, 4, want), (True, 3, want_g)):
+            kw = dict(greedy=True, nucleus_p=None) if greedy else dict(nucleus_p=0.9)
+            engine = InfillEngine(model, vocab, max_tgt_len=L, seed=0, mesh=mesh, **kw)
+            reset_counts()
+            t = time.perf_counter()
+            got = served_tokens(engine.run_batch(reqs[:n]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches += check_counts(f"{label}, {n} {'greedy' if greedy else 'nucleus'} requests", ["v3"])
+            if got != ref:
+                raise AssertionError(f"{label}: the sharded engine's tokens differ from the unsharded "
+                                     f"engine's ({'greedy' if greedy else 'nucleus'})")
+            say(f"  {label}: {n} {'greedy' if greedy else 'nucleus'} requests bit-equal to the unsharded "
+                f"engine in {wall:.3f} s ({len(engine.decoder.shards)} shards) on {card}")
+            if label.startswith("dp") and not greedy:
+                replays, seen = sharded_profile(engine, reqs[:n])
+                say(f"  {label}: profiled run_batch: {replays} replays over the 2 shards launched "
+                    f"{seen}; each shard's graphs served its rows")
+    return launches
+
+
+def parallel_one_rank(dev, workdir, cfg, batch, card):
+    """Phase 7b: (the single-process step, the one-rank step's launches)."""
+    import torch.distributed as dist
+
+    t = time.perf_counter()
+    single = trainer_step(Trainer(cfg, device=dev), batch)
+    say(f"  single-process Trainer step: loss {single[0]!r}, grad_norm {single[1]!r} "
+        f"({time.perf_counter() - t:.2f} s with the build of the Trainer) on {card}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(ONE_RANK_BACKEND, init_method="file://" + os.path.join(workdir, "one_store"),
+                            rank=0, world_size=1)
+    try:
+        t = time.perf_counter()
+        one = Trainer(dataclasses.replace(cfg, output_dir=os.path.join(workdir, "parallel_nccl")),
+                      device=dev)
+        if one.ctx is None or dist.get_backend() != ONE_RANK_BACKEND:
+            raise AssertionError(f"the one-rank Trainer did not take the distributed path over "
+                                 f"{ONE_RANK_BACKEND}")
+        rank1 = trainer_step(one, batch)
+        del one
+    finally:
+        dist.destroy_process_group()
+    if rank1[:2] != single[:2]:
+        raise AssertionError(f"the one-rank nccl step differs from the single-process step: "
+                             f"{rank1[:2]} against {single[:2]}")
+    if rank1[2]["ta_fwd"] == 0 or rank1[2]["ta_bwd"] == 0:
+        raise AssertionError(f"the one-rank step did not launch the train-attention kernels: {rank1[2]}")
+    say(f"  one {ONE_RANK_BACKEND} rank through the Trainer's distributed path: loss and grad_norm "
+        f"bit-equal to the single-process step ({time.perf_counter() - t:.2f} s) on {card}")
+    return single, rank1[2]
+
+
+def parallel_two_ranks(dev, workdir, cfg, batch, single, card) -> None:
+    """Phase 7c: two spawned ranks, each a Trainer a configuration."""
+    import multiprocessing
+    import queue as queue_mod
+
+    cfgs = [(f"{label}", dataclasses.replace(cfg, n_devices=2, tp=tp,
+                                             output_dir=os.path.join(workdir, f"parallel_{label}")))
+            for label, tp in (("dp2", 1), ("tp2", 2))]
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    store = os.path.join(workdir, "gloo_store")
+    procs = [ctx.Process(target=parallel_rank, args=(r, store, cfgs, batch, str(dev), q))
+             for r in range(2)]
+    t = time.perf_counter()
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(results) < 2 * len(cfgs):
+            try:
+                rank, label, value = q.get(timeout=5.0)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if not p.is_alive()]
+                if dead or time.perf_counter() - t > PAR_TIME_S:
+                    raise AssertionError(f"phase 7c: the two ranks did not report within {PAR_TIME_S} s "
+                                         f"or exited first (exit codes {dead}; reported {sorted(results)})")
+                continue
+            if label == "error":
+                raise AssertionError(f"phase 7c rank {rank} failed:\n{value}")
+            results[(label, rank)] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    for label, _ in cfgs:
+        for rank in range(2):
+            loss, gnorm, got = results[(label, rank)]
+            dl, dg_ = abs(loss - single[0]) / abs(single[0]), abs(gnorm - single[1]) / abs(single[1])
+            say(f"  {label} rank {rank}: loss {loss!r} (rel {dl:.2e}), grad_norm {gnorm!r} (rel {dg_:.2e}); "
+                f"train-attention launches {got['ta_fwd']} + {got['ta_bwd']}")
+            if dl > PAR_RTOL_LOSS or dg_ > PAR_RTOL_GNORM or got["ta_fwd"] == 0 or got["ta_bwd"] == 0:
+                raise AssertionError(f"{label} rank {rank}: the two-rank step is not the single-process "
+                                     f"step within rtol {PAR_RTOL_LOSS} / {PAR_RTOL_GNORM}, or launched "
+                                     f"no train-attention kernel")
+    say(f"  two ranks on the one card over gloo with CUDA tensors, dp=2 and tp=2: "
+        f"{time.perf_counter() - t:.2f} s (spawn, build load and both steps) on {card}")
+
+
+def classifier_check(dev, vocab, cpu_batch, card) -> None:
+    """Phase 7d."""
+    from smer_music_generation_tpu_torch.models.classifier import ClassifyTransformer
+
+    ccfg = ModelConfig(vocab_size=vocab.vocab_size, d_model=512, nhead=8, num_encoder_layers=4,
+                       d_ff=2048, max_len=2400, dropout=0.1, pos_dropout=0.1)
+    torch.manual_seed(3)
+    f32 = ClassifyTransformer(ccfg).eval()
+    bf16 = ClassifyTransformer(dataclasses.replace(ccfg, dtype=torch.bfloat16))
+    bf16.load_state_dict(f32.state_dict())
+    bf16 = bf16.to(dev).eval()
+    src = cpu_batch["input"]
+    pad = cpu_batch["input_pad_mask"]
+    with torch.no_grad():
+        want_c = f32(src, pad)
+        reset_counts()
+        got_c = bf16(src.to(dev), pad.to(dev))
+        check_counts("classifier (bf16, the plain attention as in JAX)", [])
+        ms = cuda_ms(lambda: bf16(src.to(dev), pad.to(dev)), iters=10)
+    for i, (a, b) in enumerate(zip(got_c, want_c)):
+        rel = rel_norm(a.cpu(), b)
+        say(f"  classifier head {i}: bf16 on the card against f32 on the CPU, relative norm {rel:.2e}")
+        if not (rel < CLS_REL and torch.isfinite(a).all().item() and a.shape == (TRAIN_B, 2)):
+            raise AssertionError(f"classifier head {i}: relative norm {rel:.3e} against f32 (bound {CLS_REL})")
+    say(f"  classifier forward (4 layers, d512, h8, bf16) at {TRAIN_B} x {TRAIN_SRC}: {ms:.3f} ms on {card}")
+
+
+
 def trained_flagship(dev):
     """The committed trained snapshot in bf16 on the card, with the score
     and the served events of phase 3 (for a run of some phases alone)."""
@@ -3725,8 +4023,8 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 5c, 5d, "
-                        "4); "
+                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 7, 5c, "
+                        "5d, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -3848,6 +4146,13 @@ def main(argv=None) -> int:
                 "and snapshot served through v3")
             launches_t = phase_trainer(dev, workdir)
 
+        if run("7"):
+            if model is None:
+                model, vocab, score, events = trained_flagship(dev)
+            say("phase 7 the mesh on one card: sharded serving (a mesh of 1, dp=2 on cuda:0 twice), "
+                "one nccl rank and two gloo ranks through the Trainer, the classifier")
+            par = phase_parallel(dev, workdir, model, vocab, events, card)
+
         if run("5c"):
             say(f"phase 5c train the flagship with flash_training: {TRAIN_STEPS} steps at {TRAIN_B} x "
                 f"{TRAIN_SRC} + {TRAIN_TGT} and at {TRAIN_B} x {TRAIN_LONG_SRC} + {TRAIN_LONG_TGT}, "
@@ -3907,7 +4212,7 @@ def main(argv=None) -> int:
         dict(name="fused_decode_step", source=csrc + "decode_step.cu", replaces=ref + "456",
              launches=launches["v2"], max_abs_err=worst, **report, **common),
         dict(name="fused_decode_token", source=csrc + "decode_token.cu", replaces=ref + "796",
-             launches=launches["v3"], max_abs_err=worst3, **replay3, **common),
+             launches=launches["v3"] + par["v3"], max_abs_err=worst3, **replay3, **common),
         dict(name="fused_decode_tokens", source=csrc + "decode_token.cu", replaces=ref + "1028",
              launches=launches["v4"], max_abs_err=worst4, **replay4, **common),
         dict(name="rowvec_int8", source=csrc + "decode_step.cu", replaces=ref + "296",
@@ -3919,11 +4224,11 @@ def main(argv=None) -> int:
              max_abs_err=worst_a, route="cuda", **report_a),
         dict(name="fused_dropout_attention_fwd", source=csrc + "train_attention.cu",
              replaces="smer_music_generation_tpu/ops/train_attention.py:111",
-             launches=train[True]["launches"]["ta_fwd"] + launches_t["ta_fwd"],
+             launches=train[True]["launches"]["ta_fwd"] + launches_t["ta_fwd"] + par["ta_fwd"],
              max_abs_err=worst_t, route="cuda", **report_t[(640, 640)][0]),
         dict(name="fused_dropout_attention_bwd", source=csrc + "train_attention.cu",
              replaces="smer_music_generation_tpu/ops/train_attention.py:163",
-             launches=train[True]["launches"]["ta_bwd"] + launches_t["ta_bwd"],
+             launches=train[True]["launches"]["ta_bwd"] + launches_t["ta_bwd"] + par["ta_bwd"],
              max_abs_err=worst_t_grad, route="cuda", **report_t[(640, 640)][1]),
         dict(name="flash_attention_train_fwd", source=csrc + "flash_train.cu",
              replaces="smer_music_generation_tpu/models/transformer.py:360 (library "

@@ -53,6 +53,20 @@ Five loop bodies, as in JAX:
   :376-386), which the engine's span-retry and in-decode correct-control
   paths resume a session with; the kernel loops raise on it, as in JAX.
 
+``mesh`` (a ``parallel.mesh.make_mesh`` mesh) shards every batch's rows over
+the mesh's ``dp`` devices, JAX's ``_decode_v3_sharded`` (:783-840): one
+replica of the decoder a shard (the model and the packed decoder weights
+once a device, the graphs a shard), each encoding and decoding its rows on
+its device.  The Gumbel noise is drawn once at the global ``(L, B, vpad)``
+(``(L, B, V)`` for the plain and v2 loops) from the decoder's generator and
+sliced by rows, so row b sees the same noise under any layout and the
+tokens are those of the unsharded decode.  The v3 shards step in lockstep,
+each replaying its own graph on its own device, and the tokens, lengths and
+steps are gathered in row order; the plain and v2 loops run shard after
+shard.  Under a mesh ``token_chunk > 1`` warns and decodes single tokens,
+as JAX does, and a batch whose rows do not divide by dp warns and decodes
+unsharded on the first device (JAX's ``_shard_batch``).
+
 The fused calls launch the CUDA kernels on the card and run their plain
 twins on the CPU.  ``fused=None`` resolves to the kernel on CUDA, as JAX's
 ``resolve_backend`` (:157-181) picks it on a TPU, and to the plain loop on
@@ -73,7 +87,11 @@ spans, each introduced by ``m_0``, with no ``<eos>``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import math
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -118,8 +136,9 @@ class DecodeResult(NamedTuple):
     steps: int  # loop iterations that did work
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet ({item})")
+def _on(device: torch.device):
+    """The device context a shard's launches and graph replays run in."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 @dataclass(eq=False)
@@ -152,8 +171,9 @@ class InfillDecoder:
                 "speculative decode (draft_k > 0) runs the plain cache path "
                 "and cannot stream quantized weights; drop one of the two"
             )
+        self.shards = None
         if self.mesh is not None:
-            raise _not_ported("mesh (multi-GPU decode)", "ROADMAP.md Queue 1 item 11")
+            self._place_on_mesh()
         self.tables = GrammarTables.build(self.vocab)
         cfg = self.model.cfg
         if self.max_tgt_len > cfg.max_len:
@@ -175,6 +195,40 @@ class InfillDecoder:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._packed = None
         self.graphs = GraphCache()  # the v3 / v4 loops' captured graphs
+        if self.mesh is not None:
+            self._build_shards()
+
+    def _place_on_mesh(self) -> None:
+        """Under a mesh the decoder lives on the first dp device: the model
+        is moved there (a copy, where it lies elsewhere)."""
+        self._dp_devices = [torch.device(d) for d in self.mesh.dp_devices()]
+        self._models = {}
+        self.model = self._model_on(self._dp_devices[0])
+
+    def _model_on(self, dev: torch.device) -> ScoreTransformer:
+        """The model once a device: the caller's where it lies there."""
+        key = str(dev)
+        if key not in self._models:
+            same = self.model.device == dev
+            self._models[key] = self.model if same else copy.deepcopy(self.model).to(dev)
+        return self._models[key]
+
+    def _build_shards(self) -> None:
+        """One replica decoder a dp shard (no mesh, single tokens, no spec
+        decode), each with its graphs; replicas on one device share the
+        model and the packed weights."""
+        self.shards = []
+        packed = {}
+        for dev in self._dp_devices:
+            rep = dataclasses.replace(self, model=self._model_on(dev), mesh=None, token_chunk=1,
+                                      draft_k=0)
+            if rep.fused:
+                key = str(rep.device)
+                if key not in packed:
+                    with _on(rep.device):
+                        packed[key] = rep.packed()
+                rep._packed = packed[key]
+            self.shards.append(rep)
 
     def resolve_backend(self) -> None:
         if self.fused is None:
@@ -226,6 +280,13 @@ class InfillDecoder:
         does."""
         dev = self.device
         src = torch.as_tensor(np.asarray(src), dtype=torch.long, device=dev)
+        B = src.shape[0]
+        dp = 1 if self.shards is None else len(self.shards)
+        if dp > 1 and B % dp != 0:
+            warnings.warn(
+                f"batch of {B} rows is not divisible by dp={dp}; placing unsharded "
+                "(no data parallelism for this call). Pad the batch to a multiple of dp "
+                "to shard it.", stacklevel=2)
         if forced is not None:
             if self.fused:
                 raise ValueError(
@@ -241,7 +302,69 @@ class InfillDecoder:
         n_spans = torch.as_tensor(np.asarray(n_spans), dtype=torch.long, device=dev)
         no_whole = torch.as_tensor(np.asarray(no_whole_duration), dtype=torch.bool, device=dev)
         with torch.no_grad():
+            if dp > 1 and B % dp == 0:
+                return self._decode_sharded(src, span_types, n_spans, no_whole, generator, noise, forced)
+            if self.shards is not None:  # unsharded, on the first device
+                return self.shards[0]._decode(src, span_types, n_spans, no_whole, generator, noise,
+                                              uniforms, forced)
             return self._decode(src, span_types, n_spans, no_whole, generator, noise, uniforms, forced)
+
+    def _decode_sharded(self, src, span_types, n_spans, no_whole, generator, noise,
+                        forced) -> DecodeResult:
+        """JAX's ``_decode_v3_sharded`` (:783): the rows split over the
+        shards, the noise drawn once at the global shape and sliced."""
+        if self.token_chunk > 1:
+            warnings.warn("token_chunk > 1 (kernel looping) is not implemented for the "
+                          "dp-sharded fused path; decoding with single-token steps", stacklevel=3)
+        B, dp = src.shape[0], len(self.shards)
+        n = B // dp
+        no_whole = torch.broadcast_to(no_whole, (B,))
+        V = self.tables.vocab_size
+        v3 = self.fused and self.fused_sampling
+        width = vocab_pad(V) if v3 else V
+        if not self.greedy:
+            if noise is None:
+                noise = gumbel_noise((self.max_tgt_len, B, width),
+                                     generator if generator is not None else self.generator, self.device)
+            noise = _noise_tensor(noise, (self.max_tgt_len, B, width), self.device)
+
+        def rows(s, t):
+            return None if t is None else t[s * n : (s + 1) * n].to(self.shards[s].device)
+
+        parts = []
+        for s, rep in enumerate(self.shards):
+            part = [rows(s, t) for t in (src, span_types, n_spans, no_whole)]
+            nz = None if noise is None else noise[:, s * n : (s + 1) * n].to(rep.device)
+            parts.append((rep, part, nz))
+        if v3:
+            return self._decode_v3_lockstep(parts, n_spans)
+        results = []
+        for s, (rep, part, nz) in enumerate(parts):
+            f = None if forced is None else tuple(rows(s, t) for t in forced)
+            with _on(rep.device):
+                results.append(rep._decode(*part, None, nz, None, f))
+        return DecodeResult(tokens=torch.cat([r.tokens.to(self.device) for r in results]),
+                            lengths=torch.cat([r.lengths.to(self.device) for r in results]),
+                            steps=max(r.steps for r in results))
+
+    def _decode_v3_lockstep(self, parts, n_spans) -> DecodeResult:
+        """The v3 loops of the shards, a token of each in turn: each shard
+        encodes its rows and replays its own graph on its device."""
+        L = self.max_tgt_len
+        with contextlib.ExitStack() as stack:
+            tokens = []
+            for rep, (src, span_types, n_sp, no_whole), noise in parts:
+                with _on(rep.device):
+                    packed, cross_kv, cross_len, kw = rep._encode_for_kernel(src)
+                    noise, state, aux, st, skw = rep._v3_setup(kw, span_types, n_sp, no_whole,
+                                                               None, noise, L)
+                    tokens.append((rep.device, stack.enter_context(open_graph(
+                        rep.graphs, packed, rep.sampling_tables, state, aux, st, noise, cross_kv,
+                        cross_len, cache_rows=L, cache_dtype=rep.model.cfg.dtype, **kw, **skw))))
+            pos = _step_tokens(tokens, L)
+            state = torch.cat([t.state.to(self.device) for _, t in tokens], dim=1)
+            out = torch.cat([t.out.to(self.device).long() for _, t in tokens])
+        return _v3_result(state, out, n_spans, pos)
 
     def _decode(self, src, span_types, n_spans, no_whole, generator, noise,
                 uniforms=None, forced=None) -> DecodeResult:
@@ -264,13 +387,8 @@ class InfillDecoder:
 
         use_fused = self.fused
         if use_fused:
-            if B > 8:
-                raise ValueError(f"the fused decode step takes at most 8 sequences, got {B}")
             nl, D = cfg.num_decoder_layers, cfg.d_model
-            packed = self.packed()
-            cross_kv = stack_kv_cache(cross, nl)
-            cross_len = (~src_pad).sum(dim=1).to(torch.int32)
-            kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
+            packed, cross_kv, cross_len, kw = self._kernel_inputs(cross, src_pad)
             if self.fused_sampling:
                 loop = self._decode_v4 if self.token_chunk > 1 else self._decode_v3
                 return loop(packed, cross_kv, cross_len, kw, span_types, n_spans, no_whole,
@@ -286,9 +404,7 @@ class InfillDecoder:
                 gen = generator if generator is not None else self.generator
                 noise = gumbel_noise((L, B, V), gen, dev)
             else:
-                noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
-                if tuple(noise.shape) != (L, B, V):
-                    raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(L, B, V)}")
+                noise = _noise_tensor(noise, (L, B, V), dev)
 
         state_masks, sid_from_bits, next_bits = self.fast_tables
         rows = torch.arange(B, device=dev)
@@ -356,6 +472,24 @@ class InfillDecoder:
             pos += 1
         return DecodeResult(tokens=out, lengths=lengths, steps=int(steps))
 
+    def _kernel_inputs(self, cross, src_pad):
+        """The fused loops' packed weights, stacked cross K/V, cross lengths
+        and kernel shape arguments; at most 8 rows, the kernels' batch."""
+        B = src_pad.shape[0]
+        if B > 8:
+            raise ValueError(f"the fused decode step takes at most 8 sequences, got {B}")
+        cfg = self.model.cfg
+        nl = cfg.num_decoder_layers
+        kw = dict(n_layers=nl, d_model=cfg.d_model, nhead=cfg.nhead, d_ff=cfg.d_ff,
+                  vpad=vocab_pad(self.tables.vocab_size))
+        return (self.packed(), stack_kv_cache(cross, nl), (~src_pad).sum(dim=1).to(torch.int32), kw)
+
+    def _encode_for_kernel(self, src):
+        """Encode ``src`` and project the cross K/V once: the fused loops' inputs."""
+        src_pad = src == 0
+        cross = self.model.init_cross_cache(self.model.encode(src, src_pad))
+        return self._kernel_inputs(cross, src_pad)
+
     def _v3_setup(self, kw, span_types, n_spans, no_whole, generator, noise, rows: int):
         """Noise, state, aux, span types and sampler arguments of the v3 and
         v4 loops (JAX ``_v3_state0`` :704).  The noise has ``rows`` rows:
@@ -372,9 +506,7 @@ class InfillDecoder:
             if rows > L:
                 noise = torch.cat([noise, noise.new_zeros(rows - L, B, vpad)])
         else:
-            noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
-            if tuple(noise.shape) != (rows, B, vpad):
-                raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(rows, B, vpad)}")
+            noise = _noise_tensor(noise, (rows, B, vpad), dev)
         i32 = torch.int32
         state = torch.stack([
             torch.full((B,), t.mask_index, dtype=i32, device=dev),  # ST_TOKEN
@@ -398,29 +530,12 @@ class InfillDecoder:
         L = self.max_tgt_len
         noise, state, aux, span_types, skw = self._v3_setup(
             kw, span_types, n_spans, no_whole, generator, noise, L)
-        pos = 0
         with open_graph(self.graphs, packed, self.sampling_tables, state, aux, span_types, noise,
                         cross_kv, cross_len, cache_rows=L, cache_dtype=self.model.cfg.dtype, **kw,
                         **skw) as token:
-            while pos + 1 < L:
-                if pos % SYNC_EVERY == 0 and bool(token.state[ST_DONE].all()):
-                    break
-                token.step()
-                pos += 1
+            pos = _step_tokens([(self.device, token)], L)
             state, out = token.state.clone(), token.out.long()
-        lengths = state[ST_LEN].long()
-        # JAX's loop stops at the first position where every element is
-        # done.  An element that becomes done in the step at position s
-        # wrote its last token in the step before, so its length is s + 1:
-        # the stop position is the longest length, or 0 when no element had
-        # a span, or L - 1 when one is still live.
-        if not bool(state[ST_DONE].all()):
-            steps = pos
-        elif bool((n_spans > 0).any()):
-            steps = int(lengths.max())
-        else:
-            steps = 0
-        return DecodeResult(tokens=out, lengths=lengths, steps=steps)
+        return _v3_result(state, out, n_spans, pos)
 
     def _decode_v4(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
                    no_whole, generator, noise) -> DecodeResult:
@@ -586,6 +701,47 @@ class InfillDecoder:
             state, steps, span = int(st_post[0]), int(steps_post[0]), int(new_span[0])
         return DecodeResult(tokens=torch.as_tensor(out[None], device=dev),
                             lengths=torch.tensor([length], device=dev), steps=pos)
+
+
+def _noise_tensor(noise, shape, dev) -> torch.Tensor:
+    """Caller-given noise (an array or a tensor) as f32 on ``dev``, of ``shape``."""
+    if not isinstance(noise, torch.Tensor):
+        noise = torch.as_tensor(np.array(noise))
+    noise = noise.to(device=dev, dtype=torch.float32)
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {tuple(shape)}")
+    return noise
+
+
+def _step_tokens(tokens, L: int) -> int:
+    """Step the v3 graphs (``(device, DecodeGraph)`` pairs) a token each in
+    turn until every row of every graph is done (read back every
+    ``SYNC_EVERY`` tokens) or the cap; returns the position reached."""
+    pos = 0
+    while pos + 1 < L:
+        if pos % SYNC_EVERY == 0 and all(bool(t.state[ST_DONE].all()) for _, t in tokens):
+            break
+        for dev, t in tokens:
+            with _on(dev):
+                t.step()
+        pos += 1
+    return pos
+
+
+def _v3_result(state, out, n_spans, pos: int) -> DecodeResult:
+    """Lengths and steps of a v3 decode stopped at ``pos``.  JAX's loop stops
+    at the first position where every element is done.  An element that
+    becomes done in the step at position s wrote its last token in the step
+    before, so its length is s + 1: the stop position is the longest length,
+    or 0 when no element had a span, or ``pos`` when one is still live."""
+    lengths = state[ST_LEN].long()
+    if not bool(state[ST_DONE].all()):
+        steps = pos
+    elif bool((n_spans > 0).any()):
+        steps = int(lengths.max())
+    else:
+        steps = 0
+    return DecodeResult(tokens=out, lengths=lengths, steps=steps)
 
 
 def _prompt_lookup(out: np.ndarray, pos: int, src: np.ndarray, K: int) -> np.ndarray:

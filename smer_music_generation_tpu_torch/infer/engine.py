@@ -19,15 +19,18 @@ shape falls back to unquantized weights as JAX's can (:259-268).
 ``draft_k > 0`` decodes a group of one request by speculative decode (the
 decoder's v5 loop); a larger group takes the batched loop, as in JAX.
 
-``mesh`` is not ported yet (it raises ``NotImplementedError``, ROADMAP.md
-Queue 1 item 11).  Sampling noise comes from a ``torch.Generator``: a retry,
+``mesh`` (a ``parallel.mesh.make_mesh`` mesh) places the model on every dp
+device once and shards each group's rows over dp (``infer/decode.py``):
+groups of ``8 * dp`` rows, each padded to a multiple of dp with
+done-at-start dummies (JAX :504-533); quantized weights with a mesh raise,
+as in JAX.  Sampling noise comes from a ``torch.Generator``: a retry,
 and each decode of the settle loop, draws fresh noise from it in decode
 order where JAX folds a new key (``fold_in(rng, i)``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -374,6 +377,12 @@ class InfillEngine:
         self.model = model
         self.vocab = vocab
         self.max_time_fix_attempts = max_time_fix_attempts
+        self.mesh = mesh
+        if mesh is not None and quant != "none":
+            raise ValueError(
+                "dp-sharded serving (mesh=...) does not support quantized "
+                "weight streaming; drop quant or the mesh"
+            )
         self.decoder = InfillDecoder(
             model,
             vocab,
@@ -449,28 +458,32 @@ class InfillEngine:
         Requests may differ in source length (padded to a common bucket),
         span structure and time signature.  With the kernel, more than 8
         requests run as groups of 8 and a last smaller group, as the JAX
-        engine groups them; a group is never padded with dummy rows, since
-        the CUDA kernels take any batch of 1 to 8 (JAX pads to 1, 4 or 8
-        for a Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``).
+        engine groups them; a group is not padded to JAX's 1, 4 or 8 rows,
+        since the CUDA kernels take any batch of 1 to 8 (JAX pads for a
+        Mosaic tiling limit of the TPU, ``infer/decode.py:240-258``).  Under
+        a mesh a group is ``8 * dp`` rows, padded to a multiple of dp with
+        done-at-start dummies (``n_spans`` 0) whose results are dropped.
         ``correct_controls`` rewrites each regenerated slot's control copies
         with the measured controls of its body after the decode."""
         if not requests:
             return []
         if generator is None:
             generator = self.decoder.generator
-        group = 8 if self.decoder.fused else len(requests)
+        dp = 1 if self.mesh is None else int(self.mesh.shape["dp"])
+        group = 8 * dp if self.decoder.fused else len(requests)
         pending = []
         for i in range(0, len(requests), group):
-            grp = requests[i : i + group]
-            asm = self._assemble(grp)
+            grp = list(requests[i : i + group])
+            padded = grp + [replace(grp[-1], span_codes=[])] * (-len(grp) % dp)
+            asm = self._assemble(padded)
             out = self._dispatch(asm[0], asm[1], asm[2], asm[3], generator)
-            pending.append((grp, asm, out))
+            pending.append((grp, padded, asm, out))
         results: List[Optional[InfillResult]] = []
-        for grp, asm, out in pending:
+        for grp, padded, asm, out in pending:
             results.extend(self._finish_group(
-                grp, generator, asm, out,
+                padded, generator, asm, out,
                 fix_durations=fix_durations, correct_controls=correct_controls,
-            ))
+            )[: len(grp)])
         return results
 
     def _assemble(self, requests: Sequence["PreparedRequest"]):

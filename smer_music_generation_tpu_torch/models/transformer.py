@@ -142,14 +142,25 @@ def _scalar(x: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(x, dtype=dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _uniforms(shape, generator, device, shard=None, tp_dim: Optional[int] = None) -> torch.Tensor:
+    """U[0, 1) draws for a tensor of ``shape``; under sharded training
+    (``shard``, a ``parallel.tensor_parallel.ShardContext``) drawn at the
+    global shape and sliced to this rank's rows and, along ``tp_dim``, its
+    tp part, so the bits do not depend on the layout."""
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    return shard.rand(shape, generator, device, tp_dim)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard=None, tp_dim: Optional[int] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
     divided by (1 - rate) in x's dtype, dropped ones 0."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = _uniforms(x.shape, generator, x.device, shard, tp_dim) < 1.0 - rate
     return torch.where(keep, x / _scalar(1.0 - rate, x.dtype), 0.0).to(x.dtype)
 
 
@@ -215,7 +226,16 @@ class AttnWeightsDropoutMatmul(torch.autograd.Function):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in the model's dtype, as flax ``Dense(dtype=...)``."""
+    """``nn.Linear`` that computes in the model's dtype, as flax ``Dense(dtype=...)``.
+
+    Under tensor parallelism (``parallel.tensor_parallel``) ``tp_mode`` is
+    ``col`` (the weight holds this rank's rows of outputs; the replicated
+    bias adds its slice), ``col_gather`` (the same, the outputs gathered)
+    or ``row`` (the weight holds this rank's input columns; the partial
+    products are summed over tp, then the bias is added once)."""
+
+    shard = None
+    tp_mode: Optional[str] = None
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype):
         super().__init__(d_in, d_out)
@@ -225,7 +245,51 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp_mode is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        # the products of the dt-rounded operands with f32 results, their
+        # partial sums across tp in f32 (forward and backward): every output
+        # and gradient is rounded to dt once, after its whole sum, as the
+        # unsharded product rounds it
+        sh = self.shard
+        x, w = x.to(dt).float(), self.weight.to(dt).float()
+        if self.tp_mode == "row":
+            y = sh.reduce_from_tp(_F32Product.apply(x, w, dt))
+            return (y + self.bias.to(dt).float()).to(dt)
+        n = self.weight.shape[0]
+        bias = self.bias.narrow(0, sh.tp_index * n, n)
+        y = (_F32Product.apply(sh.copy_to_tp(x), w, dt) + bias.to(dt).float()).to(dt)
+        return sh.gather_from_tp(y) if self.tp_mode == "col_gather" else y
+
+
+class _F32Product(torch.autograd.Function):
+    """``x @ w.T`` of f32 tensors that hold ``dt`` values, and its gradients,
+    each an f32 result: on CUDA in ``dt`` on the tensor cores with f32
+    output (``torch.mm(..., out_dtype=float32)``), so the sums accumulate
+    as the unsharded ``dt`` product's do; elsewhere (or for f32) an f32
+    product.  The gradient ``g`` reaching it holds ``dt`` values too (it
+    comes back through a cast to ``dt``)."""
+
+    @staticmethod
+    def _mm(a, b, dt):
+        if a.is_cuda and dt in (torch.bfloat16, torch.float16):
+            return torch.mm(a.to(dt), b.to(dt), out_dtype=torch.float32)
+        return torch.mm(a, b)
+
+    @staticmethod
+    def forward(ctx, x, w, dt):
+        ctx.save_for_backward(x, w)
+        ctx.dt = dt
+        x2 = x.reshape(-1, x.shape[-1])
+        return _F32Product._mm(x2, w.t(), dt).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = _F32Product._mm(g2, w, ctx.dt).reshape(x.shape)
+        dw = _F32Product._mm(g2.t(), x.reshape(-1, x.shape[-1]), ctx.dt)
+        return dx, dw, None
 
 
 class LayerNorm(nn.Module):
@@ -245,6 +309,11 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
+    """Under tensor parallelism the projections hold this rank's
+    ``nhead / tp`` heads, so every reshape reads the head count from them."""
+
+    shard = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -259,8 +328,8 @@ class MultiHeadAttention(nn.Module):
         c = self.cfg
         B, S, _ = kv_in.shape
         return (
-            self.k(kv_in).reshape(B, S, c.nhead, c.head_dim),
-            self.v(kv_in).reshape(B, S, c.nhead, c.head_dim),
+            self.k(kv_in).reshape(B, S, -1, c.head_dim),
+            self.v(kv_in).reshape(B, S, -1, c.head_dim),
         )
 
     def attend(
@@ -284,15 +353,19 @@ class MultiHeadAttention(nn.Module):
         are None."""
         c = self.cfg
         B, T, _ = q_in.shape
-        q = self.q(q_in).reshape(B, T, c.nhead, c.head_dim)
+        q = self.q(q_in).reshape(B, T, -1, c.head_dim)
+        sh = self.shard
         if fused_train and kv_valid is not None:
             from ..ops.train_attention import fused_dropout_attention
 
             # a raw two-word key, like flax's make_rng("dropout")
             seed = torch.randint(-(2**31), 2**31, (2,), generator=generator,
                                  device=q.device, dtype=torch.int32)
-            out = fused_dropout_attention(q, k, v, kv_valid, seed, c.dropout, causal)
-            out = self.out(out.reshape(B, T, c.d_model))
+            # the keep hash reads this shard's global rows and heads
+            place = {} if sh is None else dict(
+                b0=sh.row_shard * B, h0=sh.tp_index * q.shape[2], H_global=c.nhead)
+            out = fused_dropout_attention(q, k, v, kv_valid, seed, c.dropout, causal, **place)
+            out = self.out(out.reshape(B, T, -1))
             return (out, None) if need_weights else out
         scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(c.head_dim)
         if mask is not None:
@@ -305,7 +378,7 @@ class MultiHeadAttention(nn.Module):
                 any_valid = mask.any(dim=-1, keepdim=True).float()
             else:
                 any_valid = torch.ones(1, 1, 1, 1, device=scores.device)
-            keep = torch.rand(scores.shape, generator=generator, device=scores.device) < 1.0 - c.dropout
+            keep = _uniforms(scores.shape, generator, scores.device, sh, tp_dim=1) < 1.0 - c.dropout
             out, weights = AttnWeightsDropoutMatmul.apply(scores, v, keep, any_valid, c.dropout, c.dtype)
         else:
             weights = SoftmaxBf16Residual.apply(scores) if bf16_residual_ok else torch.softmax(scores, dim=-1)
@@ -314,11 +387,13 @@ class MultiHeadAttention(nn.Module):
                 weights = torch.where(mask.any(dim=-1, keepdim=True), weights, 0.0)
             weights = weights.to(c.dtype)
             if train_drop:
-                weights = dropout(weights, c.dropout, generator)
+                weights = dropout(weights, c.dropout, generator, sh, tp_dim=1)
             out = torch.einsum("bhts,bshd->bthd", weights, v)
-        out = self.out(out.reshape(B, T, c.d_model))
+        out = self.out(out.reshape(B, T, -1))
         if need_weights:
-            return out, weights.float().mean(dim=1)
+            # a tp rank holds some heads only: no head average under tp
+            tp_split = sh is not None and sh.tp > 1
+            return out, None if tp_split else weights.float().mean(dim=1)
         return out
 
     def attend_flash(self, q_in, kv_in, kv_valid_len: torch.Tensor) -> torch.Tensor:
@@ -328,10 +403,10 @@ class MultiHeadAttention(nn.Module):
 
         c = self.cfg
         B, T, _ = q_in.shape
-        q = self.q(q_in).reshape(B, T, c.nhead, c.head_dim)
+        q = self.q(q_in).reshape(B, T, -1, c.head_dim)
         k, v = self.project_kv(kv_in)
         out = fused_attention(q, k, v, kv_valid_len=kv_valid_len)
-        return self.out(out.reshape(B, T, c.d_model))
+        return self.out(out.reshape(B, T, -1))
 
     def attend_flash_vjp(self, q_in, kv_in, kv_valid: torch.Tensor, causal: bool) -> torch.Tensor:
         """Differentiable flash attention (JAX :360): only keys are masked
@@ -341,13 +416,15 @@ class MultiHeadAttention(nn.Module):
 
         c = self.cfg
         B, T, _ = q_in.shape
-        q = self.q(q_in).reshape(B, T, c.nhead, c.head_dim)
+        q = self.q(q_in).reshape(B, T, -1, c.head_dim)
         k, v = self.project_kv(kv_in)
         out = flash_train_attention(q, k, v, kv_valid, causal)
-        return self.out(out.reshape(B, T, c.d_model))
+        return self.out(out.reshape(B, T, -1))
 
 
 class FeedForward(nn.Module):
+    shard = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.rate = cfg.dropout
@@ -357,11 +434,13 @@ class FeedForward(nn.Module):
     def forward(self, x, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         h = torch.relu(self.fc1(x))
         if not deterministic:
-            h = dropout(h, self.rate, generator)
+            h = dropout(h, self.rate, generator, self.shard, tp_dim=-1)
         return self.fc2(h)
 
 
 class EncoderLayer(nn.Module):
+    shard = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.self_attn = MultiHeadAttention(cfg)
@@ -390,11 +469,14 @@ class EncoderLayer(nn.Module):
         if deterministic:
             x = self.norm1(x + attn_out)
             return self.norm2(x + self.ff(x))
-        x = self.norm1(x + dropout(attn_out, self.rate, generator))
-        return self.norm2(x + dropout(self.ff(x, False, generator), self.rate, generator))
+        sh = self.shard
+        x = self.norm1(x + dropout(attn_out, self.rate, generator, sh))
+        return self.norm2(x + dropout(self.ff(x, False, generator), self.rate, generator, sh))
 
 
 class DecoderLayer(nn.Module):
+    shard = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.self_attn = MultiHeadAttention(cfg)
@@ -412,7 +494,7 @@ class DecoderLayer(nn.Module):
         ``flash`` takes the flash training kernels for both attentions
         (JAX :466-472)."""
         def drop(t):
-            return t if deterministic else dropout(t, self.rate, generator)
+            return t if deterministic else dropout(t, self.rate, generator, self.shard)
 
         if flash:
             attn_out = self.self_attn.attend_flash_vjp(x, x, tgt_valid, causal=True)
@@ -444,7 +526,11 @@ class DecoderLayer(nn.Module):
 
 class ScoreTransformer(nn.Module):
     """Seq2seq infilling model: the training forward, the encoder and the
-    cached decoder step."""
+    cached decoder step.  ``shard`` and ``embed_sharded`` are set by
+    ``parallel.tensor_parallel.shard_train_state`` for sharded training."""
+
+    shard = None
+    embed_sharded = False
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -457,9 +543,7 @@ class ScoreTransformer(nn.Module):
         self.decoder_layers = nn.ModuleList(
             DecoderLayer(cfg) for _ in range(cfg.num_decoder_layers)
         )
-        self.fc = nn.Linear(cfg.d_model, cfg.vocab_size)
-        nn.init.xavier_uniform_(self.fc.weight)
-        nn.init.zeros_(self.fc.bias)
+        self.fc = Dense(cfg.d_model, cfg.vocab_size, torch.float32)
         self.norm_e = LayerNorm(cfg.d_model) if cfg.final_norm else None
         self.norm_d = LayerNorm(cfg.d_model) if cfg.final_norm else None
         self.register_buffer(
@@ -472,7 +556,10 @@ class ScoreTransformer(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        return self.embedding.weight.to(dt)[tokens] * math.sqrt(self.cfg.d_model)
+        x = self.embedding.weight.to(dt)[tokens]
+        if self.embed_sharded:  # this rank's D columns: gathered after the lookup
+            x = self.shard.gather_from_tp(x)
+        return x * math.sqrt(self.cfg.d_model)
 
     def embed(self, tokens: torch.Tensor, deterministic: bool = True,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -482,7 +569,7 @@ class ScoreTransformer(nn.Module):
         x = x + self.pos_table[: tokens.shape[-1]].to(x.dtype)
         if deterministic:
             return x
-        return dropout(x, self.cfg.pos_dropout, generator)
+        return dropout(x, self.cfg.pos_dropout, generator, self.shard)
 
     def _fused_train_ok(self, deterministic: bool, T: int, S: int) -> bool:
         """JAX's static gate of the dropout-attention kernels (:545)."""

@@ -12,7 +12,9 @@
 //   e  = exp(s - max s) on valid keys, 0 elsewhere; w = e / max(sum e, 1e-30)
 //        (exact, not online: w is normalised before it is rounded);
 //   wd = keep ? bf16(bf16(w) / bf16(1 - rate)) : 0, keep from the counter
-//        hash of _hash_keep (:87) over (seed, b * H + h, absolute row, col);
+//        hash of _hash_keep (:87) over (seed, b * H + h, absolute row, col),
+//        b and h global: a shard's launch passes its first row b0, its first
+//        head h0 and the global head count;
 //   out = bf16(wd . v, f32 sums).
 // Backward, as _bwd_kernel: dv = wd^T g; dw = keep ? (g v^T) / bf16(1 - rate)
 // : 0; ds = bf16(w (dw - sum_s w dw) * scale) from the f32 w; dq = ds k,
@@ -182,6 +184,13 @@ __device__ __forceinline__ bool keep_at(const Drop& dr, uint32_t bh, uint32_t ro
   return keep_terms(dr, dr.s0 + row * kRowMul, col * kColMul, bh * kBhMul);
 }
 
+// the hash's (b, h) term reads the GLOBAL batch row and head: a launch on
+// a shard of B rows from b0 and H heads from h0, out of Hg heads in all,
+// draws the slice of the unsharded mask; b0 = h0 = 0, Hg = H unsharded
+__device__ __forceinline__ uint32_t global_bh(int b, int h, int b0, int h0, int Hg) {
+  return (uint32_t)(b0 + b) * (uint32_t)Hg + (uint32_t)(h0 + h);
+}
+
 __device__ __forceinline__ Drop make_drop(const int* seeds, uint32_t thr, int on,
                                           float c) {
   Drop dr;
@@ -305,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid,
                      const int* __restrict__ seeds, uint32_t thr, int drop_on, float c,
                      int causal, __nv_bfloat16* __restrict__ out, int T, int S, int H,
-                     float scale) {
+                     int b0, int h0, int Hg, float scale) {
   constexpr int kHD = HD, kTE = kTileElems<HD>;
   __nv_bfloat16* qs;  // Q, then the output; then the K ring and the V ring, [2][kTE] each
   if constexpr (HD == 64) {  // 45 KB: static, as before head_dim 128
@@ -344,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
   const int row0 = t0 + 16 * warp + g, row1 = row0 + 8;
   const uint32_t row_term[2] = {dr.s0 + (uint32_t)row0 * kRowMul,
                                 dr.s0 + (uint32_t)row1 * kRowMul};
-  const uint32_t bh_term = (uint32_t)bh * kBhMul;
+  const uint32_t bh_term = global_bh(b, h, b0, h0, Hg) * kBhMul;
   RegA<HD> qa;
   float o[kONB<HD>][4];
 #pragma unroll
@@ -446,7 +455,8 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
                           const int* __restrict__ valid, const int* __restrict__ seeds,
                           const __nv_bfloat16* __restrict__ g, uint32_t thr, int drop_on,
                           float c, int causal, float* __restrict__ stats,
-                          __nv_bfloat16* __restrict__ dq, int T, int S, int H, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int T, int S, int H, int b0,
+                          int h0, int Hg, float scale) {
   constexpr int kHD = HD, kTE = kTileElems<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // Q, then dq
@@ -483,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
   const int row0 = t0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
   const uint32_t row_term[2] = {dr.s0 + (uint32_t)row0 * kRowMul,
                                 dr.s0 + (uint32_t)row1 * kRowMul};
-  const uint32_t bh_term = (uint32_t)bh * kBhMul;
+  const uint32_t bh_term = global_bh(b, h, b0, h0, Hg) * kBhMul;
   HeldA<HD> qa, ga;
   float dqa[kONB<HD>][4];
 #pragma unroll
@@ -658,7 +668,7 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
                           const __nv_bfloat16* __restrict__ g, uint32_t thr, int drop_on,
                           float c, int causal, const float* __restrict__ stats,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                          int T, int S, int H, float scale) {
+                          int T, int S, int H, int b0, int h0, int Hg, float scale) {
   constexpr int kHD = HD, kTE = kTileElems<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // K, then dk
@@ -702,7 +712,7 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
   convert_rows(sts, raw, sl2, scale);
 
   const uint32_t col_term[2] = {(uint32_t)key0 * kColMul, (uint32_t)key1 * kColMul};
-  const uint32_t bh_term = (uint32_t)bh * kBhMul;
+  const uint32_t bh_term = global_bh(b, h, b0, h0, Hg) * kBhMul;
   HeldA<HD> ka, va;
   ka.load(ks, warp, lane);
   va.load(vs, warp, lane);
@@ -797,14 +807,15 @@ __global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
 }
 
 __global__ void keep_mask_kernel(const int* __restrict__ seeds, uint32_t thr, int T, int S,
-                                 size_t n, uint8_t* __restrict__ out) {
+                                 int H, int b0, int h0, int Hg, size_t n,
+                                 uint8_t* __restrict__ out) {
   const Drop dr = make_drop(seeds, thr, 1, 1.f);
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     const uint32_t col = (uint32_t)(i % S);
     const uint32_t row = (uint32_t)((i / S) % T);
-    const uint32_t bh = (uint32_t)(i / ((size_t)S * T));
-    out[i] = keep_at(dr, bh, row, col) ? 1 : 0;
+    const int bh = (int)(i / ((size_t)S * T));
+    out[i] = keep_at(dr, global_bh(bh / H, bh % H, b0, h0, Hg), row, col) ? 1 : 0;
   }
 }
 
@@ -812,10 +823,13 @@ bool bad_shape(int B, int T, int S, int H) {
   return B < 1 || T < 1 || S < 1 || H < 1 || S > kMaxKeys || B * H > 65535;
 }
 
+bool bad_shard(int b0, int h0, int Hg, int H) { return b0 < 0 || h0 < 0 || h0 + H > Hg; }
+
 template <int HD>
-int launch_fwd(int B, int T, int S, int H, const void* q, const void* k, const void* v,
-               const void* valid, const void* seeds, unsigned int thr, int drop_on, float c,
-               int causal, float scale, void* out, cudaStream_t st) {
+int launch_fwd(int B, int T, int S, int H, int b0, int h0, int Hg, const void* q,
+               const void* k, const void* v, const void* valid, const void* seeds,
+               unsigned int thr, int drop_on, float c, int causal, float scale, void* out,
+               cudaStream_t st) {
   if (kFwdSmem<HD> > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
         train_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem<HD>);
@@ -826,13 +840,14 @@ int launch_fwd(int B, int T, int S, int H, const void* q, const void* k, const v
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(valid),
       static_cast<const int*>(seeds), thr, drop_on, c, causal,
-      static_cast<__nv_bfloat16*>(out), T, S, H, scale);
+      static_cast<__nv_bfloat16*>(out), T, S, H, b0, h0, Hg, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bwd(int B, int T, int S, int H, const void* q, const void* k, const void* v,
-               const void* valid, const void* seeds, const void* g, unsigned int thr,
+int launch_bwd(int B, int T, int S, int H, int b0, int h0, int Hg, const void* q,
+               const void* k, const void* v, const void* valid, const void* seeds,
+               const void* g, unsigned int thr,
                int drop_on, float c, int causal, float scale, void* stats, void* dq, void* dk,
                void* dv, cudaStream_t st) {
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
@@ -852,13 +867,13 @@ int launch_bwd(int B, int T, int S, int H, const void* q, const void* k, const v
   const dim3 grid_a((T + kQTile - 1) / kQTile, B * H);
   train_bwd_rows_kernel<HD><<<grid_a, kThreads, kRowsSmem<HD>, st>>>(
       qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt, static_cast<__nv_bfloat16*>(dq), T,
-      S, H, scale);
+      S, H, b0, h0, Hg, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid_b((S + kKTile - 1) / kKTile, B * H);
   train_bwd_keys_kernel<HD><<<grid_b, kThreads, kKeysSmem<HD>, st>>>(
       qb, kb, vb, vl, sd, gb, thr, drop_on, c, causal, stt, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, S, H, scale);
+      static_cast<__nv_bfloat16*>(dv), T, S, H, b0, h0, Hg, scale);
   return (int)cudaGetLastError();
 }
 
@@ -869,22 +884,23 @@ extern "C" {
 // q (B, T, H, HD), k and v (B, S, H, HD), out (B, T, H, HD): bf16,
 // contiguous, HD = head_dim 64 or 128; valid (B, S) int32 (nonzero =
 // attendable); seeds (4,) int32 on the device; thr the keep threshold,
-// drop_on = rate > 0, c = bf16(1 - rate); scale = 1 / sqrt(HD).
-int smer_train_attn_fwd(int head_dim, int B, int T, int S, int H, const void* q, const void* k,
-                        const void* v, const void* valid, const void* seeds,
-                        unsigned int thr, int drop_on, float c, int causal, float scale,
-                        void* out, void* stream) {
-  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
+// drop_on = rate > 0, c = bf16(1 - rate); scale = 1 / sqrt(HD).  The keep
+// hash reads the global (b0 + b, h0 + h) of Hg heads (0, 0, H unsharded).
+int smer_train_attn_fwd(int head_dim, int B, int T, int S, int H, int b0, int h0, int Hg,
+                        const void* q, const void* k, const void* v, const void* valid,
+                        const void* seeds, unsigned int thr, int drop_on, float c, int causal,
+                        float scale, void* out, void* stream) {
+  if (bad_shape(B, T, S, H) || bad_shard(b0, h0, Hg, H)) return (int)cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_fwd<64>(B, T, S, H, q, k, v, valid, seeds, thr, drop_on, c, causal, scale, out,
-                            st);
+      return launch_fwd<64>(B, T, S, H, b0, h0, Hg, q, k, v, valid, seeds, thr, drop_on, c,
+                             causal, scale, out, st);
     case 128:
-      return launch_fwd<128>(B, T, S, H, q, k, v, valid, seeds, thr, drop_on, c, causal, scale, out,
-                             st);
+      return launch_fwd<128>(B, T, S, H, b0, h0, Hg, q, k, v, valid, seeds, thr, drop_on, c,
+                             causal, scale, out, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -892,36 +908,40 @@ int smer_train_attn_fwd(int head_dim, int B, int T, int S, int H, const void* q,
 
 // The backward of smer_train_attn_fwd: g (B, T, H, HD) bf16; stats a
 // (3, B*H, T) f32 scratch buffer; dq, dk, dv bf16 in the layouts of q, k, v.
-int smer_train_attn_bwd(int head_dim, int B, int T, int S, int H, const void* q, const void* k,
-                        const void* v, const void* valid, const void* seeds, const void* g,
-                        unsigned int thr, int drop_on, float c, int causal, float scale,
-                        void* stats, void* dq, void* dk, void* dv, void* stream) {
-  if (bad_shape(B, T, S, H)) return (int)cudaErrorInvalidValue;
+int smer_train_attn_bwd(int head_dim, int B, int T, int S, int H, int b0, int h0, int Hg,
+                        const void* q, const void* k, const void* v, const void* valid,
+                        const void* seeds, const void* g, unsigned int thr, int drop_on, float c,
+                        int causal, float scale, void* stats, void* dq, void* dk, void* dv,
+                        void* stream) {
+  if (bad_shape(B, T, S, H) || bad_shard(b0, h0, Hg, H)) return (int)cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(g) || !aligned16(dq) ||
       !aligned16(dk) || !aligned16(dv))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_bwd<64>(B, T, S, H, q, k, v, valid, seeds, g, thr, drop_on, c, causal, scale,
-                            stats, dq, dk, dv, st);
+      return launch_bwd<64>(B, T, S, H, b0, h0, Hg, q, k, v, valid, seeds, g, thr, drop_on,
+                             c, causal, scale, stats, dq, dk, dv, st);
     case 128:
-      return launch_bwd<128>(B, T, S, H, q, k, v, valid, seeds, g, thr, drop_on, c, causal, scale,
-                             stats, dq, dk, dv, st);
+      return launch_bwd<128>(B, T, S, H, b0, h0, Hg, q, k, v, valid, seeds, g, thr, drop_on,
+                             c, causal, scale, stats, dq, dk, dv, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The keep mask of the kernels' hash: out (BH, T, S) uint8, 1 = keep.
-int smer_dropout_keep_mask(int BH, int T, int S, const void* seeds, unsigned int thr,
-                           void* out, void* stream) {
-  if (BH < 1 || T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+// The keep mask of the kernels' hash: out (B*H, T, S) uint8, 1 = keep, at
+// the global (b0 + b, h0 + h) of Hg heads.
+int smer_dropout_keep_mask(int B, int H, int T, int S, int b0, int h0, int Hg,
+                           const void* seeds, unsigned int thr, void* out, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || S < 1 || bad_shard(b0, h0, Hg, H))
+    return (int)cudaErrorInvalidValue;
+  const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n = (size_t)BH * T * S;
   const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
-  keep_mask_kernel<<<blocks, 256, 0, st>>>(static_cast<const int*>(seeds), thr, T, S, n,
-                                           static_cast<uint8_t*>(out));
+  keep_mask_kernel<<<blocks, 256, 0, st>>>(static_cast<const int*>(seeds), thr, T, S, H, b0,
+                                           h0, Hg, n, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

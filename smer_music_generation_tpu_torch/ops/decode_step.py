@@ -703,10 +703,10 @@ def load_library() -> ctypes.CDLL:
         lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
                                     i, p, p, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
-        lib.smer_train_attn_fwd.argtypes = [i, i, i, i, i, p, p, p, p, p, u, i, f, i, f, p, p]
-        lib.smer_train_attn_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, u, i, f, i, f, p, p, p,
-                                            p, p]
-        lib.smer_dropout_keep_mask.argtypes = [i, i, i, p, u, p, p]
+        lib.smer_train_attn_fwd.argtypes = [i] * 8 + [p, p, p, p, p, u, i, f, i, f, p, p]
+        lib.smer_train_attn_bwd.argtypes = [i] * 8 + [p, p, p, p, p, p, u, i, f, i, f, p, p, p,
+                                                      p, p]
+        lib.smer_dropout_keep_mask.argtypes = [i] * 7 + [p, u, p, p]
         lib.smer_flash_train_fwd.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p, p]
         lib.smer_flash_train_bwd.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, f, p, p, p, p, p]
         lib.smer_attention_f32_fwd.argtypes = [i, i, i, i, i, i, p, p, p, p, i, f, p, p, p]

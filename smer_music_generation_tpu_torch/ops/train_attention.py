@@ -35,7 +35,7 @@ scale 1/sqrt(D) from here.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,20 +90,26 @@ def seed_tensor(seed: Seed, device) -> torch.Tensor:
 
 
 def dropout_mask_reference(seed: Seed, B: int, H: int, T: int, S: int, rate: float,
-                           device=None) -> torch.Tensor:
+                           device=None, b0: int = 0, h0: int = 0,
+                           H_global: Optional[int] = None) -> torch.Tensor:
     """The exact keep mask the kernels generate, as (B, H, T, S) bool (JAX
     :380, ``_hash_keep`` :87): keep where
     ``fmix32(fmix32(h ^ s1) + s0) < keep_threshold(rate)`` with
     ``h = (s0 + row * 0x9E3779B1) ^ (col * 0x85EBCA77) + bh * 0xC2B2AE3D``
     over the ABSOLUTE query row, ``bh = b * H + h``, ``s0 = w0 ^ w2`` and
-    ``s1 = w1 ^ w3``.  Every product of two uint32 values is below 2^64,
+    ``s1 = w1 ^ w3``.  ``b`` and ``h`` are global: a shard of the batch and
+    the heads (rows from ``b0``, heads from ``h0`` of ``H_global``, by
+    default the unsharded 0, 0, H) gets its slice of the unsharded mask.  Every product of two uint32 values is below 2^64,
     but int64 holds 2^63 at most: each multiply takes one factor's low and
     high 16 bits apart so no product leaves int64, then masks to 32 bits."""
     w = seed_words(seed)
     s0, s1 = w[0] ^ w[2], w[1] ^ w[3]
     rows = torch.arange(T, dtype=torch.int64, device=device)[None, :, None]
     cols = torch.arange(S, dtype=torch.int64, device=device)[None, None, :]
-    bhs = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
+    Hg = H if H_global is None else H_global
+    bs = torch.arange(b0, b0 + B, dtype=torch.int64, device=device)[:, None]
+    hs = torch.arange(h0, h0 + H, dtype=torch.int64, device=device)[None, :]
+    bhs = (bs * Hg + hs).reshape(-1)[:, None, None]
     h = (s0 + _mul32(rows, 0x9E3779B1)) & _M32
     h = h ^ _mul32(cols, 0x85EBCA77)
     h = (h + _mul32(bhs, 0xC2B2AE3D)) & _M32
@@ -171,12 +177,13 @@ def attention_dropout_twin(q, k, v, kv_valid, keep_mask, rate: float, causal: bo
 
 
 def dropout_attention_fwd_reference(q, k, v, kv_valid, seed: Seed, rate: float,
-                                    causal: bool = False) -> torch.Tensor:
+                                    causal: bool = False, shard=(0, 0, None)) -> torch.Tensor:
     """Twin of the forward kernel: the keep mask from
-    :func:`dropout_mask_reference`, then :func:`attention_dropout_twin`."""
+    :func:`dropout_mask_reference` (``shard`` its ``(b0, h0, H_global)``),
+    then :func:`attention_dropout_twin`."""
     dropout_attention_fwd_reference.calls += 1
     B, T, H, _ = q.shape
-    keep = (dropout_mask_reference(seed, B, H, T, k.shape[1], rate, device=q.device)
+    keep = (dropout_mask_reference(seed, B, H, T, k.shape[1], rate, q.device, *shard)
             if rate > 0.0 else None)
     return attention_dropout_twin(q, k, v, kv_valid, keep, rate, causal)
 
@@ -185,7 +192,7 @@ dropout_attention_fwd_reference.calls = 0
 
 
 def dropout_attention_bwd_reference(q, k, v, kv_valid, seed: Seed, g, rate: float,
-                                    causal: bool = False):
+                                    causal: bool = False, shard=(0, 0, None)):
     """Twin of the backward kernels: the explicit math of JAX's
     ``_bwd_kernel`` (:163-244) over all query rows at once, not autograd
     through the forward.  ``g`` is rounded to q's dtype first (JAX :363).
@@ -198,7 +205,7 @@ def dropout_attention_bwd_reference(q, k, v, kv_valid, seed: Seed, g, rate: floa
     S = k.shape[1]
     g = g.to(q.dtype).float()
     w, scale = _weights(q, k, kv_valid, causal)
-    keep = (dropout_mask_reference(seed, B, H, T, S, rate, device=q.device)
+    keep = (dropout_mask_reference(seed, B, H, T, S, rate, q.device, *shard)
             if rate > 0.0 else None)
     wd16 = _dropped(w.to(torch.bfloat16), keep, rate)
     dv = torch.einsum("bhts,bthd->bshd", wd16.float(), g)
@@ -234,12 +241,22 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _shard_args(shard, H: int) -> Tuple[int, int, int]:
+    """``(b0, h0, H_global)`` with the unsharded default H_global = H."""
+    b0, h0, Hg = shard
+    Hg = H if Hg is None else int(Hg)
+    if b0 < 0 or h0 < 0 or h0 + H > Hg:
+        raise ValueError(f"shard (b0={b0}, h0={h0}, H_global={Hg}) does not hold {H} heads")
+    return int(b0), int(h0), Hg
+
+
 def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
-                          causal: bool = False) -> torch.Tensor:
+                          causal: bool = False, shard=(0, 0, None)) -> torch.Tensor:
     """The forward: the twin for CPU tensors, ``train_fwd_kernel`` for CUDA
-    ones (bf16, head_dim 64 or 128, contiguous, S <= 1024) or an error."""
+    ones (bf16, head_dim 64 or 128, contiguous, S <= 1024) or an error.
+    ``shard`` = ``(b0, h0, H_global)`` places the keep hash's (b, h)."""
     if q.device.type == "cpu":
-        return dropout_attention_fwd_reference(q, k, v, kv_valid, seed, rate, causal)
+        return dropout_attention_fwd_reference(q, k, v, kv_valid, seed, rate, causal, shard)
     if q.device.type != "cuda":
         raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
     valid = kv_valid.to(torch.int32).contiguous()
@@ -248,7 +265,7 @@ def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
     out = torch.empty_like(q)
     D = q.shape[3]
     _check(load_library().smer_train_attn_fwd(
-        D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        D, B, T, S, H, *_shard_args(shard, H), q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), keep_threshold(rate), int(rate > 0.0), bf16_round(1.0 - rate),
         int(causal), 1.0 / math.sqrt(D), out.data_ptr(), _stream(q.device),
     ), "train_attn_fwd")
@@ -260,11 +277,11 @@ dropout_attention_fwd.launches = 0
 
 
 def dropout_attention_bwd(q, k, v, kv_valid, seed: Seed, g, rate: float,
-                          causal: bool = False):
+                          causal: bool = False, shard=(0, 0, None)):
     """The backward: the twin for CPU tensors, the two backward kernels for
     CUDA ones or an error.  Returns (dq, dk, dv) in bf16."""
     if q.device.type == "cpu":
-        return dropout_attention_bwd_reference(q, k, v, kv_valid, seed, g, rate, causal)
+        return dropout_attention_bwd_reference(q, k, v, kv_valid, seed, g, rate, causal, shard)
     if q.device.type != "cuda":
         raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
     valid = kv_valid.to(torch.int32).contiguous()
@@ -277,7 +294,7 @@ def dropout_attention_bwd(q, k, v, kv_valid, seed: Seed, g, rate: float,
     stats = torch.empty(3, B * H, T, dtype=torch.float32, device=q.device)
     D = q.shape[3]
     _check(load_library().smer_train_attn_bwd(
-        D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        D, B, T, S, H, *_shard_args(shard, H), q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), g.data_ptr(), keep_threshold(rate), int(rate > 0.0),
         bf16_round(1.0 - rate), int(causal), 1.0 / math.sqrt(D), stats.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _stream(q.device),
@@ -290,17 +307,18 @@ dropout_attention_bwd.launches = 0
 
 
 def dropout_keep_mask(seed: Seed, B: int, H: int, T: int, S: int, rate: float,
-                      device) -> torch.Tensor:
+                      device, b0: int = 0, h0: int = 0, H_global: Optional[int] = None) -> torch.Tensor:
     """The keep mask from the kernels' own ``__device__`` hash
     (``smer_dropout_keep_mask``), as (B, H, T, S) bool, so the card can show
-    it equals :func:`dropout_mask_reference`.  CUDA only."""
+    it equals :func:`dropout_mask_reference` (with the same shard
+    arguments).  CUDA only."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("dropout_keep_mask runs the CUDA hash; use dropout_mask_reference on the CPU")
     seeds = seed_tensor(seed, device)
     out = torch.empty(B, H, T, S, dtype=torch.uint8, device=device)
     _check(load_library().smer_dropout_keep_mask(
-        B * H, T, S, seeds.data_ptr(), keep_threshold(rate), out.data_ptr(), _stream(device),
+        B, H, T, S, *_shard_args((b0, h0, H_global), H), seeds.data_ptr(), keep_threshold(rate), out.data_ptr(), _stream(device),
     ), "dropout_keep_mask")
     return out.bool()
 
@@ -310,26 +328,32 @@ class _FusedDropoutAttention(torch.autograd.Function):
     validity mask and the seed words; the backward recomputes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, seed, rate, causal):
-        out = dropout_attention_fwd(q, k, v, kv_valid, seed, rate, causal)
+    def forward(ctx, q, k, v, kv_valid, seed, rate, causal, shard):
+        out = dropout_attention_fwd(q, k, v, kv_valid, seed, rate, causal, shard)
         ctx.save_for_backward(q, k, v, kv_valid, seed)
-        ctx.rate, ctx.causal = rate, causal
+        ctx.rate, ctx.causal, ctx.shard = rate, causal, shard
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_valid, seed = ctx.saved_tensors
-        dq, dk, dv = dropout_attention_bwd(q, k, v, kv_valid, seed, g, ctx.rate, ctx.causal)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = dropout_attention_bwd(q, k, v, kv_valid, seed, g, ctx.rate, ctx.causal,
+                                           ctx.shard)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def fused_dropout_attention(q, k, v, kv_valid, seed: Seed, rate: float,
-                            causal: bool = False) -> torch.Tensor:
+                            causal: bool = False, b0: int = 0, h0: int = 0,
+                            H_global: Optional[int] = None) -> torch.Tensor:
     """softmax(round_bf16(QK^T) / sqrt(D)) -> weight dropout -> V, with a
-    recomputing backward (JAX :316).  Returns (B, T, H, D) in q's dtype."""
+    recomputing backward (JAX :316).  Returns (B, T, H, D) in q's dtype.
+    On a shard of the batch rows (from ``b0``) and of the heads (from
+    ``h0`` of ``H_global``) the keep mask is the slice of the unsharded
+    one, as JAX's masks are the same under any sharding."""
     seed = seed_tensor(seed, q.device)
     valid = kv_valid.to(torch.int32).contiguous()
-    return _FusedDropoutAttention.apply(q, k, v, valid, seed, float(rate), bool(causal))
+    shard = _shard_args((b0, h0, H_global), q.shape[2])
+    return _FusedDropoutAttention.apply(q, k, v, valid, seed, float(rate), bool(causal), shard)
 
 
 def reset_counts() -> None:

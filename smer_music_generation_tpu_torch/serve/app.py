@@ -150,8 +150,9 @@ class ServingContext:
                  max_batch: int = 8, mesh=None, draft_k: int = 0):
         """``draft_k > 0`` decodes a request that is alone in its group by
         speculative decode; a group of several goes through the batched
-        loop, as in JAX.  ``mesh`` raises ``NotImplementedError`` (the
-        engine's decoder names its ROADMAP item)."""
+        loop, as in JAX.  ``mesh`` (``parallel.mesh.make_mesh``) places the
+        model on every dp device once and shards each batch's rows over
+        them (``InfillEngine``)."""
         self.vocab = vocab
         self.device = model.device
         self.engine = InfillEngine(

@@ -3,7 +3,7 @@
 Port of ``smer_music_generation_tpu/serve/serve_cli.py``:
 
     python -m smer_music_generation_tpu_torch.serve.serve_cli \\
-        [--checkpoint PATH|random] [--port 5000] [--device cpu]
+        [--checkpoint PATH|random] [--port 5000] [--device cpu] [--dp N]
 
 With no ``--checkpoint`` and no ``--config`` it serves the committed
 trained snapshot ``assets/flagship_params.msgpack``; ``--checkpoint
@@ -11,7 +11,10 @@ random`` gives random weights.  On CUDA (the default) the model computes
 in bf16 and decodes through the v3 kernels; on the CPU it computes in f32
 through the plain loop.  A missing card raises.  ``--draft_k K`` decodes a
 request that arrives alone by speculative decode (the verify kernel on
-CUDA, K <= 15); requests the batcher groups go through v3.
+CUDA, K <= 15); requests the batcher groups go through v3.  ``--dp N``
+shards each batch's rows over ``cuda:0`` to ``cuda:{N-1}`` (one model and
+one set of graphs a card); an N above the device count logs the error and
+returns 1.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import time
 
 import torch
 
+from ..parallel.mesh import make_mesh
 from ..train.state import default_flagship_snapshot, load_inference_model
 from ..utils.config import ExperimentConfig
 from ..utils.logging import logger_init
@@ -45,16 +49,22 @@ def main(argv=None) -> int:
                         help="speculative decode of single requests: prompt-lookup draft "
                         "width (0 = off; at most 15 on CUDA)")
     parser.add_argument("--dp", type=int, default=0,
-                        help="data-parallel serving over N cards (not ported yet)")
+                        help="shard batched serving over a dp mesh of N cards "
+                        "(0/1 = one card)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp > 1 (multi-GPU serving) is not ported to PyTorch yet (ROADMAP.md Queue 1 item 11)"
-        )
     logger = logger_init(None)
     device = torch.device(args.device)
+    mesh = None
+    if args.dp > 1:
+        n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
+        if args.dp > n_avail:
+            logger.error(f"--dp {args.dp} exceeds the {n_avail} available device(s)")
+            return 1
+        mesh = make_mesh(args.dp, tp=1)
+        device = mesh.dp_devices()[0]
+        logger.info(f"dp-sharded serving over {args.dp} devices")
     cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
     vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -74,7 +84,8 @@ def main(argv=None) -> int:
 
     ctx = ServingContext(
         model, vocab, nucleus_p=args.nucleus_p, temperature=args.temperature,
-        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch, draft_k=args.draft_k,
+        batch_window_ms=args.batch_window_ms, max_batch=args.max_batch, mesh=mesh,
+        draft_k=args.draft_k,
     )
     server = serve(ctx, host=args.host, port=args.port)
     logger.info(f"serving on {server.server_address}")

@@ -29,13 +29,19 @@ from .state import TrainState, params_to_flax
 STATE_FILE = "state.pt"
 
 
-def save_checkpoint(directory: str, epoch: int, state: TrainState, loss: float) -> str:
-    """Write ``<directory>/checkpoint_<epoch>/state.pt`` (JAX :28)."""
+def save_checkpoint(directory: str, epoch: int, state: TrainState, loss: float,
+                    full: Optional[Tuple[Dict[str, torch.Tensor], Dict[str, Any]]] = None) -> str:
+    """Write ``<directory>/checkpoint_<epoch>/state.pt`` (JAX :28).  ``full``:
+    the ``(params, opt_state)`` to write in place of the state's own, the
+    full tensors a tensor-parallel state gathers
+    (``parallel.tensor_parallel.full_train_state``)."""
     path = os.path.abspath(os.path.join(directory, f"checkpoint_{epoch}"))
     os.makedirs(path, exist_ok=True)
+    params, opt_state = full if full is not None else (state.model.state_dict(),
+                                                       state.optimizer.state_dict())
     payload = {
-        "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "opt_state": state.optimizer.state_dict(),
+        "params": {k: v.detach().cpu() for k, v in params.items()},
+        "opt_state": opt_state,
         "step": int(state.step),
         "lr": float(state.lr),
         "epoch": int(epoch),

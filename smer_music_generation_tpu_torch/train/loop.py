@@ -1,4 +1,4 @@
-"""Training loop: the ``train.py`` equivalent, on one CUDA device.
+"""Training loop: the ``train.py`` equivalent, on one CUDA device or many.
 
 Port of ``smer_music_generation_tpu/train/loop.py`` (all of it):
 ``pad_batch_rows``, ``Trainer`` (``train_epoch``, ``evaluate``, ``run``,
@@ -19,8 +19,22 @@ that raises before the optimizer's update (forward, loss, backward,
 gradient norm) is skipped and logged as ``step N failed: ...``, its batch
 dropped and the state as it was, as JAX skips it; the port updates the
 parameters in place, so an error from the update on propagates.
-Multi-device training (``n_devices``, ``tp``, ``dcn_slices`` above 1) is
-not ported.
+
+Multi-device training runs one process a device, as JAX's mesh of
+``make_mesh(n_devices, tp, dcn_slices)`` (JAX :102-107, :152-158):
+
+    torchrun --nproc_per_node N -m smer_music_generation_tpu_torch.train.loop \
+        --n_devices N --tp T --dcn_slices K ...
+
+The world size must equal the mesh's device count (``n_devices`` 0 means
+every process of the world), or the Trainer raises.  Each rank builds the
+same global batch, pads its rows to a multiple of ``dp * dcn`` and keeps its
+own rows; tensor parallelism follows ``parallel.mesh._param_spec``
+(``parallel/tensor_parallel.py``).  A process group started by the caller
+is joined as it is (``nccl`` on the card, ``gloo`` on the CPU, or ``gloo``
+with CUDA tensors); otherwise torchrun's environment starts one.  Rank 0
+alone writes the log file, ``metrics.jsonl``, ``run.json``, ``config.json``
+and the checkpoints, which hold the full (gathered) tensors.
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ import torch
 from ..data.loader import BatchLoader, LoaderConfig, Prefetcher
 from ..data.masking import MaskingConfig
 from ..data.pack import load_batches
+from ..parallel.mesh import init_process_mesh, launched_world_size
+from ..parallel.tensor_parallel import ShardContext, full_train_state, place_on_rows, shard_train_state
 from ..utils.config import ExperimentConfig
 from ..utils.logging import MetricsLogger, RunIdentity, logger_init
 from ..utils.profiling import StepTimer
@@ -87,31 +103,56 @@ def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, object]:
     return out
 
 
+def _mesh_world(cfg: ExperimentConfig) -> int:
+    """The number of processes the configured mesh spans: 1 for one
+    process, else the world, which must equal ``n_devices`` (0: all) and
+    divide by ``tp * dcn_slices``."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else launched_world_size()
+    n = cfg.n_devices or world
+    if n != world:
+        raise ValueError(
+            f"the mesh asks for n_devices={n} devices, but the world has {world} processes: "
+            f"launch one process a device (torchrun --nproc_per_node {n} ...)")
+    if n % (cfg.tp * cfg.dcn_slices) != 0:
+        raise ValueError(f"{n} devices not divisible by tp={cfg.tp} x dcn_slices={cfg.dcn_slices}")
+    return n
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, logger=None, device="cuda"):
-        for name in ("n_devices", "tp", "dcn_slices"):
-            if getattr(cfg, name) > 1:
-                raise NotImplementedError(
-                    f"multi-device training ({name}={getattr(cfg, name)}) is not "
-                    "ported: ROADMAP.md Queue 1 item 11"
-                )
+        import torch.distributed as dist
+
+        world = _mesh_world(cfg)
+        self.ctx = None
+        if world > 1 or dist.is_initialized():
+            if str(device) == "cuda":  # one card a process, by its local rank
+                local = int(os.environ.get("LOCAL_RANK", "0"))
+                if local >= torch.cuda.device_count():
+                    raise RuntimeError(f"local rank {local} has no CUDA device "
+                                       f"({torch.cuda.device_count()} visible)")
+                device = f"cuda:{local}"
+            self.ctx = ShardContext(init_process_mesh(
+                cfg.tp, cfg.dcn_slices,
+                backend="nccl" if torch.device(device).type == "cuda" else "gloo"))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' (--device cpu) to train on the CPU")
         self.cfg = cfg
+        self.lead = self.ctx is None or self.ctx.pm.rank == 0  # the rank that writes
         # append when re-entering an output_dir (resume or an existing run.json)
         self.logger = logger or logger_init(
-            os.path.join(cfg.output_dir, "logging.log"),
+            os.path.join(cfg.output_dir, "logging.log") if self.lead else None,
             append=bool(cfg.resume_from)
             or os.path.exists(os.path.join(cfg.output_dir, "run.json")),
         )
-        self.run_identity = RunIdentity(
-            cfg.output_dir, config=dataclasses.asdict(cfg), logger=self.logger
-        )
+        run_id = None
+        if self.lead:
+            run_id = RunIdentity(cfg.output_dir, config=dataclasses.asdict(cfg),
+                                 logger=self.logger).run_id
         self.metrics = MetricsLogger(
-            os.path.join(cfg.output_dir, "metrics.jsonl"),
-            run_id=self.run_identity.run_id,
-        )
+            os.path.join(cfg.output_dir, "metrics.jsonl") if self.lead else None, run_id=run_id)
 
         self.vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
         dtype = torch.bfloat16 if cfg.bf16 and self.device.type == "cuda" else torch.float32
@@ -139,7 +180,8 @@ class Trainer:
                 if cfg.tensile_weight != 1.0 else None
             ),
         )
-        self.dp = 1  # one device: batch rows need no padding
+        # the batch's rows pad to a multiple of the (dcn x dp) shards
+        self.dp = 1 if self.ctx is None else self.ctx.row_shards
         self.start_epoch = 0
         if cfg.resume_from and os.path.isfile(cfg.resume_from):
             # params-only .msgpack snapshot: warm-start the weights with a
@@ -168,6 +210,8 @@ class Trainer:
             self.state, epoch, loss = restore_checkpoint(cfg.resume_from, self.state)
             self.start_epoch = 0 if cfg.reset_epoch else epoch + 1
             self.logger.info(f"resumed from {cfg.resume_from} (epoch {epoch}, loss {loss:.4f})")
+        if self.ctx is not None:  # the full state, restored or fresh, placed on the mesh
+            self.state = shard_train_state(self.state, self.ctx)
 
         self._train_step = make_train_step(self.model, self.tables, dropout=cfg.dropout > 0)
         # lean twin for non-logged steps under gated_metrics: same update,
@@ -183,6 +227,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         batch = pad_batch_rows(batch, self.dp)
+        if self.ctx is not None:
+            batch = place_on_rows(batch, self.ctx)
         return {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
             for k, v in batch.items()
@@ -322,8 +368,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def run(self, train_groups, valid_groups) -> None:
         cfg = self.cfg
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.output_dir, "config.json"))
+        if self.lead:
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            cfg.save(os.path.join(cfg.output_dir, "config.json"))
         scheduler = PlateauScheduler()
 
         for epoch in range(self.start_epoch, cfg.epochs):
@@ -351,9 +398,19 @@ class Trainer:
                 self.logger.info(f"plateau: lr -> {new_lr}")
                 self.state.lr = new_lr
 
-            ckpt_dir = os.path.join(cfg.output_dir, cfg.checkpoint_dir)
-            path = save_checkpoint(ckpt_dir, epoch, self.state, val["total"])
-            self.logger.info(f"saved {path}")
+            self.save(epoch, val["total"])
+
+    def save(self, epoch: int, loss: float) -> Optional[str]:
+        """Checkpoint the state as ``checkpoint_<epoch>``; under a mesh every
+        rank gathers the full tensors (a collective) and rank 0 writes.
+        Returns the path where this rank wrote, else None."""
+        full = None if self.ctx is None else full_train_state(self.state, self.ctx)
+        if not self.lead:
+            return None
+        path = save_checkpoint(os.path.join(self.cfg.output_dir, self.cfg.checkpoint_dir), epoch,
+                               self.state, loss, full)
+        self.logger.info(f"saved {path}")
+        return path
 
     def test(self, test_groups) -> Dict[str, float]:
         loader = self.make_loader(test_groups, pretraining=False, seed_offset=31337)

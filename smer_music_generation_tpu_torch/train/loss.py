@@ -101,8 +101,12 @@ def multihead_ce(
     targets: torch.Tensor,  # (B, T) int
     tables: Dict,
     eos_weight: float | torch.Tensor = 1.0,
+    sum_denom=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Fused loss (JAX :98); returns (total, per-head scalars dict)."""
+    """Fused loss (JAX :98); returns (total, per-head scalars dict).
+    ``sum_denom``: under data parallelism, sums the denominator over the
+    batch shards in place, so that each shard's loss is its share of the
+    global batch's loss (JAX's ``sum / denom`` over the global batch)."""
     dev = logits.device
     head_weights = _on(tables, "head_weights", dev)  # (H, V)
     ce_all = _on(tables, "ce_all", dev)
@@ -123,6 +127,8 @@ def multihead_ce(
     nll = torch.where(not_pad, nll, 0.0)
 
     denom = torch.where(not_pad, ce[flat_targets], 0.0).sum()
+    if sum_denom is not None:
+        denom = sum_denom(denom)
     denom = torch.clamp(denom, min=1e-8)
 
     target_head_w = hw.t()[flat_targets]  # (N, H)

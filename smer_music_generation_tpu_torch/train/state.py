@@ -325,6 +325,12 @@ class TrainState:
     optimizer: torch.optim.Adam
     step: int = 0
     lr: float = 1e-4
+    # set by parallel.tensor_parallel.shard_train_state: each parameter's
+    # spec, the tp-sharded parameters, and the column-parallel biases
+    # whose gradient each tp rank holds a slice of
+    specs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    sharded: Tuple[str, ...] = ()
+    tp_partial: Tuple[str, ...] = ()
 
     @classmethod
     def create(cls, model: ScoreTransformer, lr: float) -> "TrainState":
@@ -338,16 +344,19 @@ def module_name(param_name: str) -> str:
     return f"{m.group(1)}_{m.group(2)}" if m else param_name.split(".")[0]
 
 
-def _norm(tensors) -> torch.Tensor:
-    """Global L2 norm over a list of tensors, in f32."""
-    return torch.stack(torch._foreach_norm([t.float() for t in tensors])).norm()
+def _norms(named, state: "TrainState", ctx, prefix: str) -> Dict[str, torch.Tensor]:
+    """The global L2 norm of the (name, tensor) pairs in f32 and each
+    module's, from every tensor's own norm (summed over tp where the tensor
+    is tp-sharded): ``{prefix_norm, prefix/<module>...}``."""
+    from ..parallel.tensor_parallel import leaf_norms
 
-
-def _module_norms(named, prefix: str) -> Dict[str, torch.Tensor]:
+    norms = leaf_norms(named, state.sharded, ctx)
     groups: Dict[str, list] = {}
-    for name, t in named:
-        groups.setdefault(module_name(name), []).append(t)
-    return {f"{prefix}/{k}": _norm(v) for k, v in groups.items()}
+    for (name, _), n in zip(named, norms):
+        groups.setdefault(module_name(name), []).append(n)
+    out = {f"{prefix}_norm": torch.stack(norms).norm()}
+    out.update({f"{prefix}/{k}": torch.stack(v).norm() for k, v in groups.items()})
+    return out
 
 
 def _forward_batch(model: ScoreTransformer, batch: Dict[str, torch.Tensor], deterministic: bool,
@@ -380,25 +389,40 @@ def make_train_step(
     the lean variant (``gated_metrics``): the same update, and only the
     loss and the global gradient norm.  An error before the update raises
     :class:`StepSkipped` with the state untouched; one from the update on
-    propagates as it is."""
+    propagates as it is.
+
+    Under sharded training (the model's ``shard`` set by
+    ``parallel.tensor_parallel.shard_train_state``) the batch holds this
+    rank's rows: the loss divides by the global denominator, the gradients
+    are summed over the batch shards (and the column-parallel biases' over
+    tp) before the update, the norms are global, and the loss and the
+    accuracy counts are summed over the shards."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], eos_weight, generator):
+        ctx = model.shard
         named = [(n, p) for n, p in model.named_parameters()]
         metrics: Dict[str, Any] = {}
         try:
             if with_metrics:
                 with torch.no_grad():
-                    metrics["param_norm"] = _norm([p for _, p in named])
-                    metrics.update(_module_norms([(n, p.detach()) for n, p in named], "pnorm"))
+                    pn = _norms([(n, p.detach()) for n, p in named], state, ctx, "pnorm")
+                    metrics["param_norm"] = pn.pop("pnorm_norm")
+                    metrics.update(pn)
             logits, _ = _forward_batch(model, batch, not dropout, generator)
-            total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
+            total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight,
+                                           sum_denom=None if ctx is None else ctx.sum_rows_)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
+            if ctx is not None:
+                from ..parallel.tensor_parallel import sync_grads_
+
+                sync_grads_(state, ctx)
             grads = [(n, p.grad) for n, p in named if p.grad is not None]
             with torch.no_grad():
-                metrics["grad_norm"] = _norm([g for _, g in grads])
+                gn = _norms(grads, state, ctx, "gnorm")
+                metrics["grad_norm"] = gn.pop("gnorm_norm")
                 if with_metrics:
-                    metrics.update(_module_norms(grads, "gnorm"))
+                    metrics.update(gn)
         except Exception as exc:
             state.optimizer.zero_grad(set_to_none=True)
             raise StepSkipped(str(exc)) from exc
@@ -406,18 +430,12 @@ def make_train_step(
             group["lr"] = state.lr
         state.optimizer.step()
         state.step += 1
-        metrics["loss"] = total.detach()
+        with torch.no_grad():
+            summed = _summed_metrics(ctx, logits.detach(), batch, tables, total.detach(),
+                                     {k: v.detach() for k, v in per_head.items()}, with_metrics)
+        metrics["loss"] = summed["loss"]
         if with_metrics:
-            with torch.no_grad():
-                correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
-                    logits.detach(), batch["target_out"], tables
-                )
-            metrics.update({
-                "accuracy": total_correct / torch.clamp(total_count, min=1),
-                "correct_per_class": correct_pc,
-                "count_per_class": count_pc,
-                **{f"loss/{k}": v.detach() for k, v in per_head.items()},
-            })
+            metrics.update(summed)
         return state, metrics
 
     return step_fn
@@ -429,20 +447,39 @@ def make_eval_step(model: ScoreTransformer, tables: Dict) -> Callable:
 
     @torch.no_grad()
     def eval_fn(batch: Dict[str, torch.Tensor], eos_weight):
+        ctx = model.shard
         logits, _ = _forward_batch(model, batch, True, None)
-        total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight)
-        correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
-            logits, batch["target_out"], tables
-        )
-        return {
-            "loss": total,
-            "accuracy": total_correct / torch.clamp(total_count, min=1),
-            "correct_per_class": correct_pc,
-            "count_per_class": count_pc,
-            **{f"loss/{k}": v for k, v in per_head.items()},
-        }
+        total, per_head = multihead_ce(logits, batch["target_out"], tables, eos_weight,
+                                       sum_denom=None if ctx is None else ctx.sum_rows_)
+        return _summed_metrics(ctx, logits, batch, tables, total, per_head, True)
 
     return eval_fn
+
+
+def _summed_metrics(ctx, logits, batch, tables, total, per_head, with_accuracy: bool):
+    """The loss, the per-head losses and (``with_accuracy``) the accuracy
+    counts of a step, each summed over the batch shards when ``ctx`` shards
+    the rows (each shard's loss is its share of the global loss)."""
+    if ctx is None:
+        out = {"loss": total, **{f"loss/{k}": v for k, v in per_head.items()}}
+        if with_accuracy:
+            correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
+                logits, batch["target_out"], tables)
+            out.update({"accuracy": total_correct / torch.clamp(total_count, min=1),
+                        "correct_per_class": correct_pc, "count_per_class": count_pc})
+        return out
+    names = list(per_head)
+    losses = ctx.sum_rows_(torch.stack([total] + [per_head[k] for k in names]))
+    out = {"loss": losses[0], **{f"loss/{k}": losses[i + 1] for i, k in enumerate(names)}}
+    if with_accuracy:
+        correct_pc, count_pc, total_correct, total_count = per_class_accuracy(
+            logits, batch["target_out"], tables)
+        n = correct_pc.shape[0]
+        acc = ctx.sum_rows_(torch.cat([correct_pc, count_pc,
+                                       torch.stack([total_correct, total_count]).float()]))
+        out.update({"accuracy": acc[2 * n] / torch.clamp(acc[2 * n + 1], min=1),
+                    "correct_per_class": acc[:n], "count_per_class": acc[n : 2 * n]})
+    return out
 
 
 @dataclasses.dataclass

@@ -145,10 +145,12 @@ def test_max_tgt_len_beyond_max_len_raises(setup):
     dict(draft_k=2), dict(draft_k=2, fused=True), dict(mesh=object()), dict(mesh=object(), fused=True),
 ])
 def test_unported_options_raise(setup, kw):
-    """``mesh`` raises, naming its ROADMAP item.  ``draft_k`` is ported
-    (tests/test_torch_spec_decode.py): its two cases, whose ids are kept
-    from when it raised too, now check that a B=1 greedy call with it
-    decodes the plain loop's tokens, on the plain and the fused verify."""
+    """The ids are kept from when these options raised.  ``draft_k`` is
+    ported (tests/test_torch_spec_decode.py): a B=1 greedy call with it
+    decodes the plain loop's tokens, on the plain and the fused verify.
+    ``mesh`` is ported: a nucleus decode of 4 rows on a two-CPU mesh (its
+    ``object()`` stands for the mesh) gives the unsharded decode's tokens,
+    lengths and steps bit for bit, on the plain loop and on v3."""
     _, tvocab, _, _, tmodel, (src, span_types, n_spans, no_whole) = setup
     if "draft_k" in kw:
         args = (src[:1], span_types[:1], n_spans[:1], no_whole[:1])
@@ -158,8 +160,17 @@ def test_unported_options_raise(setup, kw):
         np.testing.assert_array_equal(got.tokens.numpy(), want.tokens.numpy())
         np.testing.assert_array_equal(got.lengths.numpy(), want.lengths.numpy())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InfillDecoder(tmodel, tvocab, max_tgt_len=L, **kw)
+    from smer_music_generation_tpu_torch.parallel.mesh import make_mesh
+
+    args = (src, span_types, n_spans, no_whole)
+    common = dict(max_tgt_len=L, span_cap=24, nucleus_p=0.9, fused=kw.get("fused", False), seed=3)
+    want = InfillDecoder(tmodel, tvocab, **common)(*args)
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    got = InfillDecoder(tmodel, tvocab, mesh=mesh, **common)(*args)
+    assert mesh.shape == {"dp": 2, "tp": 1}
+    np.testing.assert_array_equal(got.tokens.numpy(), want.tokens.numpy())
+    np.testing.assert_array_equal(got.lengths.numpy(), want.lengths.numpy())
+    assert got.steps == want.steps
 
 
 def test_forced_prefix_raises(setup):

@@ -79,11 +79,14 @@ def test_run_batch_padded_to_four_equals_one_by_one(setup):
 
 
 def test_unported_engine_options_raise(setup):
-    """``mesh`` alone still raises, naming its ROADMAP item; the name is
-    kept from when ``span_retries`` and ``correct_controls`` raised too.
-    They run now: greedy ``span_retries`` takes ``run_batch`` as in JAX,
-    and the post-hoc rewrite gives JAX's stream (their parity under noise
-    is in ``tests/test_torch_eval.py``)."""
+    """The name is kept from when ``span_retries``, ``correct_controls``
+    and ``mesh`` raised.  They run now: greedy ``span_retries`` takes
+    ``run_batch`` as in JAX, and the post-hoc rewrite gives JAX's stream
+    (their parity under noise is in ``tests/test_torch_eval.py``).  On a
+    two-CPU mesh, four nucleus requests on v3 give the unsharded engine's
+    results (the same global noise, sliced by rows), and so do three greedy
+    ones on the plain loop, padded with one done-at-start dummy to two shards of two rows; a
+    quantized engine with a mesh raises JAX's ValueError."""
     vocab, tvocab, jmodel, params, tmodel, events = setup
     kw = dict(greedy=True, nucleus_p=None, max_tgt_len=512)
     eng = InfillEngine(tmodel, tvocab, **kw)
@@ -92,8 +95,17 @@ def test_unported_engine_options_raise(setup):
         got = eng(events, [0], [1], **opts)
         want = jeng(events, [0], [1], jax.random.PRNGKey(0), **opts)
         assert got.events == want.events and got.generated == want.generated
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        InfillEngine(tmodel, tvocab, mesh=object())
+    from smer_music_generation_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    reqs = [eng.prepare(events, [0], [b]) for b in (1, 2, 3)] + [eng.prepare(events, [1], [2])]
+    for n, kw in ((4, dict(nucleus_p=0.9, fused=True)), (3, dict(greedy=True, nucleus_p=None))):
+        kw.update(max_tgt_len=512, max_time_fix_attempts=1, seed=4)
+        want = InfillEngine(tmodel, tvocab, **kw).run_batch(reqs[:n])
+        got = InfillEngine(tmodel, tvocab, mesh=mesh, **kw).run_batch(reqs[:n])
+        assert [(r.events, r.generated) for r in got] == [(r.events, r.generated) for r in want]
+    with pytest.raises(ValueError, match="quantized"):
+        InfillEngine(tmodel, tvocab, mesh=mesh, quant="int8", fused=True)
 
 
 def test_generate_cli_writes_readable_midi(tmp_path):

@@ -271,13 +271,15 @@ def test_micro_batcher_isolates_a_failing_request():
     (["--draft_k", "1"], None),
 ], ids=["flags0-Queue 1 item 8", "flags1-Queue 2 item 4"])
 def test_serve_cli_refuses_unported_options(flags, item, monkeypatch, tmp_path):
-    """``--dp > 1`` raises, naming its ROADMAP item.  ``--draft_k`` is
-    ported: its case, whose id is kept from when it raised too, starts the
-    CLI (its server and its wait stubbed) and finds the option on the
-    serving context's decoder."""
+    """The ids are kept from when both options raised.  ``--dp`` is ported:
+    ``--dp 2`` on a host with fewer devices (the CPU is one) logs the error
+    and returns 1, as JAX's CLI does, before it loads a model.
+    ``--draft_k`` is ported: its case starts the CLI (its server and its
+    wait stubbed) and finds the option on the serving context's decoder."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            serve_cli.main(["--device", "cpu", *flags])
+        monkeypatch.setattr(serve_cli, "load_inference_model",
+                            lambda *a, **k: pytest.fail("loaded a model"))
+        assert serve_cli.main(["--device", "cpu", *flags]) == 1
         return
     made = []
 
@@ -302,19 +304,25 @@ def test_serve_cli_refuses_unported_options(flags, item, monkeypatch, tmp_path):
 
 
 def test_serving_context_refuses_mesh_and_draft_k(contexts):
-    """``mesh`` raises, naming its ROADMAP item.  ``draft_k`` is ported (the
-    name is kept from when it raised too): a context built with it serves a
-    greedy /generate with the events of the context without it."""
+    """The name is kept from when ``mesh`` and ``draft_k`` raised.  Both are
+    ported: a context built with either serves a greedy /generate with the
+    events of the context without it (under a two-CPU mesh the one request
+    is padded with a dummy to a row a shard)."""
+    from smer_music_generation_tpu_torch.parallel.mesh import make_mesh
+
     _, tctx = contexts
     model = tctx.engine.model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingContext(model, tctx.vocab, mesh=object(), batch_window_ms=0)
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    sharded = ServingContext(model, tctx.vocab, mesh=mesh, batch_window_ms=0)
+    assert sharded.engine.mesh is mesh and len(sharded.engine.decoder.shards) == 2
+    sharded.engine = InfillEngine(model, tctx.vocab, greedy=True, nucleus_p=None, fused=True, mesh=mesh)
     spec = ServingContext(model, tctx.vocab, draft_k=2, batch_window_ms=0)
     assert spec.engine.decoder.draft_k == 2
     spec.engine = InfillEngine(model, tctx.vocab, greedy=True, nucleus_p=None, fused=True, draft_k=2)
     enc = tctx.handle_encode({"notes": plugin_payload(), "controls": {"start_bar": 1}})
     payload = {"events": enc["events"], "controls": _unlocked(enc["controls"]),
                "tracks": [1], "bars": [2], "tempo": 100}
-    got = _json(spec.handle_generate(_json(payload)))
     want = _json(tctx.handle_generate(_json(payload)))
-    assert got["events"] == want["events"] and got["notes"] == want["notes"]
+    for ctx in (spec, sharded):
+        got = _json(ctx.handle_generate(_json(payload)))
+        assert got["events"] == want["events"] and got["notes"] == want["notes"]

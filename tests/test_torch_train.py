@@ -277,8 +277,13 @@ def test_bf16_model_with_fused_attn_train_on_and_off(vocab):
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    """The name is kept from when multi-device training raised.  It is
+    ported (``tests/test_torch_parallel.py``): a mesh that a world of one
+    process cannot hold raises the mismatch before any process group."""
+    with pytest.raises(ValueError, match="not divisible by tp=2"):
         loop.Trainer(ExperimentConfig(tp=2), device="cpu")
+    with pytest.raises(ValueError, match="world has 1 processes"):
+        loop.Trainer(ExperimentConfig(n_devices=2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             loop.Trainer(ExperimentConfig(d_model=32, nhead=4, num_layers=1, d_ff=64), device="cuda")

@@ -17,7 +17,7 @@ import torch
 from smer_music_generation_tpu.models.transformer import ModelConfig as JModelConfig
 from smer_music_generation_tpu.models.transformer import ScoreTransformer as JScoreTransformer
 from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
-from smer_music_generation_tpu_torch.train.state import params_from_flax
+from smer_music_generation_tpu_torch.train.state import params_from_flax, params_to_flax
 
 # The port's CPU tests run beside JAX tests in several pytest-xdist workers;
 # torch's intra-op thread pool then oversubscribes the cores and its idle
@@ -91,22 +91,6 @@ def to_torch(tree):
 
 def flax_from_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``params_from_flax``: a state dict back to the flax
-    params tree of f32 numpy arrays (``{"params": ...}``)."""
-    tree: Dict[str, Any] = {}
-    for name, t in state.items():
-        parts = name.split(".")
-        if parts[0] in ("encoder_layers", "decoder_layers"):
-            parts = [f"{parts[0].split('_')[0]}_{parts[1]}"] + parts[2:]
-        a = t.detach().cpu().float().numpy()
-        last = parts[-1]
-        if parts[0] == "embedding":
-            last = "embedding"
-        elif last == "weight" and a.ndim == 2:
-            last, a = "kernel", a.T.copy()
-        elif last == "weight":
-            last = "scale"
-        node = tree
-        for k in parts[:-1]:
-            node = node.setdefault(k, {})
-        node[last] = a
-    return {"params": tree}
+    params tree of f32 numpy arrays (``{"params": ...}``), by the port's
+    own ``train.state.params_to_flax``."""
+    return params_to_flax(state)
