@@ -31,8 +31,9 @@ paths and prints one line per phase with the elapsed seconds:
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
    LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source;
-   ``embed_pe_kernel`` and ``sample_advance_kernel``): the phase fails if
-   one has no entry in the build log or spills;
+   ``embed_pe_kernel``, ``sample_advance_kernel`` and
+   ``spec_advance_kernel`` at vpad 384): the phase fails if one has no
+   entry in the build log or spills;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -147,8 +148,23 @@ paths and prints one line per phase with the elapsed seconds:
    kernel runs in launches of 16), index in {0, 512, 1530}, S in {512, 1536}:
    logits and ``new_kv`` within the phase-2 tolerance, and each row against
    the v2 kernel's step at index + j over the spliced cache (bit-equality
-   counted, else the largest difference); one call timed at W=9, index 512,
-   S 1536 beside its bound, the v2 step at B=1 and its device split;
+   counted, else the largest difference), and the same call at a (1,)
+   position tensor (the spec graph's) bit-equal to it; one call timed at
+   W=9, index 512, S 1536 beside its bound, the v2 step at B=1 and its
+   device split;
+2k. speculative decode as the decoder runs it on the card, one
+   ``SpecGraph`` replay an iteration (the verify's launches,
+   ``spec_advance_kernel``, the cache copy), on the random flagships:
+   whole decodes replayed against the same kernels launched eagerly
+   (``graph=False``), tokens, carry, stream and every cache row bit-equal,
+   SMER and REMI, greedy and nucleus, draft_k 4, 8 and 24 and a session
+   that hits the cap through the tail; every sampling launch of the eager
+   decodes against ``spec_advance_reference`` on its recorded inputs (the
+   carry, stream, window, rows and cache rows bit-equal where the tokens
+   agree; a token may differ only where the twin's acceptance, nucleus or
+   argmax margin is within ``SPEC_MARGIN``, never under greedy, in at most
+   2% of the iterations); the kernel alone at W=9 beside its bound, the
+   launch floor and its twin;
 2f. flash attention vs twin: ``fused_attention`` at B=3, T=S=1536, H=8,
    HD=64, bf16, key lengths 1536/1440/1344, causal and not, and at T, S =
    1000, 777; then a peaked case (q x 4, as a trained encoder's softmax) at
@@ -208,12 +224,17 @@ paths and prints one line per phase with the elapsed seconds:
    bound (``SPLIT_TF32_FLOPS``), the pair's and each kernel's;
 3c. speculative decode served on the trained snapshot: one request at B=1
    through ``InfillEngine(draft_k=8)``, greedy and nucleus, the same request
-   through v3 at B=1 (verify launches, tokens a verify, ms a verify
-   iteration and an emitted token), ``generate_cli --draft_k 8``, one
+   through v3 at B=1 (iterations, tokens an iteration, ms an iteration and
+   an emitted token, the device busy share of a decode call; the host calls
+   that reach the card inside the decode loop, at most ``MAX_LOOP_CALLS``
+   an iteration; one replayed W=9 iteration in CUDA events and in device
+   time, the events within ``REPLAY_OVER_DEVICE`` of it),
+   ``generate_cli --draft_k 8``, one
    ``/generate`` on an in-process server with ``draft_k=8`` and a
-   ``serve_cli --draft_k 8`` process; the counters must show the verify
-   kernel alone; the greedy spec streams at draft_k 8 and 24 against the v2
-   stream of the same request under the margin rule of phase 4;
+   ``serve_cli --draft_k 8`` process; the counters must show the verify's
+   and ``spec_advance_kernel``'s launches alone; the greedy spec streams at
+   draft_k 8 and 24 against the v2 stream of the same request under the
+   margin rule of phase 4;
 3d. flash encoder served on the trained snapshot: the 3 requests of phase 3
    through v3 on the same weights with ``flash_encoder=True``, four
    ``fused_attention`` launches an encode; its greedy stream against the
@@ -248,7 +269,15 @@ paths and prints one line per phase with the elapsed seconds:
    the loss finite and falling, ms a step; then one encode of the batch's
    sources through ``flash_encoder`` at d512/h4 in bf16 and d512/h8 in f32,
    four ``fused_attention`` launches each, against the plain encode on the
-   same weights;
+   same weights; 5e: the flagship depth at head_dims the attention kernels
+   run zero-padded (d512/h16, head_dim 32; d384/h4, head_dim 96): the three
+   wrappers against their twins at the true head_dim in bf16 (phases 2f and
+   2g's bounds) and ``fused_attention`` and the flash-train pair in f32
+   (phases 2f and 2j's f32 bounds), ``PAD_STEPS`` steps with
+   ``fused_attn_train`` (bf16) and with ``flash_training`` (bf16 and f32;
+   phase 5d's rules), a ``flash_encoder`` encode in bf16 and in f32 against
+   the plain one (phase 5d's tolerance for each), and a request through ``InfillDecoder(fused=None)``,
+   which must take the plain loop and launch no decode kernel;
 4. kernel path vs twin path: one greedy request decoded through the kernels
    and through the twin on the card, for v2 and for v3, and where they
    first differ; a difference at a step where the twin's margin between
@@ -305,6 +334,7 @@ import contextlib
 import ctypes
 import dataclasses
 import faulthandler
+import functools
 import hashlib
 import json
 import math
@@ -400,7 +430,8 @@ SAMPLERS = (  # (name, greedy, nucleus_p, temperature)
 # own hold: a name matches the first family (or SASS function) it is in
 FLASH_TRAIN_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train_dkv_kernel")
 FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
-            "embed_pe_kernel", "sample_advance_kernel", "flash_fwd_kernel", *FLASH_TRAIN_KERNELS,
+            "embed_pe_kernel", "sample_advance_kernel", "spec_advance_kernel", "flash_fwd_kernel",
+            *FLASH_TRAIN_KERNELS,
             "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel",
             "attn_f32_fwd_kernel", "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
 # the kernels on the tensor cores: phase 1 reads their SASS and their ptxas
@@ -437,6 +468,19 @@ H_WIDE, HD_WIDE = 4, 128
 # value at most) plus what rounds near zero
 ATTN_ATOL, ATTN_RTOL = 1e-3, 2 ** -7
 SPEC_K = 8  # draft_k of the served speculative decode (JAX measured 8)
+# phase 2k: the draft_k of its whole decodes (the served 8, a narrow and a
+# wide window, 25 rows: two row-vector launches), and the twin's margin
+# within which spec_advance_kernel may take another token than its twin:
+# the two sum the same f32 values in another order (the log-softmax's, the
+# kept mass's, the nucleus rule's), so P(draft), a lane's mass above and a
+# score may move by a few ulp of 1.0 (1.2e-7 each); 1e-5 is ~80 of them
+SPEC_KS = (4, 8, 24)
+SPEC_MARGIN = 1e-5
+SPEC_CAP_L = 192  # phase 2k's session that hits the cap: max_tgt_len
+# phase 5e: the flagship depth at head_dims the kernels run zero-padded,
+# (d_model, nhead): head_dim 32 and 96
+PAD_HEADS = ((512, 16), (384, 4))
+PAD_STEPS = 4
 # the six matrices of a decoder layer as the row-vector kernel reads them:
 # (name, packed key, row stride, first column (bias and scale strip), K, N,
 # relu); the logits (D -> vpad, f32) are the seventh projection of a token
@@ -463,6 +507,7 @@ DECODE_KERNELS = {
     "attend_kernel<64, window>": "attend_kernelILi64ELi2E",
     "embed_pe_kernel": "embed_pe_kernel",
     "sample_advance_kernel": "sample_advance_kernel",
+    "spec_advance_kernel<vpad 384>": "spec_advance_kernelILi12E",
 }
 DECODE_SPILL_BYTES = 0
 # the projections whose output feeds a post-LN, with the LayerNorm rows of
@@ -1591,7 +1636,7 @@ def phase_verify_vs_twin(dev, flagships):
     against the v2 kernel's step over the spliced cache."""
     LV = 1600  # the self cache: index + W <= 1554
     g = torch.Generator(device=dev).manual_seed(8)
-    worst, report, cases, equal, step_diff = 0.0, None, 0, 0, 0.0
+    worst, report, cases, equal, step_diff, pos_equal = 0.0, None, 0, 0, 0.0, 0
     for vocab, packed, vpad in flagships:
         kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
         V = vocab.vocab_size
@@ -1616,6 +1661,14 @@ def phase_verify_vs_twin(dev, flagships):
                         raise AssertionError(f"verify disagrees with its twin at {vocab.mode=} S={S} "
                                              f"W={W} index={index}: max |kernel - twin| {err:.3e}")
                     worst = max(worst, err)
+                    # the position read on the device (the spec graph's), the
+                    # splits sized from the cache's capacity: the same bits
+                    pos_t = torch.tensor([index], dtype=torch.int32, device=dev)
+                    lt, kt = ds.fused_verify_window(packed, x, self_kv, cross_kv, pos_t, cross_len, **kw)
+                    if not (torch.equal(lt, lg) and torch.equal(kt, kv)):
+                        raise AssertionError(f"the verify at a position tensor differs from the verify "
+                                             f"at the host's index {index} (S={S}, W={W})")
+                    pos_equal += 1
                     # row j against the v2 kernel's step at index + j
                     cache = self_kv.clone()
                     same = True
@@ -1646,8 +1699,239 @@ def phase_verify_vs_twin(dev, flagships):
                 f"{equal} bit-equal to the v2 steps")
     say(f"  {cases} cases within atol {ATOL} + rtol {RTOL} of the twin (max {worst:.3e}); "
         f"{equal} of {cases} bit-equal to W sequential v2 kernel steps over the spliced cache "
-        f"(largest difference {step_diff:.3e})")
+        f"(largest difference {step_diff:.3e}); {pos_equal} of {cases} bit-equal at a (1,) position "
+        "tensor")
     return worst, report
+
+
+def spec_request(rng, vocab, S: int, n_spans: int):
+    """A B=1 request in the decoder's input form: S source ids (the last
+    tenth padding), MAX_SPANS span types (mostly bodies), ``n_spans`` spans
+    and a no_whole flag."""
+    src = rng.integers(3, vocab.vocab_size, (1, S))
+    src[:, S - S // 10 :] = 0
+    span_types = np.where(rng.random((1, MAX_SPANS)) < 0.7, 0, rng.integers(1, 5, (1, MAX_SPANS)))
+    return src, span_types, np.array([n_spans]), np.array([rng.random() < 0.5])
+
+
+def spec_graph_of(dec):
+    """The decoder's SpecGraph (its last decode's buffers)."""
+    return next(g for g in reversed(dec.graphs.graphs.values()) if isinstance(g, dg.SpecGraph))
+
+
+class SpecRecorder:
+    """Records, for every ``spec_advance_kernel`` launch of a SpecGraph that
+    samples (not the prime), the kernel's inputs (carry, output, window and
+    the verify's logits) and outputs, for holding the kernel against its twin
+    after the decode."""
+
+    def __init__(self, limit: int = 400):
+        self.records, self.limit = [], limit
+        self.inner = dg.SpecGraph._advance
+
+    def __call__(self, graph, logits, W, *, prime=False, stream=None):
+        if prime or len(self.records) >= self.limit:
+            return self.inner(graph, logits, W, prime=prime, stream=stream)
+        before = (graph.carry.clone(), graph.out.clone(), graph.window[:W].clone(), logits.clone())
+        self.inner(graph, logits, W, prime=prime, stream=stream)
+        after = {k: getattr(graph, k).clone() for k in ("carry", "out")}
+        after.update({k: getattr(graph, k)[:W].clone() for k in ("window", "x", "kv_rows")})
+        self.records.append((graph, before, after))
+
+
+def spec_margin(graph, carry, window, logits, j):
+    """The twin's margin at slot j of an iteration (the sampler's inputs
+    ``carry``, ``window`` and ``logits``): the smallest of the gap between
+    its argmax's best and second score, the distance of any kept lane's
+    mass above from nucleus_p, and (a slot with a draft) |u - P(draft)|."""
+    from smer_music_generation_tpu_torch.infer.sampling import nucleus_log_probs
+
+    skw, V = graph.skw, graph.fast_tables[2].shape[1]
+    _, _, _, _, allowed = ds.spec_slot_rows(
+        carry, window, graph.span_types, bool(graph.aux[1]), graph.fast_tables, mode=skw["mode"],
+        max_spans=skw["max_spans"], mask_index=skw["mask_index"])
+    lg, al = logits[j : j + 1, :V], allowed[j : j + 1]
+    if skw["greedy"]:
+        top = torch.where(al, lg, ds.NEG)[0].topk(2).values
+        return float(top[0] - top[1])
+    p, T = skw["nucleus_p"], skw["temperature"]
+    pos, K = int(carry[ds.SPEC_POS]), window.shape[0] - 1
+    logp = nucleus_log_probs(lg, al, p, T)[0]
+    masked = torch.where(al, lg, ds.NEG) / T
+    probs = torch.exp(masked - torch.logsumexp(masked, -1, keepdim=True))[0]
+    above = (probs[None, :] * (probs[None, :] > probs[:, None])).sum(-1)
+    margins = [float((above[probs > 0] - p).abs().min())] if p is not None else []
+    score = logp + graph.noise[pos + j, :V]
+    if j < K:
+        d = max(int(window[j + 1]), 0)
+        kept = logp > ds.NEG / 2
+        p_draft = float(torch.exp(logp[d]) / torch.where(kept, torch.exp(logp), 0.0).sum().clamp(min=1e-38))
+        margins.append(abs(float(graph.uniforms[pos + j]) - p_draft))
+        score = score.clone()
+        score[d] = ds.NEG
+    top = score.topk(2).values
+    margins.append(float(top[0] - top[1]))
+    return min(margins)
+
+
+def spec_against_twin(records):
+    """Each recorded iteration through the twin (on the card, the same
+    inputs): returns (iterations, bit-equal, within the margin, largest
+    |x kernel - x twin| where the tokens agree).  Where the tokens agree the
+    carry, stream, window, input rows and cache rows must be bit-equal
+    (equal tokens with another carry fail);
+    where they part, the twin's margin at the first slot that differs must
+    be within SPEC_MARGIN (never under greedy, whose argmax reads the same
+    logits)."""
+    equal = close = 0
+    x_err = 0.0
+    for graph, (carry, out, window, logits), got in records:
+        want = ds.spec_advance_reference(
+            logits, carry, out, window, graph.src, graph.span_types, graph.aux, graph.fast_tables,
+            graph.noise, graph.uniforms, graph.emb, graph.pos_table, compute_dtype=graph.cdt,
+            **graph.skw)
+        if torch.equal(want["out"], got["out"]) and torch.equal(want["carry"], got["carry"]):
+            for k in ("window", "x", "kv_rows"):
+                if not torch.equal(want[k], got[k]):
+                    raise AssertionError(f"spec_advance_kernel: {k} differs from its twin's where the "
+                                         f"tokens agree (carry {carry.tolist()})")
+            x_err = max(x_err, (want["x"] - got["x"]).abs().max().item())
+            equal += 1
+            continue
+        pos, W = int(carry[ds.SPEC_POS]), window.shape[0]
+        diff = (want["out"][pos + 1 : pos + 1 + W] != got["out"][pos + 1 : pos + 1 + W]).nonzero()
+        if not len(diff):  # a near-tie parts the tokens; a carry alone is wrong
+            raise AssertionError(
+                f"spec_advance_kernel: the carry differs from its twin's where the tokens agree: "
+                f"kernel {got['carry'].tolist()}, twin {want['carry'].tolist()} (window at {pos})")
+        j = int(diff[0])
+        margin = spec_margin(graph, carry, window, logits, j)
+        if graph.skw["greedy"] or not margin < SPEC_MARGIN:
+            raise AssertionError(
+                f"spec_advance_kernel departs from its twin at slot {j} of the window at {pos} where "
+                f"the twin's margin {margin:.3e} exceeds {SPEC_MARGIN:g} (greedy "
+                f"{graph.skw['greedy']}): kernel {got['out'][pos + 1 : pos + 1 + W].tolist()}, "
+                f"twin {want['out'][pos + 1 : pos + 1 + W].tolist()}")
+        close += 1
+    return len(records), equal, close, x_err
+
+
+def spec_bound_ms(graph, records, W: int, V: int):
+    """The least time of one ``spec_advance_kernel`` launch of W slots on
+    this run's inputs (the first recorded window iteration): each input
+    read once, each output written once, over 3.35 TB/s; its nucleus rule
+    a compare and an add for each pair of a slot's nonzero probabilities
+    (the allowed lanes of the slot's grammar row) at 67 TFLOP/s.  Reads:
+    the carry, the window, the W slots' V logits, V mask entries and
+    (nucleus) V noise entries and a uniform, their span types and next_bits
+    entries, sid_tbl, aux, the output row up to the position and the source
+    row (the bigram scan), the next window's W embedding and PE rows;
+    writes: the carry, the window, W output slots, W x D input rows and W
+    cache-row indices."""
+    rec = next(r for r in records if r[1][2].shape[0] == W)
+    graph, (carry, _, window, _), _ = rec
+    pos, D = int(carry[ds.SPEC_POS]), graph.emb.shape[1]
+    nucleus = not graph.skw["greedy"]
+    reads = (ds.SPEC_CARRY * 4 + W * 4 + W * V * 4 * (3 if nucleus else 2) + W * 4 * 3 + 16 * 4
+             + 2 * 4 + (pos + 1) * 4 + graph.src.shape[0] * 4 + 2 * W * D * 4)
+    writes = ds.SPEC_CARRY * 4 + W * 4 + W * 4 + W * D * 4 + W * 8
+    ops = 0
+    if nucleus and graph.skw["nucleus_p"] is not None:
+        _, _, _, _, allowed = ds.spec_slot_rows(
+            carry, window, graph.span_types, bool(graph.aux[1]), graph.fast_tables,
+            mode=graph.skw["mode"], max_spans=graph.skw["max_spans"],
+            mask_index=graph.skw["mask_index"])
+        ops = 2 * sum(int(n) ** 2 for n in allowed.sum(-1).tolist())
+    t_bytes, t_ops = 1e3 * (reads + writes) / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOPS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), reads + writes
+
+
+def spec_kernel_alone(graph, rec):
+    """``spec_advance_kernel`` alone (its wrapper ``spec_advance``, on new
+    copies of the carry, stream and window) on a recorded iteration's
+    inputs: its device µs a launch (the profiler), and its twin's ms on the
+    same inputs (events)."""
+    _, (carry, out, window, logits), _ = rec
+    args = (logits, carry, out, window, graph.src, graph.span_types, graph.aux, graph.tables,
+            graph.fast_tables, graph.noise, graph.uniforms, graph.emb, graph.pos_table)
+    spans = [e - s for name, s, e in device_spans(
+        lambda: ds.spec_advance(*args, compute_dtype=graph.cdt, **graph.skw), iters=20)
+        if "spec_advance_kernel" in name]
+    plain_ms = cuda_ms(lambda: ds.spec_advance_reference(
+        *args[:7], graph.fast_tables, *args[9:], compute_dtype=graph.cdt, **graph.skw),
+        iters=5, warmup=1)
+    return (sum(spans) / len(spans) if spans else float("nan")), plain_ms
+
+
+def phase_spec_graph(dev, flagships):
+    """Phase 2k: speculative decode's iteration as the decoder runs it on
+    the card (``SpecGraph``: the verify's launches, ``spec_advance_kernel``
+    and the cache copy, one CUDA-graph replay an iteration) on the random
+    flagships: whole decodes replayed against the same kernels launched
+    eagerly (a SpecGraph with ``graph=False``), bit-equal in tokens, carry,
+    stream and every cache row, for SMER and REMI, greedy and nucleus,
+    draft_k 4, 8 and 24 and a session that hits the cap; every sampling
+    launch of the eager decodes held against ``spec_advance_reference`` on
+    its recorded inputs (:func:`spec_against_twin`); ``spec_advance_kernel``
+    alone at the served width beside its bound, the launch floor and its
+    twin."""
+    rng = np.random.default_rng(11)
+    eager_open = functools.partial(dg.open_spec_graph, graph=False)
+    cases = [(g, k, L) for g in (True, False) for k in SPEC_KS] + [(False, SPEC_K, SPEC_CAP_L)]
+    totals = dict(iterations=0, equal=0, close=0, x_err=0.0, decodes=0)
+    report = None
+    for vocab, model, _, vpad in flagships:
+        for greedy, k, Lc in cases:
+            asm = spec_request(rng, vocab, 1536 if Lc == L else 512, 4 if Lc == L else 16)
+            kw = dict(max_tgt_len=Lc, greedy=greedy, nucleus_p=None if greedy else 0.9, draft_k=k,
+                      seed=5)
+            dec = InfillDecoder(model, vocab, fused=True, **kw)
+            got = dec(*asm)
+            replayed = spec_graph_of(dec)
+            rec = SpecRecorder()
+            with mock.patch.object(decode_mod, "open_spec_graph", eager_open), \
+                    mock.patch.object(dg.SpecGraph, "_advance", lambda g, *a, **kw_: rec(g, *a, **kw_)):
+                eager_dec = InfillDecoder(model, vocab, fused=True, **kw)
+                want = eager_dec(*asm)
+            eager = spec_graph_of(eager_dec)
+            torch.cuda.synchronize()
+            label = f"vocab_mode {vocab.mode} {'greedy' if greedy else 'nucleus'} draft_k {k} L {Lc}"
+            same = (torch.equal(got.tokens, want.tokens) and torch.equal(got.lengths, want.lengths)
+                    and got.steps == want.steps and torch.equal(replayed.carry, eager.carry)
+                    and torch.equal(replayed.out, eager.out)
+                    and torch.equal(replayed.cache, eager.cache))
+            if not same or eager.use_graph or not replayed.use_graph or not replayed._graphs:
+                raise AssertionError(f"{label}: the replayed decode differs from the eager one")
+            if Lc < L and not (int(got.lengths[0]) == Lc and got.steps == Lc - 1):
+                raise AssertionError(f"{label}: the session did not fill the buffer through the "
+                                     f"tail: length {int(got.lengths[0])}, {got.steps} positions")
+            n, eq, close, x_err = spec_against_twin(rec.records)
+            totals["iterations"] += n
+            totals["equal"] += eq
+            totals["close"] += close
+            totals["x_err"] = max(totals["x_err"], x_err)
+            totals["decodes"] += 1
+            say(f"  {label}: replayed = eager in tokens, carry, stream and cache ({got.steps} "
+                f"positions, length {int(got.lengths[0])}, graphs for W {sorted(replayed._graphs)}); "
+                f"the kernel against its twin on {n} iterations: {eq} bit-equal, {close} within the "
+                "margin")
+            if report is None and vocab.mode == 0 and not greedy and k == SPEC_K and Lc == L:
+                window_rec = next(r for r in rec.records if r[1][2].shape[0] == k + 1)
+                bound, by, nbytes = spec_bound_ms(eager, rec.records, k + 1, vocab.vocab_size)
+                alone_us, plain_ms = spec_kernel_alone(eager, window_rec)
+                floor_us, floor_events_us = launch_floor_us(dev, 1, 512, 0)
+                report = dict(ms=alone_us / 1e3, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                say(f"  spec_advance_kernel alone (W={k + 1}, nucleus, vpad {vpad}): {alone_us:.2f} us "
+                    f"of device time a launch; bound {1e3 * bound:.4f} us ({by}; {nbytes} B); launch "
+                    f"floor {floor_us:.2f} us (events {floor_events_us:.2f}); twin {plain_ms:.3f} ms")
+    share = totals["close"] / max(totals["iterations"], 1)
+    say(f"  {totals['decodes']} decodes replayed = eager; spec_advance_kernel against its twin on "
+        f"{totals['iterations']} iterations: {totals['equal']} bit-equal, {totals['close']} within "
+        f"the margin {SPEC_MARGIN:g} ({share:.2%}); max |x kernel - x twin| {totals['x_err']:.3e}")
+    if share > MAX_CLOSE_SHARE:
+        raise AssertionError(f"spec_advance_kernel parts from its twin in {share:.2%} of the "
+                             f"iterations (at most {MAX_CLOSE_SHARE:.0%})")
+    return totals["x_err"], report
 
 
 def rowvec_cases(packed, vpad, V):
@@ -2743,7 +3027,8 @@ def reset_counts() -> None:
 def counts():
     return dict(v2=ds.fused_decode_step.launches, v3=ds.fused_decode_token.launches,
                 v4=ds.fused_decode_tokens.launches, int8=ds.rowvec_int8.launches,
-                verify=ds.fused_verify_window.launches, attn=attn.fused_attention.launches,
+                verify=ds.fused_verify_window.launches, spec=ds.spec_advance.launches,
+                attn=attn.fused_attention.launches,
                 v2_twin=ds.fused_decode_step_reference.calls,
                 v3_twin=ds.fused_decode_token_reference.calls,
                 v4_twin=ds.fused_decode_tokens_reference.calls,
@@ -2752,6 +3037,7 @@ def counts():
                 ta_fwd_twin=ta.dropout_attention_fwd_reference.calls,
                 ta_bwd_twin=ta.dropout_attention_bwd_reference.calls,
                 verify_twin=ds.fused_verify_window_reference.calls,
+                spec_twin=ds.spec_advance_reference.calls,
                 attn_twin=attn.attention_reference.calls,
                 ft_fwd=ft.flash_train_fwd.launches, ft_bwd=ft.flash_train_bwd.launches,
                 ft_fwd_twin=ft.flash_train_fwd_reference.calls,
@@ -3169,9 +3455,115 @@ def check_divergence(model, vocab, asm, a, b, label, other, *, f32_row: bool, qu
         )
 
 
+MAX_LOOP_CALLS = 3  # 3c: host calls reaching the card an iteration of the spec decode loop
+REPLAY_OVER_DEVICE = 1.3  # 3c: a replayed iteration's events over its device time, at most
+
+
+def loop_host_calls(fn):
+    """The CUDA runtime calls that reach the card (kernel launches, graph
+    launches, copies, sets) inside the decoder's ``spec_decode_loop`` range
+    of one ``fn()`` under the profiler (the encode and the loads before the
+    loop left out), by name, and the iterations the loop ran (its verify
+    count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = ds.fused_verify_window.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    iters = ds.fused_verify_window.launches - before
+    events = prof.events()
+    loop = [e for e in events if e.name == "spec_decode_loop" and e.device_type == DeviceType.CPU]
+    if len(loop) != 1:
+        raise AssertionError(f"expected one spec_decode_loop range in the profile, got {len(loop)}")
+    lo, hi = loop[0].time_range.start, loop[0].time_range.end
+    calls = {}
+    for e in events:
+        if (e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset"))
+                and lo <= e.time_range.start <= hi):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls, iters
+
+
+def loop_ms(fn, loops, reps: int = 5):
+    """The wall time of the decoder's token loops alone, the functions of
+    ``infer/decode.py`` named in ``loops`` (``_spec_phase``, the spec
+    decode's window phase and its tail, read-backs of (pos, done) included;
+    ``_step_tokens``, v3's), in ``reps`` calls of ``fn`` (which returns the
+    DecodeResult), with no profiler on: the card is synchronised before each
+    loop's start and after its end, so the encode and the loads before it
+    are left out.  Returns the loops' ms, the positions the calls emitted
+    and the verifies they stepped, each summed over the calls."""
+    total = [0.0]
+
+    def timed(loop):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = loop(*args, **kw)
+            torch.cuda.synchronize()
+            total[0] += time.perf_counter() - t
+            return r
+        return run
+
+    steps, before = 0, ds.fused_verify_window.launches
+    with contextlib.ExitStack() as stack:
+        for name in loops:
+            stack.enter_context(mock.patch.object(decode_mod, name, timed(getattr(decode_mod, name))))
+        for _ in range(reps):
+            steps += fn().steps
+    if not total[0] > 0:
+        raise AssertionError(f"none of {loops} ran in {reps} decode calls")
+    return 1e3 * total[0], steps, ds.fused_verify_window.launches - before
+
+
+def spec_replay_times(graph, W: int, iters: int = 20, warm: int = 10):
+    """One replayed W-row iteration of ``graph`` (the decoder's SpecGraph,
+    reloaded with its last decode's inputs and stepped ``warm`` iterations
+    in), its buffers put back before each: (ms of CUDA events around the
+    replay, device µs of its kernels by the profiler, device µs by kernel
+    family)."""
+    graph.load(graph.src, graph.span_types, graph.aux, graph.noise, graph.uniforms,
+               graph.cross_kv.clone(), graph.cross_len[:1].clone())
+    for _ in range(warm):
+        graph.step(W)
+    if bool(graph.carry[ds.SPEC_DONE]):
+        raise AssertionError("the timed spec iteration would be a no-op")
+    bufs = (graph.carry, graph.out, graph.window, graph.x, graph.kv_rows, graph.cache)
+    snap = [t.clone() for t in bufs]
+    marks = []
+
+    def one():
+        for t, v in zip(bufs, snap):
+            t.copy_(v)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.step(W)
+        b.record()
+        marks.append((a, b))
+
+    for _ in range(3):
+        one()
+    marks.clear()
+    for _ in range(iters):
+        one()
+    torch.cuda.synchronize()
+    ev_ms = sum(a.elapsed_time(b) for a, b in marks) / iters
+    spans = [(n, e - s) for n, s, e in device_spans(one, iters) if "Memcpy" not in n and "Memset" not in n]
+    by = {}
+    for n, us in spans:
+        fam = next((f for f in FAMILIES if f in n), "other")
+        by[fam] = by.get(fam, 0.0) + us / iters
+    return ev_ms, sum(by.values()), by
+
+
 def phase_spec(model, vocab, events, score, workdir):
-    """Speculative decode served at B=1 through the verify kernel."""
-    launches = 0
+    """Speculative decode served at B=1: one SpecGraph replay an iteration
+    (the verify's launches and spec_advance_kernel)."""
+    launches = spec_launches = 0
     asm = greedy_request(model, vocab, events)
     say(f"  the request: bars [5, 6] of track 0, src {asm[0].shape[1]} ids")
     report = {}
@@ -3187,33 +3579,64 @@ def phase_spec(model, vocab, events, score, workdir):
             wall = time.perf_counter() - t
             emitted = out.steps  # the positions decoded, the done padding included
             if k:
-                verifies = check_counts(f"spec decode (draft_k={k}, {name})", ["verify"])
+                verifies = check_counts(f"spec decode (draft_k={k}, {name})", ["verify", "spec"])
                 launches += verifies
+                spec_launches += counts()["spec"]
                 report[name] = dict(verifies=verifies, emitted=emitted, ms_verify=1e3 * wall / verifies,
                                     ms_token=1e3 * wall / emitted)
-                say(f"  {name} draft_k={k}: {verifies} verify calls for {emitted} positions, "
-                    f"{emitted / verifies:.3f} tokens a verify, {1e3 * wall / verifies:.3f} ms a verify "
-                    f"iteration, {1e3 * wall / emitted:.3f} ms an emitted token ({1e3 * wall:.1f} ms, "
-                    f"the encode included)")
+                say(f"  {name} draft_k={k}: {verifies} iterations (graph replays) for {emitted} "
+                    f"positions, {emitted / verifies:.3f} tokens an iteration, {1e3 * wall / verifies:.3f} "
+                    f"ms an iteration, {1e3 * wall / emitted:.3f} ms an emitted token "
+                    f"({1e3 * wall:.1f} ms, the encode included)")
                 # where one decode call's time goes (the profiler's own cost included)
                 split, host, _ = profiled(lambda: eng.decoder(*asm[:4]), iters=1)
                 t = time.perf_counter()
                 eng.decoder(*asm[:4])
                 torch.cuda.synchronize()
-                say_split(split, 1e3 * (time.perf_counter() - t))
+                ms_call = 1e3 * (time.perf_counter() - t)
+                say_split(split, ms_call)
                 say("    host ops by self CPU time: " + ", ".join(
                     f"{key} {us / 1e3:.1f} ms x{n}" for key, us, n in host))
+                if split is not None:
+                    report[name]["busy"] = sum(split.values()) / (1e3 * ms_call)
+                ms, pos, iters = loop_ms(lambda: eng.decoder(*asm[:4]), ["_spec_phase"])
+                report[name].update(loop_ms_token=ms / pos, loop_ms_verify=ms / iters)
+                say(f"    the decode loop alone (the encode left out, no profiler), 5 calls: {ms:.4f} ms "
+                    f"for {iters} iterations and {pos} positions, {ms / iters:.4f} ms an iteration, "
+                    f"{ms / pos:.4f} ms an emitted token")
+                calls, iters = loop_host_calls(lambda: eng.decoder(*asm[:4]))
+                per_iter = sum(calls.values()) / max(iters, 1)
+                report[name]["host_calls"] = per_iter
+                say(f"    the decode loop's host calls that reach the card (the encode left out): "
+                    f"{calls} over {iters} iterations, {per_iter:.2f} an iteration")
+                if per_iter > MAX_LOOP_CALLS:
+                    raise AssertionError(f"the spec decode loop makes {per_iter:.2f} host calls an "
+                                         f"iteration (at most {MAX_LOOP_CALLS})")
+                ev_ms, dev_us, node_us = spec_replay_times(spec_graph_of(eng.decoder), k + 1)
+                report[name].update(replay_ms=ev_ms, replay_device_us=dev_us)
+                say(f"    one replayed W={k + 1} iteration: {ev_ms:.4f} ms of CUDA events, "
+                    f"{dev_us:.1f} us of device time ({1e3 * ev_ms / dev_us:.2f}x); by kernel: " +
+                    ", ".join(f"{n} {u:.1f} us" for n, u in node_us.items()))
+                if not ev_ms * 1e3 <= REPLAY_OVER_DEVICE * dev_us:
+                    raise AssertionError(f"a replayed iteration takes {ev_ms:.4f} ms of events for "
+                                         f"{dev_us:.1f} us of device time (at most "
+                                         f"{REPLAY_OVER_DEVICE}x)")
             else:
                 check_counts(f"v3 at B=1 ({name})", ["v3"])
                 say(f"  {name} v3 at B=1: {emitted} steps, {1e3 * wall / max(emitted, 1):.3f} ms a token "
                     f"({1e3 * wall:.1f} ms)")
                 report[name]["v3_ms_token"] = 1e3 * wall / max(emitted, 1)
+                ms, pos, _ = loop_ms(lambda: eng.decoder(*asm[:4]), ["_step_tokens"])
+                report[name]["v3_loop_ms_token"] = ms / pos
+                say(f"    v3's token loop alone (the encode left out, no profiler), 5 calls: {ms:.4f} ms "
+                    f"for {pos} positions, {ms / pos:.4f} ms a token")
         # the served path: run_batch of the one request (the bar-time retries included)
         eng = InfillEngine(model, vocab, greedy=greedy, nucleus_p=p, max_tgt_len=L, draft_k=SPEC_K, seed=0)
         req = eng.prepare(events, [0], [5, 6])
         reset_counts()
         serve_requests(eng, [req], workdir, f"spec_{name}_")
-        launches += check_counts(f"run_batch (draft_k={SPEC_K}, {name})", ["verify"])
+        launches += check_counts(f"run_batch (draft_k={SPEC_K}, {name})", ["verify", "spec"])
+        spec_launches += counts()["spec"]
 
     reset_counts()
     midi_in = os.path.join(workdir, "in.mid")
@@ -3225,7 +3648,8 @@ def phase_spec(model, vocab, events, score, workdir):
     if rc != 0:
         raise RuntimeError(f"generate_cli --draft_k returned {rc}")
     say(f"  generate_cli --draft_k {SPEC_K} (greedy, bars 3-4 of track 1): {time.perf_counter() - t:.2f} s")
-    launches += check_counts(f"generate_cli --draft_k {SPEC_K}", ["verify"])
+    launches += check_counts(f"generate_cli --draft_k {SPEC_K}", ["verify", "spec"])
+    spec_launches += counts()["spec"]
 
     ctx = ServingContext(model, vocab, draft_k=SPEC_K)
     reset_counts()
@@ -3245,17 +3669,19 @@ def phase_spec(model, vocab, events, score, workdir):
         server.shutdown()
         server.server_close()
         ctx.close()
-    launches += check_counts(f"HTTP /generate (draft_k={SPEC_K})", ["verify"])
+    launches += check_counts(f"HTTP /generate (draft_k={SPEC_K})", ["verify", "spec"])
+    spec_launches += counts()["spec"]
     phase_serve_cli(score, ["--draft_k", str(SPEC_K)])
 
     b = greedy_stream(model, vocab, asm, fused_sampling=False)
     for k in (SPEC_K, 24):  # the served width, and a window of 25 rows (two row-vector launches)
         reset_counts()
         a = greedy_stream(model, vocab, asm, draft_k=k)
-        check_counts(f"greedy spec decode (draft_k={k})", ["verify"])
+        check_counts(f"greedy spec decode (draft_k={k})", ["verify", "spec"])
         # both round the input rows to bf16 (the verify as v2 does)
         check_divergence(model, vocab, asm, a, b, f"spec (draft_k={k})", "v2", f32_row=False,
                          either=True)
+    report["spec_launches"] = spec_launches
     return launches, report
 
 
@@ -3321,7 +3747,8 @@ def train_batch(vocab, dev, B: int = TRAIN_B, S: int = TRAIN_SRC, T: int = TRAIN
 
 
 def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = False,
-                steps: int = TRAIN_STEPS, warm: int = TRAIN_WARM, dtype=torch.bfloat16, nhead: int = H):
+                steps: int = TRAIN_STEPS, warm: int = TRAIN_WARM, dtype=torch.bfloat16, nhead: int = H,
+                d_model: int = D):
     """``steps`` lean train steps of the seeded flagship (bf16 and 8 heads
     unless asked otherwise, dropout 0.1) on one batch, with
     ``fused_attn_train`` or ``flash_training``; every count at 0 just before
@@ -3329,7 +3756,7 @@ def train_steps(dev, vocab, tables, batch, fused: bool = False, flash: bool = Fa
     ``warm``, the counts, the step function and the attention blocks a
     step)."""
     torch.manual_seed(0)
-    model = build_model(vocab.vocab_size, nhead=nhead, dropout=0.1, dtype=dtype,
+    model = build_model(vocab.vocab_size, d_model=d_model, nhead=nhead, dropout=0.1, dtype=dtype,
                         fused_attn_train=fused, flash_training=flash).to(dev)
     per_step = len(model.encoder_layers) + 2 * len(model.decoder_layers)
     state = TrainState.create(model, lr=ExperimentConfig().lr)
@@ -3499,6 +3926,150 @@ def phase_wide(dev):
         del plain, flash
         torch.cuda.empty_cache()
     return out
+
+
+def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
+    """The attention wrappers at a head_dim they run zero-padded, against
+    their twins at that head_dim on the card, at B=3, T=S=640 (the
+    flash-train kernels: 512x512 causal), ~10% of keys invalid and a batch
+    row with none.  bf16: the three wrappers, outputs within phase 2f's and
+    2g's bounds, gradients within ``TA_REL``; f32: ``fused_attention``
+    (``attn_f32_fwd_kernel``) and the flash-train forward and backward pair
+    (the dropout-attention kernels take bf16 only, and the model sends f32
+    to the plain path) within F32_ATOL/F32_RTOL and F32_REL, as phases 2f
+    and 2j hold them.  Returns the largest differences."""
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(hd)
+    B, T = 3, 640
+    mk = lambda n: torch.randn(B, n, nhead, hd, generator=g, device=dev).to(dtype)
+    q, k, v, go = mk(T), mk(T), mk(T), mk(T)
+    valid = torch.rand(B, T, generator=g, device=dev) < 0.9
+    valid[1] = False
+    valid[0, 0] = valid[2, 0] = True
+    lens = torch.tensor([T, 0, T - 77], dtype=torch.int32, device=dev)
+    out = {}
+    atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (ATTN_ATOL, ATTN_RTOL)
+    got = attn.fused_attention(q, k, v, lens)
+    want = attn.attention_reference(q, k, v, lens)
+    out["fused_attention"] = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"fused_attention at head_dim {hd} ({dtype}): max {out['fused_attention']:.3e}")
+    if f32:
+        return {**out, **padded_flash_vs_twins(q, k, v, go, valid, hd, F32_ATOL, F32_RTOL,
+                                               {n: F32_REL for n in ("dq", "dk", "dv")})}
+    seed = ta.seed_tensor(TA_SEEDS[0], dev)
+    got = ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1)
+    want = ta.dropout_attention_fwd_reference(q, k, v, valid, seed, 0.1)
+    out["train fwd"] = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=TA_ATOL, rtol=TA_RTOL):
+        raise AssertionError(f"train attention forward at head_dim {hd}: max {out['train fwd']:.3e}")
+    grads = ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1)
+    twins = ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, 0.1)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
+        out[f"train {name}"] = rel_norm(a.float(), b.float())
+        if not out[f"train {name}"] < TA_REL[name]:
+            raise AssertionError(f"train attention {name} at head_dim {hd}: {out[f'train {name}']:.3e}")
+    return {**out, **padded_flash_vs_twins(q, k, v, go, valid, hd, TA_ATOL, TA_RTOL, TA_REL)}
+
+
+def padded_flash_vs_twins(q, k, v, go, valid, hd: int, atol: float, rtol: float, rel: dict) -> dict:
+    """The flash-train forward and backward at a padded head_dim against
+    their twins on the first 512 rows of ``padded_ops_vs_twins``'s inputs,
+    causal: the output within atol + rtol, each gradient within ``rel``."""
+    out, tag = {}, f"head_dim {hd} ({q.dtype})"
+    Tf = 512
+    qf, kf, vf, gf = (t[:, :Tf].contiguous() for t in (q, k, v, go))
+    vf_valid = valid[:, :Tf].contiguous()
+    vf_valid[1, 0] = True
+    got, stats = ft.flash_train_fwd(qf, kf, vf, vf_valid, causal=True)
+    want, _ = ft.flash_train_fwd_reference(qf, kf, vf, vf_valid, causal=True)
+    out["flash fwd"] = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"flash-train forward at {tag}: max {out['flash fwd']:.3e}")
+    grads = ft.flash_train_bwd(qf, kf, vf, vf_valid, got, stats, gf, causal=True)
+    twins = ft.flash_train_bwd_reference(qf, kf, vf, vf_valid, got, stats, gf, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
+        out[f"flash {name}"] = rel_norm(a.float(), b.float())
+        if not out[f"flash {name}"] < rel[name]:
+            raise AssertionError(f"flash-train {name} at {tag}: {out[f'flash {name}']:.3e}")
+    return out
+
+
+def phase_head_dims(dev):
+    """Phase 5e: the flagship depth (4 + 4 layers, d_ff 2048) at head_dims
+    the attention kernels run zero-padded (``PAD_HEADS``: d512/h16, head_dim
+    32; d384/h4, head_dim 96), from a seeded init: the wrappers against
+    their twins in bf16 and f32 (:func:`padded_ops_vs_twins`); PAD_STEPS
+    steps at 8 x 640 + 384 with ``fused_attn_train`` (bf16) and with
+    ``flash_training`` (bf16 and f32), each launching its option's kernels
+    on every attention call and nothing else, the loss finite and falling
+    (phase 5d's rules); a ``flash_encoder`` encode in bf16 and in f32
+    against the plain encode on the same weights (``WIDE_ENCODE``'s
+    tolerance for each); one request through an ``InfillDecoder`` with ``fused=None``,
+    which must resolve to the plain loop and launch no decode kernel."""
+    vocab = WordVocab(ExperimentConfig().vocab_mode, ExperimentConfig().control_list)
+    tables = build_loss_tables(vocab)
+    batch, _ = train_batch(vocab, dev)
+    for d_model, nhead in PAD_HEADS:
+        hd = d_model // nhead
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = padded_ops_vs_twins(dev, nhead, hd, dtype)
+            say(f"  head_dim {hd} (d{d_model}/h{nhead}) {str(dtype).split('.')[-1]}: the wrappers "
+                f"against their twins: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        for option, dtype in (("fused", torch.bfloat16), ("flash", torch.bfloat16), ("flash", torch.float32)):
+            losses, ms, got, _, per_step = train_steps(
+                dev, vocab, tables, batch, fused=option == "fused", flash=option == "flash",
+                steps=PAD_STEPS, warm=1, dtype=dtype, nhead=nhead, d_model=d_model)
+            fwd, bwd = ("ft_fwd", "ft_bwd") if option == "flash" else ("ta_fwd", "ta_bwd")
+            want = per_step * PAD_STEPS
+            tag = (f"{'flash_training' if option == 'flash' else 'fused_attn_train'} d{d_model}/h{nhead} "
+                   f"{str(dtype).split('.')[-1]}")
+            say(f"  {tag}: losses " + ", ".join(f"{x:.4f}" for x in losses) +
+                f"; {ms:.3f} ms a step; launches {got}")
+            if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{tag}: the loss is not finite or did not fall: {losses}")
+            if got[fwd] != want or got[bwd] != want or any(v for k, v in got.items() if k not in (fwd, bwd)):
+                raise AssertionError(f"{tag}: expected {want} {fwd} and {want} {bwd} launches and "
+                                     f"nothing else, got {got}")
+            torch.cuda.empty_cache()
+        src, pad = batch["input"], batch["input_pad_mask"]
+        # phase 5d's tolerance for each dtype; bf16 last, the model the decoder below serves
+        for _, dtype, atol, rtol in WIDE_ENCODE[::-1]:
+            torch.manual_seed(0)
+            plain = build_model(vocab.vocab_size, d_model=d_model, nhead=nhead, dtype=dtype).to(dev).eval()
+            flash = ScoreTransformer(dataclasses.replace(plain.cfg, flash_encoder=True)).to(dev).eval()
+            flash.load_state_dict(plain.state_dict())
+            with torch.no_grad():
+                mem_p = plain.encode(src, pad)
+                reset_counts()
+                mem_f = flash.encode(src, pad)
+                torch.cuda.synchronize()
+                got = counts()
+            keep = ~pad
+            err = (mem_f[keep].float() - mem_p[keep].float()).abs().max().item()
+            tag = f"flash_encoder d{d_model}/h{nhead} {str(dtype).split('.')[-1]}"
+            say(f"  {tag}: launches {got}; max |flash - plain| on valid rows {err:.3e} (atol {atol:g} + "
+                f"rtol {rtol:g})")
+            if got["attn"] != plain.cfg.num_encoder_layers or any(v for k, v in got.items() if k != "attn"):
+                raise AssertionError(f"{tag}: launches {got}")
+            if not torch.allclose(mem_f[keep].float(), mem_p[keep].float(), atol=atol, rtol=rtol):
+                raise AssertionError(f"{tag}: max {err:.3e}")
+            del flash
+        if plain.cfg.dtype != torch.bfloat16:  # the one dtype the decode kernels take
+            raise AssertionError(f"the fused=None request wants the bf16 model, got {plain.cfg.dtype}")
+        dec = InfillDecoder(plain, vocab, max_tgt_len=64)
+        rng = np.random.default_rng(hd)
+        reset_counts()
+        res = dec(*spec_request(rng, vocab, 512, 2))
+        torch.cuda.synchronize()
+        got = counts()
+        say(f"  InfillDecoder(fused=None) at head_dim {hd}: fused={dec.fused}, {res.steps} positions "
+            f"on the plain loop; launches {got}")
+        if dec.fused or any(got.values()):
+            raise AssertionError(f"fused=None at head_dim {hd} did not resolve to the plain loop: "
+                                 f"fused={dec.fused}, {got}")
+        del plain, dec
+        torch.cuda.empty_cache()
 
 
 def flash_remat_step(dev, vocab, tables):
@@ -4023,8 +4594,8 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2j, 3, 3c, 3d, 6, 5, 7, 5c, "
-                        "5d, 4); "
+                        help="comma-separated phases to run after the build (2..2k, 3, 3c, 3d, 6, 5, 7, 5c, "
+                        "5d, 5e, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -4094,6 +4665,12 @@ def main(argv=None) -> int:
             "(whole decodes, SMER and REMI, int8)")
         graph = phase_graph_vs_eager(dev, [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)],
                                      ds.pack_decoder_weights(model, vpad, quant="int8"))
+
+    if run("2k"):
+        say("phase 2k speculative decode as one CUDA-graph replay an iteration vs the same kernels "
+            "launched eagerly, spec_advance_kernel vs its twin (SMER and REMI)")
+        worst_k, report_k = phase_spec_graph(
+            dev, [(vocab, model, packed, vpad), (remi_vocab, remi_model, remi_packed, vpad)])
     del model, packed, remi_model, remi_packed
 
     if run("2f"):
@@ -4168,6 +4745,12 @@ def main(argv=None) -> int:
             f"{WIDE_STEPS} steps at {TRAIN_B} x {TRAIN_SRC} + {TRAIN_TGT} each, flash encodes")
         phase_wide(dev)
 
+    if run("5e"):
+        say(f"phase 5e the flagship depth at head_dim 32 (d512/h16) and 96 (d384/h4), the attention "
+            f"kernels zero-padded: the wrappers vs twins, {PAD_STEPS} steps each with fused_attn_train "
+            "and flash_training, a flash encode, a request through fused=None")
+        phase_head_dims(dev)
+
     if run("4"):
         say("phase 4 kernel path vs twin path (greedy)")
         first_divergence(model, vocab, events, fused_sampling=False)
@@ -4187,9 +4770,15 @@ def main(argv=None) -> int:
         f"{graph['v4']['eager_ms']:.4f}), v3-int8 token {graph['int8']['ms']:.4f} ms (eager "
         f"{graph['int8']['eager_ms']:.4f}); captures {graph['v3']['capture_ms']:.2f}, "
         f"{graph['v4']['capture_ms']:.2f} and {graph['int8']['capture_ms']:.2f} ms")
-    say(f"  verify W={SPEC_K + 1}: {report_v['ms']:.4f} ms; spec decode greedy "
+    say(f"  verify W={SPEC_K + 1}: {report_v['ms']:.4f} ms eager; a replayed spec iteration "
+        f"{spec['nucleus']['replay_ms']:.4f} ms ({spec['nucleus']['replay_device_us']:.1f} us of device "
+        f"time); spec_advance_kernel {1e3 * report_k['ms']:.2f} us alone; spec decode greedy "
+        f"{spec['greedy']['ms_verify']:.3f} ms an iteration, "
         f"{spec['greedy']['ms_token']:.3f} ms a token (v3 at B=1 {spec['greedy']['v3_ms_token']:.3f}), "
-        f"nucleus {spec['nucleus']['ms_token']:.3f} (v3 {spec['nucleus']['v3_ms_token']:.3f}); "
+        f"nucleus {spec['nucleus']['ms_verify']:.3f} and {spec['nucleus']['ms_token']:.3f} "
+        f"(v3 {spec['nucleus']['v3_ms_token']:.3f}), the encode included; the loops alone, ms a token: "
+        f"greedy {spec['greedy']['loop_ms_token']:.4f} (v3 {spec['greedy']['v3_loop_ms_token']:.4f}), "
+        f"nucleus {spec['nucleus']['loop_ms_token']:.4f} (v3 {spec['nucleus']['v3_loop_ms_token']:.4f}); "
         f"fused_attention {report_a['ms']:.4f} ms vs SDPA {report_a['library_ms']:.4f} ms; "
         f"encode plain {encode_ms['plain']:.4f} ms, flash {encode_ms['flash']:.4f} ms")
     say(f"  train step at {TRAIN_B} x {TRAIN_SRC} + {TRAIN_TGT}: fused_attn_train {train[True]['ms']:.3f} ms, "
@@ -4219,6 +4808,11 @@ def main(argv=None) -> int:
              launches=launches["int8"], max_abs_err=worst8, **report8, **common),
         dict(name="fused_verify_window", source=csrc + "decode_step.cu", replaces=ref + "1368",
              launches=launches_v, max_abs_err=worst_v, **report_v, **common),
+        dict(name="spec_advance_kernel", source=csrc + "decode_token.cu",
+             replaces="smer_music_generation_tpu/infer/decode.py:539 (the body of _decode_v5's "
+                      "lax.while_loop after its fused_verify_window, :1368; XLA ops, no pallas_call)",
+             launches=spec["spec_launches"], max_abs_err=worst_k, route="cuda", library_ms=None,
+             **report_k),
         dict(name="fused_attention", source=csrc + "attention.cu",
              replaces="smer_music_generation_tpu/ops/attention.py:115", launches=launches_a,
              max_abs_err=worst_a, route="cuda", **report_a),

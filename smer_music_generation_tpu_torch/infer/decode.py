@@ -20,10 +20,14 @@ Five loop bodies, as in JAX:
   batched pass under the grammar state each slot would reach if the slots
   before it emitted their window tokens, and emits the accepted prefix plus
   one corrective or bonus token; a single-token tail fills the positions
-  the window no longer fits.  The verify is ``ops.decode_step.
-  fused_verify_window`` with ``fused`` (the CUDA kernel, any W; its twin
-  on the CPU) and the model's ``decode_window``
-  without.  Greedy output equals the plain loop's; nucleus sampling draws
+  the window no longer fits.  With ``fused`` the loop lives on the device as
+  JAX's ``lax.while_loop`` does: one step of an ``ops.decode_graph.
+  SpecGraph`` an iteration (the verify ``fused_verify_window``'s launches,
+  ``spec_advance_kernel`` and the cache write; one CUDA-graph replay on the
+  card, the twins on the CPU), the position and done flag read back once an
+  iteration, two iterations behind; without it, a host loop around the
+  model's ``decode_window``.  Greedy output equals the plain loop's;
+  nucleus sampling draws
   Gumbel rows (L, V) and acceptance uniforms (L,) from the generator (or
   takes ``noise=`` and ``uniforms=``) and emits the same distribution.  A
   batch of several rows with ``draft_k`` set decodes through the loops
@@ -68,14 +72,15 @@ as JAX does, and a batch whose rows do not divide by dp warns and decodes
 unsharded on the first device (JAX's ``_shard_batch``).
 
 The fused calls launch the CUDA kernels on the card and run their plain
-twins on the CPU.  ``fused=None`` resolves to the kernel on CUDA, as JAX's
-``resolve_backend`` (:157-181) picks it on a TPU, and to the plain loop on
-the CPU; ``fused_sampling=None`` follows ``fused``.  On CUDA the decoder
-never gives way to plain PyTorch by itself: a model the kernel does not
-fit, or a batch of more than 8, raises, and only an explicit
-``fused=False`` selects the plain loop.  ``quant="int8"`` packs the decoder
-matrices as int8 with f32 column scales for the fused loops (v2, v3, v4);
-it needs ``fused``, as in JAX.  The v2/v3 loops read the done flags
+twins on the CPU.  ``fused=None`` resolves to the kernels on CUDA where they
+fit the model (head_dim 64 or 128, d_model a multiple of 64, bfloat16), as
+JAX's ``resolve_backend`` (:157-181) picks its kernel on a TPU only where it
+fits, and to the plain loop otherwise and on the CPU; ``fused_sampling=None``
+follows ``fused``.  This is decided from the configuration when the decoder
+is built, not by a failure: an explicit ``fused=True`` on a model the
+kernels do not fit raises, as does a fused batch of more than 8.
+``quant="int8"`` packs the decoder matrices as int8 with f32 column scales
+for the fused loops (v2, v3, v4); it needs ``fused``, as in JAX.  The v2/v3 loops read the done flags
 back to the host every ``SYNC_EVERY`` steps, not every step, so the host
 can queue a step while the card runs the previous one; a step after every
 element is done writes only padding, so the tokens, lengths and step count
@@ -87,6 +92,7 @@ spans, each introduced by ``m_0``, with no ``<eos>``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -99,14 +105,18 @@ import numpy as np
 import torch
 
 from ..models.transformer import ScoreTransformer
-from ..ops.decode_graph import GraphCache, open_graph
+from ..ops.decode_graph import GraphCache, open_graph, open_spec_graph
 from ..ops.decode_step import (
+    SPEC_LEN,
+    SPEC_POS,
     ST_DONE,
     ST_LEN,
+    build_draft_reference,
     fused_decode_step,
     fused_verify_window,
     pack_decoder_weights,
     pack_sampling_tables,
+    pack_spec_tables,
     stack_kv_cache,
     vocab_pad,
 )
@@ -127,6 +137,7 @@ from .sampling import (
 )
 
 SYNC_EVERY = 8
+SPEC_AHEAD = 2  # v5: iterations the host queues ahead of the read-back it waits on
 CHUNK_SLOP = 64  # v4: positions past max_tgt_len a chunk may run into (JAX :860-866)
 
 
@@ -134,6 +145,12 @@ class DecodeResult(NamedTuple):
     tokens: torch.Tensor  # (B, max_tgt) int64, pad 0
     lengths: torch.Tensor  # (B,) valid length per element
     steps: int  # loop iterations that did work
+
+
+def _kernel_device(device: torch.device) -> bool:
+    """Whether the decoder's device is where the decode kernels launch (and
+    not their CPU twins)."""
+    return device.type == "cuda"
 
 
 def _on(device: torch.device):
@@ -186,11 +203,11 @@ class InfillDecoder:
         fast = build_fast_tables(self.tables)
         self.fast_tables = tuple(torch.as_tensor(a, device=self.device) for a in fast)
         self._next_bits = np.asarray(fast[2], np.int64)  # v5's host-side state chain
-        self.sampling_tables = {
+        vpad = vocab_pad(self.tables.vocab_size)
+        self.sampling_tables = {  # v3's tables, and v5's next_bits beside them
             k: torch.as_tensor(a, device=self.device)
-            for k, a in pack_sampling_tables(
-                self.vocab, self.tables, fast, vocab_pad(self.tables.vocab_size)
-            ).items()
+            for k, a in {**pack_sampling_tables(self.vocab, self.tables, fast, vpad),
+                         **pack_spec_tables(fast, vpad)}.items()
         }
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._packed = None
@@ -231,8 +248,20 @@ class InfillDecoder:
             self.shards.append(rep)
 
     def resolve_backend(self) -> None:
+        """``fused=None`` takes the kernels only where they fit, as JAX's
+        ``resolve_backend`` (:157-181) takes them on a TPU only where its
+        ``_kernel_fits`` (:133-136): on CUDA, for head_dim 64 or 128, d_model
+        a multiple of 64 and a bfloat16 model; elsewhere the plain loop.  An
+        explicit ``fused=True`` that does not fit raises, as JAX's (:138-141).
+        Decided from the configuration, before any build or launch."""
+        cfg = self.model.cfg
+        cuda = _kernel_device(self.device)
+        fits = (
+            cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
+            and (not cuda or cfg.dtype == torch.bfloat16)
+        )
         if self.fused is None:
-            self.fused = self.device.type == "cuda"
+            self.fused = cuda and fits
         if self.fused_sampling is None:
             self.fused_sampling = self.fused
         self.fused_sampling = bool(self.fused_sampling and self.fused)
@@ -242,11 +271,6 @@ class InfillDecoder:
             raise ValueError(
                 "token_chunk > 1 (kernel looping) requires the fused-sampling kernel path"
             )
-        cfg = self.model.cfg
-        fits = (
-            cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
-            and (self.device.type == "cpu" or cfg.dtype == torch.bfloat16)
-        )
         if self.fused and not fits:
             raise ValueError(
                 "the fused decode step needs d_model % 64 == 0, head_dim 64 or 128 "
@@ -517,11 +541,15 @@ class InfillDecoder:
             torch.ones(B, dtype=i32, device=dev),  # ST_LEN
         ])
         aux = torch.stack([n_spans.to(i32), torch.broadcast_to(no_whole, (B,)).to(i32)])
-        skw = dict(mode=t.mode, max_spans=self.max_spans, span_cap=self.span_cap,
-                   eos_index=t.eos_index, mask_index=t.mask_index, nucleus_p=self.nucleus_p,
-                   temperature=self.temperature, greedy=self.greedy, n_sid=N_SID,
-                   span_body=SPAN_BODY)
-        return noise, state, aux, span_types.to(i32).contiguous(), skw
+        return noise, state, aux, span_types.to(i32).contiguous(), self._sampler_kw()
+
+    def _sampler_kw(self):
+        """The sampling kernels' settings (v3, v4 and v5)."""
+        t = self.tables
+        return dict(mode=t.mode, max_spans=self.max_spans, span_cap=self.span_cap,
+                    eos_index=t.eos_index, mask_index=t.mask_index, nucleus_p=self.nucleus_p,
+                    temperature=self.temperature, greedy=self.greedy, n_sid=N_SID,
+                    span_body=SPAN_BODY)
 
     def _decode_v3(self, packed, cross_kv, cross_len, kw, span_types, n_spans,
                    no_whole, generator, noise) -> DecodeResult:
@@ -569,59 +597,98 @@ class InfillDecoder:
     def _decode_v5(self, src, src_pad, cross, span_types, n_spans, no_whole, generator,
                    noise, uniforms) -> DecodeResult:
         """Speculative (draft-and-verify) decode of one sequence (JAX
-        ``_decode_v5`` :411-702).  The token stream, the grammar state and
-        the draft lookup live on the host; the verify and the W slots'
-        sampling run on the model's device, one read-back an iteration.
-        Slot i's logits are valid iff every earlier slot emitted its window
-        token, so the emitted prefix ends at the first slot that did not;
-        each absolute position reads its own noise row and uniform once."""
+        ``_decode_v5`` :411-702).  Each iteration verifies the current token
+        and ``draft_k`` drafted ones in one W-row verify, samples the W
+        slots under the grammar state each would reach if the slots before
+        it emitted their window tokens, emits the accepted prefix plus one
+        corrective or bonus token and drafts the next window; the tail
+        decodes one token an iteration where the window no longer fits.
+        Each absolute position reads its own noise row and uniform once.
+
+        With ``fused`` the loop lives on the device, as JAX's
+        ``lax.while_loop``: the carry, the output, the window and its input
+        rows stay in a :class:`~..ops.decode_graph.SpecGraph`, one step of
+        which (one CUDA-graph replay on the card; the twins on the CPU) is
+        one iteration, and the host reads (position, done) back once an
+        iteration, ``SPEC_AHEAD`` iterations behind the steps it has queued.
+        Without it the host loop of :meth:`_decode_v5_plain`."""
+        if not self.fused:
+            return self._decode_v5_plain(src, src_pad, cross, span_types, n_spans, no_whole,
+                                         generator, noise, uniforms)
         model, t, dev = self.model, self.tables, self.device
         cfg = model.cfg
         L, K, V = self.max_tgt_len, self.draft_k, t.vocab_size
-        W = K + 1
-        if self.fused:
-            nl, D = cfg.num_decoder_layers, cfg.d_model
-            kw = dict(n_layers=nl, d_model=D, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vocab_pad(V))
-            packed = self.packed()
-            cross_kv = stack_kv_cache(cross, nl)
-            cross_len = (~src_pad).sum(dim=1).to(torch.int32)
-            cache = torch.zeros(nl, 1, L, 2 * D, dtype=cfg.dtype, device=dev)
-            emb_table, pos_table = model.embedding.weight, model.pos_table
+        nl, vpad = cfg.num_decoder_layers, vocab_pad(V)
+        noise, uniforms = self._v5_draws(generator, noise, uniforms)
+        if noise is not None:  # the kernel's rows are vpad wide
+            noise = torch.nn.functional.pad(noise, (0, vpad - V))
+        i32 = torch.int32
+        emb, pos_table = self._spec_embedding()
+        aux = torch.stack([n_spans[0], no_whole.reshape(-1)[0].long()]).to(i32)
+        with open_spec_graph(
+                self.graphs, self.packed(), self.sampling_tables, self.fast_tables, emb,
+                pos_table, src[0].to(i32), span_types[0].to(i32), aux, noise, uniforms,
+                stack_kv_cache(cross, nl), (~src_pad).sum(dim=1).to(i32), K=K, L=L,
+                compute_dtype=cfg.dtype, n_layers=nl,
+                d_model=cfg.d_model, nhead=cfg.nhead, d_ff=cfg.d_ff, vpad=vpad,
+                **self._sampler_kw()) as graph:
+            done = int(n_spans[0]) <= 0
+            with torch.profiler.record_function("spec_decode_loop"):
+                pos, done = _spec_phase(graph, K + 1, L, 0, done)
+                _spec_phase(graph, 1, L, pos, done)  # the single-token tail
+            carry, out = graph.carry.tolist(), graph.out.long()[None]
+        return DecodeResult(tokens=out, lengths=torch.tensor([carry[SPEC_LEN]], device=dev),
+                            steps=carry[SPEC_POS])
 
-            def verify(window, pos):
-                # the f32 embedding x sqrt(D) plus the PE rows, then the
-                # compute dtype (JAX :471-474)
-                n = window.shape[0]
-                x = (emb_table[window] * math.sqrt(D) + pos_table[pos : pos + n]).to(cfg.dtype)
-                logits, new_kv = fused_verify_window(packed, x, cache, cross_kv, pos, cross_len, **kw)
-                cache[:, 0, pos : pos + n] = new_kv
-                return logits[:, :V]
-        else:
-            cache = model.init_self_cache(1, L)
-
-            def verify(window, pos):
-                return model.decode_window(window[None], pos, cache, cross, src_pad)[0]
-
+    def _v5_draws(self, generator, noise, uniforms):
+        """v5's Gumbel rows (L, V) and acceptance uniforms (L,): None when
+        greedy, the caller's (JAX's draws, in the tests), or drawn from the
+        generator, the noise first."""
+        L, V, dev = self.max_tgt_len, self.tables.vocab_size, self.device
         if self.greedy:
-            noise = uniforms = None
-        elif noise is None:
+            return None, None
+        if noise is None:
             gen = generator if generator is not None else self.generator
             noise = gumbel_noise((L, V), gen, dev)
-            uniforms = torch.rand((L,), generator=gen, device=dev, dtype=torch.float32)
-        else:
-            if uniforms is None:
-                raise ValueError("speculative decode takes uniforms (L,) beside its noise (L, V)")
-            noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
-            uniforms = torch.as_tensor(np.array(uniforms), dtype=torch.float32, device=dev)
-            if tuple(noise.shape) != (L, V) or tuple(uniforms.shape) != (L,):
-                raise ValueError(f"noise {tuple(noise.shape)} and uniforms {tuple(uniforms.shape)}: "
-                                 f"expected {(L, V)} and {(L,)}")
+            return noise, torch.rand((L,), generator=gen, device=dev, dtype=torch.float32)
+        if uniforms is None:
+            raise ValueError("speculative decode takes uniforms (L,) beside its noise (L, V)")
+        noise = torch.as_tensor(np.array(noise), dtype=torch.float32, device=dev)
+        uniforms = torch.as_tensor(np.array(uniforms), dtype=torch.float32, device=dev)
+        if tuple(noise.shape) != (L, V) or tuple(uniforms.shape) != (L,):
+            raise ValueError(f"noise {tuple(noise.shape)} and uniforms {tuple(uniforms.shape)}: "
+                             f"expected {(L, V)} and {(L,)}")
+        return noise, uniforms
 
+    def _spec_embedding(self):
+        """The f32 embedding table (V, D) and the PE table the verify's input
+        rows are built from, as JAX's verify reads them (:471-474)."""
+        if getattr(self, "_spec_emb", None) is None:
+            self._spec_emb = (self.model.embedding.weight.detach().float().contiguous(),
+                              self.model.pos_table.float().contiguous())
+        return self._spec_emb
+
+    def _decode_v5_plain(self, src, src_pad, cross, span_types, n_spans, no_whole, generator,
+                         noise, uniforms) -> DecodeResult:
+        """Speculative decode without ``fused``: the host keeps the token
+        stream, the grammar state and the draft lookup, the model's
+        ``decode_window`` verifies, and the W slots' sampling runs on the
+        model's device, one read-back an iteration (JAX :411-702 with its
+        XLA verify)."""
+        model, t, dev = self.model, self.tables, self.device
+        L, K = self.max_tgt_len, self.draft_k
+        W = K + 1
+        cache = model.init_self_cache(1, L)
+
+        def verify(window, pos):
+            return model.decode_window(window[None], pos, cache, cross, src_pad)[0]
+
+        noise, uniforms = self._v5_draws(generator, noise, uniforms)
         state_masks, sid_from_bits, _ = self.fast_tables
         next_bits = self._next_bits
         span_row = span_types[0].cpu().numpy()
         n_sp = int(n_spans[0])
-        src_row = src[0].cpu().numpy()
+        src_tensor = src[0].cpu()
         mode1 = t.mode == 1
 
         def advance(sampled, states, steps_w, spans_w):
@@ -661,7 +728,7 @@ class InfillDecoder:
         pos, done, state, steps, span, length = 0, n_sp <= 0, 0, 1, 0, 1
         slots = np.arange(W)
         while pos + 1 + K < L and not done:
-            draft = _prompt_lookup(out, pos, src_row, K)
+            draft = build_draft_reference(torch.from_numpy(out), pos, src_tensor, K).numpy()
             window = np.concatenate([out[pos : pos + 1], draft])
             logits = verify(torch.as_tensor(window, device=dev), pos)  # (W, V)
             # the state each slot samples under if the slots before it
@@ -728,6 +795,22 @@ def _step_tokens(tokens, L: int) -> int:
     return pos
 
 
+def _spec_phase(graph, W: int, L: int, pos: int, done: bool):
+    """Step the ``SpecGraph`` W rows an iteration until its carry is done or
+    the window no longer fits before the cap (pos + W >= L), reading
+    (position, done) back once an iteration, ``SPEC_AHEAD`` iterations
+    behind the steps queued, so the card never waits for the host; the
+    steps queued past the end change nothing.  Returns the last (position,
+    done) read."""
+    marks = collections.deque()
+    while not done and pos + W < L:
+        graph.step(W)
+        marks.append(graph.mark())
+        if len(marks) >= SPEC_AHEAD:
+            pos, done = graph.read(marks.popleft())
+    return pos, done
+
+
 def _v3_result(state, out, n_spans, pos: int) -> DecodeResult:
     """Lengths and steps of a v3 decode stopped at ``pos``.  JAX's loop stops
     at the first position where every element is done.  An element that
@@ -742,24 +825,6 @@ def _v3_result(state, out, n_spans, pos: int) -> DecodeResult:
     else:
         steps = 0
     return DecodeResult(tokens=out, lengths=lengths, steps=steps)
-
-
-def _prompt_lookup(out: np.ndarray, pos: int, src: np.ndarray, K: int) -> np.ndarray:
-    """The K-token draft at ``pos`` (JAX ``build_draft`` :497-526): the
-    continuation of the latest earlier match of the bigram (out[pos - 1],
-    out[pos]) in the emitted stream, else of its latest match in the source
-    (never at a padding id), else zeros, which no grammar output matches."""
-    key0, key1 = out[max(pos - 1, 0)], out[pos]
-    if pos >= 2:  # a bigram ending at j in 1..pos-1
-        hits = np.flatnonzero((out[: pos - 1] == key0) & (out[1:pos] == key1))
-        if len(hits):
-            start = min(max(int(hits[-1]) + 2, 0), len(out) - K)
-            return out[start : start + K].copy()
-    hits = np.flatnonzero((src[:-1] == key0) & (src[1:] == key1) & (src[1:] != 0))
-    if len(hits):
-        start = min(max(int(hits[-1]) + 2, 0), len(src) - K)
-        return src[start : start + K].astype(np.int64)
-    return np.zeros(K, np.int64)
 
 
 def pad_to_bucket(

@@ -71,19 +71,20 @@ def _kernel_device(t: torch.Tensor) -> bool:
 def check_kernel_domain(option: str, t: torch.Tensor, head_dim: int, dtype: torch.dtype) -> None:
     """Refuse, before any attention call, a model that sends its attention
     through ``option``'s CUDA kernels at a head_dim or dtype they do not
-    take: head_dim 64 or 128 (``ops.attention.KERNEL_HEAD_DIMS``), bf16 or
-    f32 for ``flash_training`` and ``flash_encoder``, bf16 for
-    ``fused_attn_train`` (whose f32 JAX's own gate already sends to the
-    plain path); JAX's kernels take any.  Decided from ``t``'s device at
-    call time; the CPU twins are not gated."""
-    from ..ops.attention import KERNEL_HEAD_DIMS
+    take: head_dim up to 128 (64 and 128 as built, others zero-padded to the
+    next, ``ops.attention.kernel_width``), bf16 or f32 for
+    ``flash_training`` and ``flash_encoder``, bf16 for ``fused_attn_train``
+    (whose f32 JAX's own gate already sends to the plain path); JAX's
+    kernels take any.  Decided from ``t``'s device at call time; the CPU
+    twins are not gated."""
+    from ..ops.attention import MAX_HEAD_DIM
 
     dtypes = (torch.bfloat16,) if option == "fused_attn_train" else (torch.bfloat16, torch.float32)
-    if _kernel_device(t) and (head_dim not in KERNEL_HEAD_DIMS or dtype not in dtypes):
+    if _kernel_device(t) and (head_dim > MAX_HEAD_DIM or dtype not in dtypes):
         names = " or ".join(str(d).split(".")[-1] for d in dtypes)
         raise NotImplementedError(
-            f"attention kernels on CUDA take {names} at head_dim {' or '.join(map(str, KERNEL_HEAD_DIMS))}: "
-            f"{option} got head_dim {head_dim} and {dtype}; other head_dims are ROADMAP Queue 3 item 4")
+            f"attention kernels on CUDA take {names} at head_dim up to {MAX_HEAD_DIM}: "
+            f"{option} got head_dim {head_dim} and {dtype}; wider heads are ROADMAP Queue 3 item 4")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,8 @@ HD) queries and (B, S, H, HD) keys and values, as JAX's does, and returns
 past ``kv_valid_len[b]`` masked with -1e30 (and keys past the query row when
 ``causal``), softmax in f32.  A tensor on the CPU goes to the twin
 :func:`attention_reference`; a CUDA tensor launches a kernel (head_dim in
-:data:`KERNEL_HEAD_DIMS`, contiguous: bf16 to ``flash_fwd_kernel``, f32 to
+:data:`KERNEL_HEAD_DIMS`, or any other up to 128 zero-padded to the next of
+them: :func:`kernel_width`; bf16 to ``flash_fwd_kernel``, f32 to
 ``attn_f32_fwd_kernel`` of ``csrc/attention_f32.cu``) or raises.  The
 kernels are built with the decode kernels into one library at first use
 (``ops.decode_step.load_library``).
@@ -30,8 +31,33 @@ from .decode_step import _check, _check_tensors, load_library
 NEG_INF = -1e30
 # the head_dims the CUDA attention kernels are built for (attention.cu,
 # attention_f32.cu, train_attention.cu, flash_train.cu), in bf16 and, for
-# this module's and flash_train's kernels, f32
+# this module's and flash_train's kernels, f32; any other head_dim up to the
+# last runs on the next wider one, zero-padded (:func:`kernel_width`)
 KERNEL_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+
+
+def kernel_width(head_dim: int, widths=KERNEL_HEAD_DIMS) -> int:
+    """The built head_dim a head_dim runs on: itself, or the next wider one
+    of ``widths``, with q, k and v zero-padded on the last axis
+    (:func:`pad_head`) and the scale kept at 1/sqrt(head_dim).  A zero column
+    adds an exact zero to every score and every product, so the padded
+    kernel computes the true head_dim's function, and its extra output and
+    gradient columns are zeros, sliced off.  Above the widest raises
+    ``NotImplementedError`` (ROADMAP Queue 3 item 4)."""
+    for w in widths:
+        if head_dim <= w:
+            return w
+    raise NotImplementedError(
+        f"the CUDA attention kernels take head_dim up to {max(widths)}, got {head_dim}; "
+        "wider heads are ROADMAP Queue 3 item 4")
+
+
+def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., head_dim) zero-padded to ``width`` on its last axis (a new
+    contiguous tensor), or ``t`` itself at that width."""
+    hd = t.shape[-1]
+    return t if hd == width else torch.nn.functional.pad(t, (0, width - hd)).contiguous()
 
 
 def attention_reference(
@@ -40,6 +66,7 @@ def attention_reference(
     v: torch.Tensor,  # (B, S, H, HD)
     kv_valid_len: Optional[torch.Tensor] = None,  # (B,) valid key length
     causal: bool = False,
+    scale: Optional[float] = None,  # the scores' 1/sqrt(HD) by default
 ) -> torch.Tensor:
     """Plain-torch twin of :func:`fused_attention` (JAX :35): the scores in
     f32 from the f32 values of q and k, masked to -1e30, a softmax over S,
@@ -48,7 +75,8 @@ def attention_reference(
     attention_reference.calls += 1
     B, T, H, HD = q.shape
     S = k.shape[1]
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(HD)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    scores = scores / math.sqrt(HD) if scale is None else scores * scale
     if kv_valid_len is not None:
         key_ok = torch.arange(S, device=q.device)[None, :] < kv_valid_len.to(q.device)[:, None]
         scores = torch.where(key_ok[:, None, None, :], scores, NEG_INF)
@@ -63,8 +91,9 @@ attention_reference.calls = 0
 
 
 def _check_inputs(q, k, v, kv_valid_len) -> None:
-    """What the CUDA kernels take: head_dim in KERNEL_HEAD_DIMS, bf16 or f32
-    (q, k and v alike), contiguous tensors on q's device."""
+    """What the CUDA kernels take: head_dim in KERNEL_HEAD_DIMS (after
+    padding), bf16 or f32 (q, k and v alike), contiguous tensors on q's
+    device."""
     B, T, H, HD = q.shape
     S = k.shape[1]
     if HD not in KERNEL_HEAD_DIMS:
@@ -85,28 +114,32 @@ def fused_attention(
     kv_valid_len: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Flash attention over (B, T|S, H, HD) tensors; returns (B, T, H, HD)."""
+    """Flash attention over (B, T|S, H, HD) tensors; returns (B, T, H, HD).
+    On CUDA a head_dim up to 128 other than 64 and 128 runs on the next
+    wider kernel, zero-padded (:func:`kernel_width`)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_valid_len, causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
-    B, T, H, HD = q.shape
+    B, T, H, hd = q.shape
     S = k.shape[1]
+    HD = kernel_width(hd)
+    q, k, v = (pad_head(t, HD) for t in (q, k, v))
     _check_inputs(q, k, v, kv_valid_len)
     out = torch.empty_like(q)
     lens = kv_valid_len.data_ptr() if kv_valid_len is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = load_library()
+    scale = 1.0 / math.sqrt(hd)
     if q.dtype == torch.bfloat16:
         rc = lib.smer_flash_attention(HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      lens, int(causal), 1.0 / math.sqrt(HD), out.data_ptr(), stream)
+                                      lens, int(causal), scale, out.data_ptr(), stream)
     else:
         rc = lib.smer_attention_f32_fwd(0, HD, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        lens, int(causal), 1.0 / math.sqrt(HD), out.data_ptr(), None,
-                                        stream)
+                                        lens, int(causal), scale, out.data_ptr(), None, stream)
     _check(rc, "flash_attention")
     fused_attention.launches += 1
-    return out
+    return out if HD == hd else out[..., :hd].contiguous()
 
 
 fused_attention.launches = 0

@@ -93,7 +93,10 @@
 // its batch (16 a launch), the cache and the cross K|V are shared by every
 // row (batch stride 0), and attend_kernel's third row source gives row j
 // the `index` cache rows, then window rows 0..j-1 of the `new_kv` output
-// (written by the QKV launch of the same layer), then its own row.
+// (written by the QKV launch of the same layer), then its own row.  The
+// cache length may come from the device (`lens`, its first entry for every
+// window row), so that speculative decode's iteration is replayed as one
+// CUDA graph at every position (ops/decode_graph.py SpecGraph).
 //
 // Measured on an NVIDIA H100 80GB HBM3, 700.00 W (scripts/torch_kernel_ab.py,
 // chip_smoke.py phase 2h; PERF.md): at the served case (B=3, S=1536, index
@@ -457,7 +460,8 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = lane % kLanesPerRow;  // which dims of the row
   const int rl = lane / kLanesPerRow;   // which row of the warp's 4
-  int n_cache = lens != nullptr ? lens[b] : n_rows;
+  // the verify window's rows share one sequence's cache length
+  int n_cache = lens != nullptr ? lens[SRC == kWindow ? 0 : b] : n_rows;
   n_cache = max(0, min(n_cache, max_rows));
   const int n = n_cache + (SRC == kChunk ? n_chunk : (SRC == kWindow ? b : 0));
   const int r0 = split * kSplitRows;
@@ -730,7 +734,8 @@ int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void
 
 // row_source (RowSource): 0 no rows past the cache's (chunk, n_chunk and
 // chunk_tstride unused); 1 a v4 chunk of n_chunk rows; 2 a verify window,
-// row b reading b rows of it (n_chunk unused).  The grid is (B, H,
+// row b reading b rows of it (n_chunk unused), every row reading the cache
+// length lens[0] when lens is given.  The grid is (B, H,
 // n_splits): n_splits * 64 must cover every row a (b, h) attends before
 // its `extra` row; `ws` holds B * H * n_splits * (2 + head_dim) floats and
 // `tickets` B * H zeroed counters, which the launch leaves at zero.

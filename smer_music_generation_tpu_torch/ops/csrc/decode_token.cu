@@ -167,6 +167,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The grammar row's state id (JAX `allowed_mask_fast`): with
+// `start_overrides` (REMI, mode 1) a span's first step takes the span
+// type's start row; otherwise the flag row wins whenever a flag is set
+__device__ __forceinline__ int grammar_sid(int mode, int bits, bool is_start, int cur_type,
+                                           int flag_sid) {
+  const int start_sid = 5 + cur_type;
+  if (mode == 1) return is_start ? start_sid : flag_sid;
+  return bits > 0 ? flag_sid : (is_start ? start_sid : 0);
+}
+
+// The nucleus rule's compaction: chunk c's (32 lanes') nonzero
+// probabilities into seg[32 c ...] in lane order, by a ballot, and their
+// count into seg_n[c].  A zero probability (a masked lane) adds nothing to
+// any lane's mass above, so it is left out.
+__device__ __forceinline__ unsigned compact_nonzero(float p, int c, int lane, float* seg,
+                                                    int* seg_n) {
+  const unsigned nz = __ballot_sync(kFull, p > 0.f);
+  if (p > 0.f) seg[32 * c + __popc(nz & ((1u << lane) - 1u))] = p;
+  if (lane == 0) seg_n[c] = __popc(nz);
+  return nz;
+}
+
+// The probability mass strictly above each of N probabilities p[i]: the
+// compacted nonzero probabilities summed in chunk order, and in lane order
+// within a chunk, one pass over them for all N at once; each p[i] sums the
+// same sequence in the same order, so its bits do not depend on N
+template <int N>
+__device__ __forceinline__ void above_mass(const float* seg, const int* seg_n, int n_chunks,
+                                           const float (&p)[N], float (&above)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) above[i] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float* q = seg + 32 * c;
+    const int n = seg_n[c];
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float t = q[j];
+#pragma unroll
+      for (int i = 0; i < N; ++i) above[i] += t > p[i] ? t : 0.f;
+    }
+  }
+}
+
 // (a, key a) before (b, key b): the larger score, the lower index on ties
 __device__ __forceinline__ bool better(float a, int ka, float b, int kb) {
   return a > b || (a == b && (ka & kIndexBits) < (kb & kIndexBits));
@@ -234,15 +277,8 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
     if (lane + 32 * j == si) type_l = type_r[j];
   int cur_type = __shfl_sync(kFull, type_l, si & 31);
   if (si >= 32 * kSpanRegs) cur_type = types[si];
-  const bool is_start = steps == 1;
   const int flag_sid = __shfl_sync(kFull, sid_l, bits & 15);
-  const int start_sid = 5 + cur_type;
-  int sid;
-  if (mode == 1)
-    sid = is_start ? start_sid : flag_sid;
-  else
-    sid = bits > 0 ? flag_sid : (is_start ? start_sid : 0);
-  const int row = nw * n_sid + sid;
+  const int row = nw * n_sid + grammar_sid(mode, bits, steps == 1, cur_type, flag_sid);
   const float allowed = masks[(size_t)row * vpad + v];
 
   const int flags = (c0.x > 0.f) | (c0.y > 0.f) << 1 | (c0.z > 0.f) << 2 | (c0.w > 0.f) << 3 |
@@ -279,19 +315,12 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
     if (use_nucleus) {
       // the probability mass strictly above this lane's, summed in index
       // order over the nonzero probabilities (a zero adds nothing)
-      const float p = expf(logp);
-      const unsigned nz = __ballot_sync(kFull, p > 0.f);
-      if (p > 0.f) seg[warp * 32 + __popc(nz & ((1u << lane) - 1u))] = p;
-      if (lane == 0) seg_n[warp] = __popc(nz);
+      const float p[1] = {expf(logp)};
+      compact_nonzero(p[0], warp, lane, seg, seg_n);
       __syncthreads();
-      float above = 0.f;
-      for (int w = 0; w < n_warps; ++w) {
-        const float* q = seg + w * 32;
-        const int n = seg_n[w];
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) above += q[j] > p ? q[j] : 0.f;
-      }
-      if (!(above < nucleus_p)) logp = kNeg;
+      float above[1];
+      above_mass<1>(seg, seg_n, n_warps, p, above);
+      if (!(above[0] < nucleus_p)) logp = kNeg;
     }
     score = logp + g;
   }
@@ -372,6 +401,450 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
       x[(size_t)b * D + l] = embed_lane(emb, next_tok, vpad, D, l, emb_scale, pe_s[l]);
 }
 
+// ---------------------------------------------------------------------------
+// spec_advance_kernel: everything speculative decode does after its verify,
+// for one sequence, in one block.
+//
+// Replaces the body of JAX's `_decode_v5` after the verify
+// (smer_music_generation_tpu/infer/decode.py:539-651; the single-token tail
+// :660-698 is the same kernel at W = 1 with no draft) and the draft lookup
+// `build_draft` (:509-534), which on the TPU run as XLA ops inside one
+// device-side `lax.while_loop`.  Here an iteration is one CUDA-graph replay
+// (ops/decode_graph.py SpecGraph): the W-row verify's launches
+// (decode_step.cu, the position read from the carry as `lens`), this
+// kernel, and the verify's K|V rows copied into the cache at `kv_rows`.
+//
+// One block of kSpecThreads threads.  From the carry (pos, done, grammar
+// bits, steps in span, span index, length) and the window the iteration
+// verified ([out[pos], draft]), with K = W - 1:
+//   * the assumed-emission chain: slot i samples under the state reached
+//     if slots < i emitted their window tokens (an emitted m_0 ends a
+//     span), by the next_bits table, staged in shared memory as bytes;
+//   * a warp a slot (slots past kSpecWarps loop): the slot's grammar row
+//     (`grammar_sid`, sample_advance_kernel's own), greedy argmax of the
+//     masked logits, or the masked log-softmax over the temperature (the
+//     warp's chunks of 32 lanes summed in sample_advance_kernel's order:
+//     a chunk's xor tree, then the chunks in lane order), the nucleus rule
+//     (`compact_nonzero` and `above_mass`, sample_advance_kernel's own
+//     functions, so a lane's mass above sums the same sequence in the same
+//     order), then, in a slot with a draft, the delta-draft acceptance
+//     u < P(draft) over the kept support and else the argmax of the
+//     residual plus the Gumbel row (JAX `spec_accept_resample`); slot K
+//     (no draft) the argmax of log-probabilities plus the Gumbel row;
+//   * each slot's span end, done flag and next token; the emitted prefix
+//     (slot i emits iff every slot before it emitted its window token and
+//     did not finish the session), its W-slot write into `out`, the
+//     length, and the carry of the last emitted slot;
+//   * the next draft (JAX `build_draft`: the continuation of the latest
+//     match of the bigram (out[pos - 1], out[pos]) in the emitted stream,
+//     else in the source, never at a padding id, else zeros), the next
+//     window and its W input rows x = emb[tok] * sqrt(D) + pos_table[pos +
+//     j] in f32, rounded to bf16 when the model computes in bf16 (the PE
+//     table's rows, as JAX's verify reads them, not the analytic row of
+//     embed_pe_kernel).
+// An iteration whose carry is done, or whose window no longer fits
+// (pos + W >= L), samples nothing and changes nothing: it writes the same
+// window, x and kv_rows again, so a host that reads the carry back only now
+// and then may replay past the end.  `prime` (the first window of a
+// decode) does the same without a verify before it.
+//
+// What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes,
+// about 50 KB at the flagship's served case (W x vpad logits, mask and
+// noise rows, the tables, the source and output rows, W embedding and PE
+// rows read; W x D x rows written), ~0.015 us of HBM time; its time is a
+// chain of dependent steps.  So the chain is kept short and mostly hidden:
+// it is a programmatic dependent launch behind the logits' rowvec_kernel,
+// and before `griddepcontrol.wait` it loads what no launch of the
+// iteration writes (carry, window, output and source rows, span types,
+// tables), computes the slot chain and issues each first-round slot's mask
+// and noise loads; after the wait a warp reads its slot's logits through
+// L2 and no block barrier stands between a slot's loads and its token.
+// Five block barriers follow: the slots' tokens, the prefix, the bigram
+// scan's two maxima, the next window.
+//
+// carry rows (ops/decode_step.py SPEC_*)
+constexpr int kSPos = 0, kSDone = 1, kSBits = 2, kSSteps = 3, kSSpan = 4, kSLen = 5;
+constexpr int kSpecThreads = 512;
+constexpr int kSpecWarps = kSpecThreads / 32;
+constexpr int kSlotArrays = 12;  // the W-long int arrays in shared memory
+
+struct SpecArgs {
+  const float* logits;    // (W, vpad): the verify's, written by the launch before this one
+  int* carry;             // (8,)
+  int* out;               // (L,)
+  int* window;            // (W,): read, then the next window written
+  float* x;               // (W, D): the next window's input rows
+  long long* kv_rows;     // (W,): the cache rows of this iteration's verify, pos + j
+  const int* aux;         // (2,): n_spans, no_whole
+  const int* span_types;  // (max_spans,)
+  const int* sid_tbl;     // (16,)
+  const float* masks;     // (2 n_sid, vpad), 1 = allowed
+  const int* next_bits;   // (16, vpad)
+  const float* noise;     // (L, vpad) Gumbel rows, or null (greedy)
+  const float* uniforms;  // (L,) acceptance draws, or null (greedy)
+  const int* src;         // (S,)
+  const float* emb;       // (V, D) f32
+  const float* pos_table; // (max_len, D) f32
+  int W, L, S, V, D, vpad, max_len, max_spans, n_sid, mode, span_cap, eos_index, mask_index;
+  int span_body, greedy, use_nucleus, round_bf16, prime;
+  float nucleus_p, temperature, emb_scale;
+};
+
+__device__ __forceinline__ int warp_max_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// the warp's argmax over (score, index) pairs, the lowest index on ties
+__device__ __forceinline__ int warp_argmax(float best, int idx) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, best, o);
+    const int oi = __shfl_xor_sync(kFull, idx, o);
+    if (ov > best || (ov == best && oi < idx)) {
+      best = ov;
+      idx = oi;
+    }
+  }
+  return idx;
+}
+
+// One slot's token, by its warp: lane l holds vocab lanes l + 32 i.
+template <int VPL>
+__device__ __forceinline__ int spec_slot_token(const SpecArgs& a, int j, int K, unsigned allow,
+                               const float (&g)[VPL], float u, int draft, float* seg,
+                               int* seg_n, int lane) {
+  const float* lrow = a.logits + (size_t)j * a.vpad;
+  float lg[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) lg[i] = __ldcg(lrow + lane + 32 * i);
+  float best = -INFINITY;
+  int bi = 0x7fffffff;
+  if (a.greedy) {  // JAX greedy_sample: argmax of where(allowed, logits, -1e9)
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const float s = (allow >> i & 1u) ? lg[i] : kNeg;
+      if (s > best) {
+        best = s;
+        bi = lane + 32 * i;
+      }
+    }
+    return warp_argmax(best, bi);
+  }
+  float logp[VPL];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    logp[i] = ((allow >> i & 1u) ? lg[i] : kNeg) / a.temperature;
+    mx = fmaxf(mx, logp[i]);
+  }
+  mx = warp_max(mx);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    logp[i] -= mx;
+    s += warp_sum(expf(logp[i]));
+  }
+  const float ls = logf(s);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) logp[i] -= ls;
+  if (a.use_nucleus) {
+    // The mass above is needed for the nonzero probabilities only (~a
+    // quarter of the lanes): they are spread over the lanes as items f of
+    // the compacted sequence, four a lane a pass, and every lane also sums
+    // the mass above 0 (what a zero probability's lane gets).  Each sum is
+    // above_mass's, over the same sequence in the same order, so a lane's
+    // bits are those of a pass over every lane's own value.
+    float p[VPL];
+    unsigned nz[VPL];
+    int off[VPL];
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      p[i] = expf(logp[i]);
+      nz[i] = compact_nonzero(p[i], i, lane, seg, seg_n);
+      off[i] = n;
+      n += __popc(nz[i]);
+    }
+    __syncwarp();
+    float* abv = seg + a.vpad;  // each item's mass above
+    float total = 0.f;
+    for (int f0 = 0; f0 < n; f0 += 4 * 32) {
+      float q[5], ab[5];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int f = f0 + 32 * k + lane;
+        int c = 0;
+#pragma unroll
+        for (int i = 1; i < VPL; ++i)
+          if (f >= off[i]) c = i;
+        q[k] = f < n ? seg[32 * c + f - off[c]] : INFINITY;  // nothing is above +inf
+      }
+      q[4] = 0.f;
+      above_mass<5>(seg, seg_n, VPL, q, ab);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (f0 + 32 * k + lane < n) abv[f0 + 32 * k + lane] = ab[k];
+      total = ab[4];
+    }
+    __syncwarp();
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const float above = p[i] > 0.f ? abv[off[i] + __popc(nz[i] & lt)] : total;
+      if (!(above < a.nucleus_p)) logp[i] = kNeg;
+    }
+    __syncwarp();  // the warp's next slot reuses seg
+  }
+  int excl = -1;  // the lane the residual leaves out: the draft's
+  if (j < K) {
+    // delta-draft speculative sampling: accept the draft with its
+    // probability under the kept support, renormalised
+    const int d = max(draft, 0);
+    float norm = 0.f, mine = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      norm += logp[i] > kNeg / 2 ? expf(logp[i]) : 0.f;
+      if (i == (d >> 5)) mine = logp[i];
+    }
+    norm = warp_sum(norm);
+    const float p_draft = expf(__shfl_sync(kFull, mine, d & 31)) / fmaxf(norm, 1e-38f);
+    if (u < p_draft) return d;
+    excl = d;
+  }
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int v = lane + 32 * i;
+    const float sc = (v == excl ? kNeg : logp[i]) + g[i];
+    if (sc > best) {
+      best = sc;
+      bi = v;
+    }
+  }
+  return warp_argmax(best, bi);
+}
+
+template <int VPL>
+__global__ void __launch_bounds__(kSpecThreads) spec_advance_kernel(const SpecArgs a) {
+  extern __shared__ int sm[];
+  const int W = a.W, K = W - 1;
+  int* out_s = sm;                  // (L,)
+  int* src_s = out_s + a.L;         // (S,)
+  int* types_s = src_s + a.S;       // (max_spans,)
+  int* slot = types_s + a.max_spans;
+  int* win_s = slot;                // the window verified
+  int* st_s = slot + W;             // each slot's grammar bits
+  int* stp_s = slot + 2 * W;        // steps in span
+  int* sp_s = slot + 3 * W;         // span index
+  int* nt_s = slot + 4 * W;         // next token
+  int* nd_s = slot + 5 * W;         // now done
+  int* bpost_s = slot + 6 * W;      // bits after the slot
+  int* spost_s = slot + 7 * W;      // steps after the slot
+  int* npost_s = slot + 8 * W;      // span after the slot
+  int* wn_s = slot + 9 * W;         // the next window
+  unsigned char* nb_s = reinterpret_cast<unsigned char*>(slot + kSlotArrays * W);  // (16, vpad)
+  float* seg_all = reinterpret_cast<float*>(slot + kSlotArrays * W + 4 * a.vpad);  // a warp's 2 vpad
+  int* segn_all = reinterpret_cast<int*>(seg_all + 2 * kSpecWarps * a.vpad);       // a warp's 32
+  __shared__ int sid_s[16];
+  __shared__ int red_o[kSpecWarps], red_s[kSpecWarps];
+  __shared__ int m_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // every load that depends on nothing this iteration's other launches write
+  const int pos = a.carry[kSPos];
+  const int done = a.carry[kSDone];
+  const int bits = a.carry[kSBits];
+  const int steps = a.carry[kSSteps];
+  const int span = a.carry[kSSpan];
+  const int length = a.carry[kSLen];
+  const int n_spans = a.aux[0];
+  const int nw = a.aux[1];
+  const bool active = !a.prime && done == 0 && pos + W < a.L;
+  for (int i = tid; i < a.L; i += kSpecThreads) out_s[i] = a.out[i];
+  for (int i = tid; i < a.S; i += kSpecThreads) src_s[i] = a.src[i];
+  for (int i = tid; i < W; i += kSpecThreads) win_s[i] = a.window[i];
+  if (active) {
+    for (int i = tid; i < a.max_spans; i += kSpecThreads) types_s[i] = a.span_types[i];
+    for (int i = tid; i < 16 * a.vpad; i += kSpecThreads)
+      nb_s[i] = static_cast<unsigned char>(a.next_bits[i]);
+    if (tid < 16) sid_s[tid] = a.sid_tbl[tid];
+  }
+  __syncthreads();
+  if (active && tid == 0) {
+    // the assumed-emission chain over the K draft tokens
+    int st = bits, sp = steps, sn = span;
+    for (int j = 0; j < W; ++j) {
+      if (j > 0) {
+        const int w = win_s[j];
+        const bool ended = w == a.mask_index;
+        st = ended ? 0 : nb_s[st * a.vpad + w];
+        sp = ended ? 1 : sp + 1;
+        sn += ended;
+      }
+      st_s[j] = st;
+      stp_s[j] = sp;
+      sp_s[j] = sn;
+    }
+  }
+  __syncthreads();
+
+  float* seg = seg_all + 2 * warp * a.vpad;
+  int* seg_n = segn_all + warp * 32;
+  unsigned allow = 0;
+  float g[VPL];
+  float u = 0.f;
+  auto load_slot = [&](int j) {
+    const int type = types_s[min(sp_s[j], a.max_spans - 1)];
+    const int sid = grammar_sid(a.mode, st_s[j], stp_s[j] == 1, type, sid_s[st_s[j] & 15]);
+    const float* mrow = a.masks + (size_t)(nw * a.n_sid + sid) * a.vpad;
+    allow = 0;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) allow |= (mrow[lane + 32 * i] > 0.f ? 1u : 0u) << i;
+    if (a.noise != nullptr) {
+      const float* grow = a.noise + (size_t)(pos + j) * a.vpad;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) g[i] = grow[lane + 32 * i];
+      u = a.uniforms[pos + j];
+    } else {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) g[i] = 0.f;
+    }
+  };
+  if (active && warp < W) load_slot(warp);
+
+  // the logits' launch has finished and its writes are visible past here;
+  // nothing is written to global memory before it (that launch reads x)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (active) {
+    for (int j = warp; j < W; j += kSpecWarps) {
+      if (j != warp) load_slot(j);
+      const int tok = spec_slot_token<VPL>(a, j, K, allow, g, u, j < K ? win_s[j + 1] : 0, seg,
+                                           seg_n, lane);
+      if (lane == 0) {  // the plain loop's bookkeeping for the slot
+        const int spj = stp_s[j], snj = sp_s[j];
+        const int type = types_s[min(snj, a.max_spans - 1)];
+        const bool control_done = type != a.span_body && spj >= 2;
+        // the cap counts the introducing m_0 (reference generation.py:542)
+        const bool end_span = tok == a.eos_index || spj >= a.span_cap || control_done;
+        const int new_span = end_span ? snj + 1 : snj;
+        const bool now_done = new_span >= n_spans;
+        nt_s[j] = now_done ? 0 : (end_span ? a.mask_index : tok);
+        nd_s[j] = now_done;
+        bpost_s[j] = end_span ? 0 : nb_s[st_s[j] * a.vpad + tok];
+        spost_s[j] = end_span ? 1 : spj + 1;
+        npost_s[j] = new_span;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int m = 0;
+    if (active) {
+      // slot i emits iff every slot before it emitted its window token and
+      // did not finish the session
+      m = 1;
+      while (m < W && nt_s[m - 1] == win_s[m] && !nd_s[m - 1]) ++m;
+      int len = length;
+      for (int j = 0; j < m; ++j)
+        if (nt_s[j] != 0) len = max(len, pos + j + 2);
+      const int last = m - 1;
+      a.carry[kSPos] = pos + m;
+      a.carry[kSDone] = nd_s[last];
+      a.carry[kSBits] = bpost_s[last];
+      a.carry[kSSteps] = spost_s[last];
+      a.carry[kSSpan] = npost_s[last];
+      a.carry[kSLen] = len;
+    }
+    m_s = m;
+  }
+  __syncthreads();
+  const int m = m_s;
+  const int P = pos + m;  // the next window's position
+  for (int j = tid; j < W; j += kSpecThreads) {
+    if (active) {  // a single W-slot write; slots past the prefix write 0
+      const int t = j < m ? nt_s[j] : 0;
+      out_s[pos + 1 + j] = t;
+      a.out[pos + 1 + j] = t;
+    }
+    a.kv_rows[j] = pos + j;
+  }
+  __syncthreads();
+  if (K > 0) {
+    // the latest match of the bigram ending at P, in the emitted stream
+    // (ending at 1..P-1), else in the source (never at a padding id)
+    const int key0 = out_s[max(P - 1, 0)], key1 = out_s[P];
+    int jo = -1, js = -1;
+    for (int j = 1 + tid; j <= P - 1; j += kSpecThreads)
+      if (out_s[j - 1] == key0 && out_s[j] == key1) jo = j;
+    for (int j = 1 + tid; j < a.S; j += kSpecThreads)
+      if (src_s[j - 1] == key0 && src_s[j] == key1 && src_s[j] != 0) js = j;
+    jo = warp_max_int(jo);
+    js = warp_max_int(js);
+    if (lane == 0) {
+      red_o[warp] = jo;
+      red_s[warp] = js;
+    }
+    __syncthreads();
+    jo = -1;
+    js = -1;
+#pragma unroll
+    for (int w = 0; w < kSpecWarps; ++w) {
+      jo = max(jo, red_o[w]);
+      js = max(js, red_s[w]);
+    }
+    for (int i = tid; i < K; i += kSpecThreads) {
+      int t = 0;
+      if (jo >= 0)
+        t = out_s[max(min(jo + 1, a.L - K), 0) + i];
+      else if (js >= 0)
+        t = src_s[max(min(js + 1, a.S - K), 0) + i];
+      wn_s[1 + i] = t;
+    }
+  }
+  if (tid == 0) wn_s[0] = out_s[P];
+  __syncthreads();
+  for (int j = tid; j < W; j += kSpecThreads) a.window[j] = wn_s[j];
+  for (int e = tid; e < W * a.D; e += kSpecThreads) {
+    const int j = e / a.D, l = e - j * a.D;
+    const int tok = wn_s[j];
+    const int p = min(P + j, a.max_len - 1);  // past the table only where no window fits
+    const float ev = tok >= 0 && tok < a.V ? a.emb[(size_t)tok * a.D + l] : 0.f;
+    float v = __fadd_rn(__fmul_rn(ev, a.emb_scale), a.pos_table[(size_t)p * a.D + l]);
+    if (a.round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+    a.x[e] = v;
+  }
+}
+
+// dynamic shared memory of spec_advance_kernel
+__host__ __forceinline__ size_t spec_smem(int W, int L, int S, int max_spans, int vpad) {
+  return sizeof(int) * ((size_t)L + S + max_spans + kSlotArrays * W + 4 * (size_t)vpad +
+                        2 * (size_t)kSpecWarps * vpad + kSpecWarps * 32);
+}
+
+template <int VPL>
+int launch_spec_advance(const SpecArgs& a, int pdl, cudaStream_t st) {
+  const size_t smem = spec_smem(a.W, a.L, a.S, a.max_spans, a.vpad);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  // set on every launch: the attribute is per device, and decoders may run on several
+  const cudaError_t e = cudaFuncSetAttribute(
+      spec_advance_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kSpecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, spec_advance_kernel<VPL>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -433,6 +906,82 @@ int smer_sample_advance(int B, int vpad, const void* logits, void* state,
       neg_log_over_d, static_cast<float*>(x));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Speculative decode's iteration after its verify (spec_advance_kernel),
+// one block.  logits (W, vpad) f32 (null with prime); carry (8,) int32,
+// out (L,) int32 and window (W,) int32 updated in place; x (W, D) f32 and
+// kv_rows (W,) int64 written; aux (2,), span_types (max_spans,), sid_tbl
+// (16,), next_bits (16, vpad) int32, masks (2 n_sid, vpad) f32, src (S,)
+// int32, emb (V, D) f32, pos_table (max_len, D) f32; noise (L, vpad) and
+// uniforms (L,) f32, both null when greedy.  vpad a multiple of 128 up to
+// 512.  pdl 1: a programmatic dependent launch behind the logits' launch,
+// which then may write the logits and nothing else the kernel reads (the
+// rule of smer_sample_advance).
+int smer_spec_advance(const void* logits, void* carry, void* out, void* window, void* x,
+                      void* kv_rows, const void* aux, const void* span_types,
+                      const void* sid_tbl, const void* masks, const void* next_bits,
+                      const void* noise, const void* uniforms, const void* src, const void* emb,
+                      const void* pos_table, int W, int L, int S, int V, int D, int vpad,
+                      int max_len, int max_spans, int n_sid, int mode, int span_cap,
+                      int eos_index, int mask_index, int span_body, int greedy, int use_nucleus,
+                      float nucleus_p, float temperature, float emb_scale, int round_bf16,
+                      int prime, int pdl, void* stream) {
+  if (W < 1 || L < 1 || S < W - 1 || V < 1 || V > vpad || D < 1 || max_len < 1 ||
+      max_spans < 1 || (logits == nullptr) != (prime != 0) || (noise == nullptr) != (greedy != 0) ||
+      (uniforms == nullptr) != (greedy != 0))
+    return (int)cudaErrorInvalidValue;
+  SpecArgs a;
+  a.logits = static_cast<const float*>(logits);
+  a.carry = static_cast<int*>(carry);
+  a.out = static_cast<int*>(out);
+  a.window = static_cast<int*>(window);
+  a.x = static_cast<float*>(x);
+  a.kv_rows = static_cast<long long*>(kv_rows);
+  a.aux = static_cast<const int*>(aux);
+  a.span_types = static_cast<const int*>(span_types);
+  a.sid_tbl = static_cast<const int*>(sid_tbl);
+  a.masks = static_cast<const float*>(masks);
+  a.next_bits = static_cast<const int*>(next_bits);
+  a.noise = static_cast<const float*>(noise);
+  a.uniforms = static_cast<const float*>(uniforms);
+  a.src = static_cast<const int*>(src);
+  a.emb = static_cast<const float*>(emb);
+  a.pos_table = static_cast<const float*>(pos_table);
+  a.W = W;
+  a.L = L;
+  a.S = S;
+  a.V = V;
+  a.D = D;
+  a.vpad = vpad;
+  a.max_len = max_len;
+  a.max_spans = max_spans;
+  a.n_sid = n_sid;
+  a.mode = mode;
+  a.span_cap = span_cap;
+  a.eos_index = eos_index;
+  a.mask_index = mask_index;
+  a.span_body = span_body;
+  a.greedy = greedy;
+  a.use_nucleus = use_nucleus;
+  a.round_bf16 = round_bf16;
+  a.prime = prime;
+  a.nucleus_p = nucleus_p;
+  a.temperature = temperature;
+  a.emb_scale = emb_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (vpad) {
+    case 128:
+      return launch_spec_advance<4>(a, pdl, st);
+    case 256:
+      return launch_spec_advance<8>(a, pdl, st);
+    case 384:
+      return launch_spec_advance<12>(a, pdl, st);
+    case 512:
+      return launch_spec_advance<16>(a, pdl, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""A v3 decode token, or a v4 chunk of tokens, as one CUDA-graph replay.
+"""A v3 decode token, a v4 chunk of tokens, or an iteration of speculative
+decode, as one CUDA-graph replay.
 
 On the TPU a whole token is one ``pallas_call`` (JAX
 ``ops/decode_step.py:796``, v4 ``:1028``) inside a device-side
@@ -62,6 +63,12 @@ the warm-up, a real run of the kernels, counts once too.
 ``DecodeGraph.captures`` and ``DecodeGraph.replays`` count captures and
 replays.
 
+:class:`SpecGraph` (with :func:`open_spec_graph`) does the same for the
+speculative decode loop at B=1 (JAX ``infer/decode.py:411-702``): one
+replay an iteration of the W-row verify, ``spec_advance_kernel`` and the
+cache copy, the carry (position, done, grammar state, length), the output
+row and the next window living on the device; its docstring says how.
+
 On the CPU the same object runs the twins instead
 (:func:`~.decode_step.fused_decode_token_reference`,
 :func:`~.decode_step.fused_decode_tokens_reference`) with the same writes
@@ -81,17 +88,28 @@ import torch
 
 from .decode_step import (
     _SCRATCH,
+    SPEC_CARRY,
+    SPEC_DONE,
+    SPEC_POS,
     ST_TOKEN,
+    _check_layer_inputs,
+    _check_spec_inputs,
     _check_token_inputs,
     _launch_embed_pe,
+    _launch_layers,
+    _launch_spec_advance,
+    _layer_work,
     embed_pe_reference,
     fused_decode_token,
     fused_decode_token_reference,
     fused_decode_tokens,
     fused_decode_tokens_reference,
+    fused_verify_window,
     launch_tokens,
     load_library,
     rowvec_int8,
+    spec_advance,
+    spec_advance_reference,
     token_work,
 )
 
@@ -334,7 +352,266 @@ def open_graph(graphs: GraphCache, packed, tables, state, aux, span_types, noise
         yield graph
 
 
+class SpecGraph:
+    """One iteration of speculative decode for one sequence a :meth:`step`:
+    the verify of W window rows (``W = draft_k + 1``, or 1 in the tail),
+    ``spec_advance_kernel``, and the verify's K|V rows copied into the
+    cache, the counterpart of one pass of the body of JAX's device-side
+    ``lax.while_loop`` (``infer/decode.py:539-651``, the tail :660-698).
+
+    On CUDA each W is one CUDA graph, captured at its first step and
+    replayed at every later one: the verify's 33 launches on the window rows
+    ``x`` (the self-attention reading the cache length from ``carry``, its
+    splits sized from the cache's capacity), the sampler (a programmatic
+    dependent launch behind the logits launch, which writes the carry, the
+    output, the next window, its input rows ``x`` and the rows ``kv_rows``
+    the verify's K|V go to), then a captured ``index_copy_`` into the cache
+    at ``kv_rows``: 35 nodes, no argument of which depends on the
+    position.  The window and tail graphs share every buffer (the tail reads
+    the first row of each), so the loop moves from one to the other without
+    a copy.  An iteration past the end (done, or a window that no longer
+    fits before the cap) changes nothing but the cache rows at and past the
+    position, which it writes once with the same K|V at every later replay:
+    the host may replay before it reads the carry back.  ``graph=False``
+    launches the same body eagerly (the bit reference of the replays).
+
+    The cache has ``L + draft_k`` rows, so that a window at any position
+    fits it; the output has L.  On the CPU a step runs the twins with the
+    same writes: ``fused_verify_window`` (whose CPU branch is the twin),
+    :func:`~.decode_step.spec_advance_reference` and the same
+    ``index_copy_``.
+
+    Counts: a step adds one to ``fused_verify_window.launches`` and (on
+    CUDA) one to ``spec_advance.launches``, the warm-up of a capture once,
+    and :meth:`load`'s first window one more; ``SpecGraph.captures`` and
+    ``SpecGraph.replays`` count captures and replays."""
+
+    captures = 0
+    replays = 0
+    capture_ms: List[float] = []
+
+    def __init__(self, packed, tables, fast_tables, emb, pos_table, *, K: int, L: int, S: int,
+                 max_spans: int, compute_dtype, stream=None, graph: bool = True, n_layers: int, d_model: int, nhead: int, d_ff: int,
+                 vpad: int, **skw):
+        dev = self.device = emb.device
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"SpecGraph runs on cuda or cpu, not {dev}")
+        self.kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+        self.skw = dict(skw, max_spans=max_spans)
+        self.packed, self.tables, self.fast_tables = packed, tables, fast_tables
+        self.emb, self.pos_table, self.cdt = emb, pos_table, compute_dtype
+        self.stream, self.use_graph = stream, graph
+        self.W = W = K + 1
+        D, i32 = d_model, torch.int32
+        self.cache = torch.zeros(n_layers, 1, L + K, 2 * D, dtype=compute_dtype, device=dev)
+        self.cross_kv = torch.zeros(n_layers, 1, S, 2 * D, dtype=compute_dtype, device=dev)
+        self.cross_len = torch.zeros(W, dtype=i32, device=dev)
+        self.carry = torch.zeros(SPEC_CARRY, dtype=i32, device=dev)
+        self.out = torch.zeros(L, dtype=i32, device=dev)
+        self.window = torch.zeros(W, dtype=i32, device=dev)
+        self.x = torch.zeros(W, D, device=dev)
+        self.kv_rows = torch.zeros(W, dtype=torch.int64, device=dev)
+        self.aux = torch.zeros(2, dtype=i32, device=dev)
+        self.span_types = torch.zeros(max_spans, dtype=i32, device=dev)
+        self.src = torch.zeros(S, dtype=i32, device=dev)
+        greedy = skw["greedy"]
+        self.noise = None if greedy else torch.zeros(L, vpad, device=dev)
+        self.uniforms = None if greedy else torch.zeros(L, device=dev)
+        self.work = {}
+        for w in sorted({W, 1}):
+            wk = _layer_work(w, D, d_ff, dev)
+            wk["logits"] = torch.empty(w, vpad, device=dev)
+            wk["new_kv"] = torch.empty(n_layers, w, 2 * D, dtype=compute_dtype, device=dev)
+            self.work[w] = wk
+        self._graphs = {}
+        self._scratch = []
+        if dev.type == "cuda":
+            _check_layer_inputs(packed, 1, dev, self.cache, self.cross_kv, self.cross_len[:1],
+                                n_layers, D, nhead, d_ff, vpad)
+            _check_spec_inputs(self.carry, self.out, self.window, self.src, self.span_types,
+                               self.aux, tables, self.noise, self.uniforms, emb, pos_table,
+                               **self.skw)
+            # read-backs of (pos, done), each behind the replays queued before it
+            self._ring = [torch.zeros(2, dtype=i32, pin_memory=True) for _ in range(4)]
+            self._events = [torch.cuda.Event() for _ in self._ring]
+            self._marks = 0
+
+    def load(self, src, span_types, aux, noise, uniforms, cross_kv, cross_len) -> None:
+        """A new decode's inputs into the buffers (in place, so the captured
+        graphs read them): the carry at position 0 (done when the row has no
+        span), the output's column 0 ``m_0``, the cache zeroed, then the first
+        window and its rows (the sampler with ``prime``: no sampling)."""
+        for dst, val in ((self.src, src), (self.span_types, span_types), (self.aux, aux),
+                         (self.cross_kv, cross_kv)):
+            if dst.shape != val.shape:
+                raise ValueError(f"a decode's input of shape {tuple(val.shape)} into a buffer of "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(val)
+        if self.noise is not None:
+            self.noise.copy_(noise)
+            self.uniforms.copy_(uniforms)
+        self.cross_len.copy_(cross_len.expand(self.W))
+        self.cache.zero_()
+        self.out.zero_()
+        self.out[0] = self.skw["mask_index"]
+        self.carry.copy_(torch.tensor([0, int(aux[0] <= 0), 0, 1, 0, 1, 0, 0], dtype=torch.int32))
+        self._advance(None, self.W, prime=True)
+
+    def _advance(self, logits, W: int, *, prime: bool = False, stream=None) -> None:
+        """The sampler over W slots: the kernel on CUDA (on ``stream``), its
+        twin on the CPU, writing the same buffers."""
+        if self.device.type == "cpu":
+            r = spec_advance_reference(logits, self.carry, self.out, self.window[:W], self.src,
+                                       self.span_types, self.aux, self.fast_tables, self.noise,
+                                       self.uniforms, self.emb, self.pos_table,
+                                       compute_dtype=self.cdt, prime=prime, **self.skw)
+            for k in ("carry", "out"):
+                getattr(self, k).copy_(r[k])
+            for k in ("window", "x", "kv_rows"):
+                getattr(self, k)[:W].copy_(r[k])
+            return
+        if stream is None:
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+        _launch_spec_advance(load_library(), logits, self.carry, self.out, self.window[:W],
+                             self.x[:W], self.kv_rows[:W], self.aux, self.span_types, self.tables,
+                             self.noise, self.uniforms, self.src, self.emb, self.pos_table,
+                             stream=stream, round_bf16=self.cdt == torch.bfloat16, prime=prime,
+                             **self.skw)
+
+    # ------------------------------------------------------------------
+    def step(self, W: int) -> None:
+        """One iteration of W rows (``draft_k + 1`` or the tail's 1) at the
+        position in the carry."""
+        if W not in self.work:
+            raise ValueError(f"a SpecGraph steps W={self.W} or 1 rows, not {W}")
+        if self.device.type == "cpu":
+            self._twin_step(W)
+        elif not self.use_graph:
+            self._body(W, torch.cuda.current_stream(self.device).cuda_stream)
+            fused_verify_window.launches += 1
+        else:
+            if W not in self._graphs:
+                self._capture(W)
+            self._graphs[W].replay()
+            SpecGraph.replays += 1
+            fused_verify_window.launches += 1
+            spec_advance.launches += 1
+
+    def _body(self, W: int, stream: int) -> None:
+        """What one replay does: the verify, the sampler, the K|V rows."""
+        wk = self.work[W]
+        kw = self.kw
+        _launch_layers(load_library(), self.packed, self.x[:W], self.cache, self.cross_kv,
+                       self.carry[SPEC_POS : SPEC_POS + 1], self.cross_len[:W], wk["logits"],
+                       wk["new_kv"], n_layers=kw["n_layers"], D=kw["d_model"], H=kw["nhead"],
+                       F=kw["d_ff"], vpad=kw["vpad"], stream=stream, window=True, work=wk)
+        self._advance(wk["logits"], W, stream=stream)
+        self.cache.index_copy_(2, self.kv_rows[:W], wk["new_kv"].unsqueeze(1))
+
+    def _capture(self, W: int) -> None:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device=self.device)
+        side = self.stream
+        cur = torch.cuda.current_stream(self.device)
+        bufs = (self.carry, self.out, self.window, self.x, self.kv_rows, self.cache)
+        saved = [t.clone() for t in bufs]
+        # the warm-up: one real run of the body on the side stream, which
+        # advances the decode; it is put back before the capture
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._body(W, side.cuda_stream)
+        cur.wait_stream(side)
+        fused_verify_window.launches += 1
+        # the graph bakes in the side stream's workspace and tickets
+        self._scratch.append(_SCRATCH[(self.device.index, side.cuda_stream)])
+        for t, v in zip(bufs, saved):
+            t.copy_(v)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._body(W, side.cuda_stream)
+            except BaseException:
+                graph.capture_end()
+                raise
+            graph.capture_end()
+        SpecGraph.capture_ms.append(1e3 * (time.perf_counter() - t0))
+        spec_advance.launches -= 1  # the capture launched nothing
+        SpecGraph.captures += 1
+        self._graphs[W] = graph
+
+    def _twin_step(self, W: int) -> None:
+        """The iteration on the CPU: the verify's twin, the sampler's, and
+        the same writes as the graph's."""
+        logits, new_kv = fused_verify_window(self.packed, self.x[:W].to(self.cdt), self.cache,
+                                             self.cross_kv, self.carry[SPEC_POS : SPEC_POS + 1],
+                                             self.cross_len[:1], **self.kw)
+        self._advance(logits, W)
+        self.cache.index_copy_(2, self.kv_rows[:W], new_kv.unsqueeze(1).to(self.cache.dtype))
+
+    def mark(self):
+        """A read-back of (position, done) queued behind the steps so far;
+        :meth:`read` waits for it.  On the CPU the values themselves."""
+        if self.device.type == "cpu":
+            return int(self.carry[SPEC_POS]), bool(self.carry[SPEC_DONE])
+        i = self._marks % len(self._ring)
+        self._marks += 1
+        self._ring[i].copy_(self.carry[SPEC_POS : SPEC_DONE + 1], non_blocking=True)
+        self._events[i].record()
+        return i
+
+    def read(self, mark):
+        """(position, done) of a :meth:`mark`."""
+        if self.device.type == "cpu":
+            return mark
+        self._events[mark].synchronize()
+        pos, done = self._ring[mark].tolist()
+        return pos, bool(done)
+
+
+@contextlib.contextmanager
+def open_spec_graph(graphs: GraphCache, packed, tables, fast_tables, emb, pos_table, src,
+                    span_types, aux, noise, uniforms, cross_kv, cross_len, *, K: int, L: int,
+                    compute_dtype, graph: bool = True, n_layers: int,
+                    d_model: int, nhead: int, d_ff: int, vpad: int, **skw):
+    """A :class:`SpecGraph` loaded with one decode's inputs (``src`` (S,),
+    ``span_types`` (max_spans,), ``aux`` (2,) int32, ``noise`` (L, vpad) and
+    ``uniforms`` (L,) f32 or None when greedy, ``cross_kv`` (n_layers, 1, S,
+    2D), ``cross_len`` (1,)), from ``graphs`` under the key (W, the
+    source's bucket S, ...), as :func:`open_graph` keeps the v3 graphs; the
+    cache's lock is held until the block ends.  ``graph=False``: a
+    SpecGraph that launches its steps eagerly (the bit reference of the
+    replays)."""
+    kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
+    S = src.shape[0]
+    key = ("spec", K + 1, S, L, noise is None, compute_dtype, graph, tuple(sorted(kw.items())),
+           tuple(sorted(skw.items())))
+    with graphs.lock:
+        if graphs.packed is not packed or graphs.tables is not tables:
+            graphs.graphs.clear()
+            graphs.packed, graphs.tables = packed, tables
+        spec = graphs.graphs.pop(key, None)
+        if spec is None:
+            graphs.misses += 1
+            if graphs.stream is None and emb.device.type == "cuda":
+                graphs.stream = torch.cuda.Stream(device=emb.device)
+            spec = SpecGraph(packed, tables, fast_tables, emb, pos_table, K=K, L=L, S=S,
+                             compute_dtype=compute_dtype, stream=graphs.stream,
+                             graph=graph, **kw, **skw)
+        else:
+            graphs.hits += 1
+        graphs.graphs[key] = spec
+        while len(graphs.graphs) > graphs.size:
+            graphs.graphs.popitem(last=False)
+        spec.load(src, span_types, aux, noise, uniforms, cross_kv, cross_len)
+        yield spec
+
+
 def reset_counts() -> None:
     DecodeGraph.captures = 0
     DecodeGraph.replays = 0
     DecodeGraph.capture_ms = []
+    SpecGraph.captures = 0
+    SpecGraph.replays = 0
+    SpecGraph.capture_ms = []

@@ -53,6 +53,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..infer.grammar import allowed_mask_fast, update_bits
+from ..infer.sampling import greedy_sample, masked_sample_gumbel, spec_accept_resample
+
 LN_EPS = 1e-6
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one library for the port's kernels: the decode kernels here, the
@@ -71,6 +74,10 @@ NVCC_FLAGS = (
 
 # state rows carried through the v3 loop as one (6, B) int32 array
 ST_TOKEN, ST_BITS, ST_STEPS, ST_SPAN, ST_DONE, ST_LEN = range(6)
+# the carry of speculative decode's loop, one (SPEC_CARRY,) int32 vector:
+# position, done, grammar bits, steps in span, span index, length
+SPEC_POS, SPEC_DONE, SPEC_BITS, SPEC_STEPS, SPEC_SPAN, SPEC_LEN = range(6)
+SPEC_CARRY = 8
 MAX_BATCH = 8  # rows of the batched decode kernels (v2, v3, v4)
 # rowvec_kernel (csrc/decode_step.cu): rows a launch (more are launched in
 # chunks of this many), output columns a tile, K rows a pass; a K-slice is
@@ -603,7 +610,7 @@ def fused_verify_window_reference(
     fused_verify_window_reference.calls += 1
     if "scale" in packed:
         raise ValueError("the verify window does not take int8 weights")
-    index = int(index)
+    index = host_position(index)
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     logits, rows = [], []
     for j in range(x_emb.shape[0]):
@@ -617,6 +624,162 @@ def fused_verify_window_reference(
 
 
 fused_verify_window_reference.calls = 0
+
+
+def pack_spec_tables(fast_tables, vpad: int) -> Dict[str, np.ndarray]:
+    """The grammar's ``next_bits`` (16, V) transition table padded to (16,
+    vpad) int32, the one table ``spec_advance_kernel`` reads beside
+    :func:`pack_sampling_tables`' (the decoder adds it to that dict)."""
+    nb = np.asarray(fast_tables[2], np.int32)
+    out = np.zeros((nb.shape[0], vpad), np.int32)
+    out[:, : nb.shape[1]] = nb
+    return {"next_bits": out}
+
+
+def build_draft_reference(out: torch.Tensor, pos: int, src: torch.Tensor, K: int) -> torch.Tensor:
+    """JAX ``build_draft`` (``infer/decode.py:509-534``): the K tokens that
+    follow the latest match of the bigram (out[pos - 1], out[pos]) ending at
+    1..pos-1 in the emitted stream ``out`` (L,), else its latest match in
+    the source row ``src`` (S,) never at a padding id, else zeros."""
+    L, S = out.shape[0], src.shape[0]
+    key0, key1 = out[max(pos - 1, 0)], out[pos]
+    jj_out = torch.arange(L, device=out.device)
+    out_shift = torch.cat([out.new_zeros(1), out[:-1]])
+    m_out = (out_shift == key0) & (out == key1) & (jj_out >= 1) & (jj_out <= pos - 1)
+    j_out = int(torch.where(m_out, jj_out, -1).max())
+    jj_src = torch.arange(S, device=src.device)
+    src_shift = torch.cat([src.new_zeros(1), src[:-1]])
+    m_src = (src_shift == key0) & (src == key1) & (jj_src >= 1) & (src != 0)
+    j_src = int(torch.where(m_src, jj_src, -1).max())
+    if j_out >= 0:
+        start = max(min(j_out + 1, L - K), 0)
+        return out[start : start + K].clone()
+    if j_src >= 0:
+        start = max(min(j_src + 1, S - K), 0)
+        return src[start : start + K].to(out.dtype)
+    return out.new_zeros(K)
+
+
+def spec_window_rows(window, pos: int, emb, pos_table, emb_scale: float, compute_dtype):
+    """The W verify rows of ``window`` at ``pos`` (JAX :471-474): the f32
+    embedding x sqrt(D) plus the PE table's rows, rounded to the compute
+    dtype, then f32.  A row past the table takes its last row (such a
+    window is never verified)."""
+    rows = (pos + torch.arange(window.shape[0], device=window.device)).clamp(
+        max=pos_table.shape[0] - 1)
+    e = torch.where((window >= 0)[:, None] & (window < emb.shape[0])[:, None],
+                    emb[window.long().clamp(0, emb.shape[0] - 1)], 0.0)
+    return (e * emb_scale + pos_table[rows]).to(compute_dtype).float()
+
+
+def spec_slot_rows(carry, window, span_types, no_whole, fast_tables, *, mode: int,
+                   max_spans: int, mask_index: int):
+    """The state each of a window's W slots samples under (JAX
+    :555-583): the assumed-emission chain over the K = W - 1 draft tokens
+    (an emitted ``m_0`` ends a span and resets the state), and each slot's
+    span type and grammar row.  Returns ``(states, steps, spans, cur_type,
+    allowed (W, V) bool)``."""
+    state_masks, sid_from_bits, next_bits = fast_tables
+    dev = carry.device
+    state, steps, span = (int(v) for v in carry[SPEC_BITS : SPEC_SPAN + 1].tolist())
+    states, steps_w, spans_w = [state], [steps], [span]
+    for w in window[1:].tolist():
+        ended = w == mask_index
+        states.append(0 if ended else int(next_bits[states[-1], w]))
+        steps_w.append(1 if ended else steps_w[-1] + 1)
+        spans_w.append(spans_w[-1] + int(ended))
+    states, steps_w, spans_w = (torch.tensor(v, device=dev) for v in (states, steps_w, spans_w))
+    cur_type = span_types[spans_w.clamp(max=max_spans - 1)].long()
+    allowed = allowed_mask_fast(state_masks, sid_from_bits, states, steps_w == 1, cur_type,
+                                no_whole, start_overrides=(mode == 1))
+    return states, steps_w, spans_w, cur_type, allowed
+
+
+def spec_advance_reference(
+    logits: Optional[torch.Tensor],  # (W, vpad) f32, the verify's; None with prime
+    carry: torch.Tensor,  # (SPEC_CARRY,) int32
+    out: torch.Tensor,  # (L,) int32
+    window: torch.Tensor,  # (W,) int32: [out[pos], draft]
+    src: torch.Tensor,  # (S,) int32
+    span_types: torch.Tensor,  # (max_spans,) int32
+    aux: torch.Tensor,  # (2,) int32: n_spans, no_whole
+    fast_tables,  # (state_masks (2, N_SID, V) bool, sid_from_bits (16,), next_bits (16, V))
+    noise: Optional[torch.Tensor],  # (L, >= V) f32 Gumbel rows; None when greedy
+    uniforms: Optional[torch.Tensor],  # (L,) f32; None when greedy
+    emb: torch.Tensor,  # (V, D) f32
+    pos_table: torch.Tensor,  # (max_len, D) f32
+    *,
+    mode: int, max_spans: int, span_cap: int, eos_index: int, mask_index: int,
+    nucleus_p, temperature: float, greedy: bool, span_body: int, compute_dtype,
+    prime: bool = False, n_sid: Optional[int] = None,  # the kernel's; the masks carry it here
+) -> Dict[str, torch.Tensor]:
+    """Plain-torch twin of ``spec_advance_kernel``: one iteration of JAX's
+    ``_decode_v5`` after its verify (``infer/decode.py:539-651``, the tail
+    :660-698 at W = 1), line by line, for W = len(window) slots and K = W - 1
+    drafts; then the next draft (:func:`build_draft_reference`), window and
+    input rows (:func:`spec_window_rows`).  An iteration whose carry is done
+    or whose window no longer fits (pos + W >= L), or ``prime``, samples
+    nothing and changes nothing but the next window and its rows.  Returns
+    ``carry``, ``out``, ``window`` (new tensors), ``x`` (W, D) f32 and
+    ``kv_rows`` (W,) int64, the cache rows the verify wrote (pos + j)."""
+    spec_advance_reference.calls += 1
+    state_masks, sid_from_bits, next_bits = fast_tables
+    V = next_bits.shape[1]
+    W, L = window.shape[0], out.shape[0]
+    K = W - 1
+    dev = carry.device
+    pos, done, state, steps, span, length = (int(v) for v in carry[:6].tolist())
+    n_spans, no_whole = int(aux[0]), bool(aux[1])
+    carry, out = carry.clone(), out.clone()
+    iota = torch.arange(W, device=dev)
+    m = 0
+    if not prime and not done and pos + W < L:
+        draft = window[1:].long()
+        states, steps_w, spans_w, cur_type, allowed = spec_slot_rows(
+            carry, window, span_types, no_whole, fast_tables, mode=mode, max_spans=max_spans,
+            mask_index=mask_index)
+        # one batched sampling pass over all W slots
+        lg = logits[:, :V]
+        if greedy:
+            sampled = greedy_sample(lg, allowed)
+        else:
+            g, u = noise[pos : pos + W, :V], uniforms[pos : pos + W]
+            proposals = torch.cat([draft.clamp(min=0), draft.new_zeros(1)])
+            spec_tok, _ = spec_accept_resample(u, g, lg, allowed, proposals, nucleus_p, temperature)
+            plain_tok = masked_sample_gumbel(g, lg, allowed, nucleus_p, temperature)
+            # slot K has no draft: a plain sample (the bonus token)
+            sampled = torch.where(iota == K, plain_tok, spec_tok)
+        # the plain loop's bookkeeping for each slot
+        control_done = (cur_type != span_body) & (steps_w >= 2)
+        end_span = (sampled == eos_index) | (steps_w >= span_cap) | control_done
+        new_span = torch.where(end_span, spans_w + 1, spans_w)
+        now_done = new_span >= n_spans
+        next_tok = torch.where(end_span, mask_index, sampled)
+        next_tok = torch.where(now_done, 0, next_tok)
+        # the accepted prefix: slot i emits iff every earlier slot emitted its
+        # window token and did not finish the session
+        match = torch.cat([next_tok[:K] == draft, torch.zeros(1, dtype=torch.bool, device=dev)])
+        keep = (match & ~now_done).long()
+        emit = torch.cat([keep.new_ones(1), torch.cumprod(keep, 0)[:K]]).bool()
+        m = int(emit.sum())
+        out[pos + 1 : pos + 1 + W] = torch.where(emit, next_tok, 0).to(out.dtype)
+        cand = torch.where(emit & (next_tok != 0), pos + iota + 2, 0)
+        length = max(length, int(cand.max()))
+        # the post-state of the last emitted slot becomes the carry
+        st_post = torch.where(end_span, 0, update_bits(next_bits, states, sampled))
+        steps_post = torch.where(end_span, 1, steps_w + 1)
+        last = m - 1
+        carry[:6] = torch.tensor([pos + m, int(now_done[last]), int(st_post[last]),
+                                  int(steps_post[last]), int(new_span[last]), length],
+                                 dtype=carry.dtype, device=dev)
+    P = pos + m
+    draft = build_draft_reference(out, P, src, K) if K > 0 else out.new_zeros(0)
+    window = torch.cat([out[P : P + 1], draft.to(out.dtype)])
+    x = spec_window_rows(window, P, emb, pos_table, math.sqrt(emb.shape[1]), compute_dtype)
+    return dict(carry=carry, out=out, window=window, x=x, kv_rows=pos + iota.long())
+
+
+spec_advance_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -719,12 +882,13 @@ def load_library() -> ctypes.CDLL:
         lib.smer_sample_advance.argtypes = (
             [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i] + [p, i, f, f, p, p]
         )
+        lib.smer_spec_advance.argtypes = [p] * 16 + [i] * 16 + [f, f, f, i, i, i, p]
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
                    lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask,
                    lib.smer_flash_train_fwd, lib.smer_flash_train_bwd, lib.smer_attention_f32_fwd,
                    lib.smer_flash_train_bwd_f32, lib.smer_flash_train_bwd_f32_blocks,
-                   lib.smer_attention_f32_fwd_blocks):
+                   lib.smer_attention_f32_fwd_blocks, lib.smer_spec_advance):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -904,7 +1068,8 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     ``window``: the B rows are one sequence's verify window over a cache of
     one batch row (batch stride 0 for the self and cross K|V, ``cross_len``
     (B,) repeating its length); row j attends the ``index`` cache rows,
-    then rows 0..j-1 of ``new_kv``, then its own.
+    then rows 0..j-1 of ``new_kv``, then its own; a position tensor may
+    then be (1,) (every row reads its first entry).
     With ``"scale"`` in ``packed`` the six matrices of a layer are int8.
     ``work``: the temporaries (:func:`_layer_work`), allocated here if None."""
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
@@ -1044,7 +1209,7 @@ def fused_verify_window(
     x_emb: torch.Tensor,  # (W, D) compute-dtype embedded window rows (+PE)
     self_kv: torch.Tensor,  # (n_layers, 1, L, 2D); rows below index are read
     cross_kv: torch.Tensor,  # (n_layers, 1, S, 2D)
-    index,  # int: valid cached self rows (= position of window row 0)
+    index,  # valid cached self rows (= position of window row 0): an int, or a (1,) int32 tensor
     cross_len: torch.Tensor,  # (1,) int32
     *,
     n_layers: int,
@@ -1062,7 +1227,9 @@ def fused_verify_window(
     is not written, so the caller splices ``new_kv`` at ``index``.  On CUDA
     the v2 launches run once on all W rows, one weight stream a layer for
     every 16 rows (the row-vector kernel's launch); int8 weights are
-    refused, as in JAX (:1397)."""
+    refused, as in JAX (:1397).  A position tensor on the device is read
+    there (the self-attention's ``lens``, its splits sized from the cache's
+    capacity) and not range-checked: the bits are those of the host int's."""
     kw = dict(n_layers=n_layers, d_model=d_model, nhead=nhead, d_ff=d_ff, vpad=vpad)
     if x_emb.device.type == "cpu":
         return fused_verify_window_reference(packed, x_emb, self_kv, cross_kv, index,
@@ -1071,14 +1238,17 @@ def fused_verify_window(
         raise ValueError(f"fused_verify_window runs on cuda or cpu, not {x_emb.device}")
     if "scale" in packed:
         raise ValueError("the verify window does not take int8 weights")
-    index = int(index)
     W, D, dev = x_emb.shape[0], d_model, x_emb.device
     if W < 1:
         raise ValueError(f"the verify window takes at least one row, got W={W}")
     _check_layer_inputs(packed, 1, dev, self_kv, cross_kv, cross_len,
                         n_layers, D, nhead, d_ff, vpad)
-    if not 0 <= index <= self_kv.shape[2]:
-        raise ValueError(f"index={index} outside the self cache of {self_kv.shape[2]} rows")
+    if isinstance(index, torch.Tensor):
+        _check_tensors(dev, {"index": (index, torch.int32, (1,))})
+    else:
+        index = int(index)
+        if not 0 <= index <= self_kv.shape[2]:
+            raise ValueError(f"index={index} outside the self cache of {self_kv.shape[2]} rows")
     _check_tensors(dev, {"x_emb": (x_emb, torch.bfloat16, (W, D))})
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1221,6 +1391,101 @@ def embed_pe(emb: torch.Tensor, state: torch.Tensor, index) -> torch.Tensor:
     _launch_embed_pe(load_library(), emb, state, _position(index, B, dev), x,
                      stream=torch.cuda.current_stream(dev).cuda_stream)
     return x
+
+
+SPEC_VPADS = (128, 256, 384, 512)  # the vocab widths spec_advance_kernel is built for
+
+
+def _launch_spec_advance(lib, logits, carry, out, window, x, kv_rows, aux, span_types, tables,
+                         noise, uniforms, src, emb, pos_table, *, stream, mode, max_spans,
+                         span_cap, eos_index, mask_index, nucleus_p, temperature, greedy, n_sid,
+                         span_body, round_bf16: bool, prime: bool = False) -> None:
+    """``spec_advance_kernel`` on W = len(window) slots, in place on
+    ``carry``, ``out`` and ``window``, writing ``x`` and ``kv_rows``; a
+    programmatic dependent launch behind the launch before it (the
+    verify's logits), which may write the logits and nothing else it reads
+    (``smer_spec_advance``'s rule), unless ``prime`` (no logits: the first
+    window of a decode).  Counts one launch in ``spec_advance.launches``."""
+    W, vpad = window.shape[0], tables["state_masks_f"].shape[1]
+    use_nucleus = nucleus_p is not None and not greedy
+    _check(lib.smer_spec_advance(
+        None if prime else logits.data_ptr(), carry.data_ptr(), out.data_ptr(),
+        window.data_ptr(), x.data_ptr(), kv_rows.data_ptr(), aux.data_ptr(),
+        span_types.data_ptr(), tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
+        tables["next_bits"].data_ptr(), None if greedy else noise.data_ptr(),
+        None if greedy else uniforms.data_ptr(), src.data_ptr(), emb.data_ptr(),
+        pos_table.data_ptr(), W, out.shape[0], src.shape[0], emb.shape[0], emb.shape[1], vpad,
+        pos_table.shape[0], max_spans, n_sid, mode, span_cap, eos_index, mask_index, span_body,
+        int(greedy), int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
+        float(temperature), math.sqrt(emb.shape[1]), int(round_bf16), int(prime), int(not prime),
+        stream,
+    ), "spec_advance")
+    spec_advance.launches += 1
+
+
+def _check_spec_inputs(carry, out, window, src, span_types, aux, tables, noise, uniforms, emb,
+                       pos_table, *, greedy, n_sid, max_spans, **_) -> None:
+    """The shapes, types and devices ``spec_advance_kernel`` takes."""
+    dev, W, L, S = carry.device, window.shape[0], out.shape[0], src.shape[0]
+    vpad = tables["state_masks_f"].shape[1]
+    if vpad not in SPEC_VPADS:
+        raise ValueError(f"spec_advance_kernel is built for vpad in {SPEC_VPADS}, got {vpad}")
+    if W < 1 or S < W - 1:
+        raise ValueError(f"a window of W={W} rows needs W >= 1 and a source of at least W - 1 "
+                         f"ids, got S={S}")
+    V, D = emb.shape
+    if V > vpad:
+        raise ValueError(f"the embedding's {V} rows exceed vpad={vpad}")
+    i32, f32 = torch.int32, torch.float32
+    want = {
+        "carry": (carry, i32, (SPEC_CARRY,)), "out": (out, i32, (L,)), "window": (window, i32, (W,)),
+        "src": (src, i32, (S,)), "span_types": (span_types, i32, (max_spans,)),
+        "aux": (aux, i32, (2,)), "sid_tbl": (tables["sid_tbl"], i32, (16,)),
+        "state_masks_f": (tables["state_masks_f"], f32, (2 * n_sid, vpad)),
+        "next_bits": (tables["next_bits"], i32, (16, vpad)), "emb": (emb, f32, (V, D)),
+        "pos_table": (pos_table, f32, (pos_table.shape[0], D)),
+    }
+    if not greedy:
+        want["noise"] = (noise, f32, (L, vpad))
+        want["uniforms"] = (uniforms, f32, (L,))
+    _check_tensors(dev, want)
+
+
+def spec_advance(logits, carry, out, window, src, span_types, aux, tables, fast_tables, noise,
+                 uniforms, emb, pos_table, *, compute_dtype, prime: bool = False, **skw):
+    """One launch of ``spec_advance_kernel`` alone on new copies of the
+    carry, output and window (CUDA tensors), or :func:`spec_advance_reference`
+    (CPU tensors; it reads ``fast_tables``, the kernel ``tables`` with
+    ``next_bits``): a dict of ``carry``, ``out``, ``window``, ``x`` and
+    ``kv_rows``.  ``noise`` is (L, vpad) here (the twin reads its first V
+    lanes).  For holding the kernel against its twin on the same inputs; the
+    decoder never calls it, and it counts no launch."""
+    if carry.device.type == "cpu":
+        return spec_advance_reference(logits, carry, out, window, src, span_types, aux,
+                                      fast_tables, noise, uniforms, emb, pos_table,
+                                      compute_dtype=compute_dtype, prime=prime, **skw)
+    if carry.device.type != "cuda":
+        raise ValueError(f"spec_advance runs on cuda or cpu, not {carry.device}")
+    _check_spec_inputs(carry, out, window, src, span_types, aux, tables, noise, uniforms, emb,
+                       pos_table, **skw)
+    W, vpad, dev = window.shape[0], tables["state_masks_f"].shape[1], carry.device
+    if not prime:
+        _check_tensors(dev, {"logits": (logits, torch.float32, (W, vpad))})
+        # the launch just before the kernel writes only what it reads after its wait
+        logits = logits.clone()
+    res = dict(carry=carry.clone(), out=out.clone(), window=window.clone(),
+               x=torch.empty(W, emb.shape[1], device=dev),
+               kv_rows=torch.empty(W, dtype=torch.int64, device=dev))
+    before = spec_advance.launches
+    _launch_spec_advance(load_library(), logits, res["carry"], res["out"], res["window"], res["x"],
+                         res["kv_rows"], aux, span_types, tables, noise, uniforms, src, emb,
+                         pos_table, stream=torch.cuda.current_stream(dev).cuda_stream,
+                         round_bf16=compute_dtype == torch.bfloat16, prime=prime, **skw)
+    spec_advance.launches = before
+    return res
+
+
+spec_advance.launches = 0
 
 
 def token_work(B: int, D: int, F: int, vpad: int, n_layers: int, T, kv_dtype, device):
@@ -1407,3 +1672,5 @@ def reset_counts() -> None:
     fused_verify_window_reference.calls = 0
     rowvec_int8.launches = 0
     rowvec_int8_reference.calls = 0
+    spec_advance.launches = 0
+    spec_advance_reference.calls = 0

@@ -32,7 +32,8 @@ q's dtype.  What it computes, as the library does:
 The exponent is ``2^((s - m) log2(e))``, the kernels' and the twins' alike.
 A tensor on the CPU goes to the twins (:func:`flash_train_fwd_reference`,
 :func:`flash_train_bwd_reference`); a CUDA tensor launches the kernels (bf16
-or f32, head_dim in ``KERNEL_HEAD_DIMS``, contiguous) or raises.  The
+or f32, head_dim in ``KERNEL_HEAD_DIMS`` or any other up to 128 zero-padded
+to one of them, :func:`flash_kernel_width`; contiguous) or raises.  The
 kernels are built with the port's others into one library at first use
 (``ops.decode_step.load_library``).
 """
@@ -43,7 +44,7 @@ import math
 
 import torch
 
-from .attention import KERNEL_HEAD_DIMS
+from .attention import KERNEL_HEAD_DIMS, kernel_width, pad_head
 from .decode_step import _check, _check_tensors, load_library
 
 BLOCK = 128  # the library's block size (BlockSizes.get_default), every axis
@@ -51,13 +52,15 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library's DEFAU
 LOG2E = 1.4426950408889634
 
 
-def _masked_scores(q, k, kv_valid, causal):
-    """The library's scores (B, H, T, S) f32: ``q . k * scale`` plus
-    MASK_VALUE where the key is invalid or past the row (causal), and -inf
-    in the key blocks a causal row does not visit, which take no part."""
+def _masked_scores(q, k, kv_valid, causal, scale=None):
+    """The library's scores (B, H, T, S) f32: ``q . k * scale`` (1/sqrt(D)
+    by default) plus MASK_VALUE where the key is invalid or past the row
+    (causal), and -inf in the key blocks a causal row does not visit, which
+    take no part."""
     B, T, H, D = q.shape
     S = k.shape[1]
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (1.0 / math.sqrt(D))
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
     mask = kv_valid.to(torch.bool)[:, None, None, :]
     if causal:
         mask = mask & torch.ones(T, S, dtype=torch.bool, device=q.device).tril()[None, None]
@@ -74,7 +77,7 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(x * torch.tensor(LOG2E, dtype=torch.float32, device=x.device))
 
 
-def flash_train_fwd_reference(q, k, v, kv_valid, causal: bool = False):
+def flash_train_fwd_reference(q, k, v, kv_valid, causal: bool = False, scale=None):
     """Twin of the forward kernel: the online softmax over 128-key blocks
     (m and l per row, ``bf16(p) v`` summed in f32), the output ``o / l`` in
     q's dtype; when S is one block, the library's one-step kernel:
@@ -83,7 +86,7 @@ def flash_train_fwd_reference(q, k, v, kv_valid, causal: bool = False):
     flash_train_fwd_reference.calls += 1
     B, T, H, D = q.shape
     S = k.shape[1]
-    s = _masked_scores(q, k, kv_valid, causal)
+    s = _masked_scores(q, k, kv_valid, causal, scale)
     if S == BLOCK:  # the library's one-step kernel: p divided by l before the cast
         m = s.amax(-1)
         p = _exp(s - m[..., None])
@@ -110,7 +113,7 @@ def flash_train_fwd_reference(q, k, v, kv_valid, causal: bool = False):
 flash_train_fwd_reference.calls = 0
 
 
-def flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal: bool = False):
+def flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal: bool = False, scale=None):
     """Twin of the backward kernels, the library's dq and dkv kernels over
     all rows at once: ``p = exp(s - m) * (1 / l)``, ``dv = cast(p)^T g``,
     ``ds = (g v^T - di) p * scale`` with ``di = sum(out g)`` in f32,
@@ -120,14 +123,15 @@ def flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal: bool = F
     flash_train_bwd_reference.calls += 1
     B, T, H, D = q.shape
     g = g.to(q.dtype)
-    s = _masked_scores(q, k, kv_valid, causal)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = _masked_scores(q, k, kv_valid, causal, scale)
     m, l = (x.reshape(B, H, T, 1) for x in stats)
     p = _exp(s - m) * (1.0 / l)
     gf = g.float()
     dv = torch.einsum("bhts,bthd->bshd", p.to(g.dtype).float(), gf)
     dp = torch.einsum("bthd,bshd->bhts", gf, v.float())
     di = (out.float() * gf).sum(-1).transpose(1, 2)[..., None]  # (B, H, T, 1)
-    ds = ((dp - di) * p * (1.0 / math.sqrt(D))).to(g.dtype).float()
+    ds = ((dp - di) * p * scale).to(g.dtype).float()
     dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
     dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -170,6 +174,17 @@ def _device(q) -> None:
         raise ValueError(f"flash_train_attention runs on cuda or cpu, not {q.device}")
 
 
+def flash_kernel_width(head_dim: int, dtype) -> int:
+    """The built head_dim a head_dim runs on (``attention.kernel_width``),
+    except that in bf16 every head_dim but 64 pads to 128: the bf16 pair's
+    head_dim-64 instantiation folds the scale 1/8 into its constants
+    (``fixed_scale`` in csrc/flash_train.cu), and a padded head keeps its
+    own 1/sqrt(head_dim)."""
+    if dtype == torch.bfloat16 and head_dim != 64:
+        return kernel_width(head_dim, KERNEL_HEAD_DIMS[1:])
+    return kernel_width(head_dim)
+
+
 def flash_train_fwd(q, k, v, kv_valid, causal: bool = False):
     """The forward: the twin for CPU tensors, ``flash_train_fwd_kernel``
     (bf16) or ``attn_f32_fwd_kernel`` (f32) for CUDA ones, or an error.
@@ -177,22 +192,24 @@ def flash_train_fwd(q, k, v, kv_valid, causal: bool = False):
     if q.device.type == "cpu":
         return flash_train_fwd_reference(q, k, v, kv_valid, causal)
     _device(q)
+    hd = q.shape[3]
+    D = flash_kernel_width(hd, q.dtype)
+    q, k, v = (pad_head(t, D) for t in (q, k, v))
     valid = kv_valid.to(torch.int32).contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid)
     _check_aligned(q=q, k=k, v=v)
-    D = q.shape[3]
     out = torch.empty_like(q)
     stats = torch.empty(2, B * H, T, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), int(causal),
-            1.0 / math.sqrt(D), out.data_ptr(), stats.data_ptr(), stream)
+            1.0 / math.sqrt(hd), out.data_ptr(), stats.data_ptr(), stream)
     if q.dtype == torch.bfloat16:
         rc = load_library().smer_flash_train_fwd(D, B, T, S, H, *ptrs)
     else:
         rc = load_library().smer_attention_f32_fwd(1, D, B, T, S, H, *ptrs)
     _check(rc, "flash_train_fwd")
     flash_train_fwd.launches += 1
-    return out, stats
+    return (out if D == hd else out[..., :hd].contiguous()), stats
 
 
 flash_train_fwd.launches = 0
@@ -206,23 +223,27 @@ def flash_train_bwd(q, k, v, kv_valid, out, stats, g, causal: bool = False):
     if q.device.type == "cpu":
         return flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal)
     _device(q)
+    hd = q.shape[3]
+    D = flash_kernel_width(hd, q.dtype)
+    q, k, v, out, g = (pad_head(t, D) for t in (q, k, v, out, g.to(q.dtype)))
     valid = kv_valid.to(torch.int32).contiguous()
-    g = g.to(q.dtype).contiguous()
+    g = g.contiguous()
     B, T, H, S = q.shape[0], q.shape[1], q.shape[2], k.shape[1]
     _check_inputs(q, k, v, valid, ("out", out, q.dtype, q.shape),
                   ("g", g, q.dtype, q.shape), ("stats", stats, torch.float32, (2, B * H, T)))
     _check_aligned(q=q, k=k, v=v, out=out, g=g, stats=stats)
-    D = q.shape[3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty(B * H, T, dtype=torch.float32, device=q.device)  # sum(out g), dq kernel to dkv
     args = (D, B, T, S, H, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), stats.data_ptr(), g.data_ptr(), int(causal), 1.0 / math.sqrt(D),
+            out.data_ptr(), stats.data_ptr(), g.data_ptr(), int(causal), 1.0 / math.sqrt(hd),
             di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     lib = load_library()
     rc = (lib.smer_flash_train_bwd if q.dtype == torch.bfloat16 else lib.smer_flash_train_bwd_f32)(*args)
     _check(rc, "flash_train_bwd")
     flash_train_bwd.launches += 1
+    if D != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -13,7 +13,8 @@ in ``csrc/train_attention.cu``.
 
 ``fused_dropout_attention(q, k, v, kv_valid, seed, rate, causal=False)`` takes
 (B, T, H, D) bf16 queries and (B, S, H, D) bf16 keys and values (on the card
-D in ``KERNEL_HEAD_DIMS``, 64 or 128), a (B, S)
+D up to 128: 64 and 128 as they are, others zero-padded to the next of them
+by ``attention.kernel_width``), a (B, S)
 key-validity mask (True = attendable) and the seed, and returns (B, T, H, D)
 in q's dtype, as JAX's does.  ``seed`` is the four uint32 words of
 ``_seed_words`` or a raw two-word key, padded the same way, as a sequence of
@@ -40,7 +41,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .attention import KERNEL_HEAD_DIMS
+from .attention import KERNEL_HEAD_DIMS, kernel_width, pad_head
 from .decode_step import _check, _check_tensors, load_library
 
 NEG_INF = -1e30
@@ -135,15 +136,15 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def _weights(q, k, kv_valid, causal):
+def _weights(q, k, kv_valid, causal, scale=None):
     """The f32 softmax weights of the kernels' math: scores as the f32
-    product of q and k rounded to bf16, times 1/sqrt(D); invalid keys (and
-    causal ones) at -1e30; ``e = exp(s - m) * mask``, ``w = e / max(l,
-    1e-30)``, so a row with no valid key has all-zero weights.
-    Returns (w (B, H, T, S) f32, scale)."""
+    product of q and k rounded to bf16, times ``scale`` (1/sqrt(D) by
+    default); invalid keys (and causal ones) at -1e30; ``e = exp(s - m) *
+    mask``, ``w = e / max(l, 1e-30)``, so a row with no valid key has
+    all-zero weights.  Returns (w (B, H, T, S) f32, scale)."""
     B, T, H, D = q.shape
     S = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     s = s.to(torch.bfloat16).float() * scale
     mask = kv_valid.to(torch.bool)[:, None, None, :].expand(B, H, T, S)
@@ -166,33 +167,35 @@ def _dropped(w16: torch.Tensor, keep, rate: float) -> torch.Tensor:
     return torch.where(keep, (w16.float() / c).to(torch.bfloat16), torch.zeros_like(w16))
 
 
-def attention_dropout_twin(q, k, v, kv_valid, keep_mask, rate: float, causal: bool = False):
+def attention_dropout_twin(q, k, v, kv_valid, keep_mask, rate: float, causal: bool = False,
+                           scale=None):
     """Plain torch twin with an EXPLICIT keep mask (JAX :402): op for op the
     kernel math (bf16 score rounding, f32 softmax, bf16 dropout, f32
     V-accumulate); (B, T, H, D) in q's dtype."""
-    w, _ = _weights(q, k, kv_valid, causal)
+    w, _ = _weights(q, k, kv_valid, causal, scale)
     wd16 = _dropped(w.to(torch.bfloat16), keep_mask, rate)
     out = torch.einsum("bhts,bshd->bthd", wd16.float(), v.float())
     return out.to(q.dtype)
 
 
 def dropout_attention_fwd_reference(q, k, v, kv_valid, seed: Seed, rate: float,
-                                    causal: bool = False, shard=(0, 0, None)) -> torch.Tensor:
+                                    causal: bool = False, shard=(0, 0, None),
+                                    scale=None) -> torch.Tensor:
     """Twin of the forward kernel: the keep mask from
     :func:`dropout_mask_reference` (``shard`` its ``(b0, h0, H_global)``),
-    then :func:`attention_dropout_twin`."""
+    then :func:`attention_dropout_twin` (``scale`` 1/sqrt(D) by default)."""
     dropout_attention_fwd_reference.calls += 1
     B, T, H, _ = q.shape
     keep = (dropout_mask_reference(seed, B, H, T, k.shape[1], rate, q.device, *shard)
             if rate > 0.0 else None)
-    return attention_dropout_twin(q, k, v, kv_valid, keep, rate, causal)
+    return attention_dropout_twin(q, k, v, kv_valid, keep, rate, causal, scale)
 
 
 dropout_attention_fwd_reference.calls = 0
 
 
 def dropout_attention_bwd_reference(q, k, v, kv_valid, seed: Seed, g, rate: float,
-                                    causal: bool = False, shard=(0, 0, None)):
+                                    causal: bool = False, shard=(0, 0, None), scale=None):
     """Twin of the backward kernels: the explicit math of JAX's
     ``_bwd_kernel`` (:163-244) over all query rows at once, not autograd
     through the forward.  ``g`` is rounded to q's dtype first (JAX :363).
@@ -204,7 +207,7 @@ def dropout_attention_bwd_reference(q, k, v, kv_valid, seed: Seed, g, rate: floa
     B, T, H, _ = q.shape
     S = k.shape[1]
     g = g.to(q.dtype).float()
-    w, scale = _weights(q, k, kv_valid, causal)
+    w, scale = _weights(q, k, kv_valid, causal, scale)
     keep = (dropout_mask_reference(seed, B, H, T, S, rate, q.device, *shard)
             if rate > 0.0 else None)
     wd16 = _dropped(w.to(torch.bfloat16), keep, rate)
@@ -222,6 +225,8 @@ dropout_attention_bwd_reference.calls = 0
 
 
 def _check_inputs(q, k, v, kv_valid, *extra):
+    """What the kernels take (after padding): bf16, head_dim in
+    KERNEL_HEAD_DIMS, S <= MAX_KLEN, contiguous."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if D not in KERNEL_HEAD_DIMS:
@@ -259,18 +264,20 @@ def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
         return dropout_attention_fwd_reference(q, k, v, kv_valid, seed, rate, causal, shard)
     if q.device.type != "cuda":
         raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
+    hd = q.shape[3]
+    D = kernel_width(hd)  # a narrower head zero-padded; the hash reads no head_dim
+    q, k, v = (pad_head(t, D) for t in (q, k, v))
     valid = kv_valid.to(torch.int32).contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid)
     seeds = seed_tensor(seed, q.device)
     out = torch.empty_like(q)
-    D = q.shape[3]
     _check(load_library().smer_train_attn_fwd(
         D, B, T, S, H, *_shard_args(shard, H), q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), keep_threshold(rate), int(rate > 0.0), bf16_round(1.0 - rate),
-        int(causal), 1.0 / math.sqrt(D), out.data_ptr(), _stream(q.device),
+        int(causal), 1.0 / math.sqrt(hd), out.data_ptr(), _stream(q.device),
     ), "train_attn_fwd")
     dropout_attention_fwd.launches += 1
-    return out
+    return out if D == hd else out[..., :hd].contiguous()
 
 
 dropout_attention_fwd.launches = 0
@@ -284,22 +291,26 @@ def dropout_attention_bwd(q, k, v, kv_valid, seed: Seed, g, rate: float,
         return dropout_attention_bwd_reference(q, k, v, kv_valid, seed, g, rate, causal, shard)
     if q.device.type != "cuda":
         raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
+    hd = q.shape[3]
+    D = kernel_width(hd)
+    q, k, v, g = (pad_head(t, D) for t in (q, k, v, g.to(q.dtype)))
     valid = kv_valid.to(torch.int32).contiguous()
-    g = g.to(q.dtype).contiguous()
+    g = g.contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid, ("g", g))
     seeds = seed_tensor(seed, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # per-row m, l and delta = sum_s w dw, written by the row kernel and
     # read by the key kernel: 3 x (B*H, T) f32, no O(T*S) tensor
     stats = torch.empty(3, B * H, T, dtype=torch.float32, device=q.device)
-    D = q.shape[3]
     _check(load_library().smer_train_attn_bwd(
         D, B, T, S, H, *_shard_args(shard, H), q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         seeds.data_ptr(), g.data_ptr(), keep_threshold(rate), int(rate > 0.0),
-        bf16_round(1.0 - rate), int(causal), 1.0 / math.sqrt(D), stats.data_ptr(), dq.data_ptr(),
+        bf16_round(1.0 - rate), int(causal), 1.0 / math.sqrt(hd), stats.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _stream(q.device),
     ), "train_attn_bwd")
     dropout_attention_bwd.launches += 1
+    if D != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -208,8 +208,9 @@ def test_cuda_wrappers_refuse_misaligned_views():
 
 
 # ----------------------------------------------------------------------
-# the model's gate: CUDA kernels take head_dim 64 and 128 (bf16 and f32 for
-# flash_training and flash_encoder, bf16 for fused_attn_train)
+# the model's gate: CUDA kernels take head_dim up to 128 (64 and 128 as
+# built, others zero-padded; bf16 and f32 for flash_training and
+# flash_encoder, bf16 for fused_attn_train)
 # ----------------------------------------------------------------------
 V = 40
 KW = dict(vocab_size=V, num_encoder_layers=1, num_decoder_layers=1, d_ff=64, max_len=256,
@@ -238,17 +239,17 @@ def _twin_calls():
 
 
 BF16, F32 = torch.bfloat16, torch.float32
-GATED = [  # (option, d_model, nhead, dtype, train mode, what the message names)
-    ("flash_training", 128, 4, BF16, True, "head_dim 32"),
-    ("flash_training", 128, 4, F32, False, "head_dim 32"),
-    ("flash_training", 192, 2, BF16, True, "head_dim 96"),
-    ("flash_training", 192, 2, F32, True, "head_dim 96"),
-    ("flash_encoder", 128, 4, BF16, False, "head_dim 32"),
-    ("flash_encoder", 128, 4, F32, False, "head_dim 32"),
-    ("flash_encoder", 192, 2, BF16, False, "head_dim 96"),
-    ("flash_encoder", 192, 2, F32, False, "head_dim 96"),
-    ("fused_attn_train", 128, 4, BF16, True, "head_dim 32"),
-    ("fused_attn_train", 192, 2, BF16, True, "head_dim 96"),
+GATED = [  # (option, d_model, nhead, dtype, train mode, what the message names): head_dim > 128
+    ("flash_training", 256, 1, BF16, True, "head_dim 256"),
+    ("flash_training", 256, 1, F32, False, "head_dim 256"),
+    ("flash_training", 384, 2, BF16, True, "head_dim 192"),
+    ("flash_training", 384, 2, F32, True, "head_dim 192"),
+    ("flash_encoder", 256, 1, BF16, False, "head_dim 256"),
+    ("flash_encoder", 256, 1, F32, False, "head_dim 256"),
+    ("flash_encoder", 384, 2, BF16, False, "head_dim 192"),
+    ("flash_encoder", 384, 2, F32, False, "head_dim 192"),
+    ("fused_attn_train", 256, 1, BF16, True, "head_dim 256"),
+    ("fused_attn_train", 384, 2, BF16, True, "head_dim 192"),
 ]
 
 
@@ -258,7 +259,7 @@ def test_gate_refuses_on_cuda_before_any_attention_call(monkeypatch, option, d_m
                                                         train, named):
     """With the device check standing in for CUDA (the tensors stay on the
     CPU), a model whose option would send its attention through the CUDA
-    kernels at a head_dim they do not take (neither 64 nor 128) raises
+    kernels at a head_dim they do not take (above 128) raises
     NotImplementedError naming the option, what it got and ROADMAP Queue 3
     item 4, before any attention runs; on the CPU itself the same model
     runs its twins as before."""
@@ -280,20 +281,26 @@ def test_gate_refuses_on_cuda_before_any_attention_call(monkeypatch, option, d_m
     assert _twin_calls() == 0
 
 
-PASSED = [  # (option, d_model, nhead, dtype): head_dim 64 and 128, bf16 and f32
+PASSED = [  # (option, d_model, nhead, dtype): head_dim 64 and 128, and 32 and 96 padded
     ("flash_training", 128, 2, BF16), ("flash_training", 128, 2, F32),
     ("flash_training", 256, 2, BF16), ("flash_training", 256, 2, F32),
     ("flash_encoder", 128, 2, BF16), ("flash_encoder", 128, 2, F32),
     ("flash_encoder", 256, 2, BF16), ("flash_encoder", 256, 2, F32),
     ("fused_attn_train", 128, 2, BF16), ("fused_attn_train", 128, 2, F32),
     ("fused_attn_train", 256, 2, BF16),
+    ("flash_training", 128, 4, BF16), ("flash_training", 128, 4, F32),
+    ("flash_training", 192, 2, BF16), ("flash_training", 192, 2, F32),
+    ("flash_encoder", 128, 4, BF16), ("flash_encoder", 128, 4, F32),
+    ("flash_encoder", 192, 2, BF16), ("flash_encoder", 192, 2, F32),
+    ("fused_attn_train", 128, 4, BF16), ("fused_attn_train", 192, 2, BF16),
 ]
 
 
 @pytest.mark.parametrize("option,d_model,nhead,dtype", PASSED,
                          ids=[f"{o}-hd{d // h}-{str(t).split('.')[-1]}" for o, d, h, t in PASSED])
 def test_gate_passes_what_the_kernels_take(monkeypatch, option, d_model, nhead, dtype):
-    """Head_dim 64 and 128 pass the gate on CUDA, in bf16 and f32 for
+    """Head_dim 64 and 128, and 32 and 96 (which the wrappers pad to the
+    next built width), pass the gate on CUDA, in bf16 and f32 for
     flash_training and flash_encoder, in bf16 for fused_attn_train; f32
     with fused_attn_train passes too, since JAX's own gate
     (``_fused_train_ok``) already sends it to the plain path, as it does on

@@ -31,6 +31,7 @@ from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
 from smer_music_generation_tpu_torch.infer.engine import InfillEngine
 from smer_music_generation_tpu_torch.infer.sampling import spec_accept_resample
+from smer_music_generation_tpu_torch.ops import decode_graph as dg
 from smer_music_generation_tpu_torch.ops import decode_step as ds
 from smer_music_generation_tpu_torch.vocab import WordVocab as TWordVocab
 from tests.torch_port_helpers import model_pair, serving_events
@@ -53,7 +54,8 @@ def setup(request):
 
 @pytest.fixture
 def verify_windows(monkeypatch):
-    """The window sizes of every fused verify the decoder calls."""
+    """The window sizes of every fused verify the decoder calls, its own
+    and those of the ``SpecGraph`` its fused loop steps."""
     seen = []
     inner = decode_mod.fused_verify_window
 
@@ -62,6 +64,7 @@ def verify_windows(monkeypatch):
         return inner(packed, x_emb, *a, **k)
 
     monkeypatch.setattr(decode_mod, "fused_verify_window", spy)
+    monkeypatch.setattr(dg, "fused_verify_window", spy)
     return seen
 
 
