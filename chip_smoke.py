@@ -380,6 +380,7 @@ from smer_music_generation_tpu_torch.infer.grammar import (
 from smer_music_generation_tpu_torch.infer.sampling import gumbel_noise
 from smer_music_generation_tpu_torch.models.transformer import LayerNorm, ModelConfig, ScoreTransformer
 from smer_music_generation_tpu_torch.ops import attention as attn
+from smer_music_generation_tpu_torch.ops import attention_wide as aw
 from smer_music_generation_tpu_torch.ops import decode_graph as dg
 from smer_music_generation_tpu_torch.ops import decode_step as ds
 from smer_music_generation_tpu_torch.ops import flash_train as ft
@@ -433,7 +434,8 @@ FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel",
             "embed_pe_kernel", "sample_advance_kernel", "spec_advance_kernel", "flash_fwd_kernel",
             *FLASH_TRAIN_KERNELS,
             "train_fwd_kernel", "train_bwd_rows_kernel", "train_bwd_keys_kernel",
-            "attn_f32_fwd_kernel", "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
+            "attn_f32_fwd_kernel", "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel",
+            "wide_fwd_kernel", "wide_rows_kernel", "wide_keys_kernel")
 # the kernels on the tensor cores: phase 1 reads their SASS and their ptxas
 # facts
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", *FLASH_TRAIN_KERNELS, "train_fwd_kernel",
@@ -481,6 +483,23 @@ SPEC_CAP_L = 192  # phase 2k's session that hits the cap: max_tgt_len
 # (d_model, nhead): head_dim 32 and 96
 PAD_HEADS = ((512, 16), (384, 4))
 PAD_STEPS = 4
+# phase 5e, the wide kernels (attention_wide.cu): the flagship depth at
+# head_dim 256 (d512/h2) and 192 (d384/h2), the wrappers, training with both
+# options and a flash encode; and head_dim 512 (d512/h1), the wrappers and
+# the keep bits read out of the kernels' own outputs
+WIDE_HEADS = ((512, 2), (384, 2))
+WIDE_OPS_ONLY = ((512, 1),)
+# the wide kernels' timed shape: B8 H2 640x640 at head_dim 256
+WIDE_TIMED = (8, 640, 640, 2, 256)  # (B, T, S, H, head_dim)
+# each wide kernel's instantiations (mangled-name pieces): phase 1 prints
+# their registers, spills and shared memory, and fails if one is missing
+WIDE_KERNELS = (
+    *(f"wide_fwd_kernelI{t}Li{m}E" for t, m in (("f", 0), ("13__nv_bfloat16", 0),
+                                                 ("13__nv_bfloat16", 1), ("f", 2),
+                                                 ("13__nv_bfloat16", 2))),
+    *(f"wide_{k}_kernelI{t}Li{m}E" for k in ("rows", "keys")
+      for t, m in (("13__nv_bfloat16", 1), ("f", 2), ("13__nv_bfloat16", 2))),
+)
 # the six matrices of a decoder layer as the row-vector kernel reads them:
 # (name, packed key, row stride, first column (bias and scale strip), K, N,
 # relu); the logits (D -> vpad, f32) are the seventh projection of a token
@@ -1931,7 +1950,35 @@ def phase_spec_graph(dev, flagships):
     if share > MAX_CLOSE_SHARE:
         raise AssertionError(f"spec_advance_kernel parts from its twin in {share:.2%} of the "
                              f"iterations (at most {MAX_CLOSE_SHARE:.0%})")
+    spec_stage_breakdown()
     return totals["x_err"], report
+
+
+def spec_stage_breakdown() -> None:
+    """``spec_advance_kernel``'s time by stage, from
+    ``scripts/spec_advance_probe.py`` (clock64() stamps in a patched copy of
+    its source, built apart, in a process of its own): the stages of a
+    nucleus and a greedy W=9 iteration replayed and alone, slot 0's
+    sampling by step, and the draft tables' reset.  Fails if the probe
+    does."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "probe.json")
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
+                                                   "spec_advance_probe.py"), "--out", out],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"scripts/spec_advance_probe.py failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        probe = json.loads(Path(out).read_text())
+    say("  spec_advance_kernel by stage (scripts/spec_advance_probe.py; a patched copy, so each "
+        "stage is the block's time between two barriers plus its stamp):")
+    for mode, run in probe["runs"].items():
+        for how in ("alone", "replayed"):
+            stages = run[how]
+            total = sum(v["us"] for k, v in stages.items() if not k.startswith("slot 0"))
+            say(f"    {mode}, {how}: {total:.3f} us in all at {run['sm_mhz']:.0f} MHz; " +
+                "; ".join(f"{k} {v['us']:.3f}" for k, v in stages.items()))
+        say(f"    {mode}: the draft tables' reset {1e3 * run['tables_reset_ms']:.2f} us once a decode")
 
 
 def rowvec_cases(packed, vpad, V):
@@ -2242,15 +2289,22 @@ def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, 
                                            else "operations")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib_path: str) -> str:
+    """``cuobjdump -sass`` of a built library (beside nvcc), dumped once a
+    process: phase 1 reads it three times."""
+    cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
 def sass_mix(lib_path: str, names=TENSOR_CORE_KERNELS, modifiers: bool = False):
     """The SASS of each kernel in the built library whose (mangled) name
     holds one of ``names``, by ``cuobjdump -sass`` (beside nvcc): {name:
     {opcode: static count}}, the opcode without its modifiers (HMMA, MUFU,
     IMAD, LOP3, ...), or with them (``modifiers``: HMMA.1688.F32.TF32, ...).
     A name matches the first kernel that holds it."""
-    cuobjdump = Path(ds._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
+    sass = sass_text(lib_path)
     got, current, seen = {k: {} for k in names}, None, set()
     for line in sass.splitlines():
         if "Function :" in line:
@@ -2353,6 +2407,20 @@ def phase_tensor_cores() -> None:
                   "the occupancy of the f32 backward pair")
         say(f"  the f32 kernels at head_dim {hd}, blocks an SM (4 warps each): forward {blocks[0]} "
             f"(MODE 0) and {blocks[1]} (MODE 1), dq {dq_blocks.value}, dk/dv {dkv_blocks.value}")
+
+
+def phase_wide_facts() -> None:
+    """Registers, spills and shared memory of every instantiation of the
+    wide attention kernels (``WIDE_KERNELS``, attention_wide.cu); fails if
+    one has no entry in the build log."""
+    facts = ptxas_facts(str(ds.BUILD_INFO["log"]), WIDE_KERNELS)
+    for name in WIDE_KERNELS:
+        f = facts.get(name)
+        if f is None:
+            raise AssertionError(f"the wide attention kernel {name} has no entry in the build log")
+        say(f"  {name}: {f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
+            f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static shared memory (its tiles "
+            "are dynamic)")
 
 
 def phase_decode_facts() -> None:
@@ -2783,7 +2851,7 @@ def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, 
     "operations")."""
     el = 4 if f32 else 2
     qb, kb, row = B * T * heads * hd * el, B * S * heads * hd * el, B * heads * T * 4
-    if "_dq_" in kernel:
+    if "_dq_" in kernel or "_rows_" in kernel:
         nbytes, products = 4 * qb + 2 * kb + 3 * row + B * S * 4, 3
     else:
         nbytes, products = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
@@ -2986,7 +3054,7 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     bound_b, by_b = flash_train_bound(B, T, S, causal, True, heads, hd, f32)
     twins = "" if not twin else f" (twins: forward {plain_f:.4f}, backward {plain_b:.4f})"
     tc_f = tc_b = ""
-    if f32:  # the f32 kernels run in split TF32: their bounds at that rate too
+    if f32:  # the same work in split TF32 on the tensor cores (the narrow f32 kernels' route): its bounds too
         rate = SPLIT_TF32_FLOPS / 1e12
         tc_ms, tc_by = flash_train_bound(B, T, S, causal, False, heads, hd, f32, SPLIT_TF32_FLOPS)
         tc_f = f", f32 FMA; {tc_ms:.5f} at split TF32's {rate:.0f} TFLOP/s ({tc_by})"
@@ -2999,6 +3067,8 @@ def time_flash_train(dev, q, k, v, go, valid, causal, twin: bool):
     # each backward kernel alone: its device time by name, beside its own bound
     split_b = device_split(bwd)
     names = ("flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel") if f32 else WGMMA_KERNELS[1:]
+    if aw.is_wide(hd):
+        names = ("wide_rows_kernel", "wide_keys_kernel")
     for name in names:
         kb_ms, kb_by = flash_train_kernel_bound(B, T, S, causal, name, heads, hd, f32)
         us_k = "not measured" if split_b is None else f"{split_b.get(name, 0.0):.1f} us"
@@ -3041,7 +3111,10 @@ def counts():
                 attn_twin=attn.attention_reference.calls,
                 ft_fwd=ft.flash_train_fwd.launches, ft_bwd=ft.flash_train_bwd.launches,
                 ft_fwd_twin=ft.flash_train_fwd_reference.calls,
-                ft_bwd_twin=ft.flash_train_bwd_reference.calls)
+                ft_bwd_twin=ft.flash_train_bwd_reference.calls,
+                attn_wide=aw.fused_attention_wide.launches, ta_fwd_wide=aw.dropout_fwd_wide.launches,
+                ta_bwd_wide=aw.dropout_bwd_wide.launches, ft_fwd_wide=aw.flash_fwd_wide.launches,
+                ft_bwd_wide=aw.flash_bwd_wide.launches)
 
 
 def check_counts(what: str, on) -> int:
@@ -3928,16 +4001,32 @@ def phase_wide(dev):
     return out
 
 
+# (T, S, causal) of the wrappers' checks at a padded or wide head_dim: the
+# main path's attention calls at 640 + 384 (the encoder's self-attention,
+# the decoder's causal self-attention, its cross-attention)
+PAD_CASES = ((640, 640, False), (384, 384, True), (384, 640, False))
+# the flash-train pair's: phase 2j's 512x512 causal and the same three
+PAD_FLASH_CASES = ((512, 512, True),) + PAD_CASES
+
+
+def _case(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t[:, :n].contiguous()
+
+
+def _keep_max(out: dict, key: str, value: float) -> None:
+    out[key] = max(out.get(key, 0.0), value)
+
+
 def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
-    """The attention wrappers at a head_dim they run zero-padded, against
-    their twins at that head_dim on the card, at B=3, T=S=640 (the
-    flash-train kernels: 512x512 causal), ~10% of keys invalid and a batch
-    row with none.  bf16: the three wrappers, outputs within phase 2f's and
-    2g's bounds, gradients within ``TA_REL``; f32: ``fused_attention``
-    (``attn_f32_fwd_kernel``) and the flash-train forward and backward pair
+    """The attention wrappers at a head_dim they run zero-padded or on the
+    wide kernels, against their twins at that head_dim on the card, at B=3
+    over ``PAD_CASES`` (the flash-train kernels: ``PAD_FLASH_CASES``), ~10%
+    of keys invalid and a batch row with none.  bf16: the three wrappers,
+    outputs within phase 2f's and 2g's bounds, gradients within ``TA_REL``;
+    f32: ``fused_attention`` and the flash-train forward and backward pair
     (the dropout-attention kernels take bf16 only, and the model sends f32
     to the plain path) within F32_ATOL/F32_RTOL and F32_REL, as phases 2f
-    and 2j hold them.  Returns the largest differences."""
+    and 2j hold them.  Returns the largest differences over the cases."""
     f32 = dtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(hd)
     B, T = 3, 640
@@ -3946,81 +4035,184 @@ def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
     valid = torch.rand(B, T, generator=g, device=dev) < 0.9
     valid[1] = False
     valid[0, 0] = valid[2, 0] = True
-    lens = torch.tensor([T, 0, T - 77], dtype=torch.int32, device=dev)
     out = {}
     atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (ATTN_ATOL, ATTN_RTOL)
-    got = attn.fused_attention(q, k, v, lens)
-    want = attn.attention_reference(q, k, v, lens)
-    out["fused_attention"] = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
-        raise AssertionError(f"fused_attention at head_dim {hd} ({dtype}): max {out['fused_attention']:.3e}")
+    for Tq, S, causal in PAD_CASES:
+        tag = f"head_dim {hd} ({dtype}) {Tq}x{S}{' causal' if causal else ''}"
+        qc, kc, vc, gc, vc_valid = _case(q, Tq), _case(k, S), _case(v, S), _case(go, Tq), _case(valid, S)
+        lens = torch.tensor([S, 0, S - 77], dtype=torch.int32, device=dev)
+        got = attn.fused_attention(qc, kc, vc, lens, causal)
+        want = attn.attention_reference(qc, kc, vc, lens, causal)
+        err = (got.float() - want.float()).abs().max().item()
+        _keep_max(out, "fused_attention", err)
+        if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"fused_attention at {tag}: max {err:.3e}")
+        if f32:
+            continue
+        seed = ta.seed_tensor(TA_SEEDS[0], dev)
+        got = ta.dropout_attention_fwd(qc, kc, vc, vc_valid, seed, 0.1, causal)
+        want = ta.dropout_attention_fwd_reference(qc, kc, vc, vc_valid, seed, 0.1, causal)
+        err = (got.float() - want.float()).abs().max().item()
+        _keep_max(out, "train fwd", err)
+        if not torch.allclose(got.float(), want.float(), atol=TA_ATOL, rtol=TA_RTOL):
+            raise AssertionError(f"train attention forward at {tag}: max {err:.3e}")
+        grads = ta.dropout_attention_bwd(qc, kc, vc, vc_valid, seed, gc, 0.1, causal)
+        twins = ta.dropout_attention_bwd_reference(qc, kc, vc, vc_valid, seed, gc, 0.1, causal)
+        _keep_max(out, "train grad abs",
+                  max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twins)))
+        for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
+            err = rel_norm(a.float(), b.float())
+            _keep_max(out, f"train {name}", err)
+            if not err < TA_REL[name]:
+                raise AssertionError(f"train attention {name} at {tag}: {err:.3e}")
     if f32:
         return {**out, **padded_flash_vs_twins(q, k, v, go, valid, hd, F32_ATOL, F32_RTOL,
                                                {n: F32_REL for n in ("dq", "dk", "dv")})}
-    seed = ta.seed_tensor(TA_SEEDS[0], dev)
-    got = ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1)
-    want = ta.dropout_attention_fwd_reference(q, k, v, valid, seed, 0.1)
-    out["train fwd"] = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(), atol=TA_ATOL, rtol=TA_RTOL):
-        raise AssertionError(f"train attention forward at head_dim {hd}: max {out['train fwd']:.3e}")
-    grads = ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1)
-    twins = ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, 0.1)
-    for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
-        out[f"train {name}"] = rel_norm(a.float(), b.float())
-        if not out[f"train {name}"] < TA_REL[name]:
-            raise AssertionError(f"train attention {name} at head_dim {hd}: {out[f'train {name}']:.3e}")
     return {**out, **padded_flash_vs_twins(q, k, v, go, valid, hd, TA_ATOL, TA_RTOL, TA_REL)}
 
 
 def padded_flash_vs_twins(q, k, v, go, valid, hd: int, atol: float, rtol: float, rel: dict) -> dict:
-    """The flash-train forward and backward at a padded head_dim against
-    their twins on the first 512 rows of ``padded_ops_vs_twins``'s inputs,
-    causal: the output within atol + rtol, each gradient within ``rel``."""
-    out, tag = {}, f"head_dim {hd} ({q.dtype})"
-    Tf = 512
-    qf, kf, vf, gf = (t[:, :Tf].contiguous() for t in (q, k, v, go))
-    vf_valid = valid[:, :Tf].contiguous()
-    vf_valid[1, 0] = True
-    got, stats = ft.flash_train_fwd(qf, kf, vf, vf_valid, causal=True)
-    want, _ = ft.flash_train_fwd_reference(qf, kf, vf, vf_valid, causal=True)
-    out["flash fwd"] = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
-        raise AssertionError(f"flash-train forward at {tag}: max {out['flash fwd']:.3e}")
-    grads = ft.flash_train_bwd(qf, kf, vf, vf_valid, got, stats, gf, causal=True)
-    twins = ft.flash_train_bwd_reference(qf, kf, vf, vf_valid, got, stats, gf, causal=True)
-    for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
-        out[f"flash {name}"] = rel_norm(a.float(), b.float())
-        if not out[f"flash {name}"] < rel[name]:
-            raise AssertionError(f"flash-train {name} at {tag}: {out[f'flash {name}']:.3e}")
+    """The flash-train forward and backward at a padded or wide head_dim
+    against their twins over ``PAD_FLASH_CASES``, on the first rows and keys
+    of ``padded_ops_vs_twins``'s inputs (batch row 1's key 0 valid): the
+    output within atol + rtol, each gradient within ``rel``."""
+    out = {}
+    for T, S, causal in PAD_FLASH_CASES:
+        tag = f"head_dim {hd} ({q.dtype}) {T}x{S}{' causal' if causal else ''}"
+        qf, kf, vf, gf = _case(q, T), _case(k, S), _case(v, S), _case(go, T)
+        vf_valid = valid[:, :S].clone()
+        vf_valid[1, 0] = True
+        got, stats = ft.flash_train_fwd(qf, kf, vf, vf_valid, causal=causal)
+        want, _ = ft.flash_train_fwd_reference(qf, kf, vf, vf_valid, causal=causal)
+        err = (got.float() - want.float()).abs().max().item()
+        _keep_max(out, "flash fwd", err)
+        if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"flash-train forward at {tag}: max {err:.3e}")
+        grads = ft.flash_train_bwd(qf, kf, vf, vf_valid, got, stats, gf, causal=causal)
+        twins = ft.flash_train_bwd_reference(qf, kf, vf, vf_valid, got, stats, gf, causal=causal)
+        _keep_max(out, "flash grad abs",
+                  max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twins)))
+        for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
+            err = rel_norm(a.float(), b.float())
+            _keep_max(out, f"flash {name}", err)
+            if not err < rel[name]:
+                raise AssertionError(f"flash-train {name} at {tag}: {err:.3e}")
     return out
+
+
+WIDE_KEYS = ("attn_wide", "ta_fwd_wide", "ta_bwd_wide", "ft_fwd_wide", "ft_bwd_wide")
+NARROW_KEYS = ("attn", "ta_fwd", "ta_bwd", "ft_fwd", "ft_bwd")
+
+
+def wrappers_launch(dev, nhead: int, hd: int, dtype, keys) -> dict:
+    """:func:`padded_ops_vs_twins` at one head_dim and dtype, which must
+    launch the kernels of ``keys`` (the wide or the narrow family) and none
+    of the other family.  Returns the largest differences."""
+    reset_counts()
+    errs = padded_ops_vs_twins(dev, nhead, hd, dtype)
+    torch.cuda.synchronize()
+    got = counts()
+    other = NARROW_KEYS if keys is WIDE_KEYS else WIDE_KEYS
+    want = [k for k in keys if dtype == torch.bfloat16 or not k.startswith("ta_")]
+    if any(got[k] == 0 for k in want) or any(got[k] for k in other):
+        raise AssertionError(f"the wrappers at head_dim {hd} ({dtype}) launched {got}, not {want} alone")
+    return errs
+
+
+def wide_keep_bits(dev) -> int:
+    """The keep bits of the wide dropout kernels, read out of their own
+    outputs at head_dim 512 (B=2, H=2 of 4 from h0=1, rows from b0=1, T=S=
+    512, rate 0.1): q = k = 0 gives every key the weight 2^-9; v's key s the
+    one-hot row e_s makes out[t, s] = wd[t, s], nonzero iff kept
+    (``wide_fwd_kernel``), g's row t the one-hot e_t makes dv[s, t] = wd[t,
+    s] (``wide_keys_kernel``); both must equal ``dropout_mask_reference`` at
+    the shard's global (b, h) bit for bit.  Returns the bits compared."""
+    B, H, T, shard, rate = 2, 2, 512, (1, 1, 4), 0.1
+    bf = torch.bfloat16
+    eye = torch.eye(T, device=dev, dtype=bf)[None, :, None, :].expand(B, T, H, T).contiguous()
+    zero = torch.zeros(B, T, H, T, device=dev, dtype=bf)
+    valid = torch.ones(B, T, dtype=torch.int32, device=dev)
+    seed = ta.seed_tensor(TA_SEEDS[1], dev)
+    out = ta.dropout_attention_fwd(zero, zero, eye, valid, seed, rate, False, shard)
+    _, _, dv = ta.dropout_attention_bwd(zero, zero, eye, valid, seed, eye, rate, False, shard)
+    want = ta.dropout_mask_reference(seed, B, H, T, T, rate, dev, *shard)
+    for tag, bits in (("forward", out.permute(0, 2, 1, 3) != 0), ("keys kernel", dv.permute(0, 2, 3, 1) != 0)):
+        if not torch.equal(bits, want):
+            raise AssertionError(f"the wide {tag}'s keep bits differ from dropout_mask_reference in "
+                                 f"{int((bits != want).sum())} of {want.numel()}")
+    return 2 * want.numel()
+
+
+def time_wide(dev) -> dict:
+    """The wide kernels at WIDE_TIMED (B8 H2 640x640, head_dim 256, bf16; the
+    flash-train pair in f32 too, printed): each wrapper's CUDA-event ms
+    beside its twin, its bound and one PyTorch call of the same function
+    with the same mask (SDPA).  Returns {row name: report} of the bf16 ones."""
+    B, T, S, heads, hd = WIDE_TIMED
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, go, valid = flash_train_inputs(g, dev, T, S, heads, hd)
+    lens = torch.tensor([S, S // 2, 1] + [S] * (B - 3), dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: attn.fused_attention(q, k, v, lens), iters=10)
+    plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, lens), iters=3, warmup=1)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = torch.arange(S, device=dev)[None, None, None, :] < lens[:, None, None, None]
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                         iters=10)
+    bound, by = attention_bound(B, T, S, lens.tolist(), False, heads, hd)
+    say(f"    fused_attention at B={B} T={T} S={S} H={heads} HD={hd} bf16: kernel {ms:.4f} ms, twin "
+        f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound:.5f} ({by})")
+    reports = {"fused_attention_wide": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                            library_ms=library_ms)}
+    reports["dropout_attention_wide_fwd"], reports["dropout_attention_wide_bwd"] = time_train_attention(
+        dev, q, k, v, go, valid, False)
+    reports["flash_attention_train_wide_fwd"], reports["flash_attention_train_wide_bwd"] = time_flash_train(
+        dev, q, k, v, go, valid, False, twin=True)
+    time_flash_train(dev, *(t.float() for t in (q, k, v, go)), valid, False, twin=False)
+    return reports
 
 
 def phase_head_dims(dev):
     """Phase 5e: the flagship depth (4 + 4 layers, d_ff 2048) at head_dims
-    the attention kernels run zero-padded (``PAD_HEADS``: d512/h16, head_dim
-    32; d384/h4, head_dim 96), from a seeded init: the wrappers against
-    their twins in bf16 and f32 (:func:`padded_ops_vs_twins`); PAD_STEPS
-    steps at 8 x 640 + 384 with ``fused_attn_train`` (bf16) and with
-    ``flash_training`` (bf16 and f32), each launching its option's kernels
-    on every attention call and nothing else, the loss finite and falling
-    (phase 5d's rules); a ``flash_encoder`` encode in bf16 and in f32
-    against the plain encode on the same weights (``WIDE_ENCODE``'s
-    tolerance for each); one request through an ``InfillDecoder`` with ``fused=None``,
-    which must resolve to the plain loop and launch no decode kernel."""
+    the narrow attention kernels run zero-padded (``PAD_HEADS``: d512/h16,
+    head_dim 32; d384/h4, head_dim 96) and at head_dims above 128, on the
+    wide kernels of attention_wide.cu (``WIDE_HEADS``: d512/h2, head_dim
+    256; d384/h2, 192), from a seeded init: the wrappers against their twins
+    in bf16 and f32 (:func:`padded_ops_vs_twins`), each launching its
+    family's kernels alone; PAD_STEPS steps at 8 x 640 + 384 with
+    ``fused_attn_train`` (bf16) and with ``flash_training`` (bf16 and f32),
+    each launching its option's kernels on every attention call and nothing
+    else, the loss finite and falling (phase 5d's rules); a
+    ``flash_encoder`` encode in bf16 and in f32 against the plain encode on
+    the same weights (``WIDE_ENCODE``'s tolerance for each); one request
+    through an ``InfillDecoder`` with ``fused=None``, which must resolve to
+    the plain loop and launch no decode kernel.  Then head_dim 512 (the
+    wrappers, and the wide dropout kernels' keep bits, :func:`wide_keep_bits`),
+    head_dim 64 and 128 still on the narrow kernels, and the wide kernels
+    timed (:func:`time_wide`).  Returns the wide kernels' reports, largest
+    differences and launches on the main path (the training and encodes)."""
     vocab = WordVocab(ExperimentConfig().vocab_mode, ExperimentConfig().control_list)
     tables = build_loss_tables(vocab)
     batch, _ = train_batch(vocab, dev)
-    for d_model, nhead in PAD_HEADS:
+    wide = dict(errs={}, launches={k: 0 for k in WIDE_KEYS})
+    for d_model, nhead in PAD_HEADS + WIDE_HEADS:
         hd = d_model // nhead
+        keys = WIDE_KEYS if aw.is_wide(hd) else NARROW_KEYS
         for dtype in (torch.bfloat16, torch.float32):
-            errs = padded_ops_vs_twins(dev, nhead, hd, dtype)
+            errs = wrappers_launch(dev, nhead, hd, dtype, keys)
             say(f"  head_dim {hd} (d{d_model}/h{nhead}) {str(dtype).split('.')[-1]}: the wrappers "
                 f"against their twins: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if keys is WIDE_KEYS:
+                for k, v in errs.items():
+                    wide["errs"][k] = max(wide["errs"].get(k, 0.0), v)
         for option, dtype in (("fused", torch.bfloat16), ("flash", torch.bfloat16), ("flash", torch.float32)):
             losses, ms, got, _, per_step = train_steps(
                 dev, vocab, tables, batch, fused=option == "fused", flash=option == "flash",
                 steps=PAD_STEPS, warm=1, dtype=dtype, nhead=nhead, d_model=d_model)
             fwd, bwd = ("ft_fwd", "ft_bwd") if option == "flash" else ("ta_fwd", "ta_bwd")
+            if keys is WIDE_KEYS:
+                fwd, bwd = fwd + "_wide", bwd + "_wide"
+                wide["launches"][fwd] += got[fwd]
+                wide["launches"][bwd] += got[bwd]
             want = per_step * PAD_STEPS
             tag = (f"{'flash_training' if option == 'flash' else 'fused_attn_train'} d{d_model}/h{nhead} "
                    f"{str(dtype).split('.')[-1]}")
@@ -4033,6 +4225,7 @@ def phase_head_dims(dev):
                                      f"nothing else, got {got}")
             torch.cuda.empty_cache()
         src, pad = batch["input"], batch["input_pad_mask"]
+        attn_key = "attn_wide" if keys is WIDE_KEYS else "attn"
         # phase 5d's tolerance for each dtype; bf16 last, the model the decoder below serves
         for _, dtype, atol, rtol in WIDE_ENCODE[::-1]:
             torch.manual_seed(0)
@@ -4045,12 +4238,14 @@ def phase_head_dims(dev):
                 mem_f = flash.encode(src, pad)
                 torch.cuda.synchronize()
                 got = counts()
+            if keys is WIDE_KEYS:
+                wide["launches"][attn_key] += got[attn_key]
             keep = ~pad
             err = (mem_f[keep].float() - mem_p[keep].float()).abs().max().item()
             tag = f"flash_encoder d{d_model}/h{nhead} {str(dtype).split('.')[-1]}"
             say(f"  {tag}: launches {got}; max |flash - plain| on valid rows {err:.3e} (atol {atol:g} + "
                 f"rtol {rtol:g})")
-            if got["attn"] != plain.cfg.num_encoder_layers or any(v for k, v in got.items() if k != "attn"):
+            if got[attn_key] != plain.cfg.num_encoder_layers or any(v for k, v in got.items() if k != attn_key):
                 raise AssertionError(f"{tag}: launches {got}")
             if not torch.allclose(mem_f[keep].float(), mem_p[keep].float(), atol=atol, rtol=rtol):
                 raise AssertionError(f"{tag}: max {err:.3e}")
@@ -4070,6 +4265,23 @@ def phase_head_dims(dev):
                                  f"fused={dec.fused}, {got}")
         del plain, dec
         torch.cuda.empty_cache()
+    for d_model, nhead in WIDE_OPS_ONLY:
+        hd = d_model // nhead
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = wrappers_launch(dev, nhead, hd, dtype, WIDE_KEYS)
+            say(f"  head_dim {hd} (d{d_model}/h{nhead}) {str(dtype).split('.')[-1]}: the wrappers "
+                f"against their twins: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            for k, v in errs.items():
+                wide["errs"][k] = max(wide["errs"].get(k, 0.0), v)
+    say(f"  the wide dropout kernels' keep bits at head_dim 512: {wide_keep_bits(dev)} bits equal to "
+        "dropout_mask_reference (forward and keys kernel)")
+    for hd in attn.KERNEL_HEAD_DIMS:
+        errs = wrappers_launch(dev, 512 // hd, hd, torch.bfloat16, NARROW_KEYS)
+        say(f"  head_dim {hd}: the wrappers launch the narrow kernels alone, within their bounds: " +
+            ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    say(f"  the wide kernels' launches on phase 5e's main path (training, encodes): {wide['launches']}")
+    wide["reports"] = time_wide(dev)
+    return wide
 
 
 def flash_remat_step(dev, vocab, tables):
@@ -4625,6 +4837,7 @@ def main(argv=None) -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("   ", line.strip(), flush=True)
     phase_tensor_cores()
+    phase_wide_facts()
     phase_decode_facts()
 
     vocab, model, packed, vpad = random_flagship(dev)
@@ -4746,10 +4959,12 @@ def main(argv=None) -> int:
         phase_wide(dev)
 
     if run("5e"):
-        say(f"phase 5e the flagship depth at head_dim 32 (d512/h16) and 96 (d384/h4), the attention "
-            f"kernels zero-padded: the wrappers vs twins, {PAD_STEPS} steps each with fused_attn_train "
-            "and flash_training, a flash encode, a request through fused=None")
-        phase_head_dims(dev)
+        say(f"phase 5e the flagship depth at head_dim 32 (d512/h16) and 96 (d384/h4), the narrow attention "
+            f"kernels zero-padded, and at 256 (d512/h2) and 192 (d384/h2) on the wide kernels: the "
+            f"wrappers vs twins, {PAD_STEPS} steps each with fused_attn_train and flash_training, a flash "
+            "encode, a request through fused=None; head_dim 512 and the wide keep bits; 64 and 128 on "
+            "the narrow kernels; the wide kernels timed")
+        wide = phase_head_dims(dev)
 
     if run("4"):
         say("phase 4 kernel path vs twin path (greedy)")
@@ -4835,6 +5050,32 @@ def main(argv=None) -> int:
              launches=launches_f["ft_bwd"], max_abs_err=worst_f_grad, route="cuda",
              **report_f[FT_TIMED[-1]][1]),
     ]}
+    wsrc, wl, we, wr = csrc + "attention_wide.cu", wide["launches"], wide["errs"], wide["reports"]
+    kernels["kernels"] += [
+        dict(name="fused_attention_wide", source=wsrc,
+             replaces="smer_music_generation_tpu/ops/attention.py:115 (head_dim above 128)",
+             launches=wl["attn_wide"], max_abs_err=we["fused_attention"], route="cuda",
+             **wr["fused_attention_wide"]),
+        dict(name="dropout_attention_wide_fwd", source=wsrc,
+             replaces="smer_music_generation_tpu/ops/train_attention.py:111 (head_dim above 128)",
+             launches=wl["ta_fwd_wide"], max_abs_err=we["train fwd"], route="cuda",
+             **wr["dropout_attention_wide_fwd"]),
+        dict(name="dropout_attention_wide_bwd", source=wsrc,
+             replaces="smer_music_generation_tpu/ops/train_attention.py:163 (head_dim above 128)",
+             launches=wl["ta_bwd_wide"], max_abs_err=we["train grad abs"], route="cuda",
+             **wr["dropout_attention_wide_bwd"]),
+        dict(name="flash_attention_train_wide_fwd", source=wsrc,
+             replaces="smer_music_generation_tpu/models/transformer.py:360 (library "
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:758; head_dim above 128)",
+             launches=wl["ft_fwd_wide"], max_abs_err=we["flash fwd"], route="cuda",
+             **wr["flash_attention_train_wide_fwd"]),
+        dict(name="flash_attention_train_wide_bwd", source=wsrc,
+             replaces="smer_music_generation_tpu/models/transformer.py:360 (library "
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 and :1456; head_dim "
+                      "above 128)",
+             launches=wl["ft_bwd_wide"], max_abs_err=we["flash grad abs"], route="cuda",
+             **wr["flash_attention_train_wide_bwd"]),
+    ]
     print(json.dumps(kernels), flush=True)
     say(f"done: the whole script took {time.perf_counter() - T0:.1f} s on {card}")
     faulthandler.cancel_dump_traceback_later()

@@ -68,7 +68,10 @@ another design of the pair sums in another order); and the f32 forward
 (``attn_f32_fwd_kernel``) in both modes: ``flash_train_fwd`` at B=8, 640x640
 and ``fused_attention`` at B=3, 1536x1536 (key lengths 1536/1440/1344), each
 at head_dim 64 (H=8) and 128 (H=4), beside f32 SDPA's forward with the same
-mask and with its relative norm from the twin.  ``--attention`` before
+mask and with its relative norm from the twin; and every attention wrapper
+at head_dim 64 and 128, causal, in bf16 and f32 (the dropout attention in
+bf16 only), its outputs and gradients hashed for the last line.
+``--attention`` before
 the roots times the attention kernels alone (no decode kernels, no served
 batch):
 
@@ -401,6 +404,25 @@ for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
     mask = (torch.arange(1536, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     out["sdpa_fwd_" + tag] = timed(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+# every attention wrapper at head_dim 64 (H=8) and 128 (H=4), causal, in bf16
+# and (where it takes it) f32: outputs and gradients hashed, not timed, so the
+# last line says whether the roots' kernels agree bit for bit at both widths
+for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
+    for dt in (torch.bfloat16, torch.float32):
+        gh = torch.Generator(device=dev).manual_seed(4)
+        q, k, v, go = (torch.randn(2, 384, H_, D_, generator=gh, device=dev).to(dt) for _ in range(4))
+        valid = (torch.rand(2, 384, generator=gh, device=dev) >= 0.1).to(torch.int32)
+        tag = f"{str(dt).split('.')[-1]}_hd{D_}"
+        outputs["fused_attention_" + tag] = digest(attn.fused_attention(
+            q, k, v, torch.tensor([384, 200], dtype=torch.int32, device=dev), True))
+        o, stats = ft.flash_train_fwd(q, k, v, valid, True)
+        outputs["flash_train_" + tag] = digest(o, stats, *ft.flash_train_bwd(q, k, v, valid, o, stats, go,
+                                                                              True))
+        if dt == torch.bfloat16:
+            seed = ta.seed_tensor((0, 7), dev)
+            outputs["dropout_attention_" + tag] = digest(
+                ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, True),
+                *ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, True))
 if len(sys.argv) > 2 and not ATTENTION_ONLY:  # the served batch end to end on the committed snapshot
     from smer_music_generation_tpu_torch.infer.engine import InfillEngine
     from smer_music_generation_tpu_torch.train.state import load_inference_model

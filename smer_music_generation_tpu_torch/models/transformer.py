@@ -68,23 +68,19 @@ def _kernel_device(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def check_kernel_domain(option: str, t: torch.Tensor, head_dim: int, dtype: torch.dtype) -> None:
+def check_kernel_domain(option: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     """Refuse, before any attention call, a model that sends its attention
-    through ``option``'s CUDA kernels at a head_dim or dtype they do not
-    take: head_dim up to 128 (64 and 128 as built, others zero-padded to the
-    next, ``ops.attention.kernel_width``), bf16 or f32 for
-    ``flash_training`` and ``flash_encoder``, bf16 for ``fused_attn_train``
-    (whose f32 JAX's own gate already sends to the plain path); JAX's
-    kernels take any.  Decided from ``t``'s device at call time; the CPU
-    twins are not gated."""
-    from ..ops.attention import MAX_HEAD_DIM
-
+    through ``option``'s CUDA kernels in a dtype they do not take: bf16 or
+    f32 for ``flash_training`` and ``flash_encoder``, bf16 for
+    ``fused_attn_train`` (whose f32 JAX's own gate, :meth:`_fused_train_ok`,
+    already sends to the plain path, so no model reaches it).  Every
+    head_dim runs: 64 and 128 as built, others up to 128 zero-padded to the
+    next, and above 128 on the wide kernels (``ops.attention.kernel_width``).
+    Decided from ``t``'s device at call time; the CPU twins take any dtype."""
     dtypes = (torch.bfloat16,) if option == "fused_attn_train" else (torch.bfloat16, torch.float32)
-    if _kernel_device(t) and (head_dim > MAX_HEAD_DIM or dtype not in dtypes):
+    if _kernel_device(t) and dtype not in dtypes:
         names = " or ".join(str(d).split(".")[-1] for d in dtypes)
-        raise NotImplementedError(
-            f"attention kernels on CUDA take {names} at head_dim up to {MAX_HEAD_DIM}: "
-            f"{option} got head_dim {head_dim} and {dtype}; wider heads are ROADMAP Queue 3 item 4")
+        raise TypeError(f"{option}'s attention kernels on CUDA take {names}, got {dtype}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -644,7 +640,7 @@ class ScoreTransformer(nn.Module):
         option = ("flash_training" if flash else "flash_encoder" if kv_valid_len is not None
                   else "fused_attn_train" if fused_train else None)
         if option is not None:
-            check_kernel_domain(option, x, self.cfg.head_dim, self.cfg.dtype)
+            check_kernel_domain(option, x, self.cfg.dtype)
         for layer in self.encoder_layers:
             x = self._layer(layer, generator, x, mask, kv_valid_len, deterministic, fused_train,
                             kv_valid, flash=flash)
@@ -673,8 +669,7 @@ class ScoreTransformer(nn.Module):
         fused_train = not flash and (self._fused_train_ok(deterministic, T, T)
                                      and self._fused_train_ok(deterministic, T, memory.shape[1]))
         if flash or fused_train:
-            check_kernel_domain("flash_training" if flash else "fused_attn_train", x,
-                                self.cfg.head_dim, self.cfg.dtype)
+            check_kernel_domain("flash_training" if flash else "fused_attn_train", x, self.cfg.dtype)
         tgt_valid = mem_valid = None
         if flash or fused_train:
             tgt_valid = (torch.ones(B, T, dtype=torch.bool, device=tgt.device)

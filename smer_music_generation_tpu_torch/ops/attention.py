@@ -14,7 +14,9 @@ past ``kv_valid_len[b]`` masked with -1e30 (and keys past the query row when
 :func:`attention_reference`; a CUDA tensor launches a kernel (head_dim in
 :data:`KERNEL_HEAD_DIMS`, or any other up to 128 zero-padded to the next of
 them: :func:`kernel_width`; bf16 to ``flash_fwd_kernel``, f32 to
-``attn_f32_fwd_kernel`` of ``csrc/attention_f32.cu``) or raises.  The
+``attn_f32_fwd_kernel`` of ``csrc/attention_f32.cu``; a head_dim above 128
+zero-padded to a multiple of 64 and sent to ``wide_fwd_kernel`` of
+``csrc/attention_wide.cu``, ``ops/attention_wide.py``) or raises.  The
 kernels are built with the decode kernels into one library at first use
 (``ops.decode_step.load_library``).
 """
@@ -26,31 +28,42 @@ from typing import Optional
 
 import torch
 
+from . import attention_wide as aw
 from .decode_step import _check, _check_tensors, load_library
 
 NEG_INF = -1e30
-# the head_dims the CUDA attention kernels are built for (attention.cu,
+# the head_dims the narrow CUDA attention kernels are built for (attention.cu,
 # attention_f32.cu, train_attention.cu, flash_train.cu), in bf16 and, for
 # this module's and flash_train's kernels, f32; any other head_dim up to the
-# last runs on the next wider one, zero-padded (:func:`kernel_width`)
-KERNEL_HEAD_DIMS = (64, 128)
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# last runs on the next wider one, zero-padded, and every head_dim above it
+# on the wide kernels of attention_wide.cu (:func:`kernel_width`)
+KERNEL_HEAD_DIMS = (64, aw.NARROW_MAX)
 
 
 def kernel_width(head_dim: int, widths=KERNEL_HEAD_DIMS) -> int:
-    """The built head_dim a head_dim runs on: itself, or the next wider one
-    of ``widths``, with q, k and v zero-padded on the last axis
-    (:func:`pad_head`) and the scale kept at 1/sqrt(head_dim).  A zero column
-    adds an exact zero to every score and every product, so the padded
-    kernel computes the true head_dim's function, and its extra output and
-    gradient columns are zeros, sliced off.  Above the widest raises
-    ``NotImplementedError`` (ROADMAP Queue 3 item 4)."""
+    """The width a head_dim runs at: itself or the next wider one of
+    ``widths`` (the narrow kernels), or above 128 the next multiple of 64
+    (the wide kernels, ``attention_wide.wide_width``), with q, k and v
+    zero-padded on the last axis (:func:`pad_head`) and the scale kept at
+    1/sqrt(head_dim).  A zero column adds an exact zero to every score and
+    every product, so the padded kernel computes the true head_dim's
+    function, and its extra output and gradient columns are zeros, sliced
+    off."""
     for w in widths:
         if head_dim <= w:
             return w
-    raise NotImplementedError(
-        f"the CUDA attention kernels take head_dim up to {max(widths)}, got {head_dim}; "
-        "wider heads are ROADMAP Queue 3 item 4")
+    return aw.wide_width(head_dim)
+
+
+def twin_device(t: torch.Tensor, what: str) -> bool:
+    """Where the attention wrappers (this module's, ``train_attention``'s and
+    ``flash_train``'s) run their twins (a tensor on the CPU: True) and where
+    they launch a kernel (CUDA: False); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    return False
 
 
 def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -116,15 +129,17 @@ def fused_attention(
 ) -> torch.Tensor:
     """Flash attention over (B, T|S, H, HD) tensors; returns (B, T, H, HD).
     On CUDA a head_dim up to 128 other than 64 and 128 runs on the next
-    wider kernel, zero-padded (:func:`kernel_width`)."""
-    if q.device.type == "cpu":
+    wider kernel, zero-padded, and one above 128 on the wide kernel
+    (:func:`kernel_width`)."""
+    if twin_device(q, "fused_attention"):
         return attention_reference(q, k, v, kv_valid_len, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
     B, T, H, hd = q.shape
     S = k.shape[1]
     HD = kernel_width(hd)
     q, k, v = (pad_head(t, HD) for t in (q, k, v))
+    if aw.is_wide(HD):
+        out = aw.fused_attention_wide(q, k, v, kv_valid_len, causal, 1.0 / math.sqrt(hd))
+        return out if HD == hd else out[..., :hd].contiguous()
     _check_inputs(q, k, v, kv_valid_len)
     out = torch.empty_like(q)
     lens = kv_valid_len.data_ptr() if kv_valid_len is not None else None
@@ -148,3 +163,4 @@ fused_attention.launches = 0
 def reset_counts() -> None:
     fused_attention.launches = 0
     attention_reference.calls = 0
+    aw.reset_counts()

@@ -419,7 +419,10 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
 // verified ([out[pos], draft]), with K = W - 1:
 //   * the assumed-emission chain: slot i samples under the state reached
 //     if slots < i emitted their window tokens (an emitted m_0 ends a
-//     span), by the next_bits table, staged in shared memory as bytes;
+//     span), by the next_bits table; each warp walks it to its own slot
+//     over the 16 x (W - 1) transitions the window can take (next_bits[s]
+//     [window[j]] for every state s, loaded in parallel into shared memory
+//     as bytes), so no barrier stands between the chain and the slots;
 //   * a warp a slot (slots past kSpecWarps loop): the slot's grammar row
 //     (`grammar_sid`, sample_advance_kernel's own), greedy argmax of the
 //     masked logits, or the masked log-softmax over the temperature (the
@@ -431,42 +434,54 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
 //     u < P(draft) over the kept support and else the argmax of the
 //     residual plus the Gumbel row (JAX `spec_accept_resample`); slot K
 //     (no draft) the argmax of log-probabilities plus the Gumbel row;
-//   * each slot's span end, done flag and next token; the emitted prefix
-//     (slot i emits iff every slot before it emitted its window token and
-//     did not finish the session), its W-slot write into `out`, the
-//     length, and the carry of the last emitted slot;
+//   * each slot's span end, done flag and next token; then warp 0 alone:
+//     the emitted prefix by a ballot (slot i emits iff every slot before
+//     it emitted its window token and did not finish the session), its
+//     W-slot write into `out`, the length, and the carry of the last
+//     emitted slot;
 //   * the next draft (JAX `build_draft`: the continuation of the latest
-//     match of the bigram (out[pos - 1], out[pos]) in the emitted stream,
-//     else in the source, never at a padding id, else zeros), the next
+//     match of the bigram (out[P - 1], out[P]) in the emitted stream,
+//     ending at 1..P-1, else in the source, never at a padding id, else
+//     zeros) as an O(1) lookup in two device tables of "the latest j at
+//     which each bigram ends", `draft_tbl` (2, vpad, vpad) int32, -1 where
+//     none: [1] the source's, built once a decode by `prime`; [0] the
+//     emitted stream's, which `prime` fills up to pos - 1 and every
+//     sampling iteration extends by the bigrams ending at pos .. P - 1
+//     (atomicMax: the latest wins), so it never holds the bigram ending at
+//     P itself.  The lookup reads the entry before this iteration's inserts
+//     and takes the max with the inserts of the same bigram, warp-reduced,
+//     so it needs no ordering of the atomics inside the launch.  The next
 //     window and its W input rows x = emb[tok] * sqrt(D) + pos_table[pos +
 //     j] in f32, rounded to bf16 when the model computes in bf16 (the PE
 //     table's rows, as JAX's verify reads them, not the analytic row of
 //     embed_pe_kernel).
 // An iteration whose carry is done, or whose window no longer fits
 // (pos + W >= L), samples nothing and changes nothing: it writes the same
-// window, x and kv_rows again, so a host that reads the carry back only now
-// and then may replay past the end.  `prime` (the first window of a
-// decode) does the same without a verify before it.
+// window, x and kv_rows again and inserts nothing, so a host that reads the
+// carry back only now and then may replay past the end.  `prime` (the first
+// window of a decode, after the host has set the tables to -1) builds the
+// tables and changes nothing else.
 //
 // What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes,
 // about 50 KB at the flagship's served case (W x vpad logits, mask and
-// noise rows, the tables, the source and output rows, W embedding and PE
-// rows read; W x D x rows written), ~0.015 us of HBM time; its time is a
-// chain of dependent steps.  So the chain is kept short and mostly hidden:
-// it is a programmatic dependent launch behind the logits' rowvec_kernel,
-// and before `griddepcontrol.wait` it loads what no launch of the
-// iteration writes (carry, window, output and source rows, span types,
-// tables), computes the slot chain and issues each first-round slot's mask
-// and noise loads; after the wait a warp reads its slot's logits through
-// L2 and no block barrier stands between a slot's loads and its token.
-// Five block barriers follow: the slots' tokens, the prefix, the bigram
-// scan's two maxima, the next window.
+// noise rows, the transitions, two table entries, W embedding and PE rows
+// read; W x D x rows written), ~0.015 us of HBM time; its time is a chain
+// of dependent steps.  So the chain is kept short and mostly hidden: it is
+// a programmatic dependent launch behind the logits' rowvec_kernel, and
+// before `griddepcontrol.wait` it loads what no launch of the iteration
+// writes (carry, window, transitions, span types, tables), walks each
+// slot's chain and issues each first-round slot's mask and noise loads;
+// after the wait a warp reads its slot's logits through L2 and no block
+// barrier stands between a slot's loads and its token.  Three block
+// barriers in all: the staged transitions, the slots' tokens, the next
+// window.  No sampling iteration's work grows with L + S (only the
+// prime's, once a decode).
 //
 // carry rows (ops/decode_step.py SPEC_*)
 constexpr int kSPos = 0, kSDone = 1, kSBits = 2, kSSteps = 3, kSSpan = 4, kSLen = 5;
 constexpr int kSpecThreads = 512;
 constexpr int kSpecWarps = kSpecThreads / 32;
-constexpr int kSlotArrays = 12;  // the W-long int arrays in shared memory
+constexpr int kSlotArrays = 7;  // the W-long int arrays in shared memory
 
 struct SpecArgs {
   const float* logits;    // (W, vpad): the verify's, written by the launch before this one
@@ -485,6 +500,7 @@ struct SpecArgs {
   const int* src;         // (S,)
   const float* emb;       // (V, D) f32
   const float* pos_table; // (max_len, D) f32
+  int* draft_tbl;         // (2, vpad, vpad): the latest j each bigram ends at, -1 if none
   int W, L, S, V, D, vpad, max_len, max_spans, n_sid, mode, span_cap, eos_index, mask_index;
   int span_body, greedy, use_nucleus, round_bf16, prime;
   float nucleus_p, temperature, emb_scale;
@@ -513,8 +529,7 @@ __device__ __forceinline__ int warp_argmax(float best, int idx) {
 // One slot's token, by its warp: lane l holds vocab lanes l + 32 i.
 template <int VPL>
 __device__ __forceinline__ int spec_slot_token(const SpecArgs& a, int j, int K, unsigned allow,
-                               const float (&g)[VPL], float u, int draft, float* seg,
-                               int* seg_n, int lane) {
+                               const float (&g)[VPL], float u, int draft, float* seg, int lane) {
   const float* lrow = a.logits + (size_t)j * a.vpad;
   float lg[VPL];
 #pragma unroll
@@ -551,45 +566,49 @@ __device__ __forceinline__ int spec_slot_token(const SpecArgs& a, int j, int K, 
   for (int i = 0; i < VPL; ++i) logp[i] -= ls;
   if (a.use_nucleus) {
     // The mass above is needed for the nonzero probabilities only (~a
-    // quarter of the lanes): they are spread over the lanes as items f of
-    // the compacted sequence, four a lane a pass, and every lane also sums
-    // the mass above 0 (what a zero probability's lane gets).  Each sum is
-    // above_mass's, over the same sequence in the same order, so a lane's
-    // bits are those of a pass over every lane's own value.
+    // quarter of the lanes): they are compacted into one list, chunk after
+    // chunk of 32 lanes and in lane order within a chunk (the sequence and
+    // order above_mass sums), then spread over the lanes as items f of the
+    // list, four a lane a pass, each lane summing the whole list once for
+    // its items, and the mass above 0 (what a zero probability's lane gets)
+    // beside them.  A lane's bits are those of a pass over every lane's own
+    // value; the flat list spares the per-chunk loops.
     float p[VPL];
     unsigned nz[VPL];
     int off[VPL];
     int n = 0;
+    const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       p[i] = expf(logp[i]);
-      nz[i] = compact_nonzero(p[i], i, lane, seg, seg_n);
+      nz[i] = __ballot_sync(kFull, p[i] > 0.f);
       off[i] = n;
+      if (p[i] > 0.f) seg[n + __popc(nz[i] & lt)] = p[i];
       n += __popc(nz[i]);
     }
     __syncwarp();
     float* abv = seg + a.vpad;  // each item's mass above
     float total = 0.f;
     for (int f0 = 0; f0 < n; f0 += 4 * 32) {
-      float q[5], ab[5];
+      float q[4], ab[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int f = f0 + 32 * k + lane;
-        int c = 0;
-#pragma unroll
-        for (int i = 1; i < VPL; ++i)
-          if (f >= off[i]) c = i;
-        q[k] = f < n ? seg[32 * c + f - off[c]] : INFINITY;  // nothing is above +inf
+        q[k] = f < n ? seg[f] : INFINITY;  // nothing is above +inf
       }
-      q[4] = 0.f;
-      above_mass<5>(seg, seg_n, VPL, q, ab);
+      total = 0.f;
+#pragma unroll 4
+      for (int f = 0; f < n; ++f) {
+        const float t = seg[f];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ab[k] += t > q[k] ? t : 0.f;
+        total += t;  // above_mass's t > 0 ? t : 0 on a nonzero t
+      }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (f0 + 32 * k + lane < n) abv[f0 + 32 * k + lane] = ab[k];
-      total = ab[4];
     }
     __syncwarp();
-    const unsigned lt = (1u << lane) - 1u;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const float above = p[i] > 0.f ? abv[off[i] + __popc(nz[i] & lt)] : total;
@@ -625,79 +644,94 @@ __device__ __forceinline__ int spec_slot_token(const SpecArgs& a, int j, int K, 
   return warp_argmax(best, bi);
 }
 
+// the emitted stream's token at position i, once this iteration's W-slot
+// write is decided: the slots' tokens in (pos, pos + W] (0 past the prefix),
+// else the stream as the launch found it (positions it does not write)
+__device__ __forceinline__ int stream_at(const SpecArgs& a, const int* nt_s, bool active, int pos,
+                                         int m, int i) {
+  if (active && i > pos && i <= pos + a.W) return i - pos - 1 < m ? nt_s[i - pos - 1] : 0;
+  return a.out[i];
+}
+
+// the table entry of bigram (x, y), or -1 when either token is outside the table
+__device__ __forceinline__ int bigram_at(int vpad, int x, int y) {
+  return (unsigned)x < (unsigned)vpad && (unsigned)y < (unsigned)vpad ? x * vpad + y : -1;
+}
+
 template <int VPL>
 __global__ void __launch_bounds__(kSpecThreads) spec_advance_kernel(const SpecArgs a) {
   extern __shared__ int sm[];
   const int W = a.W, K = W - 1;
-  int* out_s = sm;                  // (L,)
-  int* src_s = out_s + a.L;         // (S,)
-  int* types_s = src_s + a.S;       // (max_spans,)
-  int* slot = types_s + a.max_spans;
-  int* win_s = slot;                // the window verified
-  int* st_s = slot + W;             // each slot's grammar bits
-  int* stp_s = slot + 2 * W;        // steps in span
-  int* sp_s = slot + 3 * W;         // span index
-  int* nt_s = slot + 4 * W;         // next token
-  int* nd_s = slot + 5 * W;         // now done
-  int* bpost_s = slot + 6 * W;      // bits after the slot
-  int* spost_s = slot + 7 * W;      // steps after the slot
-  int* npost_s = slot + 8 * W;      // span after the slot
-  int* wn_s = slot + 9 * W;         // the next window
-  unsigned char* nb_s = reinterpret_cast<unsigned char*>(slot + kSlotArrays * W);  // (16, vpad)
-  float* seg_all = reinterpret_cast<float*>(slot + kSlotArrays * W + 4 * a.vpad);  // a warp's 2 vpad
-  int* segn_all = reinterpret_cast<int*>(seg_all + 2 * kSpecWarps * a.vpad);       // a warp's 32
+  int* win_s = sm;                  // the window verified
+  int* nt_s = sm + W;               // each slot's next token
+  int* nd_s = sm + 2 * W;           // now done
+  int* bpost_s = sm + 3 * W;        // bits after the slot
+  int* spost_s = sm + 4 * W;        // steps after the slot
+  int* npost_s = sm + 5 * W;        // span after the slot
+  int* wn_s = sm + 6 * W;           // the next window
+  unsigned char* tr_s = reinterpret_cast<unsigned char*>(sm + kSlotArrays * W);  // (W, 16)
+  float* seg_all = reinterpret_cast<float*>(sm + kSlotArrays * W + 4 * W);  // a warp's 2 vpad
   __shared__ int sid_s[16];
-  __shared__ int red_o[kSpecWarps], red_s[kSpecWarps];
-  __shared__ int m_s;
+  __shared__ int p_s;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* tbl_out = a.draft_tbl;
+  const int* tbl_src = a.draft_tbl + (size_t)a.vpad * a.vpad;
   // every load that depends on nothing this iteration's other launches write
   const int pos = a.carry[kSPos];
   const int done = a.carry[kSDone];
-  const int bits = a.carry[kSBits];
-  const int steps = a.carry[kSSteps];
-  const int span = a.carry[kSSpan];
-  const int length = a.carry[kSLen];
-  const int n_spans = a.aux[0];
-  const int nw = a.aux[1];
   const bool active = !a.prime && done == 0 && pos + W < a.L;
-  for (int i = tid; i < a.L; i += kSpecThreads) out_s[i] = a.out[i];
-  for (int i = tid; i < a.S; i += kSpecThreads) src_s[i] = a.src[i];
   for (int i = tid; i < W; i += kSpecThreads) win_s[i] = a.window[i];
   if (active) {
-    for (int i = tid; i < a.max_spans; i += kSpecThreads) types_s[i] = a.span_types[i];
-    for (int i = tid; i < 16 * a.vpad; i += kSpecThreads)
-      nb_s[i] = static_cast<unsigned char>(a.next_bits[i]);
+    // transitions[j][s] = next_bits[s][window[j]], the chain's every step from every state
+    for (int i = tid; i < 16 * W; i += kSpecThreads) {
+      const int j = i >> 4, st = i & 15;
+      tr_s[i] = j > 0 ? static_cast<unsigned char>(a.next_bits[st * a.vpad + a.window[j]]) : 0;
+    }
     if (tid < 16) sid_s[tid] = a.sid_tbl[tid];
   }
-  __syncthreads();
-  if (active && tid == 0) {
-    // the assumed-emission chain over the K draft tokens
-    int st = bits, sp = steps, sn = span;
-    for (int j = 0; j < W; ++j) {
-      if (j > 0) {
-        const int w = win_s[j];
-        const bool ended = w == a.mask_index;
-        st = ended ? 0 : nb_s[st * a.vpad + w];
-        sp = ended ? 1 : sp + 1;
-        sn += ended;
-      }
-      st_s[j] = st;
-      stp_s[j] = sp;
-      sp_s[j] = sn;
+  if (a.prime) {
+    // the tables of a new decode (the host set them to -1): the source's
+    // bigrams ending at 1..S-1 (never at a padding id) and the stream's
+    // ending at 1..pos-1
+    int* tsrc = a.draft_tbl + (size_t)a.vpad * a.vpad;
+    for (int j = 1 + tid; j < a.S; j += kSpecThreads) {
+      const int e = bigram_at(a.vpad, a.src[j - 1], a.src[j]);
+      if (a.src[j] != 0 && e >= 0) atomicMax(tsrc + e, j);
     }
+    for (int j = 1 + tid; j <= pos - 1; j += kSpecThreads) {
+      const int e = bigram_at(a.vpad, a.out[j - 1], a.out[j]);
+      if (e >= 0) atomicMax(tbl_out + e, j);
+    }
+    __threadfence();
   }
   __syncthreads();
 
   float* seg = seg_all + 2 * warp * a.vpad;
-  int* seg_n = segn_all + warp * 32;
   unsigned allow = 0;
   float g[VPL];
   float u = 0.f;
+  int st = 0, stp = 0, sn = 0, type = 0;
+  // slot j's chain (lane 0 walks it from the carry over the staged
+  // transitions, then the warp shares it), grammar row, noise and uniform
   auto load_slot = [&](int j) {
-    const int type = types_s[min(sp_s[j], a.max_spans - 1)];
-    const int sid = grammar_sid(a.mode, st_s[j], stp_s[j] == 1, type, sid_s[st_s[j] & 15]);
-    const float* mrow = a.masks + (size_t)(nw * a.n_sid + sid) * a.vpad;
+    if (lane == 0) {
+      st = a.carry[kSBits];
+      stp = a.carry[kSSteps];
+      sn = a.carry[kSSpan];
+      for (int i = 1; i <= j; ++i) {
+        const bool ended = win_s[i] == a.mask_index;
+        st = ended ? 0 : tr_s[16 * i + st];
+        stp = ended ? 1 : stp + 1;
+        sn += ended;
+      }
+    }
+    st = __shfl_sync(kFull, st, 0);
+    stp = __shfl_sync(kFull, stp, 0);
+    sn = __shfl_sync(kFull, sn, 0);
+    type = a.span_types[min(sn, a.max_spans - 1)];
+    const int sid = grammar_sid(a.mode, st, stp == 1, type, sid_s[st & 15]);
+    const float* mrow = a.masks + (size_t)(a.aux[1] * a.n_sid + sid) * a.vpad;
     allow = 0;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) allow |= (mrow[lane + 32 * i] > 0.f ? 1u : 0u) << i;
@@ -720,111 +754,124 @@ __global__ void __launch_bounds__(kSpecThreads) spec_advance_kernel(const SpecAr
     for (int j = warp; j < W; j += kSpecWarps) {
       if (j != warp) load_slot(j);
       const int tok = spec_slot_token<VPL>(a, j, K, allow, g, u, j < K ? win_s[j + 1] : 0, seg,
-                                           seg_n, lane);
+                                           lane);
       if (lane == 0) {  // the plain loop's bookkeeping for the slot
-        const int spj = stp_s[j], snj = sp_s[j];
-        const int type = types_s[min(snj, a.max_spans - 1)];
-        const bool control_done = type != a.span_body && spj >= 2;
+        const bool control_done = type != a.span_body && stp >= 2;
         // the cap counts the introducing m_0 (reference generation.py:542)
-        const bool end_span = tok == a.eos_index || spj >= a.span_cap || control_done;
-        const int new_span = end_span ? snj + 1 : snj;
-        const bool now_done = new_span >= n_spans;
+        const bool end_span = tok == a.eos_index || stp >= a.span_cap || control_done;
+        const int new_span = end_span ? sn + 1 : sn;
+        const bool now_done = new_span >= a.aux[0];
         nt_s[j] = now_done ? 0 : (end_span ? a.mask_index : tok);
         nd_s[j] = now_done;
-        bpost_s[j] = end_span ? 0 : nb_s[st_s[j] * a.vpad + tok];
-        spost_s[j] = end_span ? 1 : spj + 1;
+        bpost_s[j] = end_span ? 0 : a.next_bits[st * a.vpad + tok];
+        spost_s[j] = end_span ? 1 : stp + 1;
         npost_s[j] = new_span;
       }
     }
   }
   __syncthreads();
-  if (tid == 0) {
+  if (warp == 0) {
+    // the emitted prefix: slots 0 .. m - 1, m - 1 the first slot whose
+    // token is not its window token or that finished the session
     int m = 0;
     if (active) {
-      // slot i emits iff every slot before it emitted its window token and
-      // did not finish the session
-      m = 1;
-      while (m < W && nt_s[m - 1] == win_s[m] && !nd_s[m - 1]) ++m;
-      int len = length;
-      for (int j = 0; j < m; ++j)
+      m = W;
+      for (int base = 0; base < K; base += 32) {
+        const int j = base + lane;
+        const unsigned ok = __ballot_sync(kFull, j < K && nt_s[j] == win_s[j + 1] && !nd_s[j]);
+        if (ok != kFull) {
+          m = base + __ffs(~ok);
+          break;
+        }
+      }
+      int len = a.carry[kSLen];
+      for (int j = lane; j < m; j += 32)
         if (nt_s[j] != 0) len = max(len, pos + j + 2);
-      const int last = m - 1;
-      a.carry[kSPos] = pos + m;
-      a.carry[kSDone] = nd_s[last];
-      a.carry[kSBits] = bpost_s[last];
-      a.carry[kSSteps] = spost_s[last];
-      a.carry[kSSpan] = npost_s[last];
-      a.carry[kSLen] = len;
+      len = warp_max_int(len);
+      for (int j = lane; j < W; j += 32) a.out[pos + 1 + j] = j < m ? nt_s[j] : 0;
+      if (lane == 0) {
+        const int last = m - 1;
+        a.carry[kSPos] = pos + m;
+        a.carry[kSDone] = nd_s[last];
+        a.carry[kSBits] = bpost_s[last];
+        a.carry[kSSteps] = spost_s[last];
+        a.carry[kSSpan] = npost_s[last];
+        a.carry[kSLen] = len;
+      }
     }
-    m_s = m;
-  }
-  __syncthreads();
-  const int m = m_s;
-  const int P = pos + m;  // the next window's position
-  for (int j = tid; j < W; j += kSpecThreads) {
-    if (active) {  // a single W-slot write; slots past the prefix write 0
-      const int t = j < m ? nt_s[j] : 0;
-      out_s[pos + 1 + j] = t;
-      a.out[pos + 1 + j] = t;
+    for (int j = lane; j < W; j += 32) a.kv_rows[j] = pos + j;
+    const int P = pos + m;  // the next window's position
+    auto at = [&](int i) { return stream_at(a, nt_s, active, pos, m, i); };
+    if (K > 0) {
+      // the latest match of the bigram ending at P: the table's entry from
+      // before this iteration, or one of the bigrams ending at pos .. P - 1
+      // that this iteration inserts (all later than any entry before it)
+      const int e = bigram_at(a.vpad, at(max(P - 1, 0)), at(P));
+      int jo = -1;
+      for (int j = pos + lane; j < P; j += 32) {
+        if (j < 1) continue;
+        const int ej = bigram_at(a.vpad, at(j - 1), at(j));
+        if (ej >= 0 && ej == e) jo = max(jo, j);
+      }
+      jo = warp_max_int(max(jo, e >= 0 ? __ldcg(tbl_out + e) : -1));
+      const int js = e >= 0 ? __ldcg(tbl_src + e) : -1;
+      for (int i = lane; i < K; i += 32) {
+        int t = 0;
+        if (jo >= 0)
+          t = at(max(min(jo + 1, a.L - K), 0) + i);
+        else if (js >= 0)
+          t = a.src[max(min(js + 1, a.S - K), 0) + i];
+        wn_s[1 + i] = t;
+      }
     }
-    a.kv_rows[j] = pos + j;
-  }
-  __syncthreads();
-  if (K > 0) {
-    // the latest match of the bigram ending at P, in the emitted stream
-    // (ending at 1..P-1), else in the source (never at a padding id)
-    const int key0 = out_s[max(P - 1, 0)], key1 = out_s[P];
-    int jo = -1, js = -1;
-    for (int j = 1 + tid; j <= P - 1; j += kSpecThreads)
-      if (out_s[j - 1] == key0 && out_s[j] == key1) jo = j;
-    for (int j = 1 + tid; j < a.S; j += kSpecThreads)
-      if (src_s[j - 1] == key0 && src_s[j] == key1 && src_s[j] != 0) js = j;
-    jo = warp_max_int(jo);
-    js = warp_max_int(js);
+    // the bigrams ending at pos .. P - 1 join the stream's table (after
+    // every lane has read the entry above)
+    __syncwarp();
+    for (int j = pos + lane; j < P; j += 32) {
+      if (j < 1) continue;
+      const int ej = bigram_at(a.vpad, at(j - 1), at(j));
+      if (ej >= 0) atomicMax(tbl_out + ej, j);
+    }
     if (lane == 0) {
-      red_o[warp] = jo;
-      red_s[warp] = js;
-    }
-    __syncthreads();
-    jo = -1;
-    js = -1;
-#pragma unroll
-    for (int w = 0; w < kSpecWarps; ++w) {
-      jo = max(jo, red_o[w]);
-      js = max(js, red_s[w]);
-    }
-    for (int i = tid; i < K; i += kSpecThreads) {
-      int t = 0;
-      if (jo >= 0)
-        t = out_s[max(min(jo + 1, a.L - K), 0) + i];
-      else if (js >= 0)
-        t = src_s[max(min(js + 1, a.S - K), 0) + i];
-      wn_s[1 + i] = t;
+      wn_s[0] = at(P);
+      p_s = P;
     }
   }
-  if (tid == 0) wn_s[0] = out_s[P];
   __syncthreads();
+  const int P = p_s;
   for (int j = tid; j < W; j += kSpecThreads) a.window[j] = wn_s[j];
-  for (int e = tid; e < W * a.D; e += kSpecThreads) {
-    const int j = e / a.D, l = e - j * a.D;
+  // the next window's input rows, four lanes of a row at a time
+  const int D4 = a.D / 4;
+  for (int e = tid; e < W * D4; e += kSpecThreads) {
+    const int j = e / D4, l = 4 * (e - j * D4);
     const int tok = wn_s[j];
     const int p = min(P + j, a.max_len - 1);  // past the table only where no window fits
-    const float ev = tok >= 0 && tok < a.V ? a.emb[(size_t)tok * a.D + l] : 0.f;
-    float v = __fadd_rn(__fmul_rn(ev, a.emb_scale), a.pos_table[(size_t)p * a.D + l]);
-    if (a.round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-    a.x[e] = v;
+    const float4 ev = tok >= 0 && tok < a.V ? *reinterpret_cast<const float4*>(a.emb + (size_t)tok * a.D + l)
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 pe = *reinterpret_cast<const float4*>(a.pos_table + (size_t)p * a.D + l);
+    float4 v = make_float4(__fadd_rn(__fmul_rn(ev.x, a.emb_scale), pe.x),
+                           __fadd_rn(__fmul_rn(ev.y, a.emb_scale), pe.y),
+                           __fadd_rn(__fmul_rn(ev.z, a.emb_scale), pe.z),
+                           __fadd_rn(__fmul_rn(ev.w, a.emb_scale), pe.w));
+    if (a.round_bf16) {
+      v.x = __bfloat162float(__float2bfloat16_rn(v.x));
+      v.y = __bfloat162float(__float2bfloat16_rn(v.y));
+      v.z = __bfloat162float(__float2bfloat16_rn(v.z));
+      v.w = __bfloat162float(__float2bfloat16_rn(v.w));
+    }
+    *reinterpret_cast<float4*>(a.x + (size_t)j * a.D + l) = v;
   }
 }
 
-// dynamic shared memory of spec_advance_kernel
-__host__ __forceinline__ size_t spec_smem(int W, int L, int S, int max_spans, int vpad) {
-  return sizeof(int) * ((size_t)L + S + max_spans + kSlotArrays * W + 4 * (size_t)vpad +
-                        2 * (size_t)kSpecWarps * vpad + kSpecWarps * 32);
+// dynamic shared memory of spec_advance_kernel: the W-long arrays, the
+// transitions (16 bytes a slot) and each warp's nucleus scratch
+__host__ __forceinline__ size_t spec_smem(int W, int vpad) {
+  return sizeof(int) * ((size_t)kSlotArrays * W + 4 * (size_t)W + 2 * (size_t)kSpecWarps * vpad);
 }
 
 template <int VPL>
 int launch_spec_advance(const SpecArgs& a, int pdl, cudaStream_t st) {
-  const size_t smem = spec_smem(a.W, a.L, a.S, a.max_spans, a.vpad);
+  const size_t smem = spec_smem(a.W, a.vpad);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   // set on every launch: the attribute is per device, and decoders may run on several
   const cudaError_t e = cudaFuncSetAttribute(
@@ -913,21 +960,25 @@ int smer_sample_advance(int B, int vpad, const void* logits, void* state,
 // out (L,) int32 and window (W,) int32 updated in place; x (W, D) f32 and
 // kv_rows (W,) int64 written; aux (2,), span_types (max_spans,), sid_tbl
 // (16,), next_bits (16, vpad) int32, masks (2 n_sid, vpad) f32, src (S,)
-// int32, emb (V, D) f32, pos_table (max_len, D) f32; noise (L, vpad) and
-// uniforms (L,) f32, both null when greedy.  vpad a multiple of 128 up to
-// 512.  pdl 1: a programmatic dependent launch behind the logits' launch,
-// which then may write the logits and nothing else the kernel reads (the
-// rule of smer_sample_advance).
+// int32, emb (V, D) f32, pos_table (max_len, D) f32, D a multiple of 4;
+// draft_tbl (2, vpad, vpad) int32, the draft's bigram tables (set to -1 by
+// the host before a decode's prime, kept by the kernel after it); noise
+// (L, vpad) and uniforms (L,) f32, both null when greedy.  Token ids lie in
+// [0, vpad).  vpad a multiple of 128 up to 512.  pdl 1: a programmatic
+// dependent launch behind the logits' launch, which then may write the
+// logits and nothing else the kernel reads (the rule of smer_sample_advance).
 int smer_spec_advance(const void* logits, void* carry, void* out, void* window, void* x,
                       void* kv_rows, const void* aux, const void* span_types,
                       const void* sid_tbl, const void* masks, const void* next_bits,
                       const void* noise, const void* uniforms, const void* src, const void* emb,
-                      const void* pos_table, int W, int L, int S, int V, int D, int vpad,
+                      const void* pos_table, void* draft_tbl, int W, int L, int S, int V, int D,
+                      int vpad,
                       int max_len, int max_spans, int n_sid, int mode, int span_cap,
                       int eos_index, int mask_index, int span_body, int greedy, int use_nucleus,
                       float nucleus_p, float temperature, float emb_scale, int round_bf16,
                       int prime, int pdl, void* stream) {
-  if (W < 1 || L < 1 || S < W - 1 || V < 1 || V > vpad || D < 1 || max_len < 1 ||
+  if (W < 1 || L < 1 || S < W - 1 || V < 1 || V > vpad || D < 4 || D % 4 || max_len < 1 ||
+      draft_tbl == nullptr ||
       max_spans < 1 || (logits == nullptr) != (prime != 0) || (noise == nullptr) != (greedy != 0) ||
       (uniforms == nullptr) != (greedy != 0))
     return (int)cudaErrorInvalidValue;
@@ -948,6 +999,7 @@ int smer_spec_advance(const void* logits, void* carry, void* out, void* window, 
   a.src = static_cast<const int*>(src);
   a.emb = static_cast<const float*>(emb);
   a.pos_table = static_cast<const float*>(pos_table);
+  a.draft_tbl = static_cast<int*>(draft_tbl);
   a.W = W;
   a.L = L;
   a.S = S;

@@ -364,8 +364,8 @@ class SpecGraph:
     ``x`` (the self-attention reading the cache length from ``carry``, its
     splits sized from the cache's capacity), the sampler (a programmatic
     dependent launch behind the logits launch, which writes the carry, the
-    output, the next window, its input rows ``x`` and the rows ``kv_rows``
-    the verify's K|V go to), then a captured ``index_copy_`` into the cache
+    output, the draft tables, the next window, its input rows ``x`` and the
+    rows ``kv_rows`` the verify's K|V go to), then a captured ``index_copy_`` into the cache
     at ``kv_rows``: 35 nodes, no argument of which depends on the
     position.  The window and tail graphs share every buffer (the tail reads
     the first row of each), so the loop moves from one to the other without
@@ -414,6 +414,11 @@ class SpecGraph:
         self.aux = torch.zeros(2, dtype=i32, device=dev)
         self.span_types = torch.zeros(max_spans, dtype=i32, device=dev)
         self.src = torch.zeros(S, dtype=i32, device=dev)
+        # the draft's bigram tables spec_advance_kernel keeps (the stream's,
+        # the source's: ``decode_step.draft_tables_reference``), set to -1
+        # before each decode's prime builds them; the CPU's twin needs none
+        self.draft_tbl = (torch.full((2, vpad, vpad), -1, dtype=i32, device=dev)
+                          if dev.type == "cuda" else None)
         greedy = skw["greedy"]
         self.noise = None if greedy else torch.zeros(L, vpad, device=dev)
         self.uniforms = None if greedy else torch.zeros(L, device=dev)
@@ -455,7 +460,14 @@ class SpecGraph:
         self.out.zero_()
         self.out[0] = self.skw["mask_index"]
         self.carry.copy_(torch.tensor([0, int(aux[0] <= 0), 0, 1, 0, 1, 0, 0], dtype=torch.int32))
+        self.tables_reset()
         self._advance(None, self.W, prime=True)
+
+    def tables_reset(self) -> None:
+        """The draft tables back to -1 (on CUDA, once a decode, before the
+        prime rebuilds them)."""
+        if self.draft_tbl is not None:
+            self.draft_tbl.fill_(-1)
 
     def _advance(self, logits, W: int, *, prime: bool = False, stream=None) -> None:
         """The sampler over W slots: the kernel on CUDA (on ``stream``), its
@@ -475,8 +487,8 @@ class SpecGraph:
         _launch_spec_advance(load_library(), logits, self.carry, self.out, self.window[:W],
                              self.x[:W], self.kv_rows[:W], self.aux, self.span_types, self.tables,
                              self.noise, self.uniforms, self.src, self.emb, self.pos_table,
-                             stream=stream, round_bf16=self.cdt == torch.bfloat16, prime=prime,
-                             **self.skw)
+                             self.draft_tbl, stream=stream, round_bf16=self.cdt == torch.bfloat16,
+                             prime=prime, **self.skw)
 
     # ------------------------------------------------------------------
     def step(self, W: int) -> None:
@@ -513,7 +525,7 @@ class SpecGraph:
             self.stream = torch.cuda.Stream(device=self.device)
         side = self.stream
         cur = torch.cuda.current_stream(self.device)
-        bufs = (self.carry, self.out, self.window, self.x, self.kv_rows, self.cache)
+        bufs = (self.carry, self.out, self.window, self.x, self.kv_rows, self.cache, self.draft_tbl)
         saved = [t.clone() for t in bufs]
         # the warm-up: one real run of the body on the side stream, which
         # advances the decode; it is put back before the capture

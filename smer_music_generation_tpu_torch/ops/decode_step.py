@@ -61,11 +61,13 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 # one library for the port's kernels: the decode kernels here, the
 # flash-attention forward of ``ops/attention.py``, the training attention
 # of ``ops/train_attention.py`` and the flash training attention of
-# ``ops/flash_train.py`` (their f32 kernels in ``attention_f32.cu``); the
-# attention kernels share the tensor-core tile helpers of
-# ``csrc/attn_tiles.cuh``
+# ``ops/flash_train.py`` (their f32 kernels in ``attention_f32.cu``, and
+# every head_dim above 128 in ``attention_wide.cu``, ``ops/attention_wide.py``);
+# the attention kernels share the tensor-core tile helpers of
+# ``csrc/attn_tiles.cuh``, the dropout ones the hash of ``dropout_hash.cuh``
 _SOURCES = (_CSRC / "decode_step.cu", _CSRC / "decode_token.cu", _CSRC / "attention.cu",
-            _CSRC / "train_attention.cu", _CSRC / "flash_train.cu", _CSRC / "attention_f32.cu")
+            _CSRC / "train_attention.cu", _CSRC / "flash_train.cu", _CSRC / "attention_f32.cu",
+            _CSRC / "attention_wide.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -660,6 +662,27 @@ def build_draft_reference(out: torch.Tensor, pos: int, src: torch.Tensor, K: int
     return out.new_zeros(K)
 
 
+def draft_tables_reference(out: torch.Tensor, pos: int, src: torch.Tensor, vpad: int) -> torch.Tensor:
+    """The draft tables ``spec_advance_kernel`` keeps, as its ``prime``
+    builds them at position ``pos``: (2, vpad, vpad) int32, [0][x, y] the
+    latest j in 1..pos-1 with (out[j - 1], out[j]) = (x, y), [1][x, y] the
+    latest j in 1..S-1 with (src[j - 1], src[j]) = (x, y) and src[j] != 0,
+    -1 where none; a bigram with a token outside [0, vpad) is not kept."""
+    tbl = torch.full((2, vpad * vpad), -1, dtype=torch.int32, device=out.device)
+
+    def put(t, seq, end, ok=None):
+        j = torch.arange(1, max(end, 1), device=seq.device)
+        x, y = seq[j - 1].long(), seq[j].long()
+        keep = (x >= 0) & (x < vpad) & (y >= 0) & (y < vpad)
+        if ok is not None:
+            keep &= ok[j]
+        t.scatter_reduce_(0, (x * vpad + y)[keep], j[keep].to(torch.int32), reduce="amax")
+
+    put(tbl[0], out, pos)
+    put(tbl[1], src, src.shape[0], src != 0)
+    return tbl.view(2, vpad, vpad)
+
+
 def spec_window_rows(window, pos: int, emb, pos_table, emb_scale: float, compute_dtype):
     """The W verify rows of ``window`` at ``pos`` (JAX :471-474): the f32
     embedding x sqrt(D) plus the PE table's rows, rounded to the compute
@@ -882,13 +905,16 @@ def load_library() -> ctypes.CDLL:
         lib.smer_sample_advance.argtypes = (
             [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i] + [p, i, f, f, p, p]
         )
-        lib.smer_spec_advance.argtypes = [p] * 16 + [i] * 16 + [f, f, f, i, i, i, p]
+        lib.smer_spec_advance.argtypes = [p] * 17 + [i] * 16 + [f, f, f, i, i, i, p]
+        lib.smer_wide_attn_fwd.argtypes = [i] * 10 + [p] * 6 + [u, i, f, i, f, p, p, p]
+        lib.smer_wide_attn_bwd.argtypes = [i] * 10 + [p] * 5 + [u, i, f, i, f] + [p] * 8
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
                    lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask,
                    lib.smer_flash_train_fwd, lib.smer_flash_train_bwd, lib.smer_attention_f32_fwd,
                    lib.smer_flash_train_bwd_f32, lib.smer_flash_train_bwd_f32_blocks,
-                   lib.smer_attention_f32_fwd_blocks, lib.smer_spec_advance):
+                   lib.smer_attention_f32_fwd_blocks, lib.smer_spec_advance,
+                   lib.smer_wide_attn_fwd, lib.smer_wide_attn_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -1397,11 +1423,13 @@ SPEC_VPADS = (128, 256, 384, 512)  # the vocab widths spec_advance_kernel is bui
 
 
 def _launch_spec_advance(lib, logits, carry, out, window, x, kv_rows, aux, span_types, tables,
-                         noise, uniforms, src, emb, pos_table, *, stream, mode, max_spans,
+                         noise, uniforms, src, emb, pos_table, draft_tbl, *, stream, mode, max_spans,
                          span_cap, eos_index, mask_index, nucleus_p, temperature, greedy, n_sid,
                          span_body, round_bf16: bool, prime: bool = False) -> None:
     """``spec_advance_kernel`` on W = len(window) slots, in place on
-    ``carry``, ``out`` and ``window``, writing ``x`` and ``kv_rows``; a
+    ``carry``, ``out``, ``window`` and the draft tables ``draft_tbl`` (2,
+    vpad, vpad) int32 (all -1 before a ``prime``, which builds them:
+    :func:`draft_tables_reference`), writing ``x`` and ``kv_rows``; a
     programmatic dependent launch behind the launch before it (the
     verify's logits), which may write the logits and nothing else it reads
     (``smer_spec_advance``'s rule), unless ``prime`` (no logits: the first
@@ -1414,7 +1442,8 @@ def _launch_spec_advance(lib, logits, carry, out, window, x, kv_rows, aux, span_
         span_types.data_ptr(), tables["sid_tbl"].data_ptr(), tables["state_masks_f"].data_ptr(),
         tables["next_bits"].data_ptr(), None if greedy else noise.data_ptr(),
         None if greedy else uniforms.data_ptr(), src.data_ptr(), emb.data_ptr(),
-        pos_table.data_ptr(), W, out.shape[0], src.shape[0], emb.shape[0], emb.shape[1], vpad,
+        pos_table.data_ptr(), draft_tbl.data_ptr(), W, out.shape[0], src.shape[0], emb.shape[0],
+        emb.shape[1], vpad,
         pos_table.shape[0], max_spans, n_sid, mode, span_cap, eos_index, mask_index, span_body,
         int(greedy), int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
         float(temperature), math.sqrt(emb.shape[1]), int(round_bf16), int(prime), int(not prime),
@@ -1436,6 +1465,8 @@ def _check_spec_inputs(carry, out, window, src, span_types, aux, tables, noise, 
     V, D = emb.shape
     if V > vpad:
         raise ValueError(f"the embedding's {V} rows exceed vpad={vpad}")
+    if D % 4:
+        raise ValueError(f"spec_advance_kernel writes the input rows four lanes at a time: d_model={D}")
     i32, f32 = torch.int32, torch.float32
     want = {
         "carry": (carry, i32, (SPEC_CARRY,)), "out": (out, i32, (L,)), "window": (window, i32, (W,)),
@@ -1476,10 +1507,13 @@ def spec_advance(logits, carry, out, window, src, span_types, aux, tables, fast_
     res = dict(carry=carry.clone(), out=out.clone(), window=window.clone(),
                x=torch.empty(W, emb.shape[1], device=dev),
                kv_rows=torch.empty(W, dtype=torch.int64, device=dev))
+    # the draft tables as the decode's earlier iterations leave them at this position
+    draft_tbl = (torch.full((2, vpad, vpad), -1, dtype=torch.int32, device=dev) if prime else
+                 draft_tables_reference(out, int(carry[SPEC_POS]), src, vpad))
     before = spec_advance.launches
     _launch_spec_advance(load_library(), logits, res["carry"], res["out"], res["window"], res["x"],
                          res["kv_rows"], aux, span_types, tables, noise, uniforms, src, emb,
-                         pos_table, stream=torch.cuda.current_stream(dev).cuda_stream,
+                         pos_table, draft_tbl, stream=torch.cuda.current_stream(dev).cuda_stream,
                          round_bf16=compute_dtype == torch.bfloat16, prime=prime, **skw)
     spec_advance.launches = before
     return res

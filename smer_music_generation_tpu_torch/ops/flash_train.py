@@ -33,9 +33,11 @@ The exponent is ``2^((s - m) log2(e))``, the kernels' and the twins' alike.
 A tensor on the CPU goes to the twins (:func:`flash_train_fwd_reference`,
 :func:`flash_train_bwd_reference`); a CUDA tensor launches the kernels (bf16
 or f32, head_dim in ``KERNEL_HEAD_DIMS`` or any other up to 128 zero-padded
-to one of them, :func:`flash_kernel_width`; contiguous) or raises.  The
-kernels are built with the port's others into one library at first use
-(``ops.decode_step.load_library``).
+to one of them, :func:`flash_kernel_width`, and every head_dim above 128
+zero-padded to a multiple of 64 for ``wide_fwd_kernel``, ``wide_rows_kernel``
+and ``wide_keys_kernel`` of ``csrc/attention_wide.cu``; contiguous) or
+raises.  The kernels are built with the port's others into one library at
+first use (``ops.decode_step.load_library``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import math
 
 import torch
 
+from . import attention, attention_wide as aw
 from .attention import KERNEL_HEAD_DIMS, kernel_width, pad_head
 from .decode_step import _check, _check_tensors, load_library
 
@@ -140,14 +143,18 @@ def flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal: bool = F
 flash_train_bwd_reference.calls = 0
 
 
+def _check_blocks(T: int, S: int) -> None:
+    if T % BLOCK or S % BLOCK or T < BLOCK or S < BLOCK:
+        raise ValueError(f"the CUDA flash-train kernels take T and S multiples of {BLOCK}, "
+                         f"got T={T} S={S}")
+
+
 def _check_inputs(q, k, v, kv_valid, *extra):
     B, T, H, D = q.shape
     S = k.shape[1]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA flash-train kernels take head_dim {KERNEL_HEAD_DIMS}, got {D}")
-    if T % BLOCK or S % BLOCK or T < BLOCK or S < BLOCK:
-        raise ValueError(f"the CUDA flash-train kernels take T and S multiples of {BLOCK}, "
-                         f"got T={T} S={S}")
+    _check_blocks(T, S)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA flash-train kernels take bf16 or f32, got {q.dtype}")
     dt = q.dtype
@@ -169,18 +176,13 @@ def _check_aligned(**tensors) -> None:
                              f"TMA loads, got address {t.data_ptr():#x}")
 
 
-def _device(q) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_train_attention runs on cuda or cpu, not {q.device}")
-
-
 def flash_kernel_width(head_dim: int, dtype) -> int:
-    """The built head_dim a head_dim runs on (``attention.kernel_width``),
-    except that in bf16 every head_dim but 64 pads to 128: the bf16 pair's
-    head_dim-64 instantiation folds the scale 1/8 into its constants
+    """The width a head_dim runs at (``attention.kernel_width``), except
+    that in bf16 every head_dim up to 128 but 64 pads to 128: the bf16
+    pair's head_dim-64 instantiation folds the scale 1/8 into its constants
     (``fixed_scale`` in csrc/flash_train.cu), and a padded head keeps its
-    own 1/sqrt(head_dim)."""
-    if dtype == torch.bfloat16 and head_dim != 64:
+    own 1/sqrt(head_dim).  Above 128: the wide kernels' multiple of 64."""
+    if dtype == torch.bfloat16 and head_dim != 64 and not aw.is_wide(head_dim):
         return kernel_width(head_dim, KERNEL_HEAD_DIMS[1:])
     return kernel_width(head_dim)
 
@@ -189,13 +191,16 @@ def flash_train_fwd(q, k, v, kv_valid, causal: bool = False):
     """The forward: the twin for CPU tensors, ``flash_train_fwd_kernel``
     (bf16) or ``attn_f32_fwd_kernel`` (f32) for CUDA ones, or an error.
     Returns (out, stats (2, B*H, T) f32)."""
-    if q.device.type == "cpu":
+    if attention.twin_device(q, "flash_train_attention"):
         return flash_train_fwd_reference(q, k, v, kv_valid, causal)
-    _device(q)
     hd = q.shape[3]
     D = flash_kernel_width(hd, q.dtype)
     q, k, v = (pad_head(t, D) for t in (q, k, v))
     valid = kv_valid.to(torch.int32).contiguous()
+    if aw.is_wide(D):
+        _check_blocks(q.shape[1], k.shape[1])
+        out, stats = aw.flash_fwd_wide(q, k, v, valid, causal, 1.0 / math.sqrt(hd))
+        return (out if D == hd else out[..., :hd].contiguous()), stats
     B, T, H, S = _check_inputs(q, k, v, valid)
     _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
@@ -220,14 +225,17 @@ def flash_train_bwd(q, k, v, kv_valid, out, stats, g, causal: bool = False):
     kernel for CUDA ones (``flash_train_dq_kernel`` and
     ``flash_train_dkv_kernel`` in bf16, their f32 counterparts in f32) or
     an error.  Returns (dq, dk, dv) in q's dtype."""
-    if q.device.type == "cpu":
+    if attention.twin_device(q, "flash_train_attention"):
         return flash_train_bwd_reference(q, k, v, kv_valid, out, stats, g, causal)
-    _device(q)
     hd = q.shape[3]
     D = flash_kernel_width(hd, q.dtype)
     q, k, v, out, g = (pad_head(t, D) for t in (q, k, v, out, g.to(q.dtype)))
     valid = kv_valid.to(torch.int32).contiguous()
     g = g.contiguous()
+    if aw.is_wide(D):
+        _check_blocks(q.shape[1], k.shape[1])
+        grads = aw.flash_bwd_wide(q, k, v, valid, out, stats, g, causal, 1.0 / math.sqrt(hd))
+        return grads if D == hd else tuple(t[..., :hd].contiguous() for t in grads)
     B, T, H, S = q.shape[0], q.shape[1], q.shape[2], k.shape[1]
     _check_inputs(q, k, v, valid, ("out", out, q.dtype, q.shape),
                   ("g", g, q.dtype, q.shape), ("stats", stats, torch.float32, (2, B * H, T)))

@@ -13,8 +13,10 @@ in ``csrc/train_attention.cu``.
 
 ``fused_dropout_attention(q, k, v, kv_valid, seed, rate, causal=False)`` takes
 (B, T, H, D) bf16 queries and (B, S, H, D) bf16 keys and values (on the card
-D up to 128: 64 and 128 as they are, others zero-padded to the next of them
-by ``attention.kernel_width``), a (B, S)
+64 and 128 as they are, others up to 128 zero-padded to the next of them by
+``attention.kernel_width``, and every D above 128 zero-padded to a multiple
+of 64 for ``wide_fwd_kernel``, ``wide_rows_kernel`` and ``wide_keys_kernel``
+of ``csrc/attention_wide.cu``, ``ops/attention_wide.py``), a (B, S)
 key-validity mask (True = attendable) and the seed, and returns (B, T, H, D)
 in q's dtype, as JAX's does.  ``seed`` is the four uint32 words of
 ``_seed_words`` or a raw two-word key, padded the same way, as a sequence of
@@ -41,6 +43,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import attention, attention_wide as aw
 from .attention import KERNEL_HEAD_DIMS, kernel_width, pad_head
 from .decode_step import _check, _check_tensors, load_library
 
@@ -224,6 +227,11 @@ def dropout_attention_bwd_reference(q, k, v, kv_valid, seed: Seed, g, rate: floa
 dropout_attention_bwd_reference.calls = 0
 
 
+def _check_klen(S: int) -> None:
+    if not 1 <= S <= MAX_KLEN:
+        raise ValueError(f"the CUDA train-attention kernels take 1 <= S <= {MAX_KLEN}, got S={S}")
+
+
 def _check_inputs(q, k, v, kv_valid, *extra):
     """What the kernels take (after padding): bf16, head_dim in
     KERNEL_HEAD_DIMS, S <= MAX_KLEN, contiguous."""
@@ -231,8 +239,7 @@ def _check_inputs(q, k, v, kv_valid, *extra):
     S = k.shape[1]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA train-attention kernels take head_dim {KERNEL_HEAD_DIMS}, got {D}")
-    if not 1 <= S <= MAX_KLEN:
-        raise ValueError(f"the CUDA train-attention kernels take 1 <= S <= {MAX_KLEN}, got S={S}")
+    _check_klen(S)
     bf16 = torch.bfloat16
     want = {"q": (q, bf16, (B, T, H, D)), "k": (k, bf16, (B, S, H, D)),
             "v": (v, bf16, (B, S, H, D)), "kv_valid": (kv_valid, torch.int32, (B, S))}
@@ -258,16 +265,21 @@ def _shard_args(shard, H: int) -> Tuple[int, int, int]:
 def dropout_attention_fwd(q, k, v, kv_valid, seed: Seed, rate: float,
                           causal: bool = False, shard=(0, 0, None)) -> torch.Tensor:
     """The forward: the twin for CPU tensors, ``train_fwd_kernel`` for CUDA
-    ones (bf16, head_dim 64 or 128, contiguous, S <= 1024) or an error.
-    ``shard`` = ``(b0, h0, H_global)`` places the keep hash's (b, h)."""
-    if q.device.type == "cpu":
+    ones (bf16, head_dim 64 or 128, contiguous, S <= 1024; above 128
+    ``wide_fwd_kernel``) or an error.  ``shard`` = ``(b0, h0, H_global)``
+    places the keep hash's (b, h)."""
+    if attention.twin_device(q, "fused_dropout_attention"):
         return dropout_attention_fwd_reference(q, k, v, kv_valid, seed, rate, causal, shard)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
     hd = q.shape[3]
     D = kernel_width(hd)  # a narrower head zero-padded; the hash reads no head_dim
     q, k, v = (pad_head(t, D) for t in (q, k, v))
     valid = kv_valid.to(torch.int32).contiguous()
+    if aw.is_wide(D):
+        _check_klen(k.shape[1])
+        out = aw.dropout_fwd_wide(q, k, v, valid, seed_tensor(seed, q.device), keep_threshold(rate),
+                                  rate > 0.0, bf16_round(1.0 - rate), causal,
+                                  _shard_args(shard, q.shape[2]), 1.0 / math.sqrt(hd))
+        return out if D == hd else out[..., :hd].contiguous()
     B, T, H, S = _check_inputs(q, k, v, valid)
     seeds = seed_tensor(seed, q.device)
     out = torch.empty_like(q)
@@ -287,15 +299,19 @@ def dropout_attention_bwd(q, k, v, kv_valid, seed: Seed, g, rate: float,
                           causal: bool = False, shard=(0, 0, None)):
     """The backward: the twin for CPU tensors, the two backward kernels for
     CUDA ones or an error.  Returns (dq, dk, dv) in bf16."""
-    if q.device.type == "cpu":
+    if attention.twin_device(q, "fused_dropout_attention"):
         return dropout_attention_bwd_reference(q, k, v, kv_valid, seed, g, rate, causal, shard)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_dropout_attention runs on cuda or cpu, not {q.device}")
     hd = q.shape[3]
     D = kernel_width(hd)
     q, k, v, g = (pad_head(t, D) for t in (q, k, v, g.to(q.dtype)))
     valid = kv_valid.to(torch.int32).contiguous()
     g = g.contiguous()
+    if aw.is_wide(D):
+        _check_klen(k.shape[1])
+        grads = aw.dropout_bwd_wide(q, k, v, valid, seed_tensor(seed, q.device), g,
+                                    keep_threshold(rate), rate > 0.0, bf16_round(1.0 - rate), causal,
+                                    _shard_args(shard, q.shape[2]), 1.0 / math.sqrt(hd))
+        return grads if D == hd else tuple(t[..., :hd].contiguous() for t in grads)
     B, T, H, S = _check_inputs(q, k, v, valid, ("g", g))
     seeds = seed_tensor(seed, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -42,6 +42,7 @@ from chip_smoke import TA_REL
 from smer_music_generation_tpu_torch.models import transformer as tr
 from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
 from smer_music_generation_tpu_torch.ops import attention as attn
+from smer_music_generation_tpu_torch.ops import attention_wide as aw
 from smer_music_generation_tpu_torch.ops import flash_train as ft
 from smer_music_generation_tpu_torch.ops import train_attention as ta
 
@@ -239,7 +240,7 @@ def _twin_calls():
 
 
 BF16, F32 = torch.bfloat16, torch.float32
-GATED = [  # (option, d_model, nhead, dtype, train mode, what the message names): head_dim > 128
+GATED = [  # (option, d_model, nhead, dtype, train mode, the head_dim): head_dim > 128, the wide kernels
     ("flash_training", 256, 1, BF16, True, "head_dim 256"),
     ("flash_training", 256, 1, F32, False, "head_dim 256"),
     ("flash_training", 384, 2, BF16, True, "head_dim 192"),
@@ -251,34 +252,76 @@ GATED = [  # (option, d_model, nhead, dtype, train mode, what the message names)
     ("fused_attn_train", 256, 1, BF16, True, "head_dim 256"),
     ("fused_attn_train", 384, 2, BF16, True, "head_dim 192"),
 ]
+WIDE_LAUNCHERS = ("fused_attention_wide", "dropout_fwd_wide", "dropout_bwd_wide", "flash_fwd_wide",
+                  "flash_bwd_wide")
+# the wide launchers each option's forward and backward reach
+WIDE_ROUTE = {"flash_training": ("flash_fwd_wide", "flash_bwd_wide"),
+              "flash_encoder": ("fused_attention_wide",),
+              "fused_attn_train": ("dropout_fwd_wide", "dropout_bwd_wide")}
+
+
+def _fake_wide_launchers(monkeypatch):
+    """Stands in for the card: the wrappers take their CUDA branch on these
+    CPU tensors (``attention.twin_device``), and each wide launcher is
+    replaced by a recorder of the padded head_dim and the scale it gets,
+    returning zeros of its outputs' shapes.  Returns the records."""
+    calls = {name: [] for name in WIDE_LAUNCHERS}
+    monkeypatch.setattr(attn, "twin_device", lambda t, what: False)
+
+    def rec(name, q, scale, out):
+        calls[name].append((q.shape[-1], scale))
+        return out
+
+    def flash_fwd(q, k, v, valid, causal, scale):
+        B, T, H, _ = q.shape
+        return rec("flash_fwd_wide", q, scale, (torch.zeros_like(q), torch.ones(2, B * H, T)))
+
+    monkeypatch.setattr(aw, "fused_attention_wide", lambda q, k, v, lens, causal, scale: rec(
+        "fused_attention_wide", q, scale, torch.zeros_like(q)))
+    monkeypatch.setattr(aw, "dropout_fwd_wide", lambda q, k, v, *a: rec(
+        "dropout_fwd_wide", q, a[-1], torch.zeros_like(q)))
+    monkeypatch.setattr(aw, "dropout_bwd_wide", lambda q, k, v, *a: rec(
+        "dropout_bwd_wide", q, a[-1], (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v))))
+    monkeypatch.setattr(aw, "flash_fwd_wide", flash_fwd)
+    monkeypatch.setattr(aw, "flash_bwd_wide", lambda q, k, v, *a: rec(
+        "flash_bwd_wide", q, a[-1], (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v))))
+    return calls
 
 
 @pytest.mark.parametrize("option,d_model,nhead,dtype,train,named", GATED,
                          ids=[f"{o}-hd{d // h}-{str(t).split('.')[-1]}" for o, d, h, t, _, _ in GATED])
 def test_gate_refuses_on_cuda_before_any_attention_call(monkeypatch, option, d_model, nhead, dtype,
                                                         train, named):
-    """With the device check standing in for CUDA (the tensors stay on the
-    CPU), a model whose option would send its attention through the CUDA
-    kernels at a head_dim they do not take (above 128) raises
-    NotImplementedError naming the option, what it got and ROADMAP Queue 3
-    item 4, before any attention runs; on the CPU itself the same model
-    runs its twins as before."""
+    """A head_dim above 128 is refused no more: with the device check
+    standing in for CUDA, the gate admits the model, and every attention
+    call of the option, forward and (in train mode) backward, takes the
+    wide kernels' launchers at the head_dim padded to a multiple of 64 with
+    the scale 1/sqrt(head_dim), and no twin; on the CPU itself the same
+    model runs its twins as before."""
+    hd = d_model // nhead
+    assert named == f"head_dim {hd}" and aw.is_wide(hd)
     model = _model(d_model, nhead, dtype, **{option: True})
     src, tgt = _batch()
     gen = torch.Generator().manual_seed(0) if train else None
-    run = (lambda: model(src, tgt, deterministic=not train, generator=gen)) if option != "flash_encoder" \
-        else (lambda: model.encode(src))
+    run = (lambda: model(src, tgt, deterministic=not train, generator=gen)[0]) \
+        if option != "flash_encoder" else (lambda: model.encode(src))
+    _reset()
+    assert torch.isfinite(run()).all()
+    assert _twin_calls() > 0  # the CPU: the option's twins ran
+    monkeypatch.setattr(tr, "_kernel_device", lambda t: True)
+    calls = _fake_wide_launchers(monkeypatch)
     _reset()
     out = run()
-    assert torch.isfinite(out[0] if isinstance(out, tuple) else out).all()
-    assert _twin_calls() > 0  # the CPU is not gated: the option's twins ran
-    monkeypatch.setattr(tr, "_kernel_device", lambda t: True)
-    _reset()
-    with pytest.raises(NotImplementedError) as err:
-        run()
-    msg = str(err.value)
-    assert option in msg and named in msg and "ROADMAP Queue 3 item 4" in msg, msg
-    assert _twin_calls() == 0
+    assert torch.isfinite(out).all() and _twin_calls() == 0
+    if train:
+        out.float().sum().backward()
+    fwd = WIDE_ROUTE[option][0]
+    layers = model.cfg.num_encoder_layers + (2 * model.cfg.num_decoder_layers if option != "flash_encoder" else 0)
+    assert len(calls[fwd]) == layers, calls
+    assert all(c == (aw.wide_width(hd), pytest.approx(1 / hd ** 0.5)) for c in calls[fwd])
+    for name in WIDE_LAUNCHERS:
+        want = layers if name == fwd or (train and name in WIDE_ROUTE[option]) else 0
+        assert len(calls[name]) == want, (name, calls)
 
 
 PASSED = [  # (option, d_model, nhead, dtype): head_dim 64 and 128, and 32 and 96 padded
@@ -319,12 +362,17 @@ def test_gate_passes_what_the_kernels_take(monkeypatch, option, d_model, nhead, 
 
 
 def test_gate_message_cites_an_item_that_names_every_option():
-    """ROADMAP Queue 3 item 4 exists and speaks of the three options the
-    gate names."""
-    text = open("ROADMAP.md").read()
-    queue3 = text[text.index("### Queue 3"):]
-    item4 = queue3[queue3.index("\n4. "):]
-    item4 = item4[:item4.index("\n5. ")] if "\n5. " in item4 else item4
-    for word in ("flash_training", "flash_encoder", "fused_attn_train", "head_dim"):
-        assert word in item4, word
-
+    """The gate cites no ROADMAP item any more: every head_dim runs, and
+    what it still refuses on CUDA, a dtype the option's kernels do not take,
+    it names with the option and the dtypes they take."""
+    x = torch.zeros(1)
+    for option, takes in (("flash_training", "bfloat16 or float32"), ("flash_encoder", "bfloat16 or float32"),
+                          ("fused_attn_train", "bfloat16")):
+        tr.check_kernel_domain(option, x, torch.bfloat16)
+        tr.check_kernel_domain(option, x, torch.float16)  # the CPU is not gated
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tr, "_kernel_device", lambda t: True)
+            with pytest.raises(TypeError) as err:
+                tr.check_kernel_domain(option, x, torch.float16)
+        msg = str(err.value)
+        assert option in msg and takes in msg and "ROADMAP" not in msg, msg

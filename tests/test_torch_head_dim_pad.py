@@ -28,6 +28,7 @@ from smer_music_generation_tpu_torch.infer import decode as decode_mod
 from smer_music_generation_tpu_torch.infer.decode import InfillDecoder
 from smer_music_generation_tpu_torch.models.transformer import ModelConfig, ScoreTransformer
 from smer_music_generation_tpu_torch.ops import attention as attn
+from smer_music_generation_tpu_torch.ops import attention_wide as aw
 from smer_music_generation_tpu_torch.ops import flash_train as ft
 from smer_music_generation_tpu_torch.ops import train_attention as ta
 from smer_music_generation_tpu_torch.vocab import CONTROL_SETS, WordVocab
@@ -55,14 +56,16 @@ def _padded(hd, width, *ts):
 
 
 def test_kernel_widths():
-    """Which built head_dim each head_dim runs on, and the refusal above 128."""
+    """Which built head_dim each head_dim runs on; above 128 the next
+    multiple of 64, on the wide kernels (``ops/attention_wide.py``)."""
     assert [attn.kernel_width(h) for h in (1, 32, 48, 64, 65, 96, 128)] == [64, 64, 64, 64, 128, 128, 128]
     for h, bf16, f32 in ((32, 128, 64), (48, 128, 64), (64, 64, 64), (96, 128, 128), (128, 128, 128)):
         assert ft.flash_kernel_width(h, torch.bfloat16) == bf16
         assert ft.flash_kernel_width(h, torch.float32) == f32
-    for h in (129, 192, 256):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 3 item 4"):
-            attn.kernel_width(h)
+        assert not aw.is_wide(attn.kernel_width(h))
+    for h, width in ((129, 192), (192, 192), (256, 256)):
+        assert attn.kernel_width(h) == width and aw.is_wide(width)
+        assert ft.flash_kernel_width(h, torch.bfloat16) == ft.flash_kernel_width(h, torch.float32) == width
     x = torch.ones(1, 2, 1, 48)
     assert attn.pad_head(x, 48) is x
     y = attn.pad_head(x, 64)

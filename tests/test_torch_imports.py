@@ -86,43 +86,12 @@ def test_port_sources_name_no_jax_package():
     assert not offenders, offenders
 
 
-def _roadmap_items():
-    """{(queue, item): text} of ROADMAP.md's numbered queue items."""
-    items, queue, cur = {}, None, None
-    for line in (ROOT / "ROADMAP.md").read_text().splitlines():
-        m = re.match(r"^### Queue (\d+)", line)
-        if m:
-            queue, cur = int(m.group(1)), None
-            continue
-        if line.startswith("#"):
-            queue, cur = None, None
-            continue
-        m = re.match(r"^(\d+)\. (.*)", line)
-        if queue is not None and m:
-            cur = (queue, int(m.group(1)))
-            items[cur] = m.group(2)
-        elif cur is not None:
-            items[cur] += " " + line.strip()
-    return items
-
-
 def test_not_implemented_errors_name_existing_roadmap_items():
-    """Every ``NotImplementedError`` the port raises names ROADMAP.md items
-    that exist, and each named item speaks of the option the message is
-    about (the message's first word: ``draft_k``, ``mesh``, ``--dp`` ...)."""
-    items = _roadmap_items()
-    ref_re = re.compile(r"Queue (\d+) item (\d+)")
-    seen = 0
-    for f in PORT.rglob("*.py"):
-        text = f.read_text()
-        for m in re.finditer(r"raise (?:NotImplementedError|_not_ported)\((.*?)\)\n", text, re.S):
-            message = "".join(re.findall(r'"([^"]*)"', m.group(1)))
-            refs = ref_re.findall(message)
-            assert refs, f"{f.name}: {message!r} names no ROADMAP item"
-            word = re.split(r"[ =(]", message.lstrip("-"))[0].lower()
-            for queue, item in refs:
-                entry = items.get((int(queue), int(item)))
-                assert entry is not None, f"{f.name}: Queue {queue} item {item} is not in ROADMAP.md"
-                assert word in entry.lower(), (f.name, word, queue, item, entry[:200])
-            seen += 1
-    assert seen >= 1, seen
+    """No ``NotImplementedError`` is left to name a ROADMAP item: the port
+    does all that JAX does, and no source of it raises (or names) one.  The
+    last, the attention kernels' refusal of a head_dim above 128, went with
+    the wide kernels (``ops/attention_wide.py``)."""
+    files = list(PORT.rglob("*.py"))
+    assert len(files) > 20
+    offenders = [str(f) for f in files if "NotImplementedError" in f.read_text()]
+    assert not offenders, offenders
