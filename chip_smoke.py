@@ -492,7 +492,10 @@ WIDE_OPS_ONLY = ((512, 1),)
 # the wide kernels' timed shape: B8 H2 640x640 at head_dim 256
 WIDE_TIMED = (8, 640, 640, 2, 256)  # (B, T, S, H, head_dim)
 # each wide kernel's instantiations (mangled-name pieces): phase 1 prints
-# their registers, spills and shared memory, and fails if one is missing
+# their registers, spills, stack frame and shared memory, fails if one is
+# missing, and fails unless every wide_fwd_kernel and wide_rows_kernel
+# instantiation holds HMMA (bf16 mma.sync m16n8k16, f32 split TF32 m16n8k8)
+# and spills nothing; wide_keys_kernel runs on the FMA pipes
 WIDE_KERNELS = (
     *(f"wide_fwd_kernelI{t}Li{m}E" for t, m in (("f", 0), ("13__nv_bfloat16", 0),
                                                  ("13__nv_bfloat16", 1), ("f", 2),
@@ -2330,6 +2333,9 @@ def ptxas_facts(log: str, names=TENSOR_CORE_KERNELS):
             continue
         if current is None:
             continue
+        stack = re.search(r"(\d+) bytes stack frame", line)
+        if stack:
+            facts.setdefault(current, {}).update(stack_bytes=int(stack.group(1)))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             facts.setdefault(current, {}).update(spill_stores=int(spill.group(1)),
@@ -2410,17 +2416,32 @@ def phase_tensor_cores() -> None:
 
 
 def phase_wide_facts() -> None:
-    """Registers, spills and shared memory of every instantiation of the
-    wide attention kernels (``WIDE_KERNELS``, attention_wide.cu); fails if
-    one has no entry in the build log."""
+    """Registers, spills, stack frame and shared memory of every
+    instantiation of the wide attention kernels (``WIDE_KERNELS``,
+    attention_wide.cu); fails if one has no entry in the build log, and
+    unless each instantiation of ``wide_fwd_kernel`` and ``wide_rows_kernel``
+    holds HMMA in its SASS (bf16: ``HMMA.16816.F32.BF16``; f32, split TF32:
+    ``HMMA.1688.F32.TF32``) and spills nothing."""
     facts = ptxas_facts(str(ds.BUILD_INFO["log"]), WIDE_KERNELS)
+    mix = sass_mix(str(ds.BUILD_INFO["path"]), WIDE_KERNELS, modifiers=True)
     for name in WIDE_KERNELS:
         f = facts.get(name)
         if f is None:
             raise AssertionError(f"the wide attention kernel {name} has no entry in the build log")
-        say(f"  {name}: {f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
-            f"{f.get('spill_loads')} bytes, {f.get('smem_bytes')} bytes static shared memory (its tiles "
-            "are dynamic)")
+        line = (f"  {name}: {f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
+                f"{f.get('spill_loads')} bytes, stack frame {f.get('stack_bytes')} bytes, "
+                f"{f.get('smem_bytes')} bytes static shared memory (its tiles are dynamic)")
+        if name.startswith("wide_keys_kernel"):
+            say(line + "; FMA pipes")
+            continue
+        want = "HMMA.1688.F32.TF32" if "kernelIf" in name else "HMMA.16816.F32.BF16"
+        n_mma = mix[name].get(want, 0)
+        say(f"{line}; {n_mma} {want} in its SASS")
+        if not n_mma:
+            raise AssertionError(f"the wide kernel {name} has no {want} in its SASS: "
+                                 f"{sorted(mix[name].items(), key=lambda kv: -kv[1])[:8]}")
+        if f.get("spill_stores", 0) + f.get("spill_loads", 0):
+            raise AssertionError(f"the wide kernel {name} spills: {f}")
 
 
 def phase_decode_facts() -> None:
@@ -4007,6 +4028,10 @@ def phase_wide(dev):
 PAD_CASES = ((640, 640, False), (384, 384, True), (384, 640, False))
 # the flash-train pair's: phase 2j's 512x512 causal and the same three
 PAD_FLASH_CASES = ((512, 512, True),) + PAD_CASES
+# lengths that are no multiple of a tile (an encoder's source of any length;
+# the dropout kernels take any S up to 1024), for fused_attention and the
+# dropout pair only (the flash-train kernels take multiples of 128)
+PAD_RAGGED_CASES = ((200, 333, False), (333, 200, True))
 
 
 def _case(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -4020,7 +4045,8 @@ def _keep_max(out: dict, key: str, value: float) -> None:
 def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
     """The attention wrappers at a head_dim they run zero-padded or on the
     wide kernels, against their twins at that head_dim on the card, at B=3
-    over ``PAD_CASES`` (the flash-train kernels: ``PAD_FLASH_CASES``), ~10%
+    over ``PAD_CASES`` and ``PAD_RAGGED_CASES`` (the flash-train kernels:
+    ``PAD_FLASH_CASES``), ~10%
     of keys invalid and a batch row with none.  bf16: the three wrappers,
     outputs within phase 2f's and 2g's bounds, gradients within ``TA_REL``;
     f32: ``fused_attention`` and the flash-train forward and backward pair
@@ -4037,7 +4063,7 @@ def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
     valid[0, 0] = valid[2, 0] = True
     out = {}
     atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (ATTN_ATOL, ATTN_RTOL)
-    for Tq, S, causal in PAD_CASES:
+    for Tq, S, causal in PAD_CASES + PAD_RAGGED_CASES:
         tag = f"head_dim {hd} ({dtype}) {Tq}x{S}{' causal' if causal else ''}"
         qc, kc, vc, gc, vc_valid = _case(q, Tq), _case(k, S), _case(v, S), _case(go, Tq), _case(valid, S)
         lens = torch.tensor([S, 0, S - 77], dtype=torch.int32, device=dev)
@@ -4144,30 +4170,52 @@ def wide_keep_bits(dev) -> int:
 
 
 def time_wide(dev) -> dict:
-    """The wide kernels at WIDE_TIMED (B8 H2 640x640, head_dim 256, bf16; the
-    flash-train pair in f32 too, printed): each wrapper's CUDA-event ms
-    beside its twin, its bound and one PyTorch call of the same function
-    with the same mask (SDPA).  Returns {row name: report} of the bf16 ones."""
+    """The wide kernels at WIDE_TIMED (B8 H2 640x640, head_dim 256, bf16;
+    ``fused_attention`` and the flash-train forward and pair in f32 too,
+    printed): each wrapper's
+    CUDA-event ms beside its twin, its bound and one PyTorch call of the
+    same function with the same mask (SDPA), and each backward pair's rows
+    and keys kernels apart.  Returns {row name: report} of the bf16 ones."""
     B, T, S, heads, hd = WIDE_TIMED
     g = torch.Generator(device=dev).manual_seed(23)
     q, k, v, go, valid = flash_train_inputs(g, dev, T, S, heads, hd)
     lens = torch.tensor([S, S // 2, 1] + [S] * (B - 3), dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: attn.fused_attention(q, k, v, lens), iters=10)
-    plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, lens), iters=3, warmup=1)
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     mask = torch.arange(S, device=dev)[None, None, None, :] < lens[:, None, None, None]
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-                         iters=10)
-    bound, by = attention_bound(B, T, S, lens.tolist(), False, heads, hd)
-    say(f"    fused_attention at B={B} T={T} S={S} H={heads} HD={hd} bf16: kernel {ms:.4f} ms, twin "
-        f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound:.5f} ({by})")
-    reports = {"fused_attention_wide": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                            library_ms=library_ms)}
+    reports = {}
+    for qq, kk, vv in ((q, k, v), (q.float(), k.float(), v.float())):  # bf16, then f32
+        f32 = qq.dtype == torch.float32
+        ms = cuda_ms(lambda: attn.fused_attention(qq, kk, vv, lens), iters=10)
+        plain_ms = cuda_ms(lambda: attn.attention_reference(qq, kk, vv, lens), iters=3, warmup=1)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (qq, kk, vv))
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=10)
+        bound, by = attention_bound(B, T, S, lens.tolist(), False, heads, hd, f32)
+        tc = ""
+        if f32:  # the same work in split TF32 on the tensor cores: its bound too
+            tc_ms, tc_by = attention_bound(B, T, S, lens.tolist(), False, heads, hd, f32,
+                                           SPLIT_TF32_FLOPS)
+            tc = f", f32 FMA; {tc_ms:.5f} at split TF32 ({tc_by})"
+        say(f"    fused_attention at B={B} T={T} S={S} H={heads} HD={hd} {str(qq.dtype).split('.')[-1]}: "
+            f"kernel {ms:.4f} ms, twin {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound:.5f} ({by}{tc})")
+        if not f32:
+            reports["fused_attention_wide"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                                   library_ms=library_ms)
     reports["dropout_attention_wide_fwd"], reports["dropout_attention_wide_bwd"] = time_train_attention(
         dev, q, k, v, go, valid, False)
     reports["flash_attention_train_wide_fwd"], reports["flash_attention_train_wide_bwd"] = time_flash_train(
         dev, q, k, v, go, valid, False, twin=True)
-    time_flash_train(dev, *(t.float() for t in (q, k, v, go)), valid, False, twin=False)
+    time_flash_train(dev, *(t.float() for t in (q, k, v, go)), valid, False, twin=True)
+    # each backward pair's two kernels apart (profiler): the rows kernel on
+    # the tensor cores, the keys kernel on the FMA pipes
+    seed, vi = ta.seed_tensor(TA_SEEDS[0], dev), valid.to(torch.int32)
+    out, stats = ft.flash_train_fwd(q, k, v, vi, False)
+    for tag, fn in (("dropout (MODE 1, rate 0.1)",
+                     lambda: ta.dropout_attention_bwd(q, k, v, vi, seed, go, 0.1, False)),
+                    ("flash (MODE 2)", lambda: ft.flash_train_bwd(q, k, v, vi, out, stats, go, False))):
+        split = device_split(fn)
+        said = "not measured (the profiler saw no CUDA kernel)" if split is None else ", ".join(
+            f"{name} {split.get(name, 0.0):.1f} us" for name in ("wide_rows_kernel", "wide_keys_kernel"))
+        say(f"    the wide {tag} backward pair, bf16, a call: {said}")
     return reports
 
 

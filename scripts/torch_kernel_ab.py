@@ -70,7 +70,13 @@ and ``fused_attention`` at B=3, 1536x1536 (key lengths 1536/1440/1344), each
 at head_dim 64 (H=8) and 128 (H=4), beside f32 SDPA's forward with the same
 mask and with its relative norm from the twin; and every attention wrapper
 at head_dim 64 and 128, causal, in bf16 and f32 (the dropout attention in
-bf16 only), its outputs and gradients hashed for the last line.
+bf16 only), its outputs and gradients hashed for the last line; and, where
+the checkout has ``ops/attention_wide.py``, the wide kernels at
+``chip_smoke.WIDE_TIMED`` (B=8, H=2, 640x640, head_dim 256): ``fused_attention``,
+the dropout attention's forward and backward pair (bf16), and the flash-train
+forward and pair in bf16 and f32, each with its device µs by kernel
+(``wide_fwd_kernel``, ``wide_rows_kernel``, ``wide_keys_kernel``) and its
+relative norm from the twin (not hashed).
 ``--attention`` before
 the roots times the attention kernels alone (no decode kernels, no served
 batch):
@@ -111,7 +117,8 @@ FAMILIES = ("rowvec_kernel", "attend_kernel", "add_layernorm_kernel", "embed_pe_
             "sample_advance_kernel", "flash_fwd_kernel", "flash_train_fwd_kernel",
             "flash_train_dq_kernel", "flash_train_dkv_kernel", "train_fwd_kernel",
             "train_bwd_rows_kernel", "train_bwd_keys_kernel", "attn_f32_fwd_kernel",
-            "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel")
+            "flash_train_f32_dq_kernel", "flash_train_f32_dkv_kernel", "wide_fwd_kernel",
+            "wide_rows_kernel", "wide_keys_kernel")
 ATTENTION_ONLY = len(sys.argv) > 3 and sys.argv[3] == "attention"
 DECODE_ONLY = len(sys.argv) > 3 and sys.argv[3] == "decode"
 dev = torch.device("cuda", 0)
@@ -404,6 +411,57 @@ for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
     mask = (torch.arange(1536, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     out["sdpa_fwd_" + tag] = timed(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+# the wide kernels (attention_wide.cu, every head_dim above 128) at chip_smoke's
+# WIDE_TIMED, B=8, H=2, 640x640, head_dim 256, where the checkout has them:
+# fused_attention (wide_fwd_kernel MODE 0, key lengths 640/320/1/640...), the
+# dropout attention (MODE 1, rate 0.1) forward and backward pair, the flash
+# pair and forward (MODE 2) in bf16 and f32, ~10% of keys invalid and one
+# batch row with none, each with its relative norm from the twin (not hashed:
+# another design sums in another order); each backward pair's device us by
+# kernel (wide_rows_kernel, wide_keys_kernel)
+try:
+    from smer_music_generation_tpu_torch.ops import attention_wide as aw
+except ImportError:  # a checkout from before the wide kernels
+    aw = None
+
+
+def rel_to_twin(got, ref):
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    return max(((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(got, ref))
+
+
+for dt in (torch.bfloat16, torch.float32) if aw is not None and not DECODE_ONLY else ():
+    gw = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, go = (torch.randn(8, 640, 2, 256, generator=gw, device=dev).to(dt) for _ in range(4))
+    valid = (torch.rand(8, 640, generator=gw, device=dev) >= 0.1).to(torch.int32)
+    valid[1] = 0
+    wlens = torch.tensor([640, 320, 1] + [640] * 5, dtype=torch.int32, device=dev)
+    tag = f"wide_{str(dt).split('.')[-1]}_hd256_640x640"
+    out["fused_attention_" + tag] = timed(lambda: attn.fused_attention(q, k, v, wlens, False))
+    out["fused_attention_" + tag]["rel_to_twin"] = rel_to_twin(
+        attn.fused_attention(q, k, v, wlens, False), attn.attention_reference(q, k, v, wlens, False))
+    o, stats = ft.flash_train_fwd(q, k, v, valid, False)
+    out["flash_train_fwd_" + tag] = timed(lambda: ft.flash_train_fwd(q, k, v, valid, False))
+    out["flash_train_fwd_" + tag]["rel_to_twin"] = rel_to_twin(
+        o, ft.flash_train_fwd_reference(q, k, v, valid, False)[0])
+    out["flash_train_bwd_" + tag] = timed(
+        lambda: ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
+    out["flash_train_bwd_" + tag]["rel_to_twin"] = rel_to_twin(
+        ft.flash_train_bwd(q, k, v, valid, o, stats, go, False),
+        ft.flash_train_bwd_reference(q, k, v, valid, o, stats, go, False))
+    if dt == torch.bfloat16:
+        seed = ta.seed_tensor((0, 7), dev)
+        out["dropout_attention_fwd_" + tag] = timed(
+            lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, False))
+        out["dropout_attention_fwd_" + tag]["rel_to_twin"] = rel_to_twin(
+            ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, False),
+            ta.dropout_attention_fwd_reference(q, k, v, valid, seed, 0.1, False))
+        out["dropout_attention_bwd_" + tag] = timed(
+            lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, False))
+        out["dropout_attention_bwd_" + tag]["rel_to_twin"] = rel_to_twin(
+            ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, False),
+            ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, 0.1, False))
 # every attention wrapper at head_dim 64 (H=8) and 128 (H=4), causal, in bf16
 # and (where it takes it) f32: outputs and gradients hashed, not timed, so the
 # last line says whether the roots' kernels agree bit for bit at both widths

@@ -5,9 +5,11 @@ share with the narrow kernels.
 each a template over the element type and a mask policy (MODE 0:
 ``fused_attention``; 1: ``fused_dropout_attention``; 2: ``flash_training``'s
 attention), over any head_dim that is a multiple of 64: shared memory and
-registers do not grow with head_dim (the score products walk it in chunks of
-64, the outputs are split into 128-column chunks over the grid, and each
-block recomputes the row statistics of its chunk).  The wrappers of
+registers do not grow with head_dim (the score products walk it in chunks,
+the outputs are split into 128-column chunks over the grid, and each block
+recomputes the row statistics of its chunk).  The forward and the backward's
+rows kernel (dq) run on the tensor cores (``mma.sync``: bf16, and f32 in
+split TF32); the keys kernel (dk, dv) on the FMA pipes.  The wrappers of
 ``ops/attention.py``, ``ops/train_attention.py`` and ``ops/flash_train.py``
 send a CUDA tensor whose head_dim is above 128 here (:func:`is_wide`), after
 zero-padding it to :func:`wide_width` with the scale kept at
@@ -25,7 +27,7 @@ import torch
 from .decode_step import _check, _check_tensors, load_library
 
 NARROW_MAX = 128  # the widest head_dim of the narrow kernels (attention.KERNEL_HEAD_DIMS)
-CHUNK = 64  # the head_dim chunk of the wide kernels' score products
+CHUNK = 64  # head_dim's unit on the wide kernels (a bf16 score step's chunk)
 MODE_FUSED, MODE_DROP, MODE_FLASH = 0, 1, 2
 
 

@@ -2,28 +2,40 @@
 in plain torch on the CPU against the port's twins.
 
 ``ops/csrc/attention_wide.cu`` cannot run here, so the emulations below
-walk its order: a block of 64 rows (query rows; keys in the keys kernel)
-and one 128-column chunk of the output; tiles of 128 columns (keys; query
-rows in the keys kernel), each tile's scores summed over head_dim in chunks
-of 64; the row statistics recomputed by every chunk's block; the weights
-(or ds) times the other operand 64 rows at a time.  MODE 0
+walk its order.  ``wide_fwd_kernel`` and ``wide_rows_kernel`` run on the
+tensor cores: a block of 64 query rows; key tiles of 64 (MODE 2's forward
+takes them in pairs, so its m steps by the library's 128-key block); each
+tile's scores (and g V^T) summed over head_dim in one chain, chunk after
+chunk; the output taken tile after tile into one accumulator.  bf16: the
+products of bf16 operands summed in f32 over chunks of 64; P (MODE 0's f32
+weights) applied as bf16(P) plus bf16(P - bf16(P)), MODE 1's wd and ds and
+MODE 2's cast(p) and ds as one bf16 operand (exact).  f32: every product in
+split TF32 (``tests/test_torch_f32_split_tiles.py``'s ``chain``: hi = x
+rounded to TF32, lo = x - hi read as TF32, k8 steps of lo hi, hi lo, hi hi
+into one accumulator rounded toward zero), nothing rounded to bf16.  MODE 0
 (``fused_attention``): an online softmax, -1e30 on masked keys, columns past
 S out; MODE 1 (``fused_dropout_attention``): a first pass for m and l, a
-second for w = bf16(e / max(l, 1e-30)) and the keep hash's dropout; its
-rows kernel m, l and delta = u / max(l, 1e-30) with u = sum e dw rescaled
-online; MODE 2 (``flash_training``): m stepping by 128-key block, the
-additive mask, a causal row visiting the blocks at or below its own, at S
-= 128 bf16(p / l).
+second for w = bf16(e / max(l, 1e-30)) and the keep hash's dropout; its rows
+kernel m, l and delta = u / max(l, 1e-30) with u = sum e dw rescaled online;
+MODE 2 (``flash_training``): the additive mask, a causal row visiting the
+blocks at or below its own, at S = 128 bf16(p / l).  ``wide_keys_kernel``
+still runs on the FMA pipes: a block of 64 keys and one 128-column chunk of
+dk and dv, tiles of 128 query rows, scores summed in f32 over chunks of 64,
+the weights (or ds) times the other operand 64 rows at a time.  MODE 0's
+tiles past the last valid key (and past the block's last row when causal)
+add exact zeros, so the emulation walks every tile.
 
 Each emulation is held to its twin at head_dim 160 (zero-padded to 192),
-192 (three chunks; two output chunks, the second 64 wide) and 256 within
-the bounds ``chip_smoke.py`` holds the kernels to: phase 2f's
+192 (three bf16 chunks; two output chunks, the second 64 wide) and 256
+within the bounds ``chip_smoke.py`` holds the kernels to: phase 2f's
 (``ATTN_ATOL``/``ATTN_RTOL``) and the f32 ``F32_ATOL``/``F32_RTOL`` for
 MODE 0; phase 2g's (``TA_ATOL``/``TA_RTOL`` for the output, ``TA_REL`` for
 the gradients) for MODE 1; phase 2j's for MODE 2 (``TA_*`` in bf16,
 ``F32_*`` and ``F32_REL`` in f32).  The padded columns of every output and
-gradient are exactly zero.  Also: which head_dims the wrappers send to the
-wide kernels.
+gradient are exactly zero.  Two controls: MODE 0 with P rounded once to
+bf16 leaves phase 2f's bound on a peaked softmax at head_dim 256, and one
+TF32 pass (hi hi alone) leaves the f32 bounds.  Also: which head_dims the
+wrappers send to the wide kernels.
 """
 
 import math
@@ -38,11 +50,24 @@ from smer_music_generation_tpu_torch.ops import attention as attn
 from smer_music_generation_tpu_torch.ops import attention_wide as aw
 from smer_music_generation_tpu_torch.ops import flash_train as ft
 from smer_music_generation_tpu_torch.ops import train_attention as ta
+from tests.test_torch_f32_split_tiles import chain
 
 FUSED, DROP, FLASH = aw.MODE_FUSED, aw.MODE_DROP, aw.MODE_FLASH
-BR, BC, DC, OC = 64, 128, 64, 128  # block rows, tile columns, head_dim chunk, output chunk
+BR, BC, DC = 64, 128, 64  # block rows; the keys kernel's tile of rows and score chunk
+KEYS = 64  # the tensor-core kernels' key tile (MODE 2's forward: a pair)
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 HEAD_DIMS = (160, 192, 256)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The split-TF32 chains take thousands of tiny float64 products, which
+    a torch thread pool runs no faster and, when the other test workers hold
+    the cores, much slower: one thread runs them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _ex2(x):
@@ -65,15 +90,36 @@ def _unbh(x, B, H, dtype):
 
 
 def _scores(A, B_):
-    """A (BH, r, D) . B (BH, n, D)^T summed over head_dim in chunks of 64."""
+    """A (BH, r, D) . B (BH, n, D)^T summed over head_dim in chunks of 64 (the
+    keys kernel's order; and the tensor cores' in bf16, whose products of
+    bf16 operands are exact in f32)."""
     acc = torch.zeros(A.shape[0], A.shape[1], B_.shape[1])
     for d0 in range(0, A.shape[2], DC):
         acc = acc + A[..., d0:d0 + DC] @ B_[..., d0:d0 + DC].transpose(1, 2)
     return acc
 
 
+def _tc_scores(A, B_, f32, passes=0):
+    """The tensor-core kernels' scores: bf16 as :func:`_scores`; f32 with
+    ``passes`` 3 one split-TF32 chain over head_dim (1: hi hi alone; 0: the
+    f32 products as :func:`_scores` sums them)."""
+    return chain(A, B_.transpose(1, 2), passes=passes) if f32 and passes else _scores(A, B_)
+
+
+def _tc_out(acc, p, M, f32, split=False, passes=0):
+    """acc + P M as the tensor-core kernels' output steps add it: bf16, P as
+    a bf16 operand (``split``: bf16(P) + bf16(P - bf16(P))); f32 with
+    ``passes`` 3 (or 1) split TF32 into acc's chain, 0 f32 products."""
+    if f32:
+        return chain(p, M, acc=acc, passes=passes) if passes else acc + p @ M
+    hi = _bf16(p)
+    acc = acc + hi @ M
+    return acc + _bf16(p - hi) @ M if split else acc
+
+
 def _product(P, M):
-    """P (BH, r, n) times M (BH, n, c), 64 rows of M at a time."""
+    """P (BH, r, n) times M (BH, n, c), 64 rows of M at a time (the keys
+    kernel's order)."""
     acc = torch.zeros(P.shape[0], P.shape[1], M.shape[2])
     for h in range(0, P.shape[2], 64):
         acc = acc + P[..., h:h + 64] @ M[:, h:h + 64]
@@ -109,12 +155,16 @@ def _masked(mode, s, ok, scale):
     return s * scale + torch.where(ok, 0.0, ft.MASK_VALUE)
 
 
-def fwd_emulation(mode, q, k, v, scale, lens=None, valid=None, causal=False, keep=None, rate=0.0):
+def fwd_emulation(mode, q, k, v, scale, lens=None, valid=None, causal=False, keep=None, rate=0.0,
+                  split=True, passes=0):
     """wide_fwd_kernel's order: (out (B, T, H, D) in q's dtype, stats
-    (2, B*H, T) for MODE 2)."""
+    (2, B*H, T) for MODE 2).  ``split`` False rounds MODE 0's P once to
+    bf16; in f32 ``passes`` 3 takes every product in split TF32 (1: one
+    TF32 pass; 0: f32 products, the order of the tiles alone)."""
     B, T, H, D = q.shape
     S = k.shape[1]
     dt = q.dtype
+    f32 = dt == torch.float32
     Q, K, V = _bh(q), _bh(k), _bh(v)
     ok_all = _key_ok(mode, B, H, T, S, lens, valid, causal)
     keep = None if keep is None else keep.reshape(B * H, T, S)
@@ -122,53 +172,53 @@ def fwd_emulation(mode, q, k, v, scale, lens=None, valid=None, causal=False, kee
     out = torch.zeros(B * H, T, D)
     stats = torch.zeros(2, B * H, T)
     one_block = mode == FLASH and S == BC
+    step = 2 * KEYS if mode == FLASH else KEYS
     for t0 in range(0, T, BR):
         r = slice(t0, min(t0 + BR, T))
-        for c0 in range(0, D, OC):
-            cs = slice(c0, min(c0 + OC, D))
-            m = torch.full((B * H, r.stop - t0), -1e30 if mode == DROP else -torch.inf)
-            l = torch.zeros_like(m)
-            acc = torch.zeros(B * H, r.stop - t0, cs.stop - c0)
-            for pass_ in ((0, 1) if mode == DROP else (1,)):
-                for k0 in range(0, _k_end(mode, causal, t0, S), BC):
-                    ks = slice(k0, min(k0 + BC, S))
-                    x = _masked(mode, _scores(Q[:, r], K[:, ks]), ok_all[:, r, ks], scale)
-                    if mode == DROP and pass_ == 1:
-                        e = torch.where(x == -torch.inf, 0.0, _ex2(x - m[..., None]))
-                        wd = _bf16(e / l.clamp(min=1e-30)[..., None])
-                        if rate > 0.0:
-                            wd = torch.where(keep[:, r, ks], _bf16(wd / c), 0.0)
-                        acc = acc + _product(wd, V[:, ks, cs])
-                        continue
-                    tmax = x.amax(-1)
-                    if mode == DROP:
-                        tmax = tmax.clamp(min=-1e30)
-                    m_new = torch.maximum(m, tmax)
-                    alpha = _ex2(m - m_new)
-                    p = torch.where(x == -torch.inf, 0.0, _ex2(x - m_new[..., None]))
-                    l = l * alpha + p.sum(-1)
-                    m = m_new
-                    if mode == DROP:
-                        continue
-                    acc = acc * alpha[..., None]
-                    if mode == FLASH:
-                        p = (p / l[..., None] if one_block else p).to(dt).float()
-                    acc = acc + _product(p, V[:, ks, cs])
-            mul = 1.0 if mode == DROP or one_block else (1.0 / l)[..., None]
-            out[:, r, cs] = acc * mul
-            if c0 == 0:
-                stats[0, :, r], stats[1, :, r] = m, l
+        m = torch.full((B * H, r.stop - t0), -1e30 if mode == DROP else -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B * H, r.stop - t0, D)
+        for pass_ in ((0, 1) if mode == DROP else (1,)):
+            for k0 in range(0, _k_end(mode, causal, t0, S), step):
+                ks = slice(k0, min(k0 + step, S))
+                x = _masked(mode, _tc_scores(Q[:, r], K[:, ks], f32, passes), ok_all[:, r, ks], scale)
+                if mode == DROP and pass_ == 1:
+                    e = torch.where(x == -torch.inf, 0.0, _ex2(x - m[..., None]))
+                    wd = _bf16(e / l.clamp(min=1e-30)[..., None])
+                    if rate > 0.0:
+                        wd = torch.where(keep[:, r, ks], _bf16(wd / c), 0.0)
+                    acc = _tc_out(acc, wd, V[:, ks], f32)
+                    continue
+                tmax = x.amax(-1)
+                if mode == DROP:
+                    tmax = tmax.clamp(min=-1e30)
+                m_new = torch.maximum(m, tmax)
+                alpha = _ex2(m - m_new)
+                p = torch.where(x == -torch.inf, 0.0, _ex2(x - m_new[..., None]))
+                l = l * alpha + p.sum(-1)
+                m = m_new
+                if mode == DROP:
+                    continue
+                acc = acc * alpha[..., None]
+                if mode == FLASH:
+                    p = (p / l[..., None] if one_block else p).to(dt).float()
+                acc = _tc_out(acc, p, V[:, ks], f32, split=mode == FUSED and split, passes=passes)
+        mul = 1.0 if mode == DROP or one_block else (1.0 / l)[..., None]
+        out[:, r] = acc * mul
+        stats[0, :, r], stats[1, :, r] = m, l
     return _unbh(out, B, H, dt), stats
 
 
 def bwd_emulation(mode, q, k, v, g, scale, valid, causal=False, keep=None, rate=0.0, out=None,
-                  stats=None):
-    """wide_rows_kernel then wide_keys_kernel: (dq, dk, dv) in q's dtype.
-    MODE 1 recomputes m, l and delta in the rows kernel; MODE 2 takes the
-    forward's m and l and di = sum(out g)."""
+                  stats=None, passes=0):
+    """wide_rows_kernel (tensor cores) then wide_keys_kernel (FMA pipes):
+    (dq, dk, dv) in q's dtype.  MODE 1 recomputes m, l and delta in the rows
+    kernel; MODE 2 takes the forward's m and l and di = sum(out g).  In
+    f32 ``passes`` as :func:`fwd_emulation`'s, for the rows kernel."""
     B, T, H, D = q.shape
     S = k.shape[1]
     dt = q.dtype
+    f32 = dt == torch.float32
     Q, K, V, G = _bh(q), _bh(k), _bh(v), _bh(g)
     ok_all = _key_ok(mode, B, H, T, S, None, valid, causal)
     keep = None if keep is None else keep.reshape(B * H, T, S)
@@ -185,41 +235,38 @@ def bwd_emulation(mode, q, k, v, g, scale, valid, causal=False, keep=None, rate=
     for t0 in range(0, T, BR):  # the rows kernel
         r = slice(t0, min(t0 + BR, T))
         k_end = _k_end(mode, causal, t0, S)
-        for c0 in range(0, D, OC):
-            cs = slice(c0, min(c0 + OC, D))
+        tiles = [slice(k0, min(k0 + KEYS, S)) for k0 in range(0, k_end, KEYS)]
+        if mode == DROP:
+            m = torch.full((B * H, r.stop - t0), -1e30)
+            l, u = torch.zeros_like(m), torch.zeros_like(m)
+            for ks in tiles:
+                x = _masked(mode, _tc_scores(Q[:, r], K[:, ks], f32, passes), ok_all[:, r, ks], scale)
+                dw = dropped(_tc_scores(G[:, r], V[:, ks], f32, passes),
+                             None if keep is None else keep[:, r, ks])
+                m_new = torch.maximum(m, x.amax(-1).clamp(min=-1e30))
+                alpha = _ex2(m - m_new)
+                e = torch.where(x == -torch.inf, 0.0, _ex2(x - m_new[..., None]))
+                l = l * alpha + e.sum(-1)
+                u = u * alpha + (e * dw).sum(-1)
+                m = m_new
+            delta = u / l.clamp(min=1e-30)
+            st[0, :, r], st[1, :, r], st[2, :, r] = m, l, delta
+            m, l, d = m, l.clamp(min=1e-30), delta
+        else:
+            m, l, d = st[0, :, r], st[1, :, r], st[2, :, r]
+        acc = torch.zeros(B * H, r.stop - t0, D)
+        for ks in tiles:
+            x = _masked(mode, _tc_scores(Q[:, r], K[:, ks], f32, passes), ok_all[:, r, ks], scale)
+            dp = _tc_scores(G[:, r], V[:, ks], f32, passes)
             if mode == DROP:
-                m = torch.full((B * H, r.stop - t0), -1e30)
-                l, u = torch.zeros_like(m), torch.zeros_like(m)
-                for k0 in range(0, k_end, BC):
-                    ks = slice(k0, min(k0 + BC, S))
-                    x = _masked(mode, _scores(Q[:, r], K[:, ks]), ok_all[:, r, ks], scale)
-                    dw = dropped(_scores(G[:, r], V[:, ks]), None if keep is None else keep[:, r, ks])
-                    m_new = torch.maximum(m, x.amax(-1).clamp(min=-1e30))
-                    alpha = _ex2(m - m_new)
-                    e = torch.where(x == -torch.inf, 0.0, _ex2(x - m_new[..., None]))
-                    l = l * alpha + e.sum(-1)
-                    u = u * alpha + (e * dw).sum(-1)
-                    m = m_new
-                delta = u / l.clamp(min=1e-30)
-                if c0 == 0:
-                    st[0, :, r], st[1, :, r], st[2, :, r] = m, l, delta
-                m, l, d = m, l.clamp(min=1e-30), delta
+                w = torch.where(x == -torch.inf, 0.0, _ex2(x - m[..., None]) / l[..., None])
+                dw = dropped(dp, None if keep is None else keep[:, r, ks])
+                ds = _bf16(w * (dw - d[..., None]) * scale)
             else:
-                m, l, d = st[0, :, r], st[1, :, r], st[2, :, r]
-            acc = torch.zeros(B * H, r.stop - t0, cs.stop - c0)
-            for k0 in range(0, k_end, BC):
-                ks = slice(k0, min(k0 + BC, S))
-                x = _masked(mode, _scores(Q[:, r], K[:, ks]), ok_all[:, r, ks], scale)
-                dp = _scores(G[:, r], V[:, ks])
-                if mode == DROP:
-                    w = torch.where(x == -torch.inf, 0.0, _ex2(x - m[..., None]) / l[..., None])
-                    dw = dropped(dp, None if keep is None else keep[:, r, ks])
-                    ds = _bf16(w * (dw - d[..., None]) * scale)
-                else:
-                    p = _ex2(x - m[..., None]) * l[..., None]
-                    ds = ((dp - d[..., None]) * p * scale).to(dt).float()
-                acc = acc + _product(ds, K[:, ks, cs])
-            dq[:, r, cs] = acc
+                p = _ex2(x - m[..., None]) * l[..., None]
+                ds = ((dp - d[..., None]) * p * scale).to(dt).float()
+            acc = _tc_out(acc, ds, K[:, ks], f32, passes=passes)
+        dq[:, r] = acc
     if mode == DROP:
         st[1] = st[1].clamp(min=1e-30)
     okT = ok_all.transpose(1, 2)  # (BH, S, T)
@@ -227,30 +274,28 @@ def bwd_emulation(mode, q, k, v, g, scale, valid, causal=False, keep=None, rate=
     for s0 in range(0, S, BR):  # the keys kernel
         kr = slice(s0, min(s0 + BR, S))
         t_begin = (s0 // BC) * BC if causal else 0
-        for c0 in range(0, D, OC):
-            cs = slice(c0, min(c0 + OC, D))
-            adk = torch.zeros(B * H, kr.stop - s0, cs.stop - c0)
-            adv = torch.zeros_like(adk)
-            for t0 in range(t_begin, T, BC):
-                ts = slice(t0, min(t0 + BC, T))
-                m, l, d = (st[i, :, ts][:, None, :] for i in range(3))
-                sT = _scores(K[:, kr], Q[:, ts])
-                ok = okT[:, kr, ts]
-                if mode == DROP:
-                    w = torch.where(ok, _ex2(_bf16(sT) * scale - m) / l, 0.0)
-                    kp = None if keepT is None else keepT[:, kr, ts]
-                    wd = _bf16(w)
-                    if rate > 0.0:
-                        wd = torch.where(kp, _bf16(wd / c), 0.0)
-                    adv = adv + _product(wd, G[:, ts, cs])
-                    dw = dropped(_scores(V[:, kr], G[:, ts]), kp)
-                    ds = torch.where(w == 0.0, 0.0, _bf16(w * (dw - d) * scale))
-                else:
-                    p = _ex2(sT * scale + torch.where(ok, 0.0, ft.MASK_VALUE) - m) * l
-                    adv = adv + _product(p.to(dt).float(), G[:, ts, cs])
-                    ds = ((_scores(V[:, kr], G[:, ts]) - d) * p * scale).to(dt).float()
-                adk = adk + _product(ds, Q[:, ts, cs])
-            dk[:, kr, cs], dv[:, kr, cs] = adk, adv
+        adk = torch.zeros(B * H, kr.stop - s0, D)
+        adv = torch.zeros_like(adk)
+        for t0 in range(t_begin, T, BC):
+            ts = slice(t0, min(t0 + BC, T))
+            m, l, d = (st[i, :, ts][:, None, :] for i in range(3))
+            sT = _scores(K[:, kr], Q[:, ts])
+            ok = okT[:, kr, ts]
+            if mode == DROP:
+                w = torch.where(ok, _ex2(_bf16(sT) * scale - m) / l, 0.0)
+                kp = None if keepT is None else keepT[:, kr, ts]
+                wd = _bf16(w)
+                if rate > 0.0:
+                    wd = torch.where(kp, _bf16(wd / c), 0.0)
+                adv = adv + _product(wd, G[:, ts])
+                dw = dropped(_scores(V[:, kr], G[:, ts]), kp)
+                ds = torch.where(w == 0.0, 0.0, _bf16(w * (dw - d) * scale))
+            else:
+                p = _ex2(sT * scale + torch.where(ok, 0.0, ft.MASK_VALUE) - m) * l
+                adv = adv + _product(p.to(dt).float(), G[:, ts])
+                ds = ((_scores(V[:, kr], G[:, ts]) - d) * p * scale).to(dt).float()
+            adk = adk + _product(ds, Q[:, ts])
+        dk[:, kr], dv[:, kr] = adk, adv
     return tuple(_unbh(x, B, H, dt) for x in (dq, dk, dv))
 
 
@@ -344,3 +389,74 @@ def test_wide_head_dims_route_to_the_wide_kernels(hd, width):
     for dtype in (torch.bfloat16, torch.float32):
         assert ft.flash_kernel_width(hd, dtype) == width
     assert not aw.is_wide(128) and attn.kernel_width(128) == 128
+
+
+def _excess(got, want, atol, rtol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 inside the bound."""
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+def test_mode0_p_rounded_once_to_bf16_leaves_the_flash_tolerance():
+    """Why the wide forward splits MODE 0's P into bf16 hi + lo: at head_dim
+    256 with q x 4 (a peaked softmax) one bf16 rounding of P puts outputs
+    outside phase 2f's atol + rtol of the f32-P twin, and the split keeps
+    every output inside."""
+    hd = 256
+    g = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(g.standard_normal((1, 512, 2, hd)).astype(np.float32) * s)
+               .to(torch.bfloat16) for s in (4.0, 1.0, 1.0))
+    sc = 1 / math.sqrt(hd)
+    twin = attn.attention_reference(q, k, v)
+    got, _ = fwd_emulation(FUSED, q, k, v, sc)
+    assert _excess(got, twin, ATTN_ATOL, ATTN_RTOL) <= 1.0
+    once, _ = fwd_emulation(FUSED, q, k, v, sc, split=False)
+    assert _excess(once, twin, ATTN_ATOL, ATTN_RTOL) > 1.0
+
+
+SPLIT_CASES = [  # (mode, head_dim, T, S, causal)
+    (FUSED, 256, 200, 333, True), (FLASH, 192, 256, 256, True), (FLASH, 256, 128, 384, False)]
+
+
+@pytest.mark.parametrize("mode,hd,T,S,causal", SPLIT_CASES,
+                         ids=[f"mode{m}-hd{d}-T{t}-S{s}-{'causal' if c else 'full'}"
+                              for m, d, t, s, c in SPLIT_CASES])
+def test_split_tf32_wide_order_meets_f32_bounds(mode, hd, T, S, causal):
+    """The wide f32 kernels' products in split TF32 (three passes into one
+    chain each): the forward within F32_ATOL + F32_RTOL of the twin (MODE
+    2's m and l too, as ``tests/test_torch_f32_split_tiles.py`` holds the
+    narrow f32 forward's), the rows kernel's dq within F32_REL."""
+    q, k, v, g, valid = _inputs(hd, torch.float32, T=T, S=S)
+    pq, pk, pv, pg = _padded(hd, q, k, v, g)
+    sc = 1 / math.sqrt(hd)
+    if mode == FUSED:
+        lens = torch.tensor([0, 250], dtype=torch.int32)
+        got, _ = fwd_emulation(FUSED, pq, pk, pv, sc, lens=lens, causal=causal, passes=3)
+        want = attn.attention_reference(q, k, v, lens, causal)
+        assert torch.allclose(_sliced(hd, got), want, atol=F32_ATOL, rtol=F32_RTOL)
+        return
+    got, stats = fwd_emulation(FLASH, pq, pk, pv, sc, valid=valid, causal=causal, passes=3)
+    want, want_stats = ft.flash_train_fwd_reference(q, k, v, valid, causal)
+    assert torch.allclose(_sliced(hd, got), want, atol=F32_ATOL, rtol=F32_RTOL)
+    assert torch.allclose(stats, want_stats, atol=F32_ATOL, rtol=F32_RTOL)
+    dq = bwd_emulation(FLASH, pq, pk, pv, pg, sc, valid, causal, out=attn.pad_head(want, pq.shape[-1]),
+                       stats=want_stats, passes=3)[0]
+    twin = ft.flash_train_bwd_reference(q, k, v, valid, want, want_stats, g, causal)[0]
+    assert _rel(_sliced(hd, dq), twin) < F32_REL, _rel(_sliced(hd, dq), twin)
+
+
+@pytest.mark.parametrize("kernel", ["forward", "rows"])
+def test_one_tf32_pass_leaves_the_f32_bounds(kernel):
+    """The control of the split-TF32 emulation: hi hi alone (one TF32 pass)
+    moves MODE 2's output outside F32_ATOL + F32_RTOL of the twin, and dq
+    (the rows kernel's) outside F32_REL, at head_dim 256."""
+    hd = 256
+    q, k, v, g, valid = _inputs(hd, torch.float32, T=128, S=256)
+    sc = 1 / math.sqrt(hd)
+    want, want_stats = ft.flash_train_fwd_reference(q, k, v, valid, False)
+    if kernel == "forward":
+        got, _ = fwd_emulation(FLASH, q, k, v, sc, valid=valid, passes=1)
+        assert not torch.allclose(got, want, atol=F32_ATOL, rtol=F32_RTOL)
+        return
+    dq = bwd_emulation(FLASH, q, k, v, g, sc, valid, out=want, stats=want_stats, passes=1)[0]
+    twin = ft.flash_train_bwd_reference(q, k, v, valid, want, want_stats, g, False)[0]
+    assert _rel(dq, twin) > F32_REL
