@@ -492,10 +492,9 @@ WIDE_OPS_ONLY = ((512, 1),)
 # the wide kernels' timed shape: B8 H2 640x640 at head_dim 256
 WIDE_TIMED = (8, 640, 640, 2, 256)  # (B, T, S, H, head_dim)
 # each wide kernel's instantiations (mangled-name pieces): phase 1 prints
-# their registers, spills, stack frame and shared memory, fails if one is
-# missing, and fails unless every wide_fwd_kernel and wide_rows_kernel
-# instantiation holds HMMA (bf16 mma.sync m16n8k16, f32 split TF32 m16n8k8)
-# and spills nothing; wide_keys_kernel runs on the FMA pipes
+# their registers, spills, stack frame, shared memory and blocks an SM,
+# fails if one is missing, and fails unless every instantiation holds HMMA
+# (bf16 mma.sync m16n8k16, f32 split TF32 m16n8k8) and spills nothing
 WIDE_KERNELS = (
     *(f"wide_fwd_kernelI{t}Li{m}E" for t, m in (("f", 0), ("13__nv_bfloat16", 0),
                                                  ("13__nv_bfloat16", 1), ("f", 2),
@@ -2416,24 +2415,27 @@ def phase_tensor_cores() -> None:
 
 
 def phase_wide_facts() -> None:
-    """Registers, spills, stack frame and shared memory of every
-    instantiation of the wide attention kernels (``WIDE_KERNELS``,
+    """Registers, spills, stack frame, shared memory and blocks an SM of
+    every instantiation of the wide attention kernels (``WIDE_KERNELS``,
     attention_wide.cu); fails if one has no entry in the build log, and
-    unless each instantiation of ``wide_fwd_kernel`` and ``wide_rows_kernel``
-    holds HMMA in its SASS (bf16: ``HMMA.16816.F32.BF16``; f32, split TF32:
-    ``HMMA.1688.F32.TF32``) and spills nothing."""
+    unless each instantiation holds HMMA in its SASS (bf16:
+    ``HMMA.16816.F32.BF16``; f32, split TF32: ``HMMA.1688.F32.TF32``) and
+    spills nothing."""
     facts = ptxas_facts(str(ds.BUILD_INFO["log"]), WIDE_KERNELS)
     mix = sass_mix(str(ds.BUILD_INFO["path"]), WIDE_KERNELS, modifiers=True)
+    lib = ds.load_library()
     for name in WIDE_KERNELS:
         f = facts.get(name)
         if f is None:
             raise AssertionError(f"the wide attention kernel {name} has no entry in the build log")
+        blocks = ctypes.c_int(0)
+        which = next(i for i, k in enumerate(("wide_fwd_", "wide_rows_", "wide_keys_")) if name.startswith(k))
+        ds._check(lib.smer_wide_attn_blocks(which, int(name[-2]), int("kernelIf" not in name),
+                                            ctypes.addressof(blocks)), f"the occupancy of {name}")
         line = (f"  {name}: {f.get('registers')} registers, spill stores/loads {f.get('spill_stores')}/"
                 f"{f.get('spill_loads')} bytes, stack frame {f.get('stack_bytes')} bytes, "
-                f"{f.get('smem_bytes')} bytes static shared memory (its tiles are dynamic)")
-        if name.startswith("wide_keys_kernel"):
-            say(line + "; FMA pipes")
-            continue
+                f"{f.get('smem_bytes')} bytes static shared memory (its tiles are dynamic), "
+                f"{blocks.value} blocks an SM")
         want = "HMMA.1688.F32.TF32" if "kernelIf" in name else "HMMA.16816.F32.BF16"
         n_mma = mix[name].get(want, 0)
         say(f"{line}; {n_mma} {want} in its SASS")
@@ -2860,7 +2862,8 @@ def flash_train_bound(B: int, T: int, S: int, causal: bool, backward: bool, head
 
 
 def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, heads: int = H,
-                             hd: int = HD_ATTN, f32: bool = False, rate: float | None = None):
+                             hd: int = HD_ATTN, f32: bool = False, rate: float | None = None,
+                             products: int | None = None):
     """Least time of one of the two backward kernels alone and what bounds
     it.  ``flash_train_dq_kernel`` reads q, k, v, the output, g, m, l and
     the mask and writes dq and di, and does 3 products (scores, g v^T, ds
@@ -2868,14 +2871,16 @@ def flash_train_kernel_bound(B: int, T: int, S: int, causal: bool, kernel: str, 
     and writes dk and dv, and does 4 (scores, g v^T, p^T g, ds^T q): the
     scores and g v^T are recomputed in both, 7 products for the pair where
     the function needs 5.  2 HD operations a pair and product at the bf16
-    rate (f32: the FMA pipes'; or ``rate``).  Returns (ms, "bytes" or
-    "operations")."""
+    rate (f32: the FMA pipes'; or ``rate``); ``products`` another count of
+    full-size products (what a kernel runs as built).  Returns (ms, "bytes"
+    or "operations")."""
     el = 4 if f32 else 2
     qb, kb, row = B * T * heads * hd * el, B * S * heads * hd * el, B * heads * T * 4
     if "_dq_" in kernel or "_rows_" in kernel:
-        nbytes, products = 4 * qb + 2 * kb + 3 * row + B * S * 4, 3
+        nbytes, least = 4 * qb + 2 * kb + 3 * row + B * S * 4, 3
     else:
-        nbytes, products = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
+        nbytes, least = 2 * qb + 4 * kb + 3 * row + B * S * 4, 4
+    products = products or least
     flops = 2 * hd * flash_train_pairs(B, T, S, causal, heads) * products
     rate = rate or (F32_FLOPS if f32 else BF16_FLOPS)
     return bound_ms(nbytes, flops, rate), ("bytes" if nbytes / HBM_BYTES_PER_S > flops / rate
@@ -4086,8 +4091,11 @@ def padded_ops_vs_twins(dev, nhead: int, hd: int, dtype=torch.bfloat16) -> dict:
         twins = ta.dropout_attention_bwd_reference(qc, kc, vc, vc_valid, seed, gc, 0.1, causal)
         _keep_max(out, "train grad abs",
                   max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twins)))
-        for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
-            err = rel_norm(a.float(), b.float())
+        rels = {name: rel_norm(a.float(), b.float()) for name, a, b in zip(("dq", "dk", "dv"), grads, twins)}
+        if aw.is_wide(hd):
+            say(f"    dropout backward at {tag}: relative norms " +
+                ", ".join(f"{n} {r:.3e}" for n, r in rels.items()))
+        for name, err in rels.items():
             _keep_max(out, f"train {name}", err)
             if not err < TA_REL[name]:
                 raise AssertionError(f"train attention {name} at {tag}: {err:.3e}")
@@ -4118,8 +4126,11 @@ def padded_flash_vs_twins(q, k, v, go, valid, hd: int, atol: float, rtol: float,
         twins = ft.flash_train_bwd_reference(qf, kf, vf, vf_valid, got, stats, gf, causal=causal)
         _keep_max(out, "flash grad abs",
                   max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twins)))
-        for name, a, b in zip(("dq", "dk", "dv"), grads, twins):
-            err = rel_norm(a.float(), b.float())
+        rels = {name: rel_norm(a.float(), b.float()) for name, a, b in zip(("dq", "dk", "dv"), grads, twins)}
+        if aw.is_wide(hd):
+            say(f"    flash backward at {tag}: relative norms " +
+                ", ".join(f"{n} {r:.3e}" for n, r in rels.items()))
+        for name, err in rels.items():
             _keep_max(out, f"flash {name}", err)
             if not err < rel[name]:
                 raise AssertionError(f"flash-train {name} at {tag}: {err:.3e}")
@@ -4205,18 +4216,56 @@ def time_wide(dev) -> dict:
     reports["flash_attention_train_wide_fwd"], reports["flash_attention_train_wide_bwd"] = time_flash_train(
         dev, q, k, v, go, valid, False, twin=True)
     time_flash_train(dev, *(t.float() for t in (q, k, v, go)), valid, False, twin=True)
-    # each backward pair's two kernels apart (profiler): the rows kernel on
-    # the tensor cores, the keys kernel on the FMA pipes
+    # each backward pair's two kernels apart (profiler, retaken while it has
+    # lost records), each beside its own bound (f32: at split TF32's rate),
+    # the keys kernel's for the flash bound's 4 products and for the 3 nz +
+    # 2 it runs (S^T in the dk and the dv block of each of nz output chunks,
+    # g V^T in the dk blocks, and dk and dv); and the pair's gradients
+    # against the twin
     seed, vi = ta.seed_tensor(TA_SEEDS[0], dev), valid.to(torch.int32)
-    out, stats = ft.flash_train_fwd(q, k, v, vi, False)
-    for tag, fn in (("dropout (MODE 1, rate 0.1)",
-                     lambda: ta.dropout_attention_bwd(q, k, v, vi, seed, go, 0.1, False)),
-                    ("flash (MODE 2)", lambda: ft.flash_train_bwd(q, k, v, vi, out, stats, go, False))):
-        split = device_split(fn)
-        said = "not measured (the profiler saw no CUDA kernel)" if split is None else ", ".join(
-            f"{name} {split.get(name, 0.0):.1f} us" for name in ("wide_rows_kernel", "wide_keys_kernel"))
-        say(f"    the wide {tag} backward pair, bf16, a call: {said}")
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, go))
+    built = 3 * -(-hd // 128) + 2
+    for tag, f32, fn, twin in (
+            ("dropout (MODE 1, rate 0.1) bf16", False,
+             lambda: ta.dropout_attention_bwd(q, k, v, vi, seed, go, 0.1, False),
+             lambda: ta.dropout_attention_bwd_reference(q, k, v, vi, seed, go, 0.1, False)),
+            ("flash (MODE 2) bf16", False, *flash_bwd_calls(q, k, v, go, vi)),
+            ("flash (MODE 2) f32", True, *flash_bwd_calls(qf, kf, vf, gf, vi))):
+        split = whole_split(fn, cuda_ms(fn, iters=10))
+        rate = SPLIT_TF32_FLOPS if f32 else None
+        parts = []
+        for name in ("wide_rows_kernel", "wide_keys_kernel"):
+            us = "not measured (the profiler lost records)" if split is None else f"{split.get(name, 0.0):.1f} us"
+            b_ms, b_by = flash_train_kernel_bound(B, T, S, False, name, heads, hd, f32, rate)
+            said = f"{name} {us} (bound {1e3 * b_ms:.1f} us, {b_by}"
+            if name == "wide_keys_kernel":
+                b_ms, b_by = flash_train_kernel_bound(B, T, S, False, name, heads, hd, f32, rate, built)
+                said += f"; {1e3 * b_ms:.1f} us for the {built} products it runs, {b_by}"
+            parts.append(said + ")")
+        rels = {n: rel_norm(a, b) for n, a, b in zip(("dq", "dk", "dv"), fn(), twin())}
+        say(f"    the wide {tag} backward pair, a call: " + "; ".join(parts) +
+            "; relative norms against the twin " + ", ".join(f"{n} {r:.3e}" for n, r in rels.items()))
     return reports
+
+
+def whole_split(fn, ms: float, tries: int = 3):
+    """``device_split`` of a call that keeps the card busy, retaken (at most
+    ``tries`` times) while its kernels sum to less than half the call's
+    CUDA-event ``ms``: late in a whole run the profiler loses records, as
+    :func:`whole_trace` finds.  None if no trace is whole."""
+    for _ in range(tries):
+        split = device_split(fn)
+        if split is not None and sum(split.values()) >= 500 * ms:
+            return split
+    return None
+
+
+def flash_bwd_calls(q, k, v, go, valid):
+    """(the flash-train backward wrapper, its twin) on the forward's output
+    and statistics, as no-argument calls."""
+    out, stats = ft.flash_train_fwd(q, k, v, valid, False)
+    return (lambda: ft.flash_train_bwd(q, k, v, valid, out, stats, go, False),
+            lambda: ft.flash_train_bwd_reference(q, k, v, valid, out, stats, go, False))
 
 
 def phase_head_dims(dev):

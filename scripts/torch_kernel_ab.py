@@ -76,7 +76,13 @@ the checkout has ``ops/attention_wide.py``, the wide kernels at
 the dropout attention's forward and backward pair (bf16), and the flash-train
 forward and pair in bf16 and f32, each with its device µs by kernel
 (``wide_fwd_kernel``, ``wide_rows_kernel``, ``wide_keys_kernel``) and its
-relative norm from the twin (not hashed).
+relative norm from the twin (each gradient's apart), the forwards' outputs
+and the pairs' dq hashed for the last line (dk and dv are not: another
+design of the keys kernel sums in another order); and each wide backward
+pair's gradients against the twin at chip_smoke phase 5e's shapes at
+head_dim 256 (its inputs: B=3, H=2, 640x640, 384x384 causal, 384x640, the
+dropout pair also 200x333 and 333x200 causal, the flash pair also 512x512
+causal).
 ``--attention`` before
 the roots times the attention kernels alone (no decode kernels, no served
 batch):
@@ -416,19 +422,24 @@ for D_, H_ in ((64, H), (128, 4)) if ft is not None and not DECODE_ONLY else ():
 # fused_attention (wide_fwd_kernel MODE 0, key lengths 640/320/1/640...), the
 # dropout attention (MODE 1, rate 0.1) forward and backward pair, the flash
 # pair and forward (MODE 2) in bf16 and f32, ~10% of keys invalid and one
-# batch row with none, each with its relative norm from the twin (not hashed:
-# another design sums in another order); each backward pair's device us by
-# kernel (wide_rows_kernel, wide_keys_kernel)
+# batch row with none, each with its relative norm from the twin (each
+# gradient's apart: dq, dk, dv); each backward pair's device us by kernel
+# (wide_rows_kernel, wide_keys_kernel); the forwards' outputs and the pairs'
+# dq hashed (dk and dv not: another keys kernel sums in another order)
 try:
     from smer_music_generation_tpu_torch.ops import attention_wide as aw
 except ImportError:  # a checkout from before the wide kernels
     aw = None
 
 
-def rel_to_twin(got, ref):
+def rels(got, ref):
     if isinstance(got, torch.Tensor):
         got, ref = (got,), (ref,)
-    return max(((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(got, ref))
+    return [((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(got, ref)]
+
+
+def rel_to_twin(got, ref):
+    return max(rels(got, ref))
 
 
 for dt in (torch.bfloat16, torch.float32) if aw is not None and not DECODE_ONLY else ():
@@ -439,29 +450,63 @@ for dt in (torch.bfloat16, torch.float32) if aw is not None and not DECODE_ONLY 
     wlens = torch.tensor([640, 320, 1] + [640] * 5, dtype=torch.int32, device=dev)
     tag = f"wide_{str(dt).split('.')[-1]}_hd256_640x640"
     out["fused_attention_" + tag] = timed(lambda: attn.fused_attention(q, k, v, wlens, False))
+    got = attn.fused_attention(q, k, v, wlens, False)
+    outputs["fused_attention_" + tag] = digest(got)
     out["fused_attention_" + tag]["rel_to_twin"] = rel_to_twin(
-        attn.fused_attention(q, k, v, wlens, False), attn.attention_reference(q, k, v, wlens, False))
+        got, attn.attention_reference(q, k, v, wlens, False))
     o, stats = ft.flash_train_fwd(q, k, v, valid, False)
+    outputs["flash_train_fwd_" + tag] = digest(o, stats)
     out["flash_train_fwd_" + tag] = timed(lambda: ft.flash_train_fwd(q, k, v, valid, False))
     out["flash_train_fwd_" + tag]["rel_to_twin"] = rel_to_twin(
         o, ft.flash_train_fwd_reference(q, k, v, valid, False)[0])
     out["flash_train_bwd_" + tag] = timed(
         lambda: ft.flash_train_bwd(q, k, v, valid, o, stats, go, False))
-    out["flash_train_bwd_" + tag]["rel_to_twin"] = rel_to_twin(
-        ft.flash_train_bwd(q, k, v, valid, o, stats, go, False),
-        ft.flash_train_bwd_reference(q, k, v, valid, o, stats, go, False))
+    got = ft.flash_train_bwd(q, k, v, valid, o, stats, go, False)
+    outputs["flash_train_bwd_dq_" + tag] = digest(got[0])
+    out["flash_train_bwd_" + tag]["rel_dq_dk_dv"] = rels(
+        got, ft.flash_train_bwd_reference(q, k, v, valid, o, stats, go, False))
+    out["flash_train_bwd_" + tag]["rel_to_twin"] = max(out["flash_train_bwd_" + tag]["rel_dq_dk_dv"])
     if dt == torch.bfloat16:
         seed = ta.seed_tensor((0, 7), dev)
         out["dropout_attention_fwd_" + tag] = timed(
             lambda: ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, False))
+        got = ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, False)
+        outputs["dropout_attention_fwd_" + tag] = digest(got)
         out["dropout_attention_fwd_" + tag]["rel_to_twin"] = rel_to_twin(
-            ta.dropout_attention_fwd(q, k, v, valid, seed, 0.1, False),
-            ta.dropout_attention_fwd_reference(q, k, v, valid, seed, 0.1, False))
+            got, ta.dropout_attention_fwd_reference(q, k, v, valid, seed, 0.1, False))
         out["dropout_attention_bwd_" + tag] = timed(
             lambda: ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, False))
-        out["dropout_attention_bwd_" + tag]["rel_to_twin"] = rel_to_twin(
-            ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, False),
-            ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, 0.1, False))
+        got = ta.dropout_attention_bwd(q, k, v, valid, seed, go, 0.1, False)
+        outputs["dropout_attention_bwd_dq_" + tag] = digest(got[0])
+        out["dropout_attention_bwd_" + tag]["rel_dq_dk_dv"] = rels(
+            got, ta.dropout_attention_bwd_reference(q, k, v, valid, seed, go, 0.1, False))
+        out["dropout_attention_bwd_" + tag]["rel_to_twin"] = max(out["dropout_attention_bwd_" + tag]["rel_dq_dk_dv"])
+# the wide backward pairs' gradients against their twins at chip_smoke phase
+# 5e's shapes and inputs at head_dim 256 (padded_ops_vs_twins, d512/h2)
+for dt in (torch.bfloat16, torch.float32) if aw is not None and not DECODE_ONLY else ():
+    gp = torch.Generator(device=dev).manual_seed(256)
+    q, k, v, go = (torch.randn(3, 640, 2, 256, generator=gp, device=dev).to(dt) for _ in range(4))
+    valid = torch.rand(3, 640, generator=gp, device=dev) < 0.9
+    valid[1] = False
+    valid[0, 0] = valid[2, 0] = True
+    name = str(dt).split(".")[-1]
+    if dt == torch.bfloat16:
+        seed = ta.seed_tensor((0, 7), dev)
+        for T_, S_, causal in ((640, 640, False), (384, 384, True), (384, 640, False), (200, 333, False),
+                               (333, 200, True)):
+            a_ = [t[:, :n].contiguous() for t, n in ((q, T_), (k, S_), (v, S_), (go, T_))]
+            vv = valid[:, :S_].contiguous()
+            out[f"dropout_bwd_rels_{name}_hd256_{T_}x{S_}{'_causal' if causal else ''}"] = rels(
+                ta.dropout_attention_bwd(*a_[:3], vv, seed, a_[3], 0.1, causal),
+                ta.dropout_attention_bwd_reference(*a_[:3], vv, seed, a_[3], 0.1, causal))
+    for T_, S_, causal in ((512, 512, True), (640, 640, False), (384, 384, True), (384, 640, False)):
+        a_ = [t[:, :n].contiguous() for t, n in ((q, T_), (k, S_), (v, S_), (go, T_))]
+        vv = valid[:, :S_].clone()
+        vv[1, 0] = True
+        o, stats = ft.flash_train_fwd(*a_[:3], vv, causal=causal)
+        out[f"flash_bwd_rels_{name}_hd256_{T_}x{S_}{'_causal' if causal else ''}"] = rels(
+            ft.flash_train_bwd(*a_[:3], vv, o, stats, a_[3], causal=causal),
+            ft.flash_train_bwd_reference(*a_[:3], vv, o, stats, a_[3], causal=causal))
 # every attention wrapper at head_dim 64 (H=8) and 128 (H=4), causal, in bf16
 # and (where it takes it) f32: outputs and gradients hashed, not timed, so the
 # last line says whether the roots' kernels agree bit for bit at both widths

@@ -13,10 +13,11 @@ batch row with none; ``fused_attention``'s key lengths 640/320/1/640...), every
 variant runs each wrapper of the wide kernels: ``fused_attention`` (MODE 0,
 bf16 and f32), the dropout forward and backward pair (MODE 1, rate 0.1), the
 flash-train forward and pair (MODE 2, bf16 and f32): the ms of 20
-back-to-back calls by CUDA events after 3 warm-up calls, and whether the
-outputs are bit-equal to the unedited source's.  Two rounds, in the order
-given (``base`` first).  The first lines print each variant's registers and
-spills from ptxas.
+back-to-back calls by CUDA events after 3 warm-up calls, whether the
+outputs are bit-equal to the unedited source's, and for each backward pair
+its rows and keys kernels' device µs a call (profiler).  Two rounds, in the
+order given (``base`` first).  The first lines print each variant's
+registers and spills from ptxas.
 
 The variants:
 - ``stages3`` / ``stages4``: a cp.async ring of 3 or 4 stages, not 2 (the
@@ -28,6 +29,15 @@ The variants:
 - ``lo_after_hi``: MODE 0's P V takes bf16(P) over a k16 chunk's n-blocks,
   then forms bf16(P - bf16(P)) and loads V's fragments again for it (four
   registers fewer held; other bits).
+- ``keys_b2``: ``wide_keys_kernel`` alone capped for two blocks an SM (255
+  registers), not three (168); with ``stages3`` the keys kernel's ring of 3
+  stages (every kernel's ring grows: the rows kernel's time moves too);
+- ``keys_split``: the keys kernel of ``scripts/wide_keys_split.cuh``, 8 warps
+  a block of 64 keys and a chunk of both dk and dv (warps 0-3 S^T and dv,
+  warps 4-7 (g V^T)^T and dk, w or p through the stash), S^T once a chunk:
+  capped for two blocks an SM (128 registers); ``keys_split_b1`` for one
+  (255); ``keys_split_b1_stages3`` the same with a ring of 3 stages (the
+  same bits as the shipped kernel wherever the split's order holds).
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import TA_SEEDS, WIDE_TIMED, flash_train_inputs  # noqa: E402
+from chip_smoke import TA_SEEDS, WIDE_TIMED, device_split, flash_train_inputs  # noqa: E402
 from smer_music_generation_tpu_torch.ops import attention as attn  # noqa: E402
 from smer_music_generation_tpu_torch.ops import decode_step as ds  # noqa: E402
 from smer_music_generation_tpu_torch.ops import flash_train as ft  # noqa: E402
@@ -56,12 +66,34 @@ SOURCE = "attention_wide.cu"
 _STAGES = "constexpr int kStages = 2;                           // the ring's depth"
 _B2 = [("constexpr int kFwdBlocks = 3;", "constexpr int kFwdBlocks = 2;"),
        ("__launch_bounds__(kTcThreads, 3) wide_rows_kernel", "__launch_bounds__(kTcThreads, 2) wide_rows_kernel")]
+
+
+def _keys_split(blocks: int):
+    """The edit that puts scripts/wide_keys_split.cuh in place of fetch_keys
+    and wide_keys_kernel, capped for ``blocks`` blocks an SM."""
+    def edit(text: str) -> str:
+        first, last = "// step i of a keys block's walk", "// grid (blocks of 64 of `rows`"
+        launch = "launch(keys, a, a.S, 2, st)"
+        if first not in text or last not in text or launch not in text:
+            raise SystemExit("variant keys_split: its anchors no longer match attention_wide.cu")
+        body = (ROOT / "scripts" / "wide_keys_split.cuh").read_text().replace(
+            "#define KEYS_SPLIT_BLOCKS 2", f"#define KEYS_SPLIT_BLOCKS {blocks}")
+        text = text[:text.index(first)] + body + text[text.index(last):]
+        return text.replace(launch, "launch_keys_split(keys, a, st)")
+    return edit
+
+
 VARIANTS = {
     "base": [],
     "stages3": [(_STAGES, _STAGES.replace("= 2", "= 3"))],
     "stages4": [(_STAGES, _STAGES.replace("= 2", "= 4"))],
     "b2": _B2,
     "b2_stages3": [*_B2, (_STAGES, _STAGES.replace("= 2", "= 3"))],
+    "keys_b2": [("__launch_bounds__(kTcThreads, 3) wide_keys_kernel",
+                 "__launch_bounds__(kTcThreads, 2) wide_keys_kernel")],
+    "keys_split": [_keys_split(2)],
+    "keys_split_b1": [_keys_split(1)],
+    "keys_split_b1_stages3": [_keys_split(1), (_STAGES, _STAGES.replace("= 2", "= 3"))],
     "m0_b3": [("constexpr int kFwdBlocks<bf16, kModeFused> = 2;",
                "constexpr int kFwdBlocks<bf16, kModeFused> = 3;")],
     "lo_after_hi": [
@@ -110,7 +142,11 @@ def build(names):
     jobs = {}
     for name in names:
         text = source
-        for old, new in VARIANTS[name]:
+        for edit in VARIANTS[name]:
+            if callable(edit):
+                text = edit(text)
+                continue
+            old, new = edit
             if old not in text:
                 raise SystemExit(f"variant {name}: its edit no longer applies: {old!r}")
             text = text.replace(old, new)
@@ -131,7 +167,8 @@ def build(names):
         facts, entry, spill = [], None, ""
         for ln in err.splitlines():  # per entry: its name, then its spills, then its registers
             if "Compiling entry" in ln:
-                entry = next((k for k in ("wide_fwd_kernel", "wide_rows_kernel") if k in ln), None)
+                entry = next((k for k in ("wide_fwd_kernel", "wide_rows_kernel", "wide_keys_kernel")
+                              if k in ln), None)
                 inst = ln.split(entry)[1].split("EEvNS")[0] if entry else ""
                 spill = ""
             elif entry and "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
@@ -208,6 +245,10 @@ def main(argv) -> int:
                 end.record()
                 torch.cuda.synchronize()
                 same = "" if torch.equal(got, want[label]) else " (other bits)"
+                if " bwd " in label:
+                    split = device_split(fn) or {}
+                    same += " [" + ", ".join(f"{k.split('_')[1]} {split.get(k, 0.0):.1f} us" for k in
+                                             ("wide_rows_kernel", "wide_keys_kernel")) + "]"
                 said.append(f"{label} {start.elapsed_time(end) / 20:.4f}{same}")
             print(f"round {rnd} {name:10s} ms a call: " + ", ".join(said), flush=True)
     return 0

@@ -7,9 +7,9 @@ each a template over the element type and a mask policy (MODE 0:
 attention), over any head_dim that is a multiple of 64: shared memory and
 registers do not grow with head_dim (the score products walk it in chunks,
 the outputs are split into 128-column chunks over the grid, and each block
-recomputes the row statistics of its chunk).  The forward and the backward's
-rows kernel (dq) run on the tensor cores (``mma.sync``: bf16, and f32 in
-split TF32); the keys kernel (dk, dv) on the FMA pipes.  The wrappers of
+recomputes the row statistics of its chunk).  The forward and both kernels
+of the backward, the rows kernel (dq) and the keys kernel (dk, dv), run on
+the tensor cores (``mma.sync``: bf16, and f32 in split TF32).  The wrappers of
 ``ops/attention.py``, ``ops/train_attention.py`` and ``ops/flash_train.py``
 send a CUDA tensor whose head_dim is above 128 here (:func:`is_wide`), after
 zero-padding it to :func:`wide_width` with the scale kept at

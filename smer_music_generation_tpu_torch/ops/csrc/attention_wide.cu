@@ -44,13 +44,15 @@
 //     delta = u / max(l, 1e-30); JAX's delta takes the unrounded w, so it is
 //     not FlashAttention's g . o) and writes them to the (3, B*H, T) stats;
 //     MODE 2 reads the forward's m and l and writes di = sum_d o g;
-//   wide_keys_kernel: dk and dv of its chunk from those statistics.
+//   wide_keys_kernel: dk or dv of its chunk from those statistics, a block
+//     per 64 keys: grid.z is doubled, its first half dk blocks, its second
+//     dv blocks, so that each holds one 64 x 128 accumulator.
 //
-// wide_fwd_kernel and wide_rows_kernel run every product on the tensor cores
-// with mma.sync (the fragments, ldmatrix and cp.async helpers of
-// attn_tiles.cuh): a block of 4 warps, 16 query rows a warp, walks tiles of
-// 64 keys (MODE 2's forward takes them in pairs, so its m steps by the
-// library's 128-key block).  A tile's scores (and in the rows kernel g V^T)
+// All three run every product on the tensor cores with mma.sync (the
+// fragments, ldmatrix and cp.async helpers of attn_tiles.cuh): a block of 4
+// warps, 16 query rows a warp, walks tiles of 64 keys (MODE 2's forward
+// takes them in pairs, so its m steps by the library's 128-key block); the
+// keys kernel swaps the roles, 16 keys a warp walking tiles of 64 queries.  A tile's scores (and in the rows kernel g V^T)
 // are summed over head_dim in steps of one staged chunk (64 columns in bf16,
 // 32 in f32) of Q (or g) and of K (or V): Q is not held whole but streamed
 // with K, its A fragments read from the staged chunk at each use.  Every
@@ -80,20 +82,21 @@
 //     keeps editing that file alone): hi = x rounded to TF32, lo = x - hi,
 //     lo hi, hi lo, hi hi into one accumulator chain a sum (the scores over
 //     head_dim, the output over every key); nothing is rounded to bf16.
-// Every sum over head_dim runs in one chain in the same order in both
-// kernels, so the forward's and the rows kernel's scores are the same bits.
-// wide_keys_kernel is still the FMA-pipe version (256 threads, a 4 x 8 f32
-// micro-tile a thread, operands staged as f32): it recomputes the scores in
-// another order (scripts/wide_score_probe.py counts the bf16 roundings of s
-// that differ) and reads the statistics written from tensor-core scores.
+// Every sum over head_dim runs in one chain in the same order in all three
+// kernels (the keys kernel's S^T = K Q^T with split TF32's cross passes
+// swapped), and the keys kernel takes w, p, dw and ds by the rows kernel's
+// formulas, so that the weights behind dq and behind dk and dv are the same
+// bits (scripts/wide_score_probe.py counts the scores that differ).
 //
 // What bounds them on an NVIDIA H100 (989 TFLOP/s dense bf16, 495 TF32, 3.35
 // TB/s at 700 W): the operations; at B=8, H=2, T=S=640, head_dim 256 the
 // forward's two products are 6.7 GFLOP (7 us at the bf16 peak; 41 us in
 // split TF32 at a third of the TF32 rate), the backward's five 16.8 GFLOP.
 // These kernels do more: the recomputed chunk (x2 at head_dim 256), MODE 0's
-// P V twice, MODE 1's two passes; and every block re-reads its Q, K and V
-// from L2 for each key tile and chunk.  Measured times are in PERF.md
+// P V twice, MODE 1's two passes, the keys kernel's S^T in both its dk and
+// its dv blocks (8 full-size products a 64-key block at head_dim 256, not
+// 4); and every block re-reads its operands from L2 for each tile and
+// chunk.  Measured times are in PERF.md
 // (chip_smoke.py phase 5e, scripts/torch_kernel_ab.py --attention).
 //
 // The launchers have a plain C interface and return cudaGetLastError().
@@ -136,10 +139,10 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 template <class T>
 __device__ __forceinline__ float cast(float x) { return to_f(from_f<T>(x)); }
 
-__device__ __forceinline__ float ex2(float x) { return exp2f(x * kLog2e); }
-// the same on the SFU alone (MUFU.EX2): torch.exp2's bits wherever 2^x is a
-// normal float (flash_train.cu), a subnormal result flushed to 0; 2^-inf
-// = 0, so a key at -inf weighs exactly 0 (every running max is finite)
+// e^x on the SFU alone (MUFU.EX2): torch.exp2's bits of 2^(x log2 e)
+// wherever that is a normal float (flash_train.cu), a subnormal result
+// flushed to 0; 2^-inf = 0, so a key at -inf weighs exactly 0 (every
+// running max is finite)
 __device__ __forceinline__ float ex2_ftz(float x) { return attn_tiles::exp2_ftz(x * kLog2e); }
 
 struct WideArgs {
@@ -166,7 +169,9 @@ __device__ __forceinline__ Drop drop_of(const WideArgs& a) {
 // split TF32 (attention_f32.cu's helpers): x = hi + lo, hi rounded to TF32
 // (nearest, ties away: cvt.rna.tf32.f32's bits), lo the exact rest, which
 // the tensor cores read as TF32; a k8 step adds lo_a hi_b, hi_a lo_b, hi_a
-// hi_b to the accumulator in that order
+// hi_b to the accumulator in that order.  With SWAP (the keys kernel, whose
+// A operand is the rows kernel's B) the first two swap, hi_a lo_b, lo_a
+// hi_b, so that K Q^T adds lo_q hi_k, hi_q lo_k, hi hi as Q K^T does.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
@@ -184,13 +189,19 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <bool SWAP = false>
 __device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], const uint32_t al[4],
                                           float b0, float b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
+  if (SWAP) {
+    mma_tf32(c, ah, bl0, bl1);
+    mma_tf32(c, al, bh0, bh1);
+  } else {
+    mma_tf32(c, al, bh0, bh1);
+    mma_tf32(c, ah, bl0, bl1);
+  }
   mma_tf32(c, ah, bh0, bh1);
 }
 
@@ -198,17 +209,20 @@ __device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4], cons
 // the tensor-core kernels' tiles
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 128;  // 4 warps
-constexpr int kRows = 64;        // a block's query rows, 16 a warp
-constexpr int kKeys = 64;        // a key tile (MODE 2's forward takes them in pairs: its m step)
+constexpr int kRows = 64;        // a block's query rows, 16 a warp (the keys kernel: a query tile)
+constexpr int kKeys = 64;        // a key tile (MODE 2's forward takes them in pairs: its m step;
+                                 // the keys kernel: a block's keys, 16 a warp)
 constexpr int kNJ = kKeys / 8;   // n-blocks of a tile's scores
 constexpr int kBlk = 128;        // the library's block (MODE 2)
 
-// A score step stages one head_dim chunk of the rows' operand (Q; g) and of
-// the keys' (K; V), rows padded to 144 bytes (72 bf16, 36 f32: the 8 rows of
-// an ldmatrix phase on 8 distinct 16-byte bank groups), and after a tile's
-// last chunk its keys' validity.  An output step stages kOutKeys rows of V
-// (K for dq) over the block's output chunk, rows padded to 128 + 8 bf16 or
-// 128 + 4 f32 (P Y's f32 B operand then reads 32 distinct banks).
+// A score step stages one head_dim chunk of the block's own operand X (Q; g;
+// in the keys kernel K; V) and of a tile's Y (K; V; in the keys kernel Q;
+// g), rows padded to 144 bytes (72 bf16, 36 f32: the 8 rows of an ldmatrix
+// phase on 8 distinct 16-byte bank groups), and after a tile's last chunk
+// its keys' validity (the keys kernel: its queries' statistics).  An output
+// step stages kOutKeys rows of V (K for dq; g for dv, Q for dk) over the
+// block's output chunk, rows padded to 128 + 8 bf16 or 128 + 4 f32 (P Y's
+// f32 B operand then reads 32 distinct banks).
 template <class T>
 struct Elem;
 template <>
@@ -220,15 +234,15 @@ struct Elem<float> {
   static constexpr int kChunk = 32, kLdC = 36, kOutKeys = 32, kLdO = kOC + 4;
 };
 constexpr int kChunkBytes = 64 * 144;                // 64 rows of a staged chunk
-constexpr int kValidOff = 2 * kChunkBytes;           // X, Y chunks; then the validity
-constexpr int kStage = kValidOff + kKeys * 4;        // 18,688 bytes
+constexpr int kValidOff = 2 * kChunkBytes;           // X, Y chunks; then the validity or statistics
+constexpr int kStage = kValidOff + 2 * kRows * 4;    // 18,944 bytes: two statistics of a query tile
 constexpr int kStages = 2;                           // the ring's depth
 // each thread's stash of one tile's 32 C-fragment values (MODE 2's first
 // scores of a pair in the forward; w, e or p beside g V^T in the rows
 // kernel), word i at [i][threadIdx.x]: conflict-free, and read back only by
 // the thread that wrote it
 constexpr int kStashOff = kStages * kStage;
-constexpr size_t kTcSmem = (size_t)kStashOff + 4 * kNJ * kTcThreads * sizeof(float);  // 53,760 bytes
+constexpr size_t kTcSmem = (size_t)kStashOff + 4 * kNJ * kTcThreads * sizeof(float);  // 54,272 bytes
 static_assert(kRows * Elem<bf16>::kLdO * 2 <= kValidOff && 32 * Elem<float>::kLdO * 4 <= kValidOff,
               "an output step fits a stage");
 static_assert(kStage % 16 == 0, "stages stay 16-byte aligned");
@@ -265,7 +279,9 @@ __device__ __forceinline__ void stage_valid(int* dst, const int* valid, int k0, 
 // X chunk, Y rows 8 j .. 8 j + 7 of its Y chunk.  The k steps run in order,
 // so with the chunks taken in order each n-block's sum is one chain over
 // head_dim.  bf16: four k16 steps, two at a time for every n-block, X's A
-// fragments and Y's B by ldmatrix.
+// fragments and Y's B by ldmatrix (SWAP changes nothing: the products are
+// exact).
+template <bool SWAP = false>
 __device__ __forceinline__ void score_step(float (&s)[kNJ][4], const bf16* xs, int warp,
                                            int lane) {
   constexpr int ld = Elem<bf16>::kLdC;
@@ -285,10 +301,12 @@ __device__ __forceinline__ void score_step(float (&s)[kNJ][4], const bf16* xs, i
   }
 }
 
-// f32: four k8 steps in split TF32, both operands split at each use; the
-// fragments by ldmatrix.x4 with each f32 taken as two b16 (lane 4 g + t
-// receives row g, float t of each 8 x 4-float matrix: the m16n8k8 TF32
-// layout), as attention_f32.cu's xyt_tc reads them
+// f32: four k8 steps in split TF32, both operands split at each use (SWAP:
+// mma_split's order for the keys kernel); the fragments by ldmatrix.x4 with
+// each f32 taken as two b16 (lane 4 g + t receives row g, float t of each 8
+// x 4-float matrix: the m16n8k8 TF32 layout), as attention_f32.cu's xyt_tc
+// reads them
+template <bool SWAP = false>
 __device__ __forceinline__ void score_step(float (&s)[kNJ][4], const float* xs, int warp,
                                            int lane) {
   constexpr int ld = Elem<float>::kLdC;
@@ -305,8 +323,8 @@ __device__ __forceinline__ void score_step(float (&s)[kNJ][4], const float* xs, 
     for (int j = 0; j < kNJ; j += 2) {
       uint32_t b[4];
       tiles::ldsm_x4(b, reinterpret_cast<const bf16*>(y + 8 * j * ld + kk));
-      mma_split(s[j], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
-      mma_split(s[j + 1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
+      mma_split<SWAP>(s[j], ah, al, __uint_as_float(b[0]), __uint_as_float(b[1]));
+      mma_split<SWAP>(s[j + 1], ah, al, __uint_as_float(b[2]), __uint_as_float(b[3]));
     }
   }
 }
@@ -426,6 +444,10 @@ struct Ring {
   __device__ __forceinline__ const int* valid() const {
     return reinterpret_cast<const int*>(stage(step - 1) + kValidOff);
   }
+  // the keys kernel's: a query tile's statistics, kRows floats each
+  __device__ __forceinline__ const float* stats() const {
+    return reinterpret_cast<const float*>(stage(step - 1) + kValidOff);
+  }
 };
 
 // What the ring's fetch needs of a block's walk, written once a block into
@@ -433,16 +455,17 @@ struct Ring {
 // loop it would take some twenty that the tiles need (a kernel capped for
 // three blocks an SM spilled)
 struct Plan {
-  const void* x[2];  // (b, 0, h, 0) of the rows' operands: q; g
-  const void* y[2];  // of the keys' operands: k; v
-  const void* o;     // of the output steps' rows: v (forward), k (dq)
+  const void* x[2];  // (b, 0, h, 0) of the block's own operands: q; g (the keys kernel: k; v)
+  const void* y[2];  // of a tile's: k; v (the keys kernel: q; g)
+  const void* o;     // of the output steps' rows: v (forward), k (dq), g (dv), q (dk)
   const int* valid;  // the batch row's key validity
-  void* out;         // (b, 0, h, c0) of the output, or of dq
+  void* out;         // (b, 0, h, c0) of the output, or of dq, dk or dv
   float* stats;      // row 0 of (b * H + h) in the statistics: m; l and delta B H T apart
+  const float* st[3];  // the keys kernel's rows of them: m, l, and delta (MODE 1) or di (MODE 2)
   Drop dr;           // MODE 1: the keep hash's words, threshold, rate flag and c
   uint32_t bhg;      // MODE 1: the hash's global b * H + h
   float rc;          // MODE 1: 1 / c
-  int ld, t0, nsc, per, steps0, total, c0, ncols, n_valid;
+  int ld, t0, nsc, per, steps0, total, c0, ncols, n_valid, s0;
 };
 
 // the plan's base of one head of a (B, L, H, D) tensor
@@ -973,232 +996,244 @@ __global__ void __launch_bounds__(kTcThreads, 3) wide_rows_kernel(const WideArgs
 }
 
 // ---------------------------------------------------------------------------
-// backward, keys (FMA pipes): a block per (64 keys, b * H + h, 128 columns
-// of dk and dv), 256 threads, a 4 x 8 f32 micro-tile a thread
+// backward, keys: a block per (64 keys, b * H + h, 128 columns of dk or of
+// dv); grid.z's first half the dk blocks, the second the dv blocks
 // ---------------------------------------------------------------------------
-constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16 owns rows 4 ty .. + 3, tx columns tx + 16 j
-constexpr int kBR = 64;        // a block's rows
-constexpr int kBC = 128;       // a tile's columns
-constexpr int kLdA = kDC + 1;  // a staged chunk's padded row
-constexpr int kLdS = kBC + 1;  // the weight tile's padded row
-// dynamic shared memory: the two staged chunks (reused as the product's 64 x
-// 128 operand), the weight tile, a tile's per-row statistics
-constexpr int kStageFloats = (kBR + kBC) * kLdA;
-constexpr size_t kSmem = sizeof(float) * ((size_t)kStageFloats + kBR * kLdS + 3 * kBC);
-static_assert(kStageFloats >= 64 * kOC, "the product's operand fits the staging buffers");
-
-// rows r0 .. r0 + N - 1 (zeros at and past `limit`) of a row-major matrix of
-// row stride ld, head_dim columns d0 .. d0 + 63, into dst[N][kLdA] as f32
-template <class T, int N>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* __restrict__ m, size_t ld, int r0,
-                                            int limit, int d0) {
-  for (int e = threadIdx.x; e < N * kDC; e += kThreads) {
-    const int r = e / kDC, c = e % kDC, row = r0 + r;
-    dst[r * kLdA + c] = row < limit ? to_f(m[(size_t)row * ld + d0 + c]) : 0.f;
-  }
-}
-
-// acc[i][j] = the f32 sum over head_dim of A[ra + 4 ty + i] . B[rb + tx + 16 j]
-// (rows at and past na, nb read as zeros), in chunks of 64 head_dims, each
-// chunk's 64 products summed in order.  Opens with a block barrier, so the
-// caller may rewrite what the block read before it.
-template <class T>
-__device__ __forceinline__ void score_tile(float (&acc)[4][8], const T* __restrict__ A, int ra,
-                                           int na, const T* __restrict__ B, int rb, int nb,
-                                           size_t ld, int D, float* sA, float* sB) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// MODE 1: keep_bits in the keys kernel's orientation: bit 4 j + e of this
+// thread's C fragment is key key0 + 8 (e >> 1), query q0 + 8 j + 2 t + (e &
+// 1), the hash taken at (row = the query, col = the key)
+__device__ __forceinline__ uint32_t keep_bits_t(const Plan& p, int key0, int q0, int t) {
+  const Drop dr = p.dr;
+  if (!dr.on) return ~0u;
+  const uint32_t bh_term = p.bhg * kBhMul;
+  uint32_t bits = 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t col_term = (uint32_t)(key0 + 8 * (e >> 1)) * kColMul;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kDC) {
-    __syncthreads();
-    stage_chunk<T, kBR>(sA, A, ld, ra, na, d0);
-    stage_chunk<T, kBC>(sB, B, ld, rb, nb, d0);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kDC; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[(4 * ty + i) * kLdA + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sB[(tx + 16 * j) * kLdA + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int j = 0; j < kNJ; ++j) {
+      const uint32_t row = q0 + 8 * j + 2 * t + (e & 1);
+      bits |= (keep_terms(dr, dr.s0 + row * kRowMul, col_term, bh_term) ? 1u : 0u) << (4 * j + e);
     }
   }
+  return bits;
 }
 
-// acc[i][j] += sum_n P[4 ty + i][n] M[m0 + n][c0 + tx + 16 j] over the tile's
-// 128 columns n, P the weight tile in shared memory, M's rows (zeros at and
-// past mlimit, and past the chunk's ncols columns) staged 64 at a time.
-// Opens with a block barrier, after the caller's writes to sP.
-template <class T>
-__device__ __forceinline__ void product_tile(float (&acc)[4][8], const float* sP,
-                                             const T* __restrict__ M, int m0, int mlimit,
-                                             size_t ld, int c0, int ncols, float* sM) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int h = 0; h < kBC; h += 64) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < 64 * kOC; e += kThreads) {
-      const int r = e / kOC, c = e % kOC, row = m0 + h + r;
-      sM[r * kOC + c] = row < mlimit && c < ncols ? to_f(M[(size_t)row * ld + c0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int n = 0; n < 64; ++n) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sP[(4 * ty + i) * kLdS + h + n];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sM[n * kOC + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+// queries q0 .. q0 + kRows - 1 of two rows of the statistics (b null: one)
+// into dst[0 .. kRows) and dst[kRows .. 2 kRows), zeros at and past T
+__device__ __forceinline__ void stage_stats(float* dst, const float* a, const float* b, int q0, int T) {
+  const float* src = threadIdx.x < kRows ? a : b;
+  const int i = threadIdx.x % kRows;
+  if (src != nullptr) {
+    const bool ok = q0 + i < T;
+    tiles::cp_async4(dst + threadIdx.x, ok ? src + q0 + i : src, ok);
   }
 }
 
-// the block's output chunk: rows r0 + 4 ty + i below `limit`, columns c0 + tx +
-// 16 j below c0 + ncols
+// step i of a keys block's walk: a query tile's nsc chunks of K and Q (the
+// last with the tile's m and l), a dk block's nsc chunks of V and g (the
+// last with delta or di), then the tile's output steps (g for dv, Q for dk)
 template <class T>
-__device__ __forceinline__ void store_chunk(T* __restrict__ out, size_t ld, int r0, int limit,
-                                            int c0, int ncols, const float (&acc)[4][8]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + 4 * ty + i;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (tx + 16 * j < ncols) out[(size_t)row * ld + c0 + tx + 16 * j] = from_f<T>(acc[i][j]);
+__device__ __forceinline__ void fetch_keys(const WideArgs& a, const Plan& p, int i, unsigned char* st) {
+  using E = Elem<T>;
+  if (i < p.total) {
+    const int nsc = p.nsc, j = i % p.per, q0 = p.t0 + (i / p.per) * kRows;
+    if (j < p.steps0) {  // a chunk of K and Q, or of V and g
+      const int w = j < nsc ? 0 : 1, d0 = (j - w * nsc) * E::kChunk;
+      stage_rows<T, kKeys, E::kChunk, E::kLdC>(reinterpret_cast<T*>(st), static_cast<const T*>(p.x[w]),
+                                               p.ld, p.s0, a.S, d0, E::kChunk);
+      stage_rows<T, kRows, E::kChunk, E::kLdC>(reinterpret_cast<T*>(st + kChunkBytes),
+                                               static_cast<const T*>(p.y[w]), p.ld, q0, a.T, d0,
+                                               E::kChunk);
+      float* sts = reinterpret_cast<float*>(st + kValidOff);
+      if (j == nsc - 1) stage_stats(sts, p.st[0], p.st[1], q0, a.T);
+      if (j == 2 * nsc - 1) stage_stats(sts, p.st[2], nullptr, q0, a.T);
+    } else {
+      stage_rows<T, E::kOutKeys, kOC, E::kLdO>(reinterpret_cast<T*>(st), static_cast<const T*>(p.o),
+                                               p.ld, q0 + (j - p.steps0) * E::kOutKeys, a.T, p.c0,
+                                               p.ncols);
+    }
   }
+  tiles::cp_async_commit();
 }
 
-// whether key `col` is attendable from query `row` (col < S; MODES 1, 2)
-__device__ __forceinline__ bool key_ok(const WideArgs& a, int b, int row, int col) {
-  return a.valid[(size_t)b * a.S + col] != 0 && (!a.causal || col <= row);
-}
-
+// The rows kernel with the roles of rows and keys swapped: a warp's 16 keys
+// are the fragments' rows, a tile's 64 queries their columns.  S^T = K Q^T
+// (and a dk block's (g V^T)^T = V g^T) is summed in the rows kernel's order,
+// the same chunks and k steps (split TF32's cross passes swapped), and w, p,
+// dw and ds take its formulas, written out as there (so that the compiler
+// contracts them alike), so that both kernels see the same bits.  A dv
+// block sums wd^T g (MODE 1) or cast(p)^T g (MODE 2); a dk block ds^T Q,
+// with w or p in the stash while V g^T is taken: each holds one 64 x 128
+// accumulator beside one tile's scores.  The statistics are indexed by the
+// fragment's column, so they are read from the staged tile at each use.
 template <class T, int MODE>
-__global__ void __launch_bounds__(kThreads, 1) wide_keys_kernel(const WideArgs a) {
-  extern __shared__ float fsmem[];
-  float* sA = fsmem;
-  float* sB = sA + kBR * kLdA;
-  float* sP = fsmem + kStageFloats;
-  float* sm = sP + kBR * kLdS;  // a tile's rows: m, 1 / l (MODE 2) or max(l, 1e-30), delta or di
-  float* sl = sm + kBC;
-  float* sd = sl + kBC;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int s0 = blockIdx.x * kBR, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int c0 = blockIdx.z * kOC, ncols = min(kOC, a.D - c0);
-  const size_t ld = (size_t)a.H * a.D;
-  const size_t qo = ((size_t)b * a.T * a.H + h) * a.D, ko = ((size_t)b * a.S * a.H + h) * a.D;
-  const T* q = static_cast<const T*>(a.q) + qo;
-  const T* g = static_cast<const T*>(a.g) + qo;
-  const T* k = static_cast<const T*>(a.k) + ko;
-  const T* v = static_cast<const T*>(a.v) + ko;
-  const Drop dr = drop_of<MODE>(a);
-  const uint32_t bhg = MODE == kModeDrop ? global_bh(b, h, a.b0, a.h0, a.Hg) : 0u;
-  const size_t n = (size_t)a.B * a.H * a.T;
-  float p[4][8], dp[4][8], dk[4][8], dv[4][8];
+__global__ void __launch_bounds__(kTcThreads, 3) wide_keys_kernel(const WideArgs a) {
+  using E = Elem<T>;
+  constexpr int kOut = kRows / E::kOutKeys;  // output steps a query tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stash = reinterpret_cast<float*>(smem + kStashOff) + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int s0 = blockIdx.x * kKeys, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int nz = gridDim.z / 2;
+  const bool dk_block = (int)blockIdx.z < nz;
+  const int c0 = (dk_block ? blockIdx.z : blockIdx.z - nz) * kOC, nnb = min(kOC, a.D - c0) / 8;
+  const int key0 = s0 + 16 * warp + (lane >> 2);  // this lane's keys: key0, key0 + 8
+  // causal: MODE 1 from the query tile that holds the block's first key;
+  // MODE 2 from the key's 128-row library block (a row visits the blocks at
+  // or below its own, where a masked key still weighs when none is valid)
+  const int q_begin = !a.causal ? 0 : MODE == kModeFlash ? (s0 / kBlk) * kBlk : s0;
+  const int nt = q_begin < a.T ? (a.T - q_begin + kRows - 1) / kRows : 0, nsc = a.D / E::kChunk;
+  __shared__ Plan plan;
+  if (threadIdx.x == 0) {
+    const size_t n = (size_t)a.B * a.H * a.T;
+    plan.x[0] = head<T>(a.k, b, a.S, a.H, h, a.D);
+    plan.x[1] = head<T>(a.v, b, a.S, a.H, h, a.D);
+    plan.y[0] = head<T>(a.q, b, a.T, a.H, h, a.D);
+    plan.y[1] = head<T>(a.g, b, a.T, a.H, h, a.D);
+    plan.o = plan.y[dk_block ? 0 : 1];
+    plan.out = static_cast<T*>(dk_block ? a.dk : a.dv) + ((size_t)b * a.S * a.H + h) * a.D + c0;
+    plan.st[0] = a.stats + (size_t)bh * a.T;
+    plan.st[1] = plan.st[0] + n;
+    plan.st[2] = MODE == kModeFlash ? a.di + (size_t)bh * a.T : plan.st[0] + 2 * n;
+    plan.dr = drop_of<MODE>(a);
+    if (!plan.dr.on) plan.dr.c = 1.f;  // keep_bits_t sets every bit: w / 1
+    plan.bhg = MODE == kModeDrop ? global_bh(b, h, a.b0, a.h0, a.Hg) : 0u;
+    plan.rc = 1.f / plan.dr.c;
+    plan.ld = a.H * a.D;
+    plan.t0 = q_begin;
+    plan.s0 = s0;
+    plan.nsc = nsc;
+    plan.steps0 = (dk_block ? 2 : 1) * nsc;  // score steps a tile
+    plan.per = plan.steps0 + kOut;
+    plan.total = nt * plan.per;
+    plan.c0 = c0;
+    plan.ncols = 8 * nnb;
+  }
+  bool kv[2];  // the lane's keys' validity (none at and past S)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    kv[r] = key < a.S && a.valid[(size_t)b * a.S + key] != 0;
+  }
+  __syncthreads();
+  auto fetch = [&](int i, unsigned char* st) { fetch_keys<T>(a, plan, i, st); };
+  Ring<decltype(fetch)> ring(smem, fetch);
+  auto product = [&](float (&s)[kNJ][4]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dk[i][j] = dv[i][j] = 0.f;
-  // causal: the query tiles with a row at or past the block's first key
-  // (MODE 2: the 128-row blocks at or past its key block)
-  const int t_begin = a.causal ? (s0 / kBC) * kBC : 0;
-  for (int t0 = t_begin; t0 < a.T; t0 += kBC) {
-    for (int r = threadIdx.x; r < kBC; r += kThreads) {
-      const int row = min(t0 + r, a.T - 1);
-      const size_t at = (size_t)bh * a.T + row;
-      sm[r] = a.stats[at];
-      sl[r] = MODE == kModeFlash ? 1.f / a.stats[n + at] : fmaxf(a.stats[n + at], 1e-30f);
-      sd[r] = MODE == kModeFlash ? a.di[at] : a.stats[2 * n + at];
-    }
-    score_tile<T>(p, k, s0, a.S, q, t0, a.T, ld, a.D, sA, sB);  // p[i][j]: key i, query row j
-    uint32_t keep = 0u;
+    for (int j = 0; j < kNJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int c = 0; c < nsc; ++c) score_step<true>(s, reinterpret_cast<const T*>(ring.next()), warp, lane);
+  };
+
+  float acc[kOC / 8][4], s[kNJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = s0 + 4 * ty + i;  // the key
+  for (int nb = 0; nb < kOC / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  const float c = plan.dr.c, rc = plan.rc;
+  for (int it = 0; it < nt; ++it) {
+    const int q0 = q_begin + it * kRows;
+    uint32_t keep = MODE == kModeDrop && !dk_block ? keep_bits_t(plan, key0, q0, t) : 0u;
+    product(s);  // S^T
+    const float* sts = ring.stats();  // m, then l (MODE 1) or the forward's l (MODE 2)
+    // w (MODE 1) or p (MODE 2) by the rows kernel's formulas; 0 at and past T
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = tx + 16 * j, row = t0 + r;
-        float x = 0.f, wd = 0.f;
-        if (col < a.S && row < a.T) {
-          const bool ok = key_ok(a, b, row, col);
-          if (MODE == kModeDrop) {
-            if (ok) {
-              x = ex2(bf16r(p[i][j]) * a.scale - sm[r]) / sl[r];
-              const bool kp = !dr.on || keep_at(dr, bhg, row, col);
-              keep |= (kp ? 1u : 0u) << (8 * i + j);
-              const float w16 = bf16r(x);
-              wd = dr.on ? (kp ? bf16r(w16 / dr.c) : 0.f) : w16;
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int cl = 8 * j + 2 * t + u, query = q0 + cl;
+        const float m = sts[cl];
+        const float l = MODE == kModeDrop ? fmaxf(sts[kRows + cl], 1e-30f) : sts[kRows + cl];
+        const float rl = 1.f / l;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + u;
+          const bool ok = kv[r] && (!a.causal || key0 + 8 * r <= query);
+          float w = 0.f;
+          if (query < a.T) {
+            if (MODE == kModeDrop) {
+              if (ok) w = div_rn(ex2_ftz(bf16r(s[j][e]) * a.scale - m), l, rl);
+            } else {
+              w = ex2_ftz(s[j][e] * a.scale + (ok ? 0.f : kMaskValue) - m) * rl;
             }
+          }
+          if (dk_block) {
+            stash[(4 * j + e) * kTcThreads] = w;
+          } else if (MODE == kModeDrop) {  // wd, the forward's formula
+            s[j][e] = keep >> (4 * j + e) & 1u ? bf16r(div_rn(bf16r(w), c, rc)) : 0.f;
           } else {
-            x = ex2(p[i][j] * a.scale + (ok ? 0.f : kMaskValue) - sm[r]) * sl[r];
-            wd = cast<T>(x);
+            s[j][e] = cast<T>(w);
           }
         }
-        p[i][j] = x;
-        sP[(4 * ty + i) * kLdS + r] = wd;
       }
-    }
-    product_tile<T>(dv, sP, g, t0, a.T, ld, c0, ncols, sA);
-    score_tile<T>(dp, v, s0, a.S, g, t0, a.T, ld, a.D, sA, sB);  // (g v^T)^T
+    if (dk_block) {
+      if (MODE == kModeDrop) keep = keep_bits_t(plan, key0, q0, t);
+      product(s);  // (g V^T)^T
+      const float* dst = ring.stats();  // delta (MODE 1) or di (MODE 2)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < kNJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = tx + 16 * j;
-        float ds;
-        if (MODE == kModeDrop) {
-          float dw = dp[i][j];
-          if (dr.on) dw = (keep >> (8 * i + j) & 1u) ? dw / dr.c : 0.f;
-          ds = p[i][j] == 0.f ? 0.f : bf16r(p[i][j] * (dw - sd[r]) * a.scale);
-        } else {
-          ds = t0 + r < a.T ? cast<T>((dp[i][j] - sd[r]) * p[i][j] * a.scale) : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int cl = 8 * j + 2 * t + (e & 1);
+          const float w = stash[(4 * j + e) * kTcThreads], dl = dst[cl];
+          float ds = 0.f;
+          if (q0 + cl < a.T) {
+            if (MODE == kModeDrop) {  // w = 0 off the valid keys, so ds = 0 there
+              const float dw = keep >> (4 * j + e) & 1u ? div_rn(s[j][e], c, rc) : 0.f;
+              ds = bf16r(w * (dw - dl) * a.scale);
+            } else {
+              ds = cast<T>((s[j][e] - dl) * w * a.scale);
+            }
+          }
+          s[j][e] = ds;
         }
-        sP[(4 * ty + i) * kLdS + r] = ds;
-      }
     }
-    product_tile<T>(dk, sP, q, t0, a.T, ld, c0, ncols, sA);
+    auto weights = [&s](int j, int e) { return s[j][e]; };
+#pragma unroll
+    for (int u = 0; u < kOut; ++u)
+      out_step<false>(acc, weights, u, reinterpret_cast<const T*>(ring.next()), lane, plan.ncols >> 3);
   }
-  store_chunk<T>(static_cast<T*>(a.dk) + ko, ld, s0, a.S, c0, ncols, dk);
-  store_chunk<T>(static_cast<T*>(a.dv) + ko, ld, s0, a.S, c0, ncols, dv);
+  tiles::cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_rows<T>(static_cast<T*>(plan.out), plan.ld, key0, a.S, plan.ncols >> 3, acc, one, t);
 }
 
-// grid (blocks of 64 of `rows`, B * H, output chunks), `threads` a block;
-// the tensor-core kernels (`carveout`) prefer the whole of the SM's shared
-// memory over L1, so that two blocks fit an SM; the keys kernel reads its
-// operands through L1 (attributes are per device: set on every launch)
+// grid (blocks of 64 of `rows`, B * H, output chunks times zmul), 4 warps a
+// block, preferring the whole of the SM's shared memory over L1, so that
+// three blocks fit an SM (attributes are per device: set on every launch)
 template <class Kernel>
-cudaError_t launch(Kernel kernel, const WideArgs& a, int rows, int threads, size_t smem,
-                   bool carveout, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && carveout)
+cudaError_t set_attributes(Kernel kernel) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
+  if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const WideArgs& a, int rows, int zmul, cudaStream_t st) {
+  const cudaError_t e = set_attributes(kernel);
   if (e != cudaSuccess) return e;
-  const dim3 grid((rows + kRows - 1) / kRows, a.B * a.H, (a.D + kOC - 1) / kOC);
-  kernel<<<grid, threads, smem, st>>>(a);
+  const dim3 grid((rows + kRows - 1) / kRows, a.B * a.H, zmul * ((a.D + kOC - 1) / kOC));
+  kernel<<<grid, kTcThreads, kTcSmem, st>>>(a);
   return cudaGetLastError();
 }
 
 template <class Kernel>
 cudaError_t launch_fwd(Kernel kernel, const WideArgs& a, cudaStream_t st) {
-  return launch(kernel, a, a.T, kTcThreads, kTcSmem, true, st);
+  return launch(kernel, a, a.T, 1, st);
 }
 
-// the rows kernel, then the keys kernel
+// the rows kernel, then the keys kernel (a dk and a dv block a chunk)
 template <class Rows, class Keys>
 cudaError_t launch_bwd(Rows rows, Keys keys, const WideArgs& a, cudaStream_t st) {
-  const cudaError_t e = launch(rows, a, a.T, kTcThreads, kTcSmem, true, st);
-  return e != cudaSuccess ? e : launch(keys, a, a.S, kThreads, kSmem, false, st);
+  const cudaError_t e = launch(rows, a, a.T, 1, st);
+  return e != cudaSuccess ? e : launch(keys, a, a.S, 2, st);
+}
+
+template <class Kernel>
+int blocks_of(Kernel kernel, int* blocks) {
+  cudaError_t e = set_attributes(kernel);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kTcThreads, kTcSmem);
+  return (int)e;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -1309,6 +1344,26 @@ int smer_wide_attn_bwd(int mode, int bf16_, int B, int T, int S, int H, int D, i
                              a, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks an SM of one instantiation (kernel 0: wide_fwd_kernel, 1:
+// wide_rows_kernel, 2: wide_keys_kernel; mode and bf16_ as the launchers
+// take them), at the launchers' shared memory and carveout.
+int smer_wide_attn_blocks(int kernel, int mode, int bf16_, int* blocks) {
+  switch (kernel * 8 + mode * 2 + bf16_) {
+    case 0: return blocks_of(wide_fwd_kernel<float, kModeFused>, blocks);
+    case 1: return blocks_of(wide_fwd_kernel<bf16, kModeFused>, blocks);
+    case 3: return blocks_of(wide_fwd_kernel<bf16, kModeDrop>, blocks);
+    case 4: return blocks_of(wide_fwd_kernel<float, kModeFlash>, blocks);
+    case 5: return blocks_of(wide_fwd_kernel<bf16, kModeFlash>, blocks);
+    case 11: return blocks_of(wide_rows_kernel<bf16, kModeDrop>, blocks);
+    case 12: return blocks_of(wide_rows_kernel<float, kModeFlash>, blocks);
+    case 13: return blocks_of(wide_rows_kernel<bf16, kModeFlash>, blocks);
+    case 19: return blocks_of(wide_keys_kernel<bf16, kModeDrop>, blocks);
+    case 20: return blocks_of(wide_keys_kernel<float, kModeFlash>, blocks);
+    case 21: return blocks_of(wide_keys_kernel<bf16, kModeFlash>, blocks);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -908,13 +908,14 @@ def load_library() -> ctypes.CDLL:
         lib.smer_spec_advance.argtypes = [p] * 17 + [i] * 16 + [f, f, f, i, i, i, p]
         lib.smer_wide_attn_fwd.argtypes = [i] * 10 + [p] * 6 + [u, i, f, i, f, p, p, p]
         lib.smer_wide_attn_bwd.argtypes = [i] * 10 + [p] * 5 + [u, i, f, i, f] + [p] * 8
+        lib.smer_wide_attn_blocks.argtypes = [i, i, i, p]
         for fn in (lib.smer_rowvec, lib.smer_attend, lib.smer_add_layernorm,
                    lib.smer_embed_pe, lib.smer_sample_advance, lib.smer_flash_attention,
                    lib.smer_train_attn_fwd, lib.smer_train_attn_bwd, lib.smer_dropout_keep_mask,
                    lib.smer_flash_train_fwd, lib.smer_flash_train_bwd, lib.smer_attention_f32_fwd,
                    lib.smer_flash_train_bwd_f32, lib.smer_flash_train_bwd_f32_blocks,
                    lib.smer_attention_f32_fwd_blocks, lib.smer_spec_advance,
-                   lib.smer_wide_attn_fwd, lib.smer_wide_attn_bwd):
+                   lib.smer_wide_attn_fwd, lib.smer_wide_attn_bwd, lib.smer_wide_attn_blocks):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
