@@ -30,10 +30,12 @@ paths and prints one line per phase with the elapsed seconds:
    registers, spills, shared memory and commonest SASS opcodes of
    the decode kernels' instantiations (``rowvec_kernel`` for bf16, bf16
    with ReLU, bf16 with the LN tail, int8, int8 with ReLU, int8 with the
-   LN tail and f32; ``attend_kernel`` at head_dim 64 for each row source;
-   ``embed_pe_kernel``, ``sample_advance_kernel`` and
-   ``spec_advance_kernel`` at vpad 384): the phase fails if one has no
-   entry in the build log or spills;
+   LN tail, f32, f32 with ReLU, f32 with the LN tail and the three int8
+   ones of an f32 model; ``attend_kernel`` over bf16 and f32 rows at
+   head_dim 64 for each row source, and over f32 rows at 128;
+   ``embed_pe_kernel`` and ``sample_advance_kernel`` for a bf16 and an f32
+   embedding, and ``spec_advance_kernel`` at vpad 384): the phase fails if
+   one has no entry in the build log or spills;
 2. v2 kernel vs twin: ``fused_decode_step`` against its plain torch twin at
    the flagship width (4 decoder layers, d512, 8 heads, d_ff 2048) with
    random seeded bf16 weights and random biases and LayerNorm parameters,
@@ -165,6 +167,27 @@ paths and prints one line per phase with the elapsed seconds:
    argmax margin is within ``SPEC_MARGIN``, never under greedy, in at most
    2% of the iterations); the kernel alone at W=9 beside its bound, the
    launch floor and its twin;
+2l. the decode kernels on an f32 model (JAX's take any compute dtype), on
+   random f32 flagships (the bf16 flagships' seeds; SMER and REMI), the
+   twins with TF32 off: phase 2h's kernels alone at its shapes
+   (``rowvec_kernel`` f32 at B = 1, 3, 8, 9 with its ReLU and LN tail, the
+   tail at B = 1, 3, 9, 16 bit-equal to the unfused pair, int8 in the f32
+   model at B = 3; ``attend_kernel`` over f32 rows) within ``REL_2L``
+   relative norm of their twins (the controls outside it), beside their
+   bytes bounds and f32 ``torch.mm`` / SDPA; v2 (B 1, 3, 8; S 512 and
+   1536), v3 (SMER and REMI) and v4 (T_chunk 1 and 8) with their logits and
+   K|V rows within ``F32_STEP_ATOL`` of the twins and the tokens under
+   phase 2b's margin rule at that tolerance; v4 bit-equal to v3 x T_chunk;
+   int8 in the f32 model (x unrounded) through ``rowvec_int8``, v2, v3 and
+   v4; the verify (W 1, 9, 17, 24) bit-equal to W sequential v2 steps;
+   whole v3 (B=3), int8 and v4 decodes replayed as CUDA graphs bit-equal to
+   the eager launches, a replayed token's 34 kernels and its time beside
+   the eager token's and the bound; ``SpecGraph`` decodes bit-equal to the
+   eager launches and ``spec_advance_kernel`` (``round_bf16`` 0) against
+   its twin on every iteration; then greedy decodes of the trained snapshot
+   loaded in f32 through v3, v2, v4 and spec decode (draft_k 8), token for
+   token against the f32 plain loop, and int8 v3 against int8 v2, under
+   phase 4's margin rule at ``F32_STEP_ATOL``;
 2f. flash attention vs twin: ``fused_attention`` at B=3, T=S=1536, H=8,
    HD=64, bf16, key lengths 1536/1440/1344, causal and not, and at T, S =
    1000, 777; then a peaked case (q x 4, as a trained encoder's softmax) at
@@ -239,6 +262,16 @@ paths and prints one line per phase with the elapsed seconds:
    through v3 on the same weights with ``flash_encoder=True``, four
    ``fused_attention`` launches an encode; its greedy stream against the
    plain encoder's under the margin rule; one encode timed each way;
+3e. the trained snapshot served as an f32 model through ``InfillEngine``
+   with ``fused=None``, which resolves to the kernels on CUDA: phase 3's
+   batch through v3 (graph replays), v2, v4 (``token_chunk=8``, the v3
+   run's tokens) and int8, one request through speculative decode
+   (``draft_k=8``), each path's counters alone; the batch's wall time,
+   greedy, through the kernels and through the plain loop (``fused=False``),
+   twice each after a warm run; one replayed W=9 spec iteration (events
+   and device time); the profiler's device launches of ``rowvec_kernel``,
+   ``attend_kernel``, ``sample_advance_kernel`` and
+   ``spec_advance_kernel``, each of which must have run;
 5. train on the card: the flagship (4+4 layers, d512, 8 heads, d_ff 2048,
    SMER vocab) from a seeded random init, bf16, dropout 0.1, lr 1e-4, 20
    lean train steps on one fixed seeded batch of 8 x 640 + 384 token ids
@@ -419,6 +452,12 @@ ATOL, RTOL = 5e-2, 2e-2
 # same bf16 operands, only the order differs): |kernel - twin| / |twin|,
 # far under what one 64-row split or one K-slice left out moves (~0.1)
 REL_2H = 1e-3
+# an f32 model (phases 2l and 3e): a decode kernel alone against its twin
+# (f32 sums of f32 operands, the twins with TF32 off), in relative norm;
+# the step's logits and K|V rows against the twin within F32_STEP_ATOL, the
+# bound tests/test_torch_decode_step.py holds the f32 twin to against JAX
+REL_2L = 1e-5
+F32_STEP_ATOL = 1e-4
 TIE = 1e-5  # the sampler alone on identical logits may part only at a tie this close
 MAX_CLOSE_SHARE = 0.02  # the share of v3 state rows that may take the margin exception
 SERVED_CASE = (3, 1536, 512)  # (B, S, index): the served batch's shape, where both kernels are timed
@@ -523,11 +562,22 @@ DECODE_KERNELS = {
     "rowvec_kernel<int8, relu>": "rowvec_kernelIaLb1ELb1ELb0EE",
     "rowvec_kernel<int8, LN tail>": "rowvec_kernelIaLb1ELb0ELb1EE",
     "rowvec_kernel<f32>": "rowvec_kernelIfLb0ELb0ELb0EE",
-    "attend_kernel<64, cache>": "attend_kernelILi64ELi0E",
-    "attend_kernel<64, chunk>": "attend_kernelILi64ELi1E",
-    "attend_kernel<64, window>": "attend_kernelILi64ELi2E",
-    "embed_pe_kernel": "embed_pe_kernel",
-    "sample_advance_kernel": "sample_advance_kernel",
+    "rowvec_kernel<f32, relu>": "rowvec_kernelIfLb0ELb1ELb0EE",
+    "rowvec_kernel<f32, LN tail>": "rowvec_kernelIfLb0ELb0ELb1EE",
+    "rowvec_kernel<int8 in f32>": "rowvec_kernelIaLb0ELb0ELb0EE",
+    "rowvec_kernel<int8 in f32, relu>": "rowvec_kernelIaLb0ELb1ELb0EE",
+    "rowvec_kernel<int8 in f32, LN tail>": "rowvec_kernelIaLb0ELb0ELb1EE",
+    "attend_kernel<bf16, 64, cache>": "attend_kernelI13__nv_bfloat16Li64ELi0EE",
+    "attend_kernel<bf16, 64, chunk>": "attend_kernelI13__nv_bfloat16Li64ELi1EE",
+    "attend_kernel<bf16, 64, window>": "attend_kernelI13__nv_bfloat16Li64ELi2EE",
+    "attend_kernel<f32, 64, cache>": "attend_kernelIfLi64ELi0EE",
+    "attend_kernel<f32, 64, chunk>": "attend_kernelIfLi64ELi1EE",
+    "attend_kernel<f32, 64, window>": "attend_kernelIfLi64ELi2EE",
+    "attend_kernel<f32, 128, cache>": "attend_kernelIfLi128ELi0EE",
+    "embed_pe_kernel<bf16>": "embed_pe_kernelI13__nv_bfloat16E",
+    "embed_pe_kernel<f32>": "embed_pe_kernelIfE",
+    "sample_advance_kernel<bf16>": "sample_advance_kernelI13__nv_bfloat16E",
+    "sample_advance_kernel<f32>": "sample_advance_kernelIfE",
     "spec_advance_kernel<vpad 384>": "spec_advance_kernelILi12E",
 }
 DECODE_SPILL_BYTES = 0
@@ -655,15 +705,35 @@ def say_split(split, ms: float) -> None:
         f"{1e3 * ms:.1f} us wall, device busy {busy / (1e3 * ms):.1%}")
 
 
+def compute_dtype(packed):
+    """The model's compute dtype (bf16 or f32): the packed embedding's,
+    int8 weights or not."""
+    return packed["emb"].dtype
+
+
+def step_tol(packed):
+    """(atol, rtol) of a step's logits and K|V rows against the twin: the
+    bf16 tolerance (ATOL, RTOL), or an f32 model's F32_STEP_ATOL."""
+    return (ATOL, RTOL) if compute_dtype(packed) == torch.bfloat16 else (F32_STEP_ATOL, 0.0)
+
+
+def op_rate(packed) -> float:
+    """The peak rate of the step's products: bf16's, or f32's outside the
+    tensor cores for an f32 model (its kernels' FMA pipes)."""
+    return BF16_FLOPS if compute_dtype(packed) == torch.bfloat16 else F32_FLOPS
+
+
 def step_bytes_flops(packed, B: int, index: int, cross_len):
-    """Bytes and bf16 operations of one v2 step: every packed decoder weight
+    """Bytes and operations of one v2 step: every packed decoder weight
     (not the embedding, which v2 does not read), x_emb, the valid cache
-    rows and the outputs, each moved once."""
+    rows and the outputs, each moved once; x_emb, the caches and the K|V
+    rows in the compute dtype."""
+    es = compute_dtype(packed).itemsize
     weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
     vpad = packed["fc_w"].shape[1]
     rows = NL * (B * index + int(sum(cross_len)))
-    cache_bytes = rows * 2 * D * 2
-    io_bytes = B * D * 2 + B * vpad * 4 + NL * B * 2 * D * 2 + B * 4
+    cache_bytes = rows * 2 * D * es
+    io_bytes = B * D * es + B * vpad * 4 + NL * B * 2 * D * es + B * 4
     flops = 2 * B * NL * (6 * D * D + 2 * D * F) + 2 * B * D * vpad + 4 * D * rows
     return weight_bytes + cache_bytes + io_bytes, flops
 
@@ -674,7 +744,7 @@ def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> float:
 
 def token_bound_ms(packed, B: int, index: int, cross_len, V: int, nucleus: bool) -> float:
     """Least time of one v3 token.  Bytes: the v2 step's, with B embedding
-    rows (bf16) in place of x_emb and without the logits, which stay inside
+    rows (in the compute dtype) in place of x_emb and without the logits, which stay inside
     the token; fc_w and fc_b over the V real lanes only (the sampling
     tables never allow a pad lane, so its logit, mask entry and noise are
     never needed); then the state in and out, aux, and a row's span type,
@@ -690,7 +760,7 @@ def token_bound_ms(packed, B: int, index: int, cross_len, V: int, nucleus: bool)
     nbytes += 2 * 6 * B * 4 + 2 * B * 4 + B * row + 16 * 4  # ..., sid_tbl (16,) int32
     flops -= 2 * B * D * pad
     flops += 2 * B * V * V if nucleus else 0
-    return bound_ms(nbytes, flops)
+    return bound_ms(nbytes, flops, op_rate(packed))
 
 
 def make_score(bars=16, tracks=3, tempo=100.0, seed=7) -> MidiScore:
@@ -718,16 +788,17 @@ def make_score(bars=16, tracks=3, tempo=100.0, seed=7) -> MidiScore:
     return s
 
 
-def random_flagship(dev, mode: int = 0):
-    """The flagship-width decoder with seeded random bf16 weights, random
-    biases and random LayerNorm parameters (a fresh model has zero biases
-    and unit LayerNorms, so a kernel that dropped a bias or read the wrong
-    offset would still agree), for the SMER (0) or REMI (1) vocabulary."""
+def random_flagship(dev, mode: int = 0, dtype=torch.bfloat16):
+    """The flagship-width decoder with seeded random weights in ``dtype``
+    (bf16, or f32 for phase 2l), random biases and random LayerNorm
+    parameters (a fresh model has zero biases and unit LayerNorms, so a
+    kernel that dropped a bias or read the wrong offset would still agree),
+    for the SMER (0) or REMI (1) vocabulary."""
     torch.manual_seed(mode)
     vocab = WordVocab(mode, ExperimentConfig().control_list)
     model = ScoreTransformer(ModelConfig(
         vocab_size=vocab.vocab_size, d_model=D, nhead=H, num_encoder_layers=1,
-        num_decoder_layers=NL, d_ff=F, dtype=torch.bfloat16,
+        num_decoder_layers=NL, d_ff=F, dtype=dtype,
     )).to(dev).eval()
     with torch.no_grad():
         for m in model.modules():
@@ -743,12 +814,13 @@ def phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 102
                          indices=(0, 1, 511, 512, 1023)):
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
     g = torch.Generator(device=dev).manual_seed(1)
+    cdt, (atol, rtol) = compute_dtype(packed), step_tol(packed)
     worst, report = 0.0, None
     for B in Bs:
         for S in Ss:
-            x = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
-            self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
-            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            x = torch.randn(B, D, generator=g, device=dev).to(cdt)
+            self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(cdt)
+            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(cdt)
             cl_list = [S - (S // 16) * b for b in range(B)]
             cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
             for index in indices:
@@ -760,13 +832,13 @@ def phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 102
                 err = max((lg[:, :V] - lr[:, :V]).abs().max().item(),
                           (kv.float() - kr.float()).abs().max().item())
                 ok = (
-                    torch.allclose(lg[:, :V], lr[:, :V], atol=ATOL, rtol=RTOL)
-                    and torch.allclose(kv.float(), kr.float(), atol=ATOL, rtol=RTOL)
+                    torch.allclose(lg[:, :V], lr[:, :V], atol=atol, rtol=rtol)
+                    and torch.allclose(kv.float(), kr.float(), atol=atol, rtol=rtol)
                     and torch.isfinite(lg[:, :V]).all().item()
                 )
                 ms = cuda_ms(lambda: ds.fused_decode_step(*args, **kw), iters=20)
                 plain_ms = cuda_ms(lambda: ds.fused_decode_step_reference(*args, **kw), iters=5)
-                bound = bound_ms(*step_bytes_flops(packed, B, index, cl_list))
+                bound = bound_ms(*step_bytes_flops(packed, B, index, cl_list), op_rate(packed))
                 say(f"  B={B} S={S} index={index:4d} cross_len={cl_list}: max|kernel-twin|={err:.3e} "
                     f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms")
                 if not ok:
@@ -865,13 +937,14 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
     g = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(3)
+    cdt, (atol, rtol) = compute_dtype(packed), step_tol(packed)
     worst, report, cases = 0.0, None, 0
     close_rows = tie_rows = rows = x_rows = 0
     x_worst = 0.0
     for B in Bs:
         for S in Ss:
-            self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
-            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            self_kv = torch.randn(NL, B, L, 2 * D, generator=g, device=dev).to(cdt)
+            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(cdt)
             cl_list = [S - (S // 16) * b for b in range(B)]
             cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
             noise = gumbel_noise((L, B, vpad), g, dev)
@@ -884,12 +957,12 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
                     torch.cuda.synchronize()
                     rs, rkv = ds.fused_decode_token_reference(*args, **kw, **skw)
                     err = (kkv.float() - rkv.float()).abs().max().item()
-                    if not torch.allclose(kkv.float(), rkv.float(), atol=ATOL, rtol=RTOL):
+                    if not torch.allclose(kkv.float(), rkv.float(), atol=atol, rtol=rtol):
                         raise AssertionError(f"v3 new_kv disagrees at B={B} S={S} index={index} {name}")
                     worst = max(worst, err)
                     # rows where the twin's margin is within what the tolerance allows
                     lg = twin_logits(packed, state, self_kv, cross_kv, index, cross_len, vpad)
-                    delta = ATOL + RTOL * lg[:, :V].abs().amax(dim=-1)
+                    delta = atol + rtol * lg[:, :V].abs().amax(dim=-1)
                     close = decision_flips(lg, state, aux, span_types, noise, index, tables, skw,
                                            eps=2 * delta / temp)
                     differ = (ks != rs).any(dim=0)
@@ -940,7 +1013,7 @@ def phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 4, 8), Ss=(512, 1536
                             f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
                         say_split(device_split(lambda: ds.fused_decode_token(*args, **kw, **skw)), ms)
             say(f"  B={B} S={S}: max|kernel-twin| of new_kv so far {worst:.3e}")
-    say(f"  {cases} cases: new_kv within atol {ATOL} + rtol {RTOL} (max {worst:.3e}); "
+    say(f"  {cases} cases: new_kv within atol {atol} + rtol {rtol} (max {worst:.3e}); "
         f"{close_rows} of {rows} state rows differ where the twin's margin is within that tolerance; "
         f"sample_advance_kernel alone differs in {tie_rows} rows, all exact ties (< {TIE}); "
         f"its next input rows bit-equal to embed_pe_kernel's in all {x_rows} and within "
@@ -968,20 +1041,21 @@ def tokens_bound_ms(packed, B: int, base: int, cross_len, V: int, nucleus: bool,
     Operations: T v3 tokens', each token also attending the chunk rows
     before it."""
     fc_w = packed["fc_w"]
+    es = compute_dtype(packed).itemsize
     pad = fc_w.shape[1] - V
     weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
     weight_bytes -= pad * (D * fc_w.element_size() + packed["fc_b"].element_size())
-    cache_bytes = NL * (B * base + int(sum(cross_len))) * 2 * D * 2
+    cache_bytes = NL * (B * base + int(sum(cross_len))) * 2 * D * es
     row = 4 + V * 4 + ds._N_CLASSES * 4 + (V * 4 if nucleus else 0)
-    per_token = B * D * 2 + NL * B * 2 * D * 2 + B * row + B * 4
+    per_token = B * D * es + NL * B * 2 * D * es + B * row + B * 4
     nbytes = weight_bytes + cache_bytes + T * per_token + 2 * 6 * B * 4 + 3 * B * 4 + 16 * 4
     _, flops = step_bytes_flops(packed, B, base, cross_len)
     flops = T * (flops - 2 * B * D * pad + (2 * B * V * V if nucleus else 0))
     flops += 4 * D * NL * B * T * (T - 1) // 2
-    return bound_ms(nbytes, flops)
+    return bound_ms(nbytes, flops, op_rate(packed))
 
 
-def phase_tokens_vs_twin(dev, flagships):
+def phase_tokens_vs_twin(dev, flagships, Bs=(1, 3, 8), Ts=(1, 8, 64), bases=(0, 512, 1472)):
     """v4 ``fused_decode_tokens`` against its twin and against the v3 kernel
     run T_chunk times over the spliced cache, SMER and REMI."""
     LC = 1536  # the self cache: base + T_chunk <= 1536
@@ -993,14 +1067,15 @@ def phase_tokens_vs_twin(dev, flagships):
         tables = sampling_tables(vocab, vpad, dev)
         V = vocab.vocab_size
         kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
-        for B in (1, 3, 8):
-            self_kv = torch.randn(NL, B, LC, 2 * D, generator=g, device=dev).to(torch.bfloat16)
-            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+        cdt, tol = compute_dtype(packed), step_tol(packed)
+        for B in Bs:
+            self_kv = torch.randn(NL, B, LC, 2 * D, generator=g, device=dev).to(cdt)
+            cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(cdt)
             cl_list = [S - (S // 16) * b for b in range(B)]
             cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
             noise = gumbel_noise((LC, B, vpad), g, dev)
-            for T in (1, 8, 64):
-                for base in (0, 512, LC - 64):
+            for T in Ts:
+                for base in bases:
                     state, aux, span_types = random_states(rng, B, V, dev)
                     state[ds.ST_DONE, 0] = 0  # a live row in every case
                     for name, greedy, p, temp in SAMPLERS[:2]:
@@ -1028,10 +1103,10 @@ def phase_tokens_vs_twin(dev, flagships):
                         rs, rtok, rkv = ds.fused_decode_tokens_reference(*args, **kw, **skw)
                         parted, compared = tokens_against_twin(
                             packed, tables, args, kw, skw, (ks, ktok), (rs, rtok), vpad, V,
-                            f"{vocab.mode=} B={B} T={T} base={base} {name}")
+                            f"{vocab.mode=} B={B} T={T} base={base} {name}", tol)
                         close_rows += parted
                         decisions += compared
-                        worst = max(worst, max_kv_err(ktok, kkv, rtok, rkv))
+                        worst = max(worst, max_kv_err(ktok, kkv, rtok, rkv, tol))
                         rows += B
                         cases += 1
                         if (vocab.mode, B, base, name) == (0, 3, 512, SAMPLERS[1][0]) and T > 1:
@@ -1049,7 +1124,7 @@ def phase_tokens_vs_twin(dev, flagships):
             say(f"  vocab_mode {vocab.mode} B={B}: {cases} cases so far, v4 bit-equal to v3 x T_chunk "
                 f"in all; max|kernel-twin| of new_kv {worst:.3e}")
     say(f"  {cases} cases: tokens, state and K/V bit-equal to the v3 kernel run T_chunk times over "
-        f"the spliced cache; against the twin new_kv within atol {ATOL} + rtol {RTOL} (max "
+        f"the spliced cache; against the twin new_kv within atol {tol[0]} + rtol {tol[1]} (max "
         f"{worst:.3e}) up to each row's first token that differs; {close_rows} of {rows} rows "
         f"part from the twin, each where the twin's margin is within that tolerance, at "
         f"{close_rows} of the {decisions} token decisions compared")
@@ -1070,20 +1145,22 @@ def first_differences(ktok, rtok):
     return torch.where(differ, idx, T).amin(dim=0)
 
 
-def max_kv_err(ktok, kkv, rtok, rkv) -> float:
+def max_kv_err(ktok, kkv, rtok, rkv, tol=(ATOL, RTOL)) -> float:
     """max |kernel - twin| of new_kv over the rows computed from equal
-    inputs: row t of an element while its tokens before t agree."""
+    inputs: row t of an element while its tokens before t agree; each
+    within ``tol`` = (atol, rtol)."""
     first = first_differences(ktok, rtok)
     T = ktok.shape[0]
     keep = torch.arange(T, device=ktok.device)[:, None] <= first[None, :]  # (T, B)
     diff = (kkv.float() - rkv.float()).abs() * keep[None, :, :, None]
-    ok = torch.isclose(kkv.float(), rkv.float(), atol=ATOL, rtol=RTOL) | ~keep[None, :, :, None]
+    ok = torch.isclose(kkv.float(), rkv.float(), atol=tol[0], rtol=tol[1]) | ~keep[None, :, :, None]
     if not ok.all():
         raise AssertionError(f"v4 new_kv disagrees with the twin by {diff.max().item():.3e}")
     return diff.max().item()
 
 
-def tokens_against_twin(packed, tables, args, kw, skw, kernel, twin, vpad, V, label) -> int:
+def tokens_against_twin(packed, tables, args, kw, skw, kernel, twin, vpad, V, label,
+                        tol=(ATOL, RTOL)) -> int:
     """The v4 kernel's tokens and state against the twin's.  A row may part
     from the twin only at a token where the twin's own margin is within what
     the tolerance allows (``decision_flips``, as phase 2b); after that the
@@ -1107,7 +1184,7 @@ def tokens_against_twin(packed, tables, args, kw, skw, kernel, twin, vpad, V, la
             st, _, rows = ds.fused_decode_tokens_reference(*args, **kw, **dict(skw, T_chunk=t))
             cache = splice(self_kv, rows, base)
         lg = twin_logits(packed, st, cache, cross_kv, base + t, cross_len, vpad)
-        delta = ATOL + RTOL * lg[:, :V].abs().amax(dim=-1)
+        delta = tol[0] + tol[1] * lg[:, :V].abs().amax(dim=-1)
         close = decision_flips(lg, st, aux, span_types, noise, base + t, tables,
                                {k: v for k, v in skw.items() if k != "T_chunk"},
                                eps=2 * delta / skw["temperature"])
@@ -1141,7 +1218,7 @@ def eager_decode(packed, tables, state0, aux, span_types, noise, cross_kv, cross
     positions decoded)."""
     B = state0.shape[1]
     state = state0.clone()
-    cache = torch.zeros(NL, B, Lc, 2 * D, dtype=torch.bfloat16, device=state.device)
+    cache = torch.zeros(NL, B, Lc, 2 * D, dtype=compute_dtype(packed), device=state.device)
     out = torch.zeros(B, Lc, dtype=torch.int32, device=state.device)
     out[:, 0] = mask_index
     pos, n = 0, 1 if T is None else T
@@ -1173,7 +1250,8 @@ def graph_decode(graphs, packed, tables, state0, aux, span_types, noise, cross_k
     position on the device."""
     pos, n = 0, 1 if T is None else T
     with dg.open_graph(graphs, packed, tables, state0, aux, span_types, noise, cross_kv, cross_len,
-                       cache_rows=Lc, cache_dtype=torch.bfloat16, T_chunk=T, **kw, **skw) as graph:
+                       cache_rows=Lc, cache_dtype=compute_dtype(packed), T_chunk=T, **kw,
+                       **skw) as graph:
         if not bool((graph.out[:, 0] == mask_index).all()):
             raise AssertionError("the graph's output does not start with the mask token")
         while pos + 1 < L:
@@ -1211,18 +1289,20 @@ def empty_splits_bit_equal(dev, flagships, g) -> int:
     cases = 0
     for name, packed, vpad in flagships:
         kw = dict(n_layers=NL, D=D, H=H, F=F, vpad=vpad, stream=stream)
+        cdt = compute_dtype(packed)
+        ckv = cross_kv.to(cdt)
         for Lc, index, t in ((L, 0, None), (L, 1, None), (L, 512, None), (L, 1000, None),
                              (Lc4, 512, 0), (Lc4, 512, 5)):
-            self_kv = torch.randn(NL, B, Lc, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            self_kv = torch.randn(NL, B, Lc, 2 * D, generator=g, device=dev).to(cdt)
             x0 = torch.randn(B, D, generator=g, device=dev)
             chunk = None if t is None else (
-                torch.randn(NL, T, B, 2 * D, generator=g, device=dev).to(torch.bfloat16), t)
+                torch.randn(NL, T, B, 2 * D, generator=g, device=dev).to(cdt), t)
             got = []
             for at in (index, torch.full((B,), index, dtype=torch.int32, device=dev)):
                 x = x0.clone()
                 logits = torch.empty(B, vpad, device=dev)
-                new_kv = torch.empty(NL, B, 2 * D, dtype=torch.bfloat16, device=dev)
-                ds._launch_layers(lib, packed, x, self_kv, cross_kv, at, cross_len, logits, new_kv,
+                new_kv = torch.empty(NL, B, 2 * D, dtype=cdt, device=dev)
+                ds._launch_layers(lib, packed, x, self_kv, ckv, at, cross_len, logits, new_kv,
                                   chunk=chunk, **kw)
                 got.append((logits, new_kv, x))
             torch.cuda.synchronize()
@@ -1349,7 +1429,7 @@ def launch_floor_us(dev, grid: int, block: int, smem: int):
     return (sum(spans) / len(spans) if spans else float("nan")), events_us
 
 
-def phase_graph_vs_eager(dev, flagships, int8_flagship):
+def phase_graph_vs_eager(dev, flagships, int8_flagship, full: bool = True):
     """Phase 2i: whole decodes replayed as CUDA graphs (``DecodeGraph``, the
     decoder's v3 and v4 path) against the same decodes through the eager
     wrappers, bit-equal in tokens, final state and every cache row: v3 at B
@@ -1358,7 +1438,11 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
     after every decode.  Then times at the served shape: a v3 token eager
     against replayed (CUDA events, the profiler's device time and busy
     share), the int8 token, a v4 chunk of 8 and the captures' ms; and the
-    three small kernels' device time a launch beside their bounds.
+    three small kernels' device time a launch beside their bounds.  The
+    flagships' compute dtype is their packed embedding's (bf16, or f32 in
+    phase 2l, where ``full`` False cuts the decodes to B=3 at S=1536, int8
+    nucleus and v4 at T_chunk 8, and leaves out the small kernels' times;
+    the 34 kernels of a replayed token are still counted).
     Returns {"v3": ..., "v4": ..., "int8": ...} reports and the captures'
     ms."""
     rng = np.random.default_rng(31)
@@ -1378,7 +1462,7 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
         kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
         skw = sampler_kw(vocab, greedy, None if greedy else 0.9, 1.0)
         Lc = L if T is None else Lc4
-        cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+        cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(compute_dtype(packed))
         cross_len = torch.tensor([S - (S // 16) * b for b in range(B)], dtype=torch.int32,
                                  device=dev)
         noise = None if greedy else gumbel_noise((Lc, B, vpad), g, dev)
@@ -1402,8 +1486,8 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
         say(f"  {label}: {gpos} positions, tokens, state and all {Lc} cache rows bit-equal")
 
     for vocab, packed, vpad in flagships:
-        for B in (1, 3, 8):
-            for S in (512, 1536):
+        for B in (1, 3, 8) if full else (3,):
+            for S in (512, 1536) if full else (1536,):
                 for greedy in (True, False):
                     label = (f"v3 vocab_mode {vocab.mode} B={B} S={S} "
                              f"{'greedy' if greedy else 'nucleus p0.9'}")
@@ -1415,15 +1499,16 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
                             raise AssertionError(f"2i {label}: the second decode captured anew")
     vocab, packed, vpad = flagships[0]
     int8_packed = int8_flagship
-    for greedy in (True, False):
+    for greedy in (True, False) if full else (False,):
         check(f"v3 int8 B=3 S=1536 {'greedy' if greedy else 'nucleus p0.9'}", int8_packed, vocab,
               vpad, 3, 1536, greedy)
-    for T in (8, 64):
+    for T in (8, 64) if full else (8,):
         check(f"v4 T_chunk {T} B=3 S=1536 nucleus p0.9", packed, vocab, vpad, 3, 1536, False, T=T)
     say(f"  {cases} whole decodes ({tokens_decoded} positions): the graph replay bit-equal to the "
         f"eager wrappers in every one; the captured graphs' tickets zero after each")
-    n = empty_splits_bit_equal(dev, [("bf16", flagships[0][1], flagships[0][2]),
-                                     ("int8", int8_flagship, flagships[0][2])], g)
+    wname = "bf16" if compute_dtype(packed) == torch.bfloat16 else "f32"
+    n = empty_splits_bit_equal(dev, [(wname, flagships[0][1], flagships[0][2]),
+                                     (f"int8 in {wname}", int8_flagship, flagships[0][2])], g)
     say(f"  {n} layer plans: the self-attention's empty splits change no bit")
 
     # times at the served shape: B=3, S=1536, from index 512
@@ -1433,14 +1518,14 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
     kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
     cl_list = [S - (S // 16) * b for b in range(B)]
     cross_len = torch.tensor(cl_list, dtype=torch.int32, device=dev)
-    cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+    cross_kv = torch.randn(NL, B, S, 2 * D, generator=g, device=dev).to(compute_dtype(packed))
     reports = {}
     dg.reset_counts()
     for name, pk, T in (("v3", packed, None), ("int8", int8_packed, None), ("v4", packed, 8)):
         skw = sampler_kw(vocab, False, 0.9, 1.0)
         Lc = L if T is None else Lc4  # the decoder's cache rows
         graphs = dg.GraphCache()  # each timed graph is captured anew
-        cache = torch.randn(NL, B, Lc, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+        cache = torch.randn(NL, B, Lc, 2 * D, generator=g, device=dev).to(compute_dtype(pk))
         noise = gumbel_noise((Lc, B, vpad), g, dev)
         state, aux, span_types = random_states(rng, B, V, dev)
         state[ds.ST_DONE] = 0  # every row live
@@ -1454,7 +1539,7 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
         # the replays advance the position: 3 + 100 + 11 tokens from 512 (v3)
         # or 3 + 20 + 3 chunks of 8 (v4), up to three times the last for the
         # traces whole_trace takes, inside the cache
-        opened = dict(cache_rows=Lc, cache_dtype=torch.bfloat16, T_chunk=T, start=index)
+        opened = dict(cache_rows=Lc, cache_dtype=compute_dtype(pk), T_chunk=T, start=index)
         with dg.open_graph(graphs, pk, tables, state, aux, span_types, noise, cross_kv, cross_len,
                            **opened, **kw, **skw) as graph:
             t0 = time.perf_counter()
@@ -1517,6 +1602,8 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
                     or "embed_pe_kernel" in ours):
                 raise AssertionError(f"2i: a replayed v3 token ran {ours}, not 34 port kernels "
                                      f"with no add_layernorm_kernel and no embed_pe_kernel")
+            if not full:
+                continue
             # the sampler is a programmatic dependent launch behind the logits
             # launch: its start against the end of the launch before it
             gaps = pdl_gaps(graph_step_at(graphs, pk, tables, state, aux, span_types, noise,
@@ -1580,12 +1667,16 @@ def phase_graph_vs_eager(dev, flagships, int8_flagship):
     return reports
 
 
-def phase_int8(dev, flagship, vocab, vpad):
+def phase_int8(dev, flagship, vocab, vpad, depth=None):
     """int8 weights: the row-vector kernel alone against its twin at the six
     matrix shapes of a layer, then v2, v3 and v4 with int8 against their
-    twins (the phase-2 tolerance and margin rule).  Returns the rowvec
-    error, its report at the served B=3 and the v3-int8 report."""
+    twins (the phase-2 tolerance and margin rule), in the model's compute
+    dtype (bf16; an f32 model's x unrounded, at F32_STEP_ATOL).  ``depth``:
+    the (Bs, Ss, indices) of the v2 and v3 checks and the (Bs, Ts, bases)
+    of v4's, where not the full sets.  Returns the rowvec error, its report
+    at the served B=3 and the v3-int8 report."""
     packed = ds.pack_decoder_weights(flagship, vpad, quant="int8")
+    cdt, (atol, rtol) = compute_dtype(packed), step_tol(packed)
     g = torch.Generator(device=dev).manual_seed(6)
 
     def calls(B, fn):
@@ -1602,10 +1693,10 @@ def phase_int8(dev, flagship, vocab, vpad):
     worst, report = 0.0, None
     for B in (1, 3, 8):
         for fn, x, q, sc, b, relu in calls(B, ds.rowvec_int8):
-            y = fn(x, q, sc, b, relu=relu)
+            y = fn(x, q, sc, b, relu=relu, compute_dtype=cdt)
             torch.cuda.synchronize()
-            r = ds.rowvec_int8_reference(x, q, sc, b, relu=relu)
-            if not torch.allclose(y, r, atol=ATOL, rtol=RTOL):
+            r = ds.rowvec_int8_reference(x, q, sc, b, relu=relu, compute_dtype=cdt)
+            if not torch.allclose(y, r, atol=atol, rtol=rtol):
                 raise AssertionError(f"rowvec_int8 disagrees with its twin at B={B} "
                                      f"K={q.shape[0]} N={q.shape[1]}")
             worst = max(worst, (y - r).abs().max().item())
@@ -1614,26 +1705,26 @@ def phase_int8(dev, flagship, vocab, vpad):
 
             def run(f):
                 for _, x, q, sc, b, relu in batch:
-                    f(x, q, sc, b, relu=relu)
+                    f(x, q, sc, b, relu=relu, compute_dtype=cdt)
 
             ms = cuda_ms(lambda: run(ds.rowvec_int8), iters=20)
             plain_ms = cuda_ms(lambda: run(ds.rowvec_int8_reference), iters=5)
             nbytes = sum(q.numel() + 4 * (2 * q.shape[1]) + 4 * B * (q.shape[0] + q.shape[1])
                          for _, x, q, *_ in batch)
             flops = sum(2 * B * q.numel() for _, x, q, *_ in batch)
-            report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes, flops))
+            report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes, flops, op_rate(packed)))
             say(f"  rowvec_int8, the 24 int8 matrices of a token at B={B}: kernel {ms:.4f} ms, "
                 f"twin {plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
-    say(f"  rowvec_int8 within atol {ATOL} + rtol {RTOL} of its twin at B 1, 3, 8 "
+    say(f"  rowvec_int8 ({cdt}) within atol {atol} + rtol {rtol} of its twin at B 1, 3, 8 "
         f"(max {worst:.3e})")
+    v2, v3, v4 = depth or (((1, 3, 8), (512, 1536), (0, 512, 1023)),
+                           ((1, 3, 8), (1536,), (0, 512)), ((1, 3, 8), (1, 8, 64), (0, 512, 1472)))
     say("  v2 with int8 weights against its twin")
-    worst2, _ = phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(512, 1536),
-                                     indices=(0, 512, 1023))
+    worst2, _ = phase_kernel_vs_twin(dev, packed, vocab, vpad, *v2)
     say("  v3 with int8 weights against its twin")
-    worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(1536,),
-                                          indices=(0, 512))
+    worst3, report3 = phase_token_vs_twin(dev, packed, vocab, vpad, *v3)
     say("  v4 with int8 weights against its twin and against v3 x T_chunk")
-    worst4, _ = phase_tokens_vs_twin(dev, [(vocab, packed, vpad)])
+    worst4, _ = phase_tokens_vs_twin(dev, [(vocab, packed, vpad)], *v4)
     say(f"  int8: v2 max|kernel-twin| {worst2:.3e}, v3 new_kv {worst3:.3e}, v4 new_kv {worst4:.3e}")
     return max(worst, worst2, worst3, worst4), report, report3
 
@@ -1644,15 +1735,17 @@ def verify_bytes_flops(packed, W: int, index: int, cross_len: int, vpad: int):
     ``cross_len`` cross rows once, the W input rows, the (W, vpad) logits
     and the new K|V rows; the W rows' matrix products and attention (row j
     over index + j + 1 self rows and the cross rows)."""
+    es = compute_dtype(packed).itemsize
     weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "emb")
-    cache_bytes = NL * (index + cross_len) * 2 * D * 2
-    io_bytes = W * D * 2 + W * vpad * 4 + NL * W * 2 * D * 2 + 4
+    cache_bytes = NL * (index + cross_len) * 2 * D * es
+    io_bytes = W * D * es + W * vpad * 4 + NL * W * 2 * D * es + 4
     rows = W * index + W * (W + 1) // 2 + W * cross_len
     flops = 2 * W * NL * (6 * D * D + 2 * D * F) + 2 * W * D * vpad + 4 * D * NL * rows
     return weight_bytes + cache_bytes + io_bytes, flops
 
 
-def phase_verify_vs_twin(dev, flagships):
+def phase_verify_vs_twin(dev, flagships, Ss=(512, 1536), widths=VERIFY_WIDTHS,
+                         indices=(0, 512, 1530)):
     """``fused_verify_window`` against its twin, and each of its rows
     against the v2 kernel's step over the spliced cache."""
     LV = 1600  # the self cache: index + W <= 1554
@@ -1661,20 +1754,21 @@ def phase_verify_vs_twin(dev, flagships):
     for vocab, packed, vpad in flagships:
         kw = dict(n_layers=NL, d_model=D, nhead=H, d_ff=F, vpad=vpad)
         V = vocab.vocab_size
-        for S in (512, 1536):
-            self_kv = torch.randn(NL, 1, LV, 2 * D, generator=g, device=dev).to(torch.bfloat16)
-            cross_kv = torch.randn(NL, 1, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+        cdt, (atol, rtol) = compute_dtype(packed), step_tol(packed)
+        for S in Ss:
+            self_kv = torch.randn(NL, 1, LV, 2 * D, generator=g, device=dev).to(cdt)
+            cross_kv = torch.randn(NL, 1, S, 2 * D, generator=g, device=dev).to(cdt)
             cl = S - S // 16
             cross_len = torch.tensor([cl], dtype=torch.int32, device=dev)
-            for W in VERIFY_WIDTHS:
-                x = torch.randn(W, D, generator=g, device=dev).to(torch.bfloat16)
-                for index in (0, 512, 1530):
+            for W in widths:
+                x = torch.randn(W, D, generator=g, device=dev).to(cdt)
+                for index in indices:
                     args = (packed, x, self_kv, cross_kv, index, cross_len)
                     lg, kv = ds.fused_verify_window(*args, **kw)
                     torch.cuda.synchronize()
                     lr, kr = ds.fused_verify_window_reference(*args, **kw)
-                    ok = (torch.allclose(lg[:, :V], lr[:, :V], atol=ATOL, rtol=RTOL)
-                          and torch.allclose(kv.float(), kr.float(), atol=ATOL, rtol=RTOL)
+                    ok = (torch.allclose(lg[:, :V], lr[:, :V], atol=atol, rtol=rtol)
+                          and torch.allclose(kv.float(), kr.float(), atol=atol, rtol=rtol)
                           and torch.isfinite(lg[:, :V]).all().item())
                     err = max((lg[:, :V] - lr[:, :V]).abs().max().item(),
                               (kv.float() - kr.float()).abs().max().item())
@@ -1709,7 +1803,7 @@ def phase_verify_vs_twin(dev, flagships):
                         step_ms = cuda_ms(lambda: ds.fused_decode_step(
                             packed, x[:1], self_kv, cross_kv, index, cross_len, **kw), iters=20)
                         nbytes, flops = verify_bytes_flops(packed, W, index, cl, vpad)
-                        bound = bound_ms(nbytes, flops)
+                        bound = bound_ms(nbytes, flops, op_rate(packed))
                         report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
                         say(f"  W={W} index={index} S={S} cross_len={cl}: kernel {ms:.4f} ms "
                             f"({ms / W:.4f} ms a row), twin {plain_ms:.4f} ms, bound {bound:.5f} ms "
@@ -1718,10 +1812,13 @@ def phase_verify_vs_twin(dev, flagships):
                         say_split(device_split(lambda: ds.fused_verify_window(*args, **kw)), ms)
             say(f"  vocab_mode {vocab.mode} S={S}: {cases} cases so far, max|kernel-twin| {worst:.3e}, "
                 f"{equal} bit-equal to the v2 steps")
-    say(f"  {cases} cases within atol {ATOL} + rtol {RTOL} of the twin (max {worst:.3e}); "
+    say(f"  {cases} cases within atol {atol} + rtol {rtol} of the twin (max {worst:.3e}); "
         f"{equal} of {cases} bit-equal to W sequential v2 kernel steps over the spliced cache "
         f"(largest difference {step_diff:.3e}); {pos_equal} of {cases} bit-equal at a (1,) position "
         "tensor")
+    if equal != cases:
+        raise AssertionError(f"the verify is bit-equal to W sequential v2 steps in {equal} of "
+                             f"{cases} cases only")
     return worst, report
 
 
@@ -1884,7 +1981,7 @@ def spec_kernel_alone(graph, rec):
     return (sum(spans) / len(spans) if spans else float("nan")), plain_ms
 
 
-def phase_spec_graph(dev, flagships):
+def phase_spec_graph(dev, flagships, cases=None, probe: bool = True):
     """Phase 2k: speculative decode's iteration as the decoder runs it on
     the card (``SpecGraph``: the verify's launches, ``spec_advance_kernel``
     and the cache copy, one CUDA-graph replay an iteration) on the random
@@ -1895,10 +1992,14 @@ def phase_spec_graph(dev, flagships):
     launch of the eager decodes held against ``spec_advance_reference`` on
     its recorded inputs (:func:`spec_against_twin`); ``spec_advance_kernel``
     alone at the served width beside its bound, the launch floor and its
-    twin."""
+    twin.  ``cases``: the (greedy, draft_k, max_tgt_len) of the decodes
+    where not the full set; ``probe``: the kernel's stages by
+    ``scripts/spec_advance_probe.py`` after them.  The flagships' models
+    may be bf16 or f32 (phase 2l: the kernel's ``round_bf16`` 0 path)."""
     rng = np.random.default_rng(11)
     eager_open = functools.partial(dg.open_spec_graph, graph=False)
-    cases = [(g, k, L) for g in (True, False) for k in SPEC_KS] + [(False, SPEC_K, SPEC_CAP_L)]
+    if cases is None:
+        cases = [(g, k, L) for g in (True, False) for k in SPEC_KS] + [(False, SPEC_K, SPEC_CAP_L)]
     totals = dict(iterations=0, equal=0, close=0, x_err=0.0, decodes=0)
     report = None
     for vocab, model, _, vpad in flagships:
@@ -1952,7 +2053,8 @@ def phase_spec_graph(dev, flagships):
     if share > MAX_CLOSE_SHARE:
         raise AssertionError(f"spec_advance_kernel parts from its twin in {share:.2%} of the "
                              f"iterations (at most {MAX_CLOSE_SHARE:.0%})")
-    spec_stage_breakdown()
+    if probe:
+        spec_stage_breakdown()
     return totals["x_err"], report
 
 
@@ -2017,45 +2119,47 @@ def rel_err(got, want) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def hold_to_twin(label, got, want, control) -> float:
-    """``got`` within REL_2H relative norm of the twin's ``want``, and the
-    twin's ``control`` (the same call with its last split left out) outside
-    it, so that the bound can see a lost split.  Returns the error."""
+def hold_to_twin(label, got, want, control, rel=REL_2H) -> float:
+    """``got`` within ``rel`` relative norm of the twin's ``want`` (REL_2H;
+    an f32 model's REL_2L), and the twin's ``control`` (the same call with
+    its last split left out) outside it, so that the bound can see a lost
+    split.  Returns the error."""
     err, ctl = rel_err(got, want), rel_err(control, want)
-    if err > REL_2H:
+    if err > rel:
         raise AssertionError(f"{label} disagrees with its twin: |kernel - twin| / |twin| "
-                             f"{err:.3e} > {REL_2H}")
-    if ctl <= REL_2H:
-        raise AssertionError(f"{label}: the twin without its last split is within {REL_2H} "
+                             f"{err:.3e} > {rel}")
+    if ctl <= rel:
+        raise AssertionError(f"{label}: the twin without its last split is within {rel} "
                              f"({ctl:.3e}): the bound cannot see a lost split")
     return err
 
 
-def rowvec_time(dev, lib, stream, case, B, g, check=True):
+def rowvec_time(dev, lib, stream, case, B, g, check=True, cdt=None, rel=REL_2H):
     """One projection through ``_launch_rowvec`` at B rows: held against
     the twin (``_rowvec_math``; the control leaves out the last K-slice of
-    ``rowvec_k_split``), then its ms a launch (CUDA events over back-to-back
-    launches; where the host's launch rate is the slower, that rate), its
-    device µs (the profiler), its bytes bound (W, x, y, bias and scales each
-    moved once) and, as the yardstick, ``torch.mm`` of the bf16-rounded x
-    against the same W (for int8, a bf16 copy of the same values; for the
-    f32 logits, x and W in f32), in CUDA-event ms and device µs."""
+    ``rowvec_k_split``) within ``rel``, then its ms a launch (CUDA events
+    over back-to-back launches; where the host's launch rate is the slower,
+    that rate), its device µs (the profiler), its bytes bound (W, x, y, bias
+    and scales each moved once) and, as the yardstick, ``torch.mm`` of the
+    bf16-rounded x against the same W (for int8, a bf16 copy of the same
+    values; for the f32 logits, x and W in f32; in an f32 model, ``cdt``,
+    x and W in f32, int8 as an f32 copy), in CUDA-event ms and device µs."""
     label, w, ld, bias, sc, K, N, relu, cols = case
     x = torch.randn(B, K, generator=g, device=dev)
     y = torch.empty(B, N, device=dev)
     ws, tickets = ds._scratch(dev, stream, *ds._rowvec_need(K, N, B))
     scratch = (ws.data_ptr(), tickets.data_ptr())
+    if cdt is None or w.dtype == torch.float32:
+        cdt = torch.float32 if w.dtype == torch.float32 else torch.bfloat16
 
     def kernel():
         ds._launch_rowvec(lib, x, w, ld, bias, y, stream=stream, scratch=scratch, relu=relu,
-                          colscale=sc)
+                          colscale=sc, cdt=cdt)
 
     kernel()
     torch.cuda.synchronize()
     err = None
     if check:
-        cdt = torch.float32 if w.dtype == torch.float32 else torch.bfloat16
-
         def twin(xs):  # over the real columns
             out = ds._rowvec_math(xs, w, cdt, sc) + bias
             return (torch.relu(out) if relu else out)[:, :cols]
@@ -2063,14 +2167,14 @@ def rowvec_time(dev, lib, stream, case, B, g, check=True):
         last = (K - 1) // ds.rowvec_k_split(K, N) * ds.rowvec_k_split(K, N)
         x_ctl = x.clone()
         x_ctl[:, last:] = 0
-        err = hold_to_twin(f"rowvec_kernel {label} B={B} {w.dtype}", y[:, :cols], twin(x),
-                           twin(x_ctl))
+        err = hold_to_twin(f"rowvec_kernel {label} B={B} {w.dtype} in {cdt}", y[:, :cols],
+                           twin(x), twin(x_ctl), rel)
     ms = cuda_ms(kernel, iters=100, warmup=10)
     dev_us = device_us(kernel, "rowvec_kernel") if check else None
     nbytes = K * N * w.element_size() + 4 * (B * K + B * N + N) + (4 * N if sc is not None else 0)
-    bound = bound_ms(nbytes, 2 * B * K * N)
-    if w.dtype == torch.float32:
-        xl, wl = x, w
+    bound = bound_ms(nbytes, 2 * B * K * N, BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
+    if cdt == torch.float32:
+        xl, wl = x, w.float()
     else:
         xl, wl = x.to(torch.bfloat16), w.to(torch.bfloat16) if w.dtype == torch.int8 else w
 
@@ -2099,7 +2203,8 @@ def ln_tail_time(dev, lib, stream, packed, vpad, V, case, B, g, check=True):
     res0 = 2.0 * torch.randn(B, N, generator=g, device=dev)
     res, y = res0.clone(), torch.empty(B, N, device=dev)
     ws, tickets = ds._scratch(dev, stream, *ds._rowvec_need(K, N, B))
-    kw = dict(stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()), colscale=sc)
+    kw = dict(stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()), colscale=sc,
+              cdt=compute_dtype(packed))
 
     def fused():
         ds._launch_rowvec(lib, x, w, ld, bias, y, ln=(res, gamma, beta, fin), **kw)
@@ -2117,7 +2222,8 @@ def ln_tail_time(dev, lib, stream, packed, vpad, V, case, B, g, check=True):
         if fin is not None:
             add_layernorm(None, fin)
 
-    what = f"{label}{' + final LN' if chained else ''} K={K} N={N} B={B} {w.dtype}"
+    what = (f"{label}{' + final LN' if chained else ''} K={K} N={N} B={B} {w.dtype} in "
+            f"{compute_dtype(packed)}")
     if check:
         fused()
         torch.cuda.synchronize()
@@ -2152,7 +2258,8 @@ def add_up(total, one, n):
             total[k] = None if v is None or total.get(k, 0.0) is None else total.get(k, 0.0) + n * v
 
 
-def phase_decode_kernels(dev, packed, model, vpad):
+def phase_decode_kernels(dev, packed, model, vpad, rel=REL_2H, rows=None, tail_rows=None,
+                         sweep: bool = True):
     """Phase 2h: ``rowvec_kernel`` and ``attend_kernel`` alone at the
     shapes of the served token, each held against its twin within REL_2H
     relative norm (and a control with one split left out shown outside it)
@@ -2162,18 +2269,29 @@ def phase_decode_kernels(dev, packed, model, vpad):
     sums, and rowvec's ms a launch at every row count 1..16 (a launch must
     not jump from one row count to the next); then the LN tail
     (``ln_tail_time``) of each projection of LN_TAILS at B = 1, 3, 8, 9, 16
-    (bf16) and 3 (int8)."""
+    (bf16) and 3 (int8).  On an f32 model (phase 2l) the same within
+    ``rel`` = REL_2L at the ``rows`` and ``tail_rows`` given, its int8
+    weights reading x unrounded, the yardsticks ``torch.mm`` and SDPA in f32,
+    without the sweep over row counts (``sweep``).  Returns the per-token
+    sums of the row-vector launches by weight type and B, and of the
+    attention's."""
     lib = ds.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(12)
     int8 = ds.pack_decoder_weights(model, vpad, quant="int8")
+    cdt = compute_dtype(packed)
+    mname = "bf16" if cdt == torch.bfloat16 else "f32"
+    iname = "int8" if cdt == torch.bfloat16 else "int8 in f32"
+    rows = rows or ((1, 3, 8, SPEC_K + 1), (3,))
+    tail_rows = tail_rows or ((1, 3, 8, SPEC_K + 1, 16), (3,))
     V = model.fc.bias.shape[0]
     worst = 0.0
-    for wname, pk, rows in (("bf16", packed, (1, 3, 8, SPEC_K + 1)), ("int8", int8, (3,))):
-        for B in rows:
+    result = {"rowvec": {}}
+    for wname, pk, wrows in ((mname, packed, rows[0]), (iname, int8, rows[1])):
+        for B in wrows:
             token = {}
             for case in rowvec_cases(pk, vpad, V):
-                t = rowvec_time(dev, lib, stream, case, B, g)
+                t = rowvec_time(dev, lib, stream, case, B, g, cdt=cdt, rel=rel)
                 worst = max(worst, t["err"])
                 add_up(token, t, 1 if case[0] == "logits" else NL)
                 say(f"  rowvec {wname} {case[0]:9s} K={case[5]:4d} N={case[6]:4d} B={B:2d}: kernel "
@@ -2183,7 +2301,8 @@ def phase_decode_kernels(dev, packed, model, vpad):
             say(f"  rowvec {wname} B={B}: a token's 25 launches {1e3 * token['ms']:.1f} us (device "
                 f"{us(token['dev_us'])}), bound {1e3 * token['bound']:.1f} us, torch.mm "
                 f"{1e3 * token['lib_ms']:.1f} us (device {us(token['lib_us'])})")
-    for label in ("QKV", "FFN down"):
+            result["rowvec"][wname, B] = token
+    for label in ("QKV", "FFN down") if sweep else ():
         case = next(c for c in rowvec_cases(packed, vpad, V) if c[0] == label)
         times = [rowvec_time(dev, lib, stream, case, B, g, check=False)["ms"]
                  for B in range(1, 17)]
@@ -2193,8 +2312,8 @@ def phase_decode_kernels(dev, packed, model, vpad):
     # the LN tail of the three projections that feed a post-LN: bit-equal
     # to the unfused pair, and its cost
     cases = 0
-    for wname, pk, rows in (("bf16", packed, (1, 3, 8, SPEC_K + 1, 16)), ("int8", int8, (3,))):
-        for B in rows:
+    for wname, pk, wrows in ((mname, packed, tail_rows[0]), (iname, int8, tail_rows[1])):
+        for B in wrows:
             for case in LN_TAILS:
                 t = ln_tail_time(dev, lib, stream, pk, vpad, V, case, B, g)
                 cases += 1
@@ -2210,8 +2329,8 @@ def phase_decode_kernels(dev, packed, model, vpad):
     B, S, index = SERVED_CASE
     HD = D // H
     qkv = torch.randn(B, 3 * D, generator=g, device=dev)
-    self_kv = torch.randn(B, L, 2 * D, generator=g, device=dev).to(torch.bfloat16)
-    cross_kv = torch.randn(B, S, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+    self_kv = torch.randn(B, L, 2 * D, generator=g, device=dev).to(cdt)
+    cross_kv = torch.randn(B, S, 2 * D, generator=g, device=dev).to(cdt)
     cl = [S - (S // 16) * b for b in range(B)]
     cross_len = torch.tensor(cl, dtype=torch.int32, device=dev)
     out = torch.empty(B, D, device=dev)
@@ -2236,21 +2355,21 @@ def phase_decode_kernels(dev, packed, model, vpad):
         kernel()
         torch.cuda.synchronize()
         n = torch.tensor(lens, device=dev)
-        err = hold_to_twin(f"attend_kernel ({name})", out, twin(n),
-                           twin(n - torch.tensor([last_split(m) for m in lens], device=dev)))
+        err = hold_to_twin(f"attend_kernel ({name}, {mname})", out, twin(n),
+                           twin(n - torch.tensor([last_split(m) for m in lens], device=dev)), rel)
         worst = max(worst, err)
         ms = cuda_ms(kernel, iters=100, warmup=10)
         dev_us = device_us(kernel, "attend_kernel")
-        rows = sum(lens)
-        nbytes = rows * 2 * D * 2 + 4 * B * D * 2 + (8 * B * D if name == "self" else 0)
-        bound = bound_ms(nbytes, 4 * D * rows)
+        n_kv = sum(lens)
+        nbytes = n_kv * 2 * D * cdt.itemsize + 4 * B * D * 2 + (8 * B * D if name == "self" else 0)
+        bound = bound_ms(nbytes, 4 * D * n_kv, BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
         # the yardstick: SDPA of a (B, H, 1, 64) query over the cache's K and
         # V as strided (B, H, L, 64) views, masked to each row's length (the
         # current row of the self case is not in it)
         Lk = kv.shape[1]
         kview = kv[..., :D].view(B, Lk, H, HD).transpose(1, 2)
         vview = kv[..., D:].view(B, Lk, H, HD).transpose(1, 2)
-        qb = q.to(torch.bfloat16).view(B, H, 1, HD)
+        qb = q.to(cdt).view(B, H, 1, HD)
         mask = (torch.arange(Lk, device=dev)[None, :] < n[:, None])[:, None, None, :]
 
         def library():
@@ -2265,8 +2384,10 @@ def phase_decode_kernels(dev, packed, model, vpad):
     say(f"  attend B={B}: a token's 8 launches {1e3 * token['ms']:.1f} us (device "
         f"{us(token['dev_us'])}), bound {1e3 * token['bound']:.1f} us, SDPA "
         f"{1e3 * token['lib_ms']:.1f} us (device {us(token['lib_us'])})")
-    say(f"  both kernels within {REL_2H} relative norm of their twins (worst {worst:.2e}); the "
+    say(f"  both kernels within {rel} relative norm of their twins (worst {worst:.2e}); the "
         f"twins without their last split outside it")
+    result["attend"] = token
+    return result
 
 
 def attention_bound(B: int, T: int, S: int, lens, causal: bool, heads: int = H, hd: int = HD_ATTN,
@@ -3500,14 +3621,15 @@ def twin_graph(graphs, packed, tables, state, aux, span_types, noise, cross_kv, 
 
 
 def check_divergence(model, vocab, asm, a, b, label, other, *, f32_row: bool, quant="none",
-                     either: bool) -> None:
+                     either: bool, tol=(ATOL, RTOL)) -> None:
     """Where the two greedy token streams ``a`` and ``b`` first differ, the
     twin's logits are recomputed on the shared prefix (``model``'s plain
     encoder, the v2 twin on ``f32_row`` input rows as v3 builds them, or on
     rows rounded to the compute dtype as v2 and the verify build them): the
     two paths may part only where the twin's margin between its token and
-    the other's is within the phase-2 tolerance on each of the two logits.
-    Against the twin, the twin's own token may lead by at most that; with
+    the other's is within the phase-2 tolerance ``tol`` (an f32 model's
+    F32_STEP_ATOL) on each of the two logits.  Against the twin (or the
+    plain loop), the twin's own token may lead by at most that; with
     ``either``, between two kernel paths, either may."""
     n = min(len(a), len(b))
     diff = (a[:n] != b[:n]).nonzero()
@@ -3543,7 +3665,7 @@ def check_divergence(model, vocab, asm, a, b, label, other, *, f32_row: bool, qu
 
     ta, tb = sampled(a), sampled(b)
     gap = (lg[tb] - lg[ta]).item()
-    allowed = 2 * ATOL + RTOL * (abs(lg[ta].item()) + abs(lg[tb].item()))
+    allowed = 2 * tol[0] + tol[1] * (abs(lg[ta].item()) + abs(lg[tb].item()))
     say(f"  {label} path and {other} path first differ at position {p} of {n}: "
         f"{vocab.index2char(ta)!r} vs {vocab.index2char(tb)!r}; twin logit gap "
         f"{gap:.4f}, tolerance {allowed:.4f}")
@@ -4889,12 +5011,183 @@ def classifier_check(dev, vocab, cpu_batch, card) -> None:
 
 
 
-def trained_flagship(dev):
-    """The committed trained snapshot in bf16 on the card, with the score
-    and the served events of phase 3 (for a run of some phases alone)."""
+def phase_f32(dev):
+    """Phase 2l: the decode kernels on an f32 model, as JAX's take any
+    compute dtype.  On random f32 flagships (SMER and REMI; the bf16
+    flagships' seeds in f32): each kernel alone at phase 2h's shapes within
+    REL_2L of its twin (``rowvec_kernel`` f32, with its ReLU and LN tail,
+    and int8 reading x unrounded; ``attend_kernel`` over f32 rows), beside
+    its bytes bound and f32 ``torch.mm`` / SDPA; v2's logits and K|V rows,
+    v3's K|V rows and v4's against their twins within F32_STEP_ATOL, their
+    tokens with phase 2b's margin rule; v4 bit-equal to v3 x T_chunk; the
+    verify window bit-equal to W sequential v2 steps; int8 in the f32 model
+    through v2, v3 and v4; whole v3, v4 and int8 decodes replayed as CUDA
+    graphs bit-equal to the eager launches, the replayed token's 34 kernels
+    and its time; speculative decode's ``SpecGraph`` bit-equal to eager
+    launches, ``spec_advance_kernel`` (``round_bf16`` 0) against its twin.
+    Then greedy decodes of the trained snapshot loaded in f32 through v3,
+    v2, v4 and spec decode (draft_k 8) token for token against the f32
+    plain loop, and int8 v3 against int8 v2, under the margin rule at
+    F32_STEP_ATOL.  The twins run with TF32 off.  Returns the reports."""
+    out = {}
+    vocab, model, packed, vpad = random_flagship(dev, dtype=torch.float32)
+    remi_vocab, remi_model, remi_packed, _ = random_flagship(dev, mode=1, dtype=torch.float32)
+    flagships = [(vocab, packed, vpad), (remi_vocab, remi_packed, vpad)]
+    say("  2l kernels alone (f32 model): rowvec_kernel and its LN tail, attend_kernel")
+    out["kernels"] = phase_decode_kernels(dev, packed, model, vpad, rel=REL_2L,
+                                          rows=((1, 3, 8, SPEC_K + 1), (3,)),
+                                          tail_rows=((1, 3, SPEC_K + 1, 16), (3,)), sweep=False)
+    say("  2l v2 (f32) against its twin")
+    out["v2"] = phase_kernel_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(512, 1536),
+                                     indices=(0, 511, 512, 1023))
+    say("  2l v3 (f32) against its twin, SMER then REMI")
+    out["v3"] = phase_token_vs_twin(dev, packed, vocab, vpad, Bs=(1, 3, 8), Ss=(1536,),
+                                    indices=(0, 512))
+    phase_token_vs_twin(dev, remi_packed, remi_vocab, vpad, Bs=(3,), Ss=(1536,), indices=(0, 512))
+    say("  2l v4 (f32) against its twin and against v3 x T_chunk")
+    out["v4"] = phase_tokens_vs_twin(dev, flagships, Bs=(1, 3), Ts=(1, 8), bases=(0, 512))
+    say("  2l int8 weights in the f32 model: rowvec_int8, v2, v3, v4")
+    out["int8"] = phase_int8(dev, model, vocab, vpad, depth=(
+        ((3,), (1536,), (0, 512)), ((3,), (1536,), (0, 512)), ((3,), (8,), (512,))))
+    say("  2l verify (f32) against its twin and W sequential v2 steps")
+    out["verify"] = phase_verify_vs_twin(dev, flagships, Ss=(1536,), widths=(1, 9, 17, 24),
+                                         indices=(0, 512))
+    say("  2l graphs (f32): whole decodes replayed = eager, the replayed token's time")
+    out["graph"] = phase_graph_vs_eager(dev, flagships,
+                                        ds.pack_decoder_weights(model, vpad, quant="int8"),
+                                        full=False)
+    say("  2l speculative decode (f32): SpecGraph = eager, spec_advance_kernel vs its twin")
+    out["spec"] = phase_spec_graph(
+        dev, [(vocab, model, packed, vpad), (remi_vocab, remi_model, remi_packed, vpad)],
+        cases=[(True, SPEC_K, L), (False, SPEC_K, L), (False, 24, L)], probe=False)
+    del model, packed, remi_model, remi_packed
+    say("  2l greedy decodes of the trained snapshot in f32 against the f32 plain loop")
+    tmodel, tvocab, _, events = trained_flagship(dev, torch.float32)
+    asm = greedy_request(tmodel, tvocab, events)
+    tol = (F32_STEP_ATOL, 0.0)
+    plain = InfillDecoder(tmodel, tvocab, max_tgt_len=L, greedy=True, nucleus_p=None, fused=False)
+    reset_counts()
+    res = plain(*asm[:4])
+    b = res.tokens[0, : int(res.lengths[0])].cpu()
+    check_counts("the f32 plain loop", [])
+    for label, f32_row, kw, on in (("v3", True, {}, ["v3"]),
+                                   ("v2", False, dict(fused_sampling=False), ["v2"]),
+                                   ("v4", True, dict(token_chunk=8), ["v4"]),
+                                   (f"spec (draft_k={SPEC_K})", False, dict(draft_k=SPEC_K),
+                                    ["verify", "spec"])):
+        reset_counts()
+        a = greedy_stream(tmodel, tvocab, asm, **kw)
+        check_counts(f"greedy f32 {label}", on)
+        check_divergence(tmodel, tvocab, asm, a, b, f"f32 {label}", "f32 plain loop",
+                         f32_row=f32_row, either=False, tol=tol)
+    a = greedy_stream(tmodel, tvocab, asm, quant="int8")
+    b8 = greedy_stream(tmodel, tvocab, asm, fused_sampling=False, quant="int8")
+    check_divergence(tmodel, tvocab, asm, a, b8, "f32 v3-int8", "f32 v2-int8", f32_row=True,
+                     quant="int8", either=True, tol=tol)
+    return out
+
+
+def kernel_launches(fn):
+    """Device launches of the port's decode kernels in one call of ``fn``
+    (the profiler's records by family, graph replays included)."""
+    _, _, kernels = profiled(fn, iters=1, top=1000)
+    got = {}
+    for key, _, c in kernels:
+        family = next((f for f in FAMILIES if f in key), None)
+        if family is not None:
+            got[family] = got.get(family, 0) + round(c)
+    return got
+
+
+def phase_serve_f32(dev, workdir):
+    """Phase 3e: the committed trained snapshot loaded as an f32 model and
+    served through ``InfillEngine`` with ``fused=None``, which on CUDA
+    resolves to the decode kernels (JAX's ``_kernel_fits`` has no dtype
+    condition): phase 3's batch through v3 (graph replays), through the
+    plain loop (``fused=False``: what ``fused=None`` gave an f32 model
+    before the kernels took one), v2 (``fused_sampling=False``), v4
+    (``token_chunk=8``, the v3 run's tokens), int8 (``quant="int8"``) and
+    speculative decode (``draft_k=8``, one request), each with its launch
+    counts at 0 just before; the profiler's device launches show
+    ``rowvec_kernel``, ``attend_kernel``, ``sample_advance_kernel`` and
+    ``spec_advance_kernel`` ran; one replayed W=9 spec iteration timed as
+    phase 3c times bf16's.  Returns the launch counts and the served
+    batch's wall seconds (greedy) with and without the kernels, with the
+    replayed iteration's times."""
+    model, vocab, score, events = trained_flagship(dev, torch.float32)
+    say(f"  loaded the trained snapshot as an f32 model ({model.cfg.dtype})")
+    engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    if engine.decoder.fused is not True:
+        raise AssertionError("fused=None did not resolve to the decode kernels for an f32 model")
+    reqs = served_requests(engine, events)
+    launches = {}
+    v3_results, got = serve_path(engine, reqs, workdir, "f32_v3_", ["v3"])
+    launches["v3"] = got["v3"]
+    # the served batch before (the plain loop fused=None gave an f32 model)
+    # and after: greedy engines, whose two paths decode the same tokens
+    # (the greedy streams of phase 2l), so the same decodes and retries; a
+    # warm run, then two timed runs each
+    walls, generated = {}, {}
+    for tag, fused in (("kernels", None), ("plain", False)):
+        eng = InfillEngine(model, vocab, greedy=True, nucleus_p=None, max_tgt_len=L, seed=0,
+                           fused=fused)
+        serve_requests(eng, reqs, workdir, f"f32_{tag}_warm_")
+        reset_counts()
+        runs = [serve_requests(eng, reqs, workdir, f"f32_{tag}_") for _ in range(2)]
+        check_counts(f"run_batch (f32, greedy, {tag})", ["v3"] if tag == "kernels" else [])
+        walls[tag] = [w for w, _ in runs]
+        generated[tag] = [r.generated for r in runs[-1][1]]
+    same = sum(a == b for a, b in zip(generated["kernels"], generated["plain"]))
+    say(f"  the f32 served batch (3 greedy requests), 2 runs each after a warm one: the kernels "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls['kernels'])} ms; the plain loop "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls['plain'])} ms; the same tokens in {same} "
+        f"of {len(reqs)} requests")
+    v2_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    v2_engine.decoder.fused_sampling = False
+    launches["v2"] = serve_path(v2_engine, reqs, workdir, "f32_v2_", ["v2"])[1]["v2"]
+    v4_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0)
+    v4_engine.decoder = dataclasses.replace(v4_engine.decoder, token_chunk=8)
+    v4_results, got = serve_path(v4_engine, reqs, workdir, "f32_v4_", ["v4"])
+    launches["v4"] = got["v4"]
+    for i, (a, b) in enumerate(zip(v3_results, v4_results)):
+        if a.generated != b.generated or a.decode_steps != b.decode_steps:
+            raise AssertionError(f"f32 request {i}: the v4 run decoded other tokens than the v3 run")
+    say("  f32 v4 (token_chunk=8) decoded the v3 run's tokens and steps in every request and retry")
+    int8_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, seed=0, quant="int8")
+    got = serve_path(int8_engine, reqs, workdir, "f32_v3_int8_", ["int8", "v3"])[1]
+    launches["int8"] = got["int8"]
+    launches["v3"] += got["v3"]
+    spec_engine = InfillEngine(model, vocab, nucleus_p=0.9, max_tgt_len=L, draft_k=SPEC_K, seed=0)
+    req = spec_engine.prepare(events, [0], [5, 6])
+    reset_counts()
+    serve_requests(spec_engine, [req], workdir, "f32_spec_")
+    launches["verify"] = check_counts(f"run_batch (f32, draft_k={SPEC_K})", ["verify", "spec"])
+    launches["spec"] = counts()["spec"]
+    # one replayed W=9 iteration of the f32 model, as phase 3c times bf16's
+    spec_engine.decoder(*greedy_request(model, vocab, events)[:4])
+    ev_ms, dev_us, node_us = spec_replay_times(spec_graph_of(spec_engine.decoder), SPEC_K + 1)
+    walls["spec_replay"] = dict(ms=ev_ms, device_us=dev_us)
+    say(f"  one replayed W={SPEC_K + 1} iteration (f32, nucleus): {ev_ms:.4f} ms of CUDA events, "
+        f"{dev_us:.1f} us of device time; by kernel: " +
+        ", ".join(f"{n} {u:.1f} us" for n, u in node_us.items()))
+    # the kernels' own launches on the card, by the profiler
+    device = kernel_launches(lambda: engine.run_batch(reqs))
+    device.update({k: v for k, v in kernel_launches(lambda: spec_engine.run_batch([req])).items()
+                   if k == "spec_advance_kernel"})
+    say(f"  device launches of the decode kernels (the profiler): v3 batch and spec request {device}")
+    need = ("rowvec_kernel", "attend_kernel", "sample_advance_kernel", "spec_advance_kernel")
+    if not all(device.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"the f32 served paths did not launch every decode kernel: {device}")
+    return launches, walls
+
+
+def trained_flagship(dev, dtype=torch.bfloat16):
+    """The committed trained snapshot on the card in ``dtype`` (bf16, or f32
+    for phases 2l and 3e), with the score and the served events of phase 3
+    (for a run of some phases alone)."""
     cfg = ExperimentConfig()
     vocab = WordVocab(cfg.vocab_mode, cfg.control_list)
-    model, _ = load_inference_model(cfg, vocab.vocab_size, default_flagship_snapshot(), torch.bfloat16,
+    model, _ = load_inference_model(cfg, vocab.vocab_size, default_flagship_snapshot(), dtype,
                                     device=dev)
     score = make_score()
     return model, vocab, score, served_events(score, vocab)
@@ -4903,8 +5196,8 @@ def trained_flagship(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU.")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run after the build (2..2k, 3, 3c, 3d, 6, 5, 7, 5c, "
-                        "5d, 5e, 4); "
+                        help="comma-separated phases to run after the build (2..2l, 3, 3c, 3d, 3e, 6, 5, "
+                        "7, 5c, 5d, 5e, 4); "
                         "default all, with the result lines")
     args = parser.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
@@ -4983,6 +5276,12 @@ def main(argv=None) -> int:
             dev, [(vocab, model, packed, vpad), (remi_vocab, remi_model, remi_packed, vpad)])
     del model, packed, remi_model, remi_packed
 
+    if run("2l"):
+        say("phase 2l the decode kernels on an f32 model: random f32 flagships (SMER and REMI) "
+            "against the twins, v4 = v3 x T, the verify = W v2 steps, graphs = eager; the trained "
+            "snapshot in f32 against the f32 plain loop")
+        f32 = phase_f32(dev)
+
     if run("2f"):
         say("phase 2f fused_attention vs twin (and SDPA as the yardstick)")
         say_clocks("before 2f")
@@ -5019,6 +5318,10 @@ def main(argv=None) -> int:
         if run("3d"):
             say("phase 3d flash encoder served with the trained snapshot")
             launches_a, encode_ms = phase_flash_encoder(model, vocab, events, workdir)
+        if run("3e"):
+            say("phase 3e serve the trained snapshot as an f32 model through InfillEngine "
+                "(fused=None: the decode kernels), v3, v2, v4, int8 and speculative decode")
+            launches_32, walls_32 = phase_serve_f32(dev, workdir)
 
         if run("6"):
             say("phase 6 evaluate on the card: build_cli, eval_cli (v3 replays, span retries, "
@@ -5103,6 +5406,15 @@ def main(argv=None) -> int:
         f"{remat['peak_remat'] / 2**30:.3f} with remat; flash-train forward {long_[0]['ms']:.4f} ms "
         f"(SDPA {long_[0]['library_ms']:.4f}), backward {long_[1]['ms']:.4f} ms (SDPA "
         f"{long_[1]['library_ms']:.4f}) at 2048 x 2048; dv {worst_f_dv:.2e} of the twin at worst")
+    g32 = f32["graph"]
+    say(f"  f32 model (phase 2l): v3 token replayed {g32['v3']['ms']:.4f} ms (eager "
+        f"{g32['v3']['eager_ms']:.4f}, bound {g32['v3']['bound_ms']:.5f}), v4 chunk of 8 "
+        f"{g32['v4']['ms']:.4f} ms, v3-int8 token {g32['int8']['ms']:.4f} ms; v2 step "
+        f"{f32['v2'][1]['ms']:.4f} ms eager; verify W={SPEC_K + 1} {f32['verify'][1]['ms']:.4f} ms; "
+        f"spec_advance_kernel {1e3 * f32['spec'][1]['ms']:.2f} us alone; served batch (phase 3e) "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls_32['kernels'])} ms through the kernels, "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls_32['plain'])} ms through the plain loop; a "
+        f"replayed W={SPEC_K + 1} spec iteration {walls_32['spec_replay']['ms']:.4f} ms")
     common = dict(route="cuda", bound_by="bytes", library_ms=None)
     csrc = "smer_music_generation_tpu_torch/ops/csrc/"
     ref = "smer_music_generation_tpu/ops/decode_step.py:"
@@ -5125,6 +5437,26 @@ def main(argv=None) -> int:
                       "lax.while_loop after its fused_verify_window, :1368; XLA ops, no pallas_call)",
              launches=spec["spec_launches"], max_abs_err=worst_k, route="cuda", library_ms=None,
              **report_k),
+        # an f32 model (phases 2l and 3e): the same kernels' f32 instantiations
+        dict(name="fused_decode_step (f32 model)", source=csrc + "decode_step.cu",
+             replaces=ref + "456", launches=launches_32["v2"], max_abs_err=f32["v2"][0],
+             **f32["v2"][1], **common),
+        dict(name="fused_decode_token (f32 model)", source=csrc + "decode_token.cu",
+             replaces=ref + "796", launches=launches_32["v3"], max_abs_err=f32["v3"][0],
+             **{k: g32["v3"][k] for k in ("ms", "plain_ms", "bound_ms")}, **common),
+        dict(name="fused_decode_tokens (f32 model)", source=csrc + "decode_token.cu",
+             replaces=ref + "1028", launches=launches_32["v4"], max_abs_err=f32["v4"][0],
+             **{k: g32["v4"][k] for k in ("ms", "plain_ms", "bound_ms")}, **common),
+        dict(name="rowvec_int8 (f32 model)", source=csrc + "decode_step.cu", replaces=ref + "296",
+             launches=launches_32["int8"], max_abs_err=f32["int8"][0], **f32["int8"][1], **common),
+        dict(name="fused_verify_window (f32 model)", source=csrc + "decode_step.cu",
+             replaces=ref + "1368", launches=launches_32["verify"], max_abs_err=f32["verify"][0],
+             **f32["verify"][1], **common),
+        dict(name="spec_advance_kernel (f32 model)", source=csrc + "decode_token.cu",
+             replaces="smer_music_generation_tpu/infer/decode.py:539 (the body of _decode_v5's "
+                      "lax.while_loop after its fused_verify_window, :1368; XLA ops, no pallas_call)",
+             launches=launches_32["spec"], max_abs_err=f32["spec"][0], route="cuda",
+             library_ms=None, **f32["spec"][1]),
         dict(name="fused_attention", source=csrc + "attention.cu",
              replaces="smer_music_generation_tpu/ops/attention.py:115", launches=launches_a,
              max_abs_err=worst_a, route="cuda", **report_a),

@@ -29,7 +29,7 @@ negative where the sampler, a programmatic dependent launch, began while
 the logits launch ran); and the two ends of a token alone: the sampler
 (``sample_and_advance``, nucleus, on the v2 step's logits; with
 ``sampler_fold`` also its fold where the checkout has one) and
-``embed_pe_kernel`` through its C entry point.  Then the attention kernels: ``fused_attention``
+``embed_pe_kernel`` through its launcher.  Then the attention kernels: ``fused_attention``
 (the flash encoder's) at B=3, T=S=1536, H=8, key lengths 1536/1440/1344; and
 the train attention at B=8, H=8, 640x640 and 384x384 causal (rate 0.1, ~10%
 of keys invalid, one batch row with no valid key, as chip_smoke's phase 2g;
@@ -272,7 +272,7 @@ for quant in () if ATTENTION_ONLY else ("none", "int8") if hasattr(ds, "quantize
     if quant == "none":
         # the two ends of a token alone, on the served shape: the sampler
         # (nucleus) on the logits of the v2 step, with its fold where the
-        # checkout has one, and embed_pe_kernel through its C entry point
+        # checkout has one, and embed_pe_kernel through its launcher
         logits = ds.fused_decode_step(packed, x, self_kv, cross_kv, INDEX, cross_len, **kw)[0]
         folds = "emb" in inspect.signature(ds.sample_and_advance).parameters
         fold = dict(emb=packed["emb"]) if folds else {}
@@ -287,11 +287,9 @@ for quant in () if ATTENTION_ONLY else ("none", "int8") if hasattr(ds, "quantize
         xe = torch.empty(B, D, device=dev)
         pos_t = torch.full((B,), INDEX, dtype=torch.int32, device=dev)
 
-        def embed():
-            ds._check(lib.smer_embed_pe(
-                B, D, state.data_ptr(), packed["emb"].data_ptr(), vpad, math.sqrt(D),
-                pos_t.data_ptr(), 0, -math.log(10000.0) / D, xe.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream), "embed_pe")
+        def embed():  # the launcher, whose C call each checkout binds its own way
+            ds._launch_embed_pe(lib, packed["emb"], state, pos_t, xe,
+                                stream=torch.cuda.current_stream(dev).cuda_stream)
 
         embed()
         outputs["embed_pe"] = digest(xe)
@@ -560,9 +558,16 @@ print(json.dumps(out), flush=True)
 
 
 # the decode kernels as earlier designs instantiated them: rowvec_kernel before
-# its LN tail (three template flags), and the split-free designs (rows NB a
-# template argument, head_dim 64 as EPL = 2)
+# its LN tail (three template flags), the split-free designs (rows NB a
+# template argument, head_dim 64 as EPL = 2), and the kernels before they
+# took an f32 model (attend_kernel without its row type, the two token
+# kernels not templates of the embedding's type)
 OLD_DECODE_KERNELS = {
+    "attend_kernel<64, cache> (bf16 rows only)": "attend_kernelILi64ELi0E",
+    "attend_kernel<64, chunk> (bf16 rows only)": "attend_kernelILi64ELi1E",
+    "attend_kernel<64, window> (bf16 rows only)": "attend_kernelILi64ELi2E",
+    "embed_pe_kernel (bf16 embedding only)": "embed_pe_kernelEPKi",
+    "sample_advance_kernel (bf16 embedding only)": "sample_advance_kernelEPKf",
     "rowvec_kernel<bf16> (before the LN tail)": "rowvec_kernelI13__nv_bfloat16Lb1ELb0EE",
     "rowvec_kernel<int8> (before the LN tail)": "rowvec_kernelIaLb1ELb0EE",
     "rowvec_kernel<bf16, NB=3>": "rowvec_kernelI13__nv_bfloat16Li3ELb1ELb0E",

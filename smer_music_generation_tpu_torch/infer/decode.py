@@ -73,8 +73,9 @@ unsharded on the first device (JAX's ``_shard_batch``).
 
 The fused calls launch the CUDA kernels on the card and run their plain
 twins on the CPU.  ``fused=None`` resolves to the kernels on CUDA where they
-fit the model (head_dim 64 or 128, d_model a multiple of 64, bfloat16), as
-JAX's ``resolve_backend`` (:157-181) picks its kernel on a TPU only where it
+fit the model (head_dim 64 or 128, d_model a multiple of 64; a bf16 or an
+f32 model alike, as JAX's kernels take any compute dtype), as JAX's
+``resolve_backend`` (:157-181) picks its kernel on a TPU only where it
 fits, and to the plain loop otherwise and on the CPU; ``fused_sampling=None``
 follows ``fused``.  This is decided from the configuration when the decoder
 is built, not by a failure: an explicit ``fused=True`` on a model the
@@ -250,16 +251,14 @@ class InfillDecoder:
     def resolve_backend(self) -> None:
         """``fused=None`` takes the kernels only where they fit, as JAX's
         ``resolve_backend`` (:157-181) takes them on a TPU only where its
-        ``_kernel_fits`` (:133-136): on CUDA, for head_dim 64 or 128, d_model
-        a multiple of 64 and a bfloat16 model; elsewhere the plain loop.  An
-        explicit ``fused=True`` that does not fit raises, as JAX's (:138-141).
-        Decided from the configuration, before any build or launch."""
+        ``_kernel_fits`` (:133-136): on CUDA, for head_dim 64 or 128 and
+        d_model a multiple of 64, with no condition on the dtype (a bf16 or
+        an f32 model); elsewhere the plain loop.  An explicit ``fused=True``
+        that does not fit raises, as JAX's (:138-141).  Decided from the
+        configuration, before any build or launch."""
         cfg = self.model.cfg
         cuda = _kernel_device(self.device)
-        fits = (
-            cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
-            and (not cuda or cfg.dtype == torch.bfloat16)
-        )
+        fits = cfg.d_model % 64 == 0 and cfg.head_dim in (64, 128)
         if self.fused is None:
             self.fused = cuda and fits
         if self.fused_sampling is None:
@@ -273,8 +272,8 @@ class InfillDecoder:
             )
         if self.fused and not fits:
             raise ValueError(
-                "the fused decode step needs d_model % 64 == 0, head_dim 64 or 128 "
-                "and, on CUDA, a bfloat16 model; pass fused=False for the plain loop"
+                "the fused decode step needs d_model % 64 == 0 and head_dim 64 or 128; "
+                "pass fused=False for the plain loop"
             )
 
     def packed(self):

@@ -10,19 +10,23 @@
 // over the cross K|V masked by `cross_len`, the two out projections, post-LN
 // (eps 1e-6) and the ReLU FFN; then the final LN and the f32 logits.
 //
-// What bounds it on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes.
-// At B=1 a step streams 4 x (512*3072 + 2*512*2048) bf16 decoder weights
-// (29.4 MB) plus the 512 x 384 f32 output projection (0.8 MB), and per
-// layer and batch element `index` rows of self cache and `cross_len` rows
-// of cross cache at 2 KB each.  The operations (2 flops per weight per row
-// of B <= 16) are far below the card's ridge point.  Each launch moves
+// The model's compute dtype is bf16 or f32, as JAX's kernels take any
+// (the weights, the caches and the embedding are in it; x, the sums, the
+// softmax, the LayerNorms and the logits are f32 in both).  What bounds it
+// on an NVIDIA H100 80GB HBM3 (3.35 TB/s at 700 W): bytes.  At B=1 a step
+// streams 4 x (512*3072 + 2*512*2048) decoder weights, 29.4 MB in bf16
+// (58.7 MB in f32), plus the 512 x 384 f32 output projection (0.8 MB), and
+// per layer and batch element `index` rows of self cache and `cross_len`
+// rows of cross cache at 2 KB each (4 KB in f32).  The operations (2 flops
+// per weight per row of B <= 16) are far below the card's ridge point.  Each launch moves
 // 0.4-12 MB, a few microseconds of HBM time, so what sets a launch's time
 // is how many bytes are in flight at once across the 132 SMs: the design
 // puts a whole matrix (or a whole cache slice) in flight in one wave of
 // 16-byte loads, and combines the partial results in a fixed order:
 //
-//   * `rowvec_kernel`: y[b, n] = act((sum_k bf16(x[b, k]) W[k, n]) *
-//     colscale[n] + bias[n]) for up to 16 rows.  W stays in the (K, N)
+//   * `rowvec_kernel`: y[b, n] = act((sum_k c(x[b, k]) W[k, n]) *
+//     colscale[n] + bias[n]) for up to 16 rows, c the rounding to the
+//     compute dtype (none in f32).  W stays in the (K, N)
 //     layout of the packed flax weights.  A block owns a tile of 64 output
 //     columns and one K-slice of 16 * P rows, P = 1..4 passes chosen by the
 //     wrapper from (K, N) so that a projection runs on about 256 blocks
@@ -30,29 +34,32 @@
 //     and the logits, 11 of 48 for QKV, 8 of 64 for FFN up, 32 of 64 for
 //     FFN down), two an SM, all resident at once.  A thread reads one
 //     16-byte piece of each of its P W rows (8 bf16, 16 int8 or 4 f32
-//     columns), all P loads issued before any product; the block's x
-//     slice is staged once in shared memory,
-//     already rounded to bf16.  The rows of x are taken four at a time
-//     against the W registers, the 16 K rows of a pass are summed by warp
+//     columns: blocks of 128, 64 or 256 threads), all P loads issued before
+//     any product; the block's x slice is staged once in shared memory,
+//     already rounded to the compute dtype.  The rows of x are taken four
+//     at a time against the W registers, the 16 K rows of a pass are summed by warp
 //     shuffles and shared memory in a fixed tree, and each block writes its
 //     (rows, 64) partial to a workspace.  The last block of a column tile
 //     to finish (a __threadfence and an atomic ticket on the tile's
 //     counter, which it resets) sums the partials in slice order (32 of
 //     them loaded before any is added), then
 //     applies the column scale (int8), the bias, the ReLU and the K|V
-//     write.  No block waits on another and no atomic touches the data.
+//     write (in the compute dtype).  No block waits on another and no
+//     atomic touches the data.
 //     A projection whose output o feeds a post-LN, x = LN(x + o) (the two
 //     out projections and FFN down), carries the LayerNorm as a tail: each
 //     tile's last block, once its columns of o are written, takes one more
 //     ticket on a counter of the launch; the last of them, which then sees
-//     every column, runs the LN over the launch's rows, a warp a row, in
+//     every column, runs the LN over the launch's rows, a warp a row (at
+//     most 4 warps), in
 //     add_layernorm_kernel's order of sums (so with that kernel's bits),
 //     and writes x in place; the final LN may follow in the same tail.
 //   * `attend_kernel` (flash-decoding): grid (B, H, splits); a block owns
 //     64 rows of the spliced sequence (cache rows, then v4 chunk or verify
-//     window rows).  8 lanes take a row, each reading 16 bytes of K and of
-//     V, so a warp scores 4 rows at once with 3 shuffles; the block takes
-//     the max of its 64 scores, exp(s - m) once a row, and sums p V and p
+//     window rows).  8 lanes take a row, each reading head_dim / 8 dims of
+//     K and of V (16 bytes at head_dim 64 in bf16; two or four 16-byte
+//     loads of f32 rows), so a warp scores 4 rows at once with 3 shuffles;
+//     the block takes the max of its 64 scores, exp(s - m) once a row, and sums p V and p
 //     in a fixed tree.  Its (m, l, acc[head_dim]) go to the workspace; the
 //     last block of the (b, h) (the same ticket) merges the splits in
 //     split order, then the current token's own K/V row.
@@ -79,8 +86,10 @@
 //
 // int8 weights (the TPU kernel's `scale=` path of `_layer_body`, packed by
 // `quantize_columns` :50): the same rowvec_kernel reads W as int8 (16
-// columns a 16-byte load, converted exactly to float) with x rounded to
-// bf16, and scales each output column by its f32 scale before the bias:
+// columns a 16-byte load, converted exactly to float) with x rounded to the
+// compute dtype (bf16; an f32 model's x unrounded, as JAX casts x and the
+// int8 block to f32), and scales each output column by its f32 scale
+// before the bias:
 // y = (x . q) * s + b, the order of the TPU kernel's `rescale(dot) + b`.
 //
 // The kernel-looped token chunk (v4, `fused_decode_tokens` :1028) gives
@@ -258,17 +267,26 @@ __device__ __forceinline__ void layernorm_row(float* v, int D, const float* __re
   for (int i = lane; i < D; i += 32) v[i] = (v[i] - mean) * r * gamma[i] + beta[i];
 }
 
+// The warps of a block that run its LN tail: every warp of a bf16 (4) or
+// int8 (2) block, 4 of an f32 block's 8, so that a tail's rows take no more
+// shared memory than a bf16 block's.  Which warp takes a row changes none
+// of its bits.
+__host__ __device__ constexpr int tail_warps(int block_warps) {
+  return block_warps < 4 ? block_warps : 4;
+}
+
 // The LN tail over nb rows of D, in the block that took the launch's last
-// ticket: warp w of the block's kBlockWarps takes rows w, w + kBlockWarps,
-// ...; x + o into the warp's row of `buf` (kBlockWarps rows of D floats; x
-// and o read through L2, o written by other blocks of the launch), the LN
-// there, the final LN after it where given, and x written in place.
-template <int kBlockWarps>
+// ticket: warp w < kWarpsUsed takes rows w, w + kWarpsUsed, ...; x + o into
+// the warp's row of `buf` (kWarpsUsed rows of D floats; x and o read
+// through L2, o written by other blocks of the launch), the LN there, the
+// final LN after it where given, and x written in place.
+template <int kWarpsUsed>
 __device__ void layernorm_tail(const float* o, int ldo, int nb, int D, const LnTail& ln,
                                float* buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= kWarpsUsed) return;  // no barrier follows
   float* v = buf + (size_t)warp * D;
-  for (int b = warp; b < nb; b += kBlockWarps) {
+  for (int b = warp; b < nb; b += kWarpsUsed) {
     float* xr = ln.x + (size_t)b * ln.ldx;
     const float* orow = o + (size_t)b * ldo;
     for (int i = lane; i < D; i += 32) v[i] = __ldcg(xr + i) + __ldcg(orow + i);
@@ -282,13 +300,20 @@ __device__ void layernorm_tail(const float* o, int ldo, int nb, int D, const LnT
   }
 }
 
+// A K|V value as the cache holds it: bf16 (rounded to nearest) or f32
+__device__ __forceinline__ void store_kv(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_kv(float* p, float v) { *p = v; }
+
+// BF16: the model computes in bf16, so x is rounded to bf16 as the kernel
+// reads it and the K|V rows are written as bf16; otherwise (an f32 model,
+// and the f32 logits of either) x is read as it is and K|V written as f32.
 // LN_TAIL: the launch ends with x = LN(x + y) over its rows (N == D), by
 // the last of the tiles' last blocks, on a ticket past the tiles' own
-template <typename WT, bool ROUND_X, bool RELU, bool LN_TAIL>
+template <typename WT, bool BF16, bool RELU, bool LN_TAIL>
 __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kernel(
     const float* __restrict__ x, int ldx, int nb, const WT* __restrict__ w, int ldw,
     const float* __restrict__ colscale, const float* __restrict__ bias, float* __restrict__ y,
-    int ldy, __nv_bfloat16* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N,
+    int ldy, void* __restrict__ kv_out, int ldkv, int kv_col0, int K, int N,
     int k_split, LnTail ln, float* __restrict__ ws, unsigned* __restrict__ tickets) {
   // the launch after this one may begin now: a token's sampler, launched
   // as a programmatic dependent launch behind the logits, runs the loads
@@ -298,6 +323,7 @@ __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kern
   // int8 weights carry column scales; a bf16 or f32 instantiation is the
   // kernel without them
   constexpr bool kScaled = std::is_same<WT, int8_t>::value;
+  using KT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
   constexpr int kVec = Vec16<WT>::kN;        // columns a thread
   constexpr int kTpr = kCols / kVec;         // threads a W row of the tile
   constexpr int kBlock = kPassRows * kTpr;   // 128 bf16, 64 int8, 256 f32
@@ -325,7 +351,7 @@ __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kern
     float v = 0.f;
     if (k < K) {
       v = x[(size_t)b * ldx + k];
-      if (ROUND_X) v = bf16_round(v);
+      if (BF16) v = bf16_round(v);
     }
     xs[i] = v;
   }
@@ -404,14 +430,14 @@ __global__ void __launch_bounds__(kPassRows * kCols / Vec16<WT>::kN) rowvec_kern
     if (RELU) s = fmaxf(s, 0.f);
     y[(size_t)b * ldy + col] = s;
     if (kv_out != nullptr && col >= kv_col0)
-      kv_out[(size_t)b * ldkv + (col - kv_col0)] = __float2bfloat16(s);
+      store_kv(static_cast<KT*>(kv_out) + (size_t)b * ldkv + (col - kv_col0), s);
   }
   if constexpr (LN_TAIL) {
     // the tile's columns of y are written: the launch's last tile to get
     // here sees every column.  No block of the launch reads ln.x (the
     // projection's input is another buffer), so the tail writes it in place.
     if (last_arrival(tickets + gridDim.x, gridDim.x))
-      layernorm_tail<kBlockWarps>(y, ldy, nb, N, ln, smem);
+      layernorm_tail<tail_warps(kBlockWarps)>(y, ldy, nb, N, ln, smem);
   }
 }
 
@@ -436,16 +462,21 @@ __device__ __forceinline__ float row_score(const float (&qv)[kDpl], const float 
 }
 
 // head_dim HD (64 or 128): each of a row's 8 lanes owns HD / 8 adjacent dims.
-// Partials in `ws`: [b * H + h][split][2 + HD] = (m, l, acc).
-template <int HD, int SRC>
+// The rows (cache, chunk, window) are T: bf16, or f32 for an f32 model,
+// whose row takes twice the 16-byte loads a lane (2 at head_dim 64, 4 at
+// 128) and no other change: a lane's dims, its sums and their order are
+// those of the bf16 rows.  Partials in `ws`: [b * H + h][split][2 + HD] =
+// (m, l, acc).
+template <typename T, int HD, int SRC>
 __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
-    const float* __restrict__ q, int ldq, const __nv_bfloat16* __restrict__ kv,
+    const float* __restrict__ q, int ldq, const T* __restrict__ kv,
     long long kv_bstride, int D, int n_rows, const int* __restrict__ lens, int max_rows,
-    const __nv_bfloat16* __restrict__ chunk, long long chunk_tstride, int n_chunk,
+    const T* __restrict__ chunk, long long chunk_tstride, int n_chunk,
     const float* __restrict__ extra, int ld_extra, float* __restrict__ out, int ldo, float scale,
     float* __restrict__ ws, unsigned* __restrict__ tickets) {
   constexpr int kDpl = HD / kLanesPerRow;
-  constexpr int kPieces = kDpl / 8;                            // 16-byte bf16 loads a row, of K and of V
+  constexpr int kPer = Vec16<T>::kN;                           // elements a 16-byte load
+  constexpr int kPieces = kDpl / kPer;                         // 16-byte loads a row, of K and of V
   constexpr int kRowsAtOnce = kAttnThreads / kLanesPerRow;     // 16
   constexpr int kSteps = kSplitRows / kRowsAtOnce;             // 4
   // a split's scores; in the merge, a chunk of splits' exp(m - M) (or m)
@@ -479,14 +510,14 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
   }
 
   if (r0 < n) {
-    const __nv_bfloat16* base = kv + (size_t)b * kv_bstride;
+    const T* base = kv + (size_t)b * kv_bstride;
     // a v4 chunk holds B rows a token; the verify window is one row a slot
-    const __nv_bfloat16* cbase = chunk + (SRC == kChunk ? (size_t)b * 2 * D : 0);
+    const T* cbase = chunk + (SRC == kChunk ? (size_t)b * 2 * D : 0);
     uint4 kr[kSteps][kPieces], vr[kSteps][kPieces];
 #pragma unroll
     for (int st = 0; st < kSteps; ++st) {
       const int r = r0 + st * kRowsAtOnce + warp * 4 + rl;
-      const __nv_bfloat16* row = nullptr;
+      const T* row = nullptr;
       if (r < n_cache)
         row = base + (size_t)r * 2 * D;
       else if (SRC != kCacheOnly && r < n)
@@ -496,8 +527,8 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
         kr[st][pc] = make_uint4(0u, 0u, 0u, 0u);
         vr[st][pc] = make_uint4(0u, 0u, 0u, 0u);
         if (row != nullptr) {
-          kr[st][pc] = ldg16(row + d0 + 8 * pc);
-          vr[st][pc] = ldg16(row + D + d0 + 8 * pc);
+          kr[st][pc] = ldg16(row + d0 + kPer * pc);
+          vr[st][pc] = ldg16(row + D + d0 + kPer * pc);
         }
       }
     }
@@ -507,10 +538,10 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
       float kf[kDpl];
 #pragma unroll
       for (int pc = 0; pc < kPieces; ++pc) {
-        float f[8];
+        float f[kPer];
         to_floats(kr[st][pc], f);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[8 * pc + e] = f[e];
+        for (int e = 0; e < kPer; ++e) kf[kPer * pc + e] = f[e];
       }
       s[st] = row_score<kDpl>(qv, kf, scale);
       if (r0 + st * kRowsAtOnce + warp * 4 + rl >= n) s[st] = -INFINITY;
@@ -531,10 +562,10 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
       l += p;
 #pragma unroll
       for (int pc = 0; pc < kPieces; ++pc) {
-        float f[8];
+        float f[kPer];
         to_floats(vr[st][pc], f);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[8 * pc + e] = fmaf(p, f[e], acc[8 * pc + e]);
+        for (int e = 0; e < kPer; ++e) acc[kPer * pc + e] = fmaf(p, f[e], acc[kPer * pc + e]);
       }
     }
     // the warp's 4 rows (lanes sub, sub + 8, ...), then the 4 warps in order
@@ -657,9 +688,9 @@ __global__ void __launch_bounds__(kThreads) add_layernorm_kernel(
     out[off + i] = (v[i] - mean) * r * gamma[i] + beta[i];
 }
 
-template <typename WT, bool ROUND_X, bool RELU, bool LN_TAIL>
+template <typename WT, bool BF16, bool RELU, bool LN_TAIL>
 int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const float* colscale,
-                  const float* bias, float* y, int ldy, __nv_bfloat16* kv_out, int ldkv,
+                  const float* bias, float* y, int ldy, void* kv_out, int ldkv,
                   int kv_col0, int K, int N, int k_split, const LnTail& ln, float* ws,
                   unsigned* tickets, cudaStream_t st) {
   constexpr int kVec = Vec16<WT>::kN;
@@ -670,8 +701,10 @@ int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const f
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kCols - 1) / kCols, (K + k_split - 1) / k_split);
   size_t smem = sizeof(float) * (size_t)nb * (k_split + kBlock / 32 * kCols);
-  if (LN_TAIL) smem = std::max(smem, sizeof(float) * (size_t)(kBlock / 32) * N);  // a row a warp
-  rowvec_kernel<WT, ROUND_X, RELU, LN_TAIL><<<grid, kBlock, smem, st>>>(
+  if (LN_TAIL)  // a row a tail warp
+    smem = std::max(smem, sizeof(float) * (size_t)tail_warps(kBlock / 32) * N);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  rowvec_kernel<WT, BF16, RELU, LN_TAIL><<<grid, kBlock, smem, st>>>(
       x, ldx, nb, w, ldw, colscale, bias, y, ldy, kv_out, ldkv, kv_col0, K, N, k_split, ln, ws,
       tickets);
   return (int)cudaGetLastError();
@@ -681,16 +714,21 @@ int launch_rowvec(int nb, const float* x, int ldx, const WT* w, int ldw, const f
 
 extern "C" {
 
-// w_kind 0: W is bf16; 1: W is f32; 2: W is int8 with f32 column scales
-// `colscale` (null otherwise).  A bf16 or int8 W sees x rounded to bf16.
+// w_kind, the weights and the compute dtype: 0, W bf16 (a bf16 model);
+// 1, W f32 (an f32 model, and the f32 logits of either); 2, W int8 with
+// f32 column scales `colscale` (null otherwise) in a bf16 model; 3, the
+// same in an f32 model.  In a bf16 model (kinds 0 and 2) x is rounded to
+// bf16 as W reads it and the K|V rows `kv_out` are written as bf16; in an
+// f32 model (kinds 1 and 3) x is read as it is and K|V written as f32, as
+// JAX casts the int8 blocks and x to the compute dtype (:306-319).
 // 1 <= nb <= 16 rows; K is cut into slices of k_split rows (a multiple of
 // 16, at most 64), one block each per 64-column tile; `ws` holds the
 // tiles' partials (ceil(N / 64) * 64 * slices * nb floats) and `tickets`
 // one zeroed counter a tile, which the launch leaves at zero.
-// `res` non-null (bf16 or int8 W, no ReLU): the LN tail, res = LN(res + y)
-// over the nb rows of N (row stride ldr, in place) with gamma and beta,
-// then LN(res) with gamma2 and beta2 where they are given; `tickets` then
-// holds one more counter, past the tiles'.
+// `res` non-null (no ReLU): the LN tail, res = LN(res + y) over the nb rows
+// of N (row stride ldr, in place) with gamma and beta, then LN(res) with
+// gamma2 and beta2 where they are given; `tickets` then holds one more
+// counter, past the tiles'.
 int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void* w, int ldw,
                 const void* colscale, const void* bias, void* y, int ldy, void* kv_out, int ldkv,
                 int kv_col0, int K, int N, int k_split, void* res, int ldr, const void* gamma,
@@ -701,37 +739,39 @@ int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void
   const float* cs = static_cast<const float*>(colscale);
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
-  __nv_bfloat16* kvo = static_cast<__nv_bfloat16*>(kv_out);
   float* wsf = static_cast<float*>(ws);
   unsigned* tk = static_cast<unsigned*>(tickets);
   const LnTail ln{static_cast<float*>(res), ldr, static_cast<const float*>(gamma),
                   static_cast<const float*>(beta), static_cast<const float*>(gamma2),
                   static_cast<const float*>(beta2), eps};
   const bool tail = ln.x != nullptr;
-  if ((w_kind == 2) != (cs != nullptr)) return (int)cudaErrorInvalidValue;
-  if (tail && (relu || w_kind == 1 || ln.gamma == nullptr || ln.beta == nullptr ||
+  if ((w_kind >= 2) != (cs != nullptr)) return (int)cudaErrorInvalidValue;
+  if (tail && (relu || ln.gamma == nullptr || ln.beta == nullptr ||
                (ln.gamma2 == nullptr) != (ln.beta2 == nullptr)))
     return (int)cudaErrorInvalidValue;
-#define SMER_ROWVEC(WT, ROUND, RELU, TAIL)                                                      \
-  launch_rowvec<WT, ROUND, RELU, TAIL>(nb, xf, ldx, static_cast<const WT*>(w), ldw, cs, bf, yf, \
-                                       ldy, kvo, ldkv, kv_col0, K, N, k_split, ln, wsf, tk, st)
+#define SMER_ROWVEC(WT, BF16, RELU, TAIL)                                                      \
+  launch_rowvec<WT, BF16, RELU, TAIL>(nb, xf, ldx, static_cast<const WT*>(w), ldw, cs, bf, yf, \
+                                      ldy, kv_out, ldkv, kv_col0, K, N, k_split, ln, wsf, tk, st)
+#define SMER_ROWVEC_USES(WT, BF16)                                                   \
+  (relu ? SMER_ROWVEC(WT, BF16, true, false)                                          \
+        : tail ? SMER_ROWVEC(WT, BF16, false, true) : SMER_ROWVEC(WT, BF16, false, false))
   switch (w_kind) {
     case 0:
-      return relu ? SMER_ROWVEC(__nv_bfloat16, true, true, false)
-             : tail ? SMER_ROWVEC(__nv_bfloat16, true, false, true)
-                    : SMER_ROWVEC(__nv_bfloat16, true, false, false);
+      return SMER_ROWVEC_USES(__nv_bfloat16, true);
     case 1:
-      return relu ? (int)cudaErrorInvalidValue : SMER_ROWVEC(float, false, false, false);
+      return SMER_ROWVEC_USES(float, false);
     case 2:
-      return relu ? SMER_ROWVEC(int8_t, true, true, false)
-             : tail ? SMER_ROWVEC(int8_t, true, false, true)
-                    : SMER_ROWVEC(int8_t, true, false, false);
+      return SMER_ROWVEC_USES(int8_t, true);
+    case 3:
+      return SMER_ROWVEC_USES(int8_t, false);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef SMER_ROWVEC_USES
 #undef SMER_ROWVEC
 }
 
+// kv_f32: the K|V rows (kv, chunk) are f32 (an f32 model), else bf16.
 // row_source (RowSource): 0 no rows past the cache's (chunk, n_chunk and
 // chunk_tstride unused); 1 a v4 chunk of n_chunk rows; 2 a verify window,
 // row b reading b rows of it (n_chunk unused), every row reading the cache
@@ -739,7 +779,7 @@ int smer_rowvec(int w_kind, int relu, int nb, const void* x, int ldx, const void
 // n_splits): n_splits * 64 must cover every row a (b, h) attends before
 // its `extra` row; `ws` holds B * H * n_splits * (2 + head_dim) floats and
 // `tickets` B * H zeroed counters, which the launch leaves at zero.
-int smer_attend(int head_dim, int B, int H, const void* q, int ldq, const void* kv,
+int smer_attend(int head_dim, int kv_f32, int B, int H, const void* q, int ldq, const void* kv,
                 long long kv_bstride, int D, int n_rows, const void* lens, int max_rows,
                 int row_source, const void* chunk, long long chunk_tstride, int n_chunk,
                 const void* extra, int ld_extra, void* out, int ldo, float scale, int n_splits,
@@ -747,45 +787,51 @@ int smer_attend(int head_dim, int B, int H, const void* q, int ldq, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, H, n_splits);
   const float* qf = static_cast<const float*>(q);
-  const __nv_bfloat16* kvb = static_cast<const __nv_bfloat16*>(kv);
   const int* lp = static_cast<const int*>(lens);
-  const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(chunk);
   const float* ef = static_cast<const float*>(extra);
   float* of = static_cast<float*>(out);
   float* wsf = static_cast<float*>(ws);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  if ((row_source == kCacheOnly) != (cb == nullptr) || n_splits < 1 || D % 8 || ldq % 4 ||
-      reinterpret_cast<uintptr_t>(kvb) % 16 || reinterpret_cast<uintptr_t>(cb) % 16 ||
+  if ((row_source == kCacheOnly) != (chunk == nullptr) || n_splits < 1 || D % 8 || ldq % 4 ||
+      reinterpret_cast<uintptr_t>(kv) % 16 || reinterpret_cast<uintptr_t>(chunk) % 16 ||
       chunk_tstride % 8 || kv_bstride % 8)
     return (int)cudaErrorInvalidValue;
-#define SMER_ATTEND(HD, SRC)                                                                 \
-  attend_kernel<HD, SRC><<<grid, kAttnThreads, 0, st>>>(                                    \
-      qf, ldq, kvb, kv_bstride, D, n_rows, lp, max_rows, cb, chunk_tstride, n_chunk, ef,     \
-      ld_extra, of, ldo, scale, wsf, tk)
-#define SMER_ATTEND_SOURCES(HD)           \
+#define SMER_ATTEND(T, HD, SRC)                                                               \
+  attend_kernel<T, HD, SRC><<<grid, kAttnThreads, 0, st>>>(                                  \
+      qf, ldq, static_cast<const T*>(kv), kv_bstride, D, n_rows, lp, max_rows,               \
+      static_cast<const T*>(chunk), chunk_tstride, n_chunk, ef, ld_extra, of, ldo, scale, wsf, \
+      tk)
+#define SMER_ATTEND_SOURCES(T, HD)        \
   switch (row_source) {                   \
     case kCacheOnly:                      \
-      SMER_ATTEND(HD, kCacheOnly);        \
+      SMER_ATTEND(T, HD, kCacheOnly);     \
       break;                              \
     case kChunk:                          \
-      SMER_ATTEND(HD, kChunk);            \
+      SMER_ATTEND(T, HD, kChunk);         \
       break;                              \
     case kWindow:                         \
-      SMER_ATTEND(HD, kWindow);           \
+      SMER_ATTEND(T, HD, kWindow);        \
       break;                              \
     default:                              \
       return (int)cudaErrorInvalidValue;  \
   }
-  switch (head_dim) {
-    case 64:
-      SMER_ATTEND_SOURCES(64)
-      break;
-    case 128:
-      SMER_ATTEND_SOURCES(128)
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+#define SMER_ATTEND_HEADS(T)              \
+  switch (head_dim) {                     \
+    case 64:                              \
+      SMER_ATTEND_SOURCES(T, 64)          \
+      break;                              \
+    case 128:                             \
+      SMER_ATTEND_SOURCES(T, 128)         \
+      break;                              \
+    default:                              \
+      return (int)cudaErrorInvalidValue;  \
   }
+  if (kv_f32) {
+    SMER_ATTEND_HEADS(float)
+  } else {
+    SMER_ATTEND_HEADS(__nv_bfloat16)
+  }
+#undef SMER_ATTEND_HEADS
 #undef SMER_ATTEND_SOURCES
 #undef SMER_ATTEND
   return (int)cudaGetLastError();

@@ -31,7 +31,8 @@
 //   * `embed_pe_kernel` (grid B): reads the token of each row from the
 //     (6, B) state and its position pos[b] + t (t, the token's place in a
 //     v4 chunk, is fixed at capture), gathers the token's embedding row
-//     (bf16 -> f32), scales it by sqrt(D) and adds the analytic sinusoidal
+//     (in the model's compute dtype, bf16 or f32; a template of it, as the
+//     sampler is), scales it by sqrt(D) and adds the analytic sinusoidal
 //     row of that position (even lanes sin, odd lanes cos of the (l - 1)
 //     frequency), in f32; x is not rounded before the first layer, as the
 //     TPU kernel keeps it in f32;
@@ -136,15 +137,21 @@ __device__ __forceinline__ float pe_lane(int l, float p, float neg_log_over_d) {
   return (l & 1) ? cosf(angle) : sinf(angle);
 }
 
-__device__ __forceinline__ float embed_lane(const __nv_bfloat16* __restrict__ emb, int tok,
+// The embedding is in the model's compute dtype: bf16 or f32
+__device__ __forceinline__ float emb_value(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float emb_value(const float* p) { return *p; }
+
+template <typename T>
+__device__ __forceinline__ float embed_lane(const T* __restrict__ emb, int tok,
                                             int vpad, int D, int l, float emb_scale, float pe) {
   const bool valid = tok >= 0 && tok < vpad;
-  const float e = valid ? __bfloat162float(emb[(size_t)tok * D + l]) : 0.f;
+  const float e = valid ? emb_value(emb + (size_t)tok * D + l) : 0.f;
   return __fadd_rn(__fmul_rn(e, emb_scale), pe);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256) embed_pe_kernel(
-    const int* __restrict__ tokens, const __nv_bfloat16* __restrict__ emb,
+    const int* __restrict__ tokens, const T* __restrict__ emb,
     int vpad, int D, float emb_scale, const int* __restrict__ pos, int pos_offset,
     float neg_log_over_d, float* __restrict__ x) {
   const int b = blockIdx.x;
@@ -216,10 +223,12 @@ __device__ __forceinline__ bool better(float a, int ka, float b, int kb) {
 }
 
 // One block per batch row, one thread per padded vocab lane (blockDim.x ==
-// vpad, a multiple of 32 and at most 1024).  `state` is read and written in
-// place, and `pos` too: neither is __restrict__.  The logits are written
+// vpad, a multiple of 32 and at most 1024); T, the embedding's dtype.
+// `state` is read and written in place, and `pos` too: neither is
+// __restrict__.  The logits are written
 // by the launch this one may overlap (a programmatic dependent launch):
 // they are read after griddepcontrol.wait, through L2 (ld.global.cg).
+template <typename T>
 __global__ void __launch_bounds__(1024) sample_advance_kernel(
     const float* logits, int* state,
     const int* __restrict__ aux, const int* __restrict__ span_types,
@@ -228,7 +237,7 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
     int* pos, int pos_offset, int advance, int* __restrict__ out, int ld_out, int B,
     int vpad, int mode, int max_spans, int span_cap, int eos_index, int mask_index,
     int use_nucleus, float nucleus_p, float temperature, int n_sid,
-    int span_body, const __nv_bfloat16* __restrict__ emb, int D, float emb_scale,
+    int span_body, const T* __restrict__ emb, int D, float emb_scale,
     float neg_log_over_d, float* __restrict__ x) {
   extern __shared__ float smem[];
   float* seg = smem;          // (vpad,): each warp's nonzero probabilities, lane order
@@ -452,7 +461,8 @@ __global__ void __launch_bounds__(1024) sample_advance_kernel(
 //     and takes the max with the inserts of the same bigram, warp-reduced,
 //     so it needs no ordering of the atomics inside the launch.  The next
 //     window and its W input rows x = emb[tok] * sqrt(D) + pos_table[pos +
-//     j] in f32, rounded to bf16 when the model computes in bf16 (the PE
+//     j] in f32, rounded to bf16 when the model computes in bf16 and left
+//     in f32 for an f32 model (`round_bf16` 0; the PE
 //     table's rows, as JAX's verify reads them, not the analytic row of
 //     embed_pe_kernel).
 // An iteration whose carry is done, or whose window no longer fits
@@ -896,14 +906,20 @@ int launch_spec_advance(const SpecArgs& a, int pdl, cudaStream_t st) {
 
 extern "C" {
 
-// x (B, D) f32 <- emb[state[ST_TOKEN, b]] * emb_scale + PE(pos[b] + pos_offset)
-int smer_embed_pe(int B, int D, const void* tokens, const void* emb, int vpad,
+// x (B, D) f32 <- emb[state[ST_TOKEN, b]] * emb_scale + PE(pos[b] + pos_offset);
+// emb (vpad, D) f32 when emb_f32 (an f32 model), else bf16
+int smer_embed_pe(int B, int D, const void* tokens, const void* emb, int emb_f32, int vpad,
                   float emb_scale, const void* pos, int pos_offset, float neg_log_over_d,
                   void* x, void* stream) {
-  embed_pe_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tokens), static_cast<const __nv_bfloat16*>(emb),
-      vpad, D, emb_scale, static_cast<const int*>(pos), pos_offset, neg_log_over_d,
-      static_cast<float*>(x));
+#define SMER_EMBED_PE(T)                                                                  \
+  embed_pe_kernel<T><<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(                   \
+      static_cast<const int*>(tokens), static_cast<const T*>(emb), vpad, D, emb_scale,     \
+      static_cast<const int*>(pos), pos_offset, neg_log_over_d, static_cast<float*>(x))
+  if (emb_f32)
+    SMER_EMBED_PE(float);
+  else
+    SMER_EMBED_PE(__nv_bfloat16);
+#undef SMER_EMBED_PE
   return (int)cudaGetLastError();
 }
 
@@ -912,8 +928,9 @@ int smer_embed_pe(int B, int D, const void* tokens, const void* emb, int vpad,
 // pos[b] grows by `advance` at the end; out null = no output row, else the
 // next token goes to out[b * ld_out + position + 1]; x null = no input row,
 // else x (B, D) f32 <- the next token's row at position + 1 (emb (vpad, D)
-// bf16, as smer_embed_pe).  A programmatic dependent launch: it may begin
-// while the launch before it on the stream runs, and only its
+// f32 when emb_f32, else bf16, as smer_embed_pe).  A programmatic
+// dependent launch: it may begin while the launch before it on the stream
+// runs, and only its
 // griddepcontrol.wait makes that launch's writes visible.  So the caller
 // keeps one rule: the launch just before it writes none of what the
 // prologue reads (state, pos, aux, span_types, sid_tbl, masks, class_mat,
@@ -925,8 +942,8 @@ int smer_sample_advance(int B, int vpad, const void* logits, void* state,
                         int pos_offset, int advance, void* out, int ld_out, int mode,
                         int max_spans, int span_cap, int eos_index, int mask_index,
                         int use_nucleus, float nucleus_p, float temperature,
-                        int n_sid, int span_body, const void* emb, int D, float emb_scale,
-                        float neg_log_over_d, void* x, void* stream) {
+                        int n_sid, int span_body, const void* emb, int emb_f32, int D,
+                        float emb_scale, float neg_log_over_d, void* x, void* stream) {
   if (vpad % 32 != 0 || vpad > 1024 || vpad < 32 || max_spans < 1)
     return (int)cudaErrorInvalidValue;
   if (x != nullptr && (emb == nullptr || D < 1)) return (int)cudaErrorInvalidValue;
@@ -942,15 +959,18 @@ int smer_sample_advance(int B, int vpad, const void* logits, void* state,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, sample_advance_kernel, static_cast<const float*>(logits), static_cast<int*>(state),
-      static_cast<const int*>(aux), static_cast<const int*>(span_types),
-      static_cast<const int*>(sid_tbl), static_cast<const float*>(masks),
-      static_cast<const float*>(class_mat), static_cast<const float*>(noise),
-      static_cast<int*>(pos), pos_offset, advance, static_cast<int*>(out), ld_out, B,
-      vpad, mode, max_spans, span_cap, eos_index, mask_index, use_nucleus, nucleus_p,
-      temperature, n_sid, span_body, static_cast<const __nv_bfloat16*>(emb), D, emb_scale,
-      neg_log_over_d, static_cast<float*>(x));
+#define SMER_SAMPLE_ADVANCE(T)                                                                    \
+  cudaLaunchKernelEx(                                                                              \
+      &cfg, sample_advance_kernel<T>, static_cast<const float*>(logits), static_cast<int*>(state), \
+      static_cast<const int*>(aux), static_cast<const int*>(span_types),                          \
+      static_cast<const int*>(sid_tbl), static_cast<const float*>(masks),                         \
+      static_cast<const float*>(class_mat), static_cast<const float*>(noise),                     \
+      static_cast<int*>(pos), pos_offset, advance, static_cast<int*>(out), ld_out, B, vpad, mode,  \
+      max_spans, span_cap, eos_index, mask_index, use_nucleus, nucleus_p, temperature, n_sid,     \
+      span_body, static_cast<const T*>(emb), D, emb_scale, neg_log_over_d, static_cast<float*>(x))
+  const cudaError_t err =
+      emb_f32 ? SMER_SAMPLE_ADVANCE(float) : SMER_SAMPLE_ADVANCE(__nv_bfloat16);
+#undef SMER_SAMPLE_ADVANCE
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 """One decoder step (v2), one whole token (v3), a chunk of tokens (v4) and
 the W-row verify window of speculative decode through hand-written CUDA
-kernels, each beside its plain twin, with bf16 or int8 decoder weights.
+kernels, each beside its plain twin, on a bf16 or an f32 model (the compute
+dtype: the weights, the caches and the embedding in it), its decoder
+weights in that dtype or int8.
 
 Port of ``smer_music_generation_tpu/ops/decode_step.py``: ``quantize_columns``
 (:50), the packers ``pack_decoder_weights`` (:66, ``quant="int8"`` included),
@@ -32,6 +34,11 @@ at every position.  The kernels are built at first
 use with ``nvcc`` into ``build/torch_kernels/`` (named by a hash over every
 file of ``csrc/``, headers included) and bound with ``ctypes``; nothing is
 built when this module is imported.
+
+The compute dtype is the caches' (JAX :478, :821, :1050, :1395): an f32
+model's step runs the f32 kernels (x unrounded, K|V written in f32), its
+int8 weights too, as JAX casts the int8 blocks and x to it; a cache in one
+dtype beside weights in another raises ``TypeError``.
 
 Layouts follow the JAX packer: every packed weight keeps the flax
 ``(in, out)`` layout, K and V of a cache row are interleaved as lanes
@@ -81,6 +88,7 @@ ST_TOKEN, ST_BITS, ST_STEPS, ST_SPAN, ST_DONE, ST_LEN = range(6)
 SPEC_POS, SPEC_DONE, SPEC_BITS, SPEC_STEPS, SPEC_SPAN, SPEC_LEN = range(6)
 SPEC_CARRY = 8
 MAX_BATCH = 8  # rows of the batched decode kernels (v2, v3, v4)
+COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # the models the decode kernels take
 # rowvec_kernel (csrc/decode_step.cu): rows a launch (more are launched in
 # chunks of this many), output columns a tile, K rows a pass; a K-slice is
 # 1-4 passes, chosen from K and N alone so that a row's sum never depends
@@ -886,7 +894,7 @@ def load_library() -> ctypes.CDLL:
         i, p, f, ll, u = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
         lib.smer_rowvec.argtypes = [i, i, i, p, i, p, i, p, p, p, i, p, i, i, i, i, i,
                                     p, i, p, p, p, p, f, p, p, p]
-        lib.smer_attend.argtypes = [i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
+        lib.smer_attend.argtypes = [i, i, i, i, p, i, p, ll, i, i, p, i, i, p, ll, i, p, i, p, i, f,
                                     i, p, p, p]
         lib.smer_flash_attention.argtypes = [i, i, i, i, i, p, p, p, p, i, f, p, p]
         lib.smer_train_attn_fwd.argtypes = [i] * 8 + [p, p, p, p, p, u, i, f, i, f, p, p]
@@ -901,9 +909,9 @@ def load_library() -> ctypes.CDLL:
         lib.smer_flash_train_bwd_f32_blocks.argtypes = [i, p, p]
         lib.smer_attention_f32_fwd_blocks.argtypes = [i, i, p]
         lib.smer_add_layernorm.argtypes = [i, i, p, p, p, p, p, f, p]
-        lib.smer_embed_pe.argtypes = [i, i, p, p, i, f, p, i, f, p, p]
+        lib.smer_embed_pe.argtypes = [i, i, p, p, i, i, f, p, i, f, p, p]
         lib.smer_sample_advance.argtypes = (
-            [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i] + [p, i, f, f, p, p]
+            [i, i] + [p] * 9 + [i, i, p] + [i] * 7 + [f, f, i, i] + [p, i, i, f, f, p, p]
         )
         lib.smer_spec_advance.argtypes = [p] * 17 + [i] * 16 + [f, f, f, i, i, i, p]
         lib.smer_wide_attn_fwd.argtypes = [i] * 10 + [p] * 6 + [u, i, f, i, f, p, p, p]
@@ -924,6 +932,12 @@ def load_library() -> ctypes.CDLL:
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+
+
+def _check_compute_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"{name} must be in a compute dtype the kernels take "
+                        f"({', '.join(map(str, COMPUTE_DTYPES))}), got {t.dtype}")
 
 
 def _check_tensors(dev, want) -> None:
@@ -949,17 +963,21 @@ def _check_step_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D
 
 
 def _check_layer_inputs(packed, B, dev, self_kv, cross_kv, cross_len, n_layers, D, H, F, vpad):
-    """The packed weights and the caches of ``B`` cache rows."""
+    """The packed weights and the caches of ``B`` cache rows: the caches in
+    the model's compute dtype (bf16 or f32, the self cache's), the
+    matrices in it or int8."""
     if D % 64 or D // H not in (64, 128) or D % H:
         raise ValueError(f"d_model={D}, nhead={H}: need d_model % 64 == 0 and head_dim 64 or 128")
     if vpad % 2:
         raise ValueError(f"vpad={vpad} must be even")
-    bf16, f32 = torch.bfloat16, torch.float32
-    wdt = torch.int8 if "scale" in packed else bf16
+    cdt, f32 = self_kv.dtype, torch.float32
+    if cdt not in COMPUTE_DTYPES:
+        raise TypeError(f"the decode kernels take a bf16 or an f32 model; the self cache is {cdt}")
+    wdt = torch.int8 if "scale" in packed else cdt
     L, S = self_kv.shape[2], cross_kv.shape[2]
     want = {
-        "self_kv": (self_kv, bf16, (n_layers, B, L, 2 * D)),
-        "cross_kv": (cross_kv, bf16, (n_layers, B, S, 2 * D)),
+        "self_kv": (self_kv, cdt, (n_layers, B, L, 2 * D)),
+        "cross_kv": (cross_kv, cdt, (n_layers, B, S, 2 * D)),
         "cross_len": (cross_len, torch.int32, (B,)),
         "w_attn": (packed["w_attn"], wdt, (n_layers, D, 6 * D)),
         "w_ff1": (packed["w_ff1"], wdt, (n_layers, D, F)),
@@ -1004,16 +1022,29 @@ def rowvec_k_split(K: int, N: int) -> int:
     return _ROWVEC_PASS * passes
 
 
-def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, scratch, relu=False, kv_out=None,
+def _rowvec_kind(w_dtype, cdt) -> int:
+    """``smer_rowvec``'s w_kind: W bf16 (0) or f32 (1) in a model of its
+    own dtype ``cdt`` (the logits' f32 W in either), or int8 in a bf16 (2)
+    or f32 (3) model."""
+    if w_dtype == torch.int8:
+        return {torch.bfloat16: 2, torch.float32: 3}[cdt]
+    if cdt != w_dtype:
+        raise TypeError(f"{w_dtype} weights in a {cdt} model")
+    return {torch.bfloat16: 0, torch.float32: 1}[w_dtype]
+
+
+def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, scratch, cdt, relu=False, kv_out=None,
                    ldkv=0, kv_col0=0, colscale=None, ln=None) -> None:
     """``rowvec_kernel``: ``y = act(x . w [* colscale] + bias)`` for the B
     rows of ``x``, one launch for every 16 rows; w may be bf16, f32 or int8
     (with its column scales ``colscale``), read through a row stride
     ``ldw``; ``scratch`` is the stream's (workspace, tickets) pointers.
-    ``ln = (res, gamma, beta, fin)``: the launch's LN tail, ``res = LN(res
-    + y)`` in place on res (B, N) f32, then ``LN(res)`` with ``fin =
-    (gamma2, beta2)`` unless fin is None (bf16 or int8 w, no ReLU)."""
-    kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[w.dtype]
+    ``cdt``, the compute dtype (:func:`_rowvec_kind`): x is rounded to it
+    and ``kv_out`` is in it.  ``ln = (res, gamma, beta, fin)``: the
+    launch's LN tail, ``res = LN(res + y)`` in place on res (B, N) f32, then
+    ``LN(res)`` with ``fin = (gamma2, beta2)`` unless fin is None (no
+    ReLU)."""
+    kind = _rowvec_kind(w.dtype, cdt)
     B, K = x.shape
     N = y.shape[1]
     k_split = rowvec_k_split(K, N)
@@ -1033,7 +1064,7 @@ def _launch_rowvec(lib, x, w, ldw, bias, y, *, stream, scratch, relu=False, kv_o
             rows(y, r), y.stride(0), rows(kv_out, r), ldkv, kv_col0, K, N, k_split,
             rows(res, r), *tail, *scratch, stream,
         ), "rowvec")
-        if kind == 2:
+        if kind >= 2:
             rowvec_int8.launches += 1
 
 
@@ -1056,15 +1087,16 @@ def _launch_attend(lib, q, kv, bstride, n_rows, lens, max_rows, source, rows, ts
                    extra, out, *, H, stream, scratch) -> None:
     """One ``attend_kernel`` launch: the B query rows of ``q`` over the K|V
     rows of ``kv`` (``lens`` (B,) or ``n_rows`` of them, at most
-    ``max_rows``), then the ``source`` rows of ``rows``, then the current
+    ``max_rows``), then the ``source`` rows of ``rows`` (both in the
+    compute dtype, bf16 or f32), then the current
     row at the pointer ``extra`` (None for none), into ``out`` (B, D) f32;
     ``scratch`` is the stream's (workspace, tickets) pointers."""
     B, D = out.shape
     HD = D // H
     splits = _attend_splits(n_rows, lens, max_rows, source, n_chunk, B)
     _check(lib.smer_attend(
-        HD, B, H, q.data_ptr(), q.shape[1], kv.data_ptr(), bstride, D,
-        n_rows, lens.data_ptr() if lens is not None else None, max_rows, source,
+        HD, int(kv.dtype == torch.float32), B, H, q.data_ptr(), q.shape[1], kv.data_ptr(),
+        bstride, D, n_rows, lens.data_ptr() if lens is not None else None, max_rows, source,
         rows.data_ptr() if rows is not None else None, tstride, n_chunk,
         extra, 3 * D, out.data_ptr(), D, 1.0 / math.sqrt(HD), splits, *scratch, stream,
     ), "attend")
@@ -1098,7 +1130,13 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
     then rows 0..j-1 of ``new_kv``, then its own; a position tensor may
     then be (1,) (every row reads its first entry).
     With ``"scale"`` in ``packed`` the six matrices of a layer are int8.
+    The compute dtype is the caches' (bf16 or f32): x is rounded to it as
+    the matrices read it, and ``new_kv`` (and a chunk's rows) are in it.
     ``work``: the temporaries (:func:`_layer_work`), allocated here if None."""
+    cdt = self_kv.dtype
+    if cross_kv.dtype != cdt or new_kv.dtype != cdt:
+        raise TypeError(f"the caches and new_kv must share the compute dtype: self {cdt}, "
+                        f"cross {cross_kv.dtype}, new_kv {new_kv.dtype}")
     B, L, S = x.shape[0], self_kv.shape[2], cross_kv.shape[2]
     self_bstride = 0 if window else L * 2 * D
     cross_bstride = 0 if window else S * 2 * D
@@ -1133,7 +1171,7 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
 
         def rowvec(xin, wm, ldm, lo, y, **kw):  # matrix columns from lo
             _launch_rowvec(lib, xin, wm, ldm, b[lo:], y, stream=stream, scratch=scratch,
-                           colscale=None if sc is None else sc[lo:], **kw)
+                           colscale=None if sc is None else sc[lo:], cdt=cdt, **kw)
 
         rowvec(x, w, ldw, 0, qkv, kv_out=new_kv[i], ldkv=2 * D, kv_col0=D)
         if chunk is not None:  # the chunk's rows: (T, B, 2D) a layer
@@ -1152,19 +1190,20 @@ def _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, 
         rowvec(h, packed["w_ff2"][i], D, 6 * D + F, o,
                ln=(x, ln[4], ln[5], fin if i == n_layers - 1 else None))
     _launch_rowvec(lib, x, packed["fc_w"], vpad, packed["fc_b"], logits, stream=stream,
-                   scratch=scratch)
+                   scratch=scratch, cdt=torch.float32)
 
 
 def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                *, relu: bool = False) -> torch.Tensor:
-    """The int8 row-vector product alone: ``act((bf16(x) . q) * scale +
-    bias)`` for x (B, K) f32, q (K, N) int8 (rows may be strided, as a
-    column slice of a packed matrix), scale and bias (N,) f32; returns
-    (B, N) f32.  ``rowvec_kernel`` on CUDA tensors, whose every int8 launch
-    (here and inside the decode wrappers) counts in ``rowvec_int8.launches``;
+                *, relu: bool = False, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 row-vector product alone: ``act((c(x) . q) * scale +
+    bias)`` for x (B, K) f32 rounded to the model's ``compute_dtype`` (bf16,
+    or f32: unrounded), q (K, N) int8 (rows may be strided, as a column
+    slice of a packed matrix), scale and bias (N,) f32; returns (B, N) f32.
+    ``rowvec_kernel`` on CUDA tensors, whose every int8 launch (here and
+    inside the decode wrappers) counts in ``rowvec_int8.launches``;
     :func:`rowvec_int8_reference` on CPU tensors."""
     if x.device.type == "cpu":
-        return rowvec_int8_reference(x, q, scale, bias, relu=relu)
+        return rowvec_int8_reference(x, q, scale, bias, relu=relu, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"rowvec_int8 runs on cuda or cpu, not {x.device}")
     B, K = x.shape
@@ -1178,6 +1217,8 @@ def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: tor
                               "bias": (bias, torch.float32, (N,))})
     if q.device != x.device:
         raise ValueError(f"q is on {q.device}, expected {x.device}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"rowvec_int8 computes in bf16 or f32, not {compute_dtype}")
     if N % 16 or q.stride(0) % 16 or q.data_ptr() % 16:
         raise ValueError("rowvec_kernel reads int8 W in 16-byte pieces: N and the row stride "
                          "must be multiples of 16 and q 16-byte aligned")
@@ -1185,7 +1226,7 @@ def rowvec_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: tor
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ws, tickets = _scratch(x.device, stream, *_rowvec_need(K, N, B))
     _launch_rowvec(load_library(), x, q, q.stride(0), bias, y, relu=relu, colscale=scale,
-                   stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()))
+                   stream=stream, scratch=(ws.data_ptr(), tickets.data_ptr()), cdt=compute_dtype)
     return y
 
 
@@ -1195,7 +1236,7 @@ rowvec_int8.launches = 0
 def fused_decode_step(
     packed: Dict[str, torch.Tensor],
     x_emb: torch.Tensor,  # (B, D) compute-dtype embedded token (+PE)
-    self_kv: torch.Tensor,  # (n_layers, B, L, 2D) interleaved K|V
+    self_kv: torch.Tensor,  # (n_layers, B, L, 2D) interleaved K|V, in the compute dtype
     cross_kv: torch.Tensor,  # (n_layers, B, S, 2D)
     index,  # int: number of cached self rows (= position)
     cross_len: torch.Tensor,  # (B,) int32 valid memory rows
@@ -1216,10 +1257,10 @@ def fused_decode_step(
     B, D = x_emb.shape[0], d_model
     _check_step_inputs(packed, B, x_emb.device, self_kv, cross_kv, cross_len,
                        n_layers, D, nhead, d_ff, vpad, index)
-    _check_tensors(x_emb.device, {"x_emb": (x_emb, torch.bfloat16, (B, D))})
+    _check_tensors(x_emb.device, {"x_emb": (x_emb, self_kv.dtype, (B, D))})
     lib = load_library()
     stream = torch.cuda.current_stream(x_emb.device).cuda_stream
-    x = x_emb.float()  # a copy: the launches update it in place
+    x = x_emb.to(torch.float32, copy=True)  # a copy (f32 too): the launches update it in place
     logits = torch.empty(B, vpad, device=x.device, dtype=torch.float32)
     new_kv = torch.empty(n_layers, B, 2 * D, dtype=self_kv.dtype, device=x.device)
     _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len, logits, new_kv,
@@ -1276,10 +1317,10 @@ def fused_verify_window(
         index = int(index)
         if not 0 <= index <= self_kv.shape[2]:
             raise ValueError(f"index={index} outside the self cache of {self_kv.shape[2]} rows")
-    _check_tensors(dev, {"x_emb": (x_emb, torch.bfloat16, (W, D))})
+    _check_tensors(dev, {"x_emb": (x_emb, self_kv.dtype, (W, D))})
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    x = x_emb.float()  # a copy: the launches update it in place
+    x = x_emb.to(torch.float32, copy=True)  # a copy (f32 too): the launches update it in place
     logits = torch.empty(W, vpad, device=dev, dtype=torch.float32)
     new_kv = torch.empty(n_layers, W, 2 * D, dtype=self_kv.dtype, device=dev)
     _launch_layers(lib, packed, x, self_kv, cross_kv, index, cross_len.expand(W).contiguous(),
@@ -1327,11 +1368,13 @@ def _position(index, B: int, dev) -> torch.Tensor:
 
 def _launch_embed_pe(lib, emb, state, pos, x, *, stream, pos_offset=0) -> None:
     """``embed_pe_kernel``: ``x`` (B, D) f32 <- the input row of the token
-    in ``state`` (6, B) at position ``pos[b] + pos_offset``."""
+    in ``state`` (6, B) at position ``pos[b] + pos_offset``; ``emb`` (vpad,
+    D) in the compute dtype."""
     B, D = x.shape
     tok_ptr = state.data_ptr() + ST_TOKEN * B * state.element_size()
     _check(lib.smer_embed_pe(
-        B, D, tok_ptr, emb.data_ptr(), emb.shape[0], math.sqrt(D), pos.data_ptr(), pos_offset,
+        B, D, tok_ptr, emb.data_ptr(), int(emb.dtype == torch.float32), emb.shape[0],
+        math.sqrt(D), pos.data_ptr(), pos_offset,
         -math.log(10000.0) / D, x.data_ptr(), stream,
     ), "embed_pe")
 
@@ -1344,8 +1387,9 @@ def _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tabl
     pos_offset`` and advances ``state`` in place, writes the next token to
     ``out`` (B, *) int32 at column position + 1 when given, adds
     ``advance`` to ``pos``, and, given ``x`` (B, D) f32 and the embedding
-    ``emb`` (vpad, D) bf16, writes the next token's input row at position
-    + 1 into ``x``.  A programmatic dependent launch: it may begin while the
+    ``emb`` (vpad, D) in the compute dtype, writes the next token's input
+    row at position + 1 into ``x``.  A programmatic dependent launch: it may
+    begin while the
     launch before it (the logits) runs, and reads its logits once that
     launch has finished.  So the launch just before it may write the
     logits and nothing else that it reads (``smer_sample_advance``'s
@@ -1360,7 +1404,8 @@ def _launch_sample_advance(lib, logits, state, aux, span_types, noise, pos, tabl
         pos_offset, advance, out.data_ptr() if out is not None else None,
         out.stride(0) if out is not None else 0, mode, max_spans, span_cap, eos_index,
         mask_index, int(use_nucleus), float(nucleus_p) if use_nucleus else 0.0,
-        float(temperature), n_sid, span_body, None if x is None else emb.data_ptr(), D,
+        float(temperature), n_sid, span_body, None if x is None else emb.data_ptr(),
+        int(x is not None and emb.dtype == torch.float32), D,
         math.sqrt(D) if D else 0.0, -math.log(10000.0) / D if D else 0.0,
         None if x is None else x.data_ptr(), stream,
     ), "sample_advance")
@@ -1386,7 +1431,8 @@ def sample_and_advance(logits, state, aux, span_types, noise, index, tables, emb
     host = None if isinstance(index, torch.Tensor) else int(index)
     want = {"logits": (logits, torch.float32, (B, vpad))}
     if emb is not None:
-        want["emb"] = (emb, torch.bfloat16, (vpad, emb.shape[1]))
+        _check_compute_dtype("emb", emb)
+        want["emb"] = (emb, emb.dtype, (vpad, emb.shape[1]))
     _check_tensors(logits.device, want)
     _check_sampling_inputs(tables, state, aux, span_types, noise, host, vpad, **skw)
     new_state = state.clone()
@@ -1412,8 +1458,9 @@ def embed_pe(emb: torch.Tensor, state: torch.Tensor, index) -> torch.Tensor:
     if state.device.type != "cuda":
         raise ValueError(f"embed_pe runs on cuda or cpu, not {state.device}")
     B, (vpad, D), dev = state.shape[1], emb.shape, state.device
+    _check_compute_dtype("emb", emb)
     _check_tensors(dev, {"state": (state, torch.int32, (6, B)),
-                         "emb": (emb, torch.bfloat16, (vpad, D))})
+                         "emb": (emb, emb.dtype, (vpad, D))})
     x = torch.empty(B, D, device=dev)
     _launch_embed_pe(load_library(), emb, state, _position(index, B, dev), x,
                      stream=torch.cuda.current_stream(dev).cuda_stream)
@@ -1591,7 +1638,7 @@ def _check_token_inputs(packed, tables, state, aux, span_types, noise, self_kv, 
                          f"of {self_kv.shape[2]} rows")
     _check_sampling_inputs(tables, state, aux, span_types, noise,
                            None if host is None else host + n - 1, vpad, **skw)
-    _check_tensors(dev, {"emb": (packed["emb"], torch.bfloat16, (vpad, D))})
+    _check_tensors(dev, {"emb": (packed["emb"], self_kv.dtype, (vpad, D))})
 
 
 def fused_decode_token(

@@ -65,19 +65,20 @@ def setup(request):
     return vocab, tvocab, jmodel, params, tmodel, vpad, tables
 
 
-def _kernel_packed(tmodel, vpad, quant):
-    """The packed weights as the card gets them: bf16 (or int8) matrices
-    and embedding; the f32 logits and the f32 strips as packed."""
+def _kernel_packed(tmodel, vpad, quant, dtype=torch.bfloat16):
+    """The packed weights as the card gets them: matrices and embedding in
+    the model's compute dtype ``dtype`` (bf16, or f32 as packed; int8
+    matrices); the f32 logits and the f32 strips as packed."""
     packed = ds.pack_decoder_weights(tmodel, vpad, quant=quant)
     keys = ("emb",) if quant == "int8" else ("w_attn", "w_ff1", "w_ff2", "emb")
     for k in keys:
-        packed[k] = packed[k].to(torch.bfloat16)
+        packed[k] = packed[k].to(dtype)
     return packed
 
 
-def _inputs(tmodel, tvocab, vpad, B, seed, *, greedy):
-    """(state, aux, span_types, noise, cache, cross_kv, cross_len) in bf16
-    caches, a live row 0, Gumbel noise for L + 64 positions."""
+def _inputs(tmodel, tvocab, vpad, B, seed, *, greedy, dtype=torch.bfloat16):
+    """(state, aux, span_types, noise, cache, cross_kv, cross_len) in
+    ``dtype`` caches, a live row 0, Gumbel noise for L + 64 positions."""
     cfg = tmodel.cfg
     nl, D = cfg.num_decoder_layers, cfg.d_model
     rng = np.random.default_rng(seed)
@@ -86,9 +87,8 @@ def _inputs(tmodel, tvocab, vpad, B, seed, *, greedy):
     state[ds.ST_DONE, 0] = 0
     noise = None if greedy else torch.from_numpy(
         rng.gumbel(size=(L + 64, B, vpad)).astype(np.float32))
-    cache = torch.from_numpy(rng.normal(size=(nl, B, L, 2 * D)).astype(np.float32)).to(torch.bfloat16)
-    cross_kv = torch.from_numpy(rng.normal(size=(nl, B, S, 2 * D)).astype(np.float32)).to(
-        torch.bfloat16)
+    cache = torch.from_numpy(rng.normal(size=(nl, B, L, 2 * D)).astype(np.float32)).to(dtype)
+    cross_kv = torch.from_numpy(rng.normal(size=(nl, B, S, 2 * D)).astype(np.float32)).to(dtype)
     cross_len = torch.tensor([S - 37 * b for b in range(B)], dtype=torch.int32)
     return state, aux, span_types, noise, cache, cross_kv, cross_len
 
@@ -137,22 +137,23 @@ class GraphHostLib(HostLib):
     def _ints(self, ptr, n):
         return self._mat(ptr, 1, n, n, torch.int32)[0]
 
-    def _embed_rows(self, emb, vpad, D, scale, tokens, index, x, B):
+    def _embed_rows(self, emb, emb_f32, vpad, D, scale, tokens, index, x, B):
         assert abs(scale / math.sqrt(D) - 1) < 1e-6  # sqrt(D) as an f32
-        table = self._mat(emb, vpad, D, D, torch.bfloat16)
+        table = self._mat(emb, vpad, D, D, torch.float32 if emb_f32 else torch.bfloat16)
         self._mat(x, B, D, D, torch.float32).copy_(ds.embed_pe_reference(table, tokens, index, D))
 
-    def smer_embed_pe(self, B, D, tokens, emb, vpad, scale, pos, pos_offset, neg_log, x, stream):
+    def smer_embed_pe(self, B, D, tokens, emb, emb_f32, vpad, scale, pos, pos_offset, neg_log, x,
+                      stream):
         self.embeds += 1
         p = self._ints(pos, B) + pos_offset
         assert (p == p[0]).all()
-        self._embed_rows(emb, vpad, D, scale, self._ints(tokens, B), int(p[0]), x, B)
+        self._embed_rows(emb, emb_f32, vpad, D, scale, self._ints(tokens, B), int(p[0]), x, B)
         return 0
 
     def smer_sample_advance(self, B, vpad, logits, state, aux, span_types, sid, masks, cls, noise,
                             pos, pos_offset, advance, out, ld_out, mode, max_spans, span_cap,
                             eos_index, mask_index, use_nucleus, nucleus_p, temperature, n_sid,
-                            span_body, emb, D, scale, neg_log, x, stream):
+                            span_body, emb, emb_f32, D, scale, neg_log, x, stream):
         row_pos = self._ints(pos, B)
         index = row_pos + pos_offset
         assert (index == index[0]).all()
@@ -177,7 +178,7 @@ class GraphHostLib(HostLib):
         if advance:
             row_pos += advance
         if x is not None:  # the fold: the next token's row at position + 1
-            self._embed_rows(emb, vpad, D, scale, new[ds.ST_TOKEN], index + 1, x, B)
+            self._embed_rows(emb, emb_f32, vpad, D, scale, new[ds.ST_TOKEN], index + 1, x, B)
         return 0
 
 
@@ -317,13 +318,31 @@ def test_writes_by_position_equal_slice_writes(setup, through, T, quant, greedy)
     against the same stand-in running single tokens.  State, output,
     every cache row and the position equal exactly; a v4 chunk equals
     T_chunk v3 tokens."""
+    _writes_case(setup, through, T, quant, greedy, torch.bfloat16)
+
+
+F32_WRITE_CASES = [("plan", None, "none", False), ("plan", 4, "none", True),
+                   ("plan", 3, "int8", False)]
+
+
+@pytest.mark.parametrize("through,T,quant,greedy", F32_WRITE_CASES,
+                         ids=[f"{w}-{'v3' if t is None else f'v4-T{t}'}-{q}-"
+                              f"{'greedy' if g else 'nucleus'}" for w, t, q, g in F32_WRITE_CASES])
+def test_writes_by_position_equal_slice_writes_f32(setup, through, T, quant, greedy):
+    """The same through the launch plan of an f32 model: f32 caches, f32
+    (or int8) matrices and an f32 embedding, which the sampler's fold reads
+    as f32 (``smer_sample_advance``'s emb_f32)."""
+    _writes_case(setup, through, T, quant, greedy, torch.float32)
+
+
+def _writes_case(setup, through, T, quant, greedy, dtype):
     _, tvocab, _, _, tmodel, vpad, tables = setup
     B, start, n_steps = 3, 3, 4
-    packed = _kernel_packed(tmodel, vpad, quant) if through == "plan" else \
+    packed = _kernel_packed(tmodel, vpad, quant, dtype) if through == "plan" else \
         ds.pack_decoder_weights(tmodel, vpad, quant=quant)
     kw, skw = _statics(tmodel, tvocab, vpad, greedy)
     state, aux, span_types, noise, cache, cross_kv, cross_len = _inputs(
-        tmodel, tvocab, vpad, B, 23, greedy=greedy)
+        tmodel, tvocab, vpad, B, 23, greedy=greedy, dtype=dtype)
     if through == "twins":
         cache, cross_kv = cache.float(), cross_kv.float()
     n = 1 if T is None else T

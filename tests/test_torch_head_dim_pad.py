@@ -13,9 +13,10 @@ over the wider axis), and in bf16 within one ulp of the output (2^-7
 relative) where an f32 difference crosses a rounding boundary.  The padded
 columns of every output and gradient are exactly zero.
 
-Also: ``fused=None`` resolves to the decode kernels only where they fit,
-as JAX's ``resolve_backend`` does, and an explicit ``fused=True`` that does
-not fit raises (the device check stands in for CUDA).
+Also: ``fused=None`` resolves to the decode kernels only where they fit
+(head_dim 64 or 128 and d_model a multiple of 64, a bf16 or an f32 model
+alike), as JAX's ``resolve_backend`` does, and an explicit ``fused=True``
+that does not fit raises (the device check stands in for CUDA).
 """
 
 import math
@@ -140,14 +141,16 @@ def _decoder_model(d_model, nhead, dtype):
 @pytest.mark.parametrize("d_model,nhead,dtype,kernels", [
     (64, 2, torch.bfloat16, False),  # head_dim 32
     (384, 4, torch.bfloat16, False),  # head_dim 96
-    (128, 2, torch.float32, False),  # head_dim 64 in f32
+    (128, 2, torch.float32, True),  # head_dim 64 in f32: JAX's gate has no dtype condition
     (128, 2, torch.bfloat16, True),
     (256, 2, torch.bfloat16, True),
-], ids=["hd32", "hd96", "hd64-f32", "hd64-bf16", "hd128-bf16"])
+    (256, 2, torch.float32, True),  # head_dim 128 in f32
+], ids=["hd32", "hd96", "hd64-f32", "hd64-bf16", "hd128-bf16", "hd128-f32"])
 def test_decoder_resolves_auto_as_jax(monkeypatch, d_model, nhead, dtype, kernels):
     """With the device check standing in for CUDA, ``fused=None`` takes the
     decode kernels only where they fit (head_dim 64 or 128, d_model % 64,
-    bf16) and the plain loop elsewhere, as JAX's (:169-172); an explicit
+    bf16 or f32: JAX's ``_kernel_fits`` :133-136 has no dtype condition)
+    and the plain loop elsewhere, as JAX's (:169-172); an explicit
     ``fused=True`` that does not fit raises (JAX :138-141).  On the CPU
     itself ``fused=None`` is the plain loop."""
     model, vocab = _decoder_model(d_model, nhead, dtype)
