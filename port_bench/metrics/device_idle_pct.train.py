@@ -1,0 +1,5 @@
+"""The share of the traced slice in which no operation ran on the device."""
+
+from port_bench.harness import idle_pct as read  # noqa: F401
+
+LAYER, UNIT, SOURCE, MOVES = "device", "%", "device_trace", "train_tokens_per_s"
